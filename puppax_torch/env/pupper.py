@@ -1,0 +1,374 @@
+"""PupperV3 joystick-locomotion environment, batched over envs.
+
+Counterpart of ``puppax/env/pupper.py``: the constructor surface, the
+observation layout, ``reset`` and the per-step noise draws. The step
+itself is the wrapped-step emission (``soa_env``), driven by the rollout
+fast lane (``rollout.FastLane``). Every random draw comes from an explicit
+``torch.Generator`` and is split from the deterministic math
+(``draw_reset`` / ``reset_from_draws``, ``draw_step_noise``), so tests can
+feed the same numbers to this env and to the JAX one.
+
+Reset needs only the root's FK: the reset observation reads the torso
+rotation and a zero angular velocity, so the port runs ``soa._emit_fk`` on
+the torch back-end instead of a full forward pass.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from puppax_torch import utils
+from puppax_torch.configs.experiment import EnvConfig, StartPositionConfig
+from puppax_torch.env import domain_randomization, soa_env
+from puppax_torch.env.base import State
+from puppax_torch.model.mjcf import load_model
+from puppax_torch.ops import math
+from puppax_torch.physics import soa
+
+_ROADMAP_EXTRAS = "ROADMAP queue 1, training extras"
+_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
+
+
+class PupperV3Env:
+    """Pupper v3 joystick policy training environment (batched)."""
+
+    # noise rows the step consumes (puppax PupperV3Env._CORE_NOISE_KEYS)
+    _CORE_NOISE_KEYS = (
+        "kick", "act_lat", "imu_lat", "ang_vel_noise", "gravity_noise",
+        "motor_ang_noise", "last_action_noise", "resample_cmd", "resample_ori",
+    )
+
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        reward_config: Dict = None,
+        action_scale: float = 0.75,
+        observation_history: int = 2,
+        joint_lower_limits: List = (
+            -1.220, -0.420, -2.790, -2.510, -3.140, -0.710,
+            -1.220, -0.420, -2.790, -2.510, -3.140, -0.710,
+        ),
+        joint_upper_limits: List = (
+            2.510, 3.140, 0.710, 1.220, 0.420, 2.790,
+            2.510, 3.140, 0.710, 1.220, 0.420, 2.790,
+        ),
+        dof_damping: float = 0.25,
+        position_control_kp: float = 5.0,
+        start_position_config: StartPositionConfig = StartPositionConfig(),
+        foot_site_names: List[str] = (
+            "leg_front_r_3_foot_site",
+            "leg_front_l_3_foot_site",
+            "leg_back_r_3_foot_site",
+            "leg_back_l_3_foot_site",
+        ),
+        torso_name: str = "base_link",
+        upper_leg_body_names: List[str] = (
+            "leg_front_r_2", "leg_front_l_2", "leg_back_r_2", "leg_back_l_2",
+        ),
+        lower_leg_body_names: List[str] = (
+            "leg_front_r_3", "leg_front_l_3", "leg_back_r_3", "leg_back_l_3",
+        ),
+        resample_velocity_step: int = 500,
+        linear_velocity_x_range: Tuple[float, float] = (-0.75, 0.75),
+        linear_velocity_y_range: Tuple[float, float] = (-0.5, 0.5),
+        angular_velocity_range: Tuple[float, float] = (-2.0, 2.0),
+        zero_command_probability: float = 0.01,
+        stand_still_command_threshold: float = 0.1,
+        maximum_pitch_command: float = 0.0,  # degrees
+        maximum_roll_command: float = 0.0,  # degrees
+        default_pose=None,
+        desired_abduction_angles=None,
+        angular_velocity_noise: float = 0.3,
+        gravity_noise: float = 0.1,
+        motor_angle_noise: float = 0.1,
+        last_action_noise: float = 0.01,
+        kick_vel: float = 0.2,
+        kick_probability: float = 0.02,
+        terminal_body_z: float = 0.1,
+        early_termination_step_threshold: int = 500,
+        terminal_body_angle: float = 0.52,
+        foot_radius: float = 0.02,
+        environment_timestep: float = 0.02,
+        physics_timestep: float = 0.004,
+        latency_distribution=None,
+        imu_latency_distribution=None,
+        desired_world_z_in_body_frame=None,
+        use_imu: bool = True,
+        privileged_obs: bool = False,
+        gait_phase_observation: bool = False,
+        gait_frequency: float = 2.5,
+        disturbance_curriculum: bool = False,
+        device=None,
+    ):
+        if privileged_obs:
+            raise NotImplementedError(f"privileged_obs is not ported yet ({_ROADMAP_EXTRAS})")
+        if gait_phase_observation:
+            raise NotImplementedError(f"the gait clock is not ported yet ({_ROADMAP_EXTRAS})")
+        if disturbance_curriculum:
+            raise NotImplementedError(
+                f"the disturbance curriculum is not ported yet ({_ROADMAP_EXTRAS})"
+            )
+        if path is not None:
+            raise NotImplementedError(
+                f"only the bundled model is carried across ({_ROADMAP_TERRAIN})"
+            )
+        if default_pose is None:
+            default_pose = np.array(
+                [0.26, 0.0, -0.52, -0.26, 0.0, 0.52, 0.26, 0.0, -0.52, -0.26, 0.0, 0.52]
+            )
+        if desired_abduction_angles is None:
+            desired_abduction_angles = np.array([0.0, 0.0, 0.0, 0.0])
+        if latency_distribution is None:
+            latency_distribution = np.array([0.2, 0.8])
+        if imu_latency_distribution is None:
+            imu_latency_distribution = np.array([0.5, 0.5])
+        if desired_world_z_in_body_frame is None:
+            desired_world_z_in_body_frame = np.array([0.0, 0.0, 1.0])
+        if reward_config is None:
+            from puppax_torch.configs.rewards import get_config
+
+            reward_config = get_config()
+        self.device = torch.device(device if device is not None else "cpu")
+
+        host = soa_env.host_consts_from_args(
+            default_pose=default_pose,
+            desired_abduction_angles=desired_abduction_angles,
+            latency_distribution=latency_distribution,
+            imu_latency_distribution=imu_latency_distribution,
+            joint_lower_limits=joint_lower_limits,
+            joint_upper_limits=joint_upper_limits,
+            action_scale=action_scale,
+        )
+
+        compiled = load_model()
+        model = compiled.robot.tree_replace({"opt.timestep": physics_timestep})
+        # actuator override: PD with kp/kd
+        gainprm = np.array(model.actuator_gainprm)
+        gainprm[:, 0] = position_control_kp
+        biasprm = np.array(model.actuator_biasprm)
+        biasprm[:, 1] = -position_control_kp
+        biasprm[:, 2] = -dof_damping
+        model = model.replace(actuator_gainprm=gainprm, actuator_biasprm=biasprm)
+        self._dt = environment_timestep
+        self._n_substeps = int(environment_timestep / physics_timestep)
+
+        init_q = np.array(model.key_qpos)
+        init_q[7:] = np.asarray(default_pose, np.float32)
+        model = model.replace(key_qpos=init_q)
+        self.model = model
+
+        f32 = np.float32
+        self._reward_config = reward_config
+        self._torso_geom_ids = compiled.body_geom_ids(torso_name)
+        self._torso_idx = compiled.body_id(torso_name)
+        self._angular_velocity_noise = angular_velocity_noise
+        self._gravity_noise = gravity_noise
+        self._motor_angle_noise = motor_angle_noise
+        self._last_action_noise = last_action_noise
+        self._kick_vel = kick_vel
+        self._init_q = init_q
+        self._default_pose = np.asarray(default_pose, f32)
+        self._feet_site_id = np.array([compiled.site_id(n) for n in foot_site_names])
+        self._lower_leg_body_id = np.array(
+            [compiled.body_id(n) for n in lower_leg_body_names]
+        )
+        self._upper_leg_geom_ids = np.concatenate(
+            [compiled.body_geom_ids(n) for n in upper_leg_body_names]
+        )
+        self._foot_radius = foot_radius
+        self._nv = model.nv
+        self._start_position_config = start_position_config
+        self._linear_velocity_x_range = linear_velocity_x_range
+        self._linear_velocity_y_range = linear_velocity_y_range
+        self._angular_velocity_range = angular_velocity_range
+        self._zero_command_probability = zero_command_probability
+        self._stand_still_command_threshold = stand_still_command_threshold
+        self._maximum_pitch_command = maximum_pitch_command
+        self._maximum_roll_command = maximum_roll_command
+        self._kick_probability = kick_probability
+        self._resample_velocity_step = resample_velocity_step
+        self.observation_dim = 36
+        self._observation_history = observation_history
+        self._early_termination_step_threshold = early_termination_step_threshold
+        self._terminal_body_z = terminal_body_z
+        self._terminal_body_angle = terminal_body_angle
+        self._desired_world_z_in_body_frame = np.asarray(desired_world_z_in_body_frame, f32)
+        self._latency_distribution = np.asarray(latency_distribution, f32)
+        self._imu_latency_distribution = np.asarray(imu_latency_distribution, f32)
+        self._use_imu = use_imu
+
+        # the emission's static digests (the JAX env's _cv_core._s / ._es)
+        self._s = soa._Static(model, compiled.mj)
+        self._es = soa_env._EnvStatic(host, self, self._s)
+
+    @classmethod
+    def from_config(cls, cfg: EnvConfig, reward_config: Dict = None, device=None):
+        """The env of an ``EnvConfig`` (terrain options are not ported)."""
+        if cfg.n_obstacles or cfg.heightfield:
+            raise NotImplementedError(f"obstacle/heightfield terrain ({_ROADMAP_TERRAIN})")
+        kw = {
+            k: getattr(cfg, k)
+            for k in (
+                "action_scale", "observation_history", "dof_damping",
+                "position_control_kp", "resample_velocity_step",
+                "linear_velocity_x_range", "linear_velocity_y_range",
+                "angular_velocity_range", "zero_command_probability",
+                "stand_still_command_threshold", "maximum_pitch_command",
+                "maximum_roll_command", "angular_velocity_noise",
+                "gravity_noise", "motor_angle_noise", "last_action_noise",
+                "kick_vel", "kick_probability", "terminal_body_z",
+                "early_termination_step_threshold", "terminal_body_angle",
+                "foot_radius", "environment_timestep", "physics_timestep",
+                "use_imu", "privileged_obs", "gait_phase_observation",
+                "gait_frequency", "disturbance_curriculum",
+            )
+        }
+        return cls(path=cfg.path, reward_config=reward_config,
+                   start_position_config=cfg.start_position, device=device, **kw)
+
+    # ---- properties -----------------------------------------------------
+    @property
+    def dt(self) -> float:
+        return self._dt
+
+    @property
+    def observation_size(self) -> int:
+        return self.observation_dim * self._observation_history
+
+    @property
+    def action_size(self) -> int:
+        return self.model.nu
+
+    def _t(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+
+    # ---- random draws -----------------------------------------------------
+    def _uniform(self, g, shape, lo, hi) -> torch.Tensor:
+        u = torch.rand(shape, generator=g, device=self.device, dtype=torch.float32)
+        return lo + u * (hi - lo)
+
+    def sample_command(self, g: torch.Generator, B: int) -> torch.Tensor:
+        """(B, 3) commands (vx, vy, wz); with probability
+        zero_command_probability a near-zero command instead."""
+        vx = self._uniform(g, (B,), *self._linear_velocity_x_range)
+        vy = self._uniform(g, (B,), *self._linear_velocity_y_range)
+        wz = self._uniform(g, (B,), *self._angular_velocity_range)
+        new_cmd = torch.stack([vx, vy, wz], -1)
+        zero_p = self._uniform(g, (B, 1), 0.0, 1.0)
+        t = self._stand_still_command_threshold
+        near_zero = self._uniform(g, (B, 3), -t, t)
+        return torch.where(zero_p < self._zero_command_probability, near_zero, new_cmd)
+
+    def sample_body_orientation(self, g: torch.Generator, B: int) -> torch.Tensor:
+        """(B, 3) desired world-z rotated by random pitch/roll (degrees)."""
+        pitch = self._uniform(g, (B,), -1.0, 1.0) * self._maximum_pitch_command
+        roll = self._uniform(g, (B,), -1.0, 1.0) * self._maximum_roll_command
+        euler = torch.stack([roll, pitch, torch.zeros_like(roll)], -1)
+        return math.rotate(self._t(self._desired_world_z_in_body_frame),
+                           math.euler_to_quat(euler))
+
+    def _draw_obs_noise(self, g: torch.Generator, B: int) -> Dict[str, torch.Tensor]:
+        return {
+            "ang_vel_noise": self._uniform(g, (B, 3), -1.0, 1.0) * self._angular_velocity_noise,
+            "gravity_noise": self._uniform(g, (B, 3), -1.0, 1.0) * self._gravity_noise,
+            "motor_ang_noise": self._uniform(g, (B, 12), -1.0, 1.0) * self._motor_angle_noise,
+            "last_action_noise": self._uniform(g, (B, 12), -1.0, 1.0) * self._last_action_noise,
+            "imu_lat": utils.latency_onehot(g, self._t(self._imu_latency_distribution), B),
+        }
+
+    def draw_step_noise(self, g: torch.Generator, B: int) -> Dict[str, torch.Tensor]:
+        """Every random draw one env step makes, as (B, n) rows
+        (``_draw_step_noise``, batched, from a generator)."""
+        kick = self._uniform(g, (B, 2), -1.0, 1.0) * self._kick_vel
+        kick = kick * (self._uniform(g, (B, 1), 0.0, 1.0) < self._kick_probability)
+        noise = {
+            "kick": kick,
+            "act_lat": utils.latency_onehot(g, self._t(self._latency_distribution), B),
+        }
+        noise.update(self._draw_obs_noise(g, B))
+        noise["resample_cmd"] = self.sample_command(g, B)
+        noise["resample_ori"] = self.sample_body_orientation(g, B)
+        return noise
+
+    def draw_reset(self, g: torch.Generator, B: int) -> Dict[str, torch.Tensor]:
+        """Every random draw ``reset`` makes: start qpos, command, desired
+        orientation and the reset observation's noise."""
+        draws = {
+            "qpos": domain_randomization.randomize_qpos(
+                self._init_q, self._start_position_config, g, B
+            ),
+            "command": self.sample_command(g, B),
+            "desired_z": self.sample_body_orientation(g, B),
+        }
+        draws.update(self._draw_obs_noise(g, B))
+        return draws
+
+    # ---- reset ----------------------------------------------------------------
+    def reset(self, g: torch.Generator, B: int) -> State:
+        return self.reset_from_draws(self.draw_reset(g, B))
+
+    def reset_from_draws(self, draws: Dict[str, torch.Tensor]) -> State:
+        """The deterministic reset core (``pupper.py:382-438``) on given draws."""
+        qpos = draws["qpos"].to(self.device, torch.float32)
+        B = qpos.shape[0]
+        zeros = lambda *shape: torch.zeros((B,) + shape, device=self.device)  # noqa: E731
+        # root FK only: the torso rotation (torch back-end of the emitter)
+        q_rows = [qpos[:, i] for i in range(self.model.nq)]
+        _, xquat, _, _ = soa._emit_fk(self._s, q_rows, None)
+        torso_quat = torch.stack(
+            [soa.materialize(x, q_rows[0]) for x in xquat[self._torso_idx]], -1
+        )
+        imu_buffer = zeros(6, len(self._imu_latency_distribution))
+        imu_buffer[:, 5, :] = -1.0
+        info = {
+            "last_act": zeros(12),
+            "action_buffer": zeros(12, len(self._latency_distribution)),
+            "imu_buffer": imu_buffer,
+            "last_vel": zeros(12),
+            "command": draws["command"].to(self.device, torch.float32),
+            "last_contact": torch.zeros((B, 4), dtype=torch.bool, device=self.device),
+            "feet_air_time": zeros(4),
+            "rewards": {k: zeros() for k in self._reward_config["rewards"]["scales"]},
+            "kick": zeros(2),
+            "step": torch.zeros(B, dtype=torch.int32, device=self.device),
+            "desired_world_z_in_body_frame": draws["desired_z"].to(self.device, torch.float32),
+        }
+        obs = self._get_obs(qpos, torso_quat, zeros(3), info, draws,
+                            zeros(self.observation_size))
+        metrics = {"total_dist": zeros()}
+        metrics.update({k: v for k, v in info["rewards"].items()})
+        return State(qpos=qpos, qvel=zeros(self._nv), obs=obs, reward=zeros(),
+                     done=zeros(), metrics=metrics, info=info)
+
+    def _get_obs(self, qpos, torso_quat, torso_ang_vel, info, noise, obs_history):
+        """36-dim observation, noised/lagged, stacked newest-first; updates
+        ``info["imu_buffer"]``."""
+        if self._use_imu:
+            inv_torso_rot = math.quat_inv(torso_quat)
+            local_ang_vel = math.rotate(torso_ang_vel, inv_torso_rot)
+        else:
+            inv_torso_rot = self._t([1.0, 0.0, 0.0, 0.0]).expand_as(torso_quat)
+            local_ang_vel = torch.zeros_like(torso_ang_vel)
+        gravity = math.rotate(self._t([0.0, 0.0, -1.0]), inv_torso_rot)
+        gravity = gravity + noise["gravity_noise"]
+        gravity = gravity / torch.linalg.vector_norm(gravity, dim=-1, keepdim=True)
+        imu = torch.cat([local_ang_vel + noise["ang_vel_noise"], gravity], -1)
+        lagged, info["imu_buffer"] = utils.apply_lagged_value(
+            info["imu_buffer"], imu, noise["imu_lat"]
+        )
+        obs = torch.cat(
+            [
+                lagged,
+                info["command"],
+                info["desired_world_z_in_body_frame"],
+                qpos[:, 7:] - self._t(self._default_pose) + noise["motor_ang_noise"],
+                info["last_act"] + noise["last_action_noise"],
+            ],
+            -1,
+        )
+        obs = torch.clamp(obs, -100.0, 100.0)
+        n = obs.shape[-1]
+        return torch.cat([obs, obs_history[:, : obs_history.shape[-1] - n]], -1)

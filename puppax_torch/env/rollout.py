@@ -1,0 +1,247 @@
+"""The rollout fast lane: T policy steps through the wrapped-step kernel.
+
+Counterpart of ``puppax/env/rollout.py::FastLane``. The unroll carry stays
+in the kernel's layout for all T steps: every carry array is ``(rows, B)``
+row-major float32 (qpos, qvel, the flattened env-state block, the 2-row
+wrapper block of episode steps and previous done, the reset-time
+``first_*`` rows and the DR parameter rows). One step of the lane is
+
+* the policy MLP + NormalTanh sample on the observation rows
+  (``policy_rows``: ``torch.matmul`` in full float32, feature-major),
+* one fused wrapped env step (``soa_env.wrapped_step``): auto-reset
+  prologue, kick, action latency, physics, observation, rewards,
+  termination and episode bookkeeping in one kernel launch.
+
+Every random number is drawn before the loop from one ``torch.Generator``
+(``draw_noise_block`` and the sampling eps), so ``unroll_from_draws`` can
+be fed the JAX package's draws in the parity tests.
+
+The JAX lane's TPU devices (the ``(rows, B/128, 128)`` tiles, padding B
+to 1024, ``shard_map``, the fused whole-unroll kernel) have no
+counterpart here; the JAX ``scan`` is a Python loop around the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from puppax_torch.env import soa_env
+from puppax_torch.env.base import State
+from puppax_torch.env.wrappers import TrainingEnv
+from puppax_torch.physics import soa
+from puppax_torch.train.acting import Transition
+from puppax_torch.train.distribution import NormalTanhDistribution
+
+
+class FastLane:
+    """The fast-lane unroll for one wrapped training env."""
+
+    def __init__(self, wrapped: TrainingEnv):
+        env = wrapped.env
+        self.env = env
+        self.device = env.device
+        self.episode_length = wrapped.episode_length
+        self.n_substeps = env._n_substeps
+        self._model = wrapped.model
+        self.s: soa._Static = env._s
+        self.es: soa_env._EnvStatic = env._es
+        self._aux_rows = soa_env.aux_row_map(self.es)
+        self.obs_dim = self.es.hist
+        self._dist = NormalTanhDistribution(env.action_size)
+        # full float32 policy dots: the counterpart of the JAX lane's
+        # Precision.HIGHEST (a TF32 product keeps ~3 decimal digits)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    # ---- layout helpers -----------------------------------------------------
+    def dr_rows(self, B: int) -> torch.Tensor:
+        """The ``(ndr, B)`` DR parameter rows of the (batched) model."""
+        dr = soa.dr_inputs(self._model, self.s, B, device=self.device)
+        return soa.dr_rows_block(self.s, dr)
+
+    def carry_from_state(self, state: State) -> Dict[str, torch.Tensor]:
+        """State -> the ``(rows, B)`` carry blocks."""
+        es, info = self.es, state.info
+        B = state.qpos.shape[0]
+        env_in = {
+            "action_buffer": info["action_buffer"],
+            "imu_buffer": info["imu_buffer"],
+            "command": info["command"],
+            "desired_z": info["desired_world_z_in_body_frame"],
+            "last_act": info["last_act"],
+            "last_vel": info["last_vel"],
+            "feet_air_time": info["feet_air_time"],
+            "last_contact": info["last_contact"],
+            "step": info["step"],
+            "obs_history": state.obs[:, : es.hist],
+        }
+
+        def rows(parts):
+            return torch.cat(
+                [x.to(self.device, torch.float32).reshape(B, -1) for x in parts], 1
+            ).t().contiguous()
+
+        return {
+            "q": rows([state.qpos]),
+            "v": rows([state.qvel]),
+            "env": rows([env_in[name] for name in es.env_rows]),
+            "wrap": rows([info["steps"], state.done]),
+            "first": rows([info["first_qpos"], info["first_qvel"],
+                           info["first_obs"][:, : es.hist]]),
+            "dr": self.dr_rows(B),
+        }
+
+    def state_from_carry(self, carry, template: State, last_kick, last_aux) -> State:
+        """The carry blocks -> State (the JAX step's epilogue plus the
+        wrapper info fields); ``template`` supplies the untouched fields."""
+        es = self.es
+        B = carry["q"].shape[1]
+        env_b = carry["env"].t()
+        aux_b = last_aux.t()
+
+        def rows(name):
+            r0, n = es.env_rows[name]
+            return env_b[:, r0 : r0 + n]
+
+        def aux(name):
+            r0, n = self._aux_rows[name]
+            return aux_b[:, r0 : r0 + n]
+
+        info = dict(template.info)
+        info["action_buffer"] = rows("action_buffer").reshape(B, 12, es.Da)
+        info["imu_buffer"] = rows("imu_buffer").reshape(B, 6, es.Di)
+        info["command"] = rows("command")
+        info["desired_world_z_in_body_frame"] = rows("desired_z")
+        info["last_act"] = rows("last_act")
+        info["last_vel"] = rows("last_vel")
+        info["feet_air_time"] = rows("feet_air_time")
+        info["last_contact"] = rows("last_contact") > 0.5
+        info["step"] = rows("step")[:, 0].to(torch.int32)
+        info["steps"] = carry["wrap"][0]
+        info["truncation"] = aux("truncation")[:, 0]
+        info["kick"] = last_kick
+        info["rewards"] = {k: aux("rewards")[:, i] for i, k in enumerate(soa_env.REWARD_ORDER)}
+        metrics = dict(template.metrics)
+        metrics["total_dist"] = aux("total_dist")[:, 0]
+        metrics.update(info["rewards"])
+        return template.replace(
+            qpos=carry["q"].t(),
+            qvel=carry["v"].t(),
+            obs=rows("obs_history"),
+            reward=aux("reward")[:, 0],
+            done=aux("done")[:, 0],
+            metrics=metrics,
+            info=info,
+        )
+
+    # ---- pre-drawn randomness -------------------------------------------------
+    def noise_rows(self, noise: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """A ``draw_step_noise`` dict of (B, n) draws -> ``(nnoise, B)``."""
+        B = noise["kick"].shape[0]
+        return torch.cat(
+            [noise[name].to(torch.float32).reshape(B, -1) for name in self.es.noise_rows], 1
+        ).t().contiguous()
+
+    def draw_noise_block(self, generator: torch.Generator, B: int, T: int):
+        """Every env-noise row for T steps: ``(T, nnoise, B)`` and the last
+        step's kick ``(B, 2)``."""
+        block, kick = [], None
+        for _ in range(T):
+            noise = self.env.draw_step_noise(generator, B)
+            block.append(self.noise_rows(noise))
+            kick = noise["kick"]
+        return torch.stack(block), kick
+
+    # ---- the policy in feature-major layout ---------------------------------------
+    def policy_rows(self, normalizer, policy):
+        """Feature-major policy apply: obs rows ``(obs, B)`` + eps rows
+        ``(act, B)`` -> action, raw (pre-tanh) action ``(act, B)`` and
+        log_prob ``(B,)``; the same math as the batch-major policy
+        network + ``NormalTanhDistribution``."""
+        layers = [(layer.weight, layer.bias) for layer in policy.layers()]
+        act_n = self.env.action_size
+        dist = self._dist
+
+        def apply(obs_rows, eps_rows):
+            x = obs_rows
+            if normalizer is not None:
+                x = (x - normalizer.mean[:, None]) / normalizer.std[:, None]
+            for i, (w, b) in enumerate(layers):
+                x = torch.matmul(w, x) + b[:, None]
+                if i != len(layers) - 1:
+                    x = policy.activation(x)
+            loc, scale = x[:act_n], F.softplus(x[act_n:]) + dist._min_std
+            pre_tanh = loc + scale * eps_rows
+            log_prob = dist.log_prob_from(loc, scale, pre_tanh, dim=0)
+            return torch.tanh(pre_tanh).contiguous(), pre_tanh, log_prob
+
+        return apply
+
+    # ---- the unroll ------------------------------------------------------------
+    def unroll(self, state: State, policy_params: Tuple, generator: torch.Generator, T: int):
+        """T policy steps from ``state``; returns (final State, Transition
+        stack). ``policy_params`` is (normalizer state, policy ``MLP``)."""
+        B = state.qpos.shape[0]
+        eps = torch.randn((T, B, self.env.action_size), generator=generator,
+                          device=self.device, dtype=torch.float32)
+        noise, last_kick = self.draw_noise_block(generator, B, T)
+        return self.unroll_from_draws(state, policy_params, noise, eps, last_kick)
+
+    @torch.no_grad()
+    def unroll_from_draws(self, state: State, policy_params: Tuple, noise: torch.Tensor,
+                          eps: torch.Tensor, last_kick: torch.Tensor):
+        """The unroll on given draws: ``noise`` ``(T, nnoise, B)`` env-noise
+        rows, ``eps`` ``(T, B, act)`` sampling eps, ``last_kick`` ``(B, 2)``."""
+        normalizer, policy = policy_params
+        carry = self.carry_from_state(state)
+        T = noise.shape[0]
+        papply = self.policy_rows(normalizer, policy)
+        obs_r0, obs_n = self.es.env_rows["obs_history"]
+        q, v, env_t, wrap = carry["q"], carry["v"], carry["env"], carry["wrap"]
+        ys = []
+        for t in range(T):
+            obs_t = env_t[obs_r0 : obs_r0 + obs_n]
+            act, raw, logp = papply(obs_t, eps[t].t())
+            # the kernel on CUDA tensors, its plain version on CPU tensors
+            q, v, env_next, wrap, aux = soa_env.wrapped_step(
+                self.s, self.es, self.n_substeps, self.episode_length,
+                q, v, act, env_t, noise[t], carry["dr"], carry["first"], wrap,
+            )
+            ys.append((obs_t, act, raw, logp, aux))
+            env_t = env_next
+        carry.update(q=q, v=v, env=env_t, wrap=wrap)
+        return self._assemble_unroll(state, carry, ys, last_kick)
+
+    def _assemble_unroll(self, state: State, carry, ys, last_kick):
+        """Per-step row outputs -> (final State, time-major Transition)."""
+        obs_r0, obs_n = self.es.env_rows["obs_history"]
+
+        def t_rows(xs):  # T x (rows, B) -> (T, B, rows)
+            return torch.stack(xs).transpose(1, 2)
+
+        obs_ts, act_ts, raw_ts, logp_ts, aux_ts = zip(*ys)
+        observation = t_rows(obs_ts)
+        final_obs = carry["env"][obs_r0 : obs_r0 + obs_n].t()
+        next_observation = torch.cat([observation[1:], final_obs[None]], 0)
+        aux_b = t_rows(aux_ts)  # (T, B, naux)
+
+        def aux_col(name):
+            r0, _ = self._aux_rows[name]
+            return aux_b[:, :, r0]
+
+        done = aux_col("done")
+        final_state = self.state_from_carry(carry, state, last_kick, aux_ts[-1])
+        data = Transition(
+            observation=observation,
+            action=t_rows(act_ts),
+            reward=aux_col("reward"),
+            discount=1.0 - done,
+            next_observation=next_observation,
+            truncation=aux_col("truncation"),
+            policy_extras={"log_prob": torch.stack(logp_ts), "raw_action": t_rows(raw_ts)},
+        )
+        return final_state, data
+

@@ -1,0 +1,261 @@
+"""CUDA C back-end of the value algebra: the emission as C source.
+
+Every algebra value becomes a named C scalar (``float``; ``bool`` for
+masks; ``int`` for the Illinois side) and every op appends one SSA line.
+Constants print with ``repr`` digits of their float32 value and an ``f``
+suffix, so no expression is promoted to double and each constant rounds
+exactly as JAX's weak typing rounds it. ``fori_loop`` becomes a C ``for``
+whose carries are declared before it; its body is emitted under a fresh
+CSE scope, so no value born inside the loop is used after it. The stacked
+one-sided rows of the line search become local ``float[n]`` arrays, and
+their sum an ordered loop.
+
+The generated body is one ``PUPPAX_HD`` (``__host__ __device__``) function
+that reads row r of env b at ``ptr[r * B + b]``; the hand-written shell
+``csrc/wrapped_step.cuh`` wraps it in the kernel and the C entry points.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+import numpy as np
+
+from puppax_torch.physics import soa
+
+_CTYPE = {"f": "float", "b": "bool", "i": "int"}
+_UNARY = {
+    "abs": "fabsf({})",
+    "sign": "psign({})",
+    "sqrt": "sqrtf({})",
+    "rsqrt": "(1.0f / sqrtf({}))",
+    "exp": "expf({})",
+    "sin": "sinf({})",
+    "cos": "cosf({})",
+}
+
+# the pointer parameters of the body, in block order (shell: WS_PARAMS)
+IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr", "first", "wrap")
+OUT_BLOCKS = ("q_out", "v_out", "env_out", "wrap_out", "aux_out")
+
+
+def float_literal(x) -> str:
+    """C literal of ``x`` rounded to float32 (round-to-nearest-even)."""
+    f = float(np.float32(x))
+    if math.isnan(f):
+        return "NAN"
+    if math.isinf(f):
+        return "INFINITY" if f > 0 else "(-INFINITY)"
+    text = repr(f)
+    return f"({text}f)" if text.startswith("-") else f"{text}f"
+
+
+class CVal:
+    """One named C value (or literal) of a ``CProgram``."""
+
+    __slots__ = ("_bk", "name", "kind")
+    __hash__ = object.__hash__
+
+    def __init__(self, bk: "CProgram", name: str, kind: str):
+        self._bk = bk
+        self.name = name
+        self.kind = kind
+
+    def _bin(self, other, op, rev=False, kind=None):
+        bk = self._bk
+        o = bk.arg(other, self.kind)
+        a, b = (o, self.name) if rev else (self.name, o)
+        return bk.emit(kind or self.kind, f"{a} {op} {b}")
+
+    def __add__(self, o):
+        return self._bin(o, "+")
+
+    def __radd__(self, o):
+        return self._bin(o, "+", rev=True)
+
+    def __sub__(self, o):
+        return self._bin(o, "-")
+
+    def __rsub__(self, o):
+        return self._bin(o, "-", rev=True)
+
+    def __mul__(self, o):
+        return self._bin(o, "*")
+
+    def __rmul__(self, o):
+        return self._bin(o, "*", rev=True)
+
+    def __truediv__(self, o):
+        return self._bin(o, "/")
+
+    def __rtruediv__(self, o):
+        return self._bin(o, "/", rev=True)
+
+    def __neg__(self):
+        return self._bk.emit(self.kind, f"-{self.name}")
+
+    def __lt__(self, o):
+        return self._bin(o, "<", kind="b")
+
+    def __le__(self, o):
+        return self._bin(o, "<=", kind="b")
+
+    def __gt__(self, o):
+        return self._bin(o, ">", kind="b")
+
+    def __ge__(self, o):
+        return self._bin(o, ">=", kind="b")
+
+    def __eq__(self, o):
+        return self._bin(o, "==", kind="b")
+
+    def __ne__(self, o):
+        return self._bin(o, "!=", kind="b")
+
+    def __and__(self, o):
+        return self._bin(o, "&&", kind="b")
+
+    def __or__(self, o):
+        return self._bin(o, "||", kind="b")
+
+    def __invert__(self):
+        return self._bk.emit("b", f"!{self.name}")
+
+
+class CArr:
+    """A local ``float name[n]`` of stacked row values."""
+
+    __slots__ = ("name", "n")
+
+    def __init__(self, name: str, n: int):
+        self.name = name
+        self.n = n
+
+
+class CProgram:
+    """The C back-end: collects SSA lines for one function body."""
+
+    def __init__(self):
+        self.lines: List[str] = []
+        self.depth = 1
+        self.count = 0
+
+    # ---- names and literals ----
+    def fresh(self, prefix: str = "t") -> str:
+        self.count += 1
+        return f"{prefix}{self.count}"
+
+    def line(self, text: str):
+        self.lines.append("  " * self.depth + text)
+
+    def arg(self, x, kind: str = "f") -> str:
+        if isinstance(x, CVal):
+            return x.name
+        if isinstance(x, bool):
+            return "true" if x else "false"
+        if kind == "i" and isinstance(x, int):
+            return str(int(x))
+        return float_literal(x)
+
+    def emit(self, kind: str, expr: str) -> CVal:
+        name = self.fresh()
+        self.line(f"const {_CTYPE[kind]} {name} = {expr};")
+        return CVal(self, name, kind)
+
+    def const(self, x) -> CVal:
+        return CVal(self, float_literal(x), "f")
+
+    def int_const(self, x) -> CVal:
+        return CVal(self, str(int(x)), "i")
+
+    def load(self, ptr: str, row: int) -> CVal:
+        return self.emit("f", f"{ptr}[{row} * B + b]")
+
+    def store(self, ptr: str, row: int, x):
+        self.line(f"{ptr}[{row} * B + b] = {self.arg(x)};")
+
+    # ---- the ops of physics/soa.py's back-end interface ----
+    @staticmethod
+    def _kind(*xs) -> str:
+        for x in xs:
+            if isinstance(x, CVal):
+                return x.kind
+        return "i" if all(isinstance(x, int) for x in xs) else "f"
+
+    def where(self, c, a, b):
+        kind = self._kind(a, b)
+        return self.emit(kind, f"{self.arg(c)} ? {self.arg(a, kind)} : {self.arg(b, kind)}")
+
+    def maximum(self, a, b):
+        return self.emit("f", f"pmax({self.arg(a)}, {self.arg(b)})")
+
+    def minimum(self, a, b):
+        return self.emit("f", f"pmin({self.arg(a)}, {self.arg(b)})")
+
+    def unary(self, name: str, x):
+        return self.emit("f", _UNARY[name].format(self.arg(x)))
+
+    def stack(self, vals) -> CArr:
+        name = self.fresh("a")
+        body = ", ".join(self.arg(v) for v in vals)
+        self.line(f"const float {name}[{len(vals)}] = {{{body}}};")
+        return CArr(name, len(vals))
+
+    def os_dphi(self, D: CArr, jar: CArr, jv: CArr, alpha: CVal) -> CVal:
+        acc, r = self.fresh("s"), self.fresh("r")
+        self.line(f"float {acc} = 0.0f;")
+        self.line(f"for (int {r} = 0; {r} < {jar.n}; ++{r}) {{")
+        self.depth += 1
+        m = self.emit("f", f"{alpha.name} * {jv.name}[{r}]")
+        ja = self.emit("f", f"{jar.name}[{r}] + {m.name}")
+        dj = self.emit("f", f"{D.name}[{r}] * {ja.name}")
+        t = self.emit("f", f"pmin({dj.name}, 0.0f)")
+        p = self.emit("f", f"{t.name} * {jv.name}[{r}]")
+        self.line(f"{acc} = {acc} + {p.name};")
+        self.depth -= 1
+        self.line("}")
+        return CVal(self, acc, "f")
+
+    def fori_loop(self, n: int, body, carry):
+        kinds = [self._kind(x) for x in carry]
+        names = []
+        for x, kind in zip(carry, kinds):
+            name = self.fresh("c")
+            self.line(f"{_CTYPE[kind]} {name} = {self.arg(x, kind)};")
+            names.append(name)
+        it = self.fresh("i")
+        self.line(f"for (int {it} = 0; {it} < {n}; ++{it}) {{")
+        self.depth += 1
+        with soa.cse_scope(fresh=True):
+            new = body(None, [CVal(self, nm, k) for nm, k in zip(names, kinds)])
+            # read every new value before any carry is assigned
+            tmps = [self.emit(k, self.arg(x, k)) for x, k in zip(new, kinds)]
+        for nm, t in zip(names, tmps):
+            self.line(f"{nm} = {t.name};")
+        self.depth -= 1
+        self.line("}")
+        return [CVal(self, nm, k) for nm, k in zip(names, kinds)]
+
+
+def wrapped_step_body(s, es, n_substeps: int, episode_length: int) -> str:
+    """C source of ``wrapped_step_body``: the wrapped-step emission of
+    ``env/soa_env.py`` for this model and env configuration."""
+    from puppax_torch.env import soa_env
+
+    prog = CProgram()
+    in_rows, _ = soa_env.block_rows(s, es)
+    rows = [
+        [prog.load(ptr, r) for r in range(n)] for ptr, n in zip(IN_BLOCKS, in_rows)
+    ]
+    outs = soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows)
+    for ptr, vals in zip(OUT_BLOCKS, outs):
+        for r, x in enumerate(vals):
+            prog.store(ptr, r, x)
+    header = (
+        "// Generated by puppax_torch/kernels/cgen.py from the wrapped-step\n"
+        f"// emission: n_substeps={n_substeps}, episode_length={episode_length},\n"
+        f"// {prog.count} values. Do not edit.\n"
+        "PUPPAX_HD inline void wrapped_step_body(WS_PARAMS, int B, int b) {\n"
+    )
+    return header + "\n".join(prog.lines) + "\n}\n"

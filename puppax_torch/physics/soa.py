@@ -1,0 +1,1387 @@
+"""The physics emitter: one straight-line per-env program, two back-ends.
+
+Counterpart of ``puppax/physics/soa.py``. There a trace-time value algebra
+(constant folding in f64 + hash-consing CSE) emits the per-env physics
+program (FK, COM, CRB mass matrix, RNE, PD actuation, tree-sparse LDL^T,
+uncapped narrowphase, solref/solimp rows, one Newton step with an Illinois
+exact line search, semi-implicit Euler) and Pallas lowers it over (8, 128)
+tiles. Here the SAME algebra and the same emitters are written against a
+small back-end interface, so one emission has two back-ends:
+
+* torch rows (the plain version): every value is a ``(B,)`` float32
+  tensor, every op a torch op, a loop a Python loop;
+* CUDA C source (``puppax_torch/kernels/cgen.py``): every value is a named
+  C scalar, every op one SSA line, a loop a C ``for``.
+
+Values are Python floats (trace-time constants, folded in f64 and rounded
+to f32 where they meet a tensor, as JAX's weak typing does) or back-end
+values. The back-end ops below (``where``, ``maximum``, ``clip``, ...)
+dispatch on their operands: a torch tensor runs the torch op; any other
+value carries its back-end as ``._bk``.
+
+Only the flat model class is ported: a free+hinge tree with plane-sphere
+and sphere-sphere contacts. Box, heightfield and capsule pairs wait for
+the terrain item of the ROADMAP's queue 1.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from puppax_torch.model.mjcf import JNT_FREE, JNT_HINGE, MjTables, RobotModel
+
+_MINVAL = 1e-15
+
+# Line-search trip counts of the Illinois regula falsi in _emit_newton.
+# Lowering them broke kernel parity in the JAX package; they stay fixed.
+LS_EXPAND_ITERS = 12
+LS_ILLINOIS_ITERS = 24
+
+
+# ---------------------------------------------------------------------------
+# value algebra with constant folding and CSE
+# ---------------------------------------------------------------------------
+
+
+def _c(x) -> bool:
+    return isinstance(x, (int, float))
+
+
+# Inside a ``cse_scope`` the algebra memoizes every emitted op on the
+# identity of its operands. The memo keeps strong references to operands so
+# id() values cannot be recycled while they serve as keys. Loop bodies push
+# a fresh scope so no value born inside a loop is reused after it.
+_CSE_MEMO = None
+
+
+class cse_scope:
+    """Hash-consing for emissions inside it. ``fresh=False`` joins an
+    active scope; ``fresh=True`` always pushes a new memo (loop bodies)."""
+
+    def __init__(self, fresh: bool = False):
+        self._fresh = fresh
+
+    def __enter__(self):
+        global _CSE_MEMO
+        self._prev = _CSE_MEMO
+        if self._fresh or _CSE_MEMO is None:
+            _CSE_MEMO = {}
+        return self
+
+    def __exit__(self, *exc):
+        global _CSE_MEMO
+        _CSE_MEMO = self._prev
+        return False
+
+
+def with_cse(fn):
+    """Decorator: run ``fn`` inside a (joining) cse_scope."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with cse_scope():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def _ckey(x):
+    return ("c", x) if _c(x) else ("t", id(x))
+
+
+def _cse2(op: str, a, b, emit):
+    memo = _CSE_MEMO
+    if memo is None:
+        return emit()
+    ka, kb = _ckey(a), _ckey(b)
+    if op in ("add", "mul") and kb < ka:  # commutative: canonical order
+        ka, kb = kb, ka
+    key = (op, ka, kb)
+    hit = memo.get(key)
+    if hit is not None:
+        return hit[2]
+    res = emit()
+    memo[key] = (a, b, res)
+    return res
+
+
+def add(a, b):
+    if _c(a) and _c(b):
+        return a + b
+    if _c(a) and a == 0.0:
+        return b
+    if _c(b) and b == 0.0:
+        return a
+    return _cse2("add", a, b, lambda: a + b)
+
+
+def sub(a, b):
+    if _c(a) and _c(b):
+        return a - b
+    if _c(b) and b == 0.0:
+        return a
+    if _c(a) and a == 0.0:
+        return neg(b)
+    return _cse2("sub", a, b, lambda: a - b)
+
+
+def neg(a):
+    if _c(a):
+        return -a
+    return _cse2("neg", a, a, lambda: -a)
+
+
+def mul(a, b):
+    if _c(a) and _c(b):
+        return a * b
+    if _c(a):
+        if a == 0.0:
+            return 0.0
+        if a == 1.0:
+            return b
+        if a == -1.0:
+            return neg(b)
+        return _cse2("mul", a, b, lambda: a * b)
+    if _c(b):
+        if b == 0.0:
+            return 0.0
+        if b == 1.0:
+            return a
+        if b == -1.0:
+            return neg(a)
+    return _cse2("mul", a, b, lambda: a * b)
+
+
+def fma(acc, a, b):
+    """acc + a*b with folding (two rounded ops, never a fused one)."""
+    return add(acc, mul(a, b))
+
+
+def vadd3(a, b):
+    return [add(a[i], b[i]) for i in range(3)]
+
+
+def vsub3(a, b):
+    return [sub(a[i], b[i]) for i in range(3)]
+
+
+def vscale3(a, s):
+    return [mul(a[i], s) for i in range(3)]
+
+
+def vdot3(a, b):
+    return add(add(mul(a[0], b[0]), mul(a[1], b[1])), mul(a[2], b[2]))
+
+
+def vcross3(a, b):
+    return [
+        sub(mul(a[1], b[2]), mul(a[2], b[1])),
+        sub(mul(a[2], b[0]), mul(a[0], b[2])),
+        sub(mul(a[0], b[1]), mul(a[1], b[0])),
+    ]
+
+
+def qmul(u, v):
+    """Hamilton product on (w,x,y,z) component lists (ops.math.quat_mul)."""
+    return [
+        sub(sub(sub(mul(u[0], v[0]), mul(u[1], v[1])), mul(u[2], v[2])), mul(u[3], v[3])),
+        sub(add(add(mul(u[0], v[1]), mul(u[1], v[0])), mul(u[2], v[3])), mul(u[3], v[2])),
+        add(add(sub(mul(u[0], v[2]), mul(u[1], v[3])), mul(u[2], v[0])), mul(u[3], v[1])),
+        add(sub(add(mul(u[0], v[3]), mul(u[1], v[2])), mul(u[2], v[1])), mul(u[3], v[0])),
+    ]
+
+
+def qrot(vec, q):
+    """rotate(vec, q) — same formula as ops.math.rotate."""
+    s, u = q[0], q[1:]
+    uv = vdot3(u, vec)
+    uu = vdot3(u, u)
+    k = sub(mul(s, s), uu)
+    c = vcross3(u, vec)
+    return [
+        add(add(mul(mul(2.0, uv), u[i]), mul(k, vec[i])), mul(mul(2.0, s), c[i]))
+        for i in range(3)
+    ]
+
+
+def quat_to_mat(q):
+    """3x3 rotation matrix rows (list of 3 row lists), ops.math.quat_to_mat."""
+    w, x, y, z = q
+    return [
+        [
+            sub(1.0, mul(2.0, add(mul(y, y), mul(z, z)))),
+            mul(2.0, sub(mul(x, y), mul(w, z))),
+            mul(2.0, add(mul(x, z), mul(w, y))),
+        ],
+        [
+            mul(2.0, add(mul(x, y), mul(w, z))),
+            sub(1.0, mul(2.0, add(mul(x, x), mul(z, z)))),
+            mul(2.0, sub(mul(y, z), mul(w, x))),
+        ],
+        [
+            mul(2.0, sub(mul(x, z), mul(w, y))),
+            mul(2.0, add(mul(y, z), mul(w, x))),
+            sub(1.0, mul(2.0, add(mul(x, x), mul(y, y)))),
+        ],
+    ]
+
+
+def motion_cross(v, m):
+    """ops.math.motion_cross on (ang, lin) pairs."""
+    va, vl = v
+    ma, ml = m
+    return (vcross3(va, ma), vadd3(vcross3(va, ml), vcross3(vl, ma)))
+
+
+def motion_cross_force(v, f):
+    """ops.math.motion_cross_force on (ang, lin) pairs."""
+    va, vl = v
+    fa, fl = f
+    return (vadd3(vcross3(va, fa), vcross3(vl, fl)), vcross3(va, fl))
+
+
+# ---------------------------------------------------------------------------
+# back-end ops: the counterparts of the jnp / lax calls of the JAX emitter
+# ---------------------------------------------------------------------------
+
+
+def _peer(*xs):
+    """None for torch operands, else the back-end of the first non-constant."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return None
+        if not _c(x):
+            return x._bk
+    raise TypeError("back-end op on trace-time constants only")
+
+
+def materialize(x, ref):
+    """Constant -> a value of ref's back-end (and batch); values pass."""
+    if not _c(x):
+        return x
+    if isinstance(ref, torch.Tensor):
+        return torch.full_like(ref, float(x))
+    return ref._bk.const(x)
+
+
+def where(c, a, b):
+    bk = _peer(c, a, b)
+    if bk is None:
+        return torch.where(c, a, b)
+    return bk.where(c, a, b)
+
+
+def _t_max(a, b):
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.maximum(a, b)
+    if isinstance(a, torch.Tensor):
+        return torch.clamp_min(a, b)
+    return torch.clamp_min(b, a)
+
+
+def _t_min(a, b):
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.minimum(a, b)
+    if isinstance(a, torch.Tensor):
+        return torch.clamp_max(a, b)
+    return torch.clamp_max(b, a)
+
+
+def maximum(a, b):
+    bk = _peer(a, b)
+    return _t_max(a, b) if bk is None else bk.maximum(a, b)
+
+
+def minimum(a, b):
+    bk = _peer(a, b)
+    return _t_min(a, b) if bk is None else bk.minimum(a, b)
+
+
+def clip(x, lo, hi):
+    """jnp.clip: minimum(maximum(x, lo), hi); bounds may be values."""
+    bk = _peer(x, lo, hi)
+    if bk is None:
+        return _t_min(_t_max(x, lo), hi)
+    return bk.minimum(bk.maximum(x, lo), hi)
+
+
+def _unary(tfn, name):
+    def op(x):
+        bk = _peer(x)
+        return tfn(x) if bk is None else bk.unary(name, x)
+
+    op.__name__ = name
+    return op
+
+
+abs_ = _unary(torch.abs, "abs")
+sign = _unary(torch.sign, "sign")
+sqrt = _unary(torch.sqrt, "sqrt")
+# 1 / sqrt(x) with both steps correctly rounded, as the C back-end emits it
+# (torch.rsqrt on CUDA is the approximate hardware rsqrt)
+rsqrt = _unary(lambda x: torch.sqrt(x).reciprocal(), "rsqrt")
+exp = _unary(torch.exp, "exp")
+sin = _unary(torch.sin, "sin")
+cos = _unary(torch.cos, "cos")
+
+
+def div_const(x, c: float):
+    """x / c for a value x and a constant c, a true division in both
+    back-ends (PyTorch's CUDA kernels turn a tensor divided by a Python
+    scalar into a product with its reciprocal, which rounds differently)."""
+    if isinstance(x, torch.Tensor):
+        return x / torch.full_like(x, float(c))
+    return x / c
+
+
+def full_like(ref, value: float):
+    bk = _peer(ref)
+    return torch.full_like(ref, float(value)) if bk is None else bk.const(value)
+
+
+def int_zeros_like(ref):
+    bk = _peer(ref)
+    if bk is None:
+        return torch.zeros_like(ref, dtype=torch.int32)
+    return bk.int_const(0)
+
+
+def stack_rows(values: List, ref):
+    """Stack per-env values into one (n, ...) array of the line search."""
+    vals = [materialize(x, ref) for x in values]
+    bk = _peer(ref)
+    return torch.stack(vals) if bk is None else bk.stack(vals)
+
+
+def os_dphi(D_os, jar_os, jv_os, alpha):
+    """sum_r min(D_r (jar_r + alpha jv_r), 0) jv_r over the stacked
+    one-sided rows (the jnp.sum of the JAX line search)."""
+    if isinstance(alpha, torch.Tensor):
+        jar_a = jar_os + alpha[None] * jv_os
+        terms = torch.clamp_max(D_os * jar_a, 0.0) * jv_os
+        # summed row after row, in the C back-end's order (a torch.sum on
+        # CUDA reduces in a tree and rounds differently)
+        acc = terms[0]
+        for r in range(1, terms.shape[0]):
+            acc = acc + terms[r]
+        return acc
+    return alpha._bk.os_dphi(D_os, jar_os, jv_os, alpha)
+
+
+def fori_loop(n: int, body, carry: List):
+    """lax.fori_loop over a flat list of carried values. The body runs in
+    a fresh CSE scope (a Python loop for torch, a C ``for`` for C)."""
+    bk = _peer(*carry)
+    if bk is None:
+        for i in range(n):
+            with cse_scope(fresh=True):
+                carry = list(body(i, carry))
+        return carry
+    return bk.fori_loop(n, body, carry)
+
+
+# ---------------------------------------------------------------------------
+# static model digest (host-side numpy)
+# ---------------------------------------------------------------------------
+
+
+class _Pair(NamedTuple):
+    kind: str  # 'ps' (plane-sphere) or 'ss' (sphere-sphere)
+    sphere_geom: int
+    sphere_body: int
+    radius: float
+    sphere_off: tuple
+    plane_point: tuple
+    plane_n: tuple
+    frame_t1: tuple
+    frame_t2: tuple
+    solref: tuple
+    solimp: tuple
+    invweight: float
+    geom1: int
+    geom2: int
+    body1: int
+    body2: int
+    radius1: float = 0.0
+    sphere_off1: tuple = (0.0, 0.0, 0.0)
+
+
+def soa_supported(m: RobotModel) -> bool:
+    """True when the model is in the emitter's supported (flat) class."""
+    if (m.pairs_hfield_sphere or m.pairs_sphere_box or m.pairs_plane_capsule
+            or m.pairs_sphere_capsule or m.pairs_capsule_capsule):
+        return False
+    if m.solver_iterations != 1:
+        return False
+    for j in range(m.njnt):
+        if m.jnt_type[j] not in (JNT_FREE, JNT_HINGE):
+            return False
+    for g1, _ in m.pairs_plane_sphere:
+        if m.geom_bodyid[g1] != 0:
+            return False
+    for b in range(1, m.nbody):
+        if m.body_rootid[b] != 1:
+            return False
+    free = [j for j in range(m.njnt) if m.jnt_type[j] == JNT_FREE]
+    if len(free) != 1 or m.jnt_bodyid[free[0]] != 1:
+        return False
+    return True
+
+
+def _quat_mat_np(q):
+    w, x, y, z = q
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+
+
+class _Static:
+    """Everything the emission bakes in as Python constants. Numeric
+    tables come from the float64 MjModel tables when given (as the JAX
+    package reads them from ``mujoco.MjModel``), else from the model's
+    float32 leaves."""
+
+    def __init__(self, m: RobotModel, mj: MjTables = None):
+        if not soa_supported(m):
+            raise NotImplementedError(
+                "model outside the flat class (box/heightfield/capsule pairs "
+                "wait for the terrain item of ROADMAP queue 1)"
+            )
+        self.nq, self.nv, self.nu = m.nq, m.nv, m.nu
+        self.nbody, self.njnt, self.nsite = m.nbody, m.njnt, m.nsite
+        self.body_parentid = m.body_parentid
+        self.body_jntid = m.body_jntid
+        self.jnt_type = m.jnt_type
+        self.jnt_qposadr = m.jnt_qposadr
+        self.jnt_dofadr = m.jnt_dofadr
+        self.jnt_bodyid = m.jnt_bodyid
+        self.timestep = float(m.timestep)
+        self.impratio = float(m.impratio)
+        self.solver_iterations = int(m.solver_iterations)
+        if mj is not None:
+            def g(name):
+                tgt = np.shape(getattr(m, name))
+                return np.asarray(getattr(mj, name), np.float64).reshape(tgt).copy()
+
+            self.gravity = tuple(np.asarray(mj.gravity, np.float64).reshape(3))
+            self.qpos0 = tuple(np.asarray(mj.qpos0, np.float64).reshape(-1))
+            self.actuator_b0 = np.asarray(mj.actuator_biasprm, np.float64)[:, 0].copy()
+        else:
+            def g(name):
+                return np.asarray(getattr(m, name), np.float64)
+
+            self.gravity = tuple(g("gravity"))
+            self.qpos0 = tuple(g("qpos0"))
+            self.actuator_b0 = g("actuator_biasprm")[:, 0]
+        geom_solref, geom_solimp = g("geom_solref"), g("geom_solimp")
+        geom_pos, geom_quat, geom_size = g("geom_pos"), g("geom_quat"), g("geom_size")
+        self.forcerange = g("actuator_forcerange")
+        body_iw_tab = g("body_invweight0")
+        self.body_pos = g("body_pos")
+        self.body_quat = g("body_quat")
+        self.body_iquat = g("body_iquat")
+        self.jnt_pos = g("jnt_pos")
+        self.jnt_axis = g("jnt_axis")
+        self.jnt_range = g("jnt_range")
+        self.jnt_solref = g("jnt_solref")
+        self.jnt_solimp = g("jnt_solimp")
+        self.jnt_margin = g("jnt_margin")
+        self.jnt_limited = m.jnt_limited
+        self.dof_armature = g("dof_armature")
+        self.dof_damping = g("dof_damping")
+        self.dof_frictionloss = g("dof_frictionloss")
+        self.dof_solref = g("dof_solref")
+        self.dof_solimp = g("dof_solimp")
+        self.dof_invweight0 = g("dof_invweight0")
+        self.dof_frictional = m.dof_frictional
+        self.site_pos = g("site_pos")
+        self.site_bodyid = m.site_bodyid
+        self.actuator_jntid = m.actuator_jntid
+
+        # ---- per-dof ancestor chains (tree sparsity) ----
+        body_dofs = [[] for _ in range(m.nbody)]
+        for j in range(m.njnt):
+            b, d = m.jnt_bodyid[j], m.jnt_dofadr[j]
+            n = 6 if m.jnt_type[j] == JNT_FREE else 1
+            body_dofs[b].extend(range(d, d + n))
+        chains = [[] for _ in range(m.nbody)]
+        for i in range(1, m.nbody):
+            chains[i] = chains[m.body_parentid[i]] + body_dofs[i]
+        self.body_dofs = body_dofs
+        self.chains = chains
+        dof_body = [0] * m.nv
+        for j in range(m.njnt):
+            b, d = m.jnt_bodyid[j], m.jnt_dofadr[j]
+            n = 6 if m.jnt_type[j] == JNT_FREE else 1
+            for dd in range(d, d + n):
+                dof_body[dd] = b
+        self.dof_body = dof_body
+        anc = np.zeros((m.nv, m.nv), bool)
+        for jd in range(m.nv):
+            for kd in chains[dof_body[jd]]:
+                if kd <= jd:
+                    anc[jd, kd] = True
+        self.anc = anc
+
+        # ---- collision pairs: plane-sphere (static plane), sphere-sphere ----
+        body_iw = body_iw_tab[:, 0]
+        self.pairs: List[_Pair] = []
+        for g1, g2 in m.pairs_plane_sphere:
+            R = _quat_mat_np(geom_quat[g1])
+            n = R[:, 2]
+            e = (
+                np.array([0.0, 1.0, 0.0])
+                if abs(n[1]) < 0.5
+                else np.array([0.0, 0.0, 1.0])
+            )
+            t2 = np.cross(n, e)
+            t2 = t2 / max(np.linalg.norm(t2), 1e-12)
+            t1 = np.cross(t2, n)
+            sb = m.geom_bodyid[g2]
+            self.pairs.append(
+                _Pair(
+                    kind="ps",
+                    sphere_geom=g2,
+                    sphere_body=sb,
+                    radius=float(geom_size[g2][0]),
+                    sphere_off=tuple(geom_pos[g2]),
+                    plane_point=tuple(geom_pos[g1]),
+                    plane_n=tuple(n),
+                    frame_t1=tuple(t1),
+                    frame_t2=tuple(t2),
+                    solref=tuple(0.5 * (geom_solref[g1] + geom_solref[g2])),
+                    solimp=tuple(0.5 * (geom_solimp[g1] + geom_solimp[g2])),
+                    invweight=float(body_iw[m.geom_bodyid[g1]] + body_iw[sb]),
+                    geom1=int(g1),
+                    geom2=int(g2),
+                    body1=int(m.geom_bodyid[g1]),
+                    body2=int(sb),
+                )
+            )
+        for g1, g2 in m.pairs_sphere_sphere:
+            b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
+            self.pairs.append(
+                _Pair(
+                    kind="ss",
+                    sphere_geom=g2,
+                    sphere_body=b2,
+                    radius=float(geom_size[g2][0]),
+                    sphere_off=tuple(geom_pos[g2]),
+                    plane_point=(0.0, 0.0, 0.0),
+                    plane_n=(0.0, 0.0, 1.0),
+                    frame_t1=(0.0, 1.0, 0.0),
+                    frame_t2=(-1.0, 0.0, 0.0),
+                    solref=tuple(0.5 * (geom_solref[g1] + geom_solref[g2])),
+                    solimp=tuple(0.5 * (geom_solimp[g1] + geom_solimp[g2])),
+                    invweight=float(body_iw[b1] + body_iw[b2]),
+                    geom1=int(g1),
+                    geom2=int(g2),
+                    body1=int(b1),
+                    body2=int(b2),
+                    radius1=float(geom_size[g1][0]),
+                    sphere_off1=tuple(geom_pos[g1]),
+                )
+            )
+        self.npair = len(self.pairs)
+
+        # Newton-Hessian sparsity: the tree ancestor pattern, a clique over
+        # both chains of every pair, closed under reverse-elimination fill-in
+        hess = anc.copy()
+        for pr in self.pairs:
+            dofs = sorted(set(chains[pr.body1]) | set(chains[pr.body2]))
+            for i_d in dofs:
+                for j_d in dofs:
+                    if j_d <= i_d:
+                        hess[i_d, j_d] = True
+        for k in reversed(range(m.nv)):
+            ancs = [i for i in range(k) if hess[k, i]]
+            for a_i in ancs:
+                for b_i in ancs:
+                    if b_i <= a_i:
+                        hess[a_i, b_i] = True
+        self.hess = hess
+
+        self.lim_joints = [j for j in range(m.njnt) if m.jnt_limited[j]]
+
+        # rows of the (ndr, B) per-env parameter array
+        self.dr_rows: Dict[str, Tuple[int, int]] = {}
+        r = 0
+        for name, n in (
+            ("mass", m.nbody),
+            ("inertia", m.nbody * 3),
+            ("ipos", m.nbody * 3),
+            ("gain0", m.nu),
+            ("bias1", m.nu),
+            ("bias2", m.nu),
+            ("pair_mu", self.npair),
+        ):
+            self.dr_rows[name] = (r, n)
+            r += n
+        self.ndr = r
+
+
+# ---------------------------------------------------------------------------
+# program emitters (operate on value-algebra objects)
+# ---------------------------------------------------------------------------
+
+
+def _impedance(solimp: tuple, pos):
+    """MuJoCo impedance d(pos) with STATIC solimp (constraint.impedance)."""
+    dmin, dmax, width, mid, power = (float(x) for x in solimp)
+    if _c(pos):
+        x = min(max(abs(pos) / max(width, _MINVAL), 0.0), 1.0)
+        a = 1.0 / max(mid, _MINVAL) ** (power - 1.0)
+        b = 1.0 / max(1.0 - mid, _MINVAL) ** (power - 1.0)
+        y = a * x**power if x < mid else 1.0 - b * (1.0 - x) ** power
+        return min(max(dmin + y * (dmax - dmin), 1e-4), 0.9999)
+    x = clip(div_const(abs_(pos), max(width, _MINVAL)), 0.0, 1.0)
+    a = 1.0 / max(mid, _MINVAL) ** (power - 1.0)
+    b = 1.0 / max(1.0 - mid, _MINVAL) ** (power - 1.0)
+    if power != 2.0:
+        raise NotImplementedError("solimp power != 2 is not ported")
+    y_lo = a * x * x
+    one_minus = 1.0 - x
+    y_hi = 1.0 - b * one_minus * one_minus
+    y = where(x < mid, y_lo, y_hi)
+    return clip(dmin + y * (dmax - dmin), 1e-4, 0.9999)
+
+
+def _kb(solref: tuple, solimp: tuple) -> Tuple[float, float]:
+    """Static stiffness/damping from solref (constraint._kb)."""
+    dmax = float(solimp[1])
+    timeconst, dampratio = float(solref[0]), float(solref[1])
+    if timeconst <= 0 or dampratio <= 0:
+        return (
+            -timeconst / max(dmax * dmax, _MINVAL),
+            -dampratio / max(dmax, _MINVAL),
+        )
+    k = 1.0 / max(dmax * dmax * timeconst * timeconst * dampratio * dampratio, _MINVAL)
+    b = 2.0 / max(dmax * timeconst, _MINVAL)
+    return k, b
+
+
+class _Row(NamedTuple):
+    J: dict  # dof -> value
+    aref: object
+    D: object
+    R: object
+    floss: float
+    fric: bool
+
+
+def _emit_fk(s: _Static, q, dr):
+    """Forward kinematics; returns xpos/xquat per body + anchors/axes."""
+    xpos = [None] * s.nbody
+    xquat = [None] * s.nbody
+    xanchor = [None] * s.njnt
+    xaxis = [None] * s.njnt
+    xpos[0] = [0.0, 0.0, 0.0]
+    xquat[0] = [1.0, 0.0, 0.0, 0.0]
+    for b in range(1, s.nbody):
+        p = s.body_parentid[b]
+        j = s.body_jntid[b]
+        if j != -1 and s.jnt_type[j] == JNT_FREE:
+            qa = s.jnt_qposadr[j]
+            pos = [q[qa], q[qa + 1], q[qa + 2]]
+            raw = [q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6]]
+            n2 = add(
+                add(mul(raw[0], raw[0]), mul(raw[1], raw[1])),
+                add(mul(raw[2], raw[2]), mul(raw[3], raw[3])),
+            )
+            inv = rsqrt(n2)
+            quat = [mul(raw[i], inv) for i in range(4)]
+            xpos[b], xquat[b] = pos, quat
+            xanchor[j] = pos
+            xaxis[j] = [float(x) for x in s.jnt_axis[j]]
+            continue
+        bq = [float(x) for x in s.body_quat[b]]
+        bp = [float(x) for x in s.body_pos[b]]
+        frame_quat = qmul(xquat[p], bq)
+        frame_pos = vadd3(xpos[p], qrot(bp, xquat[p]))
+        if j == -1:  # fixed body
+            xpos[b], xquat[b] = frame_pos, frame_quat
+            continue
+        qa = s.jnt_qposadr[j]
+        angle = sub(q[qa], float(s.qpos0[qa]))
+        half = mul(0.5, angle)
+        ch, sh = cos(half), sin(half)
+        ax = [float(x) for x in s.jnt_axis[j]]
+        qloc = [ch, mul(ax[0], sh), mul(ax[1], sh), mul(ax[2], sh)]
+        quat = qmul(frame_quat, qloc)
+        jp_ = [float(x) for x in s.jnt_pos[j]]
+        anchor = vadd3(frame_pos, qrot(jp_, frame_quat))
+        pos = vsub3(anchor, qrot(jp_, quat))
+        xpos[b], xquat[b] = pos, quat
+        xanchor[j] = anchor
+        xaxis[j] = qrot(ax, quat)
+    return xpos, xquat, xanchor, xaxis
+
+
+def _spatial_inertia(mass, inertia, offset, R):
+    """Dense symmetric 6x6 spatial inertia (ops.math.transform_inertia)."""
+    I3 = [[0.0] * 3 for _ in range(3)]
+    for i in range(3):
+        for k in range(i, 3):
+            acc = 0.0
+            for jj in range(3):
+                acc = fma(acc, mul(R[i][jj], inertia[jj]), R[k][jj])
+            I3[i][k] = acc
+            I3[k][i] = acc
+    c = offset
+    cdot = vdot3(c, c)
+    I6 = [[0.0] * 6 for _ in range(6)]
+    for i in range(3):
+        for k in range(i, 3):
+            delta = cdot if i == k else 0.0
+            v = add(I3[i][k], mul(mass, sub(delta, mul(c[i], c[k]))))
+            I6[i][k] = v
+            I6[k][i] = v
+    cx = [
+        [0.0, neg(c[2]), c[1]],
+        [c[2], 0.0, neg(c[0])],
+        [neg(c[1]), c[0], 0.0],
+    ]
+    for i in range(3):
+        for k in range(3):
+            v = mul(mass, cx[i][k])
+            I6[i][3 + k] = v
+            I6[3 + k][i] = v
+    for i in range(3):
+        I6[3 + i][3 + i] = mass
+    return I6
+
+
+def _inert_mv(I6, m6):
+    """6x6 spatial inertia times a 6-vector (list of 6 values)."""
+    return [
+        functools.reduce(add, [mul(I6[i][k], m6[k]) for k in range(6)])
+        for i in range(6)
+    ]
+
+
+def _emit_forward(s: _Static, q, v, ctrl, dr):
+    """One full forward-dynamics pass (pipeline.forward equivalent)."""
+    xpos, xquat, xanchor, xaxis = _emit_fk(s, q, dr)
+
+    # inertial frames (DR ipos) + subtree COM of the single tree
+    mass = [dr["mass"][b] for b in range(s.nbody)]
+    xipos = [None] * s.nbody
+    ximat = [None] * s.nbody
+    for b in range(1, s.nbody):
+        ip = [dr["ipos"][3 * b + i] for i in range(3)]
+        xipos[b] = vadd3(xpos[b], qrot(ip, xquat[b]))
+        iq = [float(x) for x in s.body_iquat[b]]
+        ximat[b] = quat_to_mat(qmul(xquat[b], iq))
+    tot_mass = functools.reduce(add, mass[1:])
+    mom = [0.0, 0.0, 0.0]
+    for b in range(1, s.nbody):
+        mom = vadd3(mom, vscale3(xipos[b], mass[b]))
+    inv_tot = 1.0 / maximum(materialize(tot_mass, mom[0]), 1e-12)
+    com_root = vscale3(mom, inv_tot)
+
+    # com-frame spatial inertias
+    cinert = [None] * s.nbody
+    for b in range(1, s.nbody):
+        inertia = [dr["inertia"][3 * b + i] for i in range(3)]
+        offset = vsub3(xipos[b], com_root)
+        cinert[b] = _spatial_inertia(mass[b], inertia, offset, ximat[b])
+
+    # dof axes about the root com
+    cdof = [None] * s.nv  # each (ang3, lin3)
+    for j in range(s.njnt):
+        b = s.jnt_bodyid[j]
+        d = s.jnt_dofadr[j]
+        if s.jnt_type[j] == JNT_FREE:
+            for i in range(3):
+                e = [0.0, 0.0, 0.0]
+                e[i] = 1.0
+                cdof[d + i] = ([0.0, 0.0, 0.0], e)
+            R = quat_to_mat(xquat[b])
+            off = vsub3(com_root, xanchor[j])
+            for i in range(3):
+                axis = [R[0][i], R[1][i], R[2][i]]  # column i = body axis
+                cdof[d + 3 + i] = (axis, vcross3(axis, off))
+        else:
+            ax = xaxis[j]
+            off = vsub3(com_root, xanchor[j])
+            cdof[d] = (ax, vcross3(ax, off))
+
+    # com velocities (forward pass)
+    cvel = [None] * s.nbody
+    cvel[0] = ([0.0, 0.0, 0.0], [0.0, 0.0, 0.0])
+    cdof_dot = [([0.0, 0.0, 0.0], [0.0, 0.0, 0.0])] * s.nv
+    for b in range(1, s.nbody):
+        p = s.body_parentid[b]
+        j = s.body_jntid[b]
+        if j == -1:
+            cvel[b] = cvel[p]
+            continue
+        d = s.jnt_dofadr[j]
+        if s.jnt_type[j] == JNT_FREE:
+            vp = cvel[p]
+            v_trans = (vp[0], vadd3(vp[1], [v[d], v[d + 1], v[d + 2]]))
+            acc = v_trans
+            for i in range(3):
+                cdof_dot[d + 3 + i] = motion_cross(v_trans, cdof[d + 3 + i])
+                ang, lin = cdof[d + 3 + i]
+                acc = (
+                    vadd3(acc[0], vscale3(ang, v[d + 3 + i])),
+                    vadd3(acc[1], vscale3(lin, v[d + 3 + i])),
+                )
+            cvel[b] = acc
+        else:
+            cdof_dot[d] = motion_cross(cvel[p], cdof[d])
+            ang, lin = cdof[d]
+            cvel[b] = (
+                vadd3(cvel[p][0], vscale3(ang, v[d])),
+                vadd3(cvel[p][1], vscale3(lin, v[d])),
+            )
+
+    # CRB mass matrix (sparse entries over the ancestor pattern)
+    crb = [None] + [[row[:] for row in cinert[b]] for b in range(1, s.nbody)]
+    for b in range(s.nbody - 1, 0, -1):
+        p = s.body_parentid[b]
+        if p > 0:
+            for i in range(6):
+                for k in range(6):
+                    crb[p][i][k] = add(crb[p][i][k], crb[b][i][k])
+    F = [None] * s.nv
+    for d in range(s.nv):
+        b = s.dof_body[d]
+        m6 = list(cdof[d][0]) + list(cdof[d][1])
+        F[d] = _inert_mv(crb[b], m6)
+    M: Dict[Tuple[int, int], object] = {}
+    for jd in range(s.nv):
+        for kd in range(jd + 1):
+            if not s.anc[jd, kd]:
+                continue
+            m6 = list(cdof[kd][0]) + list(cdof[kd][1])
+            acc = 0.0
+            for i in range(6):
+                acc = fma(acc, F[jd][i], m6[i])
+            if jd == kd:
+                acc = add(acc, float(s.dof_armature[jd]))
+            M[(jd, kd)] = acc
+
+    # RNE bias forces
+    cacc = [None] * s.nbody
+    g = s.gravity
+    cacc[0] = ([0.0, 0.0, 0.0], [-g[0], -g[1], -g[2]])
+    for b in range(1, s.nbody):
+        p = s.body_parentid[b]
+        j = s.body_jntid[b]
+        a = cacc[p]
+        if j != -1:
+            d = s.jnt_dofadr[j]
+            n = 6 if s.jnt_type[j] == JNT_FREE else 1
+            for dd in range(d, d + n):
+                ang, lin = cdof_dot[dd]
+                a = (
+                    vadd3(a[0], vscale3(ang, v[dd])),
+                    vadd3(a[1], vscale3(lin, v[dd])),
+                )
+        cacc[b] = a
+    total = [None] * s.nbody
+    for b in range(1, s.nbody):
+        v6 = list(cvel[b][0]) + list(cvel[b][1])
+        a6 = list(cacc[b][0]) + list(cacc[b][1])
+        Iv = _inert_mv(cinert[b], v6)
+        Ia = _inert_mv(cinert[b], a6)
+        crossed = motion_cross_force(cvel[b], (Iv[:3], Iv[3:]))
+        cf = list(crossed[0]) + list(crossed[1])
+        total[b] = [add(Ia[i], cf[i]) for i in range(6)]
+    for b in range(s.nbody - 1, 0, -1):
+        p = s.body_parentid[b]
+        if p > 0:
+            total[p] = [add(total[p][i], total[b][i]) for i in range(6)]
+    qfrc_bias = [0.0] * s.nv
+    for d in range(s.nv):
+        b = s.dof_body[d]
+        m6 = list(cdof[d][0]) + list(cdof[d][1])
+        acc = 0.0
+        for i in range(6):
+            acc = fma(acc, m6[i], total[b][i])
+        qfrc_bias[d] = acc
+
+    # passive + actuation
+    qfrc_passive = [mul(-float(s.dof_damping[d]), v[d]) for d in range(s.nv)]
+    qfrc_act = [0.0] * s.nv
+    for a in range(s.nu):
+        j = s.actuator_jntid[a]
+        qa, d = s.jnt_qposadr[j], s.jnt_dofadr[j]
+        force = add(
+            mul(dr["gain0"][a], ctrl[a]),
+            add(
+                float(s.actuator_b0[a]),
+                add(mul(dr["bias1"][a], q[qa]), mul(dr["bias2"][a], v[d])),
+            ),
+        )
+        lo, hi = float(s.forcerange[a][0]), float(s.forcerange[a][1])
+        force = clip(materialize(force, v[0]), lo, hi)
+        qfrc_act[d] = add(qfrc_act[d], force)
+
+    qfrc_smooth = [
+        add(qfrc_passive[d], sub(qfrc_act[d], qfrc_bias[d])) for d in range(s.nv)
+    ]
+    qacc_smooth = _ldl_solve_dict(s, M, qfrc_smooth)
+
+    # ---- contacts: ALL candidate pairs, no caps (C semantics) ----
+    con_dist, con_pos, rows_con = [], [], []
+    for pi, pr in enumerate(s.pairs):
+        b = pr.sphere_body
+        off = [float(x) for x in pr.sphere_off]
+        center = vadd3(xpos[b], qrot(off, xquat[b]))
+        if pr.kind == "ps":
+            n = [float(x) for x in pr.plane_n]
+            pp = [float(x) for x in pr.plane_point]
+            dist = sub(vdot3(n, vsub3(center, pp)), pr.radius)
+            cpos = vsub3(center, vscale3(n, add(pr.radius, mul(0.5, dist))))
+            t1 = [float(x) for x in pr.frame_t1]
+            t2 = [float(x) for x in pr.frame_t2]
+            dof_coeff = {d: 1.0 for d in s.chains[b]}
+        else:  # sphere-sphere (collision._sphere_sphere semantics)
+            b1 = pr.body1
+            off1 = [float(x) for x in pr.sphere_off1]
+            c1 = vadd3(xpos[b1], qrot(off1, xquat[b1]))
+            delta = vsub3(center, c1)
+            length = sqrt(materialize(vdot3(delta, delta), center[0]))
+            inv_len = 1.0 / maximum(length, 1e-12)
+            n = [materialize(delta[i], length) * inv_len for i in range(3)]
+            dist = sub(length, pr.radius1 + pr.radius)
+            cpos = vadd3(c1, vscale3(n, add(pr.radius1, mul(0.5, dist))))
+            # dynamic contact frame (mju_makeFrame, as collision._make_frames)
+            use_y = abs_(n[1]) < 0.5
+            ax = [0.0, where(use_y, 1.0, 0.0), where(use_y, 0.0, 1.0)]
+            t2 = vcross3(n, ax)
+            t2n = maximum(sqrt(materialize(vdot3(t2, t2), length)), 1e-12)
+            t2 = [materialize(t2[i], length) / t2n for i in range(3)]
+            t1 = vcross3(t2, n)
+            # J = J2 - J1: shared (base) dofs cancel exactly (same offset)
+            dof_coeff = {}
+            for d in s.chains[b]:
+                dof_coeff[d] = dof_coeff.get(d, 0.0) + 1.0
+            for d in s.chains[b1]:
+                dof_coeff[d] = dof_coeff.get(d, 0.0) - 1.0
+            dof_coeff = {d: c for d, c in dof_coeff.items() if c != 0.0}
+        con_dist.append(dist)
+        con_pos.append(cpos)
+
+        offc = vsub3(cpos, com_root)
+        jn, jt1, jt2 = {}, {}, {}
+        dofs = sorted(dof_coeff)
+        for d in dofs:
+            ang, lin = cdof[d]
+            jac3 = vscale3(vadd3(lin, vcross3(ang, offc)), dof_coeff[d])
+            jn[d] = vdot3(n, jac3)
+            jt1[d] = vdot3(t1, jac3)
+            jt2[d] = vdot3(t2, jac3)
+        mu = dr["pair_mu"][pi]
+        jn_v = functools.reduce(add, [mul(jn[d], v[d]) for d in dofs])
+        jt1_v = functools.reduce(add, [mul(jt1[d], v[d]) for d in dofs])
+        jt2_v = functools.reduce(add, [mul(jt2[d], v[d]) for d in dofs])
+
+        imp = _impedance(pr.solimp, dist)
+        K, Bc = _kb(pr.solref, pr.solimp)
+        mu2 = mul(mu, mu)
+        r_t = mul(mul(pr.invweight * 2.0 / s.impratio, mu2), add(1.0, mu2))
+        base_R = maximum((1.0 - imp) / maximum(imp, _MINVAL), _MINVAL)
+        pen_active = dist < 0
+        # facet order [t1+, t1-, t2+, t2-]; the -facet reuses mu*jt (IEEE:
+        # a + (-x) == a - x), exactly as the JAX emitter does
+        base0 = neg(mul(mul(imp, K), dist))
+        R = maximum(base_R * materialize(r_t, base_R), _MINVAL)
+        D = where(pen_active, 1.0 / R, 0.0)
+        for jt, jtv in ((jt1, jt1_v), (jt2, jt2_v)):
+            mujt = {d: mul(mu, jt[d]) for d in dofs}
+            mujtv = mul(mu, jtv)
+            for pos_facet in (True, False):
+                if pos_facet:
+                    J = {d: add(jn[d], mujt[d]) for d in dofs}
+                    jvel = add(jn_v, mujtv)
+                else:
+                    J = {d: sub(jn[d], mujt[d]) for d in dofs}
+                    jvel = sub(jn_v, mujtv)
+                aref = sub(base0, mul(Bc, jvel))
+                rows_con.append(_Row(J=J, aref=aref, D=D, R=R, floss=0.0, fric=False))
+
+    # ---- dof friction rows (static D/R) ----
+    rows_fric = []
+    for d in s.dof_frictional:
+        imp = _impedance(tuple(s.dof_solimp[d]), 0.0)  # static float
+        K, Bc = _kb(tuple(s.dof_solref[d]), tuple(s.dof_solimp[d]))
+        R = max(max((1.0 - imp) / max(imp, _MINVAL), _MINVAL)
+                * float(s.dof_invweight0[d]), _MINVAL)
+        rows_fric.append(
+            _Row(
+                J={d: 1.0},
+                aref=mul(-Bc, v[d]),
+                D=1.0 / R,
+                R=R,
+                floss=float(s.dof_frictionloss[d]),
+                fric=True,
+            )
+        )
+
+    # ---- joint limit rows ----
+    rows_lim = []
+    for j in s.lim_joints:
+        qa, d = s.jnt_qposadr[j], s.jnt_dofadr[j]
+        lo, hi = float(s.jnt_range[j][0]), float(s.jnt_range[j][1])
+        dist_lo = sub(q[qa], lo)
+        dist_hi = sub(hi, q[qa])
+        lower = materialize(dist_lo, v[0]) < materialize(dist_hi, v[0])
+        side = where(lower, 1.0, -1.0)
+        pos = where(
+            lower, materialize(dist_lo, side), materialize(dist_hi, side)
+        ) - float(s.jnt_margin[j])
+        imp = _impedance(tuple(s.jnt_solimp[j]), pos)
+        K, Bc = _kb(tuple(s.jnt_solref[j]), tuple(s.jnt_solimp[j]))
+        jvel = mul(side, v[d])
+        aref = sub(mul(-imp * K, pos), mul(Bc, jvel))
+        R = maximum(
+            maximum((1.0 - imp) / maximum(imp, _MINVAL), _MINVAL)
+            * float(s.dof_invweight0[d]),
+            _MINVAL,
+        )
+        D = where(pos < 0, 1.0 / R, 0.0)
+        rows_lim.append(_Row(J={d: side}, aref=aref, D=D, R=R, floss=0.0, fric=False))
+
+    rows = rows_fric + rows_lim + rows_con
+    qacc = _emit_newton(s, M, qacc_smooth, rows, v)
+
+    return dict(
+        qacc=qacc,
+        qacc_smooth=qacc_smooth,
+        xpos=xpos,
+        xquat=xquat,
+        cvel=cvel,
+        com_root=com_root,
+        qfrc_actuator=qfrc_act,
+        con_dist=con_dist,
+        con_pos=con_pos,
+        sites=[
+            vadd3(
+                xpos[s.site_bodyid[i]],
+                qrot([float(x) for x in s.site_pos[i]], xquat[s.site_bodyid[i]]),
+            )
+            for i in range(s.nsite)
+        ],
+    )
+
+
+# ---------------------------------------------------------------------------
+# sparse LDL^T over the kinematic-tree pattern (reverse elimination)
+# ---------------------------------------------------------------------------
+
+
+def _ldl_factor_dict(s: _Static, M: Dict[Tuple[int, int], object], pattern):
+    """Factor M = L^T D L (L unit lower, entries only on ``pattern``)."""
+    A = dict(M)
+    L: Dict[int, Dict[int, object]] = {}
+    D = [None] * s.nv
+    for k in reversed(range(s.nv)):
+        d = A[(k, k)]
+        D[k] = d
+        inv_d = 1.0 / d
+        ancs = [i for i in range(k) if pattern[k, i]]
+        c = {i: mul(A[(k, i)], inv_d) for i in ancs}
+        for i in ancs:
+            for jj in ancs:
+                if jj <= i:
+                    A[(i, jj)] = sub(A[(i, jj)], mul(c[i], A[(k, jj)]))
+        L[k] = c
+    return L, D
+
+
+def _ldl_solve_fac(s: _Static, L, D, b, pattern):
+    """Solve (L^T D L) x = b given the factor."""
+    nv = s.nv
+    y = [None] * nv
+    for i in reversed(range(nv)):
+        acc = b[i]
+        for k in range(i + 1, nv):
+            if pattern[k, i]:
+                acc = sub(acc, mul(L[k][i], y[k]))
+        y[i] = acc
+    z = [mul(y[k], 1.0 / D[k]) for k in range(nv)]
+    x = [None] * nv
+    for k in range(nv):
+        acc = z[k]
+        for i in range(k):
+            if pattern[k, i]:
+                acc = sub(acc, mul(L[k][i], x[i]))
+        x[k] = acc
+    return x
+
+
+def _ldl_solve_dict(s: _Static, M, b, pattern=None):
+    pattern = s.anc if pattern is None else pattern
+    L, D = _ldl_factor_dict(s, M, pattern)
+    return _ldl_solve_fac(s, L, D, b, pattern)
+
+
+def _sym_mv(s: _Static, M: Dict[Tuple[int, int], object], x):
+    """Symmetric sparse matvec over the ancestor pattern."""
+    out = [0.0] * s.nv
+    for (j, k), val in M.items():
+        out[j] = fma(out[j], val, x[k])
+        if j != k:
+            out[k] = fma(out[k], val, x[j])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Newton solve with exact line search (solver.py semantics)
+# ---------------------------------------------------------------------------
+
+
+def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
+    x = list(qacc_smooth)
+    nr = len(rows)
+    if nr == 0:
+        return x
+    ref = None
+    for val in x:
+        if not _c(val):
+            ref = val
+            break
+
+    for _ in range(max(s.solver_iterations, 1)):
+        jar = []
+        for r in rows:
+            acc = neg(r.aref)
+            for d, jv in r.J.items():
+                acc = fma(acc, jv, x[d])
+            jar.append(acc)
+
+        # per-row force + quadratic-zone mask
+        force, quadw = [], []
+        for r, ja in zip(rows, jar):
+            ja_t = materialize(ja, ref)
+            if r.fric:
+                thresh = r.floss * r.R  # static for friction rows
+                quad = abs_(ja_t) <= thresh
+                f = where(quad, -r.D * ja_t, -sign(ja_t) * r.floss)
+            else:
+                quad = ja_t < 0
+                f = where(quad, -materialize(r.D, ref) * ja_t, 0.0)
+            force.append(f)
+            quadw.append(where(quad, materialize(r.D, ref), 0.0))
+
+        dx0 = [sub(x[d], qacc_smooth[d]) for d in range(s.nv)]
+        ma = _sym_mv(s, M, dx0)
+        grad = list(ma)
+        for r, f in zip(rows, force):
+            for d, jv in r.J.items():
+                grad[d] = sub(grad[d], mul(jv, f))
+
+        # Hessian on the row-coupling pattern s.hess
+        H = {
+            (j, k): M.get((j, k), 0.0)
+            for j in range(s.nv)
+            for k in range(j + 1)
+            if s.hess[j, k]
+        }
+        for r, w in zip(rows, quadw):
+            dofs = list(r.J.keys())
+            for a_i, d1 in enumerate(dofs):
+                for d2 in dofs[: a_i + 1]:
+                    hi, lo = (d1, d2) if d1 >= d2 else (d2, d1)
+                    H[(hi, lo)] = fma(H[(hi, lo)], mul(w, r.J[d1]), r.J[d2])
+        dx = [neg(t) for t in _ldl_solve_dict(s, H, grad, pattern=s.hess)]
+
+        # ---- exact line search (solver.py:97-139), one-sided rows stacked ----
+        jv_rows = []
+        for r in rows:
+            acc = 0.0
+            for d, jval in r.J.items():
+                acc = fma(acc, jval, dx[d])
+            jv_rows.append(acc)
+        mdx = _sym_mv(s, M, dx)
+        g0 = functools.reduce(add, [mul(dx[d], ma[d]) for d in range(s.nv)])
+        h0 = maximum(
+            materialize(
+                functools.reduce(add, [mul(dx[d], mdx[d]) for d in range(s.nv)]),
+                ref,
+            ),
+            1e-12,
+        )
+        g0 = materialize(g0, ref)
+
+        os_rows = [i for i, r in enumerate(rows) if not r.fric]
+        fr_rows = [i for i, r in enumerate(rows) if r.fric]
+        jar_os = stack_rows([jar[i] for i in os_rows], ref)
+        jv_os = stack_rows([jv_rows[i] for i in os_rows], ref)
+        D_os = stack_rows([rows[i].D for i in os_rows], ref)
+        jar_fr = [jar[i] for i in fr_rows]
+        jv_fr = [jv_rows[i] for i in fr_rows]
+
+        def dphi(alpha):
+            acc = os_dphi(D_os, jar_os, jv_os, alpha)
+            for i, (ja, jv) in enumerate(zip(jar_fr, jv_fr)):
+                r = rows[fr_rows[i]]
+                dja = mul(r.D, add(ja, mul(alpha, jv)))
+                sval = clip(materialize(dja, ref), -r.floss, r.floss)
+                acc = acc + sval * materialize(jv, ref)
+            return g0 + alpha * h0 + acc
+
+        def expand(i, carry):
+            # grow until phi'(hi) > 0
+            (hi,) = carry
+            return [where(dphi(hi) <= 0, hi * 4.0, hi)]
+
+        (hi,) = fori_loop(LS_EXPAND_ITERS, expand, [full_like(ref, 1.0)])
+        lo = full_like(hi, 0.0)
+        f_lo = dphi(lo)
+        f_hi = dphi(hi)
+
+        def illinois(i, carry):
+            lo, f_lo, hi, f_hi, side = carry
+            denom = f_hi - f_lo
+            denom = where(abs_(denom) < 1e-30, 1e-30, denom)
+            mid = hi - f_hi * (hi - lo) / denom
+            mid = clip(mid, lo, hi)
+            fm = dphi(mid)
+            take_lo = fm <= 0  # root in [mid, hi]
+            new_lo = where(take_lo, mid, lo)
+            new_flo = where(take_lo, fm, f_lo)
+            new_hi = where(take_lo, hi, mid)
+            new_fhi = where(take_lo, f_hi, fm)
+            # Illinois: same-side repeat halves the opposite f value
+            rep_lo = take_lo & (side == 1)
+            rep_hi = (~take_lo) & (side == -1)
+            new_fhi = where(rep_lo, new_fhi * 0.5, new_fhi)
+            new_flo = where(rep_hi, new_flo * 0.5, new_flo)
+            new_side = where(take_lo, 1, -1)
+            return [new_lo, new_flo, new_hi, new_fhi, new_side]
+
+        lo, _, hi, _, _ = fori_loop(
+            LS_ILLINOIS_ITERS, illinois, [lo, f_lo, hi, f_hi, int_zeros_like(hi)]
+        )
+        # final exact secant on the segment-local bracket
+        f_lo = dphi(lo)
+        f_hi = dphi(hi)
+        slope = maximum((f_hi - f_lo) / maximum(hi - lo, 1e-30), 1e-12)
+        alpha = maximum(lo - f_lo / slope, 0.0)
+
+        x = [add(x[d], mul(alpha, dx[d])) for d in range(s.nv)]
+
+    return x
+
+
+# ---------------------------------------------------------------------------
+# semi-implicit Euler (integrate.py semantics)
+# ---------------------------------------------------------------------------
+
+
+def _emit_integrate(s: _Static, q, v, qacc):
+    dt = s.timestep
+    v2 = [add(v[d], mul(dt, qacc[d])) for d in range(s.nv)]
+    q2 = list(q)
+    for j in range(s.njnt):
+        qa, d = s.jnt_qposadr[j], s.jnt_dofadr[j]
+        if s.jnt_type[j] == JNT_HINGE:
+            q2[qa] = add(q[qa], mul(dt, v2[d]))
+        else:  # free joint
+            for i in range(3):
+                q2[qa + i] = add(q[qa + i], mul(dt, v2[d + i]))
+            # quat_integrate: body-frame omega exponential map
+            om = [v2[d + 3], v2[d + 4], v2[d + 5]]
+            norm = sqrt(vdot3(om, om))
+            axis_den = where(norm < 1e-12, 1.0, norm)
+            axis = [om[i] / axis_den for i in range(3)]
+            half = 0.5 * norm * dt
+            ch, sh = cos(half), sin(half)
+            dq = [ch, axis[0] * sh, axis[1] * sh, axis[2] * sh]
+            quat = [q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6]]
+            out = qmul(quat, dq)
+            on = rsqrt(
+                add(
+                    add(mul(out[0], out[0]), mul(out[1], out[1])),
+                    add(mul(out[2], out[2]), mul(out[3], out[3])),
+                )
+            )
+            for i in range(4):
+                q2[qa + 3 + i] = mul(out[i], on)
+    return q2, v2
+
+
+@with_cse
+def _emit_substeps(s: _Static, q, v, ctrl, dr, n_substeps: int):
+    """All-but-last substeps as a loop of (forward + integrate), then the
+    final forward. Returns (q, v, fw): the state BEFORE the final
+    integrate and the last forward pass."""
+    ref = q[0]
+    if n_substeps > 1:
+        def body(_, carry):
+            ql, vl = carry[: s.nq], carry[s.nq:]
+            fw = _emit_forward(s, ql, vl, ctrl, dr)
+            q2, v2 = _emit_integrate(s, ql, vl, fw["qacc"])
+            return [materialize(t, ref) for t in q2 + v2]
+
+        carry = fori_loop(
+            n_substeps - 1, body, [materialize(t, ref) for t in list(q) + list(v)]
+        )
+        q, v = carry[: s.nq], carry[s.nq:]
+
+    fw = _emit_forward(s, q, v, ctrl, dr)
+    return q, v, fw
+
+
+def _link_velocities(s: _Static, fw):
+    """World-frame per-link velocities from the forward caches: ang =
+    cvel_ang, vel = cvel_lin + ang x (xpos - com_root), world dropped."""
+    xd_ang, xd_vel = [], []
+    for b in range(1, s.nbody):
+        ang, lin = fw["cvel"][b]
+        off = vsub3(fw["xpos"][b], fw["com_root"])
+        xd_ang.append(ang)
+        xd_vel.append(vadd3(lin, vcross3(ang, off)))
+    return xd_ang, xd_vel
+
+
+def dr_inputs(m: RobotModel, s: _Static, B: int, device=None) -> Dict[str, torch.Tensor]:
+    """Per-env parameter rows ``name -> (B, n)`` float32 from the (possibly
+    DR-batched) model leaves; unbatched leaves are broadcast over the env
+    batch. Batched-ness is detected by rank, as in the JAX package."""
+
+    def rows(x, unbatched_ndim, n):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        if x.ndim == unbatched_ndim + 1:  # leading env axis present
+            return x.reshape(x.shape[0], n)
+        return x.reshape(n)[None].expand(B, n)
+
+    gain = torch.as_tensor(m.actuator_gainprm, dtype=torch.float32, device=device)
+    bias = torch.as_tensor(m.actuator_biasprm, dtype=torch.float32, device=device)
+    out = {
+        "mass": rows(m.body_mass, 1, s.nbody),
+        "inertia": rows(m.body_inertia, 2, s.nbody * 3),
+        "ipos": rows(m.body_ipos, 2, s.nbody * 3),
+        "gain0": rows(gain[..., 0], 1, s.nu),
+        "bias1": rows(bias[..., 1], 1, s.nu),
+        "bias2": rows(bias[..., 2], 1, s.nu),
+    }
+    # per-pair combined slide friction = max of the two geoms
+    fr = torch.as_tensor(m.geom_friction, dtype=torch.float32, device=device)
+    gf = rows(fr[..., 0], 1, len(m.geom_bodyid))
+    out["pair_mu"] = torch.stack(
+        [torch.maximum(gf[:, pr.geom1], gf[:, pr.geom2]) for pr in s.pairs], dim=1
+    )
+    return out
+
+
+def dr_rows_block(s: _Static, dr: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The (ndr, B) row-major block of the DR rows, in ``s.dr_rows`` order."""
+    parts = [
+        dr[name].reshape(dr[name].shape[0], n)
+        for name, (r0, n) in sorted(s.dr_rows.items(), key=lambda kv: kv[1][0])
+    ]
+    return torch.cat(parts, dim=1).t().contiguous()

@@ -1,0 +1,163 @@
+"""Where one ``FastLane.unroll`` spends its time on the card.
+
+    python -m puppax_torch.tools.profile_unroll [--seed 0] [--table PATH]
+
+At the default training configuration (``puppax_torch/configs``: 4096
+envs, DR on, 5 substeps, T=20, random policy weights from ``--seed``) it
+prints:
+
+- each phase of the unroll timed alone, with CUDA events and on the host
+  clock: ``draw_noise_block`` (T steps of env noise), one ``policy_rows``
+  apply, one K3 ``wrapped_step`` launch, ``carry_from_state``;
+- the whole unroll, unprofiled, timed with CUDA events (median of 3);
+- one unroll under ``torch.profiler``: its CUDA-event window, the device's
+  busy time in that window (the union of every device activity interval of
+  the trace) and the idle share ``1 - busy / window``, plus the
+  profiler's table of device time by kernel (also written to ``--table``).
+
+The profiler's host overhead stretches the profiled window, so its idle
+share is an upper bound on the unprofiled unroll's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+
+def _event_ms(fn, reps: int) -> float:
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _host_ms(fn, reps: int) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / reps
+
+
+def device_busy_us(events) -> float:
+    """Length of the union of the device activity intervals of a trace."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in events if e.device_type == DeviceType.CUDA
+    )
+    busy, cur_start, cur_end = 0.0, None, None
+    for s, e in spans:
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    return busy
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--table", default=None, help="write the profiler table here")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
+    from puppax_torch.env import soa_env
+    from puppax_torch.env.domain_randomization import domain_randomize
+    from puppax_torch.env.pupper import PupperV3Env
+    from puppax_torch.env.rollout import FastLane
+    from puppax_torch.env.wrappers import wrap_for_training
+    from puppax_torch.train import networks, running_statistics
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_unroll: no CUDA device found")
+    device = torch.device("cuda", 0)
+    tc, dr_cfg = TrainConfig(), DomainRandomizationConfig()
+    B, T, L = tc.num_envs, tc.unroll_length, tc.episode_length
+    g = torch.Generator(device=device).manual_seed(args.seed)
+    env = PupperV3Env.from_config(EnvConfig(), device=device)
+    ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
+    wrapped = wrap_for_training(
+        env, L, randomization_fn=lambda m, gen, n: domain_randomize(m, gen, n, **ranges),
+        generator=g, num_envs=B,
+    )
+    nets = networks.make_ppo_networks(
+        env.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
+        tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
+    )
+    normalizer = running_statistics.init_state(env.observation_size, device=device)
+    params = (normalizer, nets.policy_network)
+    lane = FastLane(wrapped)
+    state = wrapped.reset(B, generator=g)
+    for _ in range(2):  # build the kernel, reach a state with contacts
+        state, _ = lane.unroll(state, params, generator=g, T=T)
+    torch.cuda.synchronize()
+
+    carry = lane.carry_from_state(state)
+    noise, _ = lane.draw_noise_block(g, B, T)
+    eps = torch.randn((env.action_size, B), generator=g, device=device)
+    apply = lane.policy_rows(normalizer, nets.policy_network)
+    r0, n = lane.es.env_rows["obs_history"]
+    obs = carry["env"][r0 : r0 + n]
+    with torch.no_grad():
+        act, _, _ = apply(obs, eps)
+    blocks = [carry["q"], carry["v"], act, carry["env"], noise[0].contiguous(),
+              carry["dr"], carry["first"], carry["wrap"]]
+
+    def phase(name, fn, reps):
+        print(f"{name}: {_event_ms(fn, reps):.3f} ms CUDA events, "
+              f"{_host_ms(fn, reps):.3f} ms host clock", flush=True)
+
+    phase(f"draw_noise_block T={T}", lambda: lane.draw_noise_block(g, B, T), 5)
+    with torch.no_grad():
+        phase("policy_rows", lambda: apply(obs, eps), 20)
+    phase("wrapped_step (K3)", lambda: soa_env.wrapped_step(
+        lane.s, lane.es, lane.n_substeps, L, *blocks), 20)
+    phase("carry_from_state", lambda: lane.carry_from_state(state), 5)
+    unroll = [_event_ms(lambda: lane.unroll(state, params, generator=g, T=T), 1)
+              for _ in range(3)]
+    print(f"unroll T={T} x {B} envs, unprofiled: median {statistics.median(unroll):.3f} ms "
+          f"CUDA events (runs {unroll})", flush=True)
+
+    for _ in ("warm-up", "measured"):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            lane.unroll(state, params, generator=g, T=T)
+            end.record()
+            torch.cuda.synchronize()
+    window = start.elapsed_time(end)
+    busy = device_busy_us(prof.events()) / 1000.0
+    if busy == 0.0:
+        raise SystemExit("profile_unroll: the trace holds no device activity")
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
+    if args.table:
+        with open(args.table, "w") as f:
+            f.write(table)
+    print(table)
+    print(f"profiled unroll: window {window:.3f} ms CUDA events, device busy {busy:.3f} ms, "
+          f"idle share {1.0 - busy / window:.3f}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

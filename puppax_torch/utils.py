@@ -1,0 +1,53 @@
+"""Latency buffers, the latency draw, and the activation map.
+
+Counterpart of ``puppax/utils.py:40-85``, batched over a leading env axis.
+The lag column is drawn as ``jax.random.choice(p=...)`` draws its index —
+an inverse CDF on one uniform — but from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def circular_buffer_push_front(buffer: torch.Tensor, new_value: torch.Tensor) -> torch.Tensor:
+    """Shift (..., dim, depth) one column right; write new_value at [..., 0]."""
+    return torch.cat([new_value[..., None], buffer[..., :-1]], dim=-1)
+
+
+def latency_onehot(
+    generator: torch.Generator, distribution: torch.Tensor, batch: int
+) -> torch.Tensor:
+    """(batch, depth) one-hot lag columns: the index ``choice`` would pick,
+    cdf = cumsum(p), index = searchsorted(cdf, cdf[-1] * (1 - u))."""
+    cdf = torch.cumsum(distribution, 0)
+    u = torch.rand(batch, generator=generator, device=distribution.device,
+                   dtype=distribution.dtype)
+    ind = torch.searchsorted(cdf, cdf[-1] * (1.0 - u))
+    depth = distribution.shape[0]
+    return F.one_hot(ind.clamp_max(depth - 1), depth).to(distribution.dtype)
+
+
+def apply_lagged_value(
+    buffer_newest_first: torch.Tensor, new_value: torch.Tensor, onehot: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Push new_value, then select the lag column by the one-hot weights
+    (0/1 weights select exactly). buffer (..., dim, depth), onehot
+    (..., depth). Returns (sampled (..., dim), new buffer)."""
+    buf = circular_buffer_push_front(buffer_newest_first, new_value)
+    sampled = torch.sum(buf * onehot[..., None, :], dim=-1)
+    return sampled, buf
+
+
+def activation_fn_map(activation_name: str):
+    """Name -> torch activation (KeyError on unknown names)."""
+    return {
+        "relu": F.relu,
+        "sigmoid": torch.sigmoid,
+        "elu": F.elu,
+        "tanh": torch.tanh,
+        "softmax": lambda x: F.softmax(x, dim=-1),
+    }[activation_name.lower()]

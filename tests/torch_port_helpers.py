@@ -1,0 +1,182 @@
+"""Shared set-up of the puppax_torch parity tests.
+
+Every test of the port builds the same small configuration in both
+packages: one physics substep per env step (the ``tests/test_soa_env.py``
+trick that keeps the JAX emission's eager evaluation short), pitch/roll
+commands on so the desired-orientation rows are not constant, and a batch
+of ``B`` envs. Inputs are drawn with numpy from a seed and handed to both
+packages. The module imports no JAX at import time, so the GPU tests
+(``tests/test_torch_cuda.py``) can use it on a host without JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+B = 8
+EPISODE_LENGTH = 50
+PHYSICS_DT = 0.004
+
+
+def env_kwargs(n_substeps: int = 1) -> dict:
+    """Constructor arguments shared by the JAX env and the port's env."""
+    return dict(
+        action_scale=0.75,
+        observation_history=2,
+        maximum_pitch_command=10.0,
+        maximum_roll_command=10.0,
+        environment_timestep=PHYSICS_DT * n_substeps,
+        physics_timestep=PHYSICS_DT,
+    )
+
+
+def jax_env(n_substeps: int = 1):
+    from puppax.configs import get_config
+    from puppax.env import PupperV3Env
+
+    return PupperV3Env(path=None, reward_config=get_config(), **env_kwargs(n_substeps))
+
+
+def torch_env(n_substeps: int = 1, device=None):
+    from puppax_torch.env.pupper import PupperV3Env
+
+    return PupperV3Env(device=device, **env_kwargs(n_substeps))
+
+
+def jax_dr_model(env, seed: int = 5, num_envs: int = B):
+    """``puppax``'s domain-randomized model batched over ``num_envs``."""
+    import jax
+
+    from puppax.env.domain_randomization import domain_randomize
+
+    keys = jax.random.split(jax.random.PRNGKey(seed), num_envs)
+    model, _ = domain_randomize(env.model, keys)
+    return model
+
+
+def dr_leaves(jax_model) -> dict:
+    """The six DR leaves of a batched JAX model as numpy."""
+    from puppax_torch.model.mjcf import DR_LEAVES
+
+    return {k: np.array(getattr(jax_model, k)) for k in DR_LEAVES}
+
+
+def random_states(model, rng: np.random.RandomState, n: int = B):
+    """Plausible (qpos, qvel, ctrl) rows: the even envs low enough for
+    their feet to touch the floor, the odd ones airborne."""
+    key_q = np.tile(np.asarray(model.key_qpos, np.float64), (n, 1))
+    qpos = key_q.copy()
+    qpos[:, 2] = np.where(np.arange(n) % 2 == 0, rng.uniform(0.10, 0.16, n),
+                          rng.uniform(0.17, 0.35, n))
+    qpos[:, 0:2] += rng.uniform(-0.5, 0.5, (n, 2))
+    quat = rng.normal(0, 1, (n, 4)) * 0.1 + np.array([1.0, 0, 0, 0])
+    qpos[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    qpos[:, 7:] += rng.uniform(-0.3, 0.3, (n, 12))
+    qvel = rng.uniform(-1.0, 1.0, (n, 18))
+    ctrl = key_q[:, 7:] + rng.uniform(-0.3, 0.3, (n, 12))
+    f32 = np.float32
+    return qpos.astype(f32), qvel.astype(f32), ctrl.astype(f32)
+
+
+def wrapped_step_blocks(s, es, model, dr_rows: np.ndarray, rng, n: int = B,
+                        episode_length: int = EPISODE_LENGTH):
+    """The 8 ``(rows, n)`` float32 input blocks of one wrapped step
+    (q, v, act, env, noise, dr, first, wrap), random as in
+    ``tests/test_soa_env.py``. Env 1 enters with ``prev_done = 1`` (the
+    AutoReset prologue), envs 2 and 3 at ``steps = L - 1`` (truncation)."""
+    f32 = np.float32
+    qpos, qvel, _ = random_states(model, rng, n)
+    act = rng.uniform(-1, 1, (n, 12)).astype(f32)
+
+    env = np.zeros((es.nenv_rows, n), f32)
+
+    def put(block, rows, name, x):
+        r0, k = rows[name]
+        block[r0 : r0 + k] = np.asarray(x, f32).reshape(n, k).T
+
+    put(env, es.env_rows, "action_buffer", rng.uniform(-1, 1, (n, 12 * es.Da)))
+    put(env, es.env_rows, "imu_buffer", rng.uniform(-1, 1, (n, 6 * es.Di)))
+    put(env, es.env_rows, "command", rng.uniform(-0.7, 0.7, (n, 3)))
+    put(env, es.env_rows, "desired_z", np.tile([0.05, -0.02, 0.99], (n, 1)))
+    put(env, es.env_rows, "last_act", rng.uniform(-1, 1, (n, 12)))
+    put(env, es.env_rows, "last_vel", rng.uniform(-2, 2, (n, 12)))
+    put(env, es.env_rows, "feet_air_time", rng.uniform(0, 0.3, (n, 4)))
+    put(env, es.env_rows, "last_contact", rng.rand(n, 4) < 0.5)
+    put(env, es.env_rows, "step", rng.randint(0, 600, n))
+    put(env, es.env_rows, "obs_history", rng.uniform(-1, 1, (n, es.hist)))
+
+    noise = np.zeros((es.nnoise_rows, n), f32)
+    put(noise, es.noise_rows, "kick",
+        rng.uniform(-1, 1, (n, 2)) * (rng.rand(n, 1) < 0.3))
+    put(noise, es.noise_rows, "act_lat", np.eye(es.Da)[rng.randint(es.Da, size=n)])
+    put(noise, es.noise_rows, "imu_lat", np.eye(es.Di)[rng.randint(es.Di, size=n)])
+    put(noise, es.noise_rows, "ang_vel_noise", rng.uniform(-0.3, 0.3, (n, 3)))
+    put(noise, es.noise_rows, "gravity_noise", rng.uniform(-0.1, 0.1, (n, 3)))
+    put(noise, es.noise_rows, "motor_ang_noise", rng.uniform(-0.1, 0.1, (n, 12)))
+    put(noise, es.noise_rows, "last_action_noise", rng.uniform(-0.01, 0.01, (n, 12)))
+    put(noise, es.noise_rows, "resample_cmd", rng.uniform(-0.7, 0.7, (n, 3)))
+    put(noise, es.noise_rows, "resample_ori", np.tile([-0.03, 0.06, 0.98], (n, 1)))
+
+    fq, fv, _ = random_states(model, rng, n)
+    first = np.concatenate(
+        [fq.T, fv.T, rng.uniform(-1, 1, (es.hist, n))], 0
+    ).astype(f32)
+    steps = rng.randint(0, episode_length - 2, n).astype(f32)
+    steps[2:4] = episode_length - 1
+    prev_done = np.zeros(n, f32)
+    prev_done[1] = 1.0
+    wrap = np.stack([steps, prev_done]).astype(f32)
+    return [qpos.T.copy(), qvel.T.copy(), act.T.copy(), env, noise,
+            np.ascontiguousarray(dr_rows, f32), first, wrap]
+
+
+def jax_dr_rows(s, model, n: int = B) -> np.ndarray:
+    """``puppax``'s DR rows of ``model`` as one ``(ndr, n)`` block."""
+    from puppax.physics import soa
+
+    dr = soa.dr_inputs(model, s, n)
+    parts = [
+        np.asarray(dr[name]).reshape(n, k)
+        for name, (r0, k) in sorted(s.dr_rows.items(), key=lambda kv: kv[1][0])
+    ]
+    return np.concatenate(parts, 1).T.astype(np.float32)
+
+
+def to_torch(blocks):
+    return [torch.from_numpy(np.ascontiguousarray(b)) for b in blocks]
+
+
+def assert_wrapped_outputs_close(got, want, s, es, aux_rows, what: str):
+    """Hold the 5 output blocks (q, v, env, wrap, aux), ``(rows, n)``
+    numpy, at the tolerances of ``tests/test_soa_env.py:131-191``."""
+    g_q, g_v, g_env, g_wrap, g_aux = [np.asarray(x, np.float64) for x in got]
+    w_q, w_v, w_env, w_wrap, w_aux = [np.asarray(x, np.float64) for x in want]
+    np.testing.assert_allclose(g_q, w_q, atol=5e-5, err_msg=f"{what}: qpos")
+    scale_v = np.maximum(1.0, np.abs(w_v).max(axis=0, keepdims=True))
+    np.testing.assert_allclose(g_v / scale_v, w_v / scale_v, atol=5e-4,
+                               err_msg=f"{what}: scaled qvel")
+    tol = {
+        "obs_history": 2e-4, "action_buffer": 1e-6, "imu_buffer": 1e-4,
+        "command": 1e-6, "desired_z": 1e-6, "last_act": 1e-6,
+        "last_vel": 5e-4, "feet_air_time": 1e-5, "last_contact": 0.0,
+        "step": 0.0,
+    }
+    for name, (r0, k) in es.env_rows.items():
+        g, w = g_env[r0 : r0 + k], w_env[r0 : r0 + k]
+        if name == "last_vel":
+            g, w = g / scale_v, w / scale_v
+        np.testing.assert_allclose(g, w, atol=tol[name], rtol=0,
+                                   err_msg=f"{what}: env rows {name}")
+    np.testing.assert_array_equal(g_wrap, w_wrap, err_msg=f"{what}: steps/done")
+    for name, (r0, k) in aux_rows.items():
+        g, w = g_aux[r0 : r0 + k], w_aux[r0 : r0 + k]
+        if name in ("done", "truncation"):
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}: aux {name}")
+        elif name == "rewards":
+            bad = np.abs(g - w) > 2e-4 * np.maximum(1.0, np.abs(w))
+            assert not bad.any(), (
+                f"{what}: reward terms {np.argwhere(bad).tolist()}: {g[bad]} vs {w[bad]}"
+            )
+        else:
+            np.testing.assert_allclose(g, w, atol=2e-4, err_msg=f"{what}: aux {name}")
