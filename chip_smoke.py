@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 What it runs, at the defaults of ``puppax_torch/configs/experiment.py``
-(the flat Pupper v3, 4096 envs with domain randomization, 5 physics
-substeps per env step, episode length 1000, unroll length 20, policy MLP
-4 x 128 elu; the weights are random, made from ``--seed``):
+(the flat Pupper v3, 4096 training envs with domain randomization, 5
+physics substeps per env step, episode length 1000, unroll length 20,
+batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
+value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the build of the wrapped env-step kernel (K3) from the checkout's
-   sources with nvcc for sm_90a, with its wall time and ptxas summary;
-3. kernel against plain: after a few kernel steps from reset, one wrapped
-   step through ``wrapped_step`` (the kernel) and ``wrapped_step_rows``
-   (its plain PyTorch version) on the same inputs, held at the parity
-   tolerances env by env; then both timed on those inputs;
-4. the main path: ``FastLane.unroll`` with T=20, three times after one
-   warm-up, timed with CUDA events, with the kernel's launch count read
-   over exactly those three unrolls;
-5. one JSON line per run of kernels and, last, the device JSON line.
+2. the builds of both kernels from the checkout's sources, in parallel nvcc
+   processes: the wrapped env step (K3) and the unwrapped env step (K2),
+   each with its generated lines, nvcc seconds and ptxas summary;
+3. K3 against its plain version at 4096 envs: after a few kernel steps
+   from a DR reset, one wrapped step through ``wrapped_step`` (the kernel)
+   and ``wrapped_step_rows`` (its plain PyTorch version) on the same
+   inputs, held at the parity tolerances env by env; then both timed;
+4. K2 against its plain version at the evaluator's shape: 128 envs of the
+   nominal model reset with their physics caches, a few K2 steps under a
+   random policy, then one ``env_step`` and one ``env_step_rows`` on the
+   same blocks, all four output blocks held env by env; K2 timed at 128 and
+   4096 envs, the plain version once;
+5. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
+   warm-up, timed with CUDA events, with K3's launches over those unrolls;
+6. the main path: ``ppo.train`` at the default configuration but for
+   491,520 env steps (3 training steps) and 2 evaluations, with its
+   checkpoint in a temporary directory; the launches of both kernels are
+   counted over exactly this call, and the run is checked (env steps, the
+   normalizer's count, finite losses, changed parameters, plausible eval
+   metrics, the checkpoint against the final state);
+7. a JSON line of both kernels (launches in the training run, error
+   against the plain version, times, the bound of the card) and, last, the
+   device JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is visible or when it is
@@ -28,18 +42,26 @@ run outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T_UNROLL = 20
 N_UNROLLS = 3
-WARM_STEPS = 5  # kernel steps from reset before the kernel/plain check
-MAX_DIFFERING_ENVS = 4
+WARM_STEPS = 5  # kernel steps from reset before each kernel/plain check
+MAX_DIFFERING_ENVS = 4  # of 4096 (K3)
+EVAL_ENVS = 128
+TRAIN_TIMESTEPS = 491_520  # 3 training steps of 256 x 20 x 32 env steps
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str):
@@ -68,56 +90,119 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_outputs(s, es, aux_rows, got, want):
-    """Hold the kernel's 5 output blocks against the plain version's at the
-    parity tolerances, env by env. Returns (per-block max error, list of
-    (env, what) for the envs that differ, overall max error)."""
+def bound_ms(ops_per_env: int, in_rows: int, out_rows: int, B: int):
+    """The least time the card could take for one step of ``B`` envs: the
+    larger of the float operations over the fp32 peak and the bytes (each
+    input row read once, each output row written once) over the HBM rate."""
+    t_ops = ops_per_env * B / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (in_rows + out_rows) * 4 * B / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _differing(names, got, want, tols):
+    """The envs whose outputs leave tolerance: [(env, what)], and the max
+    error per block. Fails on a NaN in either version."""
     import torch
 
-    names = ("q", "v", "env", "wrap", "aux")
     for name, g, w in zip(names, got, want):
         if not torch.isfinite(g).all():
             raise AssertionError(f"kernel output block {name} holds NaN/inf")
         if not torch.isfinite(w).all():
             raise AssertionError(f"plain output block {name} holds NaN/inf")
     err = {n: (g - w).abs() for n, g, w in zip(names, got, want)}
-    scale_v = want[1].abs().amax(0, keepdim=True).clamp_min(1.0)
-    tol_rows = {
-        "q": torch.full_like(got[0], 5e-5),
-        "v": 5e-4 * scale_v.expand_as(got[1]),
-        "env": torch.full_like(got[2], 1e-4),
-        "wrap": torch.zeros_like(got[3]),
-        "aux": torch.full_like(got[4], 2e-4),
-    }
-    tol_env = tol_rows["env"]
-    for name, tol in (("obs_history", 2e-4), ("action_buffer", 1e-6),
-                      ("command", 1e-6), ("desired_z", 1e-6), ("last_act", 1e-6),
-                      ("feet_air_time", 1e-5), ("last_contact", 0.0), ("step", 0.0)):
-        r0, n = es.env_rows[name]
-        tol_env[r0 : r0 + n] = tol
-    r0, n = es.env_rows["last_vel"]
-    tol_env[r0 : r0 + n] = 5e-4 * scale_v
-    tol_aux = tol_rows["aux"]
-    for name in ("done", "truncation"):
-        tol_aux[aux_rows[name][0]] = 0.0
-    r0, n = aux_rows["rewards"]
-    tol_aux[r0 : r0 + n] = 2e-4 * want[4][r0 : r0 + n].abs().clamp_min(1.0)
-
     differing = {}  # env -> the first comparison that failed
     for i, name in enumerate(names):
-        bad = err[name] > tol_rows[name]
+        bad = err[name] > tols[name]
         for b in torch.nonzero(bad.any(0)).flatten().tolist():
-            r = int(torch.argmax(err[name][:, b] - tol_rows[name][:, b]))
+            r = int(torch.argmax(err[name][:, b] - tols[name][:, b]))
             differing.setdefault(b, f"{name} row {r}: kernel {float(got[i][r, b])!r} "
                                     f"plain {float(want[i][r, b])!r}")
     per_block = {n: float(e.max()) for n, e in err.items()}
     return per_block, sorted(differing.items()), max(per_block.values())
 
 
+def _scaled(want_rows, tol):
+    return tol * want_rows.abs().amax(0, keepdim=True).clamp_min(1.0).expand_as(want_rows)
+
+
+def compare_outputs(s, es, aux_rows, got, want):
+    """Hold K3's 5 output blocks against the plain version's at the parity
+    tolerances, env by env. Returns (per-block max error, list of (env,
+    what) for the envs that differ, overall max error)."""
+    import torch
+
+    names = ("q", "v", "env", "wrap", "aux")
+    tols = {
+        "q": torch.full_like(got[0], 5e-5),
+        "v": _scaled(want[1], 5e-4),
+        "env": torch.full_like(got[2], 1e-4),
+        "wrap": torch.zeros_like(got[3]),
+        "aux": torch.full_like(got[4], 2e-4),
+    }
+    tol_env = tols["env"]
+    for name, tol in (("obs_history", 2e-4), ("action_buffer", 1e-6),
+                      ("command", 1e-6), ("desired_z", 1e-6), ("last_act", 1e-6),
+                      ("feet_air_time", 1e-5), ("last_contact", 0.0), ("step", 0.0)):
+        r0, n = es.env_rows[name]
+        tol_env[r0 : r0 + n] = tol
+    r0, n = es.env_rows["last_vel"]
+    tol_env[r0 : r0 + n] = _scaled(want[1], 5e-4)[:1].expand(n, -1)
+    tol_aux = tols["aux"]
+    for name in ("done", "truncation"):
+        tol_aux[aux_rows[name][0]] = 0.0
+    r0, n = aux_rows["rewards"]
+    tol_aux[r0 : r0 + n] = 2e-4 * want[4][r0 : r0 + n].abs().clamp_min(1.0)
+    return _differing(names, got, want, tols)
+
+
+def compare_env_outputs(s, es, got, want):
+    """Hold K2's 4 output blocks (q, v, caches, env_out) against the plain
+    version's, env by env: qpos and positions 5e-5; velocities,
+    accelerations and forces 5e-4 times max(1, the env's largest
+    magnitude); the env-out rows at ``tests/test_soa_env.py``'s tolerances."""
+    import torch
+
+    names = ("q", "v", "caches", "env_out")
+    tols = {
+        "q": torch.full_like(got[0], 5e-5),
+        "v": _scaled(want[1], 5e-4),
+        "caches": torch.full_like(got[2], 5e-5),
+        "env_out": torch.full_like(got[3], 1e-4),
+    }
+    for name in ("qacc", "xd_ang", "xd_vel", "qfrc_actuator"):
+        r0, n = s.cache_rows[name]
+        tols["caches"][r0 : r0 + n] = _scaled(want[2][r0 : r0 + n], 5e-4)
+    for name, tol in (("obs_history", 2e-4), ("reward", 2e-4), ("done", 0.0),
+                      ("action_buffer", 1e-6), ("imu_buffer", 1e-4), ("command", 1e-6),
+                      ("desired_z", 1e-6), ("feet_air_time", 1e-5), ("last_contact", 0.0),
+                      ("step", 0.0), ("total_dist", 1e-4)):
+        r0, n = es.out_rows[name]
+        tols["env_out"][r0 : r0 + n] = tol
+    r0, n = es.out_rows["rewards"]
+    tols["env_out"][r0 : r0 + n] = 2e-4 * want[3][r0 : r0 + n].abs().clamp_min(1.0)
+    return _differing(names, got, want, tols)
+
+
+class Phase:
+    """Prints a phase's wall time when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        print(f"== {self.name}", flush=True)
+
+    def __exit__(self, *exc):
+        print(f"== {self.name}: {time.perf_counter() - self.t0:.1f} s wall", flush=True)
+        return False
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -135,7 +220,7 @@ def main():
     from puppax_torch.env.rollout import FastLane
     from puppax_torch.env.wrappers import wrap_for_training
     from puppax_torch.kernels import build
-    from puppax_torch.train import networks, running_statistics
+    from puppax_torch.train import checkpoint, networks, ppo, running_statistics
 
     smi = nvidia_smi_line()
     print(smi)
@@ -151,11 +236,12 @@ def main():
     g = torch.Generator(device=device).manual_seed(args.seed)
     env = PupperV3Env.from_config(env_cfg, device=device)
     ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
-    wrapped = wrap_for_training(
-        env, tc.episode_length,
-        randomization_fn=lambda m, gen, n: domain_randomize(m, gen, n, **ranges),
-        generator=g, num_envs=B,
-    )
+
+    def randomization_fn(m, gen, n):
+        return domain_randomize(m, gen, n, **ranges)
+
+    wrapped = wrap_for_training(env, tc.episode_length, randomization_fn=randomization_fn,
+                                generator=g, num_envs=B)
     nets = networks.make_ppo_networks(
         env.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
         tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
@@ -166,120 +252,265 @@ def main():
     s, es, n_sub, L = env._s, env._es, env._n_substeps, tc.episode_length
     print(f"config: envs {B}, substeps {n_sub}, episode {L}, unroll {T_UNROLL}, "
           f"obs {env.observation_size}, policy {tc.policy_hidden_layer_sizes}, "
-          f"value {tc.value_hidden_layer_sizes} (built, not run), DR on", flush=True)
+          f"value {tc.value_hidden_layer_sizes}, batch {tc.batch_size} x "
+          f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
+          f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build ----
-    t0 = time.perf_counter()
-    build.wrapped_step_library(s, es, n_sub, L)
-    info = build.last_build
-    print(f"build: K3 wrapped_step, {info['lines']} generated lines, generate "
-          f"{info['generate_seconds']:.1f} s, nvcc {info['compile_seconds']:.1f} s, "
-          f"cached {info['cached']}, wall {time.perf_counter() - t0:.1f} s", flush=True)
-    log_path = os.path.join(info["dir"], "build.log")
-    if os.path.exists(log_path):
-        for line in open(log_path).read().splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                print("  ptxas:" + line.split(":", 1)[-1].rstrip())
+    # ---- build both kernels, in parallel nvcc processes ----
+    with Phase("build K3 + K2"):
+        build.build_in_parallel(lambda: build.wrapped_step_library(s, es, n_sub, L),
+                                lambda: build.env_step_library(s, es, n_sub))
+        for kname, label in (("wrapped_step", "K3"), ("env_step", "K2")):
+            info = build.last_build[kname]
+            print(f"build: {label} {kname}, {info['lines']} generated lines, "
+                  f"{info['ops_per_env']} float ops per env, generate "
+                  f"{info['generate_seconds']:.1f} s, nvcc {info['compile_seconds']:.1f} s, "
+                  f"cached {info['cached']}", flush=True)
+            log_path = os.path.join(info["dir"], "build.log")
+            for line in open(log_path).read().splitlines():
+                if "registers" in line or "spill" in line or "stack frame" in line:
+                    print("  ptxas:" + line.split(":", 1)[-1].rstrip())
 
-    # ---- kernel against plain ----
-    state = wrapped.reset(B, generator=g)
-    state, _ = lane.unroll(state, params, generator=g, T=WARM_STEPS)
-    carry = lane.carry_from_state(state)
-    noise, _ = lane.draw_noise_block(g, B, 1)
-    eps = torch.randn((env.action_size, B), generator=g, device=device)
-    r0, n = es.env_rows["obs_history"]
-    with torch.no_grad():
-        act, _, _ = lane.policy_rows(normalizer, nets.policy_network)(
-            carry["env"][r0 : r0 + n], eps
-        )
-    blocks = [carry["q"], carry["v"], act, carry["env"], noise[0].contiguous(),
-              carry["dr"], carry["first"], carry["wrap"]]
-    got = soa_env.wrapped_step(s, es, n_sub, L, *blocks)
-    torch.cuda.synchronize()
-    want = soa_env.wrapped_step_rows(s, es, n_sub, L, *blocks)
-    torch.cuda.synchronize()
-    aux_rows = soa_env.aux_row_map(es)
-    per_block, differing, max_err = compare_outputs(s, es, aux_rows, got, want)
-    c0, cn = es.env_rows["last_contact"]
-    in_contact = int((got[2][c0 : c0 + cn] > 0.5).any(0).sum())
-    print(f"kernel vs plain at {B} envs after {WARM_STEPS} kernel steps "
-          f"({in_contact} envs with a foot on the floor): max abs err per block "
-          + json.dumps(per_block), flush=True)
-    for b, what in differing:
-        print(f"  env {b} differs: {what}")
-    if len(differing) > MAX_DIFFERING_ENVS:
-        raise AssertionError(f"{len(differing)} envs differ (limit {MAX_DIFFERING_ENVS})")
-    if in_contact == 0:
-        raise AssertionError("no env touches the floor: the contact path went unchecked")
-
-    def kernel_step():
-        soa_env.wrapped_step(s, es, n_sub, L, *blocks)
-
-    def plain_step():
-        soa_env.wrapped_step_rows(s, es, n_sub, L, *blocks)
-
-    plain_ms = [cuda_ms(plain_step, 1)]
-    kernel_ms = [cuda_ms(kernel_step, 20), cuda_ms(kernel_step, 20)]
-    plain_ms.append(cuda_ms(plain_step, 1))
-    print(f"step at {B} envs: kernel {statistics.median(kernel_ms):.4f} ms "
-          f"(runs {kernel_ms}), plain {statistics.median(plain_ms):.1f} ms (runs {plain_ms})",
-          flush=True)
-
-    # ---- the main path: FastLane.unroll, T=20 ----
-    state = wrapped.reset(B, generator=g)
-    state, _ = lane.unroll(state, params, generator=g, T=T_UNROLL)  # warm-up
-    torch.cuda.synchronize()
-    soa_env.wrapped_step.launches = 0
-    unroll_ms, datas = [], []
-    for _ in range(N_UNROLLS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, data = lane.unroll(state, params, generator=g, T=T_UNROLL)
-        end.record()
+    # ---- K3 against plain at 4096 envs ----
+    with Phase("K3 vs plain"):
+        state = wrapped.reset(B, generator=g)
+        state, _ = lane.unroll(state, params, generator=g, T=WARM_STEPS)
+        carry = lane.carry_from_state(state)
+        noise, _ = lane.draw_noise_block(g, B, 1)
+        eps = torch.randn((env.action_size, B), generator=g, device=device)
+        r0, n = es.env_rows["obs_history"]
+        with torch.no_grad():
+            act, _, _ = lane.policy_rows(normalizer, nets.policy_network)(
+                carry["env"][r0 : r0 + n], eps)
+        blocks = [carry["q"], carry["v"], act, carry["env"], noise[0].contiguous(),
+                  carry["dr"], carry["first"], carry["wrap"]]
+        got = soa_env.wrapped_step(s, es, n_sub, L, *blocks)
         torch.cuda.synchronize()
-        unroll_ms.append(start.elapsed_time(end))
-        datas.append(data)
-    launches = soa_env.wrapped_step.launches
-    med = statistics.median(unroll_ms)
-    print(f"unroll T={T_UNROLL} x {B} envs: median {med:.3f} ms (runs {unroll_ms}), "
-          f"{B * T_UNROLL / (med / 1000.0):.0f} env-steps/s", flush=True)
-    print(f"kernel launches in the {N_UNROLLS} unrolls: {launches}", flush=True)
-    if launches != N_UNROLLS * T_UNROLL:
-        raise AssertionError(f"expected {N_UNROLLS * T_UNROLL} kernel launches, got {launches}")
-    for data in datas:
-        if (data.observation.shape != (T_UNROLL, B, env.observation_size)
-                or data.action.shape != (T_UNROLL, B, env.action_size)):
-            raise AssertionError(f"unroll shapes {tuple(data.observation.shape)}, "
-                                 f"{tuple(data.action.shape)}")
-        for name, x in (("obs", data.observation), ("reward", data.reward),
-                        ("log_prob", data.policy_extras["log_prob"]),
-                        ("next_obs", data.next_observation)):
-            if not torch.isfinite(x).all():
-                raise AssertionError(f"non-finite {name} in the unroll")
-        if not (data.action.abs() <= 1).all():
-            raise AssertionError("an action outside [-1, 1]")
-    done = torch.stack([1.0 - d.discount for d in datas])
-    trunc = torch.stack([d.truncation for d in datas])
-    reward = torch.stack([d.reward for d in datas])
-    done_frac = float(done.mean())
-    print(f"done fraction per step {done_frac:.5f}, truncations {int(trunc.sum())}, "
-          f"mean reward {float(reward.mean()):.5f}", flush=True)
-    if not 0.0 <= done_frac < 0.5 or int(trunc.sum()) != 0:
-        raise AssertionError("implausible episode ends for a fresh 1000-step episode")
-    if not torch.isfinite(state.qpos).all():
-        raise AssertionError("non-finite final qpos")
+        want = soa_env.wrapped_step_rows(s, es, n_sub, L, *blocks)
+        torch.cuda.synchronize()
+        per_block, differing, k3_err = compare_outputs(s, es, soa_env.aux_row_map(es),
+                                                       got, want)
+        c0, cn = es.env_rows["last_contact"]
+        in_contact = int((got[2][c0 : c0 + cn] > 0.5).any(0).sum())
+        print(f"K3 vs plain at {B} envs after {WARM_STEPS} kernel steps "
+              f"({in_contact} envs with a foot on the floor): max abs err per block "
+              + json.dumps(per_block), flush=True)
+        for b, what in differing:
+            print(f"  env {b} differs: {what}")
+        if len(differing) > MAX_DIFFERING_ENVS:
+            raise AssertionError(f"{len(differing)} envs differ (limit {MAX_DIFFERING_ENVS})")
+        if in_contact == 0:
+            raise AssertionError("no env touches the floor: the contact path went unchecked")
 
+        def k3_step():
+            soa_env.wrapped_step(s, es, n_sub, L, *blocks)
+
+        def k3_plain():
+            soa_env.wrapped_step_rows(s, es, n_sub, L, *blocks)
+
+        k3_plain_ms = [cuda_ms(k3_plain, 1)]
+        k3_ms = [cuda_ms(k3_step, 20), cuda_ms(k3_step, 20)]
+        k3_plain_ms.append(cuda_ms(k3_plain, 1))
+        print(f"K3 step at {B} envs: kernel {statistics.median(k3_ms):.4f} ms (runs {k3_ms}), "
+              f"plain {statistics.median(k3_plain_ms):.1f} ms (runs {k3_plain_ms})", flush=True)
+
+    # ---- K2 against plain at the evaluator's 128 envs ----
+    with Phase("K2 vs plain"):
+        eval_wrapped = wrap_for_training(env, L)  # the nominal model, no DR
+        estate = eval_wrapped.reset(EVAL_ENVS, g, caches=True)
+        for _ in range(WARM_STEPS):
+            estate = eval_wrapped.step(
+                estate, torch.rand((EVAL_ENVS, env.action_size), generator=g,
+                                   device=device) * 2 - 1, g)
+        in_contact = int(estate.info["last_contact"].any(1).sum())
+        act = torch.rand((EVAL_ENVS, env.action_size), generator=g, device=device) * 2 - 1
+        k2_blocks = [soa_env.rows_block([estate.qpos]), soa_env.rows_block([estate.qvel]),
+                     soa_env.rows_block([act]), soa_env.env_block(es, estate.info, estate.obs),
+                     soa_env.noise_block(es, env.draw_step_noise(g, EVAL_ENVS)),
+                     eval_wrapped.dr_rows(EVAL_ENVS)]
+        got = soa_env.env_step(s, es, n_sub, *k2_blocks)
+        torch.cuda.synchronize()
+        want = soa_env.env_step_rows(s, es, n_sub, *k2_blocks)
+        torch.cuda.synchronize()
+        per_block, differing, k2_err = compare_env_outputs(s, es, got, want)
+        print(f"K2 vs plain at {EVAL_ENVS} envs after {WARM_STEPS} K2 steps "
+              f"({in_contact} envs with a foot on the floor): max abs err per block "
+              + json.dumps(per_block), flush=True)
+        for b, what in differing:
+            print(f"  env {b} differs: {what}")
+        if differing:
+            raise AssertionError(f"{len(differing)} of {EVAL_ENVS} envs differ (limit 0)")
+        if in_contact == 0:
+            raise AssertionError("no eval env touches the floor: the contact path went "
+                                 "unchecked")
+
+        def k2_step():
+            soa_env.env_step(s, es, n_sub, *k2_blocks)
+
+        def k2_step_4096():  # the training lane's 4096-env blocks (K3's first six)
+            soa_env.env_step(s, es, n_sub, *blocks[:6])
+
+        k2_plain_ms = cuda_ms(lambda: soa_env.env_step_rows(s, es, n_sub, *k2_blocks), 1)
+        k2_ms = [cuda_ms(k2_step, 20), cuda_ms(k2_step, 20)]
+        k2_4096_ms = [cuda_ms(k2_step_4096, 20), cuda_ms(k2_step_4096, 20)]
+        print(f"K2 step: {statistics.median(k2_ms):.4f} ms at {EVAL_ENVS} envs (runs {k2_ms}), "
+              f"{statistics.median(k2_4096_ms):.4f} ms at {B} envs (runs {k2_4096_ms}); "
+              f"plain {k2_plain_ms:.1f} ms at {EVAL_ENVS} envs", flush=True)
+
+    # ---- the rollout lane: FastLane.unroll, T=20 ----
+    with Phase("rollout lane"):
+        state = wrapped.reset(B, generator=g)
+        state, _ = lane.unroll(state, params, generator=g, T=T_UNROLL)  # warm-up
+        torch.cuda.synchronize()
+        soa_env.wrapped_step.launches = 0
+        unroll_ms, datas = [], []
+        for _ in range(N_UNROLLS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, data = lane.unroll(state, params, generator=g, T=T_UNROLL)
+            end.record()
+            torch.cuda.synchronize()
+            unroll_ms.append(start.elapsed_time(end))
+            datas.append(data)
+        launches = soa_env.wrapped_step.launches
+        med = statistics.median(unroll_ms)
+        print(f"unroll T={T_UNROLL} x {B} envs: median {med:.3f} ms (runs {unroll_ms}), "
+              f"{B * T_UNROLL / (med / 1000.0):.0f} env-steps/s", flush=True)
+        print(f"K3 launches in the {N_UNROLLS} unrolls: {launches}", flush=True)
+        if launches != N_UNROLLS * T_UNROLL:
+            raise AssertionError(f"expected {N_UNROLLS * T_UNROLL} K3 launches, got {launches}")
+        for data in datas:
+            if (data.observation.shape != (T_UNROLL, B, env.observation_size)
+                    or data.action.shape != (T_UNROLL, B, env.action_size)):
+                raise AssertionError(f"unroll shapes {tuple(data.observation.shape)}, "
+                                     f"{tuple(data.action.shape)}")
+            for name, x in (("obs", data.observation), ("reward", data.reward),
+                            ("log_prob", data.policy_extras["log_prob"]),
+                            ("next_obs", data.next_observation)):
+                if not torch.isfinite(x).all():
+                    raise AssertionError(f"non-finite {name} in the unroll")
+            if not (data.action.abs() <= 1).all():
+                raise AssertionError("an action outside [-1, 1]")
+        done_frac = float(torch.stack([1.0 - d.discount for d in datas]).mean())
+        truncs = int(torch.stack([d.truncation for d in datas]).sum())
+        print(f"done fraction per step {done_frac:.5f}, truncations {truncs}", flush=True)
+        if not 0.0 <= done_frac < 0.5 or truncs != 0:
+            raise AssertionError("implausible episode ends for a fresh 1000-step episode")
+
+    # ---- the main path: ppo.train, 3 training steps and 2 evaluations ----
+    with Phase("ppo.train"):
+        initial = {}
+
+        def network_factory(obs_size, action_size, device=None, generator=None):
+            n = networks.make_ppo_networks(
+                obs_size, action_size, tc.policy_hidden_layer_sizes,
+                tc.value_hidden_layer_sizes, tc.activation, device=device,
+                generator=generator, value_precision=tc.value_precision)
+            initial["policy"] = copy.deepcopy(n.policy_network.state_dict())
+            initial["value"] = copy.deepcopy(n.value_network.state_dict())
+            return n
+
+        progress = []
+        ckpt_dir = tempfile.mkdtemp(prefix="puppax_torch_smoke_")
+        soa_env.wrapped_step.launches = 0
+        soa_env.env_step.launches = 0
+        _, (norm_out, params_out), _ = ppo.train(
+            env, num_timesteps=TRAIN_TIMESTEPS, episode_length=L, num_envs=B,
+            num_eval_envs=EVAL_ENVS, learning_rate=tc.learning_rate,
+            entropy_cost=tc.entropy_cost, discounting=tc.discounting,
+            unroll_length=tc.unroll_length, batch_size=tc.batch_size,
+            num_minibatches=tc.num_minibatches,
+            num_updates_per_batch=tc.num_updates_per_batch,
+            reward_scaling=tc.reward_scaling, clipping_epsilon=tc.clipping_epsilon,
+            gae_lambda=tc.gae_lambda, normalize_observations=tc.normalize_observations,
+            seed=args.seed, num_evals=2, network_factory=network_factory,
+            randomization_fn=randomization_fn,
+            progress_fn=lambda step, m: progress.append((step, dict(m))),
+            device=device, checkpoint_dir=ckpt_dir,
+        )
+        torch.cuda.synchronize()
+        k3_launches, k2_launches = soa_env.wrapped_step.launches, soa_env.env_step.launches
+        steps_per_train = tc.batch_size * tc.unroll_length * tc.num_minibatches
+        n_train = math.ceil(TRAIN_TIMESTEPS / steps_per_train)
+        want_k3 = n_train * (tc.batch_size * tc.num_minibatches // B) * tc.unroll_length
+        want_k2 = 2 * tc.episode_length
+        print(f"ppo.train: K3 launches {k3_launches} (expected {want_k3}), K2 launches "
+              f"{k2_launches} (expected {want_k2})", flush=True)
+        if (k3_launches, k2_launches) != (want_k3, want_k2):
+            raise AssertionError("the training run did not launch the kernels as expected")
+        tree = checkpoint.restore_checkpoint(os.path.join(ckpt_dir, "state"), map_location=device)
+        if tree["env_steps"] != TRAIN_TIMESTEPS or float(norm_out.count) != TRAIN_TIMESTEPS:
+            raise AssertionError(f"env steps {tree['env_steps']}, normalizer count "
+                                 f"{float(norm_out.count)}, expected {TRAIN_TIMESTEPS}")
+        updates = n_train * tc.num_updates_per_batch * tc.num_minibatches
+        if tree["optimizer"]["count"] != updates:
+            raise AssertionError(f"optimizer count {tree['optimizer']['count']}, "
+                                 f"expected {updates}")
+        for name, module in (("policy", params_out.policy), ("value", params_out.value)):
+            sd = module.state_dict()
+            if all(torch.equal(sd[k], initial[name][k]) for k in sd):
+                raise AssertionError(f"the {name} parameters did not change")
+            if any(not torch.equal(sd[k], tree["params"][name][k]) for k in sd):
+                raise AssertionError(f"the checkpoint's {name} parameters differ from the "
+                                     f"final state")
+        for k, v in tree["params"]["normalizer"].items():
+            if not torch.equal(v, getattr(norm_out, k)):
+                raise AssertionError(f"the checkpoint's normalizer {k} differs")
+        m = progress[-1][1]
+        losses = {k: v for k, v in m.items() if k.endswith("_loss")}
+        if len(losses) != 4 or not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"loss metrics {losses}")
+        evals = [(step, mm) for step, mm in progress if "eval/episode_reward" in mm]
+        if [step for step, _ in evals] != [0, TRAIN_TIMESTEPS]:
+            raise AssertionError(f"evaluations at {[step for step, _ in evals]}")
+        for _, mm in evals:
+            bad = [k for k, v in mm.items() if k.startswith("eval/") and not math.isfinite(v)]
+            if bad or not 0 < mm["eval/avg_episode_length"] <= tc.episode_length:
+                raise AssertionError(f"eval metrics {mm}")
+        print(f"ppo.train: training/sps {m['training/sps']:.1f}, epoch {m['training/walltime']:.3f} "
+              f"s for {n_train} training steps; per training step: rollout "
+              f"{m['training/rollout_ms']:.3f} ms, reorder + normalizer "
+              f"{m['training/prepare_ms']:.3f} ms, SGD {m['training/sgd_ms']:.3f} ms "
+              f"(CUDA events)", flush=True)
+        print("ppo.train: one evaluation " + ", ".join(
+            f"at step {step}: {mm['eval/epoch_eval_time']:.3f} s wall" for step, mm in evals)
+            + f"; final eval/episode_reward {m['eval/episode_reward']:.5f}, "
+            f"eval/avg_episode_length {m['eval/avg_episode_length']:.1f}", flush=True)
+        print("ppo.train losses " + json.dumps(losses), flush=True)
+
+    k3_bound, k3_by = bound_ms(build.last_build["wrapped_step"]["ops_per_env"],
+                               *(sum(r) for r in soa_env.block_rows(s, es)), B)
+    k2_bound, k2_by = bound_ms(build.last_build["env_step"]["ops_per_env"],
+                               *(sum(r) for r in soa_env.env_block_rows(s, es)), EVAL_ENVS)
     kernels = [{
         "name": "wrapped_step",
         "route": "cuda",
         "source": "puppax_torch/csrc/wrapped_step.cuh",
         "replaces": "puppax/env/soa_env.py:877",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": statistics.median(kernel_ms),
-        "plain_ms": statistics.median(plain_ms),
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": statistics.median(k3_ms),
+        "plain_ms": statistics.median(k3_plain_ms),
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": None,
+    }, {
+        "name": "env_step",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/env_step.cuh",
+        "replaces": "puppax/env/soa_env.py:533",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": statistics.median(k2_ms),
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
     }]
+    print(f"bounds: K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), K2 {k2_bound:.6f} ms at "
+          f"{EVAL_ENVS} envs ({k2_by}); total wall {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,25 @@
 from puppax_torch.configs.experiment import (
     DomainRandomizationConfig,
     EnvConfig,
+    ExperimentConfig,
     StartPositionConfig,
     TrainConfig,
+    apply_overrides,
+    config_hash,
+    from_dict,
+    to_dict,
 )
 from puppax_torch.configs.rewards import get_config
 
 __all__ = [
     "DomainRandomizationConfig",
     "EnvConfig",
+    "ExperimentConfig",
     "StartPositionConfig",
     "TrainConfig",
+    "apply_overrides",
+    "config_hash",
+    "from_dict",
     "get_config",
+    "to_dict",
 ]

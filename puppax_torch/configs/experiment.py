@@ -1,12 +1,15 @@
 """Frozen experiment config: env / domain randomization / train defaults.
 
-Counterpart of ``puppax/configs/experiment.py:22-135``: the same fields and
-the same defaults. The dict/JSON overrides and the config hash come with
-the training CLI (ROADMAP queue 1).
+Counterpart of ``puppax/configs/experiment.py``: the same fields, the same
+defaults, the dict/JSON round trip, dotted-path overrides and the config
+hash (equal to the JAX package's for the same config).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -86,8 +89,7 @@ class DomainRandomizationConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """PPO hyperparameters (the slice reads num_envs, episode_length,
-    unroll_length, the network sizes and the activation)."""
+    """PPO hyperparameters (the ``ppo.train`` invocation surface)."""
 
     num_timesteps: int = 500_000_000
     episode_length: int = 1000
@@ -120,3 +122,67 @@ class TrainConfig:
     checkpoint_path: Optional[str] = None
     metrics_jsonl: Optional[str] = None
     progress_plot: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    env: EnvConfig = field(default_factory=EnvConfig)
+    domain_randomization: DomainRandomizationConfig = field(
+        default_factory=DomainRandomizationConfig
+    )
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def config_hash(cfg) -> str:
+    """Stable short hash of the full config; the same config hashes to the
+    same string as in the JAX package."""
+    blob = json.dumps(to_dict(cfg), sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def _build(cls, data: dict):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        value = data[f.name]
+        if f.type in _NESTED:  # postponed annotations: resolve by name
+            kwargs[f.name] = _build(_NESTED[f.type], value)
+        elif isinstance(value, list):
+            kwargs[f.name] = tuple(value)
+        else:
+            kwargs[f.name] = value
+    return cls(**kwargs)
+
+
+_NESTED = {
+    "EnvConfig": EnvConfig,
+    "DomainRandomizationConfig": DomainRandomizationConfig,
+    "TrainConfig": TrainConfig,
+    "StartPositionConfig": StartPositionConfig,
+}
+
+
+def from_dict(data: dict) -> ExperimentConfig:
+    return _build(ExperimentConfig, data)
+
+
+def apply_overrides(cfg: ExperimentConfig, overrides: dict) -> ExperimentConfig:
+    """Apply dotted-path overrides, e.g. ``{"train.num_envs": 8192}``; an
+    unknown key raises ``KeyError: unknown config key``."""
+    data = to_dict(cfg)
+    for path, value in overrides.items():
+        node = data
+        parts = path.split(".")
+        for p in parts[:-1]:
+            if p not in node or not isinstance(node[p], dict):
+                raise KeyError(f"unknown config key: {path}")
+            node = node[p]
+        if parts[-1] not in node:
+            raise KeyError(f"unknown config key: {path}")
+        node[parts[-1]] = value
+    return from_dict(data)

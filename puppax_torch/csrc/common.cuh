@@ -1,0 +1,28 @@
+// Helpers shared by the launch shells of the generated env-step kernels
+// (wrapped_step.cuh, env_step.cuh) and by their generated bodies.
+//
+// The same source builds with g++ (no __CUDACC__): PUPPAX_HD is then empty
+// and each shell's host entry loops over the envs on the CPU.
+
+#pragma once
+
+#include <math.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define PUPPAX_HD __host__ __device__
+#else
+#define PUPPAX_HD
+#endif
+
+// jnp.maximum / jnp.minimum: NaN in either operand propagates
+PUPPAX_HD static inline float pmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+PUPPAX_HD static inline float pmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+// jnp.sign
+PUPPAX_HD static inline float psign(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}

@@ -26,16 +26,9 @@
 
 #pragma once
 
-#include <math.h>
+#include "common.cuh"
 
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define PUPPAX_HD __host__ __device__
-#else
-#define PUPPAX_HD
-#endif
-
-#define WS_PARAMS                                                             \
+#define WS_PARAMS                                                            \
   const float* __restrict__ q, const float* __restrict__ v,                   \
       const float* __restrict__ act, const float* __restrict__ env,           \
       const float* __restrict__ noi, const float* __restrict__ dr,            \
@@ -46,19 +39,7 @@
 #define WS_ARGS \
   q, v, act, env, noi, dr, first, wrap, q_out, v_out, env_out, wrap_out, aux_out
 
-// jnp.maximum / jnp.minimum: NaN in either operand propagates
-PUPPAX_HD static inline float pmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-PUPPAX_HD static inline float pmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-// jnp.sign
-PUPPAX_HD static inline float psign(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
-}
-
-#include PUPPAX_WRAPPED_STEP_BODY
+#include PUPPAX_KERNEL_BODY
 
 #ifdef __CUDACC__
 

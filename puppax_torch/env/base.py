@@ -1,25 +1,88 @@
-"""The batched env State, and carrying a ``puppax`` state across.
+"""The batched env State, its slim PhysicsState, and carrying a ``puppax``
+state across.
 
-Counterpart of ``puppax/env/base.py``. The JAX State holds a full
-PhysicsState; the rollout fast lane reads only qpos/qvel of it (the other
-leaves are poisoned with NaN, ``puppax/env/rollout.py:341-355``), so the
-port's State holds just those two. Every field has a leading env axis.
+Counterpart of ``puppax/env/base.py``. Every field has a leading env axis.
+The rollout fast lane reads only qpos/qvel of the physics (the JAX lane
+poisons the other leaves with NaN, ``puppax/env/rollout.py:341-355``), so
+its states carry ``pipeline_state=None``. The standard lane
+(``PupperV3Env.step``) fills ``pipeline_state`` with the caches of the last
+forward pass that the env-step kernel (K2) writes, as
+``PupperV3Env._ps_from_tuple`` assembles them (``puppax/env/pupper.py:789``).
+The static per-pair contact metadata (frames, solref, solimp, geoms) that
+the JAX PhysicsState re-attaches is left out: nothing on the port's path
+reads it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 
 @dataclass(frozen=True)
+class PhysicsState:
+    """The last forward pass's caches, batched: qpos (B, nq), qvel (B, nv),
+    qacc (B, nv), x_pos (B, nbody-1, 3), x_rot (B, nbody-1, 4), xd_vel and
+    xd_ang (B, nbody-1, 3), xpos (B, nbody, 3), site_xpos (B, nsite, 3),
+    qfrc_actuator (B, nv), contact_dist (B, npair), contact_pos
+    (B, npair, 3). The world body is dropped from the ``x_*``/``xd_*``
+    fields, as in brax."""
+
+    qpos: torch.Tensor
+    qvel: torch.Tensor
+    qacc: torch.Tensor
+    x_pos: torch.Tensor
+    x_rot: torch.Tensor
+    xd_vel: torch.Tensor
+    xd_ang: torch.Tensor
+    xpos: torch.Tensor
+    site_xpos: torch.Tensor
+    qfrc_actuator: torch.Tensor
+    contact_dist: torch.Tensor
+    contact_pos: torch.Tensor
+
+    def replace(self, **updates) -> "PhysicsState":
+        return dataclasses.replace(self, **updates)
+
+    def map(self, fn, *others: "PhysicsState") -> "PhysicsState":
+        """A PhysicsState of ``fn(field, *others' fields)`` for every field."""
+        return PhysicsState(**{
+            f.name: fn(getattr(self, f.name), *(getattr(o, f.name) for o in others))
+            for f in dataclasses.fields(self)
+        })
+
+
+def physics_state_from_caches(s, qpos: torch.Tensor, qvel: torch.Tensor,
+                              caches: torch.Tensor) -> PhysicsState:
+    """The ``(ncache, B)`` cache block of K2 (``s.cache_rows`` order) as a
+    PhysicsState (``puppax/env/soa_env.py:711-725`` shapes)."""
+    B = qpos.shape[0]
+    cb = caches.t()
+
+    def rows(name, *shape):
+        r0, n = s.cache_rows[name]
+        return cb[:, r0 : r0 + n].reshape(B, *shape)
+
+    xpos = rows("xpos", s.nbody, 3)
+    return PhysicsState(
+        qpos=qpos, qvel=qvel, qacc=rows("qacc", s.nv),
+        x_pos=xpos[:, 1:], x_rot=rows("xquat", s.nbody - 1, 4),
+        xd_vel=rows("xd_vel", s.nbody - 1, 3), xd_ang=rows("xd_ang", s.nbody - 1, 3),
+        xpos=xpos, site_xpos=rows("site_xpos", s.nsite, 3),
+        qfrc_actuator=rows("qfrc_actuator", s.nv),
+        contact_dist=rows("con_dist", s.npair), contact_pos=rows("con_pos", s.npair, 3),
+    )
+
+
+@dataclass(frozen=True)
 class State:
     """Batched environment state: qpos (B, nq), qvel (B, nv), obs (B, obs),
-    reward (B,), done (B,), metrics and info dicts of (B, ...) tensors."""
+    reward (B,), done (B,), metrics and info dicts of (B, ...) tensors, and
+    the physics caches of the standard lane (None on fast-lane states)."""
 
     qpos: torch.Tensor
     qvel: torch.Tensor
@@ -28,6 +91,7 @@ class State:
     done: torch.Tensor
     metrics: Dict[str, torch.Tensor]
     info: Dict[str, Any]
+    pipeline_state: Optional[PhysicsState] = None
 
     def replace(self, **updates) -> "State":
         return dataclasses.replace(self, **updates)
@@ -52,12 +116,28 @@ _INFO_KEYS = (
 )
 
 
+def _physics_from_jax(ps, device) -> PhysicsState:
+    t = lambda x: _to_torch(x, device)  # noqa: E731
+    return PhysicsState(
+        qpos=t(ps.qpos), qvel=t(ps.qvel), qacc=t(ps.qacc), x_pos=t(ps.x_pos),
+        x_rot=t(ps.x_rot), xd_vel=t(ps.xd_vel), xd_ang=t(ps.xd_ang), xpos=t(ps.xpos),
+        site_xpos=t(ps.site_xpos), qfrc_actuator=t(ps.qfrc_actuator),
+        contact_dist=t(ps.contact.dist), contact_pos=t(ps.contact.pos),
+    )
+
+
 def state_from_jax(state_numpy, device=None) -> State:
     """A ``puppax`` wrapped reset/step State (its leaves as numpy, e.g. via
-    ``jax.tree_util.tree_map(np.asarray, state)``) as the port's State."""
+    ``jax.tree_util.tree_map(np.asarray, state)``) as the port's State,
+    with its PhysicsState caches and the AutoReset ``first_pipeline_state``
+    where the JAX state has one."""
     ps = state_numpy.pipeline_state
     info = {k: _to_torch(state_numpy.info[k], device)
             for k in _INFO_KEYS if k in state_numpy.info}
+    if "first_pipeline_state" in state_numpy.info:
+        info["first_pipeline_state"] = _physics_from_jax(
+            state_numpy.info["first_pipeline_state"], device
+        )
     return State(
         qpos=_to_torch(ps.qpos, device),
         qvel=_to_torch(ps.qvel, device),
@@ -66,4 +146,5 @@ def state_from_jax(state_numpy, device=None) -> State:
         done=_to_torch(state_numpy.done, device),
         metrics=_to_torch(dict(state_numpy.metrics), device),
         info=info,
+        pipeline_state=_physics_from_jax(ps, device),
     )

@@ -1,16 +1,21 @@
 """PupperV3 joystick-locomotion environment, batched over envs.
 
 Counterpart of ``puppax/env/pupper.py``: the constructor surface, the
-observation layout, ``reset`` and the per-step noise draws. The step
-itself is the wrapped-step emission (``soa_env``), driven by the rollout
-fast lane (``rollout.FastLane``). Every random draw comes from an explicit
-``torch.Generator`` and is split from the deterministic math
-(``draw_reset`` / ``reset_from_draws``, ``draw_step_noise``), so tests can
-feed the same numbers to this env and to the JAX one.
+observation layout, ``reset``, the per-step noise draws and ``step``.
+Every random draw comes from an explicit ``torch.Generator`` and is split
+from the deterministic math (``draw_reset`` / ``reset_from_draws``,
+``draw_step_noise`` / ``step_from_draws``), so tests can feed the same
+numbers to this env and to the JAX one.
+
+``step`` is the standard lane (evaluation): one launch of the env-step
+kernel K2 (``soa_env.env_step``) per step, or its plain version on CPU
+tensors, then the info epilogue in PyTorch. Training steps through the
+wrapped-step kernel K3 instead (``rollout.FastLane``).
 
 Reset needs only the root's FK: the reset observation reads the torso
 rotation and a zero angular velocity, so the port runs ``soa._emit_fk`` on
-the torch back-end instead of a full forward pass.
+the torch back-end instead of a full forward pass. ``pipeline_init`` runs
+the full pass, for the standard lane's reset-time physics caches.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 from puppax_torch import utils
 from puppax_torch.configs.experiment import EnvConfig, StartPositionConfig
 from puppax_torch.env import domain_randomization, soa_env
-from puppax_torch.env.base import State
+from puppax_torch.env.base import PhysicsState, State, physics_state_from_caches
 from puppax_torch.model.mjcf import load_model
 from puppax_torch.ops import math
 from puppax_torch.physics import soa
@@ -131,7 +136,7 @@ class PupperV3Env:
             from puppax_torch.configs.rewards import get_config
 
             reward_config = get_config()
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = utils.resolve_device(device)
 
         host = soa_env.host_consts_from_args(
             default_pose=default_pose,
@@ -342,6 +347,81 @@ class PupperV3Env:
         metrics.update({k: v for k, v in info["rewards"].items()})
         return State(qpos=qpos, qvel=zeros(self._nv), obs=obs, reward=zeros(),
                      done=zeros(), metrics=metrics, info=info)
+
+    def dr_rows(self, B: int, model=None) -> torch.Tensor:
+        """The ``(ndr, B)`` per-env parameter rows of ``model`` (default:
+        this env's model); an unbatched model is broadcast over the envs."""
+        m = self.model if model is None else model
+        return soa.dr_rows_block(self._s, soa.dr_inputs(m, self._s, B, device=self.device))
+
+    def pipeline_init(self, qpos: torch.Tensor, qvel: torch.Tensor,
+                      dr_rows: Optional[torch.Tensor] = None) -> PhysicsState:
+        """The reset-time physics caches (``pipeline.pipeline_init``): one
+        forward pass with zero controls, evaluated with the emission's torch
+        back-end."""
+        s = self._s
+        if dr_rows is None:
+            dr_rows = self.dr_rows(qpos.shape[0])
+        q = [qpos[:, i] for i in range(s.nq)]
+        v = [qvel[:, i] for i in range(s.nv)]
+        dr = {name: [dr_rows[r0 + i] for i in range(n)] for name, (r0, n) in s.dr_rows.items()}
+        with soa.cse_scope():
+            fw = soa._emit_forward(s, q, v, [0.0] * s.nu, dr)
+            caches = torch.stack([soa.materialize(x, q[0]) for x in soa._emit_caches(s, fw)])
+        return physics_state_from_caches(s, qpos, qvel, caches)
+
+    # ---- step -----------------------------------------------------------------
+    def step(self, state: State, action: torch.Tensor, generator: torch.Generator,
+             dr_rows: Optional[torch.Tensor] = None) -> State:
+        """One env step of every env, its draws taken from ``generator``."""
+        noise = self.draw_step_noise(generator, state.qpos.shape[0])
+        return self.step_from_draws(state, action, noise, dr_rows)
+
+    def step_from_draws(self, state: State, action: torch.Tensor,
+                        noise: Dict[str, torch.Tensor],
+                        dr_rows: Optional[torch.Tensor] = None) -> State:
+        """The env step (``pupper.py:684-780``) on given draws: the env-step
+        kernel K2 on CUDA tensors, its plain version on CPU tensors, then
+        the info epilogue. ``dr_rows`` are the ``(ndr, B)`` parameter rows
+        of a DR-batched model; None broadcasts this env's model."""
+        s, es = self._s, self._es
+        B = state.qpos.shape[0]
+        if dr_rows is None:
+            dr_rows = self.dr_rows(B)
+        info = dict(state.info)
+        q2, v2, caches, env_out = soa_env.env_step(
+            s, es, self._n_substeps,
+            soa_env.rows_block([state.qpos]), soa_env.rows_block([state.qvel]),
+            soa_env.rows_block([action]), soa_env.env_block(es, info, state.obs),
+            soa_env.noise_block(es, noise), dr_rows,
+        )
+        qpos, qvel = q2.t(), v2.t()
+        out = env_out.t()
+
+        def rows(name):
+            r0, n = es.out_rows[name]
+            return out[:, r0 : r0 + n]
+
+        rewards = {k: rows("rewards")[:, i] for i, k in enumerate(soa_env.REWARD_ORDER)}
+        info["kick"] = noise["kick"]
+        info["last_act"] = action
+        info["last_vel"] = qvel[:, 6:]
+        info["action_buffer"] = rows("action_buffer").reshape(B, 12, es.Da)
+        info["imu_buffer"] = rows("imu_buffer").reshape(B, 6, es.Di)
+        info["feet_air_time"] = rows("feet_air_time")
+        info["last_contact"] = rows("last_contact") > 0.5
+        info["rewards"] = rewards
+        info["step"] = rows("step")[:, 0].to(torch.int32)
+        info["command"] = rows("command")
+        info["desired_world_z_in_body_frame"] = rows("desired_z")
+        metrics = dict(state.metrics)
+        metrics["total_dist"] = rows("total_dist")[:, 0]
+        metrics.update(rewards)
+        return state.replace(
+            qpos=qpos, qvel=qvel, obs=rows("obs_history"), reward=rows("reward")[:, 0],
+            done=rows("done")[:, 0], metrics=metrics, info=info,
+            pipeline_state=physics_state_from_caches(s, qpos, qvel, caches),
+        )
 
     def _get_obs(self, qpos, torso_quat, torso_ang_vel, info, noise, obs_history):
         """36-dim observation, noised/lagged, stacked newest-first; updates

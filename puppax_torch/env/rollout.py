@@ -42,10 +42,10 @@ class FastLane:
     def __init__(self, wrapped: TrainingEnv):
         env = wrapped.env
         self.env = env
+        self.wrapped = wrapped
         self.device = env.device
         self.episode_length = wrapped.episode_length
         self.n_substeps = env._n_substeps
-        self._model = wrapped.model
         self.s: soa._Static = env._s
         self.es: soa_env._EnvStatic = env._es
         self._aux_rows = soa_env.aux_row_map(self.es)
@@ -57,41 +57,18 @@ class FastLane:
         torch.backends.cudnn.allow_tf32 = False
 
     # ---- layout helpers -----------------------------------------------------
-    def dr_rows(self, B: int) -> torch.Tensor:
-        """The ``(ndr, B)`` DR parameter rows of the (batched) model."""
-        dr = soa.dr_inputs(self._model, self.s, B, device=self.device)
-        return soa.dr_rows_block(self.s, dr)
-
     def carry_from_state(self, state: State) -> Dict[str, torch.Tensor]:
         """State -> the ``(rows, B)`` carry blocks."""
         es, info = self.es, state.info
-        B = state.qpos.shape[0]
-        env_in = {
-            "action_buffer": info["action_buffer"],
-            "imu_buffer": info["imu_buffer"],
-            "command": info["command"],
-            "desired_z": info["desired_world_z_in_body_frame"],
-            "last_act": info["last_act"],
-            "last_vel": info["last_vel"],
-            "feet_air_time": info["feet_air_time"],
-            "last_contact": info["last_contact"],
-            "step": info["step"],
-            "obs_history": state.obs[:, : es.hist],
-        }
-
-        def rows(parts):
-            return torch.cat(
-                [x.to(self.device, torch.float32).reshape(B, -1) for x in parts], 1
-            ).t().contiguous()
-
+        rows = soa_env.rows_block
         return {
             "q": rows([state.qpos]),
             "v": rows([state.qvel]),
-            "env": rows([env_in[name] for name in es.env_rows]),
+            "env": soa_env.env_block(es, info, state.obs),
             "wrap": rows([info["steps"], state.done]),
             "first": rows([info["first_qpos"], info["first_qvel"],
                            info["first_obs"][:, : es.hist]]),
-            "dr": self.dr_rows(B),
+            "dr": self.wrapped.dr_rows(state.qpos.shape[0]),
         }
 
     def state_from_carry(self, carry, template: State, last_kick, last_aux) -> State:
@@ -135,23 +112,17 @@ class FastLane:
             done=aux("done")[:, 0],
             metrics=metrics,
             info=info,
+            pipeline_state=None,
         )
 
     # ---- pre-drawn randomness -------------------------------------------------
-    def noise_rows(self, noise: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """A ``draw_step_noise`` dict of (B, n) draws -> ``(nnoise, B)``."""
-        B = noise["kick"].shape[0]
-        return torch.cat(
-            [noise[name].to(torch.float32).reshape(B, -1) for name in self.es.noise_rows], 1
-        ).t().contiguous()
-
     def draw_noise_block(self, generator: torch.Generator, B: int, T: int):
         """Every env-noise row for T steps: ``(T, nnoise, B)`` and the last
         step's kick ``(B, 2)``."""
         block, kick = [], None
         for _ in range(T):
             noise = self.env.draw_step_noise(generator, B)
-            block.append(self.noise_rows(noise))
+            block.append(soa_env.noise_block(self.es, noise))
             kick = noise["kick"]
         return torch.stack(block), kick
 

@@ -1,21 +1,26 @@
-"""The wrapped env step: its emission, its plain version and its kernel.
+"""The env steps: their emissions, plain versions and kernels.
 
 Counterpart of ``puppax/env/soa_env.py``. ``_emit_env_step`` re-emits the
 env step core (kick -> action latency -> motor targets -> physics
 substeps -> observation -> 18 rewards -> termination -> command resample)
-in the value algebra of ``physics/soa.py``; ``_emit_wrapped_step`` adds
-the Episode/AutoReset wrapper algebra around it. The one emission has two
-back-ends:
+in the value algebra of ``physics/soa.py``. Two programs are built on it,
+each with two back-ends:
 
-* ``wrapped_step_rows``: the plain version, every value a ``(B,)`` torch
-  tensor (counterpart of ``wrapped_step_rows_xla``);
-* ``wrapped_step``: the kernel (counterpart of ``wrapped_step_tiles``),
-  the same program generated as CUDA C (``kernels/cgen.py``) inside the
-  launch shell ``csrc/wrapped_step.cuh``.
+* the wrapped step (K3, the rollout fast lane): ``_emit_wrapped_step``
+  adds the Episode/AutoReset wrapper algebra. ``wrapped_step_rows`` is the
+  plain version, every value a ``(B,)`` torch tensor (counterpart of
+  ``wrapped_step_rows_xla``); ``wrapped_step`` launches the same program
+  generated as CUDA C (``kernels/cgen.py``) inside ``csrc/wrapped_step.cuh``;
+* the unwrapped step (K2, ``PupperV3Env.step``, the evaluator's lane):
+  ``emit_env_rows`` adds the last forward pass's caches
+  (``soa._emit_caches``). ``env_step_rows`` is the plain version and
+  ``env_step`` launches the generated C inside ``csrc/env_step.cuh``.
 
-Every array is ``(rows, B)`` row-major float32. Random draws enter as
+Every array is ``(rows, B)`` row-major float32, with no padding (the JAX
+package's ``TILE_B`` tiles have no counterpart). Random draws enter as
 input rows (``noise``), so both back-ends and the JAX package can be fed
-the same numbers.
+the same numbers. ``env_block`` lays a State's info out in the env rows
+both kernels read.
 """
 
 from __future__ import annotations
@@ -148,6 +153,27 @@ class _EnvStatic:
             r += n
         self.nnoise_rows = r
 
+        # rows of the unwrapped step's env-out block (the K2 kernel)
+        self.out_rows: Dict[str, Tuple[int, int]] = {}
+        r = 0
+        for name, n in (
+            ("obs_history", self.hist),
+            ("reward", 1),
+            ("done", 1),
+            ("action_buffer", 12 * self.Da),
+            ("imu_buffer", 6 * self.Di),
+            ("command", 3),
+            ("desired_z", 3),
+            ("feet_air_time", 4),
+            ("last_contact", 4),
+            ("step", 1),
+            ("rewards", len(REWARD_ORDER)),
+            ("total_dist", 1),
+        ):
+            self.out_rows[name] = (r, n)
+            r += n
+        self.nout_rows = r
+
 
 def host_consts_from_args(**kw) -> Dict[str, np.ndarray]:
     """Env constructor constants as float64 numpy arrays."""
@@ -157,6 +183,36 @@ def host_consts_from_args(**kw) -> Dict[str, np.ndarray]:
             v = v.detach().cpu().numpy()
         out[k] = np.asarray(v, np.float64)
     return out
+
+
+def rows_block(parts: List[torch.Tensor]) -> torch.Tensor:
+    """(B, ...) tensors -> one ``(rows, B)`` row-major float32 block."""
+    B = parts[0].shape[0]
+    return torch.cat([x.to(torch.float32).reshape(B, -1) for x in parts], 1).t().contiguous()
+
+
+def env_block(es: _EnvStatic, info: Dict, obs: torch.Tensor) -> torch.Tensor:
+    """A State's info fields and observation history as the
+    ``(nenv_rows, B)`` env-row block both kernels read (``es.env_rows``)."""
+    fields = {
+        "action_buffer": info["action_buffer"],
+        "imu_buffer": info["imu_buffer"],
+        "command": info["command"],
+        "desired_z": info["desired_world_z_in_body_frame"],
+        "last_act": info["last_act"],
+        "last_vel": info["last_vel"],
+        "feet_air_time": info["feet_air_time"],
+        "last_contact": info["last_contact"],
+        "step": info["step"],
+        "obs_history": obs[:, : es.hist],
+    }
+    return rows_block([fields[name] for name in es.env_rows])
+
+
+def noise_block(es: _EnvStatic, noise: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A ``draw_step_noise`` dict of (B, n) draws as the ``(nnoise_rows, B)``
+    block."""
+    return rows_block([noise[name] for name in es.noise_rows])
 
 
 # ---------------------------------------------------------------------------
@@ -532,13 +588,15 @@ def block_rows(s: soa._Static, es: _EnvStatic) -> Tuple[Tuple[int, ...], Tuple[i
     )
 
 
+def _split(row_map, values) -> Dict[str, List]:
+    return {name: [values[r0 + i] for i in range(n)] for name, (r0, n) in row_map.items()}
+
+
 def emit_wrapped_rows(s, es, n_substeps, episode_length, rows):
     """Run ``_emit_wrapped_step`` on 8 lists of per-row values (either
     back-end). Returns the 5 output lists in block order."""
     q, v, act, env_r, noi_r, dr_r, first_r, wrap_r = rows
-    env = {name: [env_r[r0 + i] for i in range(n)] for name, (r0, n) in es.env_rows.items()}
-    noi = {name: [noi_r[r0 + i] for i in range(n)] for name, (r0, n) in es.noise_rows.items()}
-    dr = {name: [dr_r[r0 + i] for i in range(n)] for name, (r0, n) in s.dr_rows.items()}
+    env, noi, dr = _split(es.env_rows, env_r), _split(es.noise_rows, noi_r), _split(s.dr_rows, dr_r)
     first_q = first_r[: s.nq]
     first_v = first_r[s.nq : s.nq + s.nv]
     first_obs = first_r[s.nq + s.nv : s.nq + s.nv + es.hist]
@@ -551,18 +609,23 @@ def emit_wrapped_rows(s, es, n_substeps, episode_length, rows):
     return q_out, v_out, env_flat, [steps2, done2], aux_flat
 
 
+def _plain(emit, blocks):
+    """Evaluate an emission with torch ops on ``(rows, B)`` blocks; the
+    outputs come back as ``(rows, B)`` float32 blocks."""
+    rows = [[x[i] for i in range(x.shape[0])] for x in blocks]
+    ref = rows[0][0]
+    return tuple(torch.stack([materialize(x, ref) for x in o]) for o in emit(rows))
+
+
 def wrapped_step_rows(s, es, n_substeps, episode_length, *blocks):
     """The plain version: the wrapped-step emission evaluated with torch
     ops on ``(rows, B)`` blocks (q, v, act, env, noise, dr, first, wrap).
     Returns (q', v', env', wrap', aux) as ``(rows, B)`` float32."""
-    rows = [[x[i] for i in range(x.shape[0])] for x in blocks]
-    ref = rows[0][0]
-    outs = emit_wrapped_rows(s, es, n_substeps, episode_length, rows)
-    return tuple(torch.stack([materialize(x, ref) for x in o]) for o in outs)
+    return _plain(lambda rows: emit_wrapped_rows(s, es, n_substeps, episode_length, rows),
+                  blocks)
 
 
-def _check_blocks(s, es, blocks):
-    in_rows, _ = block_rows(s, es)
+def _check_blocks(in_rows, blocks):
     if len(blocks) != len(in_rows):
         raise ValueError(f"expected {len(in_rows)} input blocks, got {len(blocks)}")
     B = blocks[0].shape[-1]
@@ -579,6 +642,17 @@ def _check_blocks(s, es, blocks):
     return B, dev
 
 
+def _launch(name, lib_fn, blocks, out_rows, B, dev):
+    """Allocate the output blocks and launch one kernel on the current
+    stream; raise on a launch error."""
+    outs = [torch.empty((n, B), dtype=torch.float32, device=dev) for n in out_rows]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib_fn(*[t.data_ptr() for t in list(blocks) + outs], B, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return tuple(outs)
+
+
 def wrapped_step(s, es, n_substeps, episode_length, *blocks):
     """One wrapped env step over ``(rows, B)`` blocks.
 
@@ -586,7 +660,8 @@ def wrapped_step(s, es, n_substeps, episode_length, *blocks):
     launch the generated CUDA kernel (``csrc/wrapped_step.cuh``) on the
     current stream, or raise. Each launch adds one to
     ``wrapped_step.launches``."""
-    B, dev = _check_blocks(s, es, blocks)
+    in_rows, out_rows = block_rows(s, es)
+    B, dev = _check_blocks(in_rows, blocks)
     if dev.type == "cpu":
         return wrapped_step_rows(s, es, n_substeps, episode_length, *blocks)
     if dev.type != "cuda":
@@ -594,16 +669,72 @@ def wrapped_step(s, es, n_substeps, episode_length, *blocks):
     from puppax_torch.kernels import build
 
     lib = build.wrapped_step_library(s, es, n_substeps, episode_length)
-    _, out_rows = block_rows(s, es)
-    outs = [torch.empty((n, B), dtype=torch.float32, device=dev) for n in out_rows]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wrapped_step_launch(
-        *[t.data_ptr() for t in list(blocks) + outs], B, stream
-    )
-    if rc != 0:
-        raise RuntimeError(f"wrapped_step kernel launch failed: cudaError {rc}")
+    outs = _launch("wrapped_step", lib.wrapped_step_launch, blocks, out_rows, B, dev)
     wrapped_step.launches += 1
-    return tuple(outs)
+    return outs
 
 
 wrapped_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# unwrapped step: the env step core plus the last forward pass's caches (K2)
+# ---------------------------------------------------------------------------
+
+
+def env_block_rows(s: soa._Static, es: _EnvStatic):
+    """Row counts of the unwrapped step's 6 input blocks (q, v, act, env,
+    noise, dr) and 4 output blocks (q, v, caches, env_out)."""
+    return (
+        (s.nq, s.nv, s.nu, es.nenv_rows, es.nnoise_rows, s.ndr),
+        (s.nq, s.nv, s.ncache, es.nout_rows),
+    )
+
+
+@soa.with_cse
+def emit_env_rows(s, es, n_substeps, rows):
+    """Run ``_emit_env_step`` and ``soa._emit_caches`` on 6 lists of
+    per-row values (either back-end). Returns the 4 output lists in block
+    order: q', v', the caches (``s.cache_rows``) and the env-out rows
+    (``es.out_rows``)."""
+    q, v, act, env_r, noi_r, dr_r = rows
+    q2, v2, fw, out = _emit_env_step(
+        s, es, q, v, act, _split(es.env_rows, env_r), _split(es.noise_rows, noi_r),
+        _split(s.dr_rows, dr_r), n_substeps,
+    )
+    caches = soa._emit_caches(s, fw)
+    env_out = []
+    for name, (_, n) in es.out_rows.items():
+        assert len(out[name]) == n, (name, len(out[name]), n)
+        env_out.extend(out[name])
+    return q2, v2, caches, env_out
+
+
+def env_step_rows(s, es, n_substeps, *blocks):
+    """The plain version of K2: the env-step emission evaluated with torch
+    ops on ``(rows, B)`` blocks (q, v, act, env, noise, dr). Returns (q',
+    v', caches, env_out) as ``(rows, B)`` float32."""
+    return _plain(lambda rows: emit_env_rows(s, es, n_substeps, rows), blocks)
+
+
+def env_step(s, es, n_substeps, *blocks):
+    """One unwrapped env step over ``(rows, B)`` blocks.
+
+    CPU tensors run the plain version (``env_step_rows``); CUDA tensors
+    launch the generated CUDA kernel (``csrc/env_step.cuh``) on the current
+    stream, or raise. Each launch adds one to ``env_step.launches``."""
+    in_rows, out_rows = env_block_rows(s, es)
+    B, dev = _check_blocks(in_rows, blocks)
+    if dev.type == "cpu":
+        return env_step_rows(s, es, n_substeps, *blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"env_step: unsupported device {dev}")
+    from puppax_torch.kernels import build
+
+    lib = build.env_step_library(s, es, n_substeps)
+    outs = _launch("env_step", lib.env_step_launch, blocks, out_rows, B, dev)
+    env_step.launches += 1
+    return outs
+
+
+env_step.launches = 0

@@ -1,17 +1,28 @@
-"""The training wrapper stack: Episode + DR batch + AutoReset, reset side.
+"""The training wrapper stack: Episode + DR batch + AutoReset.
 
-Counterpart of ``puppax/env/wrappers.py::wrap_for_training``. The JAX
-stack is AutoReset(Vmap(Episode(env))); its STEP side (episode step
-count, truncation, restore of qpos/qvel/obs from the reset-time rows on
-done) runs inside the wrapped-step kernel (``soa_env._emit_wrapped_step``),
-so this module holds only what reset adds: the Episode ``steps`` and
-``truncation`` fields, the batched DR model, and the AutoReset
-``first_qpos`` / ``first_qvel`` / ``first_obs`` rows.
+Counterpart of ``puppax/env/wrappers.py::wrap_for_training``: the JAX
+stack AutoReset(Vmap(Episode(env))) as one class over a batched env.
+
+* Reset adds the Episode ``steps`` and ``truncation`` fields and the
+  AutoReset ``first_qpos`` / ``first_qvel`` / ``first_obs`` rows; with
+  ``caches=True`` (the standard lane) it also runs the reset-time forward
+  pass and keeps it as ``first_pipeline_state``.
+* The step side (``step`` / ``step_from_draws``, the standard lane behind
+  the evaluator) runs the brax order around ``PupperV3Env.step_from_draws``
+  (the env-step kernel K2): the AutoReset prologue zeroes ``steps`` where
+  the previous step ended, the Episode wrapper counts the step and
+  truncates at the episode limit, and on the effective done AutoReset
+  restores the reset-time pipeline state, qpos, qvel and observation.
+* The DR batch is the per-env model: its parameter rows go to the kernel as
+  its dr block; an unbatched model (the eval env) is broadcast.
+
+The rollout fast lane runs the same step side inside the wrapped-step
+kernel K3 (``soa_env._emit_wrapped_step``) and reads only the reset side.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -19,22 +30,31 @@ from puppax_torch.env.base import State
 
 
 class TrainingEnv:
-    """AutoReset(Vmap(Episode(env))) for the rollout fast lane."""
+    """AutoReset(Vmap(Episode(env))) over a batched ``PupperV3Env``."""
 
     def __init__(self, env, episode_length: int, model, num_envs: Optional[int]):
         self.env = env
         self.episode_length = int(episode_length)
         self.model = model  # base model, or the DR-batched one
         self.num_envs = num_envs  # fixed by DR; None = any batch size
+        self._dr_rows: Dict[int, torch.Tensor] = {}
 
-    def reset(self, num_envs: int, generator: torch.Generator) -> State:
+    def dr_rows(self, B: int) -> torch.Tensor:
+        """The ``(ndr, B)`` parameter rows of the (DR-batched) model."""
+        if B not in self._dr_rows:
+            self._dr_rows[B] = self.env.dr_rows(B, self.model)
+        return self._dr_rows[B]
+
+    def reset(self, num_envs: int, generator: torch.Generator, caches: bool = False) -> State:
         if self.num_envs is not None and num_envs != self.num_envs:
             raise ValueError(
                 f"the DR model is batched for {self.num_envs} envs, not {num_envs}"
             )
-        return self.reset_from_draws(self.env.draw_reset(generator, num_envs))
+        return self.reset_from_draws(self.env.draw_reset(generator, num_envs), caches)
 
-    def reset_from_draws(self, draws) -> State:
+    def reset_from_draws(self, draws, caches: bool = False) -> State:
+        """Reset on given draws; ``caches=True`` adds the reset-time
+        physics caches the standard lane restores on done."""
         state = self.env.reset_from_draws(draws)
         info = dict(state.info)
         # EpisodeWrapper
@@ -44,7 +64,47 @@ class TrainingEnv:
         info["first_qpos"] = state.qpos
         info["first_qvel"] = state.qvel
         info["first_obs"] = state.obs
-        return state.replace(info=info)
+        pipeline_state = None
+        if caches:
+            B = state.qpos.shape[0]
+            pipeline_state = self.env.pipeline_init(state.qpos, state.qvel, self.dr_rows(B))
+            info["first_pipeline_state"] = pipeline_state
+        return state.replace(info=info, pipeline_state=pipeline_state)
+
+    def step(self, state: State, action: torch.Tensor, generator: torch.Generator) -> State:
+        """One wrapped step of every env, its draws taken from ``generator``."""
+        noise = self.env.draw_step_noise(generator, state.qpos.shape[0])
+        return self.step_from_draws(state, action, noise)
+
+    def step_from_draws(self, state: State, action: torch.Tensor,
+                        noise: Dict[str, torch.Tensor]) -> State:
+        """The wrapped step on given draws (``puppax/env/wrappers.py:56-72,
+        129-169``)."""
+        if "first_pipeline_state" not in state.info:
+            raise ValueError("the standard lane steps a state reset with caches=True")
+        # AutoResetWrapper prologue
+        info = dict(state.info)
+        info["steps"] = torch.where(state.done > 0.5, torch.zeros_like(info["steps"]),
+                                    info["steps"])
+        state = state.replace(done=torch.zeros_like(state.done), info=info)
+        state = self.env.step_from_draws(state, action, noise,
+                                         self.dr_rows(state.qpos.shape[0]))
+        # EpisodeWrapper
+        info = dict(state.info)
+        steps = info["steps"] + 1
+        limit = steps >= self.episode_length
+        info["truncation"] = torch.where(limit, 1.0 - state.done, torch.zeros_like(state.done))
+        info["steps"] = steps
+        done = torch.where(limit, torch.ones_like(state.done), state.done)
+        # AutoResetWrapper: restore the reset-time state on the effective done
+        on_done = done > 0.5
+
+        def restore(first, new):
+            return torch.where(on_done.reshape((-1,) + (1,) * (new.ndim - 1)), first, new)
+
+        ps = info["first_pipeline_state"].map(restore, state.pipeline_state)
+        return state.replace(qpos=ps.qpos, qvel=ps.qvel, pipeline_state=ps,
+                             obs=restore(info["first_obs"], state.obs), done=done, info=info)
 
 
 def wrap_for_training(

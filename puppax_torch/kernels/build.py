@@ -1,8 +1,10 @@
 """Build and bind the generated kernels: nvcc for the card, g++ for tests.
 
-The generated body and the launch shell are written to
-``build/puppax_torch_kernels/<sha256 of source + flags>/`` in the
-checkout, compiled into a shared library with a plain C interface, and
+Each kernel is a generated body (``kernels/cgen.py``) inside a hand-written
+launch shell (``csrc/*.cuh``, which includes ``csrc/common.cuh``). Body,
+shell and common header are written to
+``build/puppax_torch_kernels/<sha256 of sources + compiler + flags>/`` in
+the checkout, compiled into a shared library with a plain C interface, and
 loaded with ``ctypes`` (every pointer and the stream as ``c_void_p``). A
 finished library in that directory is reused; nothing is built at import.
 
@@ -10,6 +12,9 @@ finished library in that directory is reused; nothing is built at import.
 (no multiply-add contraction); contraction is a later performance lever.
 ``-Xptxas -v`` writes the registers, stack and spills of the kernel into
 the build directory's ``build.log``.
+
+Each nvcc is one subprocess, so ``build_in_parallel`` builds several
+kernels at once from threads.
 """
 
 from __future__ import annotations
@@ -19,13 +24,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_ROOT = REPO_ROOT / "build" / "puppax_torch_kernels"
-SHELL = Path(__file__).resolve().parents[1] / "csrc" / "wrapped_step.cuh"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+COMMON = CSRC / "common.cuh"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,13 +42,31 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
 
-N_POINTERS = 13  # 8 input blocks + 5 output blocks
 
-# (model statics, env statics, n_substeps, episode_length) -> loaded library
-_LOADED: Dict[Tuple[int, int, int, int], Tuple[object, object, ctypes.CDLL]] = {}
+@dataclass(frozen=True)
+class Kernel:
+    """One generated kernel: its launch shell, its pointer count and the
+    names of its C entry points."""
 
-# what the last build did: {"seconds": ..., "cached": ..., "dir": ...}
-last_build: Dict[str, object] = {}
+    name: str
+    shell: Path
+    n_pointers: int
+    launch: str  # (pointers..., int B, void* stream), nvcc build
+    host: str  # (pointers..., int B), g++ build
+
+
+WRAPPED_STEP = Kernel("wrapped_step", CSRC / "wrapped_step.cuh", 13,  # 8 in + 5 out
+                      "wrapped_step_launch", "wrapped_step_host")
+ENV_STEP = Kernel("env_step", CSRC / "env_step.cuh", 10,  # 6 in + 4 out
+                  "env_step_launch", "env_step_host")
+
+# (kernel, model statics, env statics, config) -> loaded library
+_LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
+_EMIT_LOCK = threading.Lock()
+
+# what the last build of each kernel did: name -> {"compile_seconds": ...,
+# "ops_per_env": float operations of one env's run, cgen.op_count}
+last_build: Dict[str, Dict[str, object]] = {}
 
 
 def nvcc_path() -> str:
@@ -49,25 +76,28 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (CUDA toolkit required to build kernels)")
 
 
-def compile_library(body: str, compiler: Sequence[str], flags: Sequence[str],
-                    out_root: Path, lib_name: str) -> Tuple[Path, bool, float]:
-    """Compile the shell around ``body`` into ``<out_root>/<hash>/lib_name``.
-    Returns (library path, whether it was cached, seconds spent)."""
-    shell = SHELL.read_text()
+def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
+                    flags: Sequence[str], out_root: Path,
+                    lib_name: str) -> Tuple[Path, bool, float]:
+    """Compile ``kernel``'s shell around ``body`` into
+    ``<out_root>/<hash>/lib_name``. Returns (library path, whether it was
+    cached, seconds spent)."""
+    shell, common = kernel.shell.read_text(), COMMON.read_text()
     digest = hashlib.sha256(
-        "\0".join([body, shell, " ".join(compiler), " ".join(flags)]).encode()
+        "\0".join([body, shell, common, " ".join(compiler), " ".join(flags)]).encode()
     ).hexdigest()
     d = Path(out_root) / digest
     lib = d / lib_name
     if lib.exists():
         return lib, True, 0.0
     d.mkdir(parents=True, exist_ok=True)
-    (d / "wrapped_step_body.inc").write_text(body)
-    (d / "wrapped_step.cuh").write_text(shell)
-    unit = d / "wrapped_step_unit.cu"
+    (d / f"{kernel.name}_body.inc").write_text(body)
+    (d / kernel.shell.name).write_text(shell)
+    (d / COMMON.name).write_text(common)
+    unit = d / f"{kernel.name}_unit.cu"
     unit.write_text(
-        '#define PUPPAX_WRAPPED_STEP_BODY "wrapped_step_body.inc"\n'
-        '#include "wrapped_step.cuh"\n'
+        f'#define PUPPAX_KERNEL_BODY "{kernel.name}_body.inc"\n'
+        f'#include "{kernel.shell.name}"\n'
     )
     tmp = d / f".{lib_name}.{os.getpid()}.tmp"
     cmd = [*compiler, *flags, "-I", str(d), "-o", str(tmp), str(unit)]
@@ -79,16 +109,16 @@ def compile_library(body: str, compiler: Sequence[str], flags: Sequence[str],
     )
     if proc.returncode != 0:
         raise RuntimeError(
-            f"kernel build failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{kernel.name} build failed ({proc.returncode}): {' '.join(cmd)}\n"
             + (proc.stdout + proc.stderr)[-4000:]
         )
     os.replace(tmp, lib)
     return lib, False, secs
 
 
-def _bind(lib: ctypes.CDLL, fn_name: str, with_stream: bool):
-    fn = getattr(lib, fn_name)
-    args = [ctypes.c_void_p] * N_POINTERS + [ctypes.c_int]
+def _bind(lib: ctypes.CDLL, kernel: Kernel, with_stream: bool):
+    fn = getattr(lib, kernel.launch if with_stream else kernel.host)
+    args = [ctypes.c_void_p] * kernel.n_pointers + [ctypes.c_int]
     if with_stream:
         args.append(ctypes.c_void_p)
     fn.argtypes = args
@@ -96,36 +126,65 @@ def _bind(lib: ctypes.CDLL, fn_name: str, with_stream: bool):
     return fn
 
 
-def wrapped_step_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
-    """The wrapped-step kernel for this configuration, built with nvcc for
-    sm_90a at first use and cached for the process."""
-    key = (id(s), id(es), int(n_substeps), int(episode_length))
+def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
+                    make_body: Callable[[], str]) -> ctypes.CDLL:
+    key = (kernel.name, id(s), id(es), config)
     hit = _LOADED.get(key)
     if hit is not None:
         return hit[2]
-    from puppax_torch.kernels import cgen
-
-    t0 = time.perf_counter()
-    body = cgen.wrapped_step_body(s, es, n_substeps, episode_length)
-    gen_secs = time.perf_counter() - t0
+    with _EMIT_LOCK:  # the value algebra's CSE memo is process-global
+        t0 = time.perf_counter()
+        body = make_body()
+        gen_secs = time.perf_counter() - t0
     path, cached, secs = compile_library(
-        body, [nvcc_path()], NVCC_FLAGS, BUILD_ROOT, "libwrapped_step.so"
+        kernel, body, [nvcc_path()], NVCC_FLAGS, BUILD_ROOT, f"lib{kernel.name}.so"
     )
     lib = ctypes.CDLL(str(path))
-    _bind(lib, "wrapped_step_launch", with_stream=True)
-    last_build.clear()
-    last_build.update(
+    _bind(lib, kernel, with_stream=True)
+    from puppax_torch.kernels import cgen
+
+    last_build[kernel.name] = dict(
         generate_seconds=gen_secs, compile_seconds=secs, cached=cached,
-        dir=str(path.parent), lines=body.count("\n"),
+        dir=str(path.parent), lines=body.count("\n"), ops_per_env=cgen.op_count(body),
     )
     _LOADED[key] = (s, es, lib)  # keeps s/es alive so their ids stay unique
     return lib
 
 
-def host_library(body: str, out_root: Path, compiler: str = "g++") -> ctypes.CDLL:
-    """The same generated source built for the CPU (``wrapped_step_host``)."""
-    path, _, _ = compile_library(body, [compiler], GXX_FLAGS, out_root,
-                                 "libwrapped_step_host.so")
+def wrapped_step_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
+    """The wrapped-step kernel (K3) for this configuration, built with nvcc
+    for sm_90a at first use and cached for the process."""
+    from puppax_torch.kernels import cgen
+
+    return _device_library(
+        WRAPPED_STEP, s, es, (int(n_substeps), int(episode_length)),
+        lambda: cgen.wrapped_step_body(s, es, n_substeps, episode_length),
+    )
+
+
+def env_step_library(s, es, n_substeps: int) -> ctypes.CDLL:
+    """The unwrapped env-step kernel (K2) for this configuration, built with
+    nvcc for sm_90a at first use and cached for the process."""
+    from puppax_torch.kernels import cgen
+
+    return _device_library(
+        ENV_STEP, s, es, (int(n_substeps),),
+        lambda: cgen.env_step_body(s, es, n_substeps),
+    )
+
+
+def build_in_parallel(*builds: Callable[[], object]) -> list:
+    """Run the given library builds (e.g. ``lambda: env_step_library(...)``)
+    in threads, so their nvcc processes run at the same time."""
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        return [f.result() for f in [pool.submit(b) for b in builds]]
+
+
+def host_library(kernel: Kernel, body: str, out_root: Path,
+                 compiler: str = "g++") -> ctypes.CDLL:
+    """The same generated source built for the CPU (the shell's host loop)."""
+    path, _, _ = compile_library(kernel, body, [compiler], GXX_FLAGS, out_root,
+                                 f"lib{kernel.name}_host.so")
     lib = ctypes.CDLL(str(path))
-    _bind(lib, "wrapped_step_host", with_stream=False)
+    _bind(lib, kernel, with_stream=False)
     return lib

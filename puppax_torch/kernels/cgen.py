@@ -11,13 +11,15 @@ one-sided rows of the line search become local ``float[n]`` arrays, and
 their sum an ordered loop.
 
 The generated body is one ``PUPPAX_HD`` (``__host__ __device__``) function
-that reads row r of env b at ``ptr[r * B + b]``; the hand-written shell
-``csrc/wrapped_step.cuh`` wraps it in the kernel and the C entry points.
+that reads row r of env b at ``ptr[r * B + b]``; a hand-written shell wraps
+it in the kernel and the C entry points: ``csrc/wrapped_step.cuh`` for the
+wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2).
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import List
 
 import numpy as np
@@ -35,9 +37,12 @@ _UNARY = {
     "cos": "cosf({})",
 }
 
-# the pointer parameters of the body, in block order (shell: WS_PARAMS)
+# the pointer parameters of each body, in block order (shells: WS_PARAMS
+# in wrapped_step.cuh, ES_PARAMS in env_step.cuh)
 IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr", "first", "wrap")
 OUT_BLOCKS = ("q_out", "v_out", "env_out", "wrap_out", "aux_out")
+ENV_IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr")
+ENV_OUT_BLOCKS = ("q_out", "v_out", "cache_out", "env_out")
 
 
 def float_literal(x) -> str:
@@ -238,24 +243,74 @@ class CProgram:
         return [CVal(self, nm, k) for nm, k in zip(names, kinds)]
 
 
-def wrapped_step_body(s, es, n_substeps: int, episode_length: int) -> str:
-    """C source of ``wrapped_step_body``: the wrapped-step emission of
-    ``env/soa_env.py`` for this model and env configuration."""
-    from puppax_torch.env import soa_env
-
+def _body(name, params, in_blocks, out_blocks, in_rows, emit, what) -> str:
     prog = CProgram()
-    in_rows, _ = soa_env.block_rows(s, es)
-    rows = [
-        [prog.load(ptr, r) for r in range(n)] for ptr, n in zip(IN_BLOCKS, in_rows)
-    ]
-    outs = soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows)
-    for ptr, vals in zip(OUT_BLOCKS, outs):
+    rows = [[prog.load(ptr, r) for r in range(n)] for ptr, n in zip(in_blocks, in_rows)]
+    outs = emit(rows)
+    for ptr, vals in zip(out_blocks, outs):
         for r, x in enumerate(vals):
             prog.store(ptr, r, x)
     header = (
-        "// Generated by puppax_torch/kernels/cgen.py from the wrapped-step\n"
-        f"// emission: n_substeps={n_substeps}, episode_length={episode_length},\n"
+        f"// Generated by puppax_torch/kernels/cgen.py from the {what},\n"
         f"// {prog.count} values. Do not edit.\n"
-        "PUPPAX_HD inline void wrapped_step_body(WS_PARAMS, int B, int b) {\n"
+        f"PUPPAX_HD inline void {name}({params}, int B, int b) {{\n"
     )
     return header + "\n".join(prog.lines) + "\n}\n"
+
+
+def wrapped_step_body(s, es, n_substeps: int, episode_length: int) -> str:
+    """C source of ``wrapped_step_body`` (K3): the wrapped-step emission of
+    ``env/soa_env.py`` for this model and env configuration."""
+    from puppax_torch.env import soa_env
+
+    in_rows, _ = soa_env.block_rows(s, es)
+    return _body(
+        "wrapped_step_body", "WS_PARAMS", IN_BLOCKS, OUT_BLOCKS, in_rows,
+        lambda rows: soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows),
+        f"wrapped-step\n// emission: n_substeps={n_substeps}, episode_length={episode_length}",
+    )
+
+
+def env_step_body(s, es, n_substeps: int) -> str:
+    """C source of ``env_step_body`` (K2): the unwrapped env-step emission
+    plus the last forward pass's caches (``soa_env.emit_env_rows``)."""
+    from puppax_torch.env import soa_env
+
+    in_rows, _ = soa_env.env_block_rows(s, es)
+    return _body(
+        "env_step_body", "ES_PARAMS", ENV_IN_BLOCKS, ENV_OUT_BLOCKS, in_rows,
+        lambda rows: soa_env.emit_env_rows(s, es, n_substeps, rows),
+        f"env-step\n// emission: n_substeps={n_substeps}",
+    )
+
+
+_LOOP = re.compile(r"for \(int \w+ = 0; \w+ < (\d+); \+\+\w+\) \{$")
+_OPS = re.compile(
+    r"(?<![eE])[-+*/](?![=+])|[<>]=?|[!=]=|\b(?:sqrtf|expf|sinf|cosf|fabsf|pmax|pmin|psign)\("
+)
+
+
+def op_count(body: str) -> int:
+    """Float operations one env's run of a generated body performs: every
+    arithmetic operator, comparison, min/max, sign and math-library call,
+    each line weighted by the trip counts of the loops around it (the
+    substep loop and the line search's expand / Illinois / row loops).
+    Loads, stores, selects and the loop counters are not counted."""
+    total, trips = 0, [1]
+    for line in body.splitlines():
+        line = re.sub(r"//.*", "", line).strip()
+        m = _LOOP.match(line)
+        if m:
+            trips.append(trips[-1] * int(m.group(1)))
+            continue
+        if line == "}":
+            if len(trips) > 1:
+                trips.pop()
+            continue
+        if "=" not in line or line.startswith(("PUPPAX_HD", "#")):
+            continue
+        rhs = line.split("=", 1)[1]
+        rhs = re.sub(r"\w+\[[^\]]*\]", "x", rhs)  # indices are not float work
+        rhs = re.sub(r"(?<![\w.])\(?-?\d+(?:\.\d*)?(?:e[+-]?\d+)?f\)?", "c", rhs)  # literals
+        total += trips[-1] * len(_OPS.findall(rhs))
+    return total

@@ -627,6 +627,24 @@ class _Static:
             r += n
         self.ndr = r
 
+        # rows of the (ncache, B) block of the last forward pass's caches
+        self.cache_rows: Dict[str, Tuple[int, int]] = {}
+        r = 0
+        for name, n in (
+            ("qacc", m.nv),
+            ("xpos", m.nbody * 3),
+            ("xquat", (m.nbody - 1) * 4),
+            ("xd_ang", (m.nbody - 1) * 3),
+            ("xd_vel", (m.nbody - 1) * 3),
+            ("site_xpos", m.nsite * 3),
+            ("qfrc_actuator", m.nv),
+            ("con_dist", self.npair),
+            ("con_pos", self.npair * 3),
+        ):
+            self.cache_rows[name] = (r, n)
+            r += n
+        self.ncache = r
+
 
 # ---------------------------------------------------------------------------
 # program emitters (operate on value-algebra objects)
@@ -1346,6 +1364,28 @@ def _link_velocities(s: _Static, fw):
         xd_ang.append(ang)
         xd_vel.append(vadd3(lin, vcross3(ang, off)))
     return xd_ang, xd_vel
+
+
+def _emit_caches(s: _Static, fw) -> List:
+    """The last forward pass's caches as one flat list in ``s.cache_rows``
+    order (world body dropped from xquat and the link velocities)."""
+    ang_l, vel_l = _link_velocities(s, fw)
+    parts = {
+        "qacc": list(fw["qacc"]),
+        "xpos": [c for b in range(s.nbody) for c in fw["xpos"][b]],
+        "xquat": [c for b in range(1, s.nbody) for c in fw["xquat"][b]],
+        "xd_ang": [c for a in ang_l for c in a],
+        "xd_vel": [c for vv in vel_l for c in vv],
+        "site_xpos": [c for sxyz in fw["sites"] for c in sxyz],
+        "qfrc_actuator": list(fw["qfrc_actuator"]),
+        "con_dist": list(fw["con_dist"]),
+        "con_pos": [c for p3 in fw["con_pos"] for c in p3],
+    }
+    out = []
+    for name, (_, n) in s.cache_rows.items():
+        assert len(parts[name]) == n, (name, len(parts[name]), n)
+        out.extend(parts[name])
+    return out
 
 
 def dr_inputs(m: RobotModel, s: _Static, B: int, device=None) -> Dict[str, torch.Tensor]:

@@ -1,1 +1,2 @@
-"""The policy side of PPO: normalizer, action distribution, networks."""
+"""PPO: normalizer, action distribution, networks, acting, the learner and
+checkpoints."""

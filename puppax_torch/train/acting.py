@@ -1,15 +1,22 @@
-"""The rollout's transition record.
+"""The transition record, the standard-lane unroll and the evaluator.
 
-Counterpart of ``puppax/train/acting.py::Transition``: one env transition
-per field, time-major ``(T, B, ...)``, as the PPO loss consumes it.
+Counterpart of ``puppax/train/acting.py``. ``generate_unroll`` steps a
+wrapped env (``env/wrappers.py::TrainingEnv``, the env-step kernel K2 on
+the card) under a policy, one Python iteration per step; the JAX ``scan``
+has no counterpart. ``Evaluator`` runs full eval episodes and aggregates
+the ``eval/episode_*`` metrics with the JAX package's episode masking and
+metric names. Every draw comes from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
+
+from puppax_torch.env.base import State
 
 
 @dataclass(frozen=True)
@@ -23,3 +30,98 @@ class Transition:
     policy_extras: Dict[str, torch.Tensor]  # log_prob, raw_action (pre-tanh)
     metrics: Dict[str, torch.Tensor] = field(default_factory=dict)
     extras: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+def actor_step(env, env_state: State, policy: Callable, generator: torch.Generator,
+               collect_metrics: bool = False) -> Tuple[State, Transition]:
+    """One policy step on a wrapped env; ``collect_metrics`` also records
+    the env's per-step metrics (the evaluator's use)."""
+    actions, policy_extras = policy(env_state.obs, generator)
+    next_state = env.step(env_state, actions, generator)
+    return next_state, Transition(
+        observation=env_state.obs,
+        action=actions,
+        reward=next_state.reward,
+        discount=1.0 - next_state.done,
+        next_observation=next_state.obs,
+        truncation=next_state.info["truncation"],
+        policy_extras=policy_extras,
+        metrics=dict(next_state.metrics) if collect_metrics else {},
+    )
+
+
+def _stack(ts):
+    if isinstance(ts[0], dict):
+        return {k: _stack([t[k] for t in ts]) for k in ts[0]}
+    return torch.stack(ts)
+
+
+def generate_unroll(env, env_state: State, policy: Callable, generator: torch.Generator,
+                    unroll_length: int, collect_metrics: bool = False
+                    ) -> Tuple[State, Transition]:
+    """``unroll_length`` actor steps; returns (final state, transitions
+    stacked on a leading time axis)."""
+    steps = []
+    for _ in range(unroll_length):
+        env_state, transition = actor_step(env, env_state, policy, generator,
+                                           collect_metrics=collect_metrics)
+        steps.append(transition)
+    fields = {f: _stack([getattr(t, f) for t in steps])
+              for f in ("observation", "action", "reward", "discount", "next_observation",
+                        "truncation", "policy_extras", "metrics")}
+    return env_state, Transition(**fields)
+
+
+def episode_metrics(data: Transition, final_state: State) -> Dict[str, torch.Tensor]:
+    """The evaluator's aggregation of a (T, B) eval unroll: per-episode sums
+    over the steps up to and including each env's first done, averaged over
+    the envs (``puppax/train/acting.py:134-159``). ``total_dist`` is a gauge,
+    read at the end of the episode."""
+    done_mask = torch.cumsum((data.discount < 0.5).to(torch.int32), dim=0)
+    active = torch.cat(
+        [torch.ones_like(done_mask[:1]), (done_mask < 1)[:-1].to(done_mask.dtype)], dim=0
+    ).to(data.reward.dtype)
+    episode_reward = torch.sum(data.reward * active, dim=0)
+    metrics = {
+        "eval/episode_reward": torch.mean(episode_reward),
+        # jnp.std: the population standard deviation
+        "eval/episode_reward_std": torch.std(episode_reward, correction=0),
+        "eval/avg_episode_length": torch.mean(torch.sum(active, dim=0)),
+    }
+    for name, series in data.metrics.items():
+        if name == "total_dist":
+            metrics["eval/episode_total_dist"] = torch.mean(final_state.metrics[name])
+            continue
+        metrics[f"eval/episode_{name}"] = torch.mean(torch.sum(series * active, dim=0))
+    return metrics
+
+
+class Evaluator:
+    """Runs full eval episodes on a wrapped eval env (reset with its
+    physics caches, stepped through K2) and aggregates episode metrics. It
+    runs on its env's device (``cuda:0`` unless the env was built for
+    another); one generator feeds the resets, the actions and the env
+    noise, in that order."""
+
+    def __init__(self, eval_env, eval_policy_factory: Callable, num_eval_envs: int,
+                 episode_length: int, action_repeat: int, generator: torch.Generator):
+        self._env = eval_env
+        self._policy_factory = eval_policy_factory
+        self._num_eval_envs = int(num_eval_envs)
+        self._episode_steps = episode_length // action_repeat
+        self._generator = generator
+        self._eval_walltime = 0.0
+
+    @torch.no_grad()
+    def run_evaluation(self, policy_params) -> Dict[str, float]:
+        t = time.perf_counter()
+        state = self._env.reset(self._num_eval_envs, self._generator, caches=True)
+        policy = self._policy_factory(policy_params)
+        final_state, data = generate_unroll(self._env, state, policy, self._generator,
+                                            self._episode_steps, collect_metrics=True)
+        metrics = {k: float(v) for k, v in episode_metrics(data, final_state).items()}
+        epoch_time = time.perf_counter() - t
+        self._eval_walltime += epoch_time
+        metrics["eval/walltime"] = self._eval_walltime
+        metrics["eval/epoch_eval_time"] = epoch_time
+        return metrics

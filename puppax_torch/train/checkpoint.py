@@ -1,0 +1,61 @@
+"""Checkpoint save/restore in the ``<checkpoint_path>/<step>/`` layout.
+
+Counterpart of ``puppax/train/checkpoint.py:20-81``. The JAX package writes
+orbax directories; the port writes one ``torch.save`` file,
+``<checkpoint_path>/<step>/checkpoint.pt``, of a tree of dicts, lists,
+tensors and numbers, and reads it back with ``weights_only=True``. Reading
+the JAX package's orbax checkpoints belongs to the export item of ROADMAP
+queue 1, and ``download_checkpoint`` (W&B) to its tools item.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+FILE = "checkpoint.pt"
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def save_checkpoint(current_step: int, tree: Any, checkpoint_path) -> str:
+    """Save ``tree`` (its tensors copied to the CPU) under
+    ``checkpoint_path/<step>/``; returns that directory."""
+    path = (Path(checkpoint_path) / str(int(current_step))).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / f".{FILE}.{os.getpid()}.tmp"
+    torch.save(_to_cpu(tree), tmp)
+    os.replace(tmp, path / FILE)
+    return str(path)
+
+
+def latest_checkpoint_step(checkpoint_path) -> Optional[int]:
+    """Highest-step subdirectory holding a checkpoint, or None."""
+    p = Path(checkpoint_path)
+    if not p.is_dir():
+        return None
+    steps = [int(d.name) for d in p.iterdir()
+             if d.is_dir() and d.name.isdigit() and (d / FILE).exists()]
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(checkpoint_path, step: Optional[int] = None, map_location=None):
+    """The tree saved at ``step`` (default: the latest), its tensors on
+    ``map_location`` (default: the CPU)."""
+    if step is None:
+        step = latest_checkpoint_step(checkpoint_path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {checkpoint_path}")
+    path = (Path(checkpoint_path) / str(int(step)) / FILE).resolve()
+    return torch.load(path, map_location=map_location, weights_only=True)

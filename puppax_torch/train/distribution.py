@@ -3,7 +3,8 @@
 Counterpart of ``puppax/train/distribution.py``: the policy head emits
 ``2 * action_size`` logits = (loc, scale_param); scale is
 ``softplus(scale_param) + min_std``, actions are ``tanh`` of a Gaussian
-sample, and ``log_prob`` corrects for the squash.
+sample, and ``log_prob`` corrects for the squash. Every normal draw comes
+from an explicit ``torch.Generator``, or is given as ``eps``.
 """
 
 from __future__ import annotations
@@ -29,8 +30,33 @@ class NormalTanhDistribution:
         loc, scale = torch.chunk(logits, 2, dim=dim)
         return loc, F.softplus(scale) + self._min_std
 
+    @staticmethod
+    def _normal(loc: torch.Tensor, generator=None, eps=None) -> torch.Tensor:
+        """Standard normal draws shaped like ``loc``: ``eps`` when given (the
+        parity tests inject the JAX package's), else from ``generator``."""
+        if eps is not None:
+            return eps.to(loc.dtype)
+        return torch.randn(loc.shape, generator=generator, device=loc.device, dtype=loc.dtype)
+
+    def sample_no_postprocessing(self, logits: torch.Tensor, generator=None,
+                                 eps=None) -> torch.Tensor:
+        """Pre-tanh sample (what rollouts store for exact log_prob replay)."""
+        loc, scale = self.loc_scale(logits)
+        return loc + scale * self._normal(loc, generator, eps)
+
     def postprocess(self, pre_tanh: torch.Tensor) -> torch.Tensor:
         return torch.tanh(pre_tanh)
+
+    def mode(self, logits: torch.Tensor) -> torch.Tensor:
+        loc, _ = self.loc_scale(logits)
+        return torch.tanh(loc)
+
+    def entropy(self, logits: torch.Tensor, generator=None, eps=None) -> torch.Tensor:
+        """Single-sample entropy estimate of the squashed distribution."""
+        loc, scale = self.loc_scale(logits)
+        normal_entropy = 0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(scale)
+        pre_tanh = loc + scale * self._normal(loc, generator, eps)
+        return torch.sum(normal_entropy + self.forward_log_det_jacobian(pre_tanh), dim=-1)
 
     @staticmethod
     def forward_log_det_jacobian(pre_tanh: torch.Tensor) -> torch.Tensor:

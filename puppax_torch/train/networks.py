@@ -1,4 +1,4 @@
-"""Policy/value MLP networks.
+"""Policy/value MLP networks and the inference-fn factory.
 
 Counterpart of ``puppax/train/networks.py``. ``MLP`` keeps the JAX
 package's layer naming (``hidden_0``, ``hidden_1``, ...), so a policy's
@@ -7,20 +7,63 @@ parameters map one to one onto the flax tree ``{"params": {"hidden_i":
 kernel is ``(in, out)`` and ``nn.Linear``'s weight ``(out, in)``
 (``params_from_jax`` transposes). Initialization is flax's: LeCun-uniform
 kernels and zero biases, drawn from an explicit generator.
+
+Precision: the policy's products run in full float32 (the JAX package pins
+it to ``Precision.HIGHEST``; the fast lane, the export replay and the
+policy MLP must agree). The value network's ``value_precision`` is
+``"highest"`` (float32) or ``"high"``/``"default"``: TF32 tensor-core
+products, switched on inside the value net's own forward and backward
+products only, so the process-wide flag (off, ``rollout.FastLane``) never
+reaches the policy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from puppax_torch import utils
+from puppax_torch.train import running_statistics
 from puppax_torch.train.distribution import NormalTanhDistribution
+
+PRECISIONS = ("highest", "high", "default")
+
+
+@contextlib.contextmanager
+def _tf32_products():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _TF32Linear(torch.autograd.Function):
+    """``F.linear`` whose forward and backward products run in TF32 on the
+    card (the flag is read per product; the CPU ignores it)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        with _tf32_products():
+            return F.linear(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+        with _tf32_products():
+            gx = g @ w
+            gw = g2.t() @ x2
+        return gx, gw, g2.sum(0)
 
 
 class MLP(nn.Module):
@@ -33,11 +76,16 @@ class MLP(nn.Module):
         activation: str = "elu",
         device=None,
         generator: torch.Generator = None,
+        precision: str = "highest",
     ):
         super().__init__()
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r} (one of {PRECISIONS})")
+        device = utils.resolve_device(device)
         self.layer_sizes = tuple(int(n) for n in layer_sizes)
         self.activation_name = activation
         self.activation: Callable = utils.activation_fn_map(activation)
+        self.precision = precision
         fan_in = in_size
         for i, size in enumerate(self.layer_sizes):
             layer = nn.Linear(fan_in, size, device=device)
@@ -55,10 +103,26 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         layers = self.layers()
         for i, layer in enumerate(layers):
-            x = layer(x)
+            if self.precision == "highest":
+                x = layer(x)
+            else:
+                x = _TF32Linear.apply(x, layer.weight, layer.bias)
             if i != len(layers) - 1:
                 x = self.activation(x)
         return x
+
+
+def _normalized(normalizer, obs):
+    return obs if normalizer is None else running_statistics.normalize(obs, normalizer)
+
+
+@dataclass(frozen=True)
+class PPONetworkParams:
+    """The policy and value parameters (``params[1].policy`` is part of the
+    callback surface, as in the JAX package)."""
+
+    policy: MLP
+    value: MLP
 
 
 @dataclass(frozen=True)
@@ -66,6 +130,18 @@ class PPONetworks:
     policy_network: MLP  # obs -> 2 * action logits
     value_network: MLP  # obs -> 1
     action_distribution: NormalTanhDistribution
+
+    def policy_apply(self, normalizer, obs: torch.Tensor) -> torch.Tensor:
+        """Policy logits of (normalized) observations."""
+        return self.policy_network(_normalized(normalizer, obs))
+
+    def value_apply(self, normalizer, obs: torch.Tensor) -> torch.Tensor:
+        """The value of (normalized) observations, the last axis squeezed."""
+        return self.value_network(_normalized(normalizer, obs)).squeeze(-1)
+
+    @property
+    def params(self) -> PPONetworkParams:
+        return PPONetworkParams(policy=self.policy_network, value=self.value_network)
 
 
 def make_ppo_networks(
@@ -76,14 +152,43 @@ def make_ppo_networks(
     activation: str = "elu",
     device=None,
     generator: torch.Generator = None,
+    value_precision: str = "highest",
 ) -> PPONetworks:
-    """Build the policy (obs -> 2 * action logits) and value (obs -> 1)."""
+    """Build the policy (obs -> 2 * action logits) and value (obs -> 1),
+    the policy's weights drawn from ``generator`` first."""
+    device = utils.resolve_device(device)
     dist = NormalTanhDistribution(event_size=action_size)
     policy = MLP(observation_size, tuple(policy_hidden_layer_sizes) + (dist.param_size,),
                  activation, device=device, generator=generator)
     value = MLP(observation_size, tuple(value_hidden_layer_sizes) + (1,),
-                activation, device=device, generator=generator)
+                activation, device=device, generator=generator, precision=value_precision)
     return PPONetworks(policy_network=policy, value_network=value, action_distribution=dist)
+
+
+def make_inference_fn(networks: PPONetworks):
+    """``make_policy((normalizer, policy MLP), deterministic=False)`` ->
+    ``policy(obs, generator=None, eps=None) -> (action, extras)``: the
+    tanh of the mode, or a NormalTanh sample from ``generator`` (or the
+    given normal draws ``eps``) with its log_prob and pre-tanh action."""
+    dist = networks.action_distribution
+
+    def make_policy(params, deterministic: bool = False):
+        normalizer, policy_net = params
+
+        def policy(obs: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None):
+            logits = policy_net(_normalized(normalizer, obs))
+            if deterministic:
+                return dist.mode(logits), {}
+            pre_tanh = dist.sample_no_postprocessing(logits, generator, eps)
+            return dist.postprocess(pre_tanh), {
+                "log_prob": dist.log_prob(logits, pre_tanh),
+                "raw_action": pre_tanh,
+            }
+
+        return policy
+
+    return make_policy
 
 
 def params_from_jax(flax_params) -> Dict[str, torch.Tensor]:

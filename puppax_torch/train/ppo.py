@@ -1,0 +1,512 @@
+"""The PPO learner on one device.
+
+Counterpart of ``puppax/train/ppo.py``: the same algorithm (clipped
+surrogate, truncation-aware GAE, running observation normalization,
+single-sample entropy bonus, 0.25 value-loss factor), hyperparameters,
+callbacks (``progress_fn(step, metrics)``, ``policy_params_fn(step,
+make_policy, params)``) and ``<checkpoint_dir>/state/<step>/`` train-state
+checkpoints. What differs:
+
+* One device and eager PyTorch: each training step is a Python loop of
+  ``num_unrolls_per_env`` rollout-lane unrolls (``FastLane.unroll``, the
+  wrapped-step kernel K3), the time-major reorder, the normalizer update and
+  ``num_updates_per_batch`` x ``num_minibatches`` SGD steps. The evaluator
+  steps the standard lane (the env-step kernel K2).
+* Randomness: one ``torch.Generator`` per stream of ``STREAMS``, seeded
+  with ``numpy.random.SeedSequence([seed, i]).generate_state(1, uint64)``
+  for the stream's index i (``make_generators``). Seed-for-seed parity with
+  JAX waits for the threefry port (ROADMAP queue 1).
+* The env-step count is a Python int: the JAX package's ``StepCount`` keeps
+  two int32 limbs only because JAX runs without x64.
+* ``Adam`` reproduces ``optax.chain(clip_by_global_norm, adam)``: the lr
+  schedule is read at the update count before the increment, and the clip
+  has no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6).
+* Each training step records its rollout, reorder + normalizer and SGD
+  phases (CUDA events on the card, the host clock on the CPU); their means
+  per epoch join the metrics as ``training/{rollout,prepare,sgd}_ms``.
+
+Privileged critic, the disturbance curriculum, ``action_repeat != 1``, the
+fused unroll (K4) and a multi-device mesh raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math as pymath
+import os
+import time
+from dataclasses import dataclass, fields, replace
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from puppax_torch import utils
+from puppax_torch.env import wrappers
+from puppax_torch.env.rollout import FastLane
+from puppax_torch.train import acting, checkpoint, running_statistics
+from puppax_torch.train import networks as ppo_networks
+from puppax_torch.train.acting import Transition
+
+_ROADMAP_EXTRAS = "ROADMAP queue 1, training extras"
+
+STREAMS = ("network", "dr", "reset", "rollout", "sgd", "eval")
+
+
+def make_generators(seed: int, device) -> Dict[str, torch.Generator]:
+    """One generator per random stream of ``STREAMS``, on ``device``."""
+    out = {}
+    for i, name in enumerate(STREAMS):
+        s = int(np.random.SeedSequence([int(seed), i]).generate_state(1, np.uint64)[0])
+        out[name] = torch.Generator(device=device).manual_seed(s)
+    return out
+
+
+def compute_gae(truncation, termination, rewards, values, bootstrap_value,
+                lambda_: float, discount: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Truncation-aware GAE over (T, B) data (``ppo.py:92-129``).
+    ``termination`` ends the bootstrap; ``truncation`` masks the TD error.
+    Returns (value targets, advantages), both detached."""
+    truncation_mask = 1.0 - truncation
+    values_t_plus_1 = torch.cat([values[1:], bootstrap_value[None]], 0)
+    deltas = rewards + discount * (1.0 - termination) * values_t_plus_1 - values
+    deltas = deltas * truncation_mask
+    acc = torch.zeros_like(bootstrap_value)
+    vs_minus_v = [None] * deltas.shape[0]
+    for t in reversed(range(deltas.shape[0])):
+        acc = deltas[t] + discount * (1.0 - termination[t]) * truncation_mask[t] * lambda_ * acc
+        vs_minus_v[t] = acc
+    vs = torch.stack(vs_minus_v) + values
+    vs_t_plus_1 = torch.cat([vs[1:], bootstrap_value[None]], 0)
+    advantages = (rewards + discount * (1.0 - termination) * vs_t_plus_1 - values) * truncation_mask
+    return vs.detach(), advantages.detach()
+
+
+def compute_ppo_loss(networks, normalizer, data: Transition, entropy_eps: torch.Tensor,
+                     entropy_cost: float, *, discounting: float = 0.97,
+                     gae_lambda: float = 0.95, clipping_epsilon: float = 0.3,
+                     reward_scaling: float = 1.0, normalize_advantage: bool = True,
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The PPO loss of a time-major (T, mb) minibatch (``ppo.py:306-384``);
+    ``entropy_eps`` are the normal draws of the entropy estimate and
+    ``normalizer`` is None when observations are not normalized."""
+    dist = networks.action_distribution
+    policy_logits = networks.policy_apply(normalizer, data.observation)
+    baseline = networks.value_apply(normalizer, data.observation)
+    bootstrap_value = networks.value_apply(normalizer, data.next_observation[-1])
+
+    rewards = data.reward * reward_scaling
+    truncation = data.truncation
+    termination = (1.0 - data.discount) * (1.0 - truncation)
+    target_lp = dist.log_prob(policy_logits, data.policy_extras["raw_action"])
+    behaviour_lp = data.policy_extras["log_prob"]
+
+    vs, advantages = compute_gae(truncation, termination, rewards, baseline, bootstrap_value,
+                                 gae_lambda, discounting)
+    if normalize_advantage:
+        # jnp.std is the population standard deviation
+        advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+
+    rho = torch.exp(target_lp - behaviour_lp)
+    surrogate = rho * advantages
+    clipped = torch.clamp(rho, 1.0 - clipping_epsilon, 1.0 + clipping_epsilon) * advantages
+    policy_loss = -torch.mean(torch.minimum(surrogate, clipped))
+
+    v_error = vs - baseline
+    value_loss = 0.25 * torch.mean(v_error * v_error)
+
+    entropy = torch.mean(dist.entropy(policy_logits, eps=entropy_eps))
+    entropy_loss = -entropy_cost * entropy
+
+    total = policy_loss + value_loss + entropy_loss
+    return total, {
+        "total_loss": total,
+        "policy_loss": policy_loss,
+        "value_loss": value_loss,
+        "entropy_loss": entropy_loss,
+    }
+
+
+def lr_schedule_fn(learning_rate: float, lr_schedule: str, lr_final_fraction: float,
+                   total_updates: int) -> Callable[[int], float]:
+    """The learning rate at an update count: optax's ``constant``,
+    ``cosine_decay_schedule`` (alpha = ``lr_final_fraction``) or
+    ``linear_schedule`` to ``learning_rate * lr_final_fraction``."""
+    if lr_schedule == "constant":
+        return lambda count: learning_rate
+    if lr_schedule == "cosine":
+        if total_updates <= 0:
+            raise ValueError("the cosine schedule needs total_updates > 0")
+
+        def cosine(count):
+            c = min(count, total_updates)
+            decay = 0.5 * (1.0 + pymath.cos(pymath.pi * c / total_updates))
+            return learning_rate * ((1.0 - lr_final_fraction) * decay + lr_final_fraction)
+
+        return cosine
+    if lr_schedule == "linear":
+        end = learning_rate * lr_final_fraction
+        if total_updates <= 0:
+            return lambda count: learning_rate
+
+        def linear(count):
+            frac = 1.0 - min(max(count, 0), total_updates) / total_updates
+            return (learning_rate - end) * frac + end
+
+        return linear
+    raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
+
+
+class Adam:
+    """``optax.chain(optax.clip_by_global_norm(max_grad_norm),
+    optax.adam(lr))`` over a list of parameters, updated in place: b1 0.9,
+    b2 0.999, eps 1e-8 outside the square root, bias correction at the
+    incremented count, ``lr(count)`` at the count before it."""
+
+    def __init__(self, params: List[torch.Tensor], lr: Callable[[int], float],
+                 max_grad_norm: Optional[float] = None, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.max_grad_norm = lr, max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        grads = list(grads)
+        if self.max_grad_norm is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < self.max_grad_norm
+            grads = [torch.where(keep, g, (g / g_norm) * self.max_grad_norm) for g in grads]
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(grads, grads), alpha=1 - b2)
+        count_inc = self.count + 1
+        # 1 - decay**count in float32, as optax computes it
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count_inc))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count_inc))
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        updates = torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
+        torch._foreach_add_(self.params, updates, alpha=-self.lr(self.count))
+        self.count = count_inc
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_state_dict(self, tree: Dict) -> None:
+        self.count = int(tree["count"])
+        for dst, src in zip(self.mu + self.nu, list(tree["mu"]) + list(tree["nu"])):
+            dst.copy_(src)
+
+
+@dataclass
+class TrainingState:
+    networks: ppo_networks.PPONetworks
+    optimizer: Adam
+    normalizer_params: running_statistics.RunningStatisticsState
+    env_steps: int = 0
+
+    def state_dict(self) -> Dict:
+        """The checkpoint tree: parameters, optimizer, normalizer, env steps."""
+        return {
+            "params": params_state_dict((self.normalizer_params, self.networks.params)),
+            "optimizer": self.optimizer.state_dict(),
+            "env_steps": int(self.env_steps),
+        }
+
+    def load_state_dict(self, tree: Dict) -> None:
+        p = tree["params"]
+        self.networks.policy_network.load_state_dict(p["policy"])
+        self.networks.value_network.load_state_dict(p["value"])
+        dev = self.normalizer_params.mean.device
+        self.normalizer_params = running_statistics.RunningStatisticsState(
+            **{k: v.to(dev) for k, v in p["normalizer"].items()}
+        )
+        self.optimizer.load_state_dict(tree["optimizer"])
+        self.env_steps = int(tree["env_steps"])
+
+
+def params_state_dict(params) -> Dict:
+    """``(normalizer, PPONetworkParams)`` as a checkpoint tree."""
+    normalizer, nets = params
+    return {
+        "normalizer": {f.name: getattr(normalizer, f.name) for f in fields(normalizer)},
+        "policy": nets.policy.state_dict(),
+        "value": nets.value.state_dict(),
+    }
+
+
+def _map_data(fn, data: Transition) -> Transition:
+    """``fn`` on every tensor of the transition fields the learner reads."""
+    return replace(
+        data,
+        **{f: fn(getattr(data, f)) for f in ("observation", "action", "reward", "discount",
+                                              "next_observation", "truncation")},
+        policy_extras={k: fn(v) for k, v in data.policy_extras.items()},
+    )
+
+
+def minibatches(data: Transition, perm: torch.Tensor, num_minibatches: int,
+                lazy_shuffle: bool):
+    """The minibatches of one SGD pass over a (T, N) batch in the order of
+    ``perm``: the eager shuffle gathers the whole batch once and splits it
+    (``ppo.py:399-407``), ``lazy_shuffle`` gathers each minibatch on its own
+    (``ppo.py:416-447``); both give the same minibatches."""
+    if lazy_shuffle:
+        for idx in perm.reshape(num_minibatches, -1):
+            yield _map_data(lambda x: x.index_select(1, idx), data)
+        return
+    shuffled = _map_data(
+        lambda x: x.index_select(1, perm).reshape(
+            (x.shape[0], num_minibatches, -1) + x.shape[2:]).transpose(0, 1),
+        data,
+    )
+    for m in range(num_minibatches):
+        yield _map_data(lambda x: x[m], shuffled)
+
+
+class _PhaseTimer:
+    """Per-phase times of the training steps of one epoch: CUDA events on
+    the card (read after the epoch's closing synchronize), else the host
+    clock."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._marks: List[list] = []
+
+    def mark(self, step_marks: list) -> None:
+        if self._cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            step_marks.append(e)
+        else:
+            step_marks.append(time.perf_counter())
+
+    def new_step(self) -> list:
+        self._marks.append([])
+        self.mark(self._marks[-1])
+        return self._marks[-1]
+
+    def mean_ms(self, names) -> Dict[str, float]:
+        sums = [0.0] * len(names)
+        for m in self._marks:
+            for i in range(len(names)):
+                a, b = m[i], m[i + 1]
+                sums[i] += a.elapsed_time(b) if self._cuda else (b - a) * 1000.0
+        n = max(len(self._marks), 1)
+        self._marks = []
+        return {name: s / n for name, s in zip(names, sums)}
+
+
+def train(
+    environment,
+    num_timesteps: int,
+    episode_length: int,
+    num_envs: int = 4096,
+    num_eval_envs: int = 128,
+    action_repeat: int = 1,
+    learning_rate: float = 3e-4,
+    lr_schedule: str = "constant",
+    lr_final_fraction: float = 0.0,
+    entropy_cost: float = 1e-2,
+    entropy_schedule: str = "constant",
+    entropy_cost_final: float = 0.0,
+    discounting: float = 0.97,
+    unroll_length: int = 20,
+    batch_size: int = 256,
+    num_minibatches: int = 32,
+    num_updates_per_batch: int = 4,
+    reward_scaling: float = 1.0,
+    clipping_epsilon: float = 0.3,
+    gae_lambda: float = 0.95,
+    normalize_advantage: bool = True,
+    normalize_observations: bool = True,
+    lazy_shuffle: bool = False,
+    max_grad_norm: Optional[float] = None,
+    seed: int = 0,
+    num_evals: int = 1,
+    deterministic_eval: bool = False,
+    network_factory: Callable = ppo_networks.make_ppo_networks,
+    privileged_critic: bool = False,
+    curriculum_steps: int = 0,
+    randomization_fn: Optional[Callable] = None,
+    progress_fn: Callable[[int, Dict], None] = lambda *args: None,
+    policy_params_fn: Callable[..., None] = lambda *args: None,
+    eval_env=None,
+    device=None,
+    devices=None,
+    checkpoint_dir: Optional[str] = None,
+    resume: bool = False,
+    metrics_logger=None,
+):
+    """Train a PPO policy on one device; returns (make_policy, params,
+    metrics) with ``params = (normalizer_state, PPONetworkParams)``.
+
+    ``environment`` is a ``PupperV3Env`` on ``device`` (default ``cuda:0``;
+    without a card the caller must pass ``"cpu"``), ``randomization_fn(model,
+    generator, num_envs) -> model`` batches the DR leaves, and
+    ``network_factory(obs_size, action_size, device=, generator=)`` builds
+    the networks. ``checkpoint_dir`` saves the full train state at every
+    eval epoch under ``<checkpoint_dir>/state/<env_steps>/``; ``resume``
+    restarts from the latest one (the envs are reset anew)."""
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            "a multi-device mesh is not ported yet (ROADMAP queue 1, multi-GPU)")
+    if devices is not None:
+        device = devices[0]
+    device = utils.resolve_device(device)
+    if privileged_critic:
+        raise NotImplementedError(f"the privileged critic is not ported yet ({_ROADMAP_EXTRAS})")
+    if curriculum_steps > 0:
+        raise NotImplementedError(
+            f"the disturbance curriculum is not ported yet ({_ROADMAP_EXTRAS})")
+    if action_repeat != 1:
+        raise NotImplementedError(f"action_repeat != 1 is not ported yet ({_ROADMAP_EXTRAS})")
+    if os.environ.get("PUPPAX_FUSED_UNROLL", "off") in ("on", "force", "auto_on"):
+        raise NotImplementedError("the fused unroll (K4) is not ported yet (ROADMAP queue 2)")
+    if entropy_schedule not in ("constant", "linear"):
+        raise ValueError(f"unknown entropy_schedule {entropy_schedule!r}")
+    if torch.device(environment.device) != device:
+        raise ValueError(f"the environment is on {environment.device}, training on {device}")
+
+    env_step_per_training_step = batch_size * unroll_length * num_minibatches * action_repeat
+    num_evals_after_init = max(num_evals - 1, 1)
+    num_training_steps_per_epoch = max(
+        1, pymath.ceil(num_timesteps / (num_evals_after_init * env_step_per_training_step))
+    )
+    if (batch_size * num_minibatches) % num_envs != 0:
+        raise ValueError(f"batch_size * num_minibatches = {batch_size * num_minibatches} "
+                         f"is not a multiple of num_envs = {num_envs}")
+    num_unrolls_per_env = (batch_size * num_minibatches) // num_envs
+
+    gens = make_generators(seed, device)
+    env = wrappers.wrap_for_training(
+        environment, episode_length=episode_length, action_repeat=action_repeat,
+        randomization_fn=randomization_fn, generator=gens["dr"], num_envs=num_envs,
+    )
+    lane = FastLane(env)
+    obs_size, action_size = environment.observation_size, environment.action_size
+
+    networks = network_factory(obs_size, action_size, device=device, generator=gens["network"])
+    make_policy = ppo_networks.make_inference_fn(networks)
+    params = list(networks.policy_network.parameters()) + list(networks.value_network.parameters())
+    total_updates = (num_training_steps_per_epoch * num_evals_after_init
+                     * num_updates_per_batch * num_minibatches)
+    optimizer = Adam(params, lr_schedule_fn(learning_rate, lr_schedule, lr_final_fraction,
+                                            total_updates), max_grad_norm)
+    ts = TrainingState(networks, optimizer, running_statistics.init_state(obs_size, device))
+    state_dir = None if checkpoint_dir is None else os.path.join(str(checkpoint_dir), "state")
+    if resume and state_dir is not None:
+        step = checkpoint.latest_checkpoint_step(state_dir)
+        if step is not None:
+            ts.load_state_dict(checkpoint.restore_checkpoint(state_dir, step, device))
+
+    env_state = env.reset(num_envs, gens["reset"])
+
+    eval_wrapped = wrappers.wrap_for_training(
+        environment if eval_env is None else eval_env, episode_length=episode_length,
+        action_repeat=action_repeat,
+    )
+    evaluator = acting.Evaluator(
+        eval_wrapped, lambda p: make_policy(p, deterministic=deterministic_eval),
+        num_eval_envs=num_eval_envs, episode_length=episode_length,
+        action_repeat=action_repeat, generator=gens["eval"],
+    )
+
+    def policy_params():
+        return (ts.normalizer_params if normalize_observations else None,
+                networks.policy_network)
+
+    def sgd_step(data: Transition, ec_now: float, sums: Dict[str, torch.Tensor]):
+        norm = ts.normalizer_params if normalize_observations else None
+        perm = torch.randperm(batch_size * num_minibatches, generator=gens["sgd"],
+                              device=device)
+        for mb in minibatches(data, perm, num_minibatches, lazy_shuffle):
+            eps = torch.randn(mb.observation.shape[:2] + (action_size,),
+                              generator=gens["sgd"], device=device)
+            loss, metrics = compute_ppo_loss(
+                networks, norm, mb, eps, ec_now, discounting=discounting,
+                gae_lambda=gae_lambda, clipping_epsilon=clipping_epsilon,
+                reward_scaling=reward_scaling, normalize_advantage=normalize_advantage,
+            )
+            optimizer.step(torch.autograd.grad(loss, params))
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v.detach()
+
+    timer = _PhaseTimer(device)
+
+    def training_step(env_state, sums):
+        marks = timer.new_step()
+        data = []
+        for _ in range(num_unrolls_per_env):
+            env_state, d = lane.unroll(env_state, policy_params(), gens["rollout"], unroll_length)
+            data.append(d)
+        timer.mark(marks)
+        data = _cat_unrolls(data)
+        if normalize_observations:
+            ts.normalizer_params = running_statistics.update(ts.normalizer_params,
+                                                             data.observation)
+        timer.mark(marks)
+        if entropy_schedule == "linear":
+            progress = min(max(ts.env_steps / float(num_timesteps), 0.0), 1.0)
+            ec_now = entropy_cost + (entropy_cost_final - entropy_cost) * progress
+        else:
+            ec_now = entropy_cost
+        for _ in range(num_updates_per_batch):
+            sgd_step(data, ec_now, sums)
+        timer.mark(marks)
+        ts.env_steps += env_step_per_training_step
+        return env_state
+
+    all_metrics: Dict[str, float] = {}
+    if num_evals > 1:
+        all_metrics = evaluator.run_evaluation(policy_params())
+        progress_fn(0, all_metrics)
+
+    for i in range(num_evals_after_init):
+        if ts.env_steps >= num_timesteps:
+            break  # resumed past the target
+        t = time.perf_counter()
+        sums: Dict[str, torch.Tensor] = {}
+        for _ in range(num_training_steps_per_epoch):
+            env_state = training_step(env_state, sums)
+        n = num_training_steps_per_epoch * num_updates_per_batch * num_minibatches
+        train_metrics = {k: float(v) / n for k, v in sums.items()}  # synchronizes
+        epoch_time = time.perf_counter() - t
+        phases = timer.mean_ms(("rollout_ms", "prepare_ms", "sgd_ms"))
+        metrics = {
+            "training/sps": num_training_steps_per_epoch * env_step_per_training_step / epoch_time,
+            "training/walltime": epoch_time,
+            **{f"training/{k}": v for k, v in train_metrics.items()},
+            **{f"training/{k}": v for k, v in phases.items()},
+        }
+        if num_evals > 1 or i == num_evals_after_init - 1:
+            metrics.update(evaluator.run_evaluation(policy_params()))
+        all_metrics = metrics
+        progress_fn(ts.env_steps, metrics)
+        policy_params_fn(ts.env_steps, make_policy, (ts.normalizer_params, networks.params))
+        if state_dir is not None:
+            path = checkpoint.save_checkpoint(ts.env_steps, ts.state_dict(), state_dir)
+            if metrics_logger is not None:
+                metrics_logger.log_artifact(path, name=f"checkpoint_state_{ts.env_steps}")
+
+    return make_policy, (ts.normalizer_params, networks.params), all_metrics
+
+
+def _cat_unrolls(data: List[Transition]) -> Transition:
+    """U time-major (T, B_env) unrolls -> one (T, U * B_env) batch, unroll
+    major (the JAX package's swapaxes + reshape)."""
+    first = data[0]
+    return replace(
+        first,
+        **{f: torch.cat([getattr(d, f) for d in data], dim=1)
+           for f in ("observation", "action", "reward", "discount", "next_observation",
+                     "truncation")},
+        policy_extras={k: torch.cat([d.policy_extras[k] for d in data], dim=1)
+                       for k in first.policy_extras},
+    )

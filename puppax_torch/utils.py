@@ -1,4 +1,5 @@
-"""Latency buffers, the latency draw, and the activation map.
+"""Latency buffers, the latency draw, the activation map and the default
+device.
 
 Counterpart of ``puppax/utils.py:40-85``, batched over a leading env axis.
 The lag column is drawn as ``jax.random.choice(p=...)`` draws its index —
@@ -40,6 +41,20 @@ def apply_lagged_value(
     buf = circular_buffer_push_front(buffer_newest_first, new_value)
     sampled = torch.sum(buf * onehot[..., None, :], dim=-1)
     return sampled, buf
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    first CUDA device. A CUDA device without a card raises: the CPU runs
+    only when the caller asks for ``"cpu"``."""
+    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found: pass device='cpu' to run the port on the CPU"
+        )
+    return device if device.index is not None else torch.device("cuda", 0)
 
 
 def activation_fn_map(activation_name: str):

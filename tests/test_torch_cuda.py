@@ -1,4 +1,5 @@
-"""The K3 kernel on an NVIDIA GPU against its plain version.
+"""The K3 and K2 kernels on an NVIDIA GPU against their plain versions,
+and a short training run through both.
 
 These tests need a CUDA device and nvcc; without them they skip. On the
 GPU host (which has no JAX) run them with
@@ -60,3 +61,40 @@ def test_wrapper_refuses_bad_blocks(env):
     strided[0] = blocks[0].t().contiguous().t()
     with pytest.raises(ValueError):
         soa_env.wrapped_step(s, es, 5, 1000, *strided)
+
+
+def test_env_step_kernel_matches_plain(env):
+    """K2 at the evaluator's 128 envs on random states (the nominal model's
+    parameter rows broadcast, as in the eval env)."""
+    s, es = env._s, env._es
+    dr = env.dr_rows(128).cpu().numpy()
+    blocks = H.env_step_blocks(s, es, env.model, dr, np.random.RandomState(128), n=128)
+    blocks = [b.cuda() for b in H.to_torch(blocks)]
+    before = soa_env.env_step.launches
+    got = soa_env.env_step(s, es, 5, *blocks)
+    torch.cuda.synchronize()
+    assert soa_env.env_step.launches == before + 1
+    want = soa_env.env_step_rows(s, es, 5, *blocks)
+    H.assert_env_outputs_close([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
+                               s, es, "K2 vs plain at B=128")
+
+
+def test_short_training_launches_both_kernels(env, tmp_path):
+    """One training step (4 unroll steps of 256 envs) and two evaluations of
+    16 envs: 4 K3 launches and 2 x 1000 K2 launches."""
+    from puppax_torch.train import networks, ppo
+
+    def factory(obs, act, device=None, generator=None):
+        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
+                                          generator=generator)
+
+    soa_env.wrapped_step.launches = soa_env.env_step.launches = 0
+    _, (norm, _), metrics = ppo.train(
+        env, num_timesteps=64 * 4 * 4, episode_length=1000, num_envs=256, num_eval_envs=16,
+        unroll_length=4, batch_size=64, num_minibatches=4, num_updates_per_batch=1,
+        num_evals=2, network_factory=factory, device="cuda", checkpoint_dir=str(tmp_path),
+    )
+    assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (4, 2000)
+    assert float(norm.count) == 4 * 256
+    assert np.isfinite(metrics["training/total_loss"])
+    assert 0 < metrics["eval/avg_episode_length"] <= 1000

@@ -91,7 +91,7 @@ def test_reset_matches_jax(resets):
 
 
 def test_reset_draws_shapes_and_ranges():
-    env = PupperV3Env()
+    env = PupperV3Env(device="cpu")
     n = 256
     g = torch.Generator().manual_seed(1)
     d = env.draw_reset(g, n)
@@ -110,7 +110,7 @@ def test_reset_draws_shapes_and_ranges():
 
 
 def test_step_noise_shapes_and_ranges():
-    env = PupperV3Env(maximum_pitch_command=10.0)
+    env = PupperV3Env(maximum_pitch_command=10.0, device="cpu")
     n = 512
     d = env.draw_step_noise(torch.Generator().manual_seed(2), n)
     assert set(d) == set(env._CORE_NOISE_KEYS)
@@ -127,7 +127,7 @@ def test_step_noise_shapes_and_ranges():
 
 
 def test_domain_randomize_contract():
-    env = PupperV3Env()
+    env = PupperV3Env(device="cpu")
     n = 64
     cfg = DomainRandomizationConfig()
     m = domain_randomize(env.model, torch.Generator().manual_seed(3), n,
@@ -155,7 +155,7 @@ def test_domain_randomize_contract():
 
 
 def test_observation_size_and_config():
-    env = PupperV3Env.from_config(EnvConfig())
+    env = PupperV3Env.from_config(EnvConfig(), device="cpu")
     assert env.observation_size == 72 and env.action_size == 12
     assert env._n_substeps == 5
 
@@ -166,13 +166,28 @@ def test_observation_size_and_config():
 ])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PupperV3Env(**option)
+        PupperV3Env(device="cpu", **option)
+
+
+def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
+    """With no device argument the env, the networks, the normalizer and the
+    learner run on ``cuda:0``; without a CUDA device they raise instead of
+    falling back to the CPU."""
+    from puppax_torch.train import networks, ppo, running_statistics
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (PupperV3Env, lambda: networks.make_ppo_networks(72, 12),
+                  lambda: running_statistics.init_state(72),
+                  lambda: ppo.train(None, 8, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert PupperV3Env(device="cpu").device == torch.device("cpu")
 
 
 def test_unported_terrain_and_action_repeat_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PupperV3Env.from_config(EnvConfig(n_obstacles=3))
+        PupperV3Env.from_config(EnvConfig(n_obstacles=3), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PupperV3Env.from_config(EnvConfig(heightfield=True))
+        PupperV3Env.from_config(EnvConfig(heightfield=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wrap_for_training(PupperV3Env(), 1000, action_repeat=2)
+        wrap_for_training(PupperV3Env(device="cpu"), 1000, action_repeat=2)

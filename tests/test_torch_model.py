@@ -99,7 +99,7 @@ _STATIC_FIELDS = (
     "jnt_solref", "jnt_solimp", "jnt_margin", "dof_armature", "dof_damping",
     "dof_frictionloss", "dof_solref", "dof_solimp", "dof_invweight0",
     "dof_frictional", "site_pos", "chains", "dof_body", "anc", "hess",
-    "lim_joints", "dr_rows", "ndr", "npair",
+    "lim_joints", "dr_rows", "ndr", "npair", "cache_rows", "ncache",
 )
 
 
@@ -131,7 +131,7 @@ _ENV_FIELDS = (
     "lower_leg_bodies", "cos_term", "terminal_z", "early_term",
     "resample_step", "sigma", "scales", "desired_abduction", "ss_thresh",
     "knee_pairs", "body_pairs", "env_rows", "nenv_rows", "noise_rows",
-    "nnoise_rows",
+    "nnoise_rows", "out_rows", "nout_rows",
 )
 
 
@@ -151,17 +151,21 @@ def test_aux_rows_and_reward_order_match(statics):
 
 
 def test_import_needs_no_jax_flax_or_mujoco():
-    """``import puppax_torch`` and ``load_model()`` in a fresh process leave
-    jax, flax, ml_collections and mujoco out of ``sys.modules``."""
+    """Importing every module of ``puppax_torch`` and ``load_model()`` in a
+    fresh process leave jax, flax, optax, orbax, ml_collections, mujoco and
+    the JAX package ``puppax`` out of ``sys.modules``."""
     code = (
         "import sys\n"
         "import puppax_torch\n"
         "from puppax_torch.model import load_model\n"
         "from puppax_torch.env import pupper, rollout, wrappers\n"
         "from puppax_torch.kernels import build, cgen\n"
-        "from puppax_torch.tools import profile_unroll\n"
+        "from puppax_torch.tools import metrics, profile_unroll\n"
+        "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
+        "from puppax_torch.scripts import train\n"
         "load_model()\n"
-        "bad = [m for m in ('jax', 'flax', 'ml_collections', 'mujoco') if m in sys.modules]\n"
+        "banned = {'jax', 'flax', 'optax', 'orbax', 'ml_collections', 'mujoco', 'puppax'}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -38,7 +38,7 @@ def nets():
     norm = jstats.init_state(OBS).replace(
         mean=jnp.linspace(-0.1, 0.1, OBS), std=jnp.linspace(0.9, 1.1, OBS)
     )
-    tn = tnets.make_ppo_networks(OBS, ACT, (32, 32), (64, 64), activation="elu")
+    tn = tnets.make_ppo_networks(OBS, ACT, (32, 32), (64, 64), activation="elu", device="cpu")
     tn.policy_network.load_state_dict(tnets.params_from_jax(_np_tree(pparams)))
     tn.value_network.load_state_dict(tnets.params_from_jax(_np_tree(vparams)))
     tnorm = tstats.from_jax(np.asarray(norm.mean), np.asarray(norm.std))

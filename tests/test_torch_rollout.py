@@ -79,7 +79,8 @@ def lanes():
         generator=torch.Generator().manual_seed(0), num_envs=H.B,
     )
     tstate = state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
-    tn = tnets.make_ppo_networks(jenv.observation_size, jenv.action_size, (32, 32))
+    tn = tnets.make_ppo_networks(jenv.observation_size, jenv.action_size, (32, 32),
+                               device="cpu")
     tn.policy_network.load_state_dict(
         tnets.params_from_jax(jax.tree_util.tree_map(np.asarray, params))
     )

@@ -1,0 +1,78 @@
+"""``python -m puppax_torch.scripts.train`` end to end on the CPU.
+
+A tiny configuration (4 envs, 1 physics substep, episode 8, unroll 2,
+policy and value (32, 32), 2 eval envs) trains through the CLI's
+``main(argv)`` with ``--device cpu``: the fast lane's plain version in the
+rollout, the standard lane's in the evaluator, the learner, the metrics
+sink and both checkpoint kinds. A ``--resume`` run then continues from the
+saved train state. Without ``--device cpu`` and without a card, the CLI
+refuses to start.
+"""
+
+import json
+import math
+
+import pytest
+import torch
+
+from puppax.configs import experiment as jexp
+from puppax_torch.scripts import train as cli
+from puppax_torch.train import checkpoint
+
+torch.set_num_threads(1)
+
+TINY = {
+    "train.num_timesteps": 8, "train.num_envs": 4, "train.episode_length": 8,
+    "train.unroll_length": 2, "train.batch_size": 2, "train.num_minibatches": 2,
+    "train.num_updates_per_batch": 1, "train.num_evals": 2, "train.num_eval_envs": 2,
+    "env.environment_timestep": 0.004,
+    "train.policy_hidden_layer_sizes": [32, 32], "train.value_hidden_layer_sizes": [32, 32],
+}
+
+
+def _argv(tmp_path, **extra):
+    over = dict(TINY, **{"train.checkpoint_path": str(tmp_path / "ckpt"),
+                         "train.metrics_jsonl": str(tmp_path / "metrics.jsonl")}, **extra)
+    argv = ["--device", "cpu"]
+    for k, v in over.items():
+        argv += ["--set", f"{k}={json.dumps(v)}"]
+    return argv, over
+
+
+def test_train_then_resume(tmp_path, capsys):
+    argv, over = _argv(tmp_path)
+    metrics = cli.main(argv)
+    out = capsys.readouterr().out
+    want_hash = jexp.config_hash(jexp.apply_overrides(jexp.ExperimentConfig(), over))
+    assert f"config hash: {want_hash}" in out
+    for k in ("training/total_loss", "training/policy_loss", "training/value_loss",
+              "training/entropy_loss", "training/sps", "eval/episode_reward"):
+        assert math.isfinite(metrics[k]), k
+    assert 0 < metrics["eval/avg_episode_length"] <= 8
+    state_dir = tmp_path / "ckpt" / "state"
+    assert checkpoint.latest_checkpoint_step(state_dir) == 8
+    assert (tmp_path / "ckpt" / "8" / checkpoint.FILE).exists()
+    first = checkpoint.restore_checkpoint(state_dir)
+    assert first["env_steps"] == 8 and first["optimizer"]["count"] == 2
+    records = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert records[0]["step"] == 0
+    assert [r["step"] for r in records if "eval/episode_reward" in r] == [0, 8]
+    assert any(r.get("artifact") == "checkpoint_state_8" for r in records)
+
+    # resume: one more epoch of ceil(16 / 8) = 2 training steps from step 8
+    argv, _ = _argv(tmp_path, **{"train.num_timesteps": 16})
+    cli.main(argv + ["--resume"])
+    resumed = checkpoint.restore_checkpoint(state_dir)
+    assert checkpoint.latest_checkpoint_step(state_dir) == 24
+    assert resumed["env_steps"] == 24 and resumed["optimizer"]["count"] == 2 + 4
+    changed = [not torch.equal(a, b) for a, b in zip(first["params"]["policy"].values(),
+                                                      resumed["params"]["policy"].values())]
+    assert any(changed)
+
+
+def test_unknown_key_and_missing_card_refuse(monkeypatch):
+    with pytest.raises(KeyError, match="unknown config key"):
+        cli.main(["--device", "cpu", "--set", "train.nonexistent=1"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--set", "train.num_envs=4"])

@@ -38,7 +38,7 @@ def jax_env(n_substeps: int = 1):
     return PupperV3Env(path=None, reward_config=get_config(), **env_kwargs(n_substeps))
 
 
-def torch_env(n_substeps: int = 1, device=None):
+def torch_env(n_substeps: int = 1, device="cpu"):
     from puppax_torch.env.pupper import PupperV3Env
 
     return PupperV3Env(device=device, **env_kwargs(n_substeps))
@@ -145,6 +145,60 @@ def jax_dr_rows(s, model, n: int = B) -> np.ndarray:
 
 def to_torch(blocks):
     return [torch.from_numpy(np.ascontiguousarray(b)) for b in blocks]
+
+
+def env_step_blocks(s, es, model, dr_rows: np.ndarray, rng, n: int = B):
+    """The 6 ``(rows, n)`` input blocks of one unwrapped step (q, v, act,
+    env, noise, dr): the first six of ``wrapped_step_blocks``."""
+    return wrapped_step_blocks(s, es, model, dr_rows, rng, n)[:6]
+
+
+# Tolerances of the last forward pass's caches: positions and rotations as
+# qpos (5e-5), velocities, accelerations and forces scaled as qvel (5e-4
+# times max(1, the env's largest magnitude in the group)).
+CACHE_ATOL = {"xpos": 5e-5, "xquat": 5e-5, "site_xpos": 5e-5, "con_dist": 5e-5,
+              "con_pos": 5e-5}
+CACHE_SCALED = {"qacc": 5e-4, "xd_ang": 5e-4, "xd_vel": 5e-4, "qfrc_actuator": 5e-4}
+ENV_OUT_ATOL = {
+    "obs_history": 2e-4, "reward": 2e-4, "done": 0.0, "action_buffer": 1e-6,
+    "imu_buffer": 1e-4, "command": 1e-6, "desired_z": 1e-6, "feet_air_time": 1e-5,
+    "last_contact": 0.0, "step": 0.0, "total_dist": 1e-4,
+}
+
+
+def assert_cache_rows_close(g_cache, w_cache, s, what: str):
+    """``(ncache, n)`` cache blocks at ``CACHE_ATOL`` / ``CACHE_SCALED``."""
+    for name, (r0, k) in s.cache_rows.items():
+        g, w = g_cache[r0 : r0 + k], w_cache[r0 : r0 + k]
+        if name in CACHE_SCALED:
+            scale = np.maximum(1.0, np.abs(w).max(axis=0, keepdims=True))
+            g, w, tol = g / scale, w / scale, CACHE_SCALED[name]
+        else:
+            tol = CACHE_ATOL[name]
+        np.testing.assert_allclose(g, w, atol=tol, rtol=0, err_msg=f"{what}: caches {name}")
+
+
+def assert_env_outputs_close(got, want, s, es, what: str):
+    """Hold the unwrapped step's 4 output blocks (q, v, caches, env_out),
+    ``(rows, n)`` numpy, at the tolerances of
+    ``tests/test_soa_env.py:131-193`` and ``CACHE_ATOL``/``CACHE_SCALED``."""
+    g_q, g_v, g_c, g_e = [np.asarray(x, np.float64) for x in got]
+    w_q, w_v, w_c, w_e = [np.asarray(x, np.float64) for x in want]
+    np.testing.assert_allclose(g_q, w_q, atol=5e-5, err_msg=f"{what}: qpos")
+    scale_v = np.maximum(1.0, np.abs(w_v).max(axis=0, keepdims=True))
+    np.testing.assert_allclose(g_v / scale_v, w_v / scale_v, atol=5e-4,
+                               err_msg=f"{what}: scaled qvel")
+    assert_cache_rows_close(g_c, w_c, s, what)
+    for name, (r0, k) in es.out_rows.items():
+        g, w = g_e[r0 : r0 + k], w_e[r0 : r0 + k]
+        if name == "rewards":
+            bad = np.abs(g - w) > 2e-4 * np.maximum(1.0, np.abs(w))
+            assert not bad.any(), (
+                f"{what}: reward terms {np.argwhere(bad).tolist()}: {g[bad]} vs {w[bad]}"
+            )
+        else:
+            np.testing.assert_allclose(g, w, atol=ENV_OUT_ATOL[name], rtol=0,
+                                       err_msg=f"{what}: env out {name}")
 
 
 def assert_wrapped_outputs_close(got, want, s, es, aux_rows, what: str):
