@@ -10,29 +10,50 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of both kernels from the checkout's sources, in parallel nvcc
-   processes: the wrapped env step (K3) and the unwrapped env step (K2),
-   each with its generated lines, nvcc seconds and ptxas summary;
+2. the builds of the three kernels from the checkout's sources, in parallel
+   nvcc processes: the wrapped env step (K3), the unwrapped env step (K2)
+   and the physics-only step (K1), each with its generated lines, nvcc
+   seconds and ptxas summary;
 3. K3 against its plain version at 4096 envs: after a few kernel steps
    from a DR reset, one wrapped step through ``wrapped_step`` (the kernel)
    and ``wrapped_step_rows`` (its plain PyTorch version) on the same
    inputs, held at the parity tolerances env by env; then both timed;
-4. K2 against its plain version at the evaluator's shape: 128 envs of the
+4. K1 against its plain version on the same 4096 DR'd states (feet on the
+   floor) under the policy's motor targets: ``soa.step_batched`` against
+   ``soa.physics_step_rows``, env by env; K1 timed at 4096 and 128 envs,
+   the plain version at 4096;
+5. K1 against the torch ``pipeline.pipeline_step`` (float32, TF32 off) on
+   the same inputs, env by env at qpos 5e-5 / scaled qvel 5e-4: the envs
+   outside tolerance are counted and split into those outside the MJX caps
+   (more than ``max_geom_pairs`` penetrating pairs of one kind, or
+   ``max_contact_points`` in all, where the capped pipeline and the
+   uncapped kernel part by design), those the emission's line search
+   explains (they agree once its trips are raised), and the rest; it fails
+   if the rest outnumber the envs outside the caps. The envs whose caches
+   part at K1-vs-plain tolerances are counted and printed beside;
+6. K2 against its plain version at the evaluator's shape: 128 envs of the
    nominal model reset with their physics caches, a few K2 steps under a
    random policy, then one ``env_step`` and one ``env_step_rows`` on the
    same blocks, all four output blocks held env by env; K2 timed at 128 and
-   4096 envs, the plain version once;
-5. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
+   4096 envs, the plain version once; then the physics-only env step
+   (``PUPPAX_SOA_ENV=off``: the env layer in torch around K1) against the
+   K2 step on the same inputs and draws: obs and reward within 2e-4, done
+   exact;
+7. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
    warm-up, timed with CUDA events, with K3's launches over those unrolls;
-6. the main path: ``ppo.train`` at the default configuration but for
+8. the main path: ``ppo.train`` at the default configuration but for
    491,520 env steps (3 training steps) and 2 evaluations, with its
-   checkpoint in a temporary directory; the launches of both kernels are
-   counted over exactly this call, and the run is checked (env steps, the
-   normalizer's count, finite losses, changed parameters, plausible eval
-   metrics, the checkpoint against the final state);
-7. a JSON line of both kernels (launches in the training run, error
-   against the plain version, times, the bound of the card) and, last, the
-   device JSON line.
+   checkpoint in a temporary directory; the launches of the kernels are
+   counted over exactly this call (120 K3, 2000 K2, 0 K1), and the run is
+   checked (env steps, the normalizer's count, finite losses, changed
+   parameters, plausible eval metrics, the checkpoint against the final
+   state);
+9. the physics-only lane: the same ``ppo.train`` with ``PUPPAX_SOA_ENV=off``
+   (the fast lane off, training and evaluation through the standard lane's
+   env layer around K1): 2120 K1 launches, 0 K2 and 0 K3, the same checks;
+10. a JSON line of the three kernels (launches in their training run,
+   error against the plain version, times, the bound of the card) and,
+   last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is visible or when it is
@@ -56,7 +77,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 T_UNROLL = 20
 N_UNROLLS = 3
 WARM_STEPS = 5  # kernel steps from reset before each kernel/plain check
-MAX_DIFFERING_ENVS = 4  # of 4096 (K3)
+MAX_DIFFERING_ENVS = 4  # of 4096 (K3, K1)
+# the line-search trips of the converged emission that explains K1 vs the
+# torch pipeline (the kernel's own are soa.LS_EXPAND_ITERS / LS_ILLINOIS_ITERS)
+CONVERGED_LS_TRIPS = (40, 200)
 EVAL_ENVS = 128
 TRAIN_TIMESTEPS = 491_520  # 3 training steps of 256 x 20 x 32 env steps
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
@@ -183,6 +207,47 @@ def compare_env_outputs(s, es, got, want):
     return _differing(names, got, want, tols)
 
 
+def physics_tols(s, want):
+    """K1's tolerances, block by block (q, v, caches): qpos and positions
+    5e-5; velocities, accelerations and forces 5e-4 times max(1, the env's
+    largest magnitude)."""
+    import torch
+
+    tols = {
+        "q": torch.full_like(want[0], 5e-5),
+        "v": _scaled(want[1], 5e-4),
+        "caches": torch.full_like(want[2], 5e-5),
+    }
+    for name in ("qacc", "xd_ang", "xd_vel", "qfrc_actuator"):
+        r0, n = s.cache_rows[name]
+        tols["caches"][r0 : r0 + n] = _scaled(want[2][r0 : r0 + n], 5e-4)
+    return tols
+
+
+def compare_physics_outputs(s, got, want):
+    """Hold K1's 3 output blocks against another version's, env by env."""
+    return _differing(("q", "v", "caches"), got, want, physics_tols(s, want))
+
+
+def n_outside_differing(differing, outside) -> int:
+    """How many of the differing envs lie outside the MJX caps."""
+    return sum(1 for b, _ in differing if bool(outside[b]))
+
+
+def state_blocks(s, ps):
+    """A PhysicsState as K1's 3 output blocks (q, v, caches)."""
+    import torch
+
+    B = ps.qpos.shape[0]
+    parts = {"qacc": ps.qacc, "xpos": ps.xpos, "xquat": ps.x_rot, "xd_ang": ps.xd_ang,
+             "xd_vel": ps.xd_vel, "site_xpos": ps.site_xpos,
+             "qfrc_actuator": ps.qfrc_actuator, "con_dist": ps.contact_dist,
+             "con_pos": ps.contact_pos}
+    caches = torch.cat([parts[name].reshape(B, n) for name, (_, n) in s.cache_rows.items()],
+                       1).t().contiguous()
+    return ps.qpos.t().contiguous(), ps.qvel.t().contiguous(), caches
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -220,6 +285,7 @@ def main():
     from puppax_torch.env.rollout import FastLane
     from puppax_torch.env.wrappers import wrap_for_training
     from puppax_torch.kernels import build
+    from puppax_torch.physics import pipeline, soa
     from puppax_torch.train import checkpoint, networks, ppo, running_statistics
 
     smi = nvidia_smi_line()
@@ -235,6 +301,11 @@ def main():
     B = tc.num_envs
     g = torch.Generator(device=device).manual_seed(args.seed)
     env = PupperV3Env.from_config(env_cfg, device=device)
+    os.environ["PUPPAX_SOA_ENV"] = "off"  # read at construction: the physics-only lane
+    try:
+        env_po = PupperV3Env.from_config(env_cfg, device=device)
+    finally:
+        del os.environ["PUPPAX_SOA_ENV"]
     ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
 
     def randomization_fn(m, gen, n):
@@ -250,6 +321,7 @@ def main():
     params = (normalizer, nets.policy_network)
     lane = FastLane(wrapped)
     s, es, n_sub, L = env._s, env._es, env._n_substeps, tc.episode_length
+    s1 = env_po._cv_step.s  # K1's static digest (the physics-only env's step)
     print(f"config: envs {B}, substeps {n_sub}, episode {L}, unroll {T_UNROLL}, "
           f"obs {env.observation_size}, policy {tc.policy_hidden_layer_sizes}, "
           f"value {tc.value_hidden_layer_sizes}, batch {tc.batch_size} x "
@@ -257,10 +329,12 @@ def main():
           f"{EVAL_ENVS}, DR on", flush=True)
 
     # ---- build both kernels, in parallel nvcc processes ----
-    with Phase("build K3 + K2"):
+    with Phase("build K3 + K2 + K1"):
         build.build_in_parallel(lambda: build.wrapped_step_library(s, es, n_sub, L),
-                                lambda: build.env_step_library(s, es, n_sub))
-        for kname, label in (("wrapped_step", "K3"), ("env_step", "K2")):
+                                lambda: build.env_step_library(s, es, n_sub),
+                                lambda: build.physics_step_library(s1, n_sub))
+        for kname, label in (("wrapped_step", "K3"), ("env_step", "K2"),
+                             ("physics_step", "K1")):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
                   f"{info['ops_per_env']} float ops per env, generate "
@@ -314,6 +388,104 @@ def main():
         print(f"K3 step at {B} envs: kernel {statistics.median(k3_ms):.4f} ms (runs {k3_ms}), "
               f"plain {statistics.median(k3_plain_ms):.1f} ms (runs {k3_plain_ms})", flush=True)
 
+    # ---- K1 against plain, and against the torch pipeline, at 4096 envs ----
+    with Phase("K1 vs plain"):
+        # the K3 check's DR'd states under the policy's motor targets
+        dev = env_po._dev
+        ctrl = (dev["default_pose"][:, None] + es.action_scale * act)
+        ctrl = torch.minimum(torch.maximum(ctrl, dev["lowers"][:, None]),
+                             dev["uppers"][:, None]).contiguous()
+        k1_blocks = [carry["q"], carry["v"], ctrl, carry["dr"]]
+        got = soa.step_batched(s1, *k1_blocks, n_sub)
+        torch.cuda.synchronize()
+        want = soa.physics_step_rows(s1, n_sub, *k1_blocks)
+        torch.cuda.synchronize()
+        per_block, differing, k1_err = compare_physics_outputs(s1, got, want)
+        r0, n = s1.cache_rows["con_dist"]
+        counts = torch.stack([(got[2][r0 : r0 + n][[i for i, p in enumerate(s1.pairs)
+                                                     if p.kind == kind]] < 0).sum(0)
+                              for kind in ("ps", "ss")], 1)
+        print(f"K1 vs plain at {B} envs ({int((counts[:, 0] > 0).sum())} envs with a foot "
+              f"on the floor): max abs err per block " + json.dumps(per_block), flush=True)
+        for b, what in differing:
+            print(f"  env {b} differs: {what}")
+        if len(differing) > MAX_DIFFERING_ENVS:
+            raise AssertionError(f"{len(differing)} envs differ (limit {MAX_DIFFERING_ENVS})")
+        if int((counts[:, 0] > 0).sum()) == 0:
+            raise AssertionError("no env touches the floor: the contact path went unchecked")
+
+        k1_small = [x[:, :EVAL_ENVS].contiguous() for x in k1_blocks]
+
+        def k1_step():
+            soa.step_batched(s1, *k1_blocks, n_sub)
+
+        def k1_step_small():
+            soa.step_batched(s1, *k1_small, n_sub)
+
+        def k1_plain():
+            soa.physics_step_rows(s1, n_sub, *k1_blocks)
+
+        k1_plain_ms = [cuda_ms(k1_plain, 1)]
+        k1_ms = [cuda_ms(k1_step, 20), cuda_ms(k1_step, 20)]
+        k1_small_ms = [cuda_ms(k1_step_small, 20), cuda_ms(k1_step_small, 20)]
+        k1_plain_ms.append(cuda_ms(k1_plain, 1))
+        print(f"K1 step: {statistics.median(k1_ms):.4f} ms at {B} envs (runs {k1_ms}), "
+              f"{statistics.median(k1_small_ms):.4f} ms at {EVAL_ENVS} envs (runs "
+              f"{k1_small_ms}); plain {statistics.median(k1_plain_ms):.1f} ms at {B} envs "
+              f"(runs {k1_plain_ms})", flush=True)
+
+    with Phase("K1 vs torch pipeline"):
+        q0, v0 = carry["q"].t(), carry["v"].t()
+        ps = pipeline.pipeline_step(wrapped.model, pipeline._zeros_state(wrapped.model, q0, v0),
+                                    ctrl.t(), n_sub)
+        ref = state_blocks(s1, ps)
+        torch.cuda.synchronize()
+        # held on qpos and qvel; the caches are reported (qacc, the solver's
+        # output before the dt-scaled update, is the most sensitive row)
+        tols = physics_tols(s1, ref)
+        _, differing, pipe_err = _differing(("q", "v"), got[:2], ref[:2], tols)
+        cache_err, cache_differing, _ = _differing(("caches",), got[2:], ref[2:], tols)
+        pen = torch.maximum(counts, torch.stack([(ps.contact_dist[:, [
+            i for i, p in enumerate(s1.pairs) if p.kind == kind]] < 0).sum(1)
+            for kind in ("ps", "ss")], 1))
+        m = env_po.model
+        outside = (pen.amax(1) > m.max_geom_pairs) | (pen.sum(1) > m.max_contact_points)
+        n_outside = int(outside.sum())
+        in_cap = [b for b, _ in differing if not bool(outside[b])]
+        explained = []
+        if in_cap:
+            idx = torch.tensor(in_cap, device=device)
+            trips = (soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS)
+            soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS = CONVERGED_LS_TRIPS
+            try:
+                conv = soa.physics_step_rows(s1, n_sub, *[x[:, idx].contiguous()
+                                                          for x in k1_blocks])
+            finally:
+                soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS = trips
+            sub_tols = {k: t[:, idx] for k, t in tols.items()}
+            _, still, _ = _differing(("q", "v"), conv[:2], [x[:, idx] for x in ref[:2]],
+                                     sub_tols)
+            still_envs = {in_cap[i] for i, _ in still}
+            explained = [b for b in in_cap if b not in still_envs]
+        unexplained = len(differing) - n_outside_differing(differing, outside) - len(explained)
+        print(f"K1 vs torch pipeline_step at {B} envs: {len(differing)} envs outside qpos "
+              f"5e-5 / scaled qvel 5e-4 (max abs err {pipe_err!r}); of them "
+              f"{n_outside_differing(differing, outside)} outside the MJX caps, "
+              f"{len(explained)} in the caps that agree once the line search runs "
+              f"{CONVERGED_LS_TRIPS} trips, {unexplained} else; {n_outside} envs outside the "
+              f"caps in all", flush=True)
+        for b, what in differing[:12]:
+            print(f"  env {b} differs (outside the caps: {bool(outside[b])}, line search: "
+                  f"{b in explained}): {what}")
+        print(f"  the caches at K1-vs-plain tolerances: {len(cache_differing)} envs outside "
+              f"(max abs err {cache_err['caches']!r}; outside the caps: "
+              f"{n_outside_differing(cache_differing, outside)})", flush=True)
+        for b, what in cache_differing[:12]:
+            print(f"  env {b} caches differ: {what}")
+        if unexplained > n_outside:
+            raise AssertionError(f"{unexplained} envs differ from the torch pipeline beyond "
+                                 f"the caps and the line search (limit {n_outside})")
+
     # ---- K2 against plain at the evaluator's 128 envs ----
     with Phase("K2 vs plain"):
         eval_wrapped = wrap_for_training(env, L)  # the nominal model, no DR
@@ -324,10 +496,10 @@ def main():
                                    device=device) * 2 - 1, g)
         in_contact = int(estate.info["last_contact"].any(1).sum())
         act = torch.rand((EVAL_ENVS, env.action_size), generator=g, device=device) * 2 - 1
+        k2_noise = env.draw_step_noise(g, EVAL_ENVS)
         k2_blocks = [soa_env.rows_block([estate.qpos]), soa_env.rows_block([estate.qvel]),
                      soa_env.rows_block([act]), soa_env.env_block(es, estate.info, estate.obs),
-                     soa_env.noise_block(es, env.draw_step_noise(g, EVAL_ENVS)),
-                     eval_wrapped.dr_rows(EVAL_ENVS)]
+                     soa_env.noise_block(es, k2_noise), eval_wrapped.dr_rows(EVAL_ENVS)]
         got = soa_env.env_step(s, es, n_sub, *k2_blocks)
         torch.cuda.synchronize()
         want = soa_env.env_step_rows(s, es, n_sub, *k2_blocks)
@@ -356,6 +528,17 @@ def main():
         print(f"K2 step: {statistics.median(k2_ms):.4f} ms at {EVAL_ENVS} envs (runs {k2_ms}), "
               f"{statistics.median(k2_4096_ms):.4f} ms at {B} envs (runs {k2_4096_ms}); "
               f"plain {k2_plain_ms:.1f} ms at {EVAL_ENVS} envs", flush=True)
+
+    with Phase("physics-only step vs K2 step"):
+        fused_step = env.step_from_draws(estate, act, k2_noise)
+        po_step = env_po.step_from_draws(estate, act, k2_noise)
+        torch.cuda.synchronize()
+        errs = {name: float((getattr(po_step, name) - getattr(fused_step, name)).abs().max())
+                for name in ("obs", "reward", "done")}
+        print(f"physics-only env step (K1) vs K2 step at {EVAL_ENVS} envs: max abs err "
+              + json.dumps(errs), flush=True)
+        if errs["obs"] > 2e-4 or errs["reward"] > 2e-4 or errs["done"] != 0.0:
+            raise AssertionError("the physics-only step differs from the K2 step")
 
     # ---- the rollout lane: FastLane.unroll, T=20 ----
     with Phase("rollout lane"):
@@ -399,7 +582,14 @@ def main():
             raise AssertionError("implausible episode ends for a fresh 1000-step episode")
 
     # ---- the main path: ppo.train, 3 training steps and 2 evaluations ----
-    with Phase("ppo.train"):
+    steps_per_train = tc.batch_size * tc.unroll_length * tc.num_minibatches
+    n_train = math.ceil(TRAIN_TIMESTEPS / steps_per_train)
+    unroll_steps = n_train * (tc.batch_size * tc.num_minibatches // B) * tc.unroll_length
+
+    def train_and_check(environment, label, want):
+        """One ppo.train run at the default configuration (3 training steps,
+        2 evaluations); its kernel launches (K3, K2, K1) against ``want``,
+        and the checks of the run. Returns the launches."""
         initial = {}
 
         def network_factory(obs_size, action_size, device=None, generator=None):
@@ -415,8 +605,9 @@ def main():
         ckpt_dir = tempfile.mkdtemp(prefix="puppax_torch_smoke_")
         soa_env.wrapped_step.launches = 0
         soa_env.env_step.launches = 0
+        soa.step_batched.launches = 0
         _, (norm_out, params_out), _ = ppo.train(
-            env, num_timesteps=TRAIN_TIMESTEPS, episode_length=L, num_envs=B,
+            environment, num_timesteps=TRAIN_TIMESTEPS, episode_length=L, num_envs=B,
             num_eval_envs=EVAL_ENVS, learning_rate=tc.learning_rate,
             entropy_cost=tc.entropy_cost, discounting=tc.discounting,
             unroll_length=tc.unroll_length, batch_size=tc.batch_size,
@@ -430,14 +621,12 @@ def main():
             device=device, checkpoint_dir=ckpt_dir,
         )
         torch.cuda.synchronize()
-        k3_launches, k2_launches = soa_env.wrapped_step.launches, soa_env.env_step.launches
-        steps_per_train = tc.batch_size * tc.unroll_length * tc.num_minibatches
-        n_train = math.ceil(TRAIN_TIMESTEPS / steps_per_train)
-        want_k3 = n_train * (tc.batch_size * tc.num_minibatches // B) * tc.unroll_length
-        want_k2 = 2 * tc.episode_length
-        print(f"ppo.train: K3 launches {k3_launches} (expected {want_k3}), K2 launches "
-              f"{k2_launches} (expected {want_k2})", flush=True)
-        if (k3_launches, k2_launches) != (want_k3, want_k2):
+        launches = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
+                    soa.step_batched.launches)
+        print(f"{label}: K3 launches {launches[0]} (expected {want[0]}), K2 launches "
+              f"{launches[1]} (expected {want[1]}), K1 launches {launches[2]} (expected "
+              f"{want[2]})", flush=True)
+        if launches != want:
             raise AssertionError("the training run did not launch the kernels as expected")
         tree = checkpoint.restore_checkpoint(os.path.join(ckpt_dir, "state"), map_location=device)
         if tree["env_steps"] != TRAIN_TIMESTEPS or float(norm_out.count) != TRAIN_TIMESTEPS:
@@ -468,21 +657,39 @@ def main():
             bad = [k for k, v in mm.items() if k.startswith("eval/") and not math.isfinite(v)]
             if bad or not 0 < mm["eval/avg_episode_length"] <= tc.episode_length:
                 raise AssertionError(f"eval metrics {mm}")
-        print(f"ppo.train: training/sps {m['training/sps']:.1f}, epoch {m['training/walltime']:.3f} "
-              f"s for {n_train} training steps; per training step: rollout "
-              f"{m['training/rollout_ms']:.3f} ms, reorder + normalizer "
+        print(f"{label}: training/sps {m['training/sps']:.1f}, epoch "
+              f"{m['training/walltime']:.3f} s for {n_train} training steps; per training "
+              f"step: rollout {m['training/rollout_ms']:.3f} ms, reorder + normalizer "
               f"{m['training/prepare_ms']:.3f} ms, SGD {m['training/sgd_ms']:.3f} ms "
               f"(CUDA events)", flush=True)
-        print("ppo.train: one evaluation " + ", ".join(
+        print(f"{label}: one evaluation " + ", ".join(
             f"at step {step}: {mm['eval/epoch_eval_time']:.3f} s wall" for step, mm in evals)
             + f"; final eval/episode_reward {m['eval/episode_reward']:.5f}, "
             f"eval/avg_episode_length {m['eval/avg_episode_length']:.1f}", flush=True)
-        print("ppo.train losses " + json.dumps(losses), flush=True)
+        print(f"{label} losses " + json.dumps(losses), flush=True)
+        return launches
+
+    with Phase("ppo.train"):
+        k3_launches, k2_launches, _ = train_and_check(
+            env, "ppo.train", (unroll_steps, 2 * tc.episode_length, 0))
+
+    # ---- the physics-only lane: ppo.train under PUPPAX_SOA_ENV=off ----
+    with Phase("ppo.train, physics-only lane"):
+        os.environ["PUPPAX_SOA_ENV"] = "off"
+        try:
+            _, _, k1_launches = train_and_check(
+                env_po, "ppo.train physics-only", (0, 0, unroll_steps + 2 * tc.episode_length))
+        finally:
+            del os.environ["PUPPAX_SOA_ENV"]
 
     k3_bound, k3_by = bound_ms(build.last_build["wrapped_step"]["ops_per_env"],
                                *(sum(r) for r in soa_env.block_rows(s, es)), B)
     k2_bound, k2_by = bound_ms(build.last_build["env_step"]["ops_per_env"],
                                *(sum(r) for r in soa_env.env_block_rows(s, es)), EVAL_ENVS)
+    k1_bound, k1_by = bound_ms(build.last_build["physics_step"]["ops_per_env"],
+                               *(sum(r) for r in soa.physics_block_rows(s1)), B)
+    k1_bound_small, _ = bound_ms(build.last_build["physics_step"]["ops_per_env"],
+                                 *(sum(r) for r in soa.physics_block_rows(s1)), EVAL_ENVS)
     kernels = [{
         "name": "wrapped_step",
         "route": "cuda",
@@ -507,10 +714,23 @@ def main():
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
+    }, {
+        "name": "physics_step",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/physics_step.cuh",
+        "replaces": "puppax/physics/soa.py:2028",
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": statistics.median(k1_ms),
+        "plain_ms": statistics.median(k1_plain_ms),
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
     }]
     print(f"bounds: K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), K2 {k2_bound:.6f} ms at "
-          f"{EVAL_ENVS} envs ({k2_by}); total wall {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+          f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
+          f"{k1_bound_small:.6f} ms at {EVAL_ENVS}; total wall "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-// Helpers shared by the launch shells of the generated env-step kernels
-// (wrapped_step.cuh, env_step.cuh) and by their generated bodies.
+// Helpers shared by the launch shells of the generated kernels
+// (wrapped_step.cuh, env_step.cuh, physics_step.cuh) and by their
+// generated bodies.
 //
 // The same source builds with g++ (no __CUDACC__): PUPPAX_HD is then empty
 // and each shell's host entry loops over the envs on the CPU.

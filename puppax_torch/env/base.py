@@ -1,16 +1,13 @@
-"""The batched env State, its slim PhysicsState, and carrying a ``puppax``
-state across.
+"""The batched env State, and carrying a ``puppax`` state across.
 
 Counterpart of ``puppax/env/base.py``. Every field has a leading env axis.
 The rollout fast lane reads only qpos/qvel of the physics (the JAX lane
 poisons the other leaves with NaN, ``puppax/env/rollout.py:341-355``), so
 its states carry ``pipeline_state=None``. The standard lane
-(``PupperV3Env.step``) fills ``pipeline_state`` with the caches of the last
-forward pass that the env-step kernel (K2) writes, as
-``PupperV3Env._ps_from_tuple`` assembles them (``puppax/env/pupper.py:789``).
-The static per-pair contact metadata (frames, solref, solimp, geoms) that
-the JAX PhysicsState re-attaches is left out: nothing on the port's path
-reads it.
+(``PupperV3Env.step``) fills ``pipeline_state`` with the last forward
+pass's caches (``physics/pipeline.py::PhysicsState``, re-exported here):
+those K2 writes in the fused lane, those of K1 or ``pipeline_step`` in the
+physics-only lane.
 """
 
 from __future__ import annotations
@@ -22,60 +19,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from puppax_torch.physics.pipeline import PhysicsState, physics_state_from_caches
 
-@dataclass(frozen=True)
-class PhysicsState:
-    """The last forward pass's caches, batched: qpos (B, nq), qvel (B, nv),
-    qacc (B, nv), x_pos (B, nbody-1, 3), x_rot (B, nbody-1, 4), xd_vel and
-    xd_ang (B, nbody-1, 3), xpos (B, nbody, 3), site_xpos (B, nsite, 3),
-    qfrc_actuator (B, nv), contact_dist (B, npair), contact_pos
-    (B, npair, 3). The world body is dropped from the ``x_*``/``xd_*``
-    fields, as in brax."""
-
-    qpos: torch.Tensor
-    qvel: torch.Tensor
-    qacc: torch.Tensor
-    x_pos: torch.Tensor
-    x_rot: torch.Tensor
-    xd_vel: torch.Tensor
-    xd_ang: torch.Tensor
-    xpos: torch.Tensor
-    site_xpos: torch.Tensor
-    qfrc_actuator: torch.Tensor
-    contact_dist: torch.Tensor
-    contact_pos: torch.Tensor
-
-    def replace(self, **updates) -> "PhysicsState":
-        return dataclasses.replace(self, **updates)
-
-    def map(self, fn, *others: "PhysicsState") -> "PhysicsState":
-        """A PhysicsState of ``fn(field, *others' fields)`` for every field."""
-        return PhysicsState(**{
-            f.name: fn(getattr(self, f.name), *(getattr(o, f.name) for o in others))
-            for f in dataclasses.fields(self)
-        })
-
-
-def physics_state_from_caches(s, qpos: torch.Tensor, qvel: torch.Tensor,
-                              caches: torch.Tensor) -> PhysicsState:
-    """The ``(ncache, B)`` cache block of K2 (``s.cache_rows`` order) as a
-    PhysicsState (``puppax/env/soa_env.py:711-725`` shapes)."""
-    B = qpos.shape[0]
-    cb = caches.t()
-
-    def rows(name, *shape):
-        r0, n = s.cache_rows[name]
-        return cb[:, r0 : r0 + n].reshape(B, *shape)
-
-    xpos = rows("xpos", s.nbody, 3)
-    return PhysicsState(
-        qpos=qpos, qvel=qvel, qacc=rows("qacc", s.nv),
-        x_pos=xpos[:, 1:], x_rot=rows("xquat", s.nbody - 1, 4),
-        xd_vel=rows("xd_vel", s.nbody - 1, 3), xd_ang=rows("xd_ang", s.nbody - 1, 3),
-        xpos=xpos, site_xpos=rows("site_xpos", s.nsite, 3),
-        qfrc_actuator=rows("qfrc_actuator", s.nv),
-        contact_dist=rows("con_dist", s.npair), contact_pos=rows("con_pos", s.npair, 3),
-    )
+__all__ = ["PhysicsState", "State", "physics_state_from_caches", "state_from_jax"]
 
 
 @dataclass(frozen=True)

@@ -7,19 +7,31 @@ from the deterministic math (``draw_reset`` / ``reset_from_draws``,
 ``draw_step_noise`` / ``step_from_draws``), so tests can feed the same
 numbers to this env and to the JAX one.
 
-``step`` is the standard lane (evaluation): one launch of the env-step
-kernel K2 (``soa_env.env_step``) per step, or its plain version on CPU
-tensors, then the info epilogue in PyTorch. Training steps through the
-wrapped-step kernel K3 instead (``rollout.FastLane``).
+``step`` is the standard lane, in one of two forms chosen at construction
+from ``PUPPAX_SOA_ENV``, as the JAX env chooses its fused core:
+
+* the fused env step (default): one launch of the env-step kernel K2
+  (``soa_env.env_step``) per step, or its plain version on CPU tensors;
+* the physics-only lane (``PUPPAX_SOA_ENV=off``): the env layer as torch
+  ops (``_step_core``: kick, action latency, motor targets, observation,
+  contacts, termination, the 18 rewards of ``env/rewards.py``) around one
+  physics step through ``pipeline.make_batched_step``, which launches the
+  physics-step kernel K1 on the card.
+
+Either way the info epilogue runs in PyTorch. Training steps through the
+wrapped-step kernel K3 instead (``rollout.FastLane``) unless the lane is
+off (``rollout.support_reason``).
 
 Reset needs only the root's FK: the reset observation reads the torso
 rotation and a zero angular velocity, so the port runs ``soa._emit_fk`` on
 the torch back-end instead of a full forward pass. ``pipeline_init`` runs
-the full pass, for the standard lane's reset-time physics caches.
+the full pass (``pipeline.pipeline_init``), for the standard lane's
+reset-time physics caches.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -27,11 +39,11 @@ import torch
 
 from puppax_torch import utils
 from puppax_torch.configs.experiment import EnvConfig, StartPositionConfig
-from puppax_torch.env import domain_randomization, soa_env
+from puppax_torch.env import domain_randomization, rewards, soa_env
 from puppax_torch.env.base import PhysicsState, State, physics_state_from_caches
 from puppax_torch.model.mjcf import load_model
 from puppax_torch.ops import math
-from puppax_torch.physics import soa
+from puppax_torch.physics import pipeline, soa
 
 _ROADMAP_EXTRAS = "ROADMAP queue 1, training extras"
 _ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
@@ -200,14 +212,37 @@ class PupperV3Env:
         self._early_termination_step_threshold = early_termination_step_threshold
         self._terminal_body_z = terminal_body_z
         self._terminal_body_angle = terminal_body_angle
+        self._cos_terminal_angle = float(torch.cos(torch.tensor(terminal_body_angle,
+                                                                dtype=torch.float32)))
         self._desired_world_z_in_body_frame = np.asarray(desired_world_z_in_body_frame, f32)
         self._latency_distribution = np.asarray(latency_distribution, f32)
         self._imu_latency_distribution = np.asarray(imu_latency_distribution, f32)
         self._use_imu = use_imu
+        self._desired_abduction_angles = np.asarray(desired_abduction_angles, f32)
+        self.lowers = np.asarray(joint_lower_limits, f32)
+        self.uppers = np.asarray(joint_upper_limits, f32)
 
         # the emission's static digests (the JAX env's _cv_core._s / ._es)
         self._s = soa._Static(model, compiled.mj)
         self._es = soa_env._EnvStatic(host, self, self._s)
+        # the lane of step(): the fused env kernel K2, or the physics-only
+        # lane (the env layer in torch around K1) under PUPPAX_SOA_ENV=off
+        self._use_soa_env = os.environ.get("PUPPAX_SOA_ENV", "auto") != "off"
+        self._cv_step = pipeline.make_batched_step(model, self._n_substeps, compiled.mj)
+        statics = pipeline.pair_contact_statics(model, compiled.mj, device=self.device)
+        self._pair_geom1, self._pair_geom2 = statics["geom1"], statics["geom2"]
+        # constants of the step on the device once: a host-to-device copy
+        # from pageable memory waits for the stream
+        self._dev = {name: self._t(x) for name, x in (
+            ("default_pose", self._default_pose), ("lowers", self.lowers),
+            ("uppers", self.uppers), ("desired_abduction", self._desired_abduction_angles),
+            ("up", [0.0, 0.0, 1.0]), ("down", [0.0, 0.0, -1.0]),
+            ("identity_quat", [1.0, 0.0, 0.0, 0.0]),
+        )}
+        self._dev["upper_leg_geoms"] = self._geom_ids(self._upper_leg_geom_ids)
+        self._dev["torso_geoms"] = self._geom_ids(self._torso_geom_ids)
+        self._dev["feet_sites"] = self._geom_ids(self._feet_site_id)
+        self._dev["lower_legs"] = self._geom_ids(self._lower_leg_body_id)
 
     @classmethod
     def from_config(cls, cfg: EnvConfig, reward_config: Dict = None, device=None):
@@ -355,44 +390,76 @@ class PupperV3Env:
         return soa.dr_rows_block(self._s, soa.dr_inputs(m, self._s, B, device=self.device))
 
     def pipeline_init(self, qpos: torch.Tensor, qvel: torch.Tensor,
-                      dr_rows: Optional[torch.Tensor] = None) -> PhysicsState:
-        """The reset-time physics caches (``pipeline.pipeline_init``): one
-        forward pass with zero controls, evaluated with the emission's torch
-        back-end."""
-        s = self._s
-        if dr_rows is None:
-            dr_rows = self.dr_rows(qpos.shape[0])
-        q = [qpos[:, i] for i in range(s.nq)]
-        v = [qvel[:, i] for i in range(s.nv)]
-        dr = {name: [dr_rows[r0 + i] for i in range(n)] for name, (r0, n) in s.dr_rows.items()}
-        with soa.cse_scope():
-            fw = soa._emit_forward(s, q, v, [0.0] * s.nu, dr)
-            caches = torch.stack([soa.materialize(x, q[0]) for x in soa._emit_caches(s, fw)])
-        return physics_state_from_caches(s, qpos, qvel, caches)
+                      model=None) -> PhysicsState:
+        """The reset-time physics state (``pipeline.pipeline_init``: one
+        forward pass at zero controls) of ``model`` (default: this env's
+        model; a DR-batched one carries one row per env)."""
+        return pipeline.pipeline_init(self.model if model is None else model, qpos, qvel)
 
     # ---- step -----------------------------------------------------------------
     def step(self, state: State, action: torch.Tensor, generator: torch.Generator,
-             dr_rows: Optional[torch.Tensor] = None) -> State:
+             dr_rows: Optional[torch.Tensor] = None, model=None) -> State:
         """One env step of every env, its draws taken from ``generator``."""
         noise = self.draw_step_noise(generator, state.qpos.shape[0])
-        return self.step_from_draws(state, action, noise, dr_rows)
+        return self.step_from_draws(state, action, noise, dr_rows, model)
 
     def step_from_draws(self, state: State, action: torch.Tensor,
                         noise: Dict[str, torch.Tensor],
-                        dr_rows: Optional[torch.Tensor] = None) -> State:
-        """The env step (``pupper.py:684-780``) on given draws: the env-step
-        kernel K2 on CUDA tensors, its plain version on CPU tensors, then
-        the info epilogue. ``dr_rows`` are the ``(ndr, B)`` parameter rows
-        of a DR-batched model; None broadcasts this env's model."""
+                        dr_rows: Optional[torch.Tensor] = None, model=None) -> State:
+        """The env step (``pupper.py:684-780``) on given draws, then the info
+        epilogue. The fused lane runs the env-step kernel K2 on CUDA tensors
+        (its plain version on CPU tensors); the physics-only lane runs
+        ``_step_core``. ``model`` is the (DR-batched) model and ``dr_rows``
+        its ``(ndr, B)`` parameter rows, for the kernels; None means this
+        env's model, broadcast."""
         s, es = self._s, self._es
         B = state.qpos.shape[0]
         if dr_rows is None:
-            dr_rows = self.dr_rows(B)
+            dr_rows = self.dr_rows(B, model)
         info = dict(state.info)
+        env_in = {
+            "action_buffer": info["action_buffer"],
+            "imu_buffer": info["imu_buffer"],
+            "command": info["command"],
+            "desired_z": info["desired_world_z_in_body_frame"],
+            "last_act": info["last_act"],
+            "last_vel": info["last_vel"],
+            "feet_air_time": info["feet_air_time"],
+            "last_contact": info["last_contact"],
+            "step": info["step"],
+            "obs_history": state.obs[:, : es.hist],
+        }
+        if self._use_soa_env:
+            pipeline_state, env_out = self._k2_step(state, action, env_in, noise, dr_rows)
+        else:
+            m = self.model if model is None else model
+            pipeline_state, env_out = self._step_core(m, state.qpos, state.qvel, action,
+                                                      env_in, noise, dr_rows)
+        info["kick"] = noise["kick"]
+        info["last_act"] = action
+        info["last_vel"] = pipeline_state.qvel[:, 6:]
+        for name in ("action_buffer", "imu_buffer", "feet_air_time", "last_contact",
+                     "rewards", "step", "command"):
+            info[name] = env_out[name]
+        info["desired_world_z_in_body_frame"] = env_out["desired_z"]
+        metrics = dict(state.metrics)
+        metrics["total_dist"] = env_out["total_dist"]
+        metrics.update(env_out["rewards"])
+        return state.replace(
+            qpos=pipeline_state.qpos, qvel=pipeline_state.qvel, obs=env_out["obs"],
+            reward=env_out["reward"], done=env_out["done"], metrics=metrics, info=info,
+            pipeline_state=pipeline_state,
+        )
+
+    def _k2_step(self, state: State, action, env_in, noise, dr_rows):
+        """The fused lane: one env-step kernel K2 launch (its plain version on
+        CPU tensors); returns (PhysicsState, env_out) as ``_step_core`` does."""
+        s, es = self._s, self._es
+        B = state.qpos.shape[0]
         q2, v2, caches, env_out = soa_env.env_step(
             s, es, self._n_substeps,
             soa_env.rows_block([state.qpos]), soa_env.rows_block([state.qvel]),
-            soa_env.rows_block([action]), soa_env.env_block(es, info, state.obs),
+            soa_env.rows_block([action]), soa_env.env_block(es, state.info, state.obs),
             soa_env.noise_block(es, noise), dr_rows,
         )
         qpos, qvel = q2.t(), v2.t()
@@ -402,26 +469,136 @@ class PupperV3Env:
             r0, n = es.out_rows[name]
             return out[:, r0 : r0 + n]
 
-        rewards = {k: rows("rewards")[:, i] for i, k in enumerate(soa_env.REWARD_ORDER)}
-        info["kick"] = noise["kick"]
-        info["last_act"] = action
-        info["last_vel"] = qvel[:, 6:]
-        info["action_buffer"] = rows("action_buffer").reshape(B, 12, es.Da)
-        info["imu_buffer"] = rows("imu_buffer").reshape(B, 6, es.Di)
-        info["feet_air_time"] = rows("feet_air_time")
-        info["last_contact"] = rows("last_contact") > 0.5
-        info["rewards"] = rewards
-        info["step"] = rows("step")[:, 0].to(torch.int32)
-        info["command"] = rows("command")
-        info["desired_world_z_in_body_frame"] = rows("desired_z")
-        metrics = dict(state.metrics)
-        metrics["total_dist"] = rows("total_dist")[:, 0]
-        metrics.update(rewards)
-        return state.replace(
-            qpos=qpos, qvel=qvel, obs=rows("obs_history"), reward=rows("reward")[:, 0],
-            done=rows("done")[:, 0], metrics=metrics, info=info,
-            pipeline_state=physics_state_from_caches(s, qpos, qvel, caches),
-        )
+        return physics_state_from_caches(s, qpos, qvel, caches), {
+            "obs": rows("obs_history"),
+            "reward": rows("reward")[:, 0],
+            "done": rows("done")[:, 0],
+            "action_buffer": rows("action_buffer").reshape(B, 12, es.Da),
+            "imu_buffer": rows("imu_buffer").reshape(B, 6, es.Di),
+            "command": rows("command"),
+            "desired_z": rows("desired_z"),
+            "feet_air_time": rows("feet_air_time"),
+            "last_contact": rows("last_contact") > 0.5,
+            "step": rows("step")[:, 0].to(torch.int32),
+            "rewards": {k: rows("rewards")[:, i] for i, k in enumerate(soa_env.REWARD_ORDER)},
+            "total_dist": rows("total_dist")[:, 0],
+        }
+
+    def _step_core(self, m, qpos: torch.Tensor, qvel: torch.Tensor, action: torch.Tensor,
+                   env_in: Dict[str, torch.Tensor], noise: Dict[str, torch.Tensor],
+                   dr_rows: Optional[torch.Tensor] = None):
+        """The deterministic env step core of the physics-only lane
+        (``pupper.py:507-682``), batched: noise in, (PhysicsState, env_out)
+        out. The physics is one ``_cv_pipeline_step``."""
+        # random kick
+        qvel = torch.cat([noise["kick"] + qvel[:, :2], qvel[:, 2:]], -1)
+        # action latency
+        lagged_action, action_buffer = utils.apply_lagged_value(
+            env_in["action_buffer"], action, noise["act_lat"])
+        # physics
+        c = self._dev
+        lowers, uppers = c["lowers"], c["uppers"]
+        motor_targets = c["default_pose"] + lagged_action * self._es.action_scale
+        motor_targets = torch.minimum(torch.maximum(motor_targets, lowers), uppers)
+        ps = self._cv_pipeline_step(m, qpos, qvel, motor_targets, dr_rows)
+
+        obs_info = {
+            "command": env_in["command"],
+            "desired_world_z_in_body_frame": env_in["desired_z"],
+            "imu_buffer": env_in["imu_buffer"],
+            "last_act": env_in["last_act"],
+        }
+        obs = self._get_obs(ps.qpos, ps.x_rot[:, 0], ps.xd_ang[:, 0], obs_info, noise,
+                            env_in["obs_history"])
+        joint_angles, joint_vel = ps.qpos[:, 7:], ps.qvel[:, 6:]
+
+        # foot contact from the site heights
+        foot_contact_z = ps.site_xpos[:, c["feet_sites"], 2] - self._foot_radius
+        contact = foot_contact_z < 1e-3
+        contact_filt_mm = contact | env_in["last_contact"]
+        contact_filt_cm = (foot_contact_z < 3e-2) | env_in["last_contact"]
+        first_contact = (env_in["feet_air_time"] > 0) & contact_filt_mm
+        feet_air_time = env_in["feet_air_time"] + self.dt
+
+        # termination
+        torso = self._torso_idx - 1
+        done = math.rotate(c["up"], ps.x_rot[:, torso])[:, 2] < self._cos_terminal_angle
+        done = done | torch.any(joint_angles < lowers, -1)
+        done = done | torch.any(joint_angles > uppers, -1)
+        done = done | (ps.x_pos[:, torso, 2] < self._terminal_body_z)
+
+        # rewards, in the JAX step core's (and K2's) order
+        cfg = self._reward_config["rewards"]
+        sigma, cmd = cfg["tracking_sigma"], env_in["command"]
+        terms = {
+            "tracking_lin_vel": rewards.reward_tracking_lin_vel(cmd, ps, sigma),
+            "tracking_ang_vel": rewards.reward_tracking_ang_vel(cmd, ps, sigma),
+            "tracking_orientation": rewards.reward_tracking_orientation(
+                env_in["desired_z"], ps, sigma),
+            "lin_vel_z": rewards.reward_lin_vel_z(ps),
+            "ang_vel_xy": rewards.reward_ang_vel_xy(ps),
+            "orientation": rewards.reward_orientation(ps),
+            "torques": rewards.reward_torques(ps.qfrc_actuator),
+            "joint_acceleration": rewards.reward_joint_acceleration(
+                joint_vel, env_in["last_vel"], dt=self._dt),
+            "mechanical_work": rewards.reward_mechanical_work(ps.qfrc_actuator[:, 6:],
+                                                              ps.qvel[:, 6:]),
+            "action_rate": rewards.reward_action_rate(action, env_in["last_act"]),
+            "stand_still": rewards.reward_stand_still(cmd, joint_angles,
+                                                      c["default_pose"], 0.1),
+            "stand_still_joint_velocity": rewards.reward_stand_still(
+                cmd, joint_vel, torch.zeros_like(joint_vel),
+                self._stand_still_command_threshold),
+            "abduction_angle": rewards.reward_abduction_angle(
+                joint_angles, c["desired_abduction"]),
+            "feet_air_time": rewards.reward_feet_air_time(feet_air_time, first_contact, cmd),
+            "foot_slip": rewards.reward_foot_slip(ps, contact_filt_cm, c["feet_sites"],
+                                                  c["lower_legs"]),
+            "termination": rewards.reward_termination(
+                done, env_in["step"], self._early_termination_step_threshold),
+            "knee_collision": rewards.reward_geom_collision(
+                ps, c["upper_leg_geoms"], self._pair_geom1, self._pair_geom2),
+            "body_collision": rewards.reward_geom_collision(
+                ps, c["torso_geoms"], self._pair_geom1, self._pair_geom2),
+        }
+        terms = {k: v * cfg["scales"][k] for k, v in terms.items()}
+        reward = torch.clamp(sum(terms.values()) * self.dt, 0.0, 10000.0)
+
+        # carried-field updates and the command + orientation resample
+        feet_air_time = feet_air_time * ~contact_filt_mm
+        step_count = env_in["step"] + 1
+        resample = step_count > self._resample_velocity_step
+        command = torch.where(resample[:, None], noise["resample_cmd"], cmd)
+        desired_z = torch.where(resample[:, None], noise["resample_ori"], env_in["desired_z"])
+        step_count = torch.where(done | resample, torch.zeros_like(step_count), step_count)
+        return ps, {
+            "obs": obs,
+            "reward": reward,
+            "done": done.to(torch.float32),
+            "action_buffer": action_buffer,
+            "imu_buffer": obs_info["imu_buffer"],
+            "command": command,
+            "desired_z": desired_z,
+            "feet_air_time": feet_air_time,
+            "last_contact": contact,
+            "step": step_count,
+            "rewards": terms,
+            "total_dist": math.normalize(ps.x_pos[:, torso])[1],
+        }
+
+    def _geom_ids(self, ids) -> torch.Tensor:
+        """Static ids (geoms, sites, bodies) as an int64 tensor on the device."""
+        return torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=self.device)
+
+    def _cv_pipeline_step(self, m, qpos: torch.Tensor, qvel: torch.Tensor,
+                          motor_targets: torch.Tensor,
+                          dr_rows: Optional[torch.Tensor] = None) -> PhysicsState:
+        """One env step's physics through ``pipeline.make_batched_step``: K1
+        on float32 CUDA tensors, its plain version on CPU tensors. The
+        per-pair contact metadata that the JAX env re-attaches to the tuple
+        (``_ps_from_tuple``) stays with the env: ``_pair_geom1`` and
+        ``_pair_geom2`` are what the collision rewards read."""
+        return PhysicsState(*self._cv_step(m, qpos, qvel, motor_targets, dr_rows))
 
     def _get_obs(self, qpos, torso_quat, torso_ang_vel, info, noise, obs_history):
         """36-dim observation, noised/lagged, stacked newest-first; updates
@@ -430,9 +607,9 @@ class PupperV3Env:
             inv_torso_rot = math.quat_inv(torso_quat)
             local_ang_vel = math.rotate(torso_ang_vel, inv_torso_rot)
         else:
-            inv_torso_rot = self._t([1.0, 0.0, 0.0, 0.0]).expand_as(torso_quat)
+            inv_torso_rot = self._dev["identity_quat"].expand_as(torso_quat)
             local_ang_vel = torch.zeros_like(torso_ang_vel)
-        gravity = math.rotate(self._t([0.0, 0.0, -1.0]), inv_torso_rot)
+        gravity = math.rotate(self._dev["down"], inv_torso_rot)
         gravity = gravity + noise["gravity_noise"]
         gravity = gravity / torch.linalg.vector_norm(gravity, dim=-1, keepdim=True)
         imu = torch.cat([local_ang_vel + noise["ang_vel_noise"], gravity], -1)
@@ -444,7 +621,7 @@ class PupperV3Env:
                 lagged,
                 info["command"],
                 info["desired_world_z_in_body_frame"],
-                qpos[:, 7:] - self._t(self._default_pose) + noise["motor_ang_noise"],
+                qpos[:, 7:] - self._dev["default_pose"] + noise["motor_ang_noise"],
                 info["last_act"] + noise["last_action_noise"],
             ],
             -1,

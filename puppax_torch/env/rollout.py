@@ -19,10 +19,14 @@ be fed the JAX package's draws in the parity tests.
 The JAX lane's TPU devices (the ``(rows, B/128, 128)`` tiles, padding B
 to 1024, ``shard_map``, the fused whole-unroll kernel) have no
 counterpart here; the JAX ``scan`` is a Python loop around the kernel.
+
+``support_reason`` says whether ``ppo.train`` takes this lane or unrolls
+the standard lane (``acting.generate_unroll``), and why.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -34,6 +38,20 @@ from puppax_torch.env.wrappers import TrainingEnv
 from puppax_torch.physics import soa
 from puppax_torch.train.acting import Transition
 from puppax_torch.train.distribution import NormalTanhDistribution
+
+
+def support_reason(wrapped: TrainingEnv) -> Tuple[bool, str]:
+    """(ok, reason): whether the fast lane can run this wrapped env with
+    standard-lane-equal semantics, and why not when it cannot
+    (``puppax/env/rollout.py:63-102``, for the reasons the port knows)."""
+    if os.environ.get("PUPPAX_SOA_ENV", "auto") == "off":
+        return False, "PUPPAX_SOA_ENV=off"
+    if os.environ.get("PUPPAX_FAST_LANE", "auto") == "off":
+        return False, "PUPPAX_FAST_LANE=off"
+    if not wrapped.env._use_soa_env:
+        return False, ("env built without the fused SoA step core "
+                       "(PUPPAX_SOA_ENV=off at its construction)")
+    return True, "ok"
 
 
 class FastLane:

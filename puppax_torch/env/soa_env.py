@@ -30,6 +30,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from puppax_torch.kernels import build
 from puppax_torch.physics import soa
 from puppax_torch.physics.soa import (
     add, clip, fma, materialize, maximum, mul, qrot, sub, vadd3, vcross3,
@@ -609,48 +610,12 @@ def emit_wrapped_rows(s, es, n_substeps, episode_length, rows):
     return q_out, v_out, env_flat, [steps2, done2], aux_flat
 
 
-def _plain(emit, blocks):
-    """Evaluate an emission with torch ops on ``(rows, B)`` blocks; the
-    outputs come back as ``(rows, B)`` float32 blocks."""
-    rows = [[x[i] for i in range(x.shape[0])] for x in blocks]
-    ref = rows[0][0]
-    return tuple(torch.stack([materialize(x, ref) for x in o]) for o in emit(rows))
-
-
 def wrapped_step_rows(s, es, n_substeps, episode_length, *blocks):
     """The plain version: the wrapped-step emission evaluated with torch
     ops on ``(rows, B)`` blocks (q, v, act, env, noise, dr, first, wrap).
     Returns (q', v', env', wrap', aux) as ``(rows, B)`` float32."""
-    return _plain(lambda rows: emit_wrapped_rows(s, es, n_substeps, episode_length, rows),
+    return soa.plain_rows(lambda rows: emit_wrapped_rows(s, es, n_substeps, episode_length, rows),
                   blocks)
-
-
-def _check_blocks(in_rows, blocks):
-    if len(blocks) != len(in_rows):
-        raise ValueError(f"expected {len(in_rows)} input blocks, got {len(blocks)}")
-    B = blocks[0].shape[-1]
-    dev = blocks[0].device
-    for i, (x, n) in enumerate(zip(blocks, in_rows)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"input block {i}: dtype {x.dtype}, expected float32")
-        if x.ndim != 2 or x.shape != (n, B):
-            raise ValueError(f"input block {i}: shape {tuple(x.shape)}, expected ({n}, {B})")
-        if not x.is_contiguous():
-            raise ValueError(f"input block {i} is not contiguous")
-        if x.device != dev:
-            raise ValueError(f"input block {i} on {x.device}, block 0 on {dev}")
-    return B, dev
-
-
-def _launch(name, lib_fn, blocks, out_rows, B, dev):
-    """Allocate the output blocks and launch one kernel on the current
-    stream; raise on a launch error."""
-    outs = [torch.empty((n, B), dtype=torch.float32, device=dev) for n in out_rows]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib_fn(*[t.data_ptr() for t in list(blocks) + outs], B, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    return tuple(outs)
 
 
 def wrapped_step(s, es, n_substeps, episode_length, *blocks):
@@ -661,15 +626,13 @@ def wrapped_step(s, es, n_substeps, episode_length, *blocks):
     current stream, or raise. Each launch adds one to
     ``wrapped_step.launches``."""
     in_rows, out_rows = block_rows(s, es)
-    B, dev = _check_blocks(in_rows, blocks)
+    B, dev = build.check_blocks(in_rows, blocks)
     if dev.type == "cpu":
         return wrapped_step_rows(s, es, n_substeps, episode_length, *blocks)
     if dev.type != "cuda":
         raise ValueError(f"wrapped_step: unsupported device {dev}")
-    from puppax_torch.kernels import build
-
     lib = build.wrapped_step_library(s, es, n_substeps, episode_length)
-    outs = _launch("wrapped_step", lib.wrapped_step_launch, blocks, out_rows, B, dev)
+    outs = build.launch("wrapped_step", lib.wrapped_step_launch, blocks, out_rows, B, dev)
     wrapped_step.launches += 1
     return outs
 
@@ -714,7 +677,7 @@ def env_step_rows(s, es, n_substeps, *blocks):
     """The plain version of K2: the env-step emission evaluated with torch
     ops on ``(rows, B)`` blocks (q, v, act, env, noise, dr). Returns (q',
     v', caches, env_out) as ``(rows, B)`` float32."""
-    return _plain(lambda rows: emit_env_rows(s, es, n_substeps, rows), blocks)
+    return soa.plain_rows(lambda rows: emit_env_rows(s, es, n_substeps, rows), blocks)
 
 
 def env_step(s, es, n_substeps, *blocks):
@@ -724,15 +687,13 @@ def env_step(s, es, n_substeps, *blocks):
     launch the generated CUDA kernel (``csrc/env_step.cuh``) on the current
     stream, or raise. Each launch adds one to ``env_step.launches``."""
     in_rows, out_rows = env_block_rows(s, es)
-    B, dev = _check_blocks(in_rows, blocks)
+    B, dev = build.check_blocks(in_rows, blocks)
     if dev.type == "cpu":
         return env_step_rows(s, es, n_substeps, *blocks)
     if dev.type != "cuda":
         raise ValueError(f"env_step: unsupported device {dev}")
-    from puppax_torch.kernels import build
-
     lib = build.env_step_library(s, es, n_substeps)
-    outs = _launch("env_step", lib.env_step_launch, blocks, out_rows, B, dev)
+    outs = build.launch("env_step", lib.env_step_launch, blocks, out_rows, B, dev)
     env_step.launches += 1
     return outs
 

@@ -6,15 +6,18 @@ stack AutoReset(Vmap(Episode(env))) as one class over a batched env.
 * Reset adds the Episode ``steps`` and ``truncation`` fields and the
   AutoReset ``first_qpos`` / ``first_qvel`` / ``first_obs`` rows; with
   ``caches=True`` (the standard lane) it also runs the reset-time forward
-  pass and keeps it as ``first_pipeline_state``.
+  pass (``pipeline.pipeline_init`` of the DR batch) and keeps it as
+  ``first_pipeline_state``.
 * The step side (``step`` / ``step_from_draws``, the standard lane behind
-  the evaluator) runs the brax order around ``PupperV3Env.step_from_draws``
-  (the env-step kernel K2): the AutoReset prologue zeroes ``steps`` where
+  the evaluator, and behind training when the fast lane is off) runs the
+  brax order around ``PupperV3Env.step_from_draws`` (the env-step kernel
+  K2, or the physics-only lane on K1): the AutoReset prologue zeroes ``steps`` where
   the previous step ended, the Episode wrapper counts the step and
   truncates at the episode limit, and on the effective done AutoReset
   restores the reset-time pipeline state, qpos, qvel and observation.
-* The DR batch is the per-env model: its parameter rows go to the kernel as
-  its dr block; an unbatched model (the eval env) is broadcast.
+* The DR batch is the per-env model: its parameter rows go to the kernels
+  as their dr block, the model itself to the physics-only lane's torch
+  pipeline; an unbatched model (the eval env) is broadcast.
 
 The rollout fast lane runs the same step side inside the wrapped-step
 kernel K3 (``soa_env._emit_wrapped_step``) and reads only the reset side.
@@ -66,8 +69,7 @@ class TrainingEnv:
         info["first_obs"] = state.obs
         pipeline_state = None
         if caches:
-            B = state.qpos.shape[0]
-            pipeline_state = self.env.pipeline_init(state.qpos, state.qvel, self.dr_rows(B))
+            pipeline_state = self.env.pipeline_init(state.qpos, state.qvel, self.model)
             info["first_pipeline_state"] = pipeline_state
         return state.replace(info=info, pipeline_state=pipeline_state)
 
@@ -88,7 +90,7 @@ class TrainingEnv:
                                     info["steps"])
         state = state.replace(done=torch.zeros_like(state.done), info=info)
         state = self.env.step_from_draws(state, action, noise,
-                                         self.dr_rows(state.qpos.shape[0]))
+                                         self.dr_rows(state.qpos.shape[0]), self.model)
         # EpisodeWrapper
         info = dict(state.info)
         steps = info["steps"] + 1

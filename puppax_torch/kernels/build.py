@@ -14,7 +14,9 @@ finished library in that directory is reused; nothing is built at import.
 the build directory's ``build.log``.
 
 Each nvcc is one subprocess, so ``build_in_parallel`` builds several
-kernels at once from threads.
+kernels at once from threads. ``check_blocks`` and ``launch`` are the
+wrappers' shared checks of the ``(rows, B)`` input blocks and their launch
+on the current stream.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, Sequence, Tuple
+
+import torch
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_ROOT = REPO_ROOT / "build" / "puppax_torch_kernels"
@@ -59,6 +63,8 @@ WRAPPED_STEP = Kernel("wrapped_step", CSRC / "wrapped_step.cuh", 13,  # 8 in + 5
                       "wrapped_step_launch", "wrapped_step_host")
 ENV_STEP = Kernel("env_step", CSRC / "env_step.cuh", 10,  # 6 in + 4 out
                   "env_step_launch", "env_step_host")
+PHYSICS_STEP = Kernel("physics_step", CSRC / "physics_step.cuh", 7,  # 4 in + 3 out
+                      "physics_step_launch", "physics_step_host")
 
 # (kernel, model statics, env statics, config) -> loaded library
 _LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
@@ -173,6 +179,17 @@ def env_step_library(s, es, n_substeps: int) -> ctypes.CDLL:
     )
 
 
+def physics_step_library(s, n_substeps: int) -> ctypes.CDLL:
+    """The physics-step kernel (K1) for this model and substep count, built
+    with nvcc for sm_90a at first use and cached for the process."""
+    from puppax_torch.kernels import cgen
+
+    return _device_library(
+        PHYSICS_STEP, s, None, (int(n_substeps),),
+        lambda: cgen.physics_step_body(s, n_substeps),
+    )
+
+
 def build_in_parallel(*builds: Callable[[], object]) -> list:
     """Run the given library builds (e.g. ``lambda: env_step_library(...)``)
     in threads, so their nvcc processes run at the same time."""
@@ -188,3 +205,33 @@ def host_library(kernel: Kernel, body: str, out_root: Path,
     lib = ctypes.CDLL(str(path))
     _bind(lib, kernel, with_stream=False)
     return lib
+
+
+def check_blocks(in_rows: Sequence[int], blocks) -> Tuple[int, torch.device]:
+    """Check a kernel's input blocks: ``len(in_rows)`` contiguous float32
+    ``(rows, B)`` tensors on one device. Returns (B, device)."""
+    if len(blocks) != len(in_rows):
+        raise ValueError(f"expected {len(in_rows)} input blocks, got {len(blocks)}")
+    B = blocks[0].shape[-1]
+    dev = blocks[0].device
+    for i, (x, n) in enumerate(zip(blocks, in_rows)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"input block {i}: dtype {x.dtype}, expected float32")
+        if x.ndim != 2 or x.shape != (n, B):
+            raise ValueError(f"input block {i}: shape {tuple(x.shape)}, expected ({n}, {B})")
+        if not x.is_contiguous():
+            raise ValueError(f"input block {i} is not contiguous")
+        if x.device != dev:
+            raise ValueError(f"input block {i} on {x.device}, block 0 on {dev}")
+    return B, dev
+
+
+def launch(name: str, lib_fn, blocks, out_rows: Sequence[int], B: int, dev):
+    """Allocate the output blocks and launch one kernel on the current
+    stream; raise on a launch error."""
+    outs = [torch.empty((n, B), dtype=torch.float32, device=dev) for n in out_rows]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib_fn(*[t.data_ptr() for t in list(blocks) + outs], B, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return tuple(outs)

@@ -13,7 +13,8 @@ their sum an ordered loop.
 The generated body is one ``PUPPAX_HD`` (``__host__ __device__``) function
 that reads row r of env b at ``ptr[r * B + b]``; a hand-written shell wraps
 it in the kernel and the C entry points: ``csrc/wrapped_step.cuh`` for the
-wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2).
+wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2),
+``csrc/physics_step.cuh`` for the physics-only step (K1).
 """
 
 from __future__ import annotations
@@ -38,11 +39,14 @@ _UNARY = {
 }
 
 # the pointer parameters of each body, in block order (shells: WS_PARAMS
-# in wrapped_step.cuh, ES_PARAMS in env_step.cuh)
+# in wrapped_step.cuh, ES_PARAMS in env_step.cuh, PS_PARAMS in
+# physics_step.cuh)
 IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr", "first", "wrap")
 OUT_BLOCKS = ("q_out", "v_out", "env_out", "wrap_out", "aux_out")
 ENV_IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr")
 ENV_OUT_BLOCKS = ("q_out", "v_out", "cache_out", "env_out")
+PHYSICS_IN_BLOCKS = ("q", "v", "ctrl", "dr")
+PHYSICS_OUT_BLOCKS = ("q_out", "v_out", "cache_out")
 
 
 def float_literal(x) -> str:
@@ -281,6 +285,18 @@ def env_step_body(s, es, n_substeps: int) -> str:
         "env_step_body", "ES_PARAMS", ENV_IN_BLOCKS, ENV_OUT_BLOCKS, in_rows,
         lambda rows: soa_env.emit_env_rows(s, es, n_substeps, rows),
         f"env-step\n// emission: n_substeps={n_substeps}",
+    )
+
+
+def physics_step_body(s, n_substeps: int) -> str:
+    """C source of ``physics_step_body`` (K1): the physics-only emission
+    (``soa.emit_physics_rows``: the substeps, the last forward pass's caches
+    and the final integrate)."""
+    in_rows, _ = soa.physics_block_rows(s)
+    return _body(
+        "physics_step_body", "PS_PARAMS", PHYSICS_IN_BLOCKS, PHYSICS_OUT_BLOCKS, in_rows,
+        lambda rows: soa.emit_physics_rows(s, n_substeps, rows),
+        f"physics-step\n// emission: n_substeps={n_substeps}",
     )
 
 

@@ -32,7 +32,7 @@ def quat_mul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
     """Conjugate of a unit quaternion."""
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,205 @@
+"""Analytic narrowphase of the flat model class, with the MJX contact caps.
+
+Counterpart of ``puppax/physics/collision.py`` for the two pair kinds the
+port's tables carry: plane-sphere and sphere-sphere. Every candidate pair
+is evaluated each step with fixed shapes. ``collide`` applies the MJX caps
+the solver sees (``max_geom_pairs`` per pair kind, then
+``max_contact_points`` overall, each a top-k by penetration depth);
+``collide_pairs`` is the uncapped report in static pair order that the
+env's rewards read.
+
+Contact conventions are MuJoCo's: ``dist`` < 0 is penetration, the frame's
+first row is the normal from geom1 into geom2, ``pos`` is the midpoint of
+the overlap; friction is the elementwise max and solref/solimp the mean of
+the two geoms. Every field has a leading env axis ``(B, ncon, ...)``; the
+geom and body ids are int64 (per env, since the caps select per env).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from puppax_torch.model.mjcf import RobotModel
+from puppax_torch.physics.smooth import Kinematics, leaf
+
+_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
+_PAD_DIST = 1e10
+
+
+class Contacts(NamedTuple):
+    """Fixed-size contact set, batched over envs."""
+
+    dist: torch.Tensor  # (B, ncon) penetration (<0), or large positive for pads
+    pos: torch.Tensor  # (B, ncon, 3)
+    frame: torch.Tensor  # (B, ncon, 3, 3) rows = [normal, tangent1, tangent2]
+    friction: torch.Tensor  # (B, ncon, 2) tangential friction coefficients
+    solref: torch.Tensor  # (B, ncon, 2)
+    solimp: torch.Tensor  # (B, ncon, 5)
+    invweight: torch.Tensor  # (B, ncon) body_invweight0 lin sum of the two bodies
+    geom1: torch.Tensor  # (B, ncon) int64
+    geom2: torch.Tensor  # (B, ncon)
+    body1: torch.Tensor  # (B, ncon)
+    body2: torch.Tensor  # (B, ncon)
+
+
+def _make_frames(n: torch.Tensor) -> torch.Tensor:
+    """Contact frames from unit normals (..., 3), mju_makeFrame: helper
+    axis e = y if |n_y| < 0.5 else z; t2 = normalize(n x e); t1 = t2 x n."""
+    ey = n.new_tensor([0.0, 1.0, 0.0])
+    ez = n.new_tensor([0.0, 0.0, 1.0])
+    e = torch.where((torch.abs(n[..., 1]) < 0.5)[..., None], ey, ez)
+    t2 = torch.linalg.cross(n, e)
+    t2 = t2 / torch.clamp_min(torch.linalg.vector_norm(t2, dim=-1, keepdim=True), 1e-12)
+    t1 = torch.linalg.cross(t2, n)
+    return torch.stack([n, t1, t2], dim=-2)
+
+
+def _combine(m: RobotModel, g1: np.ndarray, g2: np.ndarray, ref: torch.Tensor):
+    """Per-contact parameters of static pairs (g1, g2): friction = max,
+    solref/solimp = mean; both tangential directions use the slide
+    coefficient. Returns (B, k, ...) tensors and the body ids."""
+    B = ref.shape[0]
+    k = len(g1)
+    gf = leaf(m, "geom_friction", ref)
+    fr = torch.maximum(gf[..., g1, 0], gf[..., g2, 0]).expand(B, k)
+    tangential = torch.stack([fr, fr], dim=-1)
+    sref, simp = leaf(m, "geom_solref", ref), leaf(m, "geom_solimp", ref)
+    solref = (0.5 * (sref[..., g1, :] + sref[..., g2, :])).expand(B, k, 2)
+    solimp = (0.5 * (simp[..., g1, :] + simp[..., g2, :])).expand(B, k, 5)
+    bodyid = np.asarray(m.geom_bodyid)
+    b1, b2 = bodyid[g1], bodyid[g2]
+    iw = leaf(m, "body_invweight0", ref)[..., 0]
+    invweight = (iw[..., b1] + iw[..., b2]).expand(B, k)
+    return tangential, solref, solimp, invweight, b1, b2
+
+
+def _plane_sphere(m: RobotModel, kin: Kinematics, g1, g2):
+    """Batched plane(g1)-sphere(g2) for static index arrays g1, g2."""
+    n = kin.geom_xmat[:, g1, :, 2]  # plane normals = local z axes
+    plane_pos = kin.geom_xpos[:, g1]
+    center = kin.geom_xpos[:, g2]
+    r = leaf(m, "geom_size", kin.xpos)[..., g2, 0]
+    dist = torch.sum(n * (center - plane_pos), -1) - r
+    pos = center - n * (r + 0.5 * dist)[..., None]
+    return dist, pos, _make_frames(n)
+
+
+def _sphere_sphere(m: RobotModel, kin: Kinematics, g1, g2):
+    c1, c2 = kin.geom_xpos[:, g1], kin.geom_xpos[:, g2]
+    size = leaf(m, "geom_size", kin.xpos)
+    r1, r2 = size[..., g1, 0], size[..., g2, 0]
+    delta = c2 - c1
+    length = torch.linalg.vector_norm(delta, dim=-1)
+    n = delta / torch.clamp_min(length, 1e-12)[..., None]
+    dist = length - (r1 + r2)
+    pos = c1 + n * (r1 + 0.5 * dist)[..., None]
+    return dist, pos, _make_frames(n)
+
+
+def _top_k_select(items, k: int):
+    """Keep the k most-penetrating rows per env (ascending dist, first
+    index on ties, as lax.top_k(-dist) orders them): k sequential argmins,
+    each picked row masked with +inf so it cannot be picked again."""
+    dist = items[0]
+    n = dist.shape[1]
+    if n <= k:
+        return items
+    masked = dist
+    picks = []
+    for _ in range(k):
+        i = torch.argmin(masked, dim=1)
+        picks.append(i)
+        masked = masked.scatter(1, i[:, None], float("inf"))
+    idx = torch.stack(picks, dim=1)  # (B, k)
+    out = []
+    for x in items:
+        gather = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand((-1, -1) + x.shape[2:])
+        out.append(torch.gather(x, 1, gather))
+    return tuple(out)
+
+
+def _check_kinds(m: RobotModel):
+    for name in ("pairs_sphere_box", "pairs_hfield_sphere", "pairs_plane_capsule",
+                 "pairs_sphere_capsule", "pairs_capsule_capsule"):
+        if getattr(m, name):
+            raise NotImplementedError(f"{name}: box, heightfield and capsule pairs are not "
+                                      f"ported yet ({_ROADMAP_TERRAIN})")
+
+
+def _pair_groups(m: RobotModel, kin: Kinematics):
+    """Evaluate every candidate pair; yields one contact tuple per kind."""
+    _check_kinds(m)
+    B = kin.xpos.shape[0]
+    dev = kin.xpos.device
+    for pairs, fn in ((m.pairs_plane_sphere, _plane_sphere),
+                      (m.pairs_sphere_sphere, _sphere_sphere)):
+        if not pairs:
+            continue
+        g1 = np.asarray([p[0] for p in pairs], np.int64)
+        g2 = np.asarray([p[1] for p in pairs], np.int64)
+        dist, pos, frame = fn(m, kin, g1, g2)
+        fri, sref, simp, iw, b1, b2 = _combine(m, g1, g2, kin.xpos)
+
+        def ids(x):
+            return torch.as_tensor(x, dtype=torch.int64, device=dev).expand(B, len(x))
+
+        yield (dist, pos, frame, fri, sref, simp, iw, ids(g1), ids(g2), ids(b1), ids(b2))
+
+
+def _merge(groups):
+    return tuple(torch.cat([g[i] for g in groups], dim=1) for i in range(len(groups[0])))
+
+
+def _empty_contacts(ref: torch.Tensor, ncon: int) -> Contacts:
+    B = ref.shape[0]
+
+    def full(shape, values):
+        return ref.new_tensor(values).expand((B, ncon) + shape).clone()
+
+    ints = torch.zeros((B, ncon), dtype=torch.int64, device=ref.device)
+    return Contacts(
+        dist=ref.new_full((B, ncon), _PAD_DIST), pos=ref.new_zeros((B, ncon, 3)),
+        frame=full((3, 3), np.eye(3).tolist()), friction=ref.new_ones((B, ncon, 2)),
+        solref=full((2,), [0.02, 1.0]), solimp=full((5,), [0.9, 0.95, 0.001, 0.5, 2.0]),
+        invweight=ref.new_zeros((B, ncon)), geom1=ints, geom2=ints.clone(),
+        body1=ints.clone(), body2=ints.clone(),
+    )
+
+
+def collide_pairs(m: RobotModel, kin: Kinematics) -> Contacts:
+    """The uncapped per-pair contact set in static pair order: the
+    reporting surface the env's collision rewards read. The solver uses
+    the capped set of ``collide``; the two differ once more than
+    ``max_geom_pairs`` pairs of one kind (or ``max_contact_points`` in all)
+    penetrate."""
+    groups = list(_pair_groups(m, kin))
+    if not groups:
+        return _empty_contacts(kin.xpos, 0)
+    return Contacts(*_merge(groups))
+
+
+def collide(m: RobotModel, kin: Kinematics) -> Contacts:
+    """Evaluate all candidate pairs, then apply the per-kind and global
+    top-k caps; pad to ``max_contact_points`` with separated rows."""
+    groups = [_top_k_select(g, m.max_geom_pairs) for g in _pair_groups(m, kin)]
+    ncon = m.max_contact_points
+    if not groups:
+        return _empty_contacts(kin.xpos, ncon)
+    merged = _merge(groups)
+    n_all = merged[0].shape[1]
+    if n_all > ncon:
+        merged = _top_k_select(merged, ncon)
+    elif n_all < ncon:  # pads: far apart, identity frames, ones elsewhere
+        pad = ncon - n_all
+        fills = [
+            x.new_full((x.shape[0], pad), _PAD_DIST) if i == 0
+            else torch.zeros((x.shape[0], pad), dtype=x.dtype, device=x.device) if i >= 7
+            else torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[0], pad, 3, 3)
+            if i == 2 else x.new_ones((x.shape[0], pad) + x.shape[2:])
+            for i, x in enumerate(merged)
+        ]
+        merged = tuple(torch.cat([x, f], dim=1) for x, f in zip(merged, fills))
+    return Contacts(*merged)

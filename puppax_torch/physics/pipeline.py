@@ -1,0 +1,252 @@
+"""The physics pipeline: forward dynamics, init and step, and the batched
+step that routes to the physics-step kernel (K1).
+
+Counterpart of ``puppax/physics/pipeline.py``. ``forward`` chains the
+stages of ``smooth``, ``collision``, ``constraint`` and ``solver`` (the
+MJX contact caps included); ``pipeline_step`` runs ``n_substeps`` forward
++ Euler passes as a Python loop and keeps the caches of the last forward
+pass (mjx.step semantics: the caches lag integration by one substep).
+Everything is batched over a leading env axis ``(B, ...)`` and runs in the
+state's dtype, float64 included.
+
+``make_batched_step`` is the JAX package's custom_vmap splice written out
+as an explicit rule. For a model of the kernel's flat class:
+
+* float32 CUDA tensors run K1 (``soa.step_batched``), or raise;
+* float32 CPU tensors run K1's plain version (``soa.physics_step_rows``,
+  the same emission on the torch back-end): on the CPU the port runs its
+  kernels' plain versions, where the JAX package runs XLA;
+* float64 tensors, a model outside the class, or ``PUPPAX_SOA=off`` run
+  ``pipeline_step``.
+
+There is no fallback on error. The kernel's emission evaluates every
+contact pair uncapped, so the two routes part once more than
+``max_geom_pairs`` pairs of one kind (or ``max_contact_points`` in all)
+penetrate.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from puppax_torch import utils
+from puppax_torch.model.mjcf import LEAF_FIELDS, MjTables, RobotModel
+from puppax_torch.ops import linalg
+from puppax_torch.physics import collision, constraint, integrate, smooth, soa, solver
+
+
+@dataclass(frozen=True)
+class PhysicsState:
+    """The physics caches of the last forward pass, batched: qpos (B, nq),
+    qvel (B, nv), qacc (B, nv), x_pos (B, nbody-1, 3), x_rot (B, nbody-1,
+    4), xd_vel and xd_ang (B, nbody-1, 3), xpos (B, nbody, 3), site_xpos
+    (B, nsite, 3), qfrc_actuator (B, nv), and the uncapped contact report
+    in static pair order: contact_dist (B, npair), contact_pos (B, npair,
+    3). The world body is dropped from the ``x_*``/``xd_*`` fields, as in
+    brax. The per-pair metadata (geoms, frames, solref) is static for the
+    flat model class; the env keeps what its rewards read
+    (``pair_contact_statics``)."""
+
+    qpos: torch.Tensor
+    qvel: torch.Tensor
+    qacc: torch.Tensor
+    x_pos: torch.Tensor
+    x_rot: torch.Tensor
+    xd_vel: torch.Tensor
+    xd_ang: torch.Tensor
+    xpos: torch.Tensor
+    site_xpos: torch.Tensor
+    qfrc_actuator: torch.Tensor
+    contact_dist: torch.Tensor
+    contact_pos: torch.Tensor
+
+    @property
+    def q(self) -> torch.Tensor:
+        return self.qpos
+
+    @property
+    def qd(self) -> torch.Tensor:
+        return self.qvel
+
+    def replace(self, **updates) -> "PhysicsState":
+        return dataclasses.replace(self, **updates)
+
+    def map(self, fn, *others: "PhysicsState") -> "PhysicsState":
+        """A PhysicsState of ``fn(field, *others' fields)`` for every field."""
+        return PhysicsState(**{
+            f.name: fn(getattr(self, f.name), *(getattr(o, f.name) for o in others))
+            for f in dataclasses.fields(self)
+        })
+
+
+def physics_state_from_caches(s, qpos: torch.Tensor, qvel: torch.Tensor,
+                              caches: torch.Tensor) -> PhysicsState:
+    """A ``(ncache, B)`` cache block of K1 or K2 (``s.cache_rows`` order) as
+    a PhysicsState."""
+    B = qpos.shape[0]
+    cb = caches.t()
+
+    def rows(name, *shape):
+        r0, n = s.cache_rows[name]
+        return cb[:, r0 : r0 + n].reshape(B, *shape)
+
+    xpos = rows("xpos", s.nbody, 3)
+    return PhysicsState(
+        qpos=qpos, qvel=qvel, qacc=rows("qacc", s.nv),
+        x_pos=xpos[:, 1:], x_rot=rows("xquat", s.nbody - 1, 4),
+        xd_vel=rows("xd_vel", s.nbody - 1, 3), xd_ang=rows("xd_ang", s.nbody - 1, 3),
+        xpos=xpos, site_xpos=rows("site_xpos", s.nsite, 3),
+        qfrc_actuator=rows("qfrc_actuator", s.nv),
+        contact_dist=rows("con_dist", s.npair), contact_pos=rows("con_pos", s.npair, 3),
+    )
+
+
+def model_tensors(m: RobotModel, dtype: torch.dtype, device) -> RobotModel:
+    """``m`` with every numeric leaf a tensor of ``dtype`` on ``device``, so
+    the stages convert nothing per call."""
+    return m.replace(**{k: torch.as_tensor(getattr(m, k), dtype=dtype, device=device)
+                        for k in LEAF_FIELDS})
+
+
+@contextlib.contextmanager
+def _full_fp32_matmul():
+    """Float32 products in full float32 (TF32 off): the counterpart of the
+    JAX pass's ``default_matmul_precision("highest")``."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def forward(m: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor, ctrl: torch.Tensor):
+    """One forward-dynamics pass of (B, ...) states; returns (qacc, caches)
+    with caches (kin, com, vel, contacts, qfrc_actuator)."""
+    with _full_fp32_matmul():
+        kin = smooth.kinematics(m, qpos)
+        com = smooth.com_pos(m, kin)
+        vel = smooth.com_vel(m, com, qvel)
+        qM = smooth.crb(m, com)
+        qfrc_bias = smooth.rne(m, com, vel, qvel)
+        qfrc_actuator = smooth.actuation(m, qpos, qvel, ctrl)
+        qfrc_smooth = smooth.passive(m, qvel) + qfrc_actuator - qfrc_bias
+        qacc_smooth = linalg.spd_solve(qM, qfrc_smooth)
+        contacts = collision.collide(m, kin)
+        efc = constraint.make_efc(m, com, qpos, qvel, contacts)
+        res = solver.solve(m, qM, qacc_smooth, efc)
+        return res.qacc, (kin, com, vel, contacts, qfrc_actuator)
+
+
+def _make_state(m: RobotModel, qpos, qvel, qacc, caches) -> PhysicsState:
+    kin, com, vel, _, qfrc_actuator = caches
+    # world-frame link velocities from the com-referenced spatial ones:
+    # v_origin = cvel_lin + cvel_ang x (xpos - subtree_com[root])
+    offset = kin.xpos - com.subtree_com[:, list(m.body_rootid)]
+    ang = vel.cvel[..., :3]
+    lin = vel.cvel[..., 3:] + torch.linalg.cross(ang, offset)
+    # the report is the uncapped per-pair set (MuJoCo C semantics); the
+    # solver used the capped set (MJX dynamics semantics)
+    report = collision.collide_pairs(m, kin)
+    return PhysicsState(
+        qpos=qpos, qvel=qvel, qacc=qacc, x_pos=kin.xpos[:, 1:], x_rot=kin.xquat[:, 1:],
+        xd_vel=lin[:, 1:], xd_ang=ang[:, 1:], xpos=kin.xpos, site_xpos=kin.site_xpos,
+        qfrc_actuator=qfrc_actuator, contact_dist=report.dist, contact_pos=report.pos,
+    )
+
+
+def pipeline_init(m: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor) -> PhysicsState:
+    """The state of (B, nq) qpos and (B, nv) qvel after one forward pass at
+    zero controls (mjx.forward semantics)."""
+    m = model_tensors(m, qpos.dtype, qpos.device)
+    ctrl = qpos.new_zeros((qpos.shape[0], m.nu))
+    qacc, caches = forward(m, qpos, qvel, ctrl)
+    return _make_state(m, qpos, qvel, qacc, caches)
+
+
+def pipeline_step(m: RobotModel, state: PhysicsState, ctrl: torch.Tensor,
+                  n_substeps: int = 5) -> PhysicsState:
+    """Advance ``n_substeps`` physics steps under constant (B, nu) ctrl (one
+    env step); the caches are those of the last substep's forward pass."""
+    m = model_tensors(m, state.qpos.dtype, state.qpos.device)
+    qpos, qvel = state.qpos, state.qvel
+    for _ in range(n_substeps):
+        qacc, caches = forward(m, qpos, qvel, ctrl)
+        qpos, qvel = integrate.euler(m, qpos, qvel, qacc)
+    return _make_state(m, qpos, qvel, qacc, caches)
+
+
+def _zeros_state(m: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor) -> PhysicsState:
+    """A PhysicsState carrying qpos and qvel (all ``pipeline_step`` reads)."""
+    B = qpos.shape[0]
+    z = qpos.new_zeros
+    npair = len(m.pairs_plane_sphere) + len(m.pairs_sphere_sphere)
+    return PhysicsState(
+        qpos=qpos, qvel=qvel, qacc=z((B, m.nv)), x_pos=z((B, m.nbody - 1, 3)),
+        x_rot=z((B, m.nbody - 1, 4)), xd_vel=z((B, m.nbody - 1, 3)),
+        xd_ang=z((B, m.nbody - 1, 3)), xpos=z((B, m.nbody, 3)), site_xpos=z((B, m.nsite, 3)),
+        qfrc_actuator=z((B, m.nv)), contact_dist=z((B, npair)), contact_pos=z((B, npair, 3)),
+    )
+
+
+def _as_tuple(ps: PhysicsState) -> tuple:
+    return tuple(getattr(ps, f.name) for f in dataclasses.fields(ps))
+
+
+def make_batched_step(base_model: RobotModel, n_substeps: int, mj: MjTables = None):
+    """``step(model, qpos, qvel, ctrl, dr_rows=None) -> tuple`` of one env
+    step's physics, routed as the module docstring says. The tuple is
+    PhysicsState's fields in order (qpos, qvel, qacc, x_pos, x_rot, xd_vel,
+    xd_ang, xpos, site_xpos, qfrc_actuator, contact_dist, contact_pos).
+    ``dr_rows`` are the model's ``(ndr, B)`` parameter rows for K1, when
+    the caller keeps them; else they are made from ``model``. The route's
+    static digest is ``step.s`` (None outside the kernel's class)."""
+    s = soa._Static(base_model, mj) if soa.soa_supported(base_model) else None
+
+    def step(model, qpos, qvel, ctrl, dr_rows=None):
+        use_kernel = (s is not None and os.environ.get("PUPPAX_SOA", "auto") != "off"
+                      and qpos.dtype == torch.float32)
+        if not use_kernel:
+            ps = pipeline_step(model, _zeros_state(model, qpos, qvel), ctrl, n_substeps)
+            return _as_tuple(ps)
+        if dr_rows is None:
+            dr_rows = soa.dr_rows_block(s, soa.dr_inputs(model, s, qpos.shape[0],
+                                                         device=qpos.device))
+        q2, v2, caches = soa.step_batched(s, qpos.t().contiguous(), qvel.t().contiguous(),
+                                          ctrl.to(torch.float32).t().contiguous(), dr_rows,
+                                          n_substeps)
+        return _as_tuple(physics_state_from_caches(s, q2.t(), v2.t(), caches))
+
+    step.s = s
+    return step
+
+
+def pair_contact_statics(base_model: RobotModel, mj: MjTables = None, device=None):
+    """Static per-pair contact metadata of the flat model class (pair order
+    of the contact report): frames, solref, solimp, invweight as float32
+    tensors, geom and body ids as int64 tensors, and ``pair_geoms``; on
+    ``device`` (default ``cuda:0``; ``"cpu"`` must be asked for)."""
+    s = soa._Static(base_model, mj)
+    device = utils.resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    def ids(name):
+        return torch.as_tensor([getattr(p, name) for p in s.pairs], dtype=torch.int64,
+                               device=device)
+
+    return dict(
+        frame=f32([[p.plane_n, p.frame_t1, p.frame_t2] for p in s.pairs]),
+        solref=f32([p.solref for p in s.pairs]),
+        solimp=f32([p.solimp for p in s.pairs]),
+        invweight=f32([p.invweight for p in s.pairs]),
+        geom1=ids("geom1"), geom2=ids("geom2"), body1=ids("body1"), body2=ids("body2"),
+        pair_geoms=[(p.geom1, p.geom2) for p in s.pairs],
+    )

@@ -32,6 +32,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from puppax_torch.kernels import build
 from puppax_torch.model.mjcf import JNT_FREE, JNT_HINGE, MjTables, RobotModel
 
 _MINVAL = 1e-15
@@ -1425,3 +1426,68 @@ def dr_rows_block(s: _Static, dr: Dict[str, torch.Tensor]) -> torch.Tensor:
         for name, (r0, n) in sorted(s.dr_rows.items(), key=lambda kv: kv[1][0])
     ]
     return torch.cat(parts, dim=1).t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the physics-only step (K1): the emission, its plain version, the kernel
+# ---------------------------------------------------------------------------
+
+
+def plain_rows(emit, blocks):
+    """Evaluate an emission with torch ops on ``(rows, B)`` blocks; the
+    outputs come back as ``(rows, B)`` blocks of the inputs' dtype."""
+    rows = [[x[i] for i in range(x.shape[0])] for x in blocks]
+    ref = rows[0][0]
+    return tuple(torch.stack([materialize(x, ref) for x in o]) for o in emit(rows))
+
+
+def physics_block_rows(s: _Static):
+    """Row counts of K1's 4 input blocks (q, v, ctrl, dr) and 3 output
+    blocks (q, v, caches)."""
+    return (s.nq, s.nv, s.nu, s.ndr), (s.nq, s.nv, s.ncache)
+
+
+@with_cse
+def emit_physics_rows(s: _Static, n_substeps: int, rows):
+    """The physics-only step on 4 lists of per-row values (either
+    back-end): the substeps, the last forward pass's caches and the final
+    integrate (``puppax/physics/soa.py::_build_kernel`` with integrate=True).
+    Returns the 3 output lists in block order."""
+    q, v, ctrl, dr_r = rows
+    dr = {name: [dr_r[r0 + i] for i in range(n)] for name, (r0, n) in s.dr_rows.items()}
+    qp, vp, fw = _emit_substeps(s, q, v, ctrl, dr, n_substeps)
+    caches = _emit_caches(s, fw)
+    q2, v2 = _emit_integrate(s, qp, vp, fw["qacc"])
+    return q2, v2, caches
+
+
+def physics_step_rows(s: _Static, n_substeps: int, q, v, ctrl, dr):
+    """K1's plain version: the physics-only emission evaluated with torch
+    ops on ``(rows, B)`` blocks (q, v, ctrl, dr). Returns (q', v', caches)
+    as ``(rows, B)`` blocks, the caches in ``s.cache_rows`` order."""
+    return plain_rows(lambda rows: emit_physics_rows(s, n_substeps, rows), (q, v, ctrl, dr))
+
+
+def step_batched(s: _Static, q, v, ctrl, dr, n_substeps: int):
+    """One physics-only env step (``n_substeps`` substeps) of every env over
+    ``(rows, B)`` float32 blocks: q ``(nq, B)``, v ``(nv, B)``, ctrl
+    ``(nu, B)``, dr ``(ndr, B)``. Returns (q', v', caches).
+
+    CPU tensors run the plain version (``physics_step_rows``); CUDA tensors
+    launch the generated CUDA kernel (``csrc/physics_step.cuh``) on the
+    current stream, or raise. Each launch adds one to
+    ``step_batched.launches``."""
+    in_rows, out_rows = physics_block_rows(s)
+    blocks = (q, v, ctrl, dr)
+    B, dev = build.check_blocks(in_rows, blocks)
+    if dev.type == "cpu":
+        return physics_step_rows(s, n_substeps, *blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"step_batched: unsupported device {dev}")
+    lib = build.physics_step_library(s, n_substeps)
+    outs = build.launch("physics_step", lib.physics_step_launch, blocks, out_rows, B, dev)
+    step_batched.launches += 1
+    return outs
+
+
+step_batched.launches = 0

@@ -1,9 +1,12 @@
 """The transition record, the standard-lane unroll and the evaluator.
 
 Counterpart of ``puppax/train/acting.py``. ``generate_unroll`` steps a
-wrapped env (``env/wrappers.py::TrainingEnv``, the env-step kernel K2 on
-the card) under a policy, one Python iteration per step; the JAX ``scan``
-has no counterpart. ``Evaluator`` runs full eval episodes and aggregates
+wrapped env (``env/wrappers.py::TrainingEnv``: the env-step kernel K2 on
+the card, or the physics-only lane on K1) under a policy, one Python
+iteration per step; the JAX ``scan`` has no counterpart. It serves the
+evaluator and, when the fast lane is off, training: its transitions stack
+as ``FastLane.unroll``'s do (time-major, ``log_prob`` (T, B) and
+``raw_action`` (T, B, act) in ``policy_extras``). ``Evaluator`` runs full eval episodes and aggregates
 the ``eval/episode_*`` metrics with the JAX package's episode masking and
 metric names. Every draw comes from an explicit ``torch.Generator``.
 """

@@ -8,10 +8,14 @@ make_policy, params)``) and ``<checkpoint_dir>/state/<step>/`` train-state
 checkpoints. What differs:
 
 * One device and eager PyTorch: each training step is a Python loop of
-  ``num_unrolls_per_env`` rollout-lane unrolls (``FastLane.unroll``, the
-  wrapped-step kernel K3), the time-major reorder, the normalizer update and
-  ``num_updates_per_batch`` x ``num_minibatches`` SGD steps. The evaluator
-  steps the standard lane (the env-step kernel K2).
+  ``num_unrolls_per_env`` unrolls, the time-major reorder, the normalizer
+  update and ``num_updates_per_batch`` x ``num_minibatches`` SGD steps.
+  The unrolls take the rollout fast lane (``FastLane.unroll``, the
+  wrapped-step kernel K3) when ``rollout.support_reason`` allows it, else
+  the standard lane (``acting.generate_unroll``: the env-step kernel K2,
+  or under ``PUPPAX_SOA_ENV=off`` the physics-only lane on the physics-step
+  kernel K1); the ``[puppax.ppo] rollout fast lane`` line says which and
+  why. The evaluator steps the standard lane.
 * Randomness: one ``torch.Generator`` per stream of ``STREAMS``, seeded
   with ``numpy.random.SeedSequence([seed, i]).generate_state(1, uint64)``
   for the stream's index i (``make_generators``). Seed-for-seed parity with
@@ -41,8 +45,7 @@ import numpy as np
 import torch
 
 from puppax_torch import utils
-from puppax_torch.env import wrappers
-from puppax_torch.env.rollout import FastLane
+from puppax_torch.env import rollout, wrappers
 from puppax_torch.train import acting, checkpoint, running_statistics
 from puppax_torch.train import networks as ppo_networks
 from puppax_torch.train.acting import Transition
@@ -389,7 +392,10 @@ def train(
         environment, episode_length=episode_length, action_repeat=action_repeat,
         randomization_fn=randomization_fn, generator=gens["dr"], num_envs=num_envs,
     )
-    lane = FastLane(env)
+    lane_ok, lane_reason = rollout.support_reason(env)
+    lane = rollout.FastLane(env) if lane_ok else None
+    print(f"[puppax.ppo] rollout fast lane: {'ON' if lane_ok else 'OFF'} ({lane_reason}; "
+          f"devices=1{', fused-unroll=OFF' if lane_ok else ''})", flush=True)
     obs_size, action_size = environment.observation_size, environment.action_size
 
     networks = network_factory(obs_size, action_size, device=device, generator=gens["network"])
@@ -406,7 +412,8 @@ def train(
         if step is not None:
             ts.load_state_dict(checkpoint.restore_checkpoint(state_dir, step, device))
 
-    env_state = env.reset(num_envs, gens["reset"])
+    # the standard lane restores the reset-time pipeline state on done
+    env_state = env.reset(num_envs, gens["reset"], caches=lane is None)
 
     eval_wrapped = wrappers.wrap_for_training(
         environment if eval_env is None else eval_env, episode_length=episode_length,
@@ -444,7 +451,14 @@ def train(
         marks = timer.new_step()
         data = []
         for _ in range(num_unrolls_per_env):
-            env_state, d = lane.unroll(env_state, policy_params(), gens["rollout"], unroll_length)
+            if lane is not None:
+                env_state, d = lane.unroll(env_state, policy_params(), gens["rollout"],
+                                           unroll_length)
+            else:
+                with torch.no_grad():
+                    env_state, d = acting.generate_unroll(
+                        env, env_state, make_policy(policy_params()), gens["rollout"],
+                        unroll_length)
             data.append(d)
         timer.mark(marks)
         data = _cat_unrolls(data)

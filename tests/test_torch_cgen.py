@@ -1,12 +1,14 @@
-"""The generated CUDA C of both env-step kernels, compiled for the CPU with g++.
+"""The generated CUDA C of the three kernels, compiled for the CPU with g++.
 
 ``kernels/cgen.py`` emits each kernel's per-env body as C: the wrapped step
-(K3, shell ``csrc/wrapped_step.cuh``) and the unwrapped step with its
-physics caches (K2, shell ``csrc/env_step.cuh``). The shells define
+(K3, shell ``csrc/wrapped_step.cuh``), the unwrapped step with its
+physics caches (K2, shell ``csrc/env_step.cuh``) and the physics-only step
+(K1, shell ``csrc/physics_step.cuh``). The shells define
 ``__host__ __device__`` away outside nvcc and add a host loop over the
 envs. These tests compile the same source the card builds with
 ``g++ -x c++ -O1``, call it through ctypes on CPU tensors and hold it
-against the plain version (``wrapped_step_rows`` / ``env_step_rows``) at
+against the plain version (``wrapped_step_rows`` / ``env_step_rows`` /
+``soa.physics_step_rows``) at
 the parity tolerances: this checks the C back-end's semantics here; only
 the nvcc build and the launch wait for the card.
 """
@@ -25,7 +27,7 @@ from puppax_torch.physics import soa
 
 torch.set_num_threads(1)
 
-CASES = [("K3", 1), ("K3", 2), ("K2", 1), ("K2", 2)]
+CASES = [("K3", 1), ("K3", 2), ("K2", 1), ("K2", 2), ("K1", 2)]
 
 
 @pytest.fixture(scope="module", params=CASES, ids=[f"{k}-{n}substep" for k, n in CASES])
@@ -37,8 +39,10 @@ def compiled(request, tmp_path_factory):
     s, es = env._s, env._es
     if name == "K3":
         kernel, body = build.WRAPPED_STEP, cgen.wrapped_step_body(s, es, n, H.EPISODE_LENGTH)
-    else:
+    elif name == "K2":
         kernel, body = build.ENV_STEP, cgen.env_step_body(s, es, n)
+    else:
+        kernel, body = build.PHYSICS_STEP, cgen.physics_step_body(s, n)
     lib = build.host_library(kernel, body, tmp_path_factory.mktemp(f"cgen{name}{n}"))
     return name, env, n, body, lib
 
@@ -62,12 +66,18 @@ def test_generated_c_matches_plain(compiled):
         want = soa_env.wrapped_step_rows(s, es, n, H.EPISODE_LENGTH, *blocks)
         H.assert_wrapped_outputs_close([g.numpy() for g in got], [w.numpy() for w in want],
                                        s, es, soa_env.aux_row_map(es), what)
-    else:
+    elif name == "K2":
         blocks = H.to_torch(H.env_step_blocks(s, es, env.model, dr, rng))
         got = _run_host(lib.env_step_host, blocks, soa_env.env_block_rows(s, es)[1])
         want = soa_env.env_step_rows(s, es, n, *blocks)
         H.assert_env_outputs_close([g.numpy() for g in got], [w.numpy() for w in want],
                                    s, es, what)
+    else:
+        blocks = H.to_torch(H.physics_step_blocks(env.model, dr, rng))
+        got = _run_host(lib.physics_step_host, blocks, soa.physics_block_rows(s)[1])
+        want = soa.physics_step_rows(s, n, *blocks)
+        H.assert_physics_outputs_close([g.numpy() for g in got], [w.numpy() for w in want],
+                                       s, what)
 
 
 def test_generated_c_structure(compiled):

@@ -1,5 +1,5 @@
-"""The K3 and K2 kernels on an NVIDIA GPU against their plain versions,
-and a short training run through both.
+"""The K3, K2 and K1 kernels on an NVIDIA GPU against their plain versions,
+and short training runs through them.
 
 These tests need a CUDA device and nvcc; without them they skip. On the
 GPU host (which has no JAX) run them with
@@ -98,3 +98,54 @@ def test_short_training_launches_both_kernels(env, tmp_path):
     assert float(norm.count) == 4 * 256
     assert np.isfinite(metrics["training/total_loss"])
     assert 0 < metrics["eval/avg_episode_length"] <= 1000
+
+
+@pytest.mark.parametrize("B", [256, 300])
+def test_physics_step_kernel_matches_plain(env, B):
+    """K1 on random states (full and ragged last block), and
+    ``make_batched_step``'s routing on the card: float32 to K1, float64 to
+    the torch pipeline."""
+    s = env._s
+    dr = env.dr_rows(B).cpu().numpy()
+    blocks = [b.cuda() for b in H.to_torch(
+        H.physics_step_blocks(env.model, dr, np.random.RandomState(B), n=B))]
+    before = soa.step_batched.launches
+    got = soa.step_batched(s, *blocks, 5)
+    torch.cuda.synchronize()
+    assert soa.step_batched.launches == before + 1
+    want = soa.physics_step_rows(s, 5, *blocks)
+    H.assert_physics_outputs_close([g.cpu().numpy() for g in got],
+                                   [w.cpu().numpy() for w in want], s, f"K1 vs plain at B={B}")
+    q, v, c = (b.t() for b in blocks[:3])
+    out = env._cv_step(env.model, q, v, c)
+    assert soa.step_batched.launches == before + 2
+    assert torch.equal(out[0], got[0].t())
+    out64 = env._cv_step(env.model, q.double(), v.double(), c.double())
+    assert soa.step_batched.launches == before + 2 and out64[0].dtype == torch.float64
+
+
+def test_physics_only_training_launches_k1(tmp_path, monkeypatch):
+    """PUPPAX_SOA_ENV=off: one training step (4 unroll steps of 256 envs)
+    and two evaluations of 16 envs launch K1 4 + 2 x 1000 times, K2 and K3
+    never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.train import networks, ppo
+
+    monkeypatch.setenv("PUPPAX_SOA_ENV", "off")
+    env = H.torch_env(n_substeps=5, device="cuda")
+
+    def factory(obs, act, device=None, generator=None):
+        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
+                                          generator=generator)
+
+    soa_env.wrapped_step.launches = soa_env.env_step.launches = soa.step_batched.launches = 0
+    _, (norm, _), metrics = ppo.train(
+        env, num_timesteps=64 * 4 * 4, episode_length=1000, num_envs=256, num_eval_envs=16,
+        unroll_length=4, batch_size=64, num_minibatches=4, num_updates_per_batch=1,
+        num_evals=2, network_factory=factory, device="cuda", checkpoint_dir=str(tmp_path),
+    )
+    assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (0, 0)
+    assert soa.step_batched.launches == 4 + 2000
+    assert float(norm.count) == 4 * 256
+    assert np.isfinite(metrics["training/total_loss"])

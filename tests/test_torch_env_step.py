@@ -248,13 +248,13 @@ def test_standard_lane_matches_fast_lane(wrapped_pair):
 
 def test_reset_caches_match_jax_pipeline_init(wrapped_pair):
     """``TrainingEnv.reset_from_draws(caches=True)`` keeps a reset-time
-    PhysicsState: the forward pass at zero controls of ``pipeline_init``,
-    evaluated with the emission's torch back-end."""
+    PhysicsState: the forward pass at zero controls of the port's
+    ``pipeline.pipeline_init`` on the DR batch, as puppax's reset runs it."""
     jenv, jwrapped, _, twrapped = wrapped_pair
     jstate = jax.tree_util.tree_map(
         np.asarray, jax.jit(jwrapped.reset)(jax.random.split(jax.random.PRNGKey(3), H.B)))
     tstate = state_from_jax(jstate)
-    ps = twrapped.env.pipeline_init(tstate.qpos, tstate.qvel, twrapped.dr_rows(H.B))
+    ps = twrapped.env.pipeline_init(tstate.qpos, tstate.qvel, twrapped.model)
     s = twrapped.env._s
     got = _ps_block(ps)
     H.assert_cache_rows_close(got, _cache_block(s, jstate.pipeline_state), s, "pipeline_init")

@@ -158,8 +158,11 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "import sys\n"
         "import puppax_torch\n"
         "from puppax_torch.model import load_model\n"
-        "from puppax_torch.env import pupper, rollout, wrappers\n"
+        "from puppax_torch.env import pupper, rewards, rollout, wrappers\n"
         "from puppax_torch.kernels import build, cgen\n"
+        "from puppax_torch.ops import linalg\n"
+        "from puppax_torch.physics import collision, constraint, integrate, pipeline\n"
+        "from puppax_torch.physics import smooth, soa, solver\n"
         "from puppax_torch.tools import metrics, profile_unroll\n"
         "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
         "from puppax_torch.scripts import train\n"

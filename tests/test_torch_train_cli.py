@@ -5,8 +5,11 @@ policy and value (32, 32), 2 eval envs) trains through the CLI's
 ``main(argv)`` with ``--device cpu``: the fast lane's plain version in the
 rollout, the standard lane's in the evaluator, the learner, the metrics
 sink and both checkpoint kinds. A ``--resume`` run then continues from the
-saved train state. Without ``--device cpu`` and without a card, the CLI
-refuses to start.
+saved train state. With ``PUPPAX_SOA_ENV=off`` the same run trains through
+the physics-only lane: the standard lane's unrolls (``generate_unroll``
+around ``PupperV3Env._step_core`` and K1's plain version), said by the
+lane line. Without ``--device cpu`` and without a card, the CLI refuses to
+start.
 """
 
 import json
@@ -68,6 +71,41 @@ def test_train_then_resume(tmp_path, capsys):
     changed = [not torch.equal(a, b) for a, b in zip(first["params"]["policy"].values(),
                                                       resumed["params"]["policy"].values())]
     assert any(changed)
+
+
+def test_train_on_the_physics_only_lane(tmp_path, capsys, monkeypatch):
+    """``PUPPAX_SOA_ENV=off``: the fast lane is off, training unrolls the
+    standard lane, whose env steps through ``_step_core`` (never K2's
+    plain version) and whose physics goes through ``make_batched_step``."""
+    from puppax_torch.env import soa_env
+    from puppax_torch.env.pupper import PupperV3Env
+    from puppax_torch.physics import soa
+
+    monkeypatch.setenv("PUPPAX_SOA_ENV", "off")
+    monkeypatch.setattr(soa_env, "env_step", lambda *a: pytest.fail("K2 lane taken"))
+    monkeypatch.setattr(soa_env, "wrapped_step", lambda *a: pytest.fail("K3 lane taken"))
+    cores, physics = [0], [0]
+    core, rows = PupperV3Env._step_core, soa.physics_step_rows
+
+    def counted_core(self, *a, **k):
+        cores[0] += 1
+        return core(self, *a, **k)
+
+    def counted_rows(*a, **k):
+        physics[0] += 1
+        return rows(*a, **k)
+
+    monkeypatch.setattr(PupperV3Env, "_step_core", counted_core)
+    monkeypatch.setattr(soa, "physics_step_rows", counted_rows)
+    argv, _ = _argv(tmp_path)
+    metrics = cli.main(argv)
+    out = capsys.readouterr().out
+    assert "[puppax.ppo] rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)" in out
+    for k in ("training/total_loss", "training/sps", "eval/episode_reward"):
+        assert math.isfinite(metrics[k]), k
+    # 1 training step of 1 unroll x 2 steps, and 2 evaluations of 8 steps
+    assert cores[0] == physics[0] == 1 * 2 + 2 * 8
+    assert checkpoint.restore_checkpoint(tmp_path / "ckpt" / "state")["env_steps"] == 8
 
 
 def test_unknown_key_and_missing_card_refuse(monkeypatch):

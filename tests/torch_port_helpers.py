@@ -62,6 +62,22 @@ def dr_leaves(jax_model) -> dict:
     return {k: np.array(getattr(jax_model, k)) for k in DR_LEAVES}
 
 
+def model_from_jax(jax_model):
+    """A ``puppax`` RobotModel (float64 or float32, DR-batched leaves
+    included) as the port's RobotModel: the static fields as they are, the
+    numeric leaves as numpy arrays of their own dtype. The JAX pytree stays
+    in the tests; the port reads plain arrays."""
+    import dataclasses
+
+    from puppax_torch.model.mjcf import LEAF_FIELDS, STATIC_FIELDS, RobotModel
+
+    kw = {k: getattr(jax_model, k) for k in STATIC_FIELDS}
+    kw.update({k: np.array(getattr(jax_model, k)) for k in LEAF_FIELDS})
+    names = {f.name for f in dataclasses.fields(RobotModel)}
+    assert names == set(kw) | {"hfield_data", "hfield_size"}, names ^ set(kw)
+    return RobotModel(**kw)
+
+
 def random_states(model, rng: np.random.RandomState, n: int = B):
     """Plausible (qpos, qvel, ctrl) rows: the even envs low enough for
     their feet to touch the floor, the odd ones airborne."""
@@ -77,6 +93,41 @@ def random_states(model, rng: np.random.RandomState, n: int = B):
     ctrl = key_q[:, 7:] + rng.uniform(-0.3, 0.3, (n, 12))
     f32 = np.float32
     return qpos.astype(f32), qvel.astype(f32), ctrl.astype(f32)
+
+
+def physics_step_blocks(model, dr_rows: np.ndarray, rng, n: int = B):
+    """The 4 ``(rows, n)`` float32 input blocks of one physics-only step
+    (q, v, ctrl, dr) on ``random_states``."""
+    qpos, qvel, ctrl = random_states(model, rng, n)
+    return [qpos.T.copy(), qvel.T.copy(), ctrl.T.copy(), np.ascontiguousarray(dr_rows, np.float32)]
+
+
+def penetrating_pairs(s, con_dist: np.ndarray) -> np.ndarray:
+    """(n, 2) counts of the penetrating plane-sphere and sphere-sphere pairs
+    of each env, from a ``(npair, n)`` block of contact distances."""
+    kinds = np.array([p.kind for p in s.pairs])
+    pen = np.asarray(con_dist) < 0
+    return np.stack([pen[kinds == "ps"].sum(0), pen[kinds == "ss"].sum(0)], 1)
+
+
+def within_caps(m, counts: np.ndarray) -> np.ndarray:
+    """Per env: whether the MJX caps keep every penetrating pair, i.e. at
+    most ``max_geom_pairs`` of each kind and ``max_contact_points`` in all
+    (there the capped XLA path and the uncapped emission agree)."""
+    return (counts.max(1) <= m.max_geom_pairs) & (counts.sum(1) <= m.max_contact_points)
+
+
+def assert_physics_outputs_close(got, want, s, what: str):
+    """K1's 3 output blocks (q, v, caches), ``(rows, n)`` numpy: qpos 5e-5,
+    qvel 5e-4 scaled by max(1, the env's largest |qvel|), the caches at
+    ``CACHE_ATOL`` / ``CACHE_SCALED``."""
+    g_q, g_v, g_c = [np.asarray(x, np.float64) for x in got]
+    w_q, w_v, w_c = [np.asarray(x, np.float64) for x in want]
+    np.testing.assert_allclose(g_q, w_q, atol=5e-5, rtol=0, err_msg=f"{what}: qpos")
+    scale_v = np.maximum(1.0, np.abs(w_v).max(axis=0, keepdims=True))
+    np.testing.assert_allclose(g_v / scale_v, w_v / scale_v, atol=5e-4, rtol=0,
+                               err_msg=f"{what}: scaled qvel")
+    assert_cache_rows_close(g_c, w_c, s, what)
 
 
 def wrapped_step_blocks(s, es, model, dr_rows: np.ndarray, rng, n: int = B,
