@@ -10,19 +10,24 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the three kernels from the checkout's sources, in parallel
-   nvcc processes: the wrapped env step (K3), the unwrapped env step (K2)
-   and the physics-only step (K1), each with its generated lines, nvcc
-   seconds and ptxas summary;
+2. the builds of the four kernels from the checkout's sources, in parallel
+   nvcc processes: the wrapped env step (K3), the unwrapped env step (K2),
+   the physics-only step (K1) and the fused unroll (K4), each with its
+   generated lines, nvcc seconds and ptxas summary;
 3. K3 against its plain version at 4096 envs: after a few kernel steps
    from a DR reset, one wrapped step through ``wrapped_step`` (the kernel)
    and ``wrapped_step_rows`` (its plain PyTorch version) on the same
    inputs, held at the parity tolerances env by env; then both timed;
-4. K1 against its plain version on the same 4096 DR'd states (feet on the
+4. K4 against its plain version: from the K3 check's 4096 DR'd states,
+   T=4 steps through ``fused_unroll.unroll`` (the kernel) and
+   ``fused_unroll.unroll_rows``, every step's outputs and the final carry
+   held env by env; the same with the gait clock on at 128 envs; K4 timed
+   per T=20 unroll at 4096 envs, the plain version once;
+5. K1 against its plain version on the same 4096 DR'd states (feet on the
    floor) under the policy's motor targets: ``soa.step_batched`` against
    ``soa.physics_step_rows``, env by env; K1 timed at 4096 and 128 envs,
    the plain version at 4096;
-5. K1 against the torch ``pipeline.pipeline_step`` (float32, TF32 off) on
+6. K1 against the torch ``pipeline.pipeline_step`` (float32, TF32 off) on
    the same inputs, env by env at qpos 5e-5 / scaled qvel 5e-4: the envs
    outside tolerance are counted and split into those outside the MJX caps
    (more than ``max_geom_pairs`` penetrating pairs of one kind, or
@@ -31,7 +36,7 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    explains (they agree once its trips are raised), and the rest; it fails
    if the rest outnumber the envs outside the caps. The envs whose caches
    part at K1-vs-plain tolerances are counted and printed beside;
-6. K2 against its plain version at the evaluator's shape: 128 envs of the
+7. K2 against its plain version at the evaluator's shape: 128 envs of the
    nominal model reset with their physics caches, a few K2 steps under a
    random policy, then one ``env_step`` and one ``env_step_rows`` on the
    same blocks, all four output blocks held env by env; K2 timed at 128 and
@@ -39,19 +44,26 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    (``PUPPAX_SOA_ENV=off``: the env layer in torch around K1) against the
    K2 step on the same inputs and draws: obs and reward within 2e-4, done
    exact;
-7. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
+8. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
    warm-up, timed with CUDA events, with K3's launches over those unrolls;
-8. the main path: ``ppo.train`` at the default configuration but for
+   then the same with ``PUPPAX_FUSED_UNROLL=on`` (one K4 launch per
+   unroll, no K3), and the A/B of the two;
+9. the main path: ``ppo.train`` at the default configuration but for
    491,520 env steps (3 training steps) and 2 evaluations, with its
    checkpoint in a temporary directory; the launches of the kernels are
-   counted over exactly this call (120 K3, 2000 K2, 0 K1), and the run is
-   checked (env steps, the normalizer's count, finite losses, changed
-   parameters, plausible eval metrics, the checkpoint against the final
-   state);
-9. the physics-only lane: the same ``ppo.train`` with ``PUPPAX_SOA_ENV=off``
-   (the fast lane off, training and evaluation through the standard lane's
-   env layer around K1): 2120 K1 launches, 0 K2 and 0 K3, the same checks;
-10. a JSON line of the three kernels (launches in their training run,
+   counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4), and the
+   run is checked (env steps, the normalizer's count, finite losses,
+   changed parameters, plausible eval metrics, the checkpoint against the
+   final state);
+10. the physics-only lane: the same ``ppo.train`` with
+   ``PUPPAX_SOA_ENV=off`` (the fast lane off, training and evaluation
+   through the standard lane's env layer around K1): 2120 K1 launches, 0
+   K2, K3 and K4, the same checks;
+11. the fused-unroll lane: the same ``ppo.train`` with
+   ``PUPPAX_FUSED_UNROLL=on``: the lane line reads ``fused-unroll=ON``, 6
+   K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1, the
+   same checks;
+12. a JSON line of the four kernels (launches in their training run,
    error against the plain version, times, the bound of the card) and,
    last, the device JSON line.
 
@@ -63,7 +75,9 @@ run outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -72,12 +86,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T_UNROLL = 20
 N_UNROLLS = 3
 WARM_STEPS = 5  # kernel steps from reset before each kernel/plain check
-MAX_DIFFERING_ENVS = 4  # of 4096 (K3, K1)
+T_CHECK = 4  # steps of the K4-vs-plain check
+MAX_DIFFERING_ENVS = 4  # of 4096 (K3, K1, K4)
 # the line-search trips of the converged emission that explains K1 vs the
 # torch pipeline (the kernel's own are soa.LS_EXPAND_ITERS / LS_ILLINOIS_ITERS)
 CONVERGED_LS_TRIPS = (40, 200)
@@ -153,9 +169,14 @@ def compare_outputs(s, es, aux_rows, got, want):
     """Hold K3's 5 output blocks against the plain version's at the parity
     tolerances, env by env. Returns (per-block max error, list of (env,
     what) for the envs that differ, overall max error)."""
+    return _differing(("q", "v", "env", "wrap", "aux"), got, want,
+                      wrapped_tols(es, aux_rows, got, want))
+
+
+def wrapped_tols(es, aux_rows, got, want):
+    """K3's tolerances, block by block (q, v, env, wrap, aux)."""
     import torch
 
-    names = ("q", "v", "env", "wrap", "aux")
     tols = {
         "q": torch.full_like(got[0], 5e-5),
         "v": _scaled(want[1], 5e-4),
@@ -176,7 +197,32 @@ def compare_outputs(s, es, aux_rows, got, want):
         tol_aux[aux_rows[name][0]] = 0.0
     r0, n = aux_rows["rewards"]
     tol_aux[r0 : r0 + n] = 2e-4 * want[4][r0 : r0 + n].abs().clamp_min(1.0)
-    return _differing(names, got, want, tols)
+    return tols
+
+
+def compare_unroll(s, es, aux_rows, got, want):
+    """Hold K4's outputs (``fused_unroll.unroll``'s 10) against the plain
+    version's, env by env: the final carry as K3's outputs, every step's aux
+    rows as K3's aux, the observations, actions and raw actions at 1e-5,
+    the log-prob at 2e-4 and the clock's phase at 1e-6. Returns what
+    ``compare_outputs`` returns."""
+    import torch
+
+    T, B = got[9].shape[0], got[9].shape[2]
+    steps = [wrapped_tols(es, aux_rows, [*got[:4], got[9][t]], [*want[:4], want[9][t]])
+             for t in range(T)]
+    tols = dict(steps[-1], aux=torch.cat([x["aux"] for x in steps]))
+    names = ["q", "v", "env", "wrap", "aux", "obs", "act", "raw", "logp"]
+    g = [*got[:4], *(x.reshape(-1, B) for x in (got[9], *got[5:9]))]
+    w = [*want[:4], *(x.reshape(-1, B) for x in (want[9], *want[5:9]))]
+    for name, x, tol in zip(names[5:], g[5:], (1e-5, 1e-5, 1e-5, 2e-4)):
+        tols[name] = torch.full_like(x, tol)
+    if got[4] is not None:
+        names.append("phase")
+        g.append(got[4])
+        w.append(want[4])
+        tols["phase"] = torch.full_like(got[4], 1e-6)
+    return _differing(names, g, w, tols)
 
 
 def compare_env_outputs(s, es, got, want):
@@ -279,7 +325,7 @@ def main():
     sys.path.insert(0, HERE)
 
     from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
-    from puppax_torch.env import soa_env
+    from puppax_torch.env import fused_unroll, soa_env
     from puppax_torch.env.domain_randomization import domain_randomize
     from puppax_torch.env.pupper import PupperV3Env
     from puppax_torch.env.rollout import FastLane
@@ -328,13 +374,14 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build both kernels, in parallel nvcc processes ----
-    with Phase("build K3 + K2 + K1"):
+    # ---- build the four kernels, in parallel nvcc processes ----
+    with Phase("build K3 + K2 + K1 + K4"):
         build.build_in_parallel(lambda: build.wrapped_step_library(s, es, n_sub, L),
                                 lambda: build.env_step_library(s, es, n_sub),
-                                lambda: build.physics_step_library(s1, n_sub))
+                                lambda: build.physics_step_library(s1, n_sub),
+                                lambda: build.fused_unroll_library(s, es, n_sub, L))
         for kname, label in (("wrapped_step", "K3"), ("env_step", "K2"),
-                             ("physics_step", "K1")):
+                             ("physics_step", "K1"), ("fused_unroll", "K4")):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
                   f"{info['ops_per_env']} float ops per env, generate "
@@ -387,6 +434,84 @@ def main():
         k3_plain_ms.append(cuda_ms(k3_plain, 1))
         print(f"K3 step at {B} envs: kernel {statistics.median(k3_ms):.4f} ms (runs {k3_ms}), "
               f"plain {statistics.median(k3_plain_ms):.1f} ms (runs {k3_plain_ms})", flush=True)
+
+    # ---- K4 against plain: T=4 steps from the K3 check's states ----
+    aux_rows = soa_env.aux_row_map(es)
+    activation = tc.activation
+    layers = fused_unroll.fold_normalizer(normalizer, nets.policy_network)
+
+    def k4_blocks(lane_, carry_, n_envs, T):
+        noise_, _ = lane_.draw_noise_block(g, n_envs, T)
+        eps_ = torch.randn((T, env.action_size, n_envs), generator=g, device=device)
+        return [carry_["q"], carry_["v"], carry_["env"], carry_["wrap"], carry_.get("phase"),
+                carry_["first"], carry_["dr"], noise_, eps_]
+
+    with Phase("K4 vs plain"):
+        k4_in = k4_blocks(lane, carry, B, T_CHECK)
+        got = fused_unroll.unroll(s, es, n_sub, L, activation, layers, *k4_in)
+        torch.cuda.synchronize()
+        plain = []
+        k4_plain_check_ms = cuda_ms(lambda: plain.append(fused_unroll.unroll_rows(
+            s, es, n_sub, L, activation, layers, *k4_in)), 1)
+        want = plain[0]
+        per_block, differing, k4_err = compare_unroll(s, es, aux_rows, got, want)
+        done_steps = int((want[9][:, aux_rows["done"][0]] > 0.5).sum())
+        print(f"K4 vs plain at {B} envs x T={T_CHECK} from the K3 check's states ({done_steps} "
+              f"env-steps ending an episode): max abs err per block " + json.dumps(per_block),
+              flush=True)
+        for b, what in differing:
+            print(f"  env {b} differs: {what}")
+        if len(differing) > MAX_DIFFERING_ENVS:
+            raise AssertionError(f"{len(differing)} envs differ (limit {MAX_DIFFERING_ENVS})")
+
+        # the gait clock on: 128 envs of the nominal model, clocks apart,
+        # every third env reaching the episode limit at the last step, so
+        # its clock restarts
+        env_gait = PupperV3Env.from_config(replace(env_cfg, gait_phase_observation=True),
+                                           device=device)
+        gait_wrapped = wrap_for_training(env_gait, L)
+        gstate = gait_wrapped.reset(EVAL_ENVS, g)
+        gsteps = torch.zeros(EVAL_ENVS, device=device)
+        gsteps[::3] = L - T_CHECK
+        gstate = gstate.replace(info=dict(
+            gstate.info, steps=gsteps, gait_phase=torch.linspace(0.5, 6.27, EVAL_ENVS,
+                                                                 device=device)))
+        gait_lane = FastLane(gait_wrapped)
+        gait_policy = networks.make_ppo_networks(
+            env_gait.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
+            tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
+        ).policy_network
+        gait_layers = fused_unroll.fold_normalizer(None, gait_policy)
+        g_in = k4_blocks(gait_lane, gait_lane.carry_from_state(gstate), EVAL_ENVS, T_CHECK)
+        gs, ges = env_gait._s, env_gait._es
+        got = fused_unroll.unroll(gs, ges, n_sub, L, activation, gait_layers, *g_in)
+        torch.cuda.synchronize()
+        want = fused_unroll.unroll_rows(gs, ges, n_sub, L, activation, gait_layers, *g_in)
+        per_block, differing, k4_gait_err = compare_unroll(gs, ges, aux_rows, got, want)
+        restarts = int((want[4] == 0).sum())
+        print(f"K4 vs plain with the gait clock at {EVAL_ENVS} envs x T={T_CHECK} ({restarts} "
+              f"clocks restarted): max abs err per block " + json.dumps(per_block), flush=True)
+        for b, what in differing:
+            print(f"  env {b} differs: {what}")
+        if differing:
+            raise AssertionError(f"{len(differing)} of {EVAL_ENVS} envs differ (limit 0)")
+        if restarts == 0:
+            raise AssertionError("no clock restarted: the done restore went unchecked")
+        k4_err = max(k4_err, k4_gait_err)
+
+        # K4 per T=20 unroll at 4096 envs; its plain version once
+        k4_in = k4_blocks(lane, carry, B, T_UNROLL)
+
+        def k4_unroll():
+            fused_unroll.unroll(s, es, n_sub, L, activation, layers, *k4_in)
+
+        k4_ms = [cuda_ms(k4_unroll, 3), cuda_ms(k4_unroll, 3)]
+        k4_plain_ms = cuda_ms(lambda: fused_unroll.unroll_rows(s, es, n_sub, L, activation,
+                                                               layers, *k4_in), 1)
+        print(f"K4 per T={T_UNROLL} unroll at {B} envs: kernel "
+              f"{statistics.median(k4_ms):.4f} ms (runs {k4_ms}), "
+              f"{statistics.median(k4_ms) / T_UNROLL:.4f} ms per step; plain {k4_plain_ms:.1f} ms "
+              f"(T={T_CHECK}: {k4_plain_check_ms:.1f} ms)", flush=True)
 
     # ---- K1 against plain, and against the torch pipeline, at 4096 envs ----
     with Phase("K1 vs plain"):
@@ -540,12 +665,15 @@ def main():
         if errs["obs"] > 2e-4 or errs["reward"] > 2e-4 or errs["done"] != 0.0:
             raise AssertionError("the physics-only step differs from the K2 step")
 
-    # ---- the rollout lane: FastLane.unroll, T=20 ----
-    with Phase("rollout lane"):
+    # ---- the rollout lane: FastLane.unroll, T=20, through K3 and through K4 ----
+    def timed_unrolls(label):
+        """One warm-up and N_UNROLLS timed unrolls from a fresh reset;
+        checks the transitions; returns (median ms, K3 launches, K4
+        launches) of the timed unrolls."""
         state = wrapped.reset(B, generator=g)
         state, _ = lane.unroll(state, params, generator=g, T=T_UNROLL)  # warm-up
         torch.cuda.synchronize()
-        soa_env.wrapped_step.launches = 0
+        soa_env.wrapped_step.launches = fused_unroll.unroll.launches = 0
         unroll_ms, datas = [], []
         for _ in range(N_UNROLLS):
             start = torch.cuda.Event(enable_timing=True)
@@ -556,13 +684,12 @@ def main():
             torch.cuda.synchronize()
             unroll_ms.append(start.elapsed_time(end))
             datas.append(data)
-        launches = soa_env.wrapped_step.launches
+        launches = (soa_env.wrapped_step.launches, fused_unroll.unroll.launches)
         med = statistics.median(unroll_ms)
-        print(f"unroll T={T_UNROLL} x {B} envs: median {med:.3f} ms (runs {unroll_ms}), "
+        print(f"{label}: unroll T={T_UNROLL} x {B} envs: median {med:.3f} ms (runs {unroll_ms}), "
               f"{B * T_UNROLL / (med / 1000.0):.0f} env-steps/s", flush=True)
-        print(f"K3 launches in the {N_UNROLLS} unrolls: {launches}", flush=True)
-        if launches != N_UNROLLS * T_UNROLL:
-            raise AssertionError(f"expected {N_UNROLLS * T_UNROLL} K3 launches, got {launches}")
+        print(f"{label}: K3 launches {launches[0]}, K4 launches {launches[1]} in the "
+              f"{N_UNROLLS} unrolls", flush=True)
         for data in datas:
             if (data.observation.shape != (T_UNROLL, B, env.observation_size)
                     or data.action.shape != (T_UNROLL, B, env.action_size)):
@@ -577,19 +704,38 @@ def main():
                 raise AssertionError("an action outside [-1, 1]")
         done_frac = float(torch.stack([1.0 - d.discount for d in datas]).mean())
         truncs = int(torch.stack([d.truncation for d in datas]).sum())
-        print(f"done fraction per step {done_frac:.5f}, truncations {truncs}", flush=True)
+        print(f"{label}: done fraction per step {done_frac:.5f}, truncations {truncs}",
+              flush=True)
         if not 0.0 <= done_frac < 0.5 or truncs != 0:
             raise AssertionError("implausible episode ends for a fresh 1000-step episode")
+        return med, launches
+
+    with Phase("rollout lane"):
+        k3_lane_ms, launches = timed_unrolls("K3 lane")
+        if launches != (N_UNROLLS * T_UNROLL, 0):
+            raise AssertionError(f"expected {N_UNROLLS * T_UNROLL} K3 launches, got {launches}")
+
+    with Phase("fused-unroll lane"):
+        os.environ["PUPPAX_FUSED_UNROLL"] = "on"
+        try:
+            k4_lane_ms, launches = timed_unrolls("K4 lane")
+        finally:
+            del os.environ["PUPPAX_FUSED_UNROLL"]
+        if launches != (0, N_UNROLLS):
+            raise AssertionError(f"expected {N_UNROLLS} K4 launches and no K3, got {launches}")
+        print(f"A/B, median unroll T={T_UNROLL} x {B} envs: K3 lane {k3_lane_ms:.3f} ms, K4 lane "
+              f"{k4_lane_ms:.3f} ms (K4 / K3 {k4_lane_ms / k3_lane_ms:.3f})", flush=True)
 
     # ---- the main path: ppo.train, 3 training steps and 2 evaluations ----
     steps_per_train = tc.batch_size * tc.unroll_length * tc.num_minibatches
     n_train = math.ceil(TRAIN_TIMESTEPS / steps_per_train)
     unroll_steps = n_train * (tc.batch_size * tc.num_minibatches // B) * tc.unroll_length
 
-    def train_and_check(environment, label, want):
+    def train_and_check(environment, label, want, lane_line):
         """One ppo.train run at the default configuration (3 training steps,
-        2 evaluations); its kernel launches (K3, K2, K1) against ``want``,
-        and the checks of the run. Returns the launches."""
+        2 evaluations); its kernel launches (K3, K2, K1, K4) against
+        ``want``, its lane line against ``lane_line``, and the checks of the
+        run. Returns the launches."""
         initial = {}
 
         def network_factory(obs_size, action_size, device=None, generator=None):
@@ -606,26 +752,32 @@ def main():
         soa_env.wrapped_step.launches = 0
         soa_env.env_step.launches = 0
         soa.step_batched.launches = 0
-        _, (norm_out, params_out), _ = ppo.train(
-            environment, num_timesteps=TRAIN_TIMESTEPS, episode_length=L, num_envs=B,
-            num_eval_envs=EVAL_ENVS, learning_rate=tc.learning_rate,
-            entropy_cost=tc.entropy_cost, discounting=tc.discounting,
-            unroll_length=tc.unroll_length, batch_size=tc.batch_size,
-            num_minibatches=tc.num_minibatches,
-            num_updates_per_batch=tc.num_updates_per_batch,
-            reward_scaling=tc.reward_scaling, clipping_epsilon=tc.clipping_epsilon,
-            gae_lambda=tc.gae_lambda, normalize_observations=tc.normalize_observations,
-            seed=args.seed, num_evals=2, network_factory=network_factory,
-            randomization_fn=randomization_fn,
-            progress_fn=lambda step, m: progress.append((step, dict(m))),
-            device=device, checkpoint_dir=ckpt_dir,
-        )
+        fused_unroll.unroll.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, (norm_out, params_out), _ = ppo.train(
+                environment, num_timesteps=TRAIN_TIMESTEPS, episode_length=L, num_envs=B,
+                num_eval_envs=EVAL_ENVS, learning_rate=tc.learning_rate,
+                entropy_cost=tc.entropy_cost, discounting=tc.discounting,
+                unroll_length=tc.unroll_length, batch_size=tc.batch_size,
+                num_minibatches=tc.num_minibatches,
+                num_updates_per_batch=tc.num_updates_per_batch,
+                reward_scaling=tc.reward_scaling, clipping_epsilon=tc.clipping_epsilon,
+                gae_lambda=tc.gae_lambda, normalize_observations=tc.normalize_observations,
+                seed=args.seed, num_evals=2, network_factory=network_factory,
+                randomization_fn=randomization_fn,
+                progress_fn=lambda step, m: progress.append((step, dict(m))),
+                device=device, checkpoint_dir=ckpt_dir,
+            )
         torch.cuda.synchronize()
+        print(out.getvalue(), end="", flush=True)
+        if lane_line not in out.getvalue():
+            raise AssertionError(f"the lane line is not {lane_line!r}")
         launches = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
-                    soa.step_batched.launches)
+                    soa.step_batched.launches, fused_unroll.unroll.launches)
         print(f"{label}: K3 launches {launches[0]} (expected {want[0]}), K2 launches "
               f"{launches[1]} (expected {want[1]}), K1 launches {launches[2]} (expected "
-              f"{want[2]})", flush=True)
+              f"{want[2]}), K4 launches {launches[3]} (expected {want[3]})", flush=True)
         if launches != want:
             raise AssertionError("the training run did not launch the kernels as expected")
         tree = checkpoint.restore_checkpoint(os.path.join(ckpt_dir, "state"), map_location=device)
@@ -669,18 +821,31 @@ def main():
         print(f"{label} losses " + json.dumps(losses), flush=True)
         return launches
 
+    evals = 2 * tc.episode_length
     with Phase("ppo.train"):
-        k3_launches, k2_launches, _ = train_and_check(
-            env, "ppo.train", (unroll_steps, 2 * tc.episode_length, 0))
+        k3_launches, k2_launches, _, _ = train_and_check(
+            env, "ppo.train", (unroll_steps, evals, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
 
     # ---- the physics-only lane: ppo.train under PUPPAX_SOA_ENV=off ----
     with Phase("ppo.train, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"
         try:
-            _, _, k1_launches = train_and_check(
-                env_po, "ppo.train physics-only", (0, 0, unroll_steps + 2 * tc.episode_length))
+            _, _, k1_launches, _ = train_and_check(
+                env_po, "ppo.train physics-only", (0, 0, unroll_steps + evals, 0),
+                "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
         finally:
             del os.environ["PUPPAX_SOA_ENV"]
+
+    # ---- the fused-unroll lane: ppo.train under PUPPAX_FUSED_UNROLL=on ----
+    with Phase("ppo.train, fused-unroll lane"):
+        os.environ["PUPPAX_FUSED_UNROLL"] = "on"
+        try:
+            _, _, _, k4_launches = train_and_check(
+                env, "ppo.train fused-unroll", (0, evals, 0, unroll_steps // tc.unroll_length),
+                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
+        finally:
+            del os.environ["PUPPAX_FUSED_UNROLL"]
 
     k3_bound, k3_by = bound_ms(build.last_build["wrapped_step"]["ops_per_env"],
                                *(sum(r) for r in soa_env.block_rows(s, es)), B)
@@ -690,6 +855,18 @@ def main():
                                *(sum(r) for r in soa.physics_block_rows(s1)), B)
     k1_bound_small, _ = bound_ms(build.last_build["physics_step"]["ops_per_env"],
                                  *(sum(r) for r in soa.physics_block_rows(s1)), EVAL_ENVS)
+    # K4: T steps of K3's body and the policy per env; reads the carry, the
+    # reset rows, the DR rows, T steps of noise and eps and the weights once,
+    # writes the final carry and T steps of obs, act, raw, logp and aux
+    dims = [env.observation_size] + [w.shape[0] for w, _ in layers]
+    k4_ops = T_UNROLL * (build.last_build["fused_unroll"]["ops_per_env"]
+                         + fused_unroll.policy_op_count(dims, activation, env.action_size, False))
+    in_rows, out_rows = soa_env.block_rows(s, es)
+    carry_rows = s.nq + s.nv + es.nenv_rows + 2
+    k4_in_rows = (carry_rows + in_rows[6] + in_rows[5] + T_UNROLL * (in_rows[4] + in_rows[2])
+                  + sum(w.numel() + b.numel() for w, b in layers) / B)
+    k4_out_rows = carry_rows + T_UNROLL * (es.hist + 2 * env.action_size + 1 + out_rows[4])
+    k4_bound, k4_by = bound_ms(k4_ops, k4_in_rows, k4_out_rows, B)
     kernels = [{
         "name": "wrapped_step",
         "route": "cuda",
@@ -726,10 +903,23 @@ def main():
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
+    }, {
+        "name": "fused_unroll",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/fused_unroll.cuh",
+        "replaces": "puppax/env/fused_unroll.py:152",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": statistics.median(k4_ms),
+        "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound,
+        "bound_by": k4_by,
+        "library_ms": None,
     }]
     print(f"bounds: K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
-          f"{k1_bound_small:.6f} ms at {EVAL_ENVS}; total wall "
+          f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_UNROLL} "
+          f"unroll at {B} envs ({k4_by}); total wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -28,16 +28,7 @@
 
 #include "common.cuh"
 
-#define WS_PARAMS                                                            \
-  const float* __restrict__ q, const float* __restrict__ v,                   \
-      const float* __restrict__ act, const float* __restrict__ env,           \
-      const float* __restrict__ noi, const float* __restrict__ dr,            \
-      const float* __restrict__ first, const float* __restrict__ wrap,        \
-      float* __restrict__ q_out, float* __restrict__ v_out,                   \
-      float* __restrict__ env_out, float* __restrict__ wrap_out,              \
-      float* __restrict__ aux_out
-#define WS_ARGS \
-  q, v, act, env, noi, dr, first, wrap, q_out, v_out, env_out, wrap_out, aux_out
+// WS_PARAMS / WS_ARGS, the body's parameters, are in common.cuh (K4 shares them).
 
 #include PUPPAX_KERNEL_BODY
 

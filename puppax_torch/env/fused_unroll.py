@@ -1,0 +1,242 @@
+"""The fused unroll (K4): T policy steps and wrapped env steps in one launch.
+
+Counterpart of ``puppax/env/fused_unroll.py``. One step of the unroll is
+
+* the policy observation: the history rows of the carried env block, and
+  the gait clock's (cos, sin) of the carried phase when it is on;
+* the policy MLP with the observation normalizer folded into its first
+  layer (``fold_normalizer``) and the NormalTanh head (``policy_math``)
+  on the pre-drawn sampling eps;
+* the wrapped env step (the K3 emission, ``soa_env._emit_wrapped_step``);
+* the gait clock's tick, restarted on the effective done.
+
+``unroll_rows`` is the plain version: every value a ``(rows, B)`` torch
+tensor, and every sum spelled in the kernel's order (the MLP's dot products
+and the log-prob's sum over the actions run term by term, never as
+``torch.matmul`` or ``torch.sum``, which reduce in other orders on CUDA),
+so that the kernel and the plain version agree bit for bit on the card.
+``unroll`` is the wrapper: CPU tensors run ``unroll_rows``, CUDA tensors
+launch the kernel (``csrc/fused_unroll.cuh`` around the K3 body,
+``kernels/cgen.py::fused_unroll_body``) or raise.
+
+Every block is ``(rows, B)`` float32; the per-step inputs (env noise,
+sampling eps) and outputs (observation, action, raw action, log-prob, aux)
+are ``(T, rows, B)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from puppax_torch.env import soa_env
+from puppax_torch.kernels import build
+
+# hidden activations, in the order of the kernel's runtime codes
+ACTIVATIONS = ("elu", "relu", "tanh", "sigmoid", "softmax")
+MAX_LAYERS = 8  # csrc/fused_unroll.cuh K4_MAX_LAYERS
+MAX_WIDTH = 512  # csrc/fused_unroll.cuh K4_MAX_WIDTH
+MIN_STD = 0.001
+LOG2 = 0.6931471805599453
+HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+SOFTPLUS_THRESHOLD = 20.0  # torch.nn.functional.softplus's default
+
+Layers = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def fold_normalizer(normalizer, policy) -> Layers:
+    """(normalizer state or None, policy ``MLP``) -> ``[(W_t (out, in), b
+    (out,))]`` float32, the running statistics folded into layer 0
+    (``fused_unroll.py:63-86``): ``W0' = W0 / std``, ``b0' = b0 - W0' @ mean``."""
+    layers = []
+    for i, layer in enumerate(policy.layers()):
+        w_t = layer.weight.detach().to(torch.float32)
+        b = layer.bias.detach().to(torch.float32)
+        if i == 0 and normalizer is not None:
+            w_t = w_t / normalizer.std.to(torch.float32)[None, :]
+            b = b - torch.mv(w_t, normalizer.mean.to(torch.float32))
+        layers.append((w_t.contiguous(), b.contiguous()))
+    return layers
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus``'s formula, spelled as the kernel spells it."""
+    return torch.where(x > SOFTPLUS_THRESHOLD, x, torch.log1p(torch.exp(x)))
+
+
+def activate(activation: str, x: torch.Tensor) -> torch.Tensor:
+    """A hidden activation on feature-major ``(n, B)`` rows, as the kernel
+    computes it; softmax runs over the n features, in order."""
+    if activation == "elu":  # jax.nn.elu's expm1 form
+        return torch.where(x > 0, x, torch.expm1(x))
+    if activation == "relu":
+        return torch.where(x > 0, x, torch.zeros_like(x))
+    if activation == "tanh":
+        return torch.tanh(x)
+    if activation == "sigmoid":
+        return torch.ones_like(x) / (torch.exp(-x) + 1.0)
+    if activation == "softmax":
+        m = x[0]
+        for k in range(1, x.shape[0]):
+            m = torch.maximum(m, x[k])
+        e = torch.exp(x - m[None])
+        total = e[0]
+        for k in range(1, x.shape[0]):
+            total = total + e[k]
+        return e / total[None]
+    raise KeyError(activation)
+
+
+def mlp_rows(layers: Layers, activation: str, x: torch.Tensor) -> torch.Tensor:
+    """The folded MLP on feature-major ``(in, B)`` rows, each output summed
+    over its inputs in order (``acc = acc + w * x``), then its bias."""
+    for i, (w, b) in enumerate(layers):
+        acc = torch.zeros((w.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+        for k in range(w.shape[1]):
+            acc = acc + w[:, k : k + 1] * x[k : k + 1]
+        x = acc + b[:, None]
+        if i != len(layers) - 1:
+            x = activate(activation, x)
+    return x
+
+
+def policy_math(loc_rows, scale_param_rows, eps_rows):
+    """The NormalTanh head on rows (``fused_unroll.py:89-110``): returns
+    (action rows, pre-tanh rows, log-prob), the log-prob summed over the
+    actions in order, term by term."""
+    act_rows, raw_rows, logp = [], [], None
+    for loc, sp, eps in zip(loc_rows, scale_param_rows, eps_rows):
+        scale = softplus(sp) + MIN_STD
+        pre = loc + scale * eps
+        act_rows.append(torch.tanh(pre))
+        raw_rows.append(pre)
+        z = (pre - loc) / scale
+        normal_lp = -0.5 * (z * z) - torch.log(scale) - HALF_LOG_2PI
+        fldj = 2.0 * (LOG2 - pre - softplus(-2.0 * pre))
+        term = normal_lp - fldj
+        logp = term if logp is None else logp + term
+    return act_rows, raw_rows, logp
+
+
+def unroll_rows(s, es, n_substeps: int, episode_length: int, activation: str, layers: Layers,
+                q, v, env, wrap, phase: Optional[torch.Tensor], first, dr, noise, eps):
+    """The plain version of K4: T steps of (observation, folded MLP, head,
+    ``soa_env.wrapped_step_rows``, gait tick) on ``(rows, B)`` carry blocks
+    (``phase`` ``(1, B)``, or None with the clock off) and ``(T, rows, B)``
+    noise and eps. Returns (q, v, env, wrap, phase, obs_ts, act_ts, raw_ts,
+    logp_ts ``(T, 1, B)``, aux_ts)."""
+    nu = s.nu
+    obs_r0, obs_n = es.env_rows["obs_history"]
+    done_r0 = soa_env.aux_row_map(es)["done"][0]
+    ys = []
+    for t in range(noise.shape[0]):
+        obs = env[obs_r0 : obs_r0 + obs_n]
+        if phase is not None:  # the clock before its tick
+            obs = torch.cat([obs, torch.cos(phase), torch.sin(phase)])
+        h = mlp_rows(layers, activation, obs)
+        act, raw, logp = policy_math(h[:nu], h[nu : 2 * nu], eps[t])
+        act = torch.stack(act)
+        q, v, env, wrap, aux = soa_env.wrapped_step_rows(
+            s, es, n_substeps, episode_length, q, v, act, env, noise[t], dr, first, wrap)
+        if phase is not None:
+            phase = soa_env.tick_gait_clock(phase, es.dphase, aux[done_r0 : done_r0 + 1])
+        ys.append((obs, act, torch.stack(raw), logp[None], aux))
+    obs_ts, act_ts, raw_ts, logp_ts, aux_ts = (torch.stack(x) for x in zip(*ys))
+    return q, v, env, wrap, phase, obs_ts, act_ts, raw_ts, logp_ts, aux_ts
+
+
+def _check_layers(layers: Layers, obs_dim: int, nu: int, dev) -> List[int]:
+    """The layer widths ``[in, h1, ..., 2 nu]``; raises on what K4 does not
+    take."""
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"K4 takes 1 to {MAX_LAYERS} layers, got {len(layers)}")
+    dims = [obs_dim]
+    for i, (w, b) in enumerate(layers):
+        for x in (w, b):
+            if x.dtype != torch.float32 or x.device != dev or not x.is_contiguous():
+                raise ValueError(f"layer {i}: weights must be contiguous float32 on {dev}")
+        if w.ndim != 2 or w.shape[1] != dims[-1] or b.shape != (w.shape[0],):
+            raise ValueError(f"layer {i}: weight {tuple(w.shape)}, bias {tuple(b.shape)} "
+                             f"after a width of {dims[-1]}")
+        dims.append(w.shape[0])
+    if dims[-1] != 2 * nu:
+        raise ValueError(f"the policy emits {dims[-1]} logits, expected {2 * nu}")
+    if max(dims) > MAX_WIDTH:
+        raise ValueError(f"K4 takes layers up to {MAX_WIDTH} wide, got {max(dims)}")
+    return dims
+
+
+def _check_steps(name: str, x: torch.Tensor, T: int, rows: int, B: int, dev):
+    if x.dtype != torch.float32 or x.device != dev or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous float32 on {dev}")
+    if x.shape != (T, rows, B):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected ({T}, {rows}, {B})")
+
+
+def unroll(s, es, n_substeps: int, episode_length: int, activation: str, layers: Layers,
+           q, v, env, wrap, phase: Optional[torch.Tensor], first, dr, noise, eps):
+    """T fused policy + env steps over ``(rows, B)`` carry blocks and
+    ``(T, rows, B)`` noise and eps (arguments and results as
+    ``unroll_rows``).
+
+    CPU tensors run the plain version (``unroll_rows``); CUDA tensors launch
+    K4 (``csrc/fused_unroll.cuh``) on the current stream, or raise. Each
+    launch adds one to ``unroll.launches``."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"K4 has no activation {activation!r} (one of {ACTIVATIONS})")
+    gait = phase is not None
+    in_rows, out_rows = soa_env.block_rows(s, es)
+    nq, nv, nu, nenv, nnoise, ndr, nfirst, _ = in_rows
+    carry = [q, v, env, wrap] + ([phase] if gait else [])
+    B, dev = build.check_blocks([nq, nv, nenv, 2] + [1] * gait + [nfirst, ndr],
+                                carry + [first, dr])
+    T = noise.shape[0]
+    _check_steps("noise", noise, T, nnoise, B, dev)
+    _check_steps("eps", eps, T, nu, B, dev)
+    obs_dim = es.hist + 2 * gait
+    dims = _check_layers(layers, obs_dim, nu, dev)
+    if dev.type == "cpu":
+        return unroll_rows(s, es, n_substeps, episode_length, activation, layers, q, v, env,
+                           wrap, phase, first, dr, noise, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"fused unroll: unsupported device {dev}")
+    lib = build.fused_unroll_library(s, es, n_substeps, episode_length)
+    weights = torch.cat([torch.cat([w.reshape(-1), b]) for w, b in layers])
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    final = [empty(n, B) for n in (nq, nv, nenv, 2)]
+    scratch = [empty(n, B) for n in (nq, nv, nenv, 2)]
+    phase_f = empty(1, B) if gait else None
+    steps = [empty(T, n, B) for n in (obs_dim, nu, nu, 1, out_rows[4])]
+    ptrs = ([x.data_ptr() for x in carry[:4]] + [phase.data_ptr() if gait else None]
+            + [x.data_ptr() for x in (first, dr, noise, eps, weights)]
+            + [x.data_ptr() for x in final] + [phase_f.data_ptr() if gait else None]
+            + [x.data_ptr() for x in steps + scratch])
+    padded = dims + [0] * (MAX_LAYERS + 1 - len(dims))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.fused_unroll_launch(*ptrs, B, T, len(layers), ACTIVATIONS.index(activation),
+                                 int(gait), *padded, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_unroll kernel launch failed: cudaError {rc}")
+    unroll.launches += 1
+    return (*final, phase_f, *steps)
+
+
+unroll.launches = 0
+
+
+def policy_op_count(dims: Sequence[int], activation: str, nu: int, gait: bool) -> int:
+    """Float operations of one env's policy step in K4, counted from the
+    kernel's source: per output of a layer 2 per input (multiply, add) and
+    1 for the bias; per hidden unit its activation (elu 2, relu 1, tanh 1,
+    sigmoid 3, softmax 4); per action the head's 23 (softplus 3, the
+    sample 3, tanh 1, the log density 7, the Jacobian term 7, the sum 2);
+    the clock's 5 (cos, sin, add, fmod, compare)."""
+    per_unit = {"elu": 2, "relu": 1, "tanh": 1, "sigmoid": 3, "softmax": 4}[activation]
+    mlp = sum(n_out * (2 * n_in + 1) for n_in, n_out in zip(dims[:-1], dims[1:]))
+    hidden = sum(dims[1:-1])
+    return mlp + per_unit * hidden + 23 * nu + (5 if gait else 0)

@@ -18,9 +18,12 @@ from ``PUPPAX_SOA_ENV``, as the JAX env chooses its fused core:
   physics step through ``pipeline.make_batched_step``, which launches the
   physics-step kernel K1 on the card.
 
-Either way the info epilogue runs in PyTorch. Training steps through the
-wrapped-step kernel K3 instead (``rollout.FastLane``) unless the lane is
-off (``rollout.support_reason``).
+Either way the info epilogue runs in PyTorch, and with it the gait clock
+(``gait_phase_observation``): ``info["gait_phase"]`` ticks by the float32
+``2 pi f dt`` modulo 2 pi each step and its (cos, sin) follow the history
+stack in the observation. Training steps through the wrapped-step kernel
+K3, or the fused unroll K4, instead (``rollout.FastLane``) unless the lane
+is off (``rollout.support_reason``).
 
 Reset needs only the root's FK: the reset observation reads the torso
 rotation and a zero angular velocity, so the port runs ``soa._emit_fk`` on
@@ -122,8 +125,6 @@ class PupperV3Env:
     ):
         if privileged_obs:
             raise NotImplementedError(f"privileged_obs is not ported yet ({_ROADMAP_EXTRAS})")
-        if gait_phase_observation:
-            raise NotImplementedError(f"the gait clock is not ported yet ({_ROADMAP_EXTRAS})")
         if disturbance_curriculum:
             raise NotImplementedError(
                 f"the disturbance curriculum is not ported yet ({_ROADMAP_EXTRAS})"
@@ -218,6 +219,10 @@ class PupperV3Env:
         self._latency_distribution = np.asarray(latency_distribution, f32)
         self._imu_latency_distribution = np.asarray(imu_latency_distribution, f32)
         self._use_imu = use_imu
+        self._gait_phase_obs = gait_phase_observation
+        self._gait_frequency = gait_frequency
+        # the clock's tick in float32, as the JAX env rounds it
+        self._dphase = float(f32(2.0 * np.pi * gait_frequency * environment_timestep))
         self._desired_abduction_angles = np.asarray(desired_abduction_angles, f32)
         self.lowers = np.asarray(joint_lower_limits, f32)
         self.uppers = np.asarray(joint_upper_limits, f32)
@@ -276,7 +281,10 @@ class PupperV3Env:
 
     @property
     def observation_size(self) -> int:
-        return self.observation_dim * self._observation_history
+        """The stacked observation history, plus the gait clock (cos, sin)
+        after it when the clock is on."""
+        n = self.observation_dim * self._observation_history
+        return n + 2 if self._gait_phase_obs else n
 
     @property
     def action_size(self) -> int:
@@ -377,7 +385,10 @@ class PupperV3Env:
             "desired_world_z_in_body_frame": draws["desired_z"].to(self.device, torch.float32),
         }
         obs = self._get_obs(qpos, torso_quat, zeros(3), info, draws,
-                            zeros(self.observation_size))
+                            zeros(self._es.hist))
+        if self._gait_phase_obs:
+            info["gait_phase"] = zeros()
+            obs = torch.cat([obs, torch.ones_like(obs[:, :1]), zeros(1)], -1)  # cos 0, sin 0
         metrics = {"total_dist": zeros()}
         metrics.update({k: v for k, v in info["rewards"].items()})
         return State(qpos=qpos, qvel=zeros(self._nv), obs=obs, reward=zeros(),
@@ -442,11 +453,18 @@ class PupperV3Env:
                      "rewards", "step", "command"):
             info[name] = env_out[name]
         info["desired_world_z_in_body_frame"] = env_out["desired_z"]
+        obs = env_out["obs"]
+        if self._gait_phase_obs:
+            # the clock runs outside the step core (pupper.py:754-767); the
+            # wrappers restart it on the effective done
+            phase = soa_env.tick_gait_clock(info["gait_phase"], self._dphase)
+            info["gait_phase"] = phase
+            obs = torch.cat([obs, torch.cos(phase)[:, None], torch.sin(phase)[:, None]], -1)
         metrics = dict(state.metrics)
         metrics["total_dist"] = env_out["total_dist"]
         metrics.update(env_out["rewards"])
         return state.replace(
-            qpos=pipeline_state.qpos, qvel=pipeline_state.qvel, obs=env_out["obs"],
+            qpos=pipeline_state.qpos, qvel=pipeline_state.qvel, obs=obs,
             reward=env_out["reward"], done=env_out["done"], metrics=metrics, info=info,
             pipeline_state=pipeline_state,
         )

@@ -3,22 +3,28 @@
 Counterpart of ``puppax/env/rollout.py::FastLane``. The unroll carry stays
 in the kernel's layout for all T steps: every carry array is ``(rows, B)``
 row-major float32 (qpos, qvel, the flattened env-state block, the 2-row
-wrapper block of episode steps and previous done, the reset-time
-``first_*`` rows and the DR parameter rows). One step of the lane is
+wrapper block of episode steps and previous done, the gait clock's phase
+row when the clock is on, the reset-time ``first_*`` rows and the DR
+parameter rows). The lane runs one of two ways:
 
-* the policy MLP + NormalTanh sample on the observation rows
-  (``policy_rows``: ``torch.matmul`` in full float32, feature-major),
-* one fused wrapped env step (``soa_env.wrapped_step``): auto-reset
-  prologue, kick, action latency, physics, observation, rewards,
-  termination and episode bookkeeping in one kernel launch.
+* by default, a Python loop of T steps, each the policy MLP + NormalTanh
+  sample on the observation rows (``policy_rows``: ``torch.matmul`` in
+  full float32, feature-major) and one fused wrapped env step
+  (``soa_env.wrapped_step``, K3): auto-reset prologue, kick, action
+  latency, physics, observation, rewards, termination and episode
+  bookkeeping in one kernel launch; then the gait clock's tick;
+* with ``PUPPAX_FUSED_UNROLL=on`` (``use_fused``), the whole unroll in one
+  launch of the fused unroll K4 (``env/fused_unroll.py``): the same steps
+  with the observation normalizer folded into the policy's first layer.
 
-Every random number is drawn before the loop from one ``torch.Generator``
-(``draw_noise_block`` and the sampling eps), so ``unroll_from_draws`` can
-be fed the JAX package's draws in the parity tests.
+Both share ``_assemble_unroll``. Every random number is drawn before the
+loop from one ``torch.Generator`` (``draw_noise_block`` and the sampling
+eps), so ``unroll_from_draws`` can be fed the JAX package's draws in the
+parity tests.
 
 The JAX lane's TPU devices (the ``(rows, B/128, 128)`` tiles, padding B
-to 1024, ``shard_map``, the fused whole-unroll kernel) have no
-counterpart here; the JAX ``scan`` is a Python loop around the kernel.
+to 1024, ``shard_map``) have no counterpart here; the JAX ``scan`` is a
+Python loop around K3, or the loop inside K4.
 
 ``support_reason`` says whether ``ppo.train`` takes this lane or unrolls
 the standard lane (``acting.generate_unroll``), and why.
@@ -32,7 +38,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from puppax_torch.env import soa_env
+from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.env.base import State
 from puppax_torch.env.wrappers import TrainingEnv
 from puppax_torch.physics import soa
@@ -67,7 +73,10 @@ class FastLane:
         self.s: soa._Static = env._s
         self.es: soa_env._EnvStatic = env._es
         self._aux_rows = soa_env.aux_row_map(self.es)
-        self.obs_dim = self.es.hist
+        # the gait clock (pupper.py:754-767) rides outside the step: the lane
+        # carries its phase as a row and appends (cos, sin) to the observation
+        self.gait = bool(env._gait_phase_obs)
+        self.obs_dim = self.es.hist + (2 if self.gait else 0)
         self._dist = NormalTanhDistribution(env.action_size)
         # full float32 policy dots: the counterpart of the JAX lane's
         # Precision.HIGHEST (a TF32 product keeps ~3 decimal digits)
@@ -87,7 +96,17 @@ class FastLane:
             "first": rows([info["first_qpos"], info["first_qvel"],
                            info["first_obs"][:, : es.hist]]),
             "dr": self.wrapped.dr_rows(state.qpos.shape[0]),
+            **({"phase": rows([info["gait_phase"]])} if self.gait else {}),
         }
+
+    def _full_obs(self, env_rows: torch.Tensor, phase) -> torch.Tensor:
+        """The policy observation rows: the history rows of an env block,
+        then the clock's (cos, sin) of a ``(1, B)`` phase when it is on."""
+        r0, n = self.es.env_rows["obs_history"]
+        obs = env_rows[r0 : r0 + n]
+        if not self.gait:
+            return obs
+        return torch.cat([obs, torch.cos(phase), torch.sin(phase)])
 
     def state_from_carry(self, carry, template: State, last_kick, last_aux) -> State:
         """The carry blocks -> State (the JAX step's epilogue plus the
@@ -119,13 +138,15 @@ class FastLane:
         info["truncation"] = aux("truncation")[:, 0]
         info["kick"] = last_kick
         info["rewards"] = {k: aux("rewards")[:, i] for i, k in enumerate(soa_env.REWARD_ORDER)}
+        if self.gait:
+            info["gait_phase"] = carry["phase"][0]
         metrics = dict(template.metrics)
         metrics["total_dist"] = aux("total_dist")[:, 0]
         metrics.update(info["rewards"])
         return template.replace(
             qpos=carry["q"].t(),
             qvel=carry["v"].t(),
-            obs=rows("obs_history"),
+            obs=self._full_obs(carry["env"], carry.get("phase")).t(),
             reward=aux("reward")[:, 0],
             done=aux("done")[:, 0],
             metrics=metrics,
@@ -161,7 +182,9 @@ class FastLane:
             for i, (w, b) in enumerate(layers):
                 x = torch.matmul(w, x) + b[:, None]
                 if i != len(layers) - 1:
-                    x = policy.activation(x)
+                    # over each env's features, as the batch-major network
+                    # (a softmax over the rows' last axis would mix envs)
+                    x = policy.activation(x.t()).t()
             loc, scale = x[:act_n], F.softplus(x[act_n:]) + dist._min_std
             pre_tanh = loc + scale * eps_rows
             log_prob = dist.log_prob_from(loc, scale, pre_tanh, dim=0)
@@ -170,6 +193,13 @@ class FastLane:
         return apply
 
     # ---- the unroll ------------------------------------------------------------
+    def use_fused(self, T: int) -> bool:
+        """Whether ``unroll`` runs the fused unroll K4 (one launch per
+        unroll) instead of T K3 launches: ``PUPPAX_FUSED_UNROLL`` in
+        ``on``/``force``/``auto_on``, read at each call. Off by default, as
+        in the JAX package (``rollout.py:459-475``)."""
+        return os.environ.get("PUPPAX_FUSED_UNROLL", "off") in ("on", "force", "auto_on") and T >= 1
+
     def unroll(self, state: State, policy_params: Tuple, generator: torch.Generator, T: int):
         """T policy steps from ``state``; returns (final State, Transition
         stack). ``policy_params`` is (normalizer state, policy ``MLP``)."""
@@ -187,33 +217,48 @@ class FastLane:
         normalizer, policy = policy_params
         carry = self.carry_from_state(state)
         T = noise.shape[0]
+        if self.use_fused(T):
+            # K4 on CUDA tensors, its plain version on CPU tensors
+            (q, v, env_t, wrap, phase, obs_ts, act_ts, raw_ts, logp_ts,
+             aux_ts) = fused_unroll.unroll(
+                self.s, self.es, self.n_substeps, self.episode_length, policy.activation_name,
+                fused_unroll.fold_normalizer(normalizer, policy), carry["q"], carry["v"],
+                carry["env"], carry["wrap"], carry.get("phase"), carry["first"], carry["dr"],
+                noise, eps.transpose(1, 2).contiguous())
+            carry.update(q=q, v=v, env=env_t, wrap=wrap, phase=phase)
+            return self._assemble_unroll(state, carry, obs_ts, act_ts, raw_ts, logp_ts[:, 0],
+                                         aux_ts, last_kick)
         papply = self.policy_rows(normalizer, policy)
-        obs_r0, obs_n = self.es.env_rows["obs_history"]
+        done_r0 = self._aux_rows["done"][0]
         q, v, env_t, wrap = carry["q"], carry["v"], carry["env"], carry["wrap"]
+        phase = carry.get("phase")
         ys = []
         for t in range(T):
-            obs_t = env_t[obs_r0 : obs_r0 + obs_n]
+            obs_t = self._full_obs(env_t, phase)
             act, raw, logp = papply(obs_t, eps[t].t())
             # the kernel on CUDA tensors, its plain version on CPU tensors
-            q, v, env_next, wrap, aux = soa_env.wrapped_step(
+            q, v, env_t, wrap, aux = soa_env.wrapped_step(
                 self.s, self.es, self.n_substeps, self.episode_length,
                 q, v, act, env_t, noise[t], carry["dr"], carry["first"], wrap,
             )
+            if self.gait:
+                phase = soa_env.tick_gait_clock(phase, self.es.dphase, aux[done_r0 : done_r0 + 1])
             ys.append((obs_t, act, raw, logp, aux))
-            env_t = env_next
-        carry.update(q=q, v=v, env=env_t, wrap=wrap)
-        return self._assemble_unroll(state, carry, ys, last_kick)
+        carry.update(q=q, v=v, env=env_t, wrap=wrap, phase=phase)
+        obs_ts, act_ts, raw_ts, logp_ts, aux_ts = (torch.stack(x) for x in zip(*ys))
+        return self._assemble_unroll(state, carry, obs_ts, act_ts, raw_ts, logp_ts, aux_ts,
+                                     last_kick)
 
-    def _assemble_unroll(self, state: State, carry, ys, last_kick):
-        """Per-step row outputs -> (final State, time-major Transition)."""
-        obs_r0, obs_n = self.es.env_rows["obs_history"]
+    def _assemble_unroll(self, state: State, carry, obs_ts, act_ts, raw_ts, logp_ts, aux_ts,
+                         last_kick):
+        """Per-step ``(T, rows, B)`` outputs (``logp_ts`` ``(T, B)``) ->
+        (final State, time-major Transition): the epilogue of both ways."""
 
-        def t_rows(xs):  # T x (rows, B) -> (T, B, rows)
-            return torch.stack(xs).transpose(1, 2)
+        def t_rows(x):  # (T, rows, B) -> (T, B, rows)
+            return x.transpose(1, 2)
 
-        obs_ts, act_ts, raw_ts, logp_ts, aux_ts = zip(*ys)
         observation = t_rows(obs_ts)
-        final_obs = carry["env"][obs_r0 : obs_r0 + obs_n].t()
+        final_obs = self._full_obs(carry["env"], carry.get("phase")).t()
         next_observation = torch.cat([observation[1:], final_obs[None]], 0)
         aux_b = t_rows(aux_ts)  # (T, B, naux)
 
@@ -230,7 +275,6 @@ class FastLane:
             discount=1.0 - done,
             next_observation=next_observation,
             truncation=aux_col("truncation"),
-            policy_extras={"log_prob": torch.stack(logp_ts), "raw_action": t_rows(raw_ts)},
+            policy_extras={"log_prob": logp_ts, "raw_action": t_rows(raw_ts)},
         )
         return final_state, data
-

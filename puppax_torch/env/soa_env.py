@@ -96,6 +96,7 @@ class _EnvStatic:
         self.use_imu = bool(env._use_imu)
         self.obs_dim = int(env.observation_dim)
         self.hist = int(env._observation_history) * self.obs_dim
+        self.dphase = float(env._dphase)  # the gait clock's float32 tick (K4)
         self.feet_sites = [int(i) for i in env._feet_site_id]
         self.torso_body = int(env._torso_idx)
         self.lower_leg_bodies = [int(i) for i in env._lower_leg_body_id]
@@ -174,6 +175,18 @@ class _EnvStatic:
             self.out_rows[name] = (r, n)
             r += n
         self.nout_rows = r
+
+
+TWO_PI = 2.0 * np.pi
+
+
+def tick_gait_clock(phase: torch.Tensor, dphase: float, done=None) -> torch.Tensor:
+    """The gait clock's tick, ``fmod(phase + dphase, 2 pi)`` in float32
+    (``pupper.py:761-765``; the phase is never negative, so ``fmod`` is
+    ``jnp.mod``), restarted at 0 where ``done > 0.5`` when ``done`` is
+    given (the AutoReset restart, ``wrappers.py:151-162``)."""
+    ticked = torch.fmod(phase + dphase, TWO_PI)
+    return ticked if done is None else torch.where(done > 0.5, torch.zeros_like(phase), ticked)
 
 
 def host_consts_from_args(**kw) -> Dict[str, np.ndarray]:

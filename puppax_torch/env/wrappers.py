@@ -14,13 +14,15 @@ stack AutoReset(Vmap(Episode(env))) as one class over a batched env.
   K2, or the physics-only lane on K1): the AutoReset prologue zeroes ``steps`` where
   the previous step ended, the Episode wrapper counts the step and
   truncates at the episode limit, and on the effective done AutoReset
-  restores the reset-time pipeline state, qpos, qvel and observation.
+  restores the reset-time pipeline state, qpos, qvel and observation and
+  restarts the gait clock.
 * The DR batch is the per-env model: its parameter rows go to the kernels
   as their dr block, the model itself to the physics-only lane's torch
   pipeline; an unbatched model (the eval env) is broadcast.
 
 The rollout fast lane runs the same step side inside the wrapped-step
-kernel K3 (``soa_env._emit_wrapped_step``) and reads only the reset side.
+kernel K3 or the fused unroll K4 (``soa_env._emit_wrapped_step``) and reads
+only the reset side.
 """
 
 from __future__ import annotations
@@ -105,6 +107,9 @@ class TrainingEnv:
             return torch.where(on_done.reshape((-1,) + (1,) * (new.ndim - 1)), first, new)
 
         ps = info["first_pipeline_state"].map(restore, state.pipeline_state)
+        if "gait_phase" in info:  # the gait clock restarts with the episode
+            info["gait_phase"] = restore(torch.zeros_like(info["gait_phase"]),
+                                         info["gait_phase"])
         return state.replace(qpos=ps.qpos, qvel=ps.qvel, pipeline_state=ps,
                              obs=restore(info["first_obs"], state.obs), done=done, info=info)
 

@@ -55,8 +55,9 @@ class Kernel:
     name: str
     shell: Path
     n_pointers: int
-    launch: str  # (pointers..., int B, void* stream), nvcc build
-    host: str  # (pointers..., int B), g++ build
+    launch: str  # (pointers..., int B, ints..., void* stream), nvcc build
+    host: str  # (pointers..., int B, ints...), g++ build
+    n_ints: int = 0  # ints after B
 
 
 WRAPPED_STEP = Kernel("wrapped_step", CSRC / "wrapped_step.cuh", 13,  # 8 in + 5 out
@@ -65,6 +66,9 @@ ENV_STEP = Kernel("env_step", CSRC / "env_step.cuh", 10,  # 6 in + 4 out
                   "env_step_launch", "env_step_host")
 PHYSICS_STEP = Kernel("physics_step", CSRC / "physics_step.cuh", 7,  # 4 in + 3 out
                       "physics_step_launch", "physics_step_host")
+# 10 in + 10 out + 4 scratch; ints T, n_layers, activation, gait, the 9 layer widths
+FUSED_UNROLL = Kernel("fused_unroll", CSRC / "fused_unroll.cuh", 24,
+                      "fused_unroll_launch", "fused_unroll_host", n_ints=13)
 
 # (kernel, model statics, env statics, config) -> loaded library
 _LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
@@ -124,7 +128,7 @@ def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
 
 def _bind(lib: ctypes.CDLL, kernel: Kernel, with_stream: bool):
     fn = getattr(lib, kernel.launch if with_stream else kernel.host)
-    args = [ctypes.c_void_p] * kernel.n_pointers + [ctypes.c_int]
+    args = [ctypes.c_void_p] * kernel.n_pointers + [ctypes.c_int] * (1 + kernel.n_ints)
     if with_stream:
         args.append(ctypes.c_void_p)
     fn.argtypes = args
@@ -187,6 +191,18 @@ def physics_step_library(s, n_substeps: int) -> ctypes.CDLL:
     return _device_library(
         PHYSICS_STEP, s, None, (int(n_substeps),),
         lambda: cgen.physics_step_body(s, n_substeps),
+    )
+
+
+def fused_unroll_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
+    """The fused unroll (K4) for this configuration (K3's body inside
+    ``csrc/fused_unroll.cuh``), built with nvcc for sm_90a at first use and
+    cached for the process."""
+    from puppax_torch.kernels import cgen
+
+    return _device_library(
+        FUSED_UNROLL, s, es, (int(n_substeps), int(episode_length)),
+        lambda: cgen.fused_unroll_body(s, es, n_substeps, episode_length),
     )
 
 

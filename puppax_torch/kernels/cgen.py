@@ -14,7 +14,8 @@ The generated body is one ``PUPPAX_HD`` (``__host__ __device__``) function
 that reads row r of env b at ``ptr[r * B + b]``; a hand-written shell wraps
 it in the kernel and the C entry points: ``csrc/wrapped_step.cuh`` for the
 wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2),
-``csrc/physics_step.cuh`` for the physics-only step (K1).
+``csrc/physics_step.cuh`` for the physics-only step (K1). The fused unroll
+(K4, ``csrc/fused_unroll.cuh``) calls K3's body once per step.
 """
 
 from __future__ import annotations
@@ -273,6 +274,32 @@ def wrapped_step_body(s, es, n_substeps: int, episode_length: int) -> str:
         lambda rows: soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows),
         f"wrapped-step\n// emission: n_substeps={n_substeps}, episode_length={episode_length}",
     )
+
+
+def fused_unroll_body(s, es, n_substeps: int, episode_length: int) -> str:
+    """C source of the fused unroll's (K4) generated part: its layout and
+    head constants as ``#define``s (each float a ``float_literal`` of the
+    plain version's constant), then K3's ``wrapped_step_body``, which
+    ``csrc/fused_unroll.cuh`` calls once per step."""
+    from puppax_torch.env import fused_unroll, soa_env
+
+    _, out_rows = soa_env.block_rows(s, es)
+    obs_r0, hist = es.env_rows["obs_history"]
+    ints = {
+        "K4_NQ": s.nq, "K4_NV": s.nv, "K4_NU": s.nu, "K4_NENV": es.nenv_rows,
+        "K4_NNOISE": es.nnoise_rows, "K4_NAUX": out_rows[4], "K4_OBS_R0": obs_r0,
+        "K4_HIST": hist, "K4_DONE_ROW": soa_env.aux_row_map(es)["done"][0],
+    }
+    floats = {
+        "K4_DPHASE": es.dphase, "K4_TWO_PI": soa_env.TWO_PI,
+        "K4_MIN_STD": fused_unroll.MIN_STD, "K4_LOG2": fused_unroll.LOG2,
+        "K4_HALF_LOG_2PI": fused_unroll.HALF_LOG_2PI,
+        "K4_SOFTPLUS_THRESHOLD": fused_unroll.SOFTPLUS_THRESHOLD,
+    }
+    header = "// Generated by puppax_torch/kernels/cgen.py: the fused unroll's constants.\n"
+    header += "".join(f"#define {k} {v}\n" for k, v in ints.items())
+    header += "".join(f"#define {k} {float_literal(v)}\n" for k, v in floats.items())
+    return header + wrapped_step_body(s, es, n_substeps, episode_length)
 
 
 def env_step_body(s, es, n_substeps: int) -> str:

@@ -1,14 +1,17 @@
 """Where one ``FastLane.unroll`` spends its time on the card.
 
-    python -m puppax_torch.tools.profile_unroll [--seed 0] [--table PATH]
+    python -m puppax_torch.tools.profile_unroll [--seed 0] [--table PATH] [--fused]
 
 At the default training configuration (``puppax_torch/configs``: 4096
 envs, DR on, 5 substeps, T=20, random policy weights from ``--seed``) it
-prints:
+prints, for the K3 lane or, with ``--fused``, the fused-unroll lane
+(``PUPPAX_FUSED_UNROLL=on``):
 
 - each phase of the unroll timed alone, with CUDA events and on the host
-  clock: ``draw_noise_block`` (T steps of env noise), one ``policy_rows``
-  apply, one K3 ``wrapped_step`` launch, ``carry_from_state``;
+  clock: ``draw_noise_block`` (T steps of env noise), ``carry_from_state``
+  and, for the K3 lane, one ``policy_rows`` apply and one K3
+  ``wrapped_step`` launch; for the fused lane, ``fold_normalizer``, one K4
+  ``fused_unroll.unroll`` launch (all T steps) and ``_assemble_unroll``;
 - the whole unroll, unprofiled, timed with CUDA events (median of 3);
 - one unroll under ``torch.profiler``: its CUDA-event window, the device's
   busy time in that window (the union of every device activity interval of
@@ -22,6 +25,7 @@ share is an upper bound on the unprofiled unroll's.
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import time
 
@@ -74,13 +78,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--table", default=None, help="write the profiler table here")
+    ap.add_argument("--fused", action="store_true",
+                    help="profile the fused-unroll lane (K4) instead of the K3 lane")
     args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
-    from puppax_torch.env import soa_env
+    from puppax_torch.env import fused_unroll, soa_env
     from puppax_torch.env.domain_randomization import domain_randomize
     from puppax_torch.env.pupper import PupperV3Env
     from puppax_torch.env.rollout import FastLane
@@ -89,6 +95,8 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_unroll: no CUDA device found")
+    if args.fused:
+        os.environ["PUPPAX_FUSED_UNROLL"] = "on"
     device = torch.device("cuda", 0)
     tc, dr_cfg = TrainConfig(), DomainRandomizationConfig()
     B, T, L = tc.num_envs, tc.unroll_length, tc.episode_length
@@ -127,13 +135,33 @@ def main(argv=None):
               f"{_host_ms(fn, reps):.3f} ms host clock", flush=True)
 
     phase(f"draw_noise_block T={T}", lambda: lane.draw_noise_block(g, B, T), 5)
-    with torch.no_grad():
-        phase("policy_rows", lambda: apply(obs, eps), 20)
-    phase("wrapped_step (K3)", lambda: soa_env.wrapped_step(
-        lane.s, lane.es, lane.n_substeps, L, *blocks), 20)
     phase("carry_from_state", lambda: lane.carry_from_state(state), 5)
+    if args.fused:
+        policy = nets.policy_network
+        fold = lambda: fused_unroll.fold_normalizer(normalizer, policy)  # noqa: E731
+        k4_in = [carry[k] for k in ("q", "v", "env", "wrap")] + [
+            None, carry["first"], carry["dr"], noise,
+            torch.randn((T, env.action_size, B), generator=g, device=device)]
+
+        def k4():
+            return fused_unroll.unroll(lane.s, lane.es, lane.n_substeps, L, policy.activation_name,
+                                       fold(), *k4_in)
+
+        out = k4()
+        final = dict(carry, q=out[0], v=out[1], env=out[2], wrap=out[3])
+        last_kick = state.info["kick"]
+        phase("fold_normalizer", fold, 20)
+        phase(f"fused_unroll (K4) T={T}", k4, 5)
+        phase("_assemble_unroll", lambda: lane._assemble_unroll(
+            state, final, out[5], out[6], out[7], out[8][:, 0], out[9], last_kick), 5)
+    else:
+        with torch.no_grad():
+            phase("policy_rows", lambda: apply(obs, eps), 20)
+        phase("wrapped_step (K3)", lambda: soa_env.wrapped_step(
+            lane.s, lane.es, lane.n_substeps, L, *blocks), 20)
     unroll = [_event_ms(lambda: lane.unroll(state, params, generator=g, T=T), 1)
               for _ in range(3)]
+    print(f"{'fused-unroll (K4)' if args.fused else 'K3'} lane:")
     print(f"unroll T={T} x {B} envs, unprofiled: median {statistics.median(unroll):.3f} ms "
           f"CUDA events (runs {unroll})", flush=True)
 

@@ -10,12 +10,13 @@ checkpoints. What differs:
 * One device and eager PyTorch: each training step is a Python loop of
   ``num_unrolls_per_env`` unrolls, the time-major reorder, the normalizer
   update and ``num_updates_per_batch`` x ``num_minibatches`` SGD steps.
-  The unrolls take the rollout fast lane (``FastLane.unroll``, the
-  wrapped-step kernel K3) when ``rollout.support_reason`` allows it, else
-  the standard lane (``acting.generate_unroll``: the env-step kernel K2,
-  or under ``PUPPAX_SOA_ENV=off`` the physics-only lane on the physics-step
-  kernel K1); the ``[puppax.ppo] rollout fast lane`` line says which and
-  why. The evaluator steps the standard lane.
+  The unrolls take the rollout fast lane (``FastLane.unroll``: the
+  wrapped-step kernel K3, or with ``PUPPAX_FUSED_UNROLL=on`` the fused
+  unroll K4) when ``rollout.support_reason`` allows it, else the standard
+  lane (``acting.generate_unroll``: the env-step kernel K2, or under
+  ``PUPPAX_SOA_ENV=off`` the physics-only lane on the physics-step kernel
+  K1); the ``[puppax.ppo] rollout fast lane`` line says which and why. The
+  evaluator steps the standard lane.
 * Randomness: one ``torch.Generator`` per stream of ``STREAMS``, seeded
   with ``numpy.random.SeedSequence([seed, i]).generate_state(1, uint64)``
   for the stream's index i (``make_generators``). Seed-for-seed parity with
@@ -29,8 +30,8 @@ checkpoints. What differs:
   phases (CUDA events on the card, the host clock on the CPU); their means
   per epoch join the metrics as ``training/{rollout,prepare,sgd}_ms``.
 
-Privileged critic, the disturbance curriculum, ``action_repeat != 1``, the
-fused unroll (K4) and a multi-device mesh raise ``NotImplementedError``.
+Privileged critic, the disturbance curriculum, ``action_repeat != 1`` and a
+multi-device mesh raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -370,8 +371,6 @@ def train(
             f"the disturbance curriculum is not ported yet ({_ROADMAP_EXTRAS})")
     if action_repeat != 1:
         raise NotImplementedError(f"action_repeat != 1 is not ported yet ({_ROADMAP_EXTRAS})")
-    if os.environ.get("PUPPAX_FUSED_UNROLL", "off") in ("on", "force", "auto_on"):
-        raise NotImplementedError("the fused unroll (K4) is not ported yet (ROADMAP queue 2)")
     if entropy_schedule not in ("constant", "linear"):
         raise ValueError(f"unknown entropy_schedule {entropy_schedule!r}")
     if torch.device(environment.device) != device:
@@ -394,8 +393,9 @@ def train(
     )
     lane_ok, lane_reason = rollout.support_reason(env)
     lane = rollout.FastLane(env) if lane_ok else None
+    fused = f", fused-unroll={'ON' if lane.use_fused(unroll_length) else 'OFF'}" if lane else ""
     print(f"[puppax.ppo] rollout fast lane: {'ON' if lane_ok else 'OFF'} ({lane_reason}; "
-          f"devices=1{', fused-unroll=OFF' if lane_ok else ''})", flush=True)
+          f"devices=1{fused})", flush=True)
     obs_size, action_size = environment.observation_size, environment.action_size
 
     networks = network_factory(obs_size, action_size, device=device, generator=gens["network"])

@@ -1,5 +1,5 @@
-"""The K3, K2 and K1 kernels on an NVIDIA GPU against their plain versions,
-and short training runs through them.
+"""The K3, K2, K1 and K4 kernels on an NVIDIA GPU against their plain
+versions, and short training runs through them.
 
 These tests need a CUDA device and nvcc; without them they skip. On the
 GPU host (which has no JAX) run them with
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import torch_port_helpers as H
-from puppax_torch.env import soa_env
+from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.physics import soa
 
 pytestmark = pytest.mark.cuda
@@ -147,5 +147,59 @@ def test_physics_only_training_launches_k1(tmp_path, monkeypatch):
     )
     assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (0, 0)
     assert soa.step_batched.launches == 4 + 2000
+    assert float(norm.count) == 4 * 256
+    assert np.isfinite(metrics["training/total_loss"])
+
+
+@pytest.mark.parametrize("B,gait,activation", [(256, False, "elu"), (300, True, "tanh")])
+def test_fused_unroll_kernel_matches_plain(B, gait, activation):
+    """K4 over T=3 (full and ragged last block; the clock off and on; every
+    env ends an episode inside the unroll) against its plain version: the
+    final carry and each step's aux rows at K3's tolerances, the policy
+    outputs at 1e-5 (bit for bit expected)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.env.pupper import PupperV3Env
+
+    T, L = 3, 4
+    env = PupperV3Env(device="cuda", gait_phase_observation=gait, **H.env_kwargs(5))
+    s, es = env._s, env._es
+    layers, blocks = H.fused_unroll_inputs(env, B, T, activation, L)
+    before = fused_unroll.unroll.launches
+    got = fused_unroll.unroll(s, es, 5, L, activation, layers, *blocks)
+    torch.cuda.synchronize()
+    assert fused_unroll.unroll.launches == before + 1
+    want = fused_unroll.unroll_rows(s, es, 5, L, activation, layers, *blocks)
+    cpu = lambda xs: [x.cpu().numpy() for x in xs]  # noqa: E731
+    for t in range(T):
+        H.assert_wrapped_outputs_close(cpu(got[:4] + (got[9][t],)), cpu(want[:4] + (want[9][t],)),
+                                       s, es, soa_env.aux_row_map(es), f"K4 vs plain, step {t}")
+    for i in (5, 6, 7):
+        np.testing.assert_allclose(got[i].cpu().numpy(), want[i].cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(got[8].cpu().numpy(), want[8].cpu().numpy(), atol=2e-4)
+    if gait:
+        np.testing.assert_allclose(got[4].cpu().numpy(), want[4].cpu().numpy(), atol=1e-6)
+
+
+def test_short_training_on_the_fused_lane(env, tmp_path, monkeypatch):
+    """PUPPAX_FUSED_UNROLL=on: one training step (one 4-step unroll of 256
+    envs) and two evaluations of 16 envs launch K4 once, K3 never and K2
+    2 x 1000 times."""
+    from puppax_torch.train import networks, ppo
+
+    monkeypatch.setenv("PUPPAX_FUSED_UNROLL", "on")
+
+    def factory(obs, act, device=None, generator=None):
+        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
+                                          generator=generator)
+
+    soa_env.wrapped_step.launches = soa_env.env_step.launches = fused_unroll.unroll.launches = 0
+    _, (norm, _), metrics = ppo.train(
+        env, num_timesteps=64 * 4 * 4, episode_length=1000, num_envs=256, num_eval_envs=16,
+        unroll_length=4, batch_size=64, num_minibatches=4, num_updates_per_batch=1,
+        num_evals=2, network_factory=factory, device="cuda", checkpoint_dir=str(tmp_path),
+    )
+    assert fused_unroll.unroll.launches == 1
+    assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (0, 2000)
     assert float(norm.count) == 4 * 256
     assert np.isfinite(metrics["training/total_loss"])

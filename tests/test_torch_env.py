@@ -161,8 +161,7 @@ def test_observation_size_and_config():
 
 
 @pytest.mark.parametrize("option", [
-    {"privileged_obs": True}, {"gait_phase_observation": True},
-    {"disturbance_curriculum": True}, {"path": "other.xml"},
+    {"privileged_obs": True}, {"disturbance_curriculum": True}, {"path": "other.xml"},
 ])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -359,11 +359,3 @@ def test_unported_train_options_raise(option):
     env = type("E", (), {"device": torch.device("cpu")})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ppo.train(env, 8, 8, device="cpu", **option)
-
-
-def test_fused_unroll_raises(monkeypatch):
-    monkeypatch.setenv("PUPPAX_FUSED_UNROLL", "on")
-    env = type("E", (), {"device": torch.device("cpu")})
-    with pytest.raises(NotImplementedError, match="K4"):
-        ppo.train(env, 8, 8, device="cpu")
-

@@ -285,3 +285,39 @@ def assert_wrapped_outputs_close(got, want, s, es, aux_rows, what: str):
             )
         else:
             np.testing.assert_allclose(g, w, atol=2e-4, err_msg=f"{what}: aux {name}")
+
+
+def fused_unroll_inputs(env, n: int, T: int, activation: str, episode_length: int,
+                        seed: int = 3):
+    """The folded policy layers and the 9 input blocks of one fused unroll
+    (q, v, env, wrap, phase or None, first, dr, noise, eps) of ``env`` (its
+    device; the clock as the env has it): a reset of ``n`` envs with their
+    episode counts staggered (so the envs end at different steps), the
+    clocks started apart, T steps of draws and a random policy with a
+    non-trivial normalizer."""
+    from puppax_torch.env import fused_unroll
+    from puppax_torch.env.rollout import FastLane
+    from puppax_torch.env.wrappers import wrap_for_training
+    from puppax_torch.train import networks, running_statistics
+
+    dev = env.device
+    wrapped = wrap_for_training(env, episode_length)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state = wrapped.reset(n, g)
+    info = dict(state.info, steps=torch.arange(n, dtype=torch.float32, device=dev)
+                % episode_length)
+    if env._gait_phase_obs:
+        info["gait_phase"] = torch.linspace(0.5, 6.27, n, device=dev)
+    lane = FastLane(wrapped)
+    carry = lane.carry_from_state(state.replace(info=info))
+    noise, _ = lane.draw_noise_block(g, n, T)
+    eps = torch.randn((T, env.action_size, n), generator=g, device=dev)
+    policy = networks.make_ppo_networks(env.observation_size, env.action_size, (32, 32),
+                                        (32, 32), activation=activation, device=dev,
+                                        generator=g).policy_network
+    obs = env.observation_size
+    norm = running_statistics.from_jax(np.linspace(-0.1, 0.1, obs), np.linspace(0.9, 1.1, obs),
+                                       device=dev)
+    blocks = [carry[k] for k in ("q", "v", "env", "wrap")] + [
+        carry.get("phase"), carry["first"], carry["dr"], noise, eps]
+    return fused_unroll.fold_normalizer(norm, policy), blocks
