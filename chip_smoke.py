@@ -63,9 +63,22 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``PUPPAX_FUSED_UNROLL=on``: the lane line reads ``fused-unroll=ON``, 6
    K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1, the
    same checks;
-12. a JSON line of the four kernels (launches in their training run,
-   error against the plain version, times, the bound of the card) and,
-   last, the device JSON line.
+12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
+   4096 DR'd states: their 12 libraries built in one parallel batch (K1's
+   body cut after each phase, with the sink row that keeps the cut pass
+   live, and whole in the probe shell, the whole body under
+   ``--fmad=true``, the multiply-add chain under both flags, ``x + 1``),
+   then each probe's ``run``: K1's time per phase, K1 by layout and
+   threads per block, the chain and ``--fmad=true`` K1, and launch
+   overhead eager and from a CUDA graph, with the host's time per launch
+   layer by layer and through K3's and K1's production wrappers. Each
+   probe kernel is held against
+   its plain version (bit for bit; the ``--fmad=true`` builds are reported
+   and must stay finite), and every probe kernel must have launched in
+   this phase;
+13. a JSON line of the kernels (launches in their training run or probe
+   phase, error against the plain version, times, the bound of the card)
+   and, last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is visible or when it is
@@ -847,6 +860,47 @@ def main():
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
 
+    # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
+    from puppax_torch.probes import common as probes
+    from puppax_torch.probes import probe_fma_fusion, probe_launch_overhead
+    from puppax_torch.probes import profile_kernel_phases, profile_layout
+
+    with Phase("probes: build"):
+        build.build_in_parallel(
+            *[(lambda cut=cut: build.probe_physics_library(s1, n_sub, cut)) for cut in soa.PHASES],
+            lambda: build.probe_physics_library(s1, n_sub, None, fmad=True),
+            lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
+            build.add_one_library)
+        fmad_flags = build.probe_flags(True)
+        probe_records = {
+            **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
+               for cut in soa.PHASES},
+            probes.k1_probe_name(None, fmad=True): build.record_name(build.PROBE_PHYSICS, "full",
+                                                                     fmad_flags),
+            "fma_chain": build.record_name(build.FMA_CHAIN),
+            "fma_chain_fmad": build.record_name(build.FMA_CHAIN, "", fmad_flags),
+            "add_one": build.record_name(build.ADD_ONE),
+        }
+        probes.print_builds(list(probe_records.values()))
+
+    with Phase("probes"):
+        probes.launches.clear()
+        cuts = profile_kernel_phases.run(s1, n_sub, k1_blocks)
+        layouts = profile_layout.run(s1, n_sub, k1_blocks)
+        chain = probe_fma_fusion.run_chain(device)
+        k1_fmad = probe_fma_fusion.run_k1(s1, n_sub, k1_blocks)
+        overhead = probe_launch_overhead.run(s1, n_sub, k1_blocks, production={
+            "K3: soa_env.wrapped_step (4096 envs)": k3_step,
+            "K1: soa.step_batched (4096 envs)": lambda: soa.step_batched(s1, *k1_blocks, n_sub),
+        })
+        probe_launches = dict(probes.launches)
+        print("probe launches: " + json.dumps(probe_launches), flush=True)
+        expected = [*probe_records, probes.k1_probe_name("fk", probes.BLOCK_MAJOR),
+                    probes.k1_probe_name(None, probes.BLOCK_MAJOR)]
+        missing = [name for name in expected if probe_launches.get(name, 0) == 0]
+        if missing:
+            raise AssertionError(f"probe kernels never launched in the probe phase: {missing}")
+
     k3_bound, k3_by = bound_ms(build.last_build["wrapped_step"]["ops_per_env"],
                                *(sum(r) for r in soa_env.block_rows(s, es)), B)
     k2_bound, k2_by = bound_ms(build.last_build["env_step"]["ops_per_env"],
@@ -916,6 +970,50 @@ def main():
         "bound_by": k4_by,
         "library_ms": None,
     }]
+
+    def probe_entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
+                "replaces": replaces, "launches": probe_launches.get(name, 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library_ms}
+
+    k1_rows = [sum(soa.physics_block_rows(s1)[0]), sum(probes.probe_out_rows(s1))]
+
+    def k1_bound_of(record):
+        return bound_ms(build.last_build[record]["ops_per_env"], *k1_rows, B)
+
+    for cut in soa.PHASES:
+        name = probes.k1_probe_name(cut)
+        kernels.append(probe_entry(
+            name, "probe_physics.cuh", "dev/profile_kernel_phases.py:68",
+            cuts[cut]["max_abs_err"], cuts[cut]["us"] / 1e3, cuts[cut]["plain_ms"],
+            k1_bound_of(probe_records[name])))
+    for cut in profile_layout.PHASES:
+        lay = layouts[(cut, probes.BLOCK_MAJOR, 128)]
+        kernels.append(probe_entry(
+            probes.k1_probe_name(cut, probes.BLOCK_MAJOR), "probe_physics.cuh",
+            "dev/profile_layout.py:113", lay["max_abs_err"], lay["us"] / 1e3,
+            cuts[cut]["plain_ms"], k1_bound_of(probe_records[probes.k1_probe_name(cut)])))
+    fmad_name = probes.k1_probe_name(None, fmad=True)
+    kernels.append(probe_entry(
+        fmad_name, "probe_physics.cuh", "dev/probe_fma_fusion.py:47",
+        max(k1_fmad["max_q"], k1_fmad["max_v"], k1_fmad["max_caches"]), k1_fmad["ms_on"],
+        cuts[None]["plain_ms"], k1_bound_of(probe_records[fmad_name])))
+    blocks_, n_ = probe_fma_fusion.TPU_GRID
+    chain_ops = 2 * probe_fma_fusion.K_DEFAULT  # per thread; a multiply-add counts 2
+    for fmad in (False, True):
+        res = chain[("tpu", "muladd", fmad)]
+        kernels.append(probe_entry(
+            "fma_chain_fmad" if fmad else "fma_chain", "probe_fma.cuh",
+            "dev/probe_fma_fusion.py:47", res["max_abs_err"], res["ms"], res["plain_ms"],
+            bound_ms(chain_ops, 2 / blocks_, 1, blocks_ * n_)))
+    # add_one's time and torch's x + 1 (its plain version and the one library
+    # call of the same function) from CUDA graphs: the device's, not the host's
+    add = overhead["add_one_nb32"]
+    kernels.append(probe_entry(
+        "add_one", "probe_add_one.cuh", "dev/probe_launch_overhead.py:48", add["max_abs_err"],
+        add["graph_us"] / 1e3, add["torch_us"][1] / 1e3, bound_ms(1, 1, 1, add["numel"]),
+        library_ms=add["torch_us"][1] / 1e3))
     print(f"bounds: K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
           f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_UNROLL} "

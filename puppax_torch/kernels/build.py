@@ -13,10 +13,18 @@ finished library in that directory is reused; nothing is built at import.
 ``-Xptxas -v`` writes the registers, stack and spills of the kernel into
 the build directory's ``build.log``.
 
+The kernel-time probes (``puppax_torch/probes``) build other variants:
+K1's body cut after a phase, in their own launch shell, or under
+``--fmad=true`` (``probe_flags``). A variant is its own library and its
+own ``last_build`` record (``record_name``: the shell, the cut, the flags
+that differ from ``NVCC_FLAGS``), so a probe build never stands in for
+a production one. The production kernels build with ``NVCC_FLAGS`` only.
+
 Each nvcc is one subprocess, so ``build_in_parallel`` builds several
 kernels at once from threads. ``check_blocks`` and ``launch`` are the
 wrappers' shared checks of the ``(rows, B)`` input blocks and their launch
-on the current stream.
+on the current stream; ``launch_into`` launches into outputs the caller
+allocated.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -69,14 +77,39 @@ PHYSICS_STEP = Kernel("physics_step", CSRC / "physics_step.cuh", 7,  # 4 in + 3 
 # 10 in + 10 out + 4 scratch; ints T, n_layers, activation, gait, the 9 layer widths
 FUSED_UNROLL = Kernel("fused_unroll", CSRC / "fused_unroll.cuh", 24,
                       "fused_unroll_launch", "fused_unroll_host", n_ints=13)
+# the probes' shells: K1's body in two layouts (4 in + 3 out + the sink row;
+# ints threads, layout and the row counts nq, nv, nu, ndr, ncache); the multiply-add
+# chain (a, b, out; B = threads per block; ints K, mode, blocks); x + 1
+# (x, out; B = elements)
+PROBE_PHYSICS = Kernel("probe_physics", CSRC / "probe_physics.cuh", 8,
+                       "probe_physics_launch", "probe_physics_host", n_ints=7)
+FMA_CHAIN = Kernel("fma_chain", CSRC / "probe_fma.cuh", 3,
+                   "fma_chain_launch", "fma_chain_host", n_ints=3)
+ADD_ONE = Kernel("add_one", CSRC / "probe_add_one.cuh", 2, "add_one_launch", "add_one_host")
 
-# (kernel, model statics, env statics, config) -> loaded library
+# (record name, model statics, env statics, config) -> loaded library
 _LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
 _EMIT_LOCK = threading.Lock()
 
-# what the last build of each kernel did: name -> {"compile_seconds": ...,
-# "ops_per_env": float operations of one env's run, cgen.op_count}
+# what the last build of each kernel did: record_name -> {"compile_seconds":
+# ..., "ops_per_env": float operations of one env's run, cgen.op_count,
+# "host_cpus": the build host's os.cpu_count(), which the wall time of a
+# parallel build depends on}
 last_build: Dict[str, Dict[str, object]] = {}
+
+
+def probe_flags(fmad: bool) -> Tuple[str, ...]:
+    """``NVCC_FLAGS``, with multiply-add contraction on if ``fmad`` (a
+    probe-only build: the production kernels keep ``--fmad=false``)."""
+    return tuple("--fmad=true" if fmad and f == "--fmad=false" else f for f in NVCC_FLAGS)
+
+
+def record_name(kernel: Kernel, variant: str = "", flags: Sequence[str] = NVCC_FLAGS) -> str:
+    """A build's key in ``last_build``: the kernel's name (its shell), then
+    the variant (a probe's phase cut) and the flags that differ from
+    ``NVCC_FLAGS``, each in brackets; a production build is its name alone."""
+    extra = " ".join(f for f in flags if f not in NVCC_FLAGS)
+    return kernel.name + "".join(f"[{t}]" for t in (variant, extra) if t)
 
 
 def nvcc_path() -> str:
@@ -137,8 +170,10 @@ def _bind(lib: ctypes.CDLL, kernel: Kernel, with_stream: bool):
 
 
 def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
-                    make_body: Callable[[], str]) -> ctypes.CDLL:
-    key = (kernel.name, id(s), id(es), config)
+                    make_body: Callable[[], str], variant: str = "",
+                    flags: Sequence[str] = NVCC_FLAGS) -> ctypes.CDLL:
+    name = record_name(kernel, variant, flags)
+    key = (name, id(s), id(es), config)
     hit = _LOADED.get(key)
     if hit is not None:
         return hit[2]
@@ -147,15 +182,16 @@ def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
         body = make_body()
         gen_secs = time.perf_counter() - t0
     path, cached, secs = compile_library(
-        kernel, body, [nvcc_path()], NVCC_FLAGS, BUILD_ROOT, f"lib{kernel.name}.so"
+        kernel, body, [nvcc_path()], flags, BUILD_ROOT, f"lib{kernel.name}.so"
     )
     lib = ctypes.CDLL(str(path))
     _bind(lib, kernel, with_stream=True)
     from puppax_torch.kernels import cgen
 
-    last_build[kernel.name] = dict(
+    last_build[name] = dict(
         generate_seconds=gen_secs, compile_seconds=secs, cached=cached,
         dir=str(path.parent), lines=body.count("\n"), ops_per_env=cgen.op_count(body),
+        host_cpus=os.cpu_count(),
     )
     _LOADED[key] = (s, es, lib)  # keeps s/es alive so their ids stay unique
     return lib
@@ -206,6 +242,45 @@ def fused_unroll_library(s, es, n_substeps: int, episode_length: int) -> ctypes.
     )
 
 
+def probe_physics_library(s, n_substeps: int, phase_limit: Optional[str] = None,
+                          fmad: bool = False) -> ctypes.CDLL:
+    """K1's body, cut after ``phase_limit`` (None: the whole body) and with
+    its sink row, in the probes' launch shell ``csrc/probe_physics.cuh``
+    (row-major and block-major layouts, 32-128 threads per block), with
+    multiply-add contraction if ``fmad``: a probe-only build, recorded as
+    ``probe_physics[<cut or full>]`` (plus ``[--fmad=true]``)."""
+    from puppax_torch.kernels import cgen
+
+    return _device_library(
+        PROBE_PHYSICS, s, None, (int(n_substeps),),
+        lambda: cgen.physics_step_body(s, n_substeps, phase_limit, sink=True),
+        variant=phase_limit or "full", flags=probe_flags(fmad),
+    )
+
+
+def wrapped_step_fmad_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
+    """K3 (``wrapped_step_library``'s source) with multiply-add contraction:
+    a probe-only build, recorded as ``wrapped_step[--fmad=true]``."""
+    from puppax_torch.kernels import cgen
+
+    return _device_library(
+        WRAPPED_STEP, s, es, (int(n_substeps), int(episode_length)),
+        lambda: cgen.wrapped_step_body(s, es, n_substeps, episode_length),
+        flags=probe_flags(True),
+    )
+
+
+def fma_chain_library(fmad: bool) -> ctypes.CDLL:
+    """The multiply-add chain probe (``csrc/probe_fma.cuh``; no generated
+    body), with or without multiply-add contraction."""
+    return _device_library(FMA_CHAIN, None, None, (), lambda: "", flags=probe_flags(fmad))
+
+
+def add_one_library() -> ctypes.CDLL:
+    """The launch-overhead probe's ``x + 1`` kernel (``csrc/probe_add_one.cuh``)."""
+    return _device_library(ADD_ONE, None, None, (), lambda: "")
+
+
 def build_in_parallel(*builds: Callable[[], object]) -> list:
     """Run the given library builds (e.g. ``lambda: env_step_library(...)``)
     in threads, so their nvcc processes run at the same time."""
@@ -246,8 +321,16 @@ def launch(name: str, lib_fn, blocks, out_rows: Sequence[int], B: int, dev):
     """Allocate the output blocks and launch one kernel on the current
     stream; raise on a launch error."""
     outs = [torch.empty((n, B), dtype=torch.float32, device=dev) for n in out_rows]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib_fn(*[t.data_ptr() for t in list(blocks) + outs], B, stream)
+    launch_into(name, lib_fn, list(blocks) + outs, B)
+    return tuple(outs)
+
+
+def launch_into(name: str, lib_fn, tensors, B: int, *ints: int):
+    """Launch one kernel on the current stream of the tensors' device (the
+    capture stream inside ``torch.cuda.graph``) with the tensors' pointers
+    (inputs, then outputs the caller allocated), ``B`` and ``ints``; raise
+    on a launch error."""
+    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+    rc = lib_fn(*[t.data_ptr() for t in tensors], B, *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    return tuple(outs)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 
@@ -315,15 +315,21 @@ def env_step_body(s, es, n_substeps: int) -> str:
     )
 
 
-def physics_step_body(s, n_substeps: int) -> str:
+def physics_step_body(s, n_substeps: int, phase_limit=None, sink: bool = False) -> str:
     """C source of ``physics_step_body`` (K1): the physics-only emission
     (``soa.emit_physics_rows``: the substeps, the last forward pass's caches
-    and the final integrate)."""
+    and the final integrate). ``phase_limit`` (one of ``soa.PHASES``) emits
+    the program cut after that phase, for the kernel-time probes; the
+    header comment names the cut. ``sink`` (the probes' shell,
+    ``csrc/probe_physics.cuh``) adds the output block ``sink_out``, one row
+    that keeps every value of the cut pass live."""
     in_rows, _ = soa.physics_block_rows(s)
+    cut = "" if phase_limit is None else f", cut after phase {phase_limit}"
     return _body(
-        "physics_step_body", "PS_PARAMS", PHYSICS_IN_BLOCKS, PHYSICS_OUT_BLOCKS, in_rows,
-        lambda rows: soa.emit_physics_rows(s, n_substeps, rows),
-        f"physics-step\n// emission: n_substeps={n_substeps}",
+        "physics_step_body", "PP_PARAMS" if sink else "PS_PARAMS", PHYSICS_IN_BLOCKS,
+        PHYSICS_OUT_BLOCKS + (("sink_out",) if sink else ()), in_rows,
+        lambda rows: soa.emit_physics_rows(s, n_substeps, rows, phase_limit, sink),
+        f"physics-step\n// emission: n_substeps={n_substeps}{cut}{', sink row' if sink else ''}",
     )
 
 
@@ -331,6 +337,12 @@ _LOOP = re.compile(r"for \(int \w+ = 0; \w+ < (\d+); \+\+\w+\) \{$")
 _OPS = re.compile(
     r"(?<![eE])[-+*/](?![=+])|[<>]=?|[!=]=|\b(?:sqrtf|expf|sinf|cosf|fabsf|pmax|pmin|psign)\("
 )
+# a declaration (value, carry, accumulator or stacked array), an assignment
+# of a carry or accumulator, a store into an output block
+_DECL = re.compile(r"(?:const )?(?:float|bool|int) (\w+)(?:\[\d+\])? = (.*);$")
+_ASSIGN = re.compile(r"(\w+) = (.*);$")
+_STORE = re.compile(r"\w+\[[^\]]*\* B \+ b\] = (.*);$")
+_NAME = re.compile(r"\b[a-z]\d+\b")  # the names CProgram.fresh makes
 
 
 def op_count(body: str) -> int:
@@ -338,8 +350,13 @@ def op_count(body: str) -> int:
     arithmetic operator, comparison, min/max, sign and math-library call,
     each line weighted by the trip counts of the loops around it (the
     substep loop and the line search's expand / Illinois / row loops).
-    Loads, stores, selects and the loop counters are not counted."""
-    total, trips = 0, [1]
+    Only lines whose value reaches a store count, as nvcc drops the rest
+    (a phase cut pads the outputs it has not reached, so the values only
+    those would read are dead). Loads, stores, selects and the loop
+    counters are not counted."""
+    defs: Dict[str, List[int]] = {}  # name -> the lines that set it
+    uses, ops, roots = [], [], []
+    trips = [1]
     for line in body.splitlines():
         line = re.sub(r"//.*", "", line).strip()
         m = _LOOP.match(line)
@@ -350,10 +367,28 @@ def op_count(body: str) -> int:
             if len(trips) > 1:
                 trips.pop()
             continue
-        if "=" not in line or line.startswith(("PUPPAX_HD", "#")):
+        if line.startswith(("PUPPAX_HD", "#")):
             continue
-        rhs = line.split("=", 1)[1]
+        m = _STORE.match(line)
+        if m:
+            roots.extend(_NAME.findall(m.group(1)))
+            continue
+        m = _DECL.match(line) or _ASSIGN.match(line)
+        if not m:
+            continue
+        rhs = m.group(2)
+        defs.setdefault(m.group(1), []).append(len(ops))
+        uses.append(_NAME.findall(rhs))
         rhs = re.sub(r"\w+\[[^\]]*\]", "x", rhs)  # indices are not float work
         rhs = re.sub(r"(?<![\w.])\(?-?\d+(?:\.\d*)?(?:e[+-]?\d+)?f\)?", "c", rhs)  # literals
-        total += trips[-1] * len(_OPS.findall(rhs))
-    return total
+        ops.append(trips[-1] * len(_OPS.findall(rhs)))
+    live, todo, seen = set(), list(roots), set()
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        for i in defs.get(name, ()):
+            live.add(i)
+            todo.extend(uses[i])
+    return sum(ops[i] for i in live)

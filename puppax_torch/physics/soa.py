@@ -27,7 +27,7 @@ the terrain item of the ROADMAP's queue 1.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,14 @@ _MINVAL = 1e-15
 # Lowering them broke kernel parity in the JAX package; they stay fixed.
 LS_EXPAND_ITERS = 12
 LS_ILLINOIS_ITERS = 24
+
+# The cuts of the forward pass the kernel-time probes build (the values of
+# puppax/physics/soa.py's PHASE_LIMIT, in program order): after the
+# kinematics and the subtree COM, the COM-frame inertias and dof axes, the
+# COM velocities, the CRB mass matrix, the RNE bias forces, the smooth
+# acceleration, and the contact / friction / limit rows; None is the whole
+# pass.
+PHASES = ("fk", "compos", "comvel", "crb", "rne", "smooth", "efc", None)
 
 
 # ---------------------------------------------------------------------------
@@ -786,8 +794,44 @@ def _inert_mv(I6, m6):
     ]
 
 
-def _emit_forward(s: _Static, q, v, ctrl, dr):
-    """One full forward-dynamics pass (pipeline.forward equivalent)."""
+def _flat(x):
+    """The leaves of nested lists, tuples and dicts (None dropped)."""
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _flat(y)
+    elif x is not None:
+        yield x
+
+
+def _sink(values):
+    """One value that reads every distinct non-constant leaf of
+    ``values``: their sum, taken pairwise (a tree of depth log2 n), so the
+    sum adds little to a thread's dependent chain. 0.0 if there is none."""
+    seen, vals = set(), []
+    for x in _flat(values):
+        if not _c(x) and id(x) not in seen:
+            seen.add(id(x))
+            vals.append(x)
+    while len(vals) > 1:
+        vals = [add(vals[i], vals[i + 1]) if i + 1 < len(vals) else vals[i]
+                for i in range(0, len(vals), 2)]
+    return vals[0] if vals else 0.0
+
+
+def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
+                  sink: bool = False):
+    """One full forward-dynamics pass (pipeline.forward equivalent).
+
+    ``phase_limit`` (one of ``PHASES``) cuts the pass after that phase, as
+    ``puppax/physics/soa.py``'s ``PHASE_LIMIT`` does for the kernel-time
+    probes: the outputs not yet computed are padded with ``q[0]``. The
+    padding leaves every value that only those outputs read dead, and a
+    compiler drops it; ``sink`` (probes only) adds the entry ``sink``, the
+    ``_sink`` of every value the cut pass computed, which keeps them live."""
+    if phase_limit not in PHASES:
+        raise ValueError(f"phase_limit {phase_limit!r} is not one of {PHASES}")
     xpos, xquat, xanchor, xaxis = _emit_fk(s, q, dr)
 
     # inertial frames (DR ipos) + subtree COM of the single tree
@@ -805,6 +849,26 @@ def _emit_forward(s: _Static, q, v, ctrl, dr):
         mom = vadd3(mom, vscale3(xipos[b], mass[b]))
     inv_tot = 1.0 / maximum(materialize(tot_mass, mom[0]), 1e-12)
     com_root = vscale3(mom, inv_tot)
+    kept = [xanchor, xaxis, xipos, ximat, com_root]  # what the cuts' sink reads
+
+    def _phase_out(**kw):
+        pad = dict(
+            qacc=[q[0]] * s.nv, qacc_smooth=[q[0]] * s.nv,
+            qfrc_actuator=[q[0]] * s.nv,
+            xpos=xpos, xquat=xquat,
+            cvel=[([q[0]] * 3, [q[0]] * 3)] * s.nbody,
+            com_root=[q[0]] * 3,
+            con_dist=[q[0]] * s.npair,
+            con_pos=[[q[0]] * 3] * s.npair,
+            sites=[[q[0]] * 3] * s.nsite,
+        )
+        pad.update(kw)
+        if sink:
+            pad["sink"] = _sink(kept)
+        return pad
+
+    if phase_limit == "fk":
+        return _phase_out()
 
     # com-frame spatial inertias
     cinert = [None] * s.nbody
@@ -832,6 +896,10 @@ def _emit_forward(s: _Static, q, v, ctrl, dr):
             ax = xaxis[j]
             off = vsub3(com_root, xanchor[j])
             cdof[d] = (ax, vcross3(ax, off))
+
+    kept.extend([cinert, cdof])
+    if phase_limit == "compos":
+        return _phase_out()
 
     # com velocities (forward pass)
     cvel = [None] * s.nbody
@@ -864,6 +932,10 @@ def _emit_forward(s: _Static, q, v, ctrl, dr):
                 vadd3(cvel[p][1], vscale3(lin, v[d])),
             )
 
+    kept.extend([cvel, cdof_dot])
+    if phase_limit == "comvel":
+        return _phase_out()
+
     # CRB mass matrix (sparse entries over the ancestor pattern)
     crb = [None] + [[row[:] for row in cinert[b]] for b in range(1, s.nbody)]
     for b in range(s.nbody - 1, 0, -1):
@@ -889,6 +961,10 @@ def _emit_forward(s: _Static, q, v, ctrl, dr):
             if jd == kd:
                 acc = add(acc, float(s.dof_armature[jd]))
             M[(jd, kd)] = acc
+
+    kept.append(M)
+    if phase_limit == "crb":
+        return _phase_out()
 
     # RNE bias forces
     cacc = [None] * s.nbody
@@ -930,6 +1006,10 @@ def _emit_forward(s: _Static, q, v, ctrl, dr):
             acc = fma(acc, m6[i], total[b][i])
         qfrc_bias[d] = acc
 
+    kept.append(qfrc_bias)
+    if phase_limit == "rne":
+        return _phase_out()
+
     # passive + actuation
     qfrc_passive = [mul(-float(s.dof_damping[d]), v[d]) for d in range(s.nv)]
     qfrc_act = [0.0] * s.nv
@@ -951,6 +1031,10 @@ def _emit_forward(s: _Static, q, v, ctrl, dr):
         add(qfrc_passive[d], sub(qfrc_act[d], qfrc_bias[d])) for d in range(s.nv)
     ]
     qacc_smooth = _ldl_solve_dict(s, M, qfrc_smooth)
+
+    kept.extend([qfrc_act, qacc_smooth])
+    if phase_limit == "smooth":
+        return _phase_out(qacc=qacc_smooth, qacc_smooth=qacc_smooth)
 
     # ---- contacts: ALL candidate pairs, no caps (C semantics) ----
     con_dist, con_pos, rows_con = [], [], []
@@ -1072,6 +1156,11 @@ def _emit_forward(s: _Static, q, v, ctrl, dr):
         )
         D = where(pos < 0, 1.0 / R, 0.0)
         rows_lim.append(_Row(J={d: side}, aref=aref, D=D, R=R, floss=0.0, fric=False))
+
+    kept.extend([con_dist, con_pos, rows_fric, rows_lim, rows_con])
+    if phase_limit == "efc":
+        return _phase_out(qacc=qacc_smooth, qacc_smooth=qacc_smooth,
+                          con_dist=con_dist, con_pos=con_pos)
 
     rows = rows_fric + rows_lim + rows_con
     qacc = _emit_newton(s, M, qacc_smooth, rows, v)
@@ -1334,24 +1423,34 @@ def _emit_integrate(s: _Static, q, v, qacc):
 
 
 @with_cse
-def _emit_substeps(s: _Static, q, v, ctrl, dr, n_substeps: int):
+def _emit_substeps(s: _Static, q, v, ctrl, dr, n_substeps: int,
+                   phase_limit: Optional[str] = None, sink: bool = False):
     """All-but-last substeps as a loop of (forward + integrate), then the
     final forward. Returns (q, v, fw): the state BEFORE the final
-    integrate and the last forward pass."""
+    integrate and the last forward pass. ``phase_limit`` cuts every
+    forward pass (``_emit_forward``); with ``sink`` and a cut, the loop
+    carries the sum of every pass's sink, and ``fw["sink"]`` is the total."""
     ref = q[0]
+    sink = sink and phase_limit is not None
+    total = 0.0
     if n_substeps > 1:
         def body(_, carry):
-            ql, vl = carry[: s.nq], carry[s.nq:]
-            fw = _emit_forward(s, ql, vl, ctrl, dr)
+            ql, vl = carry[: s.nq], carry[s.nq : s.nq + s.nv]
+            fw = _emit_forward(s, ql, vl, ctrl, dr, phase_limit, sink)
             q2, v2 = _emit_integrate(s, ql, vl, fw["qacc"])
-            return [materialize(t, ref) for t in q2 + v2]
+            acc = [add(carry[-1], fw["sink"])] if sink else []
+            return [materialize(t, ref) for t in q2 + v2 + acc]
 
         carry = fori_loop(
-            n_substeps - 1, body, [materialize(t, ref) for t in list(q) + list(v)]
+            n_substeps - 1, body,
+            [materialize(t, ref) for t in list(q) + list(v) + ([total] if sink else [])],
         )
-        q, v = carry[: s.nq], carry[s.nq:]
+        q, v = carry[: s.nq], carry[s.nq : s.nq + s.nv]
+        total = carry[-1]
 
-    fw = _emit_forward(s, q, v, ctrl, dr)
+    fw = _emit_forward(s, q, v, ctrl, dr, phase_limit, sink)
+    if sink:
+        fw["sink"] = add(total, fw["sink"])
     return q, v, fw
 
 
@@ -1448,24 +1547,32 @@ def physics_block_rows(s: _Static):
 
 
 @with_cse
-def emit_physics_rows(s: _Static, n_substeps: int, rows):
+def emit_physics_rows(s: _Static, n_substeps: int, rows, phase_limit: Optional[str] = None,
+                      sink: bool = False):
     """The physics-only step on 4 lists of per-row values (either
     back-end): the substeps, the last forward pass's caches and the final
     integrate (``puppax/physics/soa.py::_build_kernel`` with integrate=True).
-    Returns the 3 output lists in block order."""
+    Returns the 3 output lists in block order. ``phase_limit`` cuts every
+    forward pass after that phase (``PHASES``), for the kernel-time probes;
+    ``sink`` adds a fourth output of one row, the sum of what every cut
+    pass computed (``_emit_forward``; 0 without a cut)."""
     q, v, ctrl, dr_r = rows
     dr = {name: [dr_r[r0 + i] for i in range(n)] for name, (r0, n) in s.dr_rows.items()}
-    qp, vp, fw = _emit_substeps(s, q, v, ctrl, dr, n_substeps)
+    qp, vp, fw = _emit_substeps(s, q, v, ctrl, dr, n_substeps, phase_limit, sink)
     caches = _emit_caches(s, fw)
     q2, v2 = _emit_integrate(s, qp, vp, fw["qacc"])
-    return q2, v2, caches
+    return (q2, v2, caches, [fw.get("sink", 0.0)]) if sink else (q2, v2, caches)
 
 
-def physics_step_rows(s: _Static, n_substeps: int, q, v, ctrl, dr):
+def physics_step_rows(s: _Static, n_substeps: int, q, v, ctrl, dr,
+                      phase_limit: Optional[str] = None, sink: bool = False):
     """K1's plain version: the physics-only emission evaluated with torch
     ops on ``(rows, B)`` blocks (q, v, ctrl, dr). Returns (q', v', caches)
-    as ``(rows, B)`` blocks, the caches in ``s.cache_rows`` order."""
-    return plain_rows(lambda rows: emit_physics_rows(s, n_substeps, rows), (q, v, ctrl, dr))
+    as ``(rows, B)`` blocks, the caches in ``s.cache_rows`` order.
+    ``phase_limit`` evaluates the emission cut after that phase, and
+    ``sink`` adds its sink row (``emit_physics_rows``)."""
+    return plain_rows(lambda rows: emit_physics_rows(s, n_substeps, rows, phase_limit, sink),
+                      (q, v, ctrl, dr))
 
 
 def step_batched(s: _Static, q, v, ctrl, dr, n_substeps: int):

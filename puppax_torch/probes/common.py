@@ -1,0 +1,313 @@
+"""Shared parts of the kernel-time probes.
+
+- ``require_cuda`` and ``nvidia_smi``: a probe's command line runs on
+  ``cuda:0`` and prints the card's name and power limit beside its numbers.
+- ``eager_and_graph_ms`` and ``carried_us``: a window of launches timed
+  with CUDA events (best of several windows), the state carried between
+  two preallocated buffer sets, eagerly and replayed from one captured
+  CUDA graph; ``host_us``: the host's time to issue one call.
+- ``launches`` / ``count_launch``: the probe kernels' launch counts by
+  name, graph replays included.
+- ``physics_probe``: the wrapper of K1's probe builds
+  (``csrc/probe_physics.cuh``: q, v, caches and the sink row out), and
+  the block layouts it takes (``to_block_major`` / ``from_block_major``).
+- ``sass_counts``: the FFMA / FMUL / FADD instructions of a build.
+- ``nominal_setup`` / ``nominal_blocks``: the TPU probes' inputs.
+- ``compare_exact``: the bit-for-bit comparison of a probe with its plain
+  version.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import os
+import re
+import shutil
+import subprocess
+import time
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from puppax_torch.kernels import build
+from puppax_torch.physics import soa
+
+ROW_MAJOR, BLOCK_MAJOR = 0, 1
+LAYOUT_NAMES = {ROW_MAJOR: "row-major", BLOCK_MAJOR: "block-major"}
+TILE = 128  # envs per tile of the block-major layout (csrc/probe_physics.cuh)
+ITERS = 50  # launches per timed window, as the TPU probes' 50-step scans
+RUNS = 3  # timed windows; the best one counts
+
+
+def require_cuda(prog: str):
+    """Exit, printing no result, unless a CUDA device is visible."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{prog}: no CUDA device found (torch.cuda.is_available() is False)")
+
+
+def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def window_ms(fn: Callable[[], object]) -> float:
+    """Milliseconds of one call of ``fn`` (a window of launches) on the
+    card, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def best_ms(window: Callable[[], object], runs: int = RUNS,
+            setup: Optional[Callable[[], object]] = None) -> float:
+    """The best of ``runs`` timed windows, each after ``setup()`` (outside
+    the window)."""
+    best = math.inf
+    for _ in range(runs):
+        if setup is not None:
+            setup()
+        best = min(best, window_ms(window))
+    return best
+
+
+def host_us(call: Callable[[], object], iters: int = ITERS, runs: int = RUNS) -> float:
+    """Microseconds of host time per ``call()`` (one launch, issued without
+    waiting for the card): the best of ``runs`` windows of ``iters`` calls
+    on the host clock, the card synchronized before and after each window
+    (outside it)."""
+    best = math.inf
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best * 1e6 / iters
+
+
+# kernel name -> launches of the probes' kernels, graph replays included;
+# each probe wrapper counts through count_launch where it launches
+launches = collections.Counter()
+_captured = collections.Counter()  # launches recorded into the graph being captured
+
+
+def count_launch(name: str):
+    """Add one launch of kernel ``name``. Inside a graph capture the kernel
+    is only recorded: ``eager_and_graph_ms`` counts it once per replay."""
+    if torch.cuda.is_current_stream_capturing():
+        _captured[name] += 1
+    else:
+        launches[name] += 1
+
+
+def eager_and_graph_ms(window: Callable[[], object], runs: int = RUNS,
+                       setup: Optional[Callable[[], object]] = None) -> Tuple[float, float]:
+    """(eager ms, graph ms) of one window of launches: the best of ``runs``
+    eager windows, and the best of ``runs`` replays of the window captured
+    once as a CUDA graph (captured on the capture stream, which
+    ``build.launch_into`` launches on). A graph replays its kernels back to
+    back without the host's launch work in between, as the TPU probes'
+    one-dispatch scans do, so its time is the device's; the eager time adds
+    the host's launch work where that is the longer."""
+    eager = best_ms(window, runs, setup)
+    if setup is not None:
+        setup()
+    _captured.clear()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        window()
+    per_replay = dict(_captured)
+    best = math.inf
+    for _ in range(runs):
+        if setup is not None:
+            setup()
+        best = min(best, window_ms(graph.replay))
+        launches.update(per_replay)
+    return eager, best
+
+
+class Carry:
+    """Two preallocated (x, ...) buffer sets for ``iters`` back-to-back
+    steps with the state carried: step i reads one set and writes the
+    other, so nothing is allocated between launches. ``reset()`` puts the
+    initial state back (outside a timed window); ``window()`` runs the
+    steps, each ``step(*inputs, *outputs)``."""
+
+    def __init__(self, step: Callable, state: Sequence[torch.Tensor], iters: int):
+        self.step, self.state, self.iters = step, list(state), iters
+        self.sets = [[x.clone() for x in state], [torch.empty_like(x) for x in state]]
+
+    def reset(self):
+        for buf, x in zip(self.sets[0], self.state):
+            buf.copy_(x)
+
+    def window(self):
+        for i in range(self.iters):
+            self.step(*self.sets[i % 2], *self.sets[(i + 1) % 2])
+
+
+def carried_us(step: Callable, state: Sequence[torch.Tensor], iters: int = ITERS,
+               runs: int = RUNS) -> Tuple[float, float]:
+    """(eager, graph) microseconds per step of ``iters`` back-to-back
+    ``step`` calls with the state carried (``Carry``), by
+    ``eager_and_graph_ms``; the graph's is the device's time."""
+    c = Carry(step, state, iters)
+    eager, graph = eager_and_graph_ms(c.window, runs, c.reset)
+    return eager * 1e3 / iters, graph * 1e3 / iters
+
+
+def sass_counts(record: str, kernel: build.Kernel) -> Optional[dict]:
+    """How many FFMA, FMUL and FADD instructions the SASS of a build holds
+    (``cuobjdump -sass`` of its library; None where the toolkit has no
+    cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    lib = os.path.join(build.last_build[record]["dir"], f"lib{kernel.name}.so")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
+                         check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", out)) for op in ("FFMA", "FMUL", "FADD")}
+
+
+def to_block_major(x: torch.Tensor) -> torch.Tensor:
+    """A ``(rows, B)`` block as the block-major ``(B / 128, rows, 128)``
+    layout of ``csrc/probe_physics.cuh`` (env b in tile b // 128, lane
+    b % 128)."""
+    rows, B = x.shape
+    if B % TILE:
+        raise ValueError(f"block-major needs B a multiple of {TILE}, got {B}")
+    return x.reshape(rows, B // TILE, TILE).permute(1, 0, 2).contiguous()
+
+
+def from_block_major(x: torch.Tensor) -> torch.Tensor:
+    """A block-major ``(B / 128, rows, 128)`` block back as ``(rows, B)``."""
+    tiles, rows, lanes = x.shape
+    return x.permute(1, 0, 2).reshape(rows, tiles * lanes)
+
+
+def k1_probe_name(phase_limit: Optional[str] = None, layout: int = ROW_MAJOR,
+                  fmad: bool = False) -> str:
+    """The name of one K1 probe kernel: its cut, layout and flags."""
+    name = f"k1_probe_{phase_limit or 'full'}"
+    if layout == BLOCK_MAJOR:
+        name += "_block_major"
+    return name + ("_fmad" if fmad else "")
+
+
+def probe_out_rows(s) -> Tuple[int, ...]:
+    """Row counts of the probe shell's output blocks: K1's q, v and caches,
+    then the sink row."""
+    return (*soa.physics_block_rows(s)[1], 1)
+
+
+def _check_physics_blocks(s, blocks, outs, layout: int) -> Tuple[int, torch.device]:
+    in_rows, out_rows = soa.physics_block_rows(s)[0], probe_out_rows(s)
+    if layout not in LAYOUT_NAMES:
+        raise ValueError(f"layout {layout!r} is not one of {sorted(LAYOUT_NAMES)}")
+    if len(blocks) != len(in_rows) or len(outs) != len(out_rows):
+        raise ValueError(f"expected {len(in_rows)} input and {len(out_rows)} output blocks")
+    dev = blocks[0].device
+    B = blocks[0].shape[-1] if layout == ROW_MAJOR else blocks[0].shape[0] * TILE
+    if B % TILE:
+        raise ValueError(f"the probe shell needs B a multiple of {TILE}, got {B}")
+    for i, (x, n) in enumerate(zip(list(blocks) + list(outs), list(in_rows) + list(out_rows))):
+        shape = (n, B) if layout == ROW_MAJOR else (B // TILE, n, TILE)
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"block {i}: {x.dtype} {tuple(x.shape)}, expected contiguous "
+                             f"float32 {shape}")
+        if x.device != dev:
+            raise ValueError(f"block {i} on {x.device}, block 0 on {dev}")
+    return B, dev
+
+
+def physics_probe(s, n_substeps: int, blocks: Sequence[torch.Tensor],
+                  outs: Sequence[torch.Tensor], phase_limit: Optional[str] = None,
+                  layout: int = ROW_MAJOR, threads: int = 128, fmad: bool = False):
+    """One physics step of K1's probe build (the body cut after
+    ``phase_limit``; ``fmad``: built with multiply-add contraction) into
+    the preallocated ``outs`` (q, v, caches, sink), every block in ``layout``.
+
+    CPU tensors run the plain version (``soa.physics_step_rows`` with the
+    cut and the sink); CUDA tensors launch the kernel of ``csrc/probe_physics.cuh`` with
+    ``threads`` per block on the current stream, or raise. Each launch
+    counts in ``launches[k1_probe_name(...)]``."""
+    B, dev = _check_physics_blocks(s, blocks, outs, layout)
+    if threads not in (32, 64, 128):
+        raise ValueError(f"threads per block {threads} is not 32, 64 or 128")
+    if dev.type == "cpu":
+        rows = blocks if layout == ROW_MAJOR else [from_block_major(x) for x in blocks]
+        want = soa.physics_step_rows(s, n_substeps, *rows, phase_limit=phase_limit, sink=True)
+        for o, w in zip(outs, want):
+            o.copy_(w if layout == ROW_MAJOR else to_block_major(w))
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"physics_probe: unsupported device {dev}")
+    lib = build.probe_physics_library(s, n_substeps, phase_limit, fmad)
+    rows = (s.nq, s.nv, s.nu, s.ndr, s.ncache)
+    build.launch_into("probe_physics", lib.probe_physics_launch, list(blocks) + list(outs), B,
+                      threads, layout, *rows)
+    count_launch(k1_probe_name(phase_limit, layout, fmad))
+
+
+def empty_outputs(s, B: int, device, layout: int = ROW_MAJOR):
+    """Preallocated output blocks (q, v, caches, sink) for ``physics_probe``."""
+    shape = (lambda n: (n, B)) if layout == ROW_MAJOR else (lambda n: (B // TILE, n, TILE))
+    return [torch.empty(shape(n), dtype=torch.float32, device=device)
+            for n in probe_out_rows(s)]
+
+
+def compare_exact(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor]):
+    """(max abs err, differing envs) of ``(rows, B)`` blocks held bit for
+    bit (a NaN equals a NaN; a NaN against a number differs, at error
+    inf)."""
+    err, bad = 0.0, None
+    for g, w in zip(got, want):
+        differ = ~((g == w) | (torch.isnan(g) & torch.isnan(w)))
+        diff = torch.where(differ, (g - w).abs().nan_to_num(math.inf), torch.zeros_like(g))
+        err = max(err, float(diff.max()))
+        bad = differ.any(0) if bad is None else bad | differ.any(0)
+    return err, int(bad.sum())
+
+
+def nominal_setup(device):
+    """(s, n_substeps, model) of the default configuration's nominal env."""
+    from puppax_torch.configs import EnvConfig
+    from puppax_torch.env.pupper import PupperV3Env
+
+    env = PupperV3Env.from_config(EnvConfig(), device=device)
+    return env._s, env._n_substeps, env.model
+
+
+def nominal_blocks(s, model, B: int, device):
+    """The TPU probes' inputs (``dev/profile_kernel_phases.py:39-42``) as
+    K1's ``(rows, B)`` blocks: the nominal model's qpos0 in every env, zero
+    qvel, ctrl = qpos0[7:] and the nominal parameter rows."""
+    qpos0 = torch.as_tensor(model.qpos0, dtype=torch.float32, device=device)
+    q = qpos0[:, None].expand(s.nq, B).contiguous()
+    v = torch.zeros((s.nv, B), dtype=torch.float32, device=device)
+    ctrl = qpos0[7:, None].expand(s.nu, B).contiguous()
+    dr = soa.dr_rows_block(s, soa.dr_inputs(model, s, B, device=device))
+    return [q, v, ctrl, dr]
+
+
+def print_builds(names: Sequence[str]):
+    """One line per probe build (``build.last_build``) with its ptxas
+    summary."""
+    for name in names:
+        info = build.last_build[name]
+        print(f"build: {name}, {info['lines']} generated lines, {info['ops_per_env']} float "
+              f"ops per env, nvcc {info['compile_seconds']:.1f} s on {info['host_cpus']} "
+              f"host cpus, cached {info['cached']}", flush=True)
+        with open(f"{info['dir']}/build.log") as f:
+            for line in f.read().splitlines():
+                if "registers" in line or "spill" in line or "stack frame" in line:
+                    print("  ptxas:" + line.split(":", 1)[-1].rstrip())

@@ -97,9 +97,10 @@ def test_generated_c_structure(compiled):
 
 def test_op_count_weights_loops(compiled):
     """``cgen.op_count`` weights each line by the trips of the loops
-    around it."""
+    around it, and counts only the lines whose value reaches a store."""
     body = compiled[3]
     assert cgen.op_count(body) > 10_000
-    snippet = ("  const float t1 = a * b;\n  for (int i2 = 0; i2 < 12; ++i2) {\n"
-               "    const float t3 = pmax(t1 + (-0.5f), c4);\n  }\n")
+    snippet = ("  const float t1 = a * b;\n  const float t5 = t1 * t1;\n"
+               "  for (int i2 = 0; i2 < 12; ++i2) {\n"
+               "    const float t3 = pmax(t1 + (-0.5f), c4);\n    out[0 * B + b] = t3;\n  }\n")
     assert cgen.op_count(snippet) == 1 + 12 * 2

@@ -1,5 +1,6 @@
 """The K3, K2, K1 and K4 kernels on an NVIDIA GPU against their plain
-versions, and short training runs through them.
+versions, short training runs through them, and the kernel-time probes'
+kernels (``puppax_torch/probes``) against their plain versions.
 
 These tests need a CUDA device and nvcc; without them they skip. On the
 GPU host (which has no JAX) run them with
@@ -179,6 +180,79 @@ def test_fused_unroll_kernel_matches_plain(B, gait, activation):
     np.testing.assert_allclose(got[8].cpu().numpy(), want[8].cpu().numpy(), atol=2e-4)
     if gait:
         np.testing.assert_allclose(got[4].cpu().numpy(), want[4].cpu().numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("cut", ["fk", "smooth", None])
+def test_probe_physics_kernel_matches_plain(env, cut):
+    """K1's probe build (cut after ``cut``; None: the whole body) on random
+    states at 256 envs against the plain version with the cut and the sink
+    row, bit for bit, in both layouts and at 32 and 128 threads per block."""
+    from puppax_torch.probes import common
+
+    s, B = env._s, 256
+    dr = env.dr_rows(B).cpu().numpy()
+    blocks = [b.cuda() for b in H.to_torch(
+        H.physics_step_blocks(env.model, dr, np.random.RandomState(7), n=B))]
+    want = soa.physics_step_rows(s, 5, *blocks, phase_limit=cut, sink=True)
+    name = common.k1_probe_name(cut)
+    before = common.launches[name]
+    for layout in (common.ROW_MAJOR, common.BLOCK_MAJOR):
+        ins = blocks if layout == common.ROW_MAJOR else [common.to_block_major(x) for x in blocks]
+        for threads in (32, 128):
+            outs = common.empty_outputs(s, B, "cuda", layout)
+            common.physics_probe(s, 5, ins, outs, cut, layout, threads)
+            torch.cuda.synchronize()
+            got = outs if layout == common.ROW_MAJOR else [common.from_block_major(x)
+                                                          for x in outs]
+            assert common.compare_exact(got, want) == (0.0, 0), (cut, layout, threads)
+    assert common.launches[name] == before + 2
+
+
+@pytest.mark.parametrize("fmad", [False, True])
+def test_fma_chain_kernel_against_plain(fmad):
+    """The chain at K = 64 on both probe grids: the ``--fmad=false`` build
+    equals the torch loop bit for bit; the contracted one stays finite and
+    within 1e-5 of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import probe_fma_fusion as F
+
+    dev = torch.device("cuda", 0)
+    for blocks, n in (F.TPU_GRID, F.latency_grid(dev)):
+        a, b = F.chain_inputs(n, dev)
+        for mode in F.MODES:
+            out = torch.empty((blocks, n), dtype=torch.float32, device=dev)
+            F.fma_chain(a, b, out, 64, mode, blocks, fmad)
+            want = F.chain_rows(a, b, 64, mode, blocks)
+            if fmad:
+                assert torch.isfinite(out).all()
+                torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+            else:
+                assert torch.equal(out, want), (blocks, mode)
+
+
+def test_add_one_kernel_and_graph_replay():
+    """``x + 1`` on the card equals the plain version; a captured graph of
+    the kernel replays it without counting a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+    from puppax_torch.probes import probe_launch_overhead as P
+
+    x = torch.randn((32, 8, 128), device="cuda")
+    y = torch.empty_like(x)
+    before = common.launches["add_one"]
+    P.add_one(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x + 1) and common.launches["add_one"] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        P.add_one(y, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, y + 1) and common.launches["add_one"] == before + 1
+    eager, graphed = common.carried_us(P.add_one, (x,), iters=4, runs=2)
+    assert eager > 0 and graphed > 0 and common.launches["add_one"] == before + 1 + 4 * 2 + 4 * 2
 
 
 def test_short_training_on_the_fused_lane(env, tmp_path, monkeypatch):

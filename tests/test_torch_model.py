@@ -163,6 +163,9 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "from puppax_torch.ops import linalg\n"
         "from puppax_torch.physics import collision, constraint, integrate, pipeline\n"
         "from puppax_torch.physics import smooth, soa, solver\n"
+        "import puppax_torch.probes\n"
+        "from puppax_torch.probes import common, probe_fma_fusion, probe_launch_overhead\n"
+        "from puppax_torch.probes import profile_kernel_phases, profile_layout\n"
         "from puppax_torch.tools import metrics, profile_unroll\n"
         "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
         "from puppax_torch.scripts import train\n"
