@@ -64,16 +64,22 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1, the
    same checks;
 12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 12 libraries built in one parallel batch (K1's
+   4096 DR'd states: their 13 libraries built in one parallel batch (K1's
    body cut after each phase, with the sink row that keeps the cut pass
    live, and whole in the probe shell, the whole body under
-   ``--fmad=true``, the multiply-add chain under both flags, ``x + 1``),
-   then each probe's ``run``: K1's time per phase, K1 by layout and
-   threads per block, the chain and ``--fmad=true`` K1, and launch
-   overhead eager and from a CUDA graph, with the host's time per launch
-   layer by layer and through K3's and K1's production wrappers. Each
-   probe kernel is held against
-   its plain version (bit for bit; the ``--fmad=true`` builds are reported
+   ``--fmad=true``, the multiply-add chain under both flags, ``x + 1``,
+   the copy kernel), then each probe's ``run``: K1's time per phase, K1
+   by layout and threads per block, the chain and ``--fmad=true`` K1, and
+   launch overhead eager and from a CUDA graph, with the host's time per
+   launch layer by layer and through K3's and K1's production wrappers;
+   then the copy in its three operand sets at 4096 and at 128 envs, and
+   the launch and host-overhead probes: the copies beside the fk cut;
+   the loop around a launch, with the K3 lane's T=20 unroll eager against
+   one captured CUDA graph (its outputs bit for bit); K1's boundary on the
+   physics-only lane (rows-resident, transposed, the transposes alone, the
+   splice); the launch cost after each setup stage, one subprocess per
+   stage, and around a host sync. Each probe kernel is held against its
+   plain version (bit for bit; the ``--fmad=true`` builds are reported
    and must stay finite), and every probe kernel must have launched in
    this phase;
 13. a JSON line of the kernels (launches in their training run or probe
@@ -862,15 +868,17 @@ def main():
 
     # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
     from puppax_torch.probes import common as probes
-    from puppax_torch.probes import probe_fma_fusion, probe_launch_overhead
-    from puppax_torch.probes import profile_kernel_phases, profile_layout
+    from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
+    from puppax_torch.probes import profile_boundary, profile_kernel_phases, profile_layout
+    from puppax_torch.probes import profile_overhead, profile_scan
 
+    copy_names = ("copy_q", "copy_min", "copy_full", "copy_full_one_block")
     with Phase("probes: build"):
         build.build_in_parallel(
             *[(lambda cut=cut: build.probe_physics_library(s1, n_sub, cut)) for cut in soa.PHASES],
             lambda: build.probe_physics_library(s1, n_sub, None, fmad=True),
             lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
-            build.add_one_library)
+            build.add_one_library, build.probe_copy_library)
         fmad_flags = build.probe_flags(True)
         probe_records = {
             **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
@@ -880,8 +888,9 @@ def main():
             "fma_chain": build.record_name(build.FMA_CHAIN),
             "fma_chain_fmad": build.record_name(build.FMA_CHAIN, "", fmad_flags),
             "add_one": build.record_name(build.ADD_ONE),
+            **{name: build.record_name(build.PROBE_COPY) for name in copy_names},
         }
-        probes.print_builds(list(probe_records.values()))
+        probes.print_builds(list(dict.fromkeys(probe_records.values())))
 
     with Phase("probes"):
         probes.launches.clear()
@@ -893,6 +902,20 @@ def main():
             "K3: soa_env.wrapped_step (4096 envs)": k3_step,
             "K1: soa.step_batched (4096 envs)": lambda: soa.step_batched(s1, *k1_blocks, n_sub),
         })
+        # every copy at 4096 and at one block of 128 envs, bit for bit
+        copy_ins = {"q": k1_blocks[:1], "min": k1_blocks[:2], "full": k1_blocks}
+        for mode, ins in copy_ins.items():
+            for n_envs in (B, EVAL_ENVS):
+                err, differing, _ = probes.check_copy(
+                    mode, [x[:, :n_envs].contiguous() for x in ins], s1.ncache)
+                print(f"{probes.copy_name(mode, n_envs)} vs plain at {n_envs} envs: max abs err "
+                      f"{err!r}, {differing} envs differ", flush=True)
+        copies = profile_overhead.run(s1, n_sub, k1_blocks)
+        scan_state = wrapped.reset(B, generator=g)
+        scan = profile_scan.run(k1_blocks[0], (lane, scan_state, params,
+                                               *profile_scan.lane_draws(lane, g, B)))
+        profile_boundary.run(env_po, k1_blocks)
+        probe_degradation.run()
         probe_launches = dict(probes.launches)
         print("probe launches: " + json.dumps(probe_launches), flush=True)
         expected = [*probe_records, probes.k1_probe_name("fk", probes.BLOCK_MAJOR),
@@ -1014,6 +1037,24 @@ def main():
         "add_one", "probe_add_one.cuh", "dev/probe_launch_overhead.py:48", add["max_abs_err"],
         add["graph_us"] / 1e3, add["torch_us"][1] / 1e3, bound_ms(1, 1, 1, add["numel"]),
         library_ms=add["torch_us"][1] / 1e3))
+    # the copies: one add per q (and v) row and per summed ctrl and dr row;
+    # times from CUDA graphs; copy_q's library twin is torch.add(q, 1e-7)
+    cq = scan["copy_q"]
+    kernels.append(probe_entry(
+        "copy_q", "probe_copy.cuh", "dev/profile_scan.py:88", cq["max_abs_err"],
+        cq["graph_us"] / 1e3, cq["plain_ms"], bound_ms(s1.nq, s1.nq, s1.nq, B),
+        library_ms=cq["library_us"][1] / 1e3))
+    qv = s1.nq + s1.nv
+    full_in = qv + s1.nu + s1.ndr  # rows read, and adds
+    for name, replaces, bound in (
+            ("copy_min", "dev/profile_overhead.py:120", bound_ms(qv, qv, qv, B)),
+            ("copy_full", "dev/profile_overhead.py:98",
+             bound_ms(full_in, full_in, qv + s1.ncache + 1, B)),
+            ("copy_full_one_block", "dev/profile_overhead.py:163",
+             bound_ms(full_in, full_in, qv + s1.ncache + 1, probes.TILE))):
+        res = copies[name]
+        kernels.append(probe_entry(name, "probe_copy.cuh", replaces, res["max_abs_err"],
+                                   res["graph_us"] / 1e3, res["plain_ms"], bound))
     print(f"bounds: K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
           f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_UNROLL} "

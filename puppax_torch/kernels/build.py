@@ -86,6 +86,10 @@ PROBE_PHYSICS = Kernel("probe_physics", CSRC / "probe_physics.cuh", 8,
 FMA_CHAIN = Kernel("fma_chain", CSRC / "probe_fma.cuh", 3,
                    "fma_chain_launch", "fma_chain_host", n_ints=3)
 ADD_ONE = Kernel("add_one", CSRC / "probe_add_one.cuh", 2, "add_one_launch", "add_one_host")
+# the overhead probes' copy: q, v, ctrl, dr in; q, v, caches, sink out; ints
+# the mode (q, min, full) and the row counts nq, nv, nu, ndr, ncache
+PROBE_COPY = Kernel("probe_copy", CSRC / "probe_copy.cuh", 8,
+                    "probe_copy_launch", "probe_copy_host", n_ints=6)
 
 # (record name, model statics, env statics, config) -> loaded library
 _LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
@@ -281,6 +285,12 @@ def add_one_library() -> ctypes.CDLL:
     return _device_library(ADD_ONE, None, None, (), lambda: "")
 
 
+def probe_copy_library() -> ctypes.CDLL:
+    """The overhead probes' copy kernel (``csrc/probe_copy.cuh``; no
+    generated body): a probe-only build, recorded as ``probe_copy``."""
+    return _device_library(PROBE_COPY, None, None, (), lambda: "")
+
+
 def build_in_parallel(*builds: Callable[[], object]) -> list:
     """Run the given library builds (e.g. ``lambda: env_step_library(...)``)
     in threads, so their nvcc processes run at the same time."""
@@ -328,9 +338,10 @@ def launch(name: str, lib_fn, blocks, out_rows: Sequence[int], B: int, dev):
 def launch_into(name: str, lib_fn, tensors, B: int, *ints: int):
     """Launch one kernel on the current stream of the tensors' device (the
     capture stream inside ``torch.cuda.graph``) with the tensors' pointers
-    (inputs, then outputs the caller allocated), ``B`` and ``ints``; raise
-    on a launch error."""
+    (inputs, then outputs the caller allocated; None passes a null pointer,
+    for an operand the kernel does not touch), ``B`` and ``ints``; raise on
+    a launch error."""
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    rc = lib_fn(*[t.data_ptr() for t in tensors], B, *ints, stream)
+    rc = lib_fn(*[None if t is None else t.data_ptr() for t in tensors], B, *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

@@ -13,7 +13,17 @@ function (``chip_smoke.py`` drives it) and a command line
   ``--fmad=false`` and ``--fmad=true`` (``dev/probe_fma_fusion.py``);
 - ``probe_launch_overhead``: an ``x + 1`` kernel, K1 and a torch
   elementwise body, 50 launches eager and as one CUDA graph
-  (``dev/probe_launch_overhead.py``).
+  (``dev/probe_launch_overhead.py``);
+- ``profile_overhead``: a copy kernel over K1's operand set, over q and v
+  only and at one block, beside K1 cut after FK (``dev/profile_overhead.py``);
+- ``profile_scan``: the copy and torch bodies eager and graphed, and the K3
+  lane's T=20 unroll eager against one captured CUDA graph
+  (``dev/profile_scan.py``);
+- ``profile_boundary``: K1 on ``(rows, B)`` carries, behind per-step
+  transposes, the transposes alone and the physics-only lane's splice
+  (``dev/profile_boundary.py``);
+- ``probe_degradation``: the copy's launch cost after each setup stage, a
+  fresh process each, and around a host sync (``dev/probe_degradation.py``).
 
 The probes' builds are their own libraries (``kernels/build.py``); the
 production kernels K1-K4 and their flags are untouched by them.

@@ -11,6 +11,9 @@
 - ``physics_probe``: the wrapper of K1's probe builds
   (``csrc/probe_physics.cuh``: q, v, caches and the sink row out), and
   the block layouts it takes (``to_block_major`` / ``from_block_major``).
+- ``copy_probe``: the wrapper of the overhead probes' copy kernel
+  (``csrc/probe_copy.cuh``, three operand sets), its plain version
+  ``copy_rows`` and ``check_copy``, one launch held against it.
 - ``sass_counts``: the FFMA / FMUL / FADD instructions of a build.
 - ``nominal_setup`` / ``nominal_blocks``: the TPU probes' inputs.
 - ``compare_exact``: the bit-for-bit comparison of a probe with its plain
@@ -263,6 +266,104 @@ def empty_outputs(s, B: int, device, layout: int = ROW_MAJOR):
     shape = (lambda n: (n, B)) if layout == ROW_MAJOR else (lambda n: (B // TILE, n, TILE))
     return [torch.empty(shape(n), dtype=torch.float32, device=device)
             for n in probe_out_rows(s)]
+
+
+COPY_MODES = ("q", "min", "full")  # csrc/probe_copy.cuh's operand sets, by mode int
+COPY_EPS = 1e-7  # what a copy adds to q and v (dev/profile_overhead.py:90)
+_COPY_BLOCKS = {"q": 1, "min": 2, "full": 4}  # input blocks of a mode, and output blocks
+
+
+def copy_name(mode: str, B: int) -> str:
+    """The launch name of one copy: ``copy_<mode>``, with ``_one_block``
+    where the B envs fit one 128-thread block."""
+    return f"copy_{mode}" + ("_one_block" if B <= TILE else "")
+
+
+def copy_outputs(mode: str, blocks: Sequence[torch.Tensor], ncache: int = 0):
+    """Preallocated outputs of ``copy_probe``: q's (and v's) shape, and for
+    ``full`` ``ncache`` cache rows and the sink row."""
+    q = blocks[0]
+    outs = [torch.empty_like(x) for x in blocks[: 1 if mode == "q" else 2]]
+    if mode == "full":
+        outs += [q.new_empty((ncache, q.shape[1])), q.new_empty((1, q.shape[1]))]
+    return outs
+
+
+def _check_copy_blocks(mode: str, blocks, outs) -> Tuple[int, torch.device]:
+    if mode not in COPY_MODES:
+        raise ValueError(f"copy mode {mode!r} is not one of {COPY_MODES}")
+    n = _COPY_BLOCKS[mode]
+    if len(blocks) != n or len(outs) != n:
+        raise ValueError(f"copy {mode}: expected {n} input and {n} output blocks, got "
+                         f"{len(blocks)} and {len(outs)}")
+    q = blocks[0]
+    B, dev = q.shape[-1] if q.ndim else -1, q.device
+    for i, x in enumerate(list(blocks) + list(outs)):
+        if (x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != B
+                or not x.is_contiguous() or x.device != dev):
+            raise ValueError(f"copy {mode}, block {i}: {x.dtype} {tuple(x.shape)} on {x.device}, "
+                             f"expected contiguous float32 (rows, {B}) on {dev}")
+    if (outs[0].shape != q.shape or (n > 1 and outs[1].shape != blocks[1].shape)
+            or (n == 4 and outs[3].shape[0] != 1)):
+        raise ValueError(f"copy {mode}: the output rows do not match (q, v, caches, one sink row)")
+    return B, dev
+
+
+def copy_rows(mode: str, blocks: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
+    """The plain version of ``csrc/probe_copy.cuh`` into ``outs``: q (and
+    v) + 1e-7; for ``full`` every cache row = q[0] and the sink row, the
+    env's ctrl rows then its dr rows summed in order."""
+    torch.add(blocks[0], COPY_EPS, out=outs[0])
+    if mode == "q":
+        return
+    torch.add(blocks[1], COPY_EPS, out=outs[1])
+    if mode == "min":
+        return
+    outs[2].copy_(blocks[0][:1].expand_as(outs[2]))
+    sink = torch.zeros_like(outs[3][0])
+    for x in blocks[2:]:
+        for r in range(x.shape[0]):
+            sink = sink + x[r]
+    outs[3][0].copy_(sink)
+
+
+def copy_probe(mode: str, blocks: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
+    """One copy of ``mode`` (``COPY_MODES``) into the preallocated ``outs``,
+    every block ``(rows, B)``: ``q``: (q,) -> (q',); ``min``: (q, v) ->
+    (q', v'); ``full``: (q, v, ctrl, dr) -> (q', v', caches, sink).
+
+    CPU tensors run the plain version (``copy_rows``); CUDA tensors launch
+    the kernel of ``csrc/probe_copy.cuh`` (128 threads per block) on the
+    current stream, or raise. Each launch counts in
+    ``launches[copy_name(mode, B)]``."""
+    B, dev = _check_copy_blocks(mode, blocks, outs)
+    if dev.type == "cpu":
+        copy_rows(mode, blocks, outs)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"copy_probe: unsupported device {dev}")
+    lib = build.probe_copy_library()
+    pad = [None] * (4 - len(blocks))  # operands the mode does not touch
+    ins, outs = list(blocks) + pad, list(outs) + pad
+    rows = [0 if x is None else x.shape[0] for x in ins + outs[2:3]]
+    build.launch_into("probe_copy", lib.probe_copy_launch, ins + outs, B,
+                      COPY_MODES.index(mode), *rows)
+    count_launch(copy_name(mode, B))
+
+
+def check_copy(mode: str, blocks: Sequence[torch.Tensor], ncache: int = 0):
+    """One ``copy_probe`` launch on the card held bit for bit against
+    ``copy_rows`` on the same blocks; raises if an env differs. Returns
+    (max abs err, differing envs, the plain version's ms)."""
+    got = copy_outputs(mode, blocks, ncache)
+    copy_probe(mode, blocks, got)
+    want = copy_outputs(mode, blocks, ncache)
+    plain_ms = window_ms(lambda: copy_rows(mode, blocks, want))
+    err, differing = compare_exact(got, want)
+    if differing:
+        raise AssertionError(f"{copy_name(mode, blocks[0].shape[1])}: {differing} of "
+                             f"{blocks[0].shape[1]} envs differ from the plain version")
+    return err, differing, plain_ms
 
 
 def compare_exact(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor]):

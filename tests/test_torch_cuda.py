@@ -277,3 +277,70 @@ def test_short_training_on_the_fused_lane(env, tmp_path, monkeypatch):
     assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (0, 2000)
     assert float(norm.count) == 4 * 256
     assert np.isfinite(metrics["training/total_loss"])
+
+
+@pytest.mark.parametrize("mode", ["q", "min", "full"])
+def test_copy_kernel_matches_plain_and_replays(mode):
+    """The overhead probes' copy at 4096, 128 and 300 envs equals its plain
+    version bit for bit, one counted launch each; a CUDA graph of it
+    replays the same values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    blocks = [torch.randn((n, 4096), generator=g, device="cuda") for n in (19, 18, 12, 166)]
+    blocks = blocks[: {"q": 1, "min": 2, "full": 4}[mode]]
+    for B in (4096, 128, 300):
+        ins = [x[:, :B].contiguous() for x in blocks]
+        before = common.launches[common.copy_name(mode, B)]
+        assert common.check_copy(mode, ins, 351)[:2] == (0.0, 0), B
+        assert common.launches[common.copy_name(mode, B)] == before + 1
+    outs = common.copy_outputs(mode, blocks, 351)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        common.copy_probe(mode, blocks, outs)
+    for o in outs:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = common.copy_outputs(mode, blocks, 351)
+    common.copy_rows(mode, blocks, want)
+    assert common.compare_exact(outs, want) == (0.0, 0)
+
+
+def test_boundary_variants_agree_on_the_card(env):
+    """Three steps of K1 on rows-resident carries, behind transposes and
+    through the physics-only lane's splice agree bit for bit at 256 envs."""
+    from puppax_torch.probes import profile_boundary as P
+
+    from puppax_torch.probes import common
+
+    s, B = env._cv_step.s, 256
+    dr = env.dr_rows(B)
+    q, v, ctrl = [b.cuda() for b in H.to_torch(
+        H.physics_step_blocks(env.model, dr.cpu().numpy(), np.random.RandomState(9), n=B)[:3])]
+    want = P.window(P.rows_resident(s, 5, ctrl, dr), (q, v), 3)
+    for step in (P.transpose_bound(s, 5, ctrl, dr), P.splice(env, ctrl.t().contiguous(), dr)):
+        got = P.window(step, (q.t().contiguous(), v.t().contiguous()), 3)
+        assert common.compare_exact([x.t() for x in got], want) == (0.0, 0)
+
+
+def test_graphed_k3_unroll_equals_eager(env):
+    """The K3 lane's T=20 unroll captured as one CUDA graph gives the eager
+    unroll's outputs bit for bit (``profile_scan.unroll_ab``)."""
+    from puppax_torch.env.rollout import FastLane
+    from puppax_torch.env.wrappers import wrap_for_training
+    from puppax_torch.probes import profile_scan
+    from puppax_torch.train import networks, running_statistics
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    wrapped = wrap_for_training(env, 1000)
+    lane = FastLane(wrapped)
+    policy = networks.make_ppo_networks(env.observation_size, env.action_size, (32, 32),
+                                        (32, 32), device="cuda", generator=g).policy_network
+    params = (running_statistics.init_state(env.observation_size, device="cuda"), policy)
+    state = wrapped.reset(256, g)
+    ab = profile_scan.unroll_ab(lane, state, params, *profile_scan.lane_draws(lane, g, 256),
+                                runs=1)
+    assert ab["differing"] == [] and ab["T"] == 20 and ab["graph_ms"] > 0

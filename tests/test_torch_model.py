@@ -166,6 +166,8 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "import puppax_torch.probes\n"
         "from puppax_torch.probes import common, probe_fma_fusion, probe_launch_overhead\n"
         "from puppax_torch.probes import profile_kernel_phases, profile_layout\n"
+        "from puppax_torch.probes import probe_degradation, profile_boundary\n"
+        "from puppax_torch.probes import profile_overhead, profile_scan\n"
         "from puppax_torch.tools import metrics, profile_unroll\n"
         "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
         "from puppax_torch.scripts import train\n"
