@@ -64,11 +64,12 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1, the
    same checks;
 12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 13 libraries built in one parallel batch (K1's
+   4096 DR'd states: their 15 libraries built in one parallel batch (K1's
    body cut after each phase, with the sink row that keeps the cut pass
    live, and whole in the probe shell, the whole body under
    ``--fmad=true``, the multiply-add chain under both flags, ``x + 1``,
-   the copy kernel), then each probe's ``run``: K1's time per phase, K1
+   the copy kernel, the synthetic SoA substep at 60 rounds, the 18 x 18
+   SPD solve), then each probe's ``run``: K1's time per phase, K1
    by layout and threads per block, the chain and ``--fmad=true`` K1, and
    launch overhead eager and from a CUDA graph, with the host's time per
    launch layer by layer and through K3's and K1's production wrappers;
@@ -78,7 +79,11 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    one captured CUDA graph (its outputs bit for bit); K1's boundary on the
    physics-only lane (rows-resident, transposed, the transposes alone, the
    splice); the launch cost after each setup stage, one subprocess per
-   stage, and around a host sync. Each probe kernel is held against its
+   stage, and around a host sync; then probe group C on the TPU probes'
+   own input recipes: the SoA substep and the SPD solve, each at 4096 and
+   128 envs, the solve beside ``cholesky_ex`` + ``cholesky_solve`` (within
+   1e-4 of max|x|), both timed eagerly and from a CUDA graph, with their
+   registers and spills. Each probe kernel is held against its
    plain version (bit for bit; the ``--fmad=true`` builds are reported
    and must stay finite), and every probe kernel must have launched in
    this phase;
@@ -871,6 +876,8 @@ def main():
     from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
     from puppax_torch.probes import profile_boundary, profile_kernel_phases, profile_layout
     from puppax_torch.probes import profile_overhead, profile_scan
+    from puppax_torch.probes import pallas_soa_probe as soa_probe
+    from puppax_torch.probes import pallas_spd_poc as spd_probe
 
     copy_names = ("copy_q", "copy_min", "copy_full", "copy_full_one_block")
     with Phase("probes: build"):
@@ -878,7 +885,8 @@ def main():
             *[(lambda cut=cut: build.probe_physics_library(s1, n_sub, cut)) for cut in soa.PHASES],
             lambda: build.probe_physics_library(s1, n_sub, None, fmad=True),
             lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
-            build.add_one_library, build.probe_copy_library)
+            build.add_one_library, build.probe_copy_library,
+            soa_probe.library, build.probe_spd_library)
         fmad_flags = build.probe_flags(True)
         probe_records = {
             **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
@@ -889,6 +897,8 @@ def main():
             "fma_chain_fmad": build.record_name(build.FMA_CHAIN, "", fmad_flags),
             "add_one": build.record_name(build.ADD_ONE),
             **{name: build.record_name(build.PROBE_COPY) for name in copy_names},
+            soa_probe.soa_name(): soa_probe.record(),
+            "spd_solve": build.record_name(build.PROBE_SPD),
         }
         probes.print_builds(list(dict.fromkeys(probe_records.values())))
 
@@ -916,6 +926,10 @@ def main():
                                                *profile_scan.lane_draws(lane, g, B)))
         profile_boundary.run(env_po, k1_blocks)
         probe_degradation.run()
+        # probe group C on their own inputs (the TPU probes' recipes), at 4096 and 128 envs
+        with Phase("probes: group C"):
+            soa_res = soa_probe.run(device, (soa_probe.ROUNDS,), B, args.seed, (B, EVAL_ENVS))
+            spd_res = spd_probe.run(device, B, 0, (B, EVAL_ENVS))
         probe_launches = dict(probes.launches)
         print("probe launches: " + json.dumps(probe_launches), flush=True)
         expected = [*probe_records, probes.k1_probe_name("fk", probes.BLOCK_MAJOR),
@@ -1055,6 +1069,20 @@ def main():
         res = copies[name]
         kernels.append(probe_entry(name, "probe_copy.cuh", replaces, res["max_abs_err"],
                                    res["graph_us"] / 1e3, res["plain_ms"], bound))
+    # the SoA substep reads q and v and writes q; the solve reads A's
+    # triangle on and below the diagonal and b, and writes x; times from
+    # CUDA graphs; the solve's library twin is cholesky_ex + cholesky_solve
+    soa60 = soa_res[soa_probe.ROUNDS]
+    kernels.append(probe_entry(
+        soa_probe.soa_name(), "probe_soa.cuh", "dev/pallas_soa_probe.py:103",
+        max(c["max_abs_err"] for c in soa60["checks"].values()), soa60["graph_us"] / 1e3,
+        soa60["plain_ms"], bound_ms(soa60["ops_per_env"], soa_probe.NQ + soa_probe.NV,
+                                    soa_probe.NQ, B)))
+    kernels.append(probe_entry(
+        "spd_solve", "probe_spd.cuh", "dev/pallas_spd_poc.py:57",
+        max(c["max_abs_err"] for c in spd_res["checks"].values()), spd_res["graph_us"] / 1e3,
+        spd_res["plain_ms"], bound_ms(spd_res["ops_per_env"], *spd_probe.spd_rows(), B),
+        library_ms=spd_res["cusolver_us"][1] / 1e3))
     print(f"bounds: K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
           f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_UNROLL} "

@@ -90,6 +90,10 @@ ADD_ONE = Kernel("add_one", CSRC / "probe_add_one.cuh", 2, "add_one_launch", "ad
 # the mode (q, min, full) and the row counts nq, nv, nu, ndr, ncache
 PROBE_COPY = Kernel("probe_copy", CSRC / "probe_copy.cuh", 8,
                     "probe_copy_launch", "probe_copy_host", n_ints=6)
+# probe group C: the synthetic SoA substep (q, v in; q out; a generated
+# body) and the batched 18 x 18 SPD solve (A, b in; x out)
+PROBE_SOA = Kernel("probe_soa", CSRC / "probe_soa.cuh", 3, "probe_soa_launch", "probe_soa_host")
+PROBE_SPD = Kernel("probe_spd", CSRC / "probe_spd.cuh", 3, "probe_spd_launch", "probe_spd_host")
 
 # (record name, model statics, env statics, config) -> loaded library
 _LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
@@ -289,6 +293,20 @@ def probe_copy_library() -> ctypes.CDLL:
     """The overhead probes' copy kernel (``csrc/probe_copy.cuh``; no
     generated body): a probe-only build, recorded as ``probe_copy``."""
     return _device_library(PROBE_COPY, None, None, (), lambda: "")
+
+
+def probe_soa_library(rounds: int, make_body: Callable[[], str]) -> ctypes.CDLL:
+    """The synthetic SoA substep (``csrc/probe_soa.cuh`` around the body
+    that ``make_body`` returns, the caller's emission of ``rounds`` rounds):
+    a probe-only build, recorded as ``probe_soa[<rounds> rounds]``."""
+    return _device_library(PROBE_SOA, None, None, (int(rounds),), make_body,
+                           variant=f"{int(rounds)} rounds")
+
+
+def probe_spd_library() -> ctypes.CDLL:
+    """The batched 18 x 18 SPD solve (``csrc/probe_spd.cuh``; no generated
+    body): a probe-only build, recorded as ``probe_spd``."""
+    return _device_library(PROBE_SPD, None, None, (), lambda: "")
 
 
 def build_in_parallel(*builds: Callable[[], object]) -> list:

@@ -24,6 +24,11 @@ function (``chip_smoke.py`` drives it) and a command line
   (``dev/profile_boundary.py``);
 - ``probe_degradation``: the copy's launch cost after each setup stage, a
   fresh process each, and around a host sync (``dev/probe_degradation.py``).
+- ``pallas_soa_probe``: a synthetic SoA substep emitted as one
+  straight-line body per env, its nvcc time and throughput against the
+  body's size (``dev/pallas_soa_probe.py``);
+- ``pallas_spd_poc``: the batched 18 x 18 SPD solve of the Newton step, one
+  thread per env, beside cuSOLVER's (``dev/pallas_spd_poc.py``).
 
 The probes' builds are their own libraries (``kernels/build.py``); the
 production kernels K1-K4 and their flags are untouched by them.

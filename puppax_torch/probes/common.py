@@ -14,7 +14,8 @@
 - ``copy_probe``: the wrapper of the overhead probes' copy kernel
   (``csrc/probe_copy.cuh``, three operand sets), its plain version
   ``copy_rows`` and ``check_copy``, one launch held against it.
-- ``sass_counts``: the FFMA / FMUL / FADD instructions of a build.
+- ``sass_counts``: the FFMA / FMUL / FADD instructions of a build;
+  ``ptxas_info``: its registers, stack and spill bytes.
 - ``nominal_setup`` / ``nominal_blocks``: the TPU probes' inputs.
 - ``compare_exact``: the bit-for-bit comparison of a probe with its plain
   version.
@@ -398,6 +399,18 @@ def nominal_blocks(s, model, B: int, device):
     ctrl = qpos0[7:, None].expand(s.nu, B).contiguous()
     dr = soa.dr_rows_block(s, soa.dr_inputs(model, s, B, device=device))
     return [q, v, ctrl, dr]
+
+
+def ptxas_info(record: str) -> dict:
+    """What ptxas reported for a build (its ``build.log``, ``-Xptxas -v``):
+    ``registers``, ``stack``, ``spill_stores`` and ``spill_loads`` bytes,
+    the largest of each over the functions of the log."""
+    with open(f"{build.last_build[record]['dir']}/build.log") as f:
+        log = f.read()
+    found = {key: [int(x) for x in re.findall(pattern, log)] for key, pattern in (
+        ("registers", r"Used (\d+) registers"), ("stack", r"(\d+) bytes stack frame"),
+        ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads"))}
+    return {key: max(vals, default=0) for key, vals in found.items()}
 
 
 def print_builds(names: Sequence[str]):

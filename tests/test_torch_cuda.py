@@ -344,3 +344,48 @@ def test_graphed_k3_unroll_equals_eager(env):
     ab = profile_scan.unroll_ab(lane, state, params, *profile_scan.lane_draws(lane, g, 256),
                                 runs=1)
     assert ab["differing"] == [] and ab["T"] == 20 and ab["graph_ms"] > 0
+
+
+@pytest.mark.parametrize("B", [4096, 128])
+def test_soa_substep_kernel_matches_plain(B):
+    """The synthetic SoA substep (60 rounds) on the TPU probe's input recipe
+    equals its plain version bit for bit, one counted launch; 100 chained
+    substeps stay finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+    from puppax_torch.probes import pallas_soa_probe as P
+
+    q, v = P.soa_inputs(B, seed=0, device="cuda")
+    before = common.launches["soa_substep"]
+    res = P.check(q, v)
+    assert (res["max_abs_err"], res["differing"]) == (0.0, 0)
+    assert common.launches["soa_substep"] == before + 1
+    carry = common.Carry(lambda a, b: P.soa_substep(a, v, b), (q,), 100)
+    carry.reset()
+    carry.window()
+    assert torch.isfinite(carry.sets[0][0]).all()
+
+
+@pytest.mark.parametrize("B", [4096, 128, 300])
+def test_spd_solve_kernel_matches_plain_and_cusolver(B):
+    """The batched 18 x 18 SPD solve on the TPU probe's systems equals its
+    plain version (``linalg.spd_solve``) bit for bit, one counted launch,
+    and agrees with cholesky_ex + cholesky_solve within 1e-4 of max|x|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+    from puppax_torch.probes import pallas_spd_poc as S
+
+    A, b = (torch.from_numpy(x).cuda() for x in S.spd_inputs(B))
+    A_t, b_t = S.to_lanes(A, b)
+    before = common.launches["spd_solve"]
+    assert S.check(A_t, b_t)["differing"] == 0
+    assert common.launches["spd_solve"] == before + 1
+    x = torch.empty_like(b_t)
+    S.spd_solve(A_t, b_t, x)
+    with S.cusolver_backend():
+        lib, info = S.library_solve(A, b)
+    assert not info.any()
+    lib = lib.t()
+    assert float((lib - x).abs().max()) < S.LIBRARY_TOL * float(x.abs().max())

@@ -152,8 +152,9 @@ def test_aux_rows_and_reward_order_match(statics):
 
 def test_import_needs_no_jax_flax_or_mujoco():
     """Importing every module of ``puppax_torch`` and ``load_model()`` in a
-    fresh process leave jax, flax, optax, orbax, ml_collections, mujoco and
-    the JAX package ``puppax`` out of ``sys.modules``."""
+    fresh process leave jax, flax, optax, orbax, ml_collections, mujoco,
+    the JAX package ``puppax`` and the TPU probes of ``dev/`` out of
+    ``sys.modules``."""
     code = (
         "import sys\n"
         "import puppax_torch\n"
@@ -168,11 +169,12 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "from puppax_torch.probes import profile_kernel_phases, profile_layout\n"
         "from puppax_torch.probes import probe_degradation, profile_boundary\n"
         "from puppax_torch.probes import profile_overhead, profile_scan\n"
+        "from puppax_torch.probes import pallas_soa_probe, pallas_spd_poc\n"
         "from puppax_torch.tools import metrics, profile_unroll\n"
         "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
         "from puppax_torch.scripts import train\n"
         "load_model()\n"
-        "banned = {'jax', 'flax', 'optax', 'orbax', 'ml_collections', 'mujoco', 'puppax'}\n"
+        "banned = {'jax', 'flax', 'optax', 'orbax', 'ml_collections', 'mujoco', 'puppax', 'dev'}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
