@@ -10,10 +10,14 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the four kernels from the checkout's sources, in parallel
-   nvcc processes: the wrapped env step (K3), the unwrapped env step (K2),
-   the physics-only step (K1) and the fused unroll (K4), each with its
-   generated lines, nvcc seconds and ptxas summary;
+2. the builds of the six kernels from the checkout's sources, in parallel
+   nvcc processes: the wrapped env step (K3), the unwrapped env step (K2)
+   and the physics-only step (K1) as team kernels (32 envs per block, each
+   env's program split across the block's warps, ``kernels/team.py``) and
+   as one-thread kernels (one env per thread, the A/B baseline), and the
+   fused unroll (K4), each with its generated lines, nvcc seconds and
+   ptxas summary (the team kernels with their warps, barriers, shared
+   memory and heaviest stream);
 3. K3 against its plain version at 4096 envs: after a few kernel steps
    from a DR reset, one wrapped step through ``wrapped_step`` (the kernel)
    and ``wrapped_step_rows`` (its plain PyTorch version) on the same
@@ -24,9 +28,12 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    held env by env; the same with the gait clock on at 128 envs; K4 timed
    per T=20 unroll at 4096 envs, the plain version once;
 5. K1 against its plain version on the same 4096 DR'd states (feet on the
-   floor) under the policy's motor targets: ``soa.step_batched`` against
-   ``soa.physics_step_rows``, env by env; K1 timed at 4096 and 128 envs,
-   the plain version at 4096;
+   floor) under the policy's motor targets: ``soa.step_batched`` (team K1)
+   and ``soa.step_batched_one_thread`` (one-thread K1) against
+   ``soa.physics_step_rows``, env by env, at 4096 envs and at the first
+   128, the two kernels bit for bit with each other; both timed at 4096
+   and 128 envs in turns (one-thread, team, team, one-thread), the A/B
+   printed, the plain version at 4096;
 6. K1 against the torch ``pipeline.pipeline_step`` (float32, TF32 off) on
    the same inputs, env by env at qpos 5e-5 / scaled qvel 5e-4: the envs
    outside tolerance are counted and split into those outside the MJX caps
@@ -39,8 +46,11 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 7. K2 against its plain version at the evaluator's shape: 128 envs of the
    nominal model reset with their physics caches, a few K2 steps under a
    random policy, then one ``env_step`` and one ``env_step_rows`` on the
-   same blocks, all four output blocks held env by env; K2 timed at 128 and
-   4096 envs, the plain version once; then the physics-only env step
+   same blocks, all four output blocks held env by env, through team K2
+   (``env_step``) and the one-thread K2 (``env_step_one_thread``), and the
+   same at 4096 envs (the K3 check's blocks), the two kernels bit for bit
+   with each other; both timed at 128 and 4096 envs in turns, the A/B
+   printed, the plain version once; then the physics-only env step
    (``PUPPAX_SOA_ENV=off``: the env layer in torch around K1) against the
    K2 step on the same inputs and draws: obs and reward within 2e-4, done
    exact;
@@ -51,7 +61,8 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 9. the main path: ``ppo.train`` at the default configuration but for
    491,520 env steps (3 training steps) and 2 evaluations, with its
    checkpoint in a temporary directory; the launches of the kernels are
-   counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4), and the
+   counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4; K2 and K1
+   are the team kernels, the one-thread kernels launch 0 times), and the
    run is checked (env steps, the normalizer's count, finite losses,
    changed parameters, plausible eval metrics, the checkpoint against the
    final state);
@@ -88,8 +99,9 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    and must stay finite), and every probe kernel must have launched in
    this phase;
 13. a JSON line of the kernels (launches in their training run or probe
-   phase, error against the plain version, times, the bound of the card)
-   and, last, the device JSON line.
+   phase, error against the plain version, times, the bound of the card;
+   team K2 and team K1 beside the one-thread K2 and K1, whose launches on
+   the main path are 0) and, last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is visible or when it is
@@ -398,19 +410,27 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build the four kernels, in parallel nvcc processes ----
-    with Phase("build K3 + K2 + K1 + K4"):
+    # ---- build the six kernels, in parallel nvcc processes ----
+    with Phase("build K3 + team K2 + team K1 + K2 + K1 + K4"):
         build.build_in_parallel(lambda: build.wrapped_step_library(s, es, n_sub, L),
+                                lambda: build.env_step_team_library(s, es, n_sub),
+                                lambda: build.physics_step_team_library(s1, n_sub),
                                 lambda: build.env_step_library(s, es, n_sub),
                                 lambda: build.physics_step_library(s1, n_sub),
                                 lambda: build.fused_unroll_library(s, es, n_sub, L))
-        for kname, label in (("wrapped_step", "K3"), ("env_step", "K2"),
+        for kname, label in (("wrapped_step", "K3"), ("env_step_team", "team K2"),
+                             ("physics_step_team", "team K1"), ("env_step", "K2"),
                              ("physics_step", "K1"), ("fused_unroll", "K4")):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
                   f"{info['ops_per_env']} float ops per env, generate "
                   f"{info['generate_seconds']:.1f} s, nvcc {info['compile_seconds']:.1f} s, "
                   f"cached {info['cached']}", flush=True)
+            if "warps" in info:
+                print(f"  team: {info['warps']} warps per block, heaviest stream "
+                      f"{max(info['stream_ops'])} float ops per env, {info['replicated_ops']} "
+                      f"replicated in all, {info['barriers']} barriers, "
+                      f"{info['shared_bytes']} bytes of shared memory", flush=True)
             log_path = os.path.join(info["dir"], "build.log")
             for line in open(log_path).read().splitlines():
                 if "registers" in line or "spill" in line or "stack frame" in line:
@@ -546,16 +566,19 @@ def main():
                              dev["uppers"][:, None]).contiguous()
         k1_blocks = [carry["q"], carry["v"], ctrl, carry["dr"]]
         got = soa.step_batched(s1, *k1_blocks, n_sub)
+        one = soa.step_batched_one_thread(s1, *k1_blocks, n_sub)
         torch.cuda.synchronize()
         want = soa.physics_step_rows(s1, n_sub, *k1_blocks)
         torch.cuda.synchronize()
         per_block, differing, k1_err = compare_physics_outputs(s1, got, want)
+        _, _, k1_one_err = compare_physics_outputs(s1, one, want)
         r0, n = s1.cache_rows["con_dist"]
         counts = torch.stack([(got[2][r0 : r0 + n][[i for i, p in enumerate(s1.pairs)
                                                      if p.kind == kind]] < 0).sum(0)
                               for kind in ("ps", "ss")], 1)
-        print(f"K1 vs plain at {B} envs ({int((counts[:, 0] > 0).sum())} envs with a foot "
-              f"on the floor): max abs err per block " + json.dumps(per_block), flush=True)
+        print(f"team K1 vs plain at {B} envs ({int((counts[:, 0] > 0).sum())} envs with a "
+              f"foot on the floor): max abs err per block " + json.dumps(per_block)
+              + f"; one-thread K1 vs plain: max abs err {k1_one_err!r}", flush=True)
         for b, what in differing:
             print(f"  env {b} differs: {what}")
         if len(differing) > MAX_DIFFERING_ENVS:
@@ -564,6 +587,19 @@ def main():
             raise AssertionError("no env touches the floor: the contact path went unchecked")
 
         k1_small = [x[:, :EVAL_ENVS].contiguous() for x in k1_blocks]
+        got_small = soa.step_batched(s1, *k1_small, n_sub)
+        one_small = soa.step_batched_one_thread(s1, *k1_small, n_sub)
+        torch.cuda.synchronize()
+        want_small = soa.physics_step_rows(s1, n_sub, *k1_small)
+        _, differing_small, k1_err_small = compare_physics_outputs(s1, got_small, want_small)
+        _, _, k1_one_err_small = compare_physics_outputs(s1, one_small, want_small)
+        print(f"team K1 vs plain at {EVAL_ENVS} envs: max abs err {k1_err_small!r}; one-thread "
+              f"K1 vs plain: {k1_one_err_small!r}", flush=True)
+        if len(differing_small) > MAX_DIFFERING_ENVS:
+            raise AssertionError(f"{len(differing_small)} envs differ at {EVAL_ENVS} envs")
+        if not all(torch.equal(a, b) for a, b in [*zip(got, one), *zip(got_small, one_small)]):
+            raise AssertionError("team K1 and the one-thread K1 differ: the same program "
+                                 "must give the same bits")
 
         def k1_step():
             soa.step_batched(s1, *k1_blocks, n_sub)
@@ -571,17 +607,33 @@ def main():
         def k1_step_small():
             soa.step_batched(s1, *k1_small, n_sub)
 
+        def k1_one():
+            soa.step_batched_one_thread(s1, *k1_blocks, n_sub)
+
+        def k1_one_small():
+            soa.step_batched_one_thread(s1, *k1_small, n_sub)
+
         def k1_plain():
             soa.physics_step_rows(s1, n_sub, *k1_blocks)
 
         k1_plain_ms = [cuda_ms(k1_plain, 1)]
+        k1_one_ms, k1_one_small_ms = [cuda_ms(k1_one, 20)], [cuda_ms(k1_one_small, 20)]
         k1_ms = [cuda_ms(k1_step, 20), cuda_ms(k1_step, 20)]
         k1_small_ms = [cuda_ms(k1_step_small, 20), cuda_ms(k1_step_small, 20)]
+        k1_one_ms.append(cuda_ms(k1_one, 20))
+        k1_one_small_ms.append(cuda_ms(k1_one_small, 20))
         k1_plain_ms.append(cuda_ms(k1_plain, 1))
-        print(f"K1 step: {statistics.median(k1_ms):.4f} ms at {B} envs (runs {k1_ms}), "
+        print(f"team K1 step: {statistics.median(k1_ms):.4f} ms at {B} envs (runs {k1_ms}), "
               f"{statistics.median(k1_small_ms):.4f} ms at {EVAL_ENVS} envs (runs "
               f"{k1_small_ms}); plain {statistics.median(k1_plain_ms):.1f} ms at {B} envs "
               f"(runs {k1_plain_ms})", flush=True)
+        print(f"one-thread K1 step: {statistics.median(k1_one_ms):.4f} ms at {B} envs (runs "
+              f"{k1_one_ms}), {statistics.median(k1_one_small_ms):.4f} ms at {EVAL_ENVS} envs "
+              f"(runs {k1_one_small_ms})", flush=True)
+        ab = (statistics.median(k1_one_ms) / statistics.median(k1_ms),
+              statistics.median(k1_one_small_ms) / statistics.median(k1_small_ms))
+        print(f"A/B K1, one-thread / team: {ab[0]:.3f}x at {B} envs, {ab[1]:.3f}x at "
+              f"{EVAL_ENVS} envs", flush=True)
 
     with Phase("K1 vs torch pipeline"):
         q0, v0 = carry["q"].t(), carry["v"].t()
@@ -650,33 +702,67 @@ def main():
                      soa_env.rows_block([act]), soa_env.env_block(es, estate.info, estate.obs),
                      soa_env.noise_block(es, k2_noise), eval_wrapped.dr_rows(EVAL_ENVS)]
         got = soa_env.env_step(s, es, n_sub, *k2_blocks)
+        one = soa_env.env_step_one_thread(s, es, n_sub, *k2_blocks)
         torch.cuda.synchronize()
         want = soa_env.env_step_rows(s, es, n_sub, *k2_blocks)
         torch.cuda.synchronize()
         per_block, differing, k2_err = compare_env_outputs(s, es, got, want)
-        print(f"K2 vs plain at {EVAL_ENVS} envs after {WARM_STEPS} K2 steps "
+        _, one_differing, k2_one_err = compare_env_outputs(s, es, one, want)
+        print(f"team K2 vs plain at {EVAL_ENVS} envs after {WARM_STEPS} K2 steps "
               f"({in_contact} envs with a foot on the floor): max abs err per block "
-              + json.dumps(per_block), flush=True)
-        for b, what in differing:
+              + json.dumps(per_block) + f"; one-thread K2 vs plain: max abs err "
+              f"{k2_one_err!r}", flush=True)
+        for b, what in differing + one_differing:
             print(f"  env {b} differs: {what}")
-        if differing:
-            raise AssertionError(f"{len(differing)} of {EVAL_ENVS} envs differ (limit 0)")
+        if differing or one_differing:
+            raise AssertionError(f"{len(differing)} (team) and {len(one_differing)} "
+                                 f"(one-thread) of {EVAL_ENVS} envs differ (limit 0)")
         if in_contact == 0:
             raise AssertionError("no eval env touches the floor: the contact path went "
                                  "unchecked")
+        # the training lane's 4096-env blocks (K3's first six)
+        got_4096 = soa_env.env_step(s, es, n_sub, *blocks[:6])
+        one_4096 = soa_env.env_step_one_thread(s, es, n_sub, *blocks[:6])
+        torch.cuda.synchronize()
+        want_4096 = soa_env.env_step_rows(s, es, n_sub, *blocks[:6])
+        _, differing_4096, k2_err_4096 = compare_env_outputs(s, es, got_4096, want_4096)
+        _, _, k2_one_err_4096 = compare_env_outputs(s, es, one_4096, want_4096)
+        print(f"team K2 vs plain at {B} envs: max abs err {k2_err_4096!r}; one-thread K2 vs "
+              f"plain: {k2_one_err_4096!r}", flush=True)
+        if len(differing_4096) > MAX_DIFFERING_ENVS:
+            raise AssertionError(f"{len(differing_4096)} envs differ at {B} envs")
+        if not all(torch.equal(a, b) for a, b in [*zip(got, one), *zip(got_4096, one_4096)]):
+            raise AssertionError("team K2 and the one-thread K2 differ: the same program "
+                                 "must give the same bits")
 
         def k2_step():
             soa_env.env_step(s, es, n_sub, *k2_blocks)
 
-        def k2_step_4096():  # the training lane's 4096-env blocks (K3's first six)
+        def k2_step_4096():
             soa_env.env_step(s, es, n_sub, *blocks[:6])
 
+        def k2_one():
+            soa_env.env_step_one_thread(s, es, n_sub, *k2_blocks)
+
+        def k2_one_4096():
+            soa_env.env_step_one_thread(s, es, n_sub, *blocks[:6])
+
         k2_plain_ms = cuda_ms(lambda: soa_env.env_step_rows(s, es, n_sub, *k2_blocks), 1)
+        k2_one_ms, k2_one_4096_ms = [cuda_ms(k2_one, 20)], [cuda_ms(k2_one_4096, 20)]
         k2_ms = [cuda_ms(k2_step, 20), cuda_ms(k2_step, 20)]
         k2_4096_ms = [cuda_ms(k2_step_4096, 20), cuda_ms(k2_step_4096, 20)]
-        print(f"K2 step: {statistics.median(k2_ms):.4f} ms at {EVAL_ENVS} envs (runs {k2_ms}), "
-              f"{statistics.median(k2_4096_ms):.4f} ms at {B} envs (runs {k2_4096_ms}); "
-              f"plain {k2_plain_ms:.1f} ms at {EVAL_ENVS} envs", flush=True)
+        k2_one_ms.append(cuda_ms(k2_one, 20))
+        k2_one_4096_ms.append(cuda_ms(k2_one_4096, 20))
+        print(f"team K2 step: {statistics.median(k2_ms):.4f} ms at {EVAL_ENVS} envs (runs "
+              f"{k2_ms}), {statistics.median(k2_4096_ms):.4f} ms at {B} envs (runs "
+              f"{k2_4096_ms}); plain {k2_plain_ms:.1f} ms at {EVAL_ENVS} envs", flush=True)
+        print(f"one-thread K2 step: {statistics.median(k2_one_ms):.4f} ms at {EVAL_ENVS} envs "
+              f"(runs {k2_one_ms}), {statistics.median(k2_one_4096_ms):.4f} ms at {B} envs "
+              f"(runs {k2_one_4096_ms})", flush=True)
+        ab = (statistics.median(k2_one_ms) / statistics.median(k2_ms),
+              statistics.median(k2_one_4096_ms) / statistics.median(k2_4096_ms))
+        print(f"A/B K2, one-thread / team: {ab[0]:.3f}x at {EVAL_ENVS} envs, {ab[1]:.3f}x at "
+              f"{B} envs", flush=True)
 
     with Phase("physics-only step vs K2 step"):
         fused_step = env.step_from_draws(estate, act, k2_noise)
@@ -757,9 +843,10 @@ def main():
 
     def train_and_check(environment, label, want, lane_line):
         """One ppo.train run at the default configuration (3 training steps,
-        2 evaluations); its kernel launches (K3, K2, K1, K4) against
-        ``want``, its lane line against ``lane_line``, and the checks of the
-        run. Returns the launches."""
+        2 evaluations); its kernel launches (K3, team K2, team K1, K4)
+        against ``want`` and the one-thread K2's and K1's against none, its
+        lane line against ``lane_line``, and the checks of the run. Returns
+        the launches and the one-thread kernels' launches."""
         initial = {}
 
         def network_factory(obs_size, action_size, device=None, generator=None):
@@ -774,8 +861,8 @@ def main():
         progress = []
         ckpt_dir = tempfile.mkdtemp(prefix="puppax_torch_smoke_")
         soa_env.wrapped_step.launches = 0
-        soa_env.env_step.launches = 0
-        soa.step_batched.launches = 0
+        soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
+        soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
         fused_unroll.unroll.launches = 0
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -799,10 +886,12 @@ def main():
             raise AssertionError(f"the lane line is not {lane_line!r}")
         launches = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
                     soa.step_batched.launches, fused_unroll.unroll.launches)
-        print(f"{label}: K3 launches {launches[0]} (expected {want[0]}), K2 launches "
-              f"{launches[1]} (expected {want[1]}), K1 launches {launches[2]} (expected "
-              f"{want[2]}), K4 launches {launches[3]} (expected {want[3]})", flush=True)
-        if launches != want:
+        one_thread = (soa_env.env_step_one_thread.launches, soa.step_batched_one_thread.launches)
+        print(f"{label}: K3 launches {launches[0]} (expected {want[0]}), team K2 launches "
+              f"{launches[1]} (expected {want[1]}), team K1 launches {launches[2]} (expected "
+              f"{want[2]}), K4 launches {launches[3]} (expected {want[3]}); one-thread K2 and "
+              f"K1 launches {one_thread} (expected (0, 0))", flush=True)
+        if launches != want or one_thread != (0, 0):
             raise AssertionError("the training run did not launch the kernels as expected")
         tree = checkpoint.restore_checkpoint(os.path.join(ckpt_dir, "state"), map_location=device)
         if tree["env_steps"] != TRAIN_TIMESTEPS or float(norm_out.count) != TRAIN_TIMESTEPS:
@@ -843,11 +932,11 @@ def main():
             + f"; final eval/episode_reward {m['eval/episode_reward']:.5f}, "
             f"eval/avg_episode_length {m['eval/avg_episode_length']:.1f}", flush=True)
         print(f"{label} losses " + json.dumps(losses), flush=True)
-        return launches
+        return launches, one_thread
 
     evals = 2 * tc.episode_length
     with Phase("ppo.train"):
-        k3_launches, k2_launches, _, _ = train_and_check(
+        (k3_launches, k2_launches, _, _), (k2_one_launches, _) = train_and_check(
             env, "ppo.train", (unroll_steps, evals, 0, 0),
             "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
 
@@ -855,7 +944,7 @@ def main():
     with Phase("ppo.train, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"
         try:
-            _, _, k1_launches, _ = train_and_check(
+            (_, _, k1_launches, _), (_, k1_one_launches) = train_and_check(
                 env_po, "ppo.train physics-only", (0, 0, unroll_steps + evals, 0),
                 "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
         finally:
@@ -865,7 +954,7 @@ def main():
     with Phase("ppo.train, fused-unroll lane"):
         os.environ["PUPPAX_FUSED_UNROLL"] = "on"
         try:
-            _, _, _, k4_launches = train_and_check(
+            (_, _, _, k4_launches), _ = train_and_check(
                 env, "ppo.train fused-unroll", (0, evals, 0, unroll_steps // tc.unroll_length),
                 "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
         finally:
@@ -971,25 +1060,52 @@ def main():
         "bound_by": k3_by,
         "library_ms": None,
     }, {
-        "name": "env_step",
+        # K2 and K1 as the team kernels (the main path) and as the one-thread
+        # kernels (their A/B baseline, launched 0 times on the main path);
+        # max_abs_err is the larger of the two widths held against plain
+        "name": "env_step_team",
         "route": "cuda",
-        "source": "puppax_torch/csrc/env_step.cuh",
+        "source": "puppax_torch/csrc/env_step_team.cuh",
         "replaces": "puppax/env/soa_env.py:533",
         "launches": k2_launches,
-        "max_abs_err": k2_err,
+        "max_abs_err": max(k2_err, k2_err_4096),
         "ms": statistics.median(k2_ms),
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
     }, {
+        "name": "env_step",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/env_step.cuh",
+        "replaces": "puppax/env/soa_env.py:533",
+        "launches": k2_one_launches,
+        "max_abs_err": max(k2_one_err, k2_one_err_4096),
+        "ms": statistics.median(k2_one_ms),
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "physics_step_team",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/physics_step_team.cuh",
+        "replaces": "puppax/physics/soa.py:2028",
+        "launches": k1_launches,
+        "max_abs_err": max(k1_err, k1_err_small),
+        "ms": statistics.median(k1_ms),
+        "plain_ms": statistics.median(k1_plain_ms),
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }, {
         "name": "physics_step",
         "route": "cuda",
         "source": "puppax_torch/csrc/physics_step.cuh",
         "replaces": "puppax/physics/soa.py:2028",
-        "launches": k1_launches,
-        "max_abs_err": k1_err,
-        "ms": statistics.median(k1_ms),
+        "launches": k1_one_launches,
+        "max_abs_err": max(k1_one_err, k1_one_err_small),
+        "ms": statistics.median(k1_one_ms),
         "plain_ms": statistics.median(k1_plain_ms),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
@@ -1083,7 +1199,8 @@ def main():
         max(c["max_abs_err"] for c in spd_res["checks"].values()), spd_res["graph_us"] / 1e3,
         spd_res["plain_ms"], bound_ms(spd_res["ops_per_env"], *spd_probe.spd_rows(), B),
         library_ms=spd_res["cusolver_us"][1] / 1e3))
-    print(f"bounds: K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), K2 {k2_bound:.6f} ms at "
+    print(f"bounds (team and one-thread alike): K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), "
+          f"K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
           f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_UNROLL} "
           f"unroll at {B} envs ({k4_by}); total wall "

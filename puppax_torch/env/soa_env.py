@@ -14,7 +14,10 @@ each with two back-ends:
 * the unwrapped step (K2, ``PupperV3Env.step``, the evaluator's lane):
   ``emit_env_rows`` adds the last forward pass's caches
   (``soa._emit_caches``). ``env_step_rows`` is the plain version and
-  ``env_step`` launches the generated C inside ``csrc/env_step.cuh``.
+  ``env_step`` launches the program split across the warps of a block
+  (``kernels/team.py``) inside ``csrc/env_step_team.cuh`` (team K2);
+  ``env_step_one_thread`` the generated C inside ``csrc/env_step.cuh``,
+  one env per thread (the A/B baseline).
 
 Every array is ``(rows, B)`` row-major float32, with no padding (the JAX
 package's ``TILE_B`` tiles have no counterpart). Random draws enter as
@@ -693,22 +696,41 @@ def env_step_rows(s, es, n_substeps, *blocks):
     return soa.plain_rows(lambda rows: emit_env_rows(s, es, n_substeps, rows), blocks)
 
 
-def env_step(s, es, n_substeps, *blocks):
-    """One unwrapped env step over ``(rows, B)`` blocks.
-
-    CPU tensors run the plain version (``env_step_rows``); CUDA tensors
-    launch the generated CUDA kernel (``csrc/env_step.cuh``) on the current
-    stream, or raise. Each launch adds one to ``env_step.launches``."""
+def _env_step(wrapper, kernel: build.Kernel, library, s, es, n_substeps, blocks):
+    """The wrappers' body: the plain version on CPU tensors, else one launch
+    of ``kernel`` from ``library(s, es, n_substeps)``, counted on ``wrapper``."""
     in_rows, out_rows = env_block_rows(s, es)
     B, dev = build.check_blocks(in_rows, blocks)
     if dev.type == "cpu":
         return env_step_rows(s, es, n_substeps, *blocks)
     if dev.type != "cuda":
-        raise ValueError(f"env_step: unsupported device {dev}")
-    lib = build.env_step_library(s, es, n_substeps)
-    outs = build.launch("env_step", lib.env_step_launch, blocks, out_rows, B, dev)
-    env_step.launches += 1
+        raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
+    lib = library(s, es, n_substeps)
+    outs = build.launch(kernel.name, getattr(lib, kernel.launch), blocks, out_rows, B, dev)
+    wrapper.launches += 1
     return outs
 
 
+def env_step(s, es, n_substeps, *blocks):
+    """One unwrapped env step over ``(rows, B)`` blocks.
+
+    CPU tensors run the plain version (``env_step_rows``); CUDA tensors
+    launch team K2 (``csrc/env_step_team.cuh``: 32 envs per block, each
+    env's program split across the block's warps) on the current stream, or
+    raise. Each launch adds one to ``env_step.launches``."""
+    return _env_step(env_step, build.ENV_STEP_TEAM, build.env_step_team_library, s, es,
+                     n_substeps, blocks)
+
+
 env_step.launches = 0
+
+
+def env_step_one_thread(s, es, n_substeps, *blocks):
+    """``env_step`` through the one-thread K2 (``csrc/env_step.cuh``, one env
+    per thread): the A/B baseline of ``chip_smoke.py``. Each launch adds one
+    to ``env_step_one_thread.launches``."""
+    return _env_step(env_step_one_thread, build.ENV_STEP, build.env_step_library, s, es,
+                     n_substeps, blocks)
+
+
+env_step_one_thread.launches = 0

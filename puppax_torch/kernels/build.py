@@ -1,8 +1,9 @@
 """Build and bind the generated kernels: nvcc for the card, g++ for tests.
 
-Each kernel is a generated body (``kernels/cgen.py``) inside a hand-written
-launch shell (``csrc/*.cuh``, which includes ``csrc/common.cuh``). Body,
-shell and common header are written to
+Each kernel is a generated body (``kernels/cgen.py``; for the team kernels
+``kernels/team.py``) inside a hand-written launch shell (``csrc/*.cuh``,
+which includes ``csrc/common.cuh``, and the team shells ``csrc/team.cuh``).
+Body, shell and headers are written to
 ``build/puppax_torch_kernels/<sha256 of sources + compiler + flags>/`` in
 the checkout, compiled into a shared library with a plain C interface, and
 loaded with ``ctypes`` (every pointer and the stream as ``c_void_p``). A
@@ -52,7 +53,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-GXX_FLAGS = ("-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC")
+# C++20 for the team shells' std::barrier (csrc/team.cuh)
+GXX_FLAGS = ("-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+             "-pthread")
 
 
 @dataclass(frozen=True)
@@ -66,6 +69,7 @@ class Kernel:
     launch: str  # (pointers..., int B, ints..., void* stream), nvcc build
     host: str  # (pointers..., int B, ints...), g++ build
     n_ints: int = 0  # ints after B
+    headers: Tuple[Path, ...] = ()  # headers the shell includes besides common.cuh
 
 
 WRAPPED_STEP = Kernel("wrapped_step", CSRC / "wrapped_step.cuh", 13,  # 8 in + 5 out
@@ -74,6 +78,16 @@ ENV_STEP = Kernel("env_step", CSRC / "env_step.cuh", 10,  # 6 in + 4 out
                   "env_step_launch", "env_step_host")
 PHYSICS_STEP = Kernel("physics_step", CSRC / "physics_step.cuh", 7,  # 4 in + 3 out
                       "physics_step_launch", "physics_step_host")
+# the team kernels: K2's and K1's programs split across the warps of a block
+# (kernels/team.py); the production K2 and K1 (soa_env.env_step, soa.step_batched)
+ENV_STEP_TEAM = Kernel("env_step_team", CSRC / "env_step_team.cuh", 10, "env_step_team_launch",
+                       "env_step_team_host", headers=(CSRC / "team.cuh",))
+PHYSICS_STEP_TEAM = Kernel("physics_step_team", CSRC / "physics_step_team.cuh", 7,
+                           "physics_step_team_launch", "physics_step_team_host",
+                           headers=(CSRC / "team.cuh",))
+# warps per block of each team kernel (chosen on the card from the sweep of
+# probes/profile_layout.py; PERF.md)
+TEAM_WARPS = {"env_step_team": 6, "physics_step_team": 4}
 # 10 in + 10 out + 4 scratch; ints T, n_layers, activation, gait, the 9 layer widths
 FUSED_UNROLL = Kernel("fused_unroll", CSRC / "fused_unroll.cuh", 24,
                       "fused_unroll_launch", "fused_unroll_host", n_ints=13)
@@ -133,9 +147,9 @@ def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
     """Compile ``kernel``'s shell around ``body`` into
     ``<out_root>/<hash>/lib_name``. Returns (library path, whether it was
     cached, seconds spent)."""
-    shell, common = kernel.shell.read_text(), COMMON.read_text()
+    headers = {h.name: h.read_text() for h in (kernel.shell, COMMON, *kernel.headers)}
     digest = hashlib.sha256(
-        "\0".join([body, shell, common, " ".join(compiler), " ".join(flags)]).encode()
+        "\0".join([body, *headers.values(), " ".join(compiler), " ".join(flags)]).encode()
     ).hexdigest()
     d = Path(out_root) / digest
     lib = d / lib_name
@@ -143,8 +157,8 @@ def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
         return lib, True, 0.0
     d.mkdir(parents=True, exist_ok=True)
     (d / f"{kernel.name}_body.inc").write_text(body)
-    (d / kernel.shell.name).write_text(shell)
-    (d / COMMON.name).write_text(common)
+    for name, text in headers.items():
+        (d / name).write_text(text)
     unit = d / f"{kernel.name}_unit.cu"
     unit.write_text(
         f'#define PUPPAX_KERNEL_BODY "{kernel.name}_body.inc"\n'
@@ -178,8 +192,10 @@ def _bind(lib: ctypes.CDLL, kernel: Kernel, with_stream: bool):
 
 
 def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
-                    make_body: Callable[[], str], variant: str = "",
+                    make_body: Callable[[], object], variant: str = "",
                     flags: Sequence[str] = NVCC_FLAGS) -> ctypes.CDLL:
+    """``make_body`` returns the generated source, or (source, stats) for a
+    team body (``team.render``: its stats go into the build record)."""
     name = record_name(kernel, variant, flags)
     key = (name, id(s), id(es), config)
     hit = _LOADED.get(key)
@@ -189,6 +205,7 @@ def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
         t0 = time.perf_counter()
         body = make_body()
         gen_secs = time.perf_counter() - t0
+    body, stats = body if isinstance(body, tuple) else (body, {})
     path, cached, secs = compile_library(
         kernel, body, [nvcc_path()], flags, BUILD_ROOT, f"lib{kernel.name}.so"
     )
@@ -198,8 +215,8 @@ def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
 
     last_build[name] = dict(
         generate_seconds=gen_secs, compile_seconds=secs, cached=cached,
-        dir=str(path.parent), lines=body.count("\n"), ops_per_env=cgen.op_count(body),
-        host_cpus=os.cpu_count(),
+        dir=str(path.parent), lines=body.count("\n"), host_cpus=os.cpu_count(),
+        **({"ops_per_env": cgen.op_count(body)} if not stats else stats),
     )
     _LOADED[key] = (s, es, lib)  # keeps s/es alive so their ids stay unique
     return lib
@@ -235,6 +252,40 @@ def physics_step_library(s, n_substeps: int) -> ctypes.CDLL:
     return _device_library(
         PHYSICS_STEP, s, None, (int(n_substeps),),
         lambda: cgen.physics_step_body(s, n_substeps),
+    )
+
+
+def team_variant(kernel: Kernel, warps: int) -> str:
+    """The variant of a team build: none at ``TEAM_WARPS``, else its warps
+    (a sweep's build is its own record, ``record_name(kernel, variant)``)."""
+    return "" if warps == TEAM_WARPS[kernel.name] else f"{warps} warps"
+
+
+def env_step_team_library(s, es, n_substeps: int, warps: Optional[int] = None) -> ctypes.CDLL:
+    """Team K2 (``kernels/team.py`` around K2's program, ``warps`` warps per
+    block, ``TEAM_WARPS`` by default), built with nvcc for sm_90a at first
+    use and cached for the process."""
+    from puppax_torch.kernels import team
+
+    warps = warps or TEAM_WARPS[ENV_STEP_TEAM.name]
+    return _device_library(
+        ENV_STEP_TEAM, s, es, (int(n_substeps), warps),
+        lambda: team.env_step_team_body(s, es, n_substeps, warps),
+        variant=team_variant(ENV_STEP_TEAM, warps),
+    )
+
+
+def physics_step_team_library(s, n_substeps: int, warps: Optional[int] = None) -> ctypes.CDLL:
+    """Team K1 (``kernels/team.py`` around K1's program, ``warps`` warps per
+    block, ``TEAM_WARPS`` by default), built with nvcc for sm_90a at first
+    use and cached for the process."""
+    from puppax_torch.kernels import team
+
+    warps = warps or TEAM_WARPS[PHYSICS_STEP_TEAM.name]
+    return _device_library(
+        PHYSICS_STEP_TEAM, s, None, (int(n_substeps), warps),
+        lambda: team.physics_step_team_body(s, n_substeps, warps),
+        variant=team_variant(PHYSICS_STEP_TEAM, warps),
     )
 
 

@@ -14,8 +14,16 @@ The generated body is one ``PUPPAX_HD`` (``__host__ __device__``) function
 that reads row r of env b at ``ptr[r * B + b]``; a hand-written shell wraps
 it in the kernel and the C entry points: ``csrc/wrapped_step.cuh`` for the
 wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2),
-``csrc/physics_step.cuh`` for the physics-only step (K1). The fused unroll
-(K4, ``csrc/fused_unroll.cuh``) calls K3's body once per step.
+``csrc/physics_step.cuh`` for the physics-only step (K1), one env per
+thread. The fused unroll (K4, ``csrc/fused_unroll.cuh``) calls K3's body
+once per step. K2's and K1's production kernels are their team kernels:
+``kernels/team.py`` renders the same program split across the warps of a
+block, inside ``csrc/env_step_team.cuh`` and ``csrc/physics_step_team.cuh``.
+
+Beside its lines, ``CProgram`` records each statement as a node (``Val``,
+``Load``, ``Store``, ``Stack``, ``Dphi``, ``Loop``: name, kind, expression
+template, operand names, loop nesting), which ``kernels/team.py`` schedules
+across the warps of a block.
 """
 
 from __future__ import annotations
@@ -40,8 +48,8 @@ _UNARY = {
 }
 
 # the pointer parameters of each body, in block order (shells: WS_PARAMS
-# in wrapped_step.cuh, ES_PARAMS in env_step.cuh, PS_PARAMS in
-# physics_step.cuh)
+# in wrapped_step.cuh, ES_PARAMS in env_step.cuh and env_step_team.cuh,
+# PS_PARAMS in physics_step.cuh and physics_step_team.cuh)
 IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr", "first", "wrap")
 OUT_BLOCKS = ("q_out", "v_out", "env_out", "wrap_out", "aux_out")
 ENV_IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr")
@@ -76,7 +84,7 @@ class CVal:
         bk = self._bk
         o = bk.arg(other, self.kind)
         a, b = (o, self.name) if rev else (self.name, o)
-        return bk.emit(kind or self.kind, f"{a} {op} {b}")
+        return bk.emit(kind or self.kind, "{} " + op + " {}", a, b)
 
     def __add__(self, o):
         return self._bin(o, "+")
@@ -103,7 +111,7 @@ class CVal:
         return self._bin(o, "/", rev=True)
 
     def __neg__(self):
-        return self._bk.emit(self.kind, f"-{self.name}")
+        return self._bk.emit(self.kind, "-{}", self.name)
 
     def __lt__(self, o):
         return self._bin(o, "<", kind="b")
@@ -130,7 +138,7 @@ class CVal:
         return self._bin(o, "||", kind="b")
 
     def __invert__(self):
-        return self._bk.emit("b", f"!{self.name}")
+        return self._bk.emit("b", "!{}", self.name)
 
 
 class CArr:
@@ -143,6 +151,69 @@ class CArr:
         self.n = n
 
 
+# ---- the statement nodes CProgram records beside its lines ----
+class Val:
+    """``const <kind> name = template.format(*args);`` (args: value names or
+    literals)."""
+
+    __slots__ = ("name", "kind", "template", "args")
+
+    def __init__(self, name, kind, template, args):
+        self.name, self.kind, self.template, self.args = name, kind, template, tuple(args)
+
+    @property
+    def expr(self) -> str:
+        return self.template.format(*self.args)
+
+
+class Load:
+    """``const float name = ptr[row * B + b];``"""
+
+    __slots__ = ("name", "ptr", "row")
+
+    def __init__(self, name, ptr, row):
+        self.name, self.ptr, self.row = name, ptr, row
+
+
+class Store:
+    """``ptr[row * B + b] = arg;``"""
+
+    __slots__ = ("ptr", "row", "arg")
+
+    def __init__(self, ptr, row, arg):
+        self.ptr, self.row, self.arg = ptr, row, arg
+
+
+class Stack:
+    """``const float name[len(args)] = {args...};``"""
+
+    __slots__ = ("name", "args")
+
+    def __init__(self, name, args):
+        self.name, self.args = name, tuple(args)
+
+
+class Dphi:
+    """The line search's row sum ``name`` = sum over r = 0..n-1, in order,
+    of ``pmin(D[r] * (jar[r] + alpha * jv[r]), 0) * jv[r]`` over the stacked
+    rows ``D``, ``jar``, ``jv`` (``CProgram.os_dphi``)."""
+
+    __slots__ = ("name", "D", "jar", "jv", "alpha", "n")
+
+    def __init__(self, name, D, jar, jv, alpha, n):
+        self.name, self.D, self.jar, self.jv, self.alpha, self.n = name, D, jar, jv, alpha, n
+
+
+class Loop:
+    """A ``fori_loop`` of ``n`` trips: carries ``(name, kind, init)``, the
+    body's nodes, and the body's new value of each carry (``new``)."""
+
+    __slots__ = ("n", "carries", "body", "new")
+
+    def __init__(self, n, carries):
+        self.n, self.carries, self.body, self.new = n, carries, [], []
+
+
 class CProgram:
     """The C back-end: collects SSA lines for one function body."""
 
@@ -150,6 +221,12 @@ class CProgram:
         self.lines: List[str] = []
         self.depth = 1
         self.count = 0
+        self.nodes: list = []  # the statement nodes, loops nested
+        self._into = self.nodes  # where the next node goes (None: not recorded)
+
+    def _record(self, node):
+        if self._into is not None:
+            self._into.append(node)
 
     # ---- names and literals ----
     def fresh(self, prefix: str = "t") -> str:
@@ -168,9 +245,12 @@ class CProgram:
             return str(int(x))
         return float_literal(x)
 
-    def emit(self, kind: str, expr: str) -> CVal:
+    def emit(self, kind: str, template: str, *args: str) -> CVal:
+        """One SSA statement: ``template`` with its ``{}`` filled by ``args``
+        (value names or literals)."""
         name = self.fresh()
-        self.line(f"const {_CTYPE[kind]} {name} = {expr};")
+        self.line(f"const {_CTYPE[kind]} {name} = {template.format(*args)};")
+        self._record(Val(name, kind, template, args))
         return CVal(self, name, kind)
 
     def const(self, x) -> CVal:
@@ -180,10 +260,14 @@ class CProgram:
         return CVal(self, str(int(x)), "i")
 
     def load(self, ptr: str, row: int) -> CVal:
-        return self.emit("f", f"{ptr}[{row} * B + b]")
+        name = self.fresh()
+        self.line(f"const float {name} = {ptr}[{row} * B + b];")
+        self._record(Load(name, ptr, row))
+        return CVal(self, name, "f")
 
     def store(self, ptr: str, row: int, x):
         self.line(f"{ptr}[{row} * B + b] = {self.arg(x)};")
+        self._record(Store(ptr, row, self.arg(x)))
 
     # ---- the ops of physics/soa.py's back-end interface ----
     @staticmethod
@@ -195,21 +279,22 @@ class CProgram:
 
     def where(self, c, a, b):
         kind = self._kind(a, b)
-        return self.emit(kind, f"{self.arg(c)} ? {self.arg(a, kind)} : {self.arg(b, kind)}")
+        return self.emit(kind, "{} ? {} : {}", self.arg(c), self.arg(a, kind), self.arg(b, kind))
 
     def maximum(self, a, b):
-        return self.emit("f", f"pmax({self.arg(a)}, {self.arg(b)})")
+        return self.emit("f", "pmax({}, {})", self.arg(a), self.arg(b))
 
     def minimum(self, a, b):
-        return self.emit("f", f"pmin({self.arg(a)}, {self.arg(b)})")
+        return self.emit("f", "pmin({}, {})", self.arg(a), self.arg(b))
 
     def unary(self, name: str, x):
-        return self.emit("f", _UNARY[name].format(self.arg(x)))
+        return self.emit("f", _UNARY[name], self.arg(x))
 
     def stack(self, vals) -> CArr:
         name = self.fresh("a")
-        body = ", ".join(self.arg(v) for v in vals)
-        self.line(f"const float {name}[{len(vals)}] = {{{body}}};")
+        args = [self.arg(v) for v in vals]
+        self.line(f"const float {name}[{len(vals)}] = {{{', '.join(args)}}};")
+        self._record(Stack(name, args))
         return CArr(name, len(vals))
 
     def os_dphi(self, D: CArr, jar: CArr, jv: CArr, alpha: CVal) -> CVal:
@@ -217,30 +302,39 @@ class CProgram:
         self.line(f"float {acc} = 0.0f;")
         self.line(f"for (int {r} = 0; {r} < {jar.n}; ++{r}) {{")
         self.depth += 1
-        m = self.emit("f", f"{alpha.name} * {jv.name}[{r}]")
-        ja = self.emit("f", f"{jar.name}[{r}] + {m.name}")
-        dj = self.emit("f", f"{D.name}[{r}] * {ja.name}")
-        t = self.emit("f", f"pmin({dj.name}, 0.0f)")
-        p = self.emit("f", f"{t.name} * {jv.name}[{r}]")
+        into, self._into = self._into, None  # the row loop is one Dphi node
+        m = self.emit("f", "{} * {}", alpha.name, f"{jv.name}[{r}]")
+        ja = self.emit("f", "{} + {}", f"{jar.name}[{r}]", m.name)
+        dj = self.emit("f", "{} * {}", f"{D.name}[{r}]", ja.name)
+        t = self.emit("f", "pmin({}, 0.0f)", dj.name)
+        p = self.emit("f", "{} * {}", t.name, f"{jv.name}[{r}]")
+        self._into = into
         self.line(f"{acc} = {acc} + {p.name};")
         self.depth -= 1
         self.line("}")
+        self._record(Dphi(acc, D.name, jar.name, jv.name, alpha.name, jar.n))
         return CVal(self, acc, "f")
 
     def fori_loop(self, n: int, body, carry):
         kinds = [self._kind(x) for x in carry]
-        names = []
+        names, inits = [], []
         for x, kind in zip(carry, kinds):
             name = self.fresh("c")
-            self.line(f"{_CTYPE[kind]} {name} = {self.arg(x, kind)};")
+            inits.append(self.arg(x, kind))
+            self.line(f"{_CTYPE[kind]} {name} = {inits[-1]};")
             names.append(name)
+        loop = Loop(n, list(zip(names, kinds, inits)))
+        self._record(loop)
+        into, self._into = self._into, (loop.body if self._into is not None else None)
         it = self.fresh("i")
         self.line(f"for (int {it} = 0; {it} < {n}; ++{it}) {{")
         self.depth += 1
         with soa.cse_scope(fresh=True):
             new = body(None, [CVal(self, nm, k) for nm, k in zip(names, kinds)])
             # read every new value before any carry is assigned
-            tmps = [self.emit(k, self.arg(x, k)) for x, k in zip(new, kinds)]
+            tmps = [self.emit(k, "{}", self.arg(x, k)) for x, k in zip(new, kinds)]
+        loop.new = [t.name for t in tmps]
+        self._into = into
         for nm, t in zip(names, tmps):
             self.line(f"{nm} = {t.name};")
         self.depth -= 1
@@ -248,13 +342,19 @@ class CProgram:
         return [CVal(self, nm, k) for nm, k in zip(names, kinds)]
 
 
-def _body(name, params, in_blocks, out_blocks, in_rows, emit, what) -> str:
+def _program(in_blocks, out_blocks, in_rows, emit) -> CProgram:
+    """Run ``emit`` on the loads of every input row and store its outputs."""
     prog = CProgram()
     rows = [[prog.load(ptr, r) for r in range(n)] for ptr, n in zip(in_blocks, in_rows)]
     outs = emit(rows)
     for ptr, vals in zip(out_blocks, outs):
         for r, x in enumerate(vals):
             prog.store(ptr, r, x)
+    return prog
+
+
+def _body(name, params, in_blocks, out_blocks, in_rows, emit, what) -> str:
+    prog = _program(in_blocks, out_blocks, in_rows, emit)
     header = (
         f"// Generated by puppax_torch/kernels/cgen.py from the {what},\n"
         f"// {prog.count} values. Do not edit.\n"
@@ -315,6 +415,22 @@ def env_step_body(s, es, n_substeps: int) -> str:
     )
 
 
+def env_step_program(s, es, n_substeps: int) -> CProgram:
+    """K2's emission as a ``CProgram`` (its nodes: ``kernels/team.py``)."""
+    from puppax_torch.env import soa_env
+
+    in_rows, _ = soa_env.env_block_rows(s, es)
+    return _program(ENV_IN_BLOCKS, ENV_OUT_BLOCKS, in_rows,
+                    lambda rows: soa_env.emit_env_rows(s, es, n_substeps, rows))
+
+
+def physics_step_program(s, n_substeps: int) -> CProgram:
+    """K1's emission as a ``CProgram`` (its nodes: ``kernels/team.py``)."""
+    in_rows, _ = soa.physics_block_rows(s)
+    return _program(PHYSICS_IN_BLOCKS, PHYSICS_OUT_BLOCKS, in_rows,
+                    lambda rows: soa.emit_physics_rows(s, n_substeps, rows))
+
+
 def physics_step_body(s, n_substeps: int, phase_limit=None, sink: bool = False) -> str:
     """C source of ``physics_step_body`` (K1): the physics-only emission
     (``soa.emit_physics_rows``: the substeps, the last forward pass's caches
@@ -343,6 +459,13 @@ _DECL = re.compile(r"(?:const )?(?:float|bool|int) (\w+)(?:\[\d+\])? = (.*);$")
 _ASSIGN = re.compile(r"(\w+) = (.*);$")
 _STORE = re.compile(r"\w+\[[^\]]*\* B \+ b\] = (.*);$")
 _NAME = re.compile(r"\b[a-z]\d+\b")  # the names CProgram.fresh makes
+
+
+def expr_ops(rhs: str) -> int:
+    """Float operations of one C expression, as ``op_count`` counts them."""
+    rhs = re.sub(r"\w+\[[^\]]*\]", "x", rhs)  # indices are not float work
+    rhs = re.sub(r"(?<![\w.])\(?-?\d+(?:\.\d*)?(?:e[+-]?\d+)?f\)?", "c", rhs)  # literals
+    return len(_OPS.findall(rhs))
 
 
 def op_count(body: str) -> int:
@@ -379,9 +502,7 @@ def op_count(body: str) -> int:
         rhs = m.group(2)
         defs.setdefault(m.group(1), []).append(len(ops))
         uses.append(_NAME.findall(rhs))
-        rhs = re.sub(r"\w+\[[^\]]*\]", "x", rhs)  # indices are not float work
-        rhs = re.sub(r"(?<![\w.])\(?-?\d+(?:\.\d*)?(?:e[+-]?\d+)?f\)?", "c", rhs)  # literals
-        ops.append(trips[-1] * len(_OPS.findall(rhs)))
+        ops.append(trips[-1] * expr_ops(rhs))
     live, todo, seen = set(), list(roots), set()
     while todo:
         name = todo.pop()

@@ -1575,26 +1575,44 @@ def physics_step_rows(s: _Static, n_substeps: int, q, v, ctrl, dr,
                       (q, v, ctrl, dr))
 
 
+def _physics_step(wrapper, kernel: build.Kernel, library, s: _Static, blocks,
+                  n_substeps: int):
+    """The wrappers' body: the plain version on CPU tensors, else one launch
+    of ``kernel`` from ``library(s, n_substeps)``, counted on ``wrapper``."""
+    in_rows, out_rows = physics_block_rows(s)
+    B, dev = build.check_blocks(in_rows, blocks)
+    if dev.type == "cpu":
+        return physics_step_rows(s, n_substeps, *blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
+    lib = library(s, n_substeps)
+    outs = build.launch(kernel.name, getattr(lib, kernel.launch), blocks, out_rows, B, dev)
+    wrapper.launches += 1
+    return outs
+
+
 def step_batched(s: _Static, q, v, ctrl, dr, n_substeps: int):
     """One physics-only env step (``n_substeps`` substeps) of every env over
     ``(rows, B)`` float32 blocks: q ``(nq, B)``, v ``(nv, B)``, ctrl
     ``(nu, B)``, dr ``(ndr, B)``. Returns (q', v', caches).
 
     CPU tensors run the plain version (``physics_step_rows``); CUDA tensors
-    launch the generated CUDA kernel (``csrc/physics_step.cuh``) on the
-    current stream, or raise. Each launch adds one to
-    ``step_batched.launches``."""
-    in_rows, out_rows = physics_block_rows(s)
-    blocks = (q, v, ctrl, dr)
-    B, dev = build.check_blocks(in_rows, blocks)
-    if dev.type == "cpu":
-        return physics_step_rows(s, n_substeps, *blocks)
-    if dev.type != "cuda":
-        raise ValueError(f"step_batched: unsupported device {dev}")
-    lib = build.physics_step_library(s, n_substeps)
-    outs = build.launch("physics_step", lib.physics_step_launch, blocks, out_rows, B, dev)
-    step_batched.launches += 1
-    return outs
+    launch team K1 (``csrc/physics_step_team.cuh``: 32 envs per block, each
+    env's program split across the block's warps) on the current stream, or
+    raise. Each launch adds one to ``step_batched.launches``."""
+    return _physics_step(step_batched, build.PHYSICS_STEP_TEAM, build.physics_step_team_library,
+                         s, (q, v, ctrl, dr), n_substeps)
 
 
 step_batched.launches = 0
+
+
+def step_batched_one_thread(s: _Static, q, v, ctrl, dr, n_substeps: int):
+    """``step_batched`` through the one-thread K1 (``csrc/physics_step.cuh``,
+    one env per thread): the A/B baseline of ``chip_smoke.py`` and the
+    probes. Each launch adds one to ``step_batched_one_thread.launches``."""
+    return _physics_step(step_batched_one_thread, build.PHYSICS_STEP,
+                         build.physics_step_library, s, (q, v, ctrl, dr), n_substeps)
+
+
+step_batched_one_thread.launches = 0

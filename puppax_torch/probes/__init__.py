@@ -30,6 +30,12 @@ function (``chip_smoke.py`` drives it) and a command line
 - ``pallas_spd_poc``: the batched 18 x 18 SPD solve of the Newton step, one
   thread per env, beside cuSOLVER's (``dev/pallas_spd_poc.py``).
 
+Two probes have no TPU original; they ask the team kernels' questions
+(K1 and K2 split across the warps of a block, ``kernels/team.py``):
+``profile_layout --team`` sweeps the warps per block, and
+``profile_team`` the schedule's knobs (stage budget, crossing cost, shared
+memory budget, the row sums' unroll) and prices the line search.
+
 The probes' builds are their own libraries (``kernels/build.py``); the
 production kernels K1-K4 and their flags are untouched by them.
 """

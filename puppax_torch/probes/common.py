@@ -406,7 +406,11 @@ def ptxas_info(record: str) -> dict:
     ``registers``, ``stack``, ``spill_stores`` and ``spill_loads`` bytes,
     the largest of each over the functions of the log."""
     with open(f"{build.last_build[record]['dir']}/build.log") as f:
-        log = f.read()
+        return ptxas_of_log(f.read())
+
+
+def ptxas_of_log(log: str) -> dict:
+    """``ptxas_info`` of a build log's text."""
     found = {key: [int(x) for x in re.findall(pattern, log)] for key, pattern in (
         ("registers", r"Used (\d+) registers"), ("stack", r"(\d+) bytes stack frame"),
         ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads"))}

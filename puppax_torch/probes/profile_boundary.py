@@ -6,7 +6,7 @@ The H100 counterpart of ``dev/profile_boundary.py`` (``kernel_call`` :88 /
 ``pallas_call`` :89), which split the TPU's physics-only step into K1 on
 tile-resident carries, the per-step transposes around it and the full
 ``_cv_pipeline_step`` splice. The kernel here is the production K1
-(``soa.step_batched``, ``csrc/physics_step.cuh``). Four variants, each 50
+(``soa.step_batched``: team K1, ``csrc/physics_step_team.cuh``). Four variants, each 50
 steps with the state carried from K1's inputs (``window``), timed eagerly
 and replayed from one CUDA graph (best of 3, CUDA events):
 
@@ -143,8 +143,8 @@ def main(argv=None):
     print(smi, flush=True)
     env = PupperV3Env.from_config(EnvConfig(), device=device)
     s = env._cv_step.s
-    build.physics_step_library(s, env._n_substeps)
-    common.print_builds([build.record_name(build.PHYSICS_STEP)])
+    build.physics_step_team_library(s, env._n_substeps)
+    common.print_builds([build.record_name(build.PHYSICS_STEP_TEAM)])
     run(env, common.nominal_blocks(s, env.model, args.envs, device))
     print(smi, flush=True)
 

@@ -23,6 +23,18 @@ threads); the block-major layout makes each tile's rows contiguous.
 
 Inputs as ``profile_kernel_phases``: the TPU probe's nominal states by
 default; ``run`` takes any ``(rows, B)`` blocks.
+
+    python -m puppax_torch.probes.profile_layout --team
+
+asks the block-shape question of the team kernels (``csrc/physics_step_team.cuh``,
+``csrc/env_step_team.cuh``: 32 envs per block, each env's program split
+across the block's W warps by ``kernels/team.py``): team K1 and team K2 at
+W = 4, 6, 8 and 16 warps per block, at 4096 and 128 envs, beside the
+one-thread K1 and K2 (10 libraries built at once). Each launch is held bit
+for bit against the one-thread kernel's; each time is the best of 3
+windows of 20 launches on the same inputs (CUDA events), with the build's
+registers, spills and shared memory. K1 runs on the nominal states above,
+K2 on a nominal reset of the default env (zero actions and noise).
 """
 
 from __future__ import annotations
@@ -94,17 +106,121 @@ def run(s, n_substeps: int, blocks, phases: Sequence[Optional[str]] = PHASES,
     return results
 
 
+TEAM_WARPS = (4, 6, 8, 16)
+TEAM_ENVS = (4096, 128)
+# (label, one-thread kernel, team kernel, one-thread library, team library)
+_TEAM_KERNELS = (
+    ("K1", build.PHYSICS_STEP, build.PHYSICS_STEP_TEAM,
+     lambda s, es, n: build.physics_step_library(s, n),
+     lambda s, es, n, w: build.physics_step_team_library(s, n, w)),
+    ("K2", build.ENV_STEP, build.ENV_STEP_TEAM,
+     lambda s, es, n: build.env_step_library(s, es, n),
+     lambda s, es, n, w: build.env_step_team_library(s, es, n, w)),
+)
+
+
+def build_team(s, es, n_substeps: int, warps: Sequence[int] = TEAM_WARPS):
+    """The one-thread K1 and K2 and the team kernels at every W, built at
+    once; returns their ``build.last_build`` names."""
+    jobs, names = [], []
+    for _, one, team, one_lib, team_lib in _TEAM_KERNELS:
+        jobs.append(lambda f=one_lib: f(s, es, n_substeps))
+        names.append(build.record_name(one))
+        for w in warps:
+            jobs.append(lambda f=team_lib, w=w: f(s, es, n_substeps, w))
+            names.append(build.record_name(team, build.team_variant(team, w)))
+    build.build_in_parallel(*jobs)
+    return names
+
+
+def team_sweep(s, es, n_substeps: int, blocks: Dict[str, Dict[int, list]],
+               warps: Sequence[int] = TEAM_WARPS, iters: int = 20,
+               runs: int = common.RUNS) -> Dict[tuple, dict]:
+    """Time the one-thread and the team K1 and K2 (``blocks["K1"][B]``,
+    ``blocks["K2"][B]``: each kernel's input blocks at B envs). Returns,
+    per (kernel, B, W; W = 1 for the one-thread kernel), ``us`` per launch
+    and the build's ptxas summary; fails unless every team launch equals
+    the one-thread kernel's bit for bit."""
+    from puppax_torch.env import soa_env
+    from puppax_torch.physics import soa
+
+    out_rows = {"K1": soa.physics_block_rows(s)[1], "K2": soa_env.env_block_rows(s, es)[1]}
+    print(common.nvidia_smi(), flush=True)
+    print(f"team kernels by warps per block: us per launch, best of {runs} windows of {iters} "
+          "launches on the same inputs (CUDA events); W = 1 is the one-thread kernel:",
+          flush=True)
+    results = {}
+    for label, one, team, one_lib, team_lib in _TEAM_KERNELS:
+        variants = [(1, build.record_name(one), getattr(one_lib(s, es, n_substeps), one.launch))]
+        for w in warps:
+            lib = team_lib(s, es, n_substeps, w)
+            variants.append((w, build.record_name(team, build.team_variant(team, w)),
+                             getattr(lib, team.launch)))
+        for B, bl in blocks[label].items():
+            dev = bl[0].device
+            ref = None
+            for w, record, fn in variants:
+                got = build.launch(record, fn, bl, out_rows[label], B, dev)
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = got
+                _, differing = common.compare_exact(got, ref)
+                if differing:
+                    raise AssertionError(f"team {label} at {w} warps, {B} envs: {differing} "
+                                         "envs differ from the one-thread kernel")
+                ms = common.best_ms(lambda: [build.launch(record, fn, bl, out_rows[label], B,
+                                                          dev) for _ in range(iters)], runs)
+                info = common.ptxas_info(record)
+                smem = build.last_build[record].get("shared_bytes", 0)
+                results[(label, B, w)] = dict(us=1e3 * ms / iters, shared_bytes=smem, **info)
+                us = results[(label, B, w)]["us"]
+                base = results[(label, B, 1)]["us"]
+                print(f"{label} {B:5d} envs W={w:2d}: {us:10.1f} us ({base / us:5.2f}x the "
+                      f"one-thread kernel); {info['registers']} registers, "
+                      f"{info['spill_stores']} B spill stores, {smem} B shared", flush=True)
+    return results
+
+
+def team_blocks(device, envs: Sequence[int] = TEAM_ENVS):
+    """The default env and the sweep's inputs: K1's nominal blocks, and
+    K2's from a nominal reset of the env with zero actions and noise."""
+    from puppax_torch.configs import EnvConfig
+    from puppax_torch.env import soa_env
+    from puppax_torch.env.pupper import PupperV3Env
+
+    env = PupperV3Env.from_config(EnvConfig(), device=device)
+    s, es = env._s, env._es
+    g = torch.Generator(device=device).manual_seed(0)
+    out = {"K1": {}, "K2": {}}
+    for B in envs:
+        out["K1"][B] = common.nominal_blocks(s, env.model, B, device)
+        state = env.reset(g, B)
+        zeros = torch.zeros((es.nnoise_rows, B), dtype=torch.float32, device=device)
+        out["K2"][B] = [soa_env.rows_block([state.qpos]), soa_env.rows_block([state.qvel]),
+                        torch.zeros((s.nu, B), dtype=torch.float32, device=device),
+                        soa_env.env_block(es, state.info, state.obs), zeros,
+                        out["K1"][B][3]]
+    return env, out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--envs", type=int, default=4096)
+    ap.add_argument("--team", action="store_true",
+                    help="sweep the team kernels' warps per block instead")
     args = ap.parse_args(argv)
     common.require_cuda("profile_layout")
     device = torch.device("cuda", 0)
     smi = common.nvidia_smi()
     print(smi, flush=True)
-    s, n_substeps, model = common.nominal_setup(device)
-    common.print_builds(build_all(s, n_substeps))
-    run(s, n_substeps, common.nominal_blocks(s, model, args.envs, device))
+    if args.team:
+        env, blocks = team_blocks(device)
+        common.print_builds(build_team(env._s, env._es, env._n_substeps))
+        team_sweep(env._s, env._es, env._n_substeps, blocks)
+    else:
+        s, n_substeps, model = common.nominal_setup(device)
+        common.print_builds(build_all(s, n_substeps))
+        run(s, n_substeps, common.nominal_blocks(s, model, args.envs, device))
     print(smi, flush=True)
 
 

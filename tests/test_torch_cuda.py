@@ -1,6 +1,7 @@
 """The K3, K2, K1 and K4 kernels on an NVIDIA GPU against their plain
-versions, short training runs through them, and the kernel-time probes'
-kernels (``puppax_torch/probes``) against their plain versions.
+versions (K1 and K2 as the team kernels, and as the one-thread kernels
+beside them), short training runs through them, and the kernel-time
+probes' kernels (``puppax_torch/probes``) against their plain versions.
 
 These tests need a CUDA device and nvcc; without them they skip. On the
 GPU host (which has no JAX) run them with
@@ -14,6 +15,7 @@ import torch
 
 import torch_port_helpers as H
 from puppax_torch.env import fused_unroll, soa_env
+from puppax_torch.kernels import build
 from puppax_torch.physics import soa
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +82,45 @@ def test_env_step_kernel_matches_plain(env):
                                s, es, "K2 vs plain at B=128")
 
 
+@pytest.mark.parametrize("B", [4096, 4097])
+def test_team_k1_bit_for_bit(env, B):
+    """Team K1 (``soa.step_batched``) at the training width and with a
+    ragged last group of 32 envs, bit for bit with its plain version and
+    with the one-thread K1."""
+    s = env._s
+    dr = env.dr_rows(B).cpu().numpy()
+    blocks = [b.cuda() for b in H.to_torch(
+        H.physics_step_blocks(env.model, dr, np.random.RandomState(B), n=B))]
+    before = (soa.step_batched.launches, soa.step_batched_one_thread.launches)
+    got = soa.step_batched(s, *blocks, 5)
+    one = soa.step_batched_one_thread(s, *blocks, 5)
+    torch.cuda.synchronize()
+    assert (soa.step_batched.launches, soa.step_batched_one_thread.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = soa.physics_step_rows(s, 5, *blocks)
+    for g, o, w in zip(got, one, want):
+        assert torch.equal(g, w) and torch.equal(o, w)
+
+
+@pytest.mark.parametrize("B", [128, 4096])
+def test_team_k2_bit_for_bit(env, B):
+    """Team K2 (``soa_env.env_step``) at the evaluator's and the training
+    width, bit for bit with its plain version and with the one-thread K2."""
+    s, es = env._s, env._es
+    dr = env.dr_rows(B).cpu().numpy()
+    blocks = [b.cuda() for b in H.to_torch(
+        H.env_step_blocks(s, es, env.model, dr, np.random.RandomState(B), n=B))]
+    before = (soa_env.env_step.launches, soa_env.env_step_one_thread.launches)
+    got = soa_env.env_step(s, es, 5, *blocks)
+    one = soa_env.env_step_one_thread(s, es, 5, *blocks)
+    torch.cuda.synchronize()
+    assert (soa_env.env_step.launches, soa_env.env_step_one_thread.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = soa_env.env_step_rows(s, es, 5, *blocks)
+    for g, o, w in zip(got, one, want):
+        assert torch.equal(g, w) and torch.equal(o, w)
+
+
 def test_short_training_launches_both_kernels(env, tmp_path):
     """One training step (4 unroll steps of 256 envs) and two evaluations of
     16 envs: 4 K3 launches and 2 x 1000 K2 launches."""
@@ -90,12 +131,15 @@ def test_short_training_launches_both_kernels(env, tmp_path):
                                           generator=generator)
 
     soa_env.wrapped_step.launches = soa_env.env_step.launches = 0
+    soa_env.env_step_one_thread.launches = 0
     _, (norm, _), metrics = ppo.train(
         env, num_timesteps=64 * 4 * 4, episode_length=1000, num_envs=256, num_eval_envs=16,
         unroll_length=4, batch_size=64, num_minibatches=4, num_updates_per_batch=1,
         num_evals=2, network_factory=factory, device="cuda", checkpoint_dir=str(tmp_path),
     )
     assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (4, 2000)
+    # K2's launches are the team kernel's: the one-thread K2 is not on the path
+    assert soa_env.env_step_one_thread.launches == 0 and "env_step_team" in build.last_build
     assert float(norm.count) == 4 * 256
     assert np.isfinite(metrics["training/total_loss"])
     assert 0 < metrics["eval/avg_episode_length"] <= 1000
@@ -141,6 +185,7 @@ def test_physics_only_training_launches_k1(tmp_path, monkeypatch):
                                           generator=generator)
 
     soa_env.wrapped_step.launches = soa_env.env_step.launches = soa.step_batched.launches = 0
+    soa.step_batched_one_thread.launches = 0
     _, (norm, _), metrics = ppo.train(
         env, num_timesteps=64 * 4 * 4, episode_length=1000, num_envs=256, num_eval_envs=16,
         unroll_length=4, batch_size=64, num_minibatches=4, num_updates_per_batch=1,
@@ -148,6 +193,8 @@ def test_physics_only_training_launches_k1(tmp_path, monkeypatch):
     )
     assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (0, 0)
     assert soa.step_batched.launches == 4 + 2000
+    # K1's launches are the team kernel's: the one-thread K1 is not on the path
+    assert soa.step_batched_one_thread.launches == 0 and "physics_step_team" in build.last_build
     assert float(norm.count) == 4 * 256
     assert np.isfinite(metrics["training/total_loss"])
 

@@ -160,7 +160,7 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "import puppax_torch\n"
         "from puppax_torch.model import load_model\n"
         "from puppax_torch.env import fused_unroll, pupper, rewards, rollout, wrappers\n"
-        "from puppax_torch.kernels import build, cgen\n"
+        "from puppax_torch.kernels import build, cgen, team\n"
         "from puppax_torch.ops import linalg\n"
         "from puppax_torch.physics import collision, constraint, integrate, pipeline\n"
         "from puppax_torch.physics import smooth, soa, solver\n"
@@ -169,7 +169,7 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "from puppax_torch.probes import profile_kernel_phases, profile_layout\n"
         "from puppax_torch.probes import probe_degradation, profile_boundary\n"
         "from puppax_torch.probes import profile_overhead, profile_scan\n"
-        "from puppax_torch.probes import pallas_soa_probe, pallas_spd_poc\n"
+        "from puppax_torch.probes import pallas_soa_probe, pallas_spd_poc, profile_team\n"
         "from puppax_torch.tools import metrics, profile_unroll\n"
         "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
         "from puppax_torch.scripts import train\n"
