@@ -10,23 +10,26 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the six kernels from the checkout's sources, in parallel
-   nvcc processes: the wrapped env step (K3), the unwrapped env step (K2)
-   and the physics-only step (K1) as team kernels (32 envs per block, each
-   env's program split across the block's warps, ``kernels/team.py``) and
-   as one-thread kernels (one env per thread, the A/B baseline), and the
-   fused unroll (K4), each with its generated lines, nvcc seconds and
-   ptxas summary (the team kernels with their warps, barriers, shared
-   memory and heaviest stream);
+2. the builds of the seven kernels from the checkout's sources, in
+   parallel nvcc processes: the wrapped env step (K3), the unwrapped env
+   step (K2), the physics-only step (K1) and the fused unroll (K4) as team
+   kernels (32 envs per block, each env's program split across the block's
+   warps, ``kernels/team.py``; team K4 also splits its MLP) and K2, K1 and
+   K4 as one-thread kernels (one env per thread, the A/B baseline), each
+   with its generated lines, nvcc seconds and ptxas summary (the team
+   kernels with their warps, barriers, shared memory and heaviest stream);
 3. K3 against its plain version at 4096 envs: after a few kernel steps
    from a DR reset, one wrapped step through ``wrapped_step`` (the kernel)
    and ``wrapped_step_rows`` (its plain PyTorch version) on the same
    inputs, held at the parity tolerances env by env; then both timed;
 4. K4 against its plain version: from the K3 check's 4096 DR'd states,
-   T=4 steps through ``fused_unroll.unroll`` (the kernel) and
+   T=4 steps through ``fused_unroll.unroll`` (team K4),
+   ``fused_unroll.unroll_one_thread`` (the one-thread K4) and
    ``fused_unroll.unroll_rows``, every step's outputs and the final carry
-   held env by env; the same with the gait clock on at 128 envs; K4 timed
-   per T=20 unroll at 4096 envs, the plain version once;
+   held env by env (and counted bit for bit), the two kernels bit for bit
+   with each other; the same with the gait clock on at 128 envs; both
+   timed per T=20 unroll at 4096 envs in turns (one-thread, team, team,
+   one-thread), the A/B printed, the plain version once;
 5. K1 against its plain version on the same 4096 DR'd states (feet on the
    floor) under the policy's motor targets: ``soa.step_batched`` (team K1)
    and ``soa.step_batched_one_thread`` (one-thread K1) against
@@ -56,13 +59,13 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    exact;
 8. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
    warm-up, timed with CUDA events, with K3's launches over those unrolls;
-   then the same with ``PUPPAX_FUSED_UNROLL=on`` (one K4 launch per
-   unroll, no K3), and the A/B of the two;
+   then the same with ``PUPPAX_FUSED_UNROLL=on`` (one team K4 launch per
+   unroll, no K3 and no one-thread K4), and the A/B of the two;
 9. the main path: ``ppo.train`` at the default configuration but for
    491,520 env steps (3 training steps) and 2 evaluations, with its
    checkpoint in a temporary directory; the launches of the kernels are
-   counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4; K2 and K1
-   are the team kernels, the one-thread kernels launch 0 times), and the
+   counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4; K2, K1 and
+   K4 are the team kernels, the one-thread kernels launch 0 times), and the
    run is checked (env steps, the normalizer's count, finite losses,
    changed parameters, plausible eval metrics, the checkpoint against the
    final state);
@@ -72,8 +75,8 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    K2, K3 and K4, the same checks;
 11. the fused-unroll lane: the same ``ppo.train`` with
    ``PUPPAX_FUSED_UNROLL=on``: the lane line reads ``fused-unroll=ON``, 6
-   K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1, the
-   same checks;
+   team K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1,
+   0 one-thread K4, the same checks;
 12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
    4096 DR'd states: their 15 libraries built in one parallel batch (K1's
    body cut after each phase, with the sink row that keeps the cut pass
@@ -84,8 +87,10 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    by layout and threads per block, the chain and ``--fmad=true`` K1, and
    launch overhead eager and from a CUDA graph, with the host's time per
    launch layer by layer and through K3's and K1's production wrappers;
-   then the copy in its three operand sets at 4096 and at 128 envs, and
-   the launch and host-overhead probes: the copies beside the fk cut;
+   then the copy (element-parallel, and the same file's one-thread copy)
+   in its three operand sets at 4096 and at 128 envs, each bit for bit,
+   and the launch and host-overhead probes: the copies beside the fk cut
+   and beside the one-thread copy;
    the loop around a launch, with the K3 lane's T=20 unroll eager against
    one captured CUDA graph (its outputs bit for bit); K1's boundary on the
    physics-only lane (rows-resident, transposed, the transposes alone, the
@@ -100,8 +105,8 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    this phase;
 13. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
-   team K2 and team K1 beside the one-thread K2 and K1, whose launches on
-   the main path are 0) and, last, the device JSON line.
+   team K2, team K1 and team K4 beside the one-thread K2, K1 and K4, whose
+   launches on the main path are 0) and, last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is visible or when it is
@@ -368,6 +373,7 @@ def main():
     from puppax_torch.env.wrappers import wrap_for_training
     from puppax_torch.kernels import build
     from puppax_torch.physics import pipeline, soa
+    from puppax_torch.probes import common as probes
     from puppax_torch.train import checkpoint, networks, ppo, running_statistics
 
     smi = nvidia_smi_line()
@@ -410,17 +416,19 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build the six kernels, in parallel nvcc processes ----
-    with Phase("build K3 + team K2 + team K1 + K2 + K1 + K4"):
+    # ---- build the seven kernels, in parallel nvcc processes ----
+    with Phase("build K3 + team K2 + team K1 + team K4 + K2 + K1 + K4"):
         build.build_in_parallel(lambda: build.wrapped_step_library(s, es, n_sub, L),
                                 lambda: build.env_step_team_library(s, es, n_sub),
                                 lambda: build.physics_step_team_library(s1, n_sub),
+                                lambda: build.fused_unroll_team_library(s, es, n_sub, L),
                                 lambda: build.env_step_library(s, es, n_sub),
                                 lambda: build.physics_step_library(s1, n_sub),
                                 lambda: build.fused_unroll_library(s, es, n_sub, L))
         for kname, label in (("wrapped_step", "K3"), ("env_step_team", "team K2"),
-                             ("physics_step_team", "team K1"), ("env_step", "K2"),
-                             ("physics_step", "K1"), ("fused_unroll", "K4")):
+                             ("physics_step_team", "team K1"), ("fused_unroll_team", "team K4"),
+                             ("env_step", "K2"), ("physics_step", "K1"),
+                             ("fused_unroll", "K4")):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
                   f"{info['ops_per_env']} float ops per env, generate "
@@ -490,23 +498,47 @@ def main():
         return [carry_["q"], carry_["v"], carry_["env"], carry_["wrap"], carry_.get("phase"),
                 carry_["first"], carry_["dr"], noise_, eps_]
 
-    with Phase("K4 vs plain"):
-        k4_in = k4_blocks(lane, carry, B, T_CHECK)
-        got = fused_unroll.unroll(s, es, n_sub, L, activation, layers, *k4_in)
+    def k4_check(label, s_, es_, layers_, k4_in, limit):
+        """Team K4 and the one-thread K4 against the plain version on the
+        same inputs (``compare_unroll``, at most ``limit`` envs outside
+        tolerance), and against each other bit for bit. Returns (team's max
+        abs err, the one-thread's, the plain version's ms, the plain
+        outputs)."""
+        n_envs, T = k4_in[0].shape[1], k4_in[-1].shape[0]
+        got = fused_unroll.unroll(s_, es_, n_sub, L, activation, layers_, *k4_in)
+        one = fused_unroll.unroll_one_thread(s_, es_, n_sub, L, activation, layers_, *k4_in)
         torch.cuda.synchronize()
         plain = []
-        k4_plain_check_ms = cuda_ms(lambda: plain.append(fused_unroll.unroll_rows(
-            s, es, n_sub, L, activation, layers, *k4_in)), 1)
+        plain_ms = cuda_ms(lambda: plain.append(fused_unroll.unroll_rows(
+            s_, es_, n_sub, L, activation, layers_, *k4_in)), 1)
         want = plain[0]
-        per_block, differing, k4_err = compare_unroll(s, es, aux_rows, got, want)
-        done_steps = int((want[9][:, aux_rows["done"][0]] > 0.5).sum())
-        print(f"K4 vs plain at {B} envs x T={T_CHECK} from the K3 check's states ({done_steps} "
-              f"env-steps ending an episode): max abs err per block " + json.dumps(per_block),
-              flush=True)
-        for b, what in differing:
+        per_block, differing, err = compare_unroll(s_, es_, aux_rows, got, want)
+        _, one_differing, one_err = compare_unroll(s_, es_, aux_rows, one, want)
+        flat = [x.reshape(-1, n_envs) for x in want if x is not None]
+        _, bits = probes.compare_exact([x.reshape(-1, n_envs) for x in got if x is not None], flat)
+        _, one_bits = probes.compare_exact([x.reshape(-1, n_envs) for x in one if x is not None],
+                                           flat)
+        print(f"team K4 vs plain {label}: max abs err per block " + json.dumps(per_block)
+              + f"; {len(differing)} envs outside tolerance, {bits} not bit for bit; one-thread "
+              f"K4 vs plain: max abs err {one_err!r}, {len(one_differing)} outside tolerance, "
+              f"{one_bits} not bit for bit", flush=True)
+        for b, what in differing + one_differing:
             print(f"  env {b} differs: {what}")
-        if len(differing) > MAX_DIFFERING_ENVS:
-            raise AssertionError(f"{len(differing)} envs differ (limit {MAX_DIFFERING_ENVS})")
+        if len(differing) > limit or len(one_differing) > limit:
+            raise AssertionError(f"{len(differing)} (team) and {len(one_differing)} (one-thread) "
+                                 f"of {n_envs} envs differ (limit {limit})")
+        if not all((g is None and o is None) or torch.equal(g, o) for g, o in zip(got, one)):
+            raise AssertionError("team K4 and the one-thread K4 differ: the same program must "
+                                 "give the same bits")
+        return err, one_err, plain_ms, want
+
+    with Phase("K4 vs plain"):
+        k4_in = k4_blocks(lane, carry, B, T_CHECK)
+        k4_err, k4_one_err, k4_plain_check_ms, want = k4_check(
+            f"at {B} envs x T={T_CHECK} from the K3 check's states", s, es, layers, k4_in,
+            MAX_DIFFERING_ENVS)
+        done_steps = int((want[9][:, aux_rows["done"][0]] > 0.5).sum())
+        print(f"  ({done_steps} env-steps ending an episode)", flush=True)
 
         # the gait clock on: 128 envs of the nominal model, clocks apart,
         # every third env reaching the episode limit at the last step, so
@@ -527,35 +559,35 @@ def main():
         ).policy_network
         gait_layers = fused_unroll.fold_normalizer(None, gait_policy)
         g_in = k4_blocks(gait_lane, gait_lane.carry_from_state(gstate), EVAL_ENVS, T_CHECK)
-        gs, ges = env_gait._s, env_gait._es
-        got = fused_unroll.unroll(gs, ges, n_sub, L, activation, gait_layers, *g_in)
-        torch.cuda.synchronize()
-        want = fused_unroll.unroll_rows(gs, ges, n_sub, L, activation, gait_layers, *g_in)
-        per_block, differing, k4_gait_err = compare_unroll(gs, ges, aux_rows, got, want)
+        k4_gait_err, k4_one_gait_err, _, want = k4_check(
+            f"with the gait clock at {EVAL_ENVS} envs x T={T_CHECK}", env_gait._s, env_gait._es,
+            gait_layers, g_in, 0)
         restarts = int((want[4] == 0).sum())
-        print(f"K4 vs plain with the gait clock at {EVAL_ENVS} envs x T={T_CHECK} ({restarts} "
-              f"clocks restarted): max abs err per block " + json.dumps(per_block), flush=True)
-        for b, what in differing:
-            print(f"  env {b} differs: {what}")
-        if differing:
-            raise AssertionError(f"{len(differing)} of {EVAL_ENVS} envs differ (limit 0)")
+        print(f"  ({restarts} clocks restarted)", flush=True)
         if restarts == 0:
             raise AssertionError("no clock restarted: the done restore went unchecked")
-        k4_err = max(k4_err, k4_gait_err)
+        k4_err, k4_one_err = max(k4_err, k4_gait_err), max(k4_one_err, k4_one_gait_err)
 
-        # K4 per T=20 unroll at 4096 envs; its plain version once
+        # both K4s per T=20 unroll at 4096 envs, in turns; the plain version once
         k4_in = k4_blocks(lane, carry, B, T_UNROLL)
 
         def k4_unroll():
             fused_unroll.unroll(s, es, n_sub, L, activation, layers, *k4_in)
 
+        def k4_one_unroll():
+            fused_unroll.unroll_one_thread(s, es, n_sub, L, activation, layers, *k4_in)
+
+        k4_one_ms = [cuda_ms(k4_one_unroll, 3)]
         k4_ms = [cuda_ms(k4_unroll, 3), cuda_ms(k4_unroll, 3)]
+        k4_one_ms.append(cuda_ms(k4_one_unroll, 3))
         k4_plain_ms = cuda_ms(lambda: fused_unroll.unroll_rows(s, es, n_sub, L, activation,
                                                                layers, *k4_in), 1)
-        print(f"K4 per T={T_UNROLL} unroll at {B} envs: kernel "
-              f"{statistics.median(k4_ms):.4f} ms (runs {k4_ms}), "
-              f"{statistics.median(k4_ms) / T_UNROLL:.4f} ms per step; plain {k4_plain_ms:.1f} ms "
-              f"(T={T_CHECK}: {k4_plain_check_ms:.1f} ms)", flush=True)
+        print(f"team K4 per T={T_UNROLL} unroll at {B} envs: {statistics.median(k4_ms):.4f} ms "
+              f"(runs {k4_ms}), {statistics.median(k4_ms) / T_UNROLL:.4f} ms per step; "
+              f"one-thread K4 {statistics.median(k4_one_ms):.4f} ms (runs {k4_one_ms}); A/B "
+              f"K4, one-thread / team: "
+              f"{statistics.median(k4_one_ms) / statistics.median(k4_ms):.3f}x; plain "
+              f"{k4_plain_ms:.1f} ms (T={T_CHECK}: {k4_plain_check_ms:.1f} ms)", flush=True)
 
     # ---- K1 against plain, and against the torch pipeline, at 4096 envs ----
     with Phase("K1 vs plain"):
@@ -778,12 +810,13 @@ def main():
     # ---- the rollout lane: FastLane.unroll, T=20, through K3 and through K4 ----
     def timed_unrolls(label):
         """One warm-up and N_UNROLLS timed unrolls from a fresh reset;
-        checks the transitions; returns (median ms, K3 launches, K4
-        launches) of the timed unrolls."""
+        checks the transitions; returns (median ms, (K3 launches, team K4
+        launches, one-thread K4 launches)) of the timed unrolls."""
         state = wrapped.reset(B, generator=g)
         state, _ = lane.unroll(state, params, generator=g, T=T_UNROLL)  # warm-up
         torch.cuda.synchronize()
         soa_env.wrapped_step.launches = fused_unroll.unroll.launches = 0
+        fused_unroll.unroll_one_thread.launches = 0
         unroll_ms, datas = [], []
         for _ in range(N_UNROLLS):
             start = torch.cuda.Event(enable_timing=True)
@@ -794,11 +827,13 @@ def main():
             torch.cuda.synchronize()
             unroll_ms.append(start.elapsed_time(end))
             datas.append(data)
-        launches = (soa_env.wrapped_step.launches, fused_unroll.unroll.launches)
+        launches = (soa_env.wrapped_step.launches, fused_unroll.unroll.launches,
+                    fused_unroll.unroll_one_thread.launches)
         med = statistics.median(unroll_ms)
         print(f"{label}: unroll T={T_UNROLL} x {B} envs: median {med:.3f} ms (runs {unroll_ms}), "
               f"{B * T_UNROLL / (med / 1000.0):.0f} env-steps/s", flush=True)
-        print(f"{label}: K3 launches {launches[0]}, K4 launches {launches[1]} in the "
+        print(f"{label}: K3 launches {launches[0]}, team K4 launches {launches[1]}, one-thread "
+              f"K4 launches {launches[2]} in the "
               f"{N_UNROLLS} unrolls", flush=True)
         for data in datas:
             if (data.observation.shape != (T_UNROLL, B, env.observation_size)
@@ -822,7 +857,7 @@ def main():
 
     with Phase("rollout lane"):
         k3_lane_ms, launches = timed_unrolls("K3 lane")
-        if launches != (N_UNROLLS * T_UNROLL, 0):
+        if launches != (N_UNROLLS * T_UNROLL, 0, 0):
             raise AssertionError(f"expected {N_UNROLLS * T_UNROLL} K3 launches, got {launches}")
 
     with Phase("fused-unroll lane"):
@@ -831,8 +866,9 @@ def main():
             k4_lane_ms, launches = timed_unrolls("K4 lane")
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
-        if launches != (0, N_UNROLLS):
-            raise AssertionError(f"expected {N_UNROLLS} K4 launches and no K3, got {launches}")
+        if launches != (0, N_UNROLLS, 0):
+            raise AssertionError(f"expected {N_UNROLLS} team K4 launches and no K3 or one-thread "
+                                 f"K4, got {launches}")
         print(f"A/B, median unroll T={T_UNROLL} x {B} envs: K3 lane {k3_lane_ms:.3f} ms, K4 lane "
               f"{k4_lane_ms:.3f} ms (K4 / K3 {k4_lane_ms / k3_lane_ms:.3f})", flush=True)
 
@@ -843,8 +879,8 @@ def main():
 
     def train_and_check(environment, label, want, lane_line):
         """One ppo.train run at the default configuration (3 training steps,
-        2 evaluations); its kernel launches (K3, team K2, team K1, K4)
-        against ``want`` and the one-thread K2's and K1's against none, its
+        2 evaluations); its kernel launches (K3, team K2, team K1, team K4)
+        against ``want`` and the one-thread K2's, K1's and K4's against none, its
         lane line against ``lane_line``, and the checks of the run. Returns
         the launches and the one-thread kernels' launches."""
         initial = {}
@@ -863,7 +899,7 @@ def main():
         soa_env.wrapped_step.launches = 0
         soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
         soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
-        fused_unroll.unroll.launches = 0
+        fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             _, (norm_out, params_out), _ = ppo.train(
@@ -886,12 +922,13 @@ def main():
             raise AssertionError(f"the lane line is not {lane_line!r}")
         launches = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
                     soa.step_batched.launches, fused_unroll.unroll.launches)
-        one_thread = (soa_env.env_step_one_thread.launches, soa.step_batched_one_thread.launches)
+        one_thread = (soa_env.env_step_one_thread.launches, soa.step_batched_one_thread.launches,
+                      fused_unroll.unroll_one_thread.launches)
         print(f"{label}: K3 launches {launches[0]} (expected {want[0]}), team K2 launches "
               f"{launches[1]} (expected {want[1]}), team K1 launches {launches[2]} (expected "
-              f"{want[2]}), K4 launches {launches[3]} (expected {want[3]}); one-thread K2 and "
-              f"K1 launches {one_thread} (expected (0, 0))", flush=True)
-        if launches != want or one_thread != (0, 0):
+              f"{want[2]}), team K4 launches {launches[3]} (expected {want[3]}); one-thread K2, "
+              f"K1 and K4 launches {one_thread} (expected (0, 0, 0))", flush=True)
+        if launches != want or one_thread != (0, 0, 0):
             raise AssertionError("the training run did not launch the kernels as expected")
         tree = checkpoint.restore_checkpoint(os.path.join(ckpt_dir, "state"), map_location=device)
         if tree["env_steps"] != TRAIN_TIMESTEPS or float(norm_out.count) != TRAIN_TIMESTEPS:
@@ -936,7 +973,7 @@ def main():
 
     evals = 2 * tc.episode_length
     with Phase("ppo.train"):
-        (k3_launches, k2_launches, _, _), (k2_one_launches, _) = train_and_check(
+        (k3_launches, k2_launches, _, _), (k2_one_launches, _, _) = train_and_check(
             env, "ppo.train", (unroll_steps, evals, 0, 0),
             "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
 
@@ -944,7 +981,7 @@ def main():
     with Phase("ppo.train, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"
         try:
-            (_, _, k1_launches, _), (_, k1_one_launches) = train_and_check(
+            (_, _, k1_launches, _), (_, k1_one_launches, _) = train_and_check(
                 env_po, "ppo.train physics-only", (0, 0, unroll_steps + evals, 0),
                 "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
         finally:
@@ -954,14 +991,13 @@ def main():
     with Phase("ppo.train, fused-unroll lane"):
         os.environ["PUPPAX_FUSED_UNROLL"] = "on"
         try:
-            (_, _, _, k4_launches), _ = train_and_check(
+            (_, _, _, k4_launches), (_, _, k4_one_launches) = train_and_check(
                 env, "ppo.train fused-unroll", (0, evals, 0, unroll_steps // tc.unroll_length),
                 "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
 
     # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
-    from puppax_torch.probes import common as probes
     from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
     from puppax_torch.probes import profile_boundary, profile_kernel_phases, profile_layout
     from puppax_torch.probes import profile_overhead, profile_scan
@@ -1001,14 +1037,17 @@ def main():
             "K3: soa_env.wrapped_step (4096 envs)": k3_step,
             "K1: soa.step_batched (4096 envs)": lambda: soa.step_batched(s1, *k1_blocks, n_sub),
         })
-        # every copy at 4096 and at one block of 128 envs, bit for bit
+        # every copy at 4096 and at one block of 128 envs, bit for bit, the
+        # element-parallel copy and the one-thread copy (check_copy raises
+        # unless both are); their times: profile_overhead and profile_scan
         copy_ins = {"q": k1_blocks[:1], "min": k1_blocks[:2], "full": k1_blocks}
         for mode, ins in copy_ins.items():
             for n_envs in (B, EVAL_ENVS):
                 err, differing, _ = probes.check_copy(
                     mode, [x[:, :n_envs].contiguous() for x in ins], s1.ncache)
                 print(f"{probes.copy_name(mode, n_envs)} vs plain at {n_envs} envs: max abs err "
-                      f"{err!r}, {differing} envs differ", flush=True)
+                      f"{err!r}, {differing} envs differ (the one-thread copy: 0 too)",
+                      flush=True)
         copies = profile_overhead.run(s1, n_sub, k1_blocks)
         scan_state = wrapped.reset(B, generator=g)
         scan = profile_scan.run(k1_blocks[0], (lane, scan_state, params,
@@ -1111,13 +1150,26 @@ def main():
         "bound_by": k1_by,
         "library_ms": None,
     }, {
-        "name": "fused_unroll",
+        # K4 as the team kernel (the main path) and the one-thread kernel
+        "name": "fused_unroll_team",
         "route": "cuda",
-        "source": "puppax_torch/csrc/fused_unroll.cuh",
+        "source": "puppax_torch/csrc/fused_unroll_team.cuh",
         "replaces": "puppax/env/fused_unroll.py:152",
         "launches": k4_launches,
         "max_abs_err": k4_err,
         "ms": statistics.median(k4_ms),
+        "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound,
+        "bound_by": k4_by,
+        "library_ms": None,
+    }, {
+        "name": "fused_unroll",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/fused_unroll.cuh",
+        "replaces": "puppax/env/fused_unroll.py:152",
+        "launches": k4_one_launches,
+        "max_abs_err": k4_one_err,
+        "ms": statistics.median(k4_one_ms),
         "plain_ms": k4_plain_ms,
         "bound_ms": k4_bound,
         "bound_by": k4_by,

@@ -1,4 +1,6 @@
-// Launch shell of the fused unroll kernel (K4).
+// Launch shell of the one-thread fused unroll kernel (K4): the A/B baseline
+// of team K4 (fused_unroll_team.cuh), which env/fused_unroll.py::unroll
+// launches; this one is reached through unroll_one_thread only.
 //
 // Replaces puppax/env/fused_unroll.py::build_unroll_kernel, the Pallas TPU
 // kernel that runs a whole T-step rollout unroll in one call: per step the
@@ -15,10 +17,10 @@
 //
 // The env step is K3's generated body (wrapped_step_body, from the same
 // emission; kernels/cgen.py::fused_unroll_body adds the layout and head
-// constants), called once per step. Its pointers are __restrict__, so no
-// call gets one buffer as both input and output: the carry ping-pongs
-// between the final buffers and a scratch set, and the last step writes the
-// final ones. The MLP is hand-written: each thread keeps its activations in
+// constants; the policy side is fused_policy.cuh), called once per step.
+// Its pointers are __restrict__, so no call gets one buffer as both input
+// and output: the carry ping-pongs between the final buffers and a scratch
+// set, and the last step writes the final ones. The MLP is hand-written: each thread keeps its activations in
 // float h[2][K4_MAX_WIDTH] (local memory), and reads every weight through
 // the read-only cache; all threads of a warp read the same weight, a
 // broadcast. One flat weight buffer with the widths as runtime ints serves
@@ -31,8 +33,7 @@
 // spills per thread), not DRAM, plus the MLP's serial dot products
 // (61,440 multiply-adds per env per step for 72 -> 4 x 128 -> 24) with its
 // activations in local memory. This first design does nothing about
-// either; block-cooperative MLP tiles in shared memory, or wgmma for the
-// MLP over a block's envs, are later work.
+// either; team K4 splits both across the warps of a block.
 //
 // The same source builds with g++ (no __CUDACC__): PUPPAX_HD is then empty
 // and fused_unroll_host() loops over the envs on the CPU.
@@ -43,57 +44,7 @@
 
 #include PUPPAX_KERNEL_BODY
 
-#define K4_MAX_LAYERS 8   // env/fused_unroll.py MAX_LAYERS
-#define K4_MAX_WIDTH 512  // env/fused_unroll.py MAX_WIDTH
-
-#ifdef __CUDA_ARCH__
-#define K4_LDG(p) __ldg(p)
-#else
-#define K4_LDG(p) (*(p))
-#endif
-
-// the policy's shape: n layers, the hidden activation's code (elu, relu,
-// tanh, sigmoid, softmax: env/fused_unroll.py ACTIVATIONS) and the widths
-struct K4Mlp {
-  int n_layers;
-  int act;
-  int dims[K4_MAX_LAYERS + 1];
-};
-
-#define K4_PARAMS                                                               \
-  const float* __restrict__ q0, const float* __restrict__ v0,                   \
-      const float* __restrict__ env0, const float* __restrict__ wrap0,          \
-      const float* __restrict__ phase0, const float* __restrict__ first,        \
-      const float* __restrict__ dr, const float* __restrict__ noise,            \
-      const float* __restrict__ eps, const float* __restrict__ weights,         \
-      float *q_f, float *v_f, float *env_f, float *wrap_f,                      \
-      float* __restrict__ phase_f, float* __restrict__ obs_ts,                  \
-      float* __restrict__ act_ts, float* __restrict__ raw_ts,                   \
-      float* __restrict__ logp_ts, float* __restrict__ aux_ts, float *q_s,      \
-      float *v_s, float *env_s, float *wrap_s
-#define K4_ARGS                                                                 \
-  q0, v0, env0, wrap0, phase0, first, dr, noise, eps, weights, q_f, v_f, env_f, \
-      wrap_f, phase_f, obs_ts, act_ts, raw_ts, logp_ts, aux_ts, q_s, v_s,       \
-      env_s, wrap_s
-#define K4_INTS                                                                 \
-  int T, int n_layers, int act, int gait, int d0, int d1, int d2, int d3,       \
-      int d4, int d5, int d6, int d7, int d8
-
-static inline K4Mlp k4_mlp(K4_INTS) {
-  K4Mlp m;
-  m.n_layers = n_layers;
-  m.act = act;
-  const int d[K4_MAX_LAYERS + 1] = {d0, d1, d2, d3, d4, d5, d6, d7, d8};
-  for (int i = 0; i <= K4_MAX_LAYERS; ++i) m.dims[i] = d[i];
-  (void)T;
-  (void)gait;
-  return m;
-}
-
-// torch.nn.functional.softplus (threshold 20)
-PUPPAX_HD static inline float k4_softplus(float x) {
-  return x > K4_SOFTPLUS_THRESHOLD ? x : log1pf(expf(x));
-}
+#include "fused_policy.cuh"
 
 // the hidden activation on h[0..n), as env/fused_unroll.py::activate
 PUPPAX_HD static inline void k4_activate(int act, float* h, int n) {
@@ -106,13 +57,7 @@ PUPPAX_HD static inline void k4_activate(int act, float* h, int n) {
     for (int k = 0; k < n; ++k) h[k] = h[k] / total;
     return;
   }
-  for (int k = 0; k < n; ++k) {
-    const float x = h[k];
-    if (act == 0) h[k] = x > 0.0f ? x : expm1f(x);
-    else if (act == 1) h[k] = x > 0.0f ? x : 0.0f;
-    else if (act == 2) h[k] = tanhf(x);
-    else h[k] = 1.0f / (expf(-x) + 1.0f);
-  }
+  for (int k = 0; k < n; ++k) h[k] = k4_unit(act, h[k]);
 }
 
 // T steps of env b
@@ -174,16 +119,10 @@ PUPPAX_HD inline void fused_unroll_env(K4_PARAMS, int B, int T, const K4Mlp& mlp
     const float* eps_t = eps + t * K4_NU * Bl;
     float logp = 0.0f;
     for (int i = 0; i < K4_NU; ++i) {
-      const float loc = y[i];
-      const float scale = k4_softplus(y[K4_NU + i]) + K4_MIN_STD;
-      const float pre = loc + scale * eps_t[i * Bl + b];
-      act[i * Bl + b] = tanhf(pre);
-      raw[i * Bl + b] = pre;
-      const float z = (pre - loc) / scale;
-      const float normal_lp = ((-0.5f) * (z * z) - logf(scale)) - K4_HALF_LOG_2PI;
-      const float fldj = 2.0f * ((K4_LOG2 - pre) - k4_softplus((-2.0f) * pre));
-      const float term = normal_lp - fldj;
-      logp = i == 0 ? term : logp + term;
+      const K4Sample smp = k4_sample(y[i], y[K4_NU + i], eps_t[i * Bl + b]);
+      act[i * Bl + b] = smp.act;
+      raw[i * Bl + b] = smp.pre;
+      logp = i == 0 ? smp.term : logp + smp.term;
     }
     logp_ts[t * Bl + b] = logp;
 
@@ -194,7 +133,7 @@ PUPPAX_HD inline void fused_unroll_env(K4_PARAMS, int B, int T, const K4Mlp& mlp
 
     // the gait clock ticks, and restarts on the effective done
     if (gait) {
-      phase = aux_t[K4_DONE_ROW * Bl + b] > 0.5f ? 0.0f : fmodf(phase + K4_DPHASE, K4_TWO_PI);
+      phase = k4_tick(phase, aux_t[K4_DONE_ROW * Bl + b]);
     }
     q = q_o;
     v = v_o;

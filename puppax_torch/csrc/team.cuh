@@ -1,4 +1,5 @@
-// Helpers of the team kernels (physics_step_team.cuh, env_step_team.cuh):
+// Helpers of the team kernels (physics_step_team.cuh, env_step_team.cuh,
+// fused_unroll_team.cuh):
 // a block serves 32 envs, one per lane, and its TEAM_W warps split each
 // env's program (puppax_torch/kernels/team.py writes each warp's stream into
 // its own case of a switch (warp) in the generated body, and #defines TEAM_W
@@ -30,6 +31,7 @@ static inline PUPPAX_HD int team_int(float x) { return (int)x; }
 #define TEAM_FN __device__
 #define TEAM_PRAGMA(x) _Pragma(#x)
 #define TEAM_BAR_PARAM
+#define TEAM_BAR_ARG
 #define TEAM_BAR() asm volatile("bar.sync 1, %0;" ::"r"(32 * TEAM_W) : "memory")
 
 #else
@@ -41,6 +43,7 @@ static inline PUPPAX_HD int team_int(float x) { return (int)x; }
 #define TEAM_FN
 #define TEAM_PRAGMA(x)
 #define TEAM_BAR_PARAM , std::barrier<>& team_bar
+#define TEAM_BAR_ARG , team_bar
 #define TEAM_BAR() team_bar.arrive_and_wait()
 
 // body(b, warp, lane, sh, barrier) for b over ceil(B / 32) groups of 32

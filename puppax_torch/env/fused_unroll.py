@@ -16,8 +16,13 @@ and the log-prob's sum over the actions run term by term, never as
 ``torch.matmul`` or ``torch.sum``, which reduce in other orders on CUDA),
 so that the kernel and the plain version agree bit for bit on the card.
 ``unroll`` is the wrapper: CPU tensors run ``unroll_rows``, CUDA tensors
-launch the kernel (``csrc/fused_unroll.cuh`` around the K3 body,
-``kernels/cgen.py::fused_unroll_body``) or raise.
+launch team K4 (``csrc/fused_unroll_team.cuh``: 32 envs per block, K3's
+program and the MLP split across the block's warps,
+``kernels/cgen.py::fused_unroll_team_body``) or raise. The one-thread K4
+(``csrc/fused_unroll.cuh`` around the K3 body, one env per thread) stays
+as the A/B baseline, ``unroll_one_thread``; nothing on the main path calls
+it. ``kernel_call`` allocates a K4 launch's outputs and passes its
+pointers, for both kernels and for their g++ builds in the tests.
 
 Every block is ``(rows, B)`` float32; the per-step inputs (env noise,
 sampling eps) and outputs (observation, action, raw action, log-prob, aux)
@@ -36,8 +41,8 @@ from puppax_torch.kernels import build
 
 # hidden activations, in the order of the kernel's runtime codes
 ACTIVATIONS = ("elu", "relu", "tanh", "sigmoid", "softmax")
-MAX_LAYERS = 8  # csrc/fused_unroll.cuh K4_MAX_LAYERS
-MAX_WIDTH = 512  # csrc/fused_unroll.cuh K4_MAX_WIDTH
+MAX_LAYERS = 8  # csrc/fused_policy.cuh K4_MAX_LAYERS
+MAX_WIDTH = 512  # csrc/fused_policy.cuh K4_MAX_WIDTH
 MIN_STD = 0.001
 LOG2 = 0.6931471805599453
 HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -175,19 +180,14 @@ def _check_steps(name: str, x: torch.Tensor, T: int, rows: int, B: int, dev):
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected ({T}, {rows}, {B})")
 
 
-def unroll(s, es, n_substeps: int, episode_length: int, activation: str, layers: Layers,
-           q, v, env, wrap, phase: Optional[torch.Tensor], first, dr, noise, eps):
-    """T fused policy + env steps over ``(rows, B)`` carry blocks and
-    ``(T, rows, B)`` noise and eps (arguments and results as
-    ``unroll_rows``).
-
-    CPU tensors run the plain version (``unroll_rows``); CUDA tensors launch
-    K4 (``csrc/fused_unroll.cuh``) on the current stream, or raise. Each
-    launch adds one to ``unroll.launches``."""
+def _check_inputs(s, es, activation: str, layers: Layers, q, v, env, wrap, phase, first, dr,
+                 noise, eps) -> Tuple[int, torch.device, List[int]]:
+    """Check one fused unroll's inputs (as ``unroll_rows`` takes them);
+    returns (B, device, the layer widths). Raises on what K4 does not take."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"K4 has no activation {activation!r} (one of {ACTIVATIONS})")
     gait = phase is not None
-    in_rows, out_rows = soa_env.block_rows(s, es)
+    in_rows, _ = soa_env.block_rows(s, es)
     nq, nv, nu, nenv, nnoise, ndr, nfirst, _ = in_rows
     carry = [q, v, env, wrap] + ([phase] if gait else [])
     B, dev = build.check_blocks([nq, nv, nenv, 2] + [1] * gait + [nfirst, ndr],
@@ -195,15 +195,33 @@ def unroll(s, es, n_substeps: int, episode_length: int, activation: str, layers:
     T = noise.shape[0]
     _check_steps("noise", noise, T, nnoise, B, dev)
     _check_steps("eps", eps, T, nu, B, dev)
-    obs_dim = es.hist + 2 * gait
-    dims = _check_layers(layers, obs_dim, nu, dev)
-    if dev.type == "cpu":
-        return unroll_rows(s, es, n_substeps, episode_length, activation, layers, q, v, env,
-                           wrap, phase, first, dr, noise, eps)
-    if dev.type != "cuda":
-        raise ValueError(f"fused unroll: unsupported device {dev}")
-    lib = build.fused_unroll_library(s, es, n_substeps, episode_length)
-    weights = torch.cat([torch.cat([w.reshape(-1), b]) for w, b in layers])
+    return B, dev, _check_layers(layers, es.hist + 2 * gait, nu, dev)
+
+
+def one_thread_weights(layers: Layers) -> torch.Tensor:
+    """The one-thread K4's weight buffer: per layer W (out, in) row-major,
+    then b."""
+    return torch.cat([torch.cat([w.reshape(-1), b]) for w, b in layers])
+
+
+def team_weights(layers: Layers) -> torch.Tensor:
+    """Team K4's weight buffer: per layer W transposed, (in, out) row-major
+    (a chunk's outputs of one input are adjacent), then b."""
+    return torch.cat([torch.cat([w.t().reshape(-1), b]) for w, b in layers])
+
+
+def kernel_call(fn, s, es, activation: str, layers: Layers, weights: torch.Tensor, q, v, env,
+                wrap, phase, first, dr, noise, eps, stream: Optional[int] = None):
+    """Allocate one fused unroll's outputs and scratch on the inputs'
+    device and call ``fn``, a K4 entry point (a launch entry with the
+    ``stream``, or a g++ build's host entry without), on checked inputs and
+    ``weights`` in that kernel's layout. Returns ``unroll_rows``'s results;
+    raises if ``fn`` returns an error."""
+    gait = phase is not None
+    B, dev, dims = _check_inputs(s, es, activation, layers, q, v, env, wrap, phase, first, dr,
+                                noise, eps)
+    T = noise.shape[0]
+    nq, nv, nu, nenv = s.nq, s.nv, s.nu, es.nenv_rows
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -211,22 +229,66 @@ def unroll(s, es, n_substeps: int, episode_length: int, activation: str, layers:
     final = [empty(n, B) for n in (nq, nv, nenv, 2)]
     scratch = [empty(n, B) for n in (nq, nv, nenv, 2)]
     phase_f = empty(1, B) if gait else None
-    steps = [empty(T, n, B) for n in (obs_dim, nu, nu, 1, out_rows[4])]
-    ptrs = ([x.data_ptr() for x in carry[:4]] + [phase.data_ptr() if gait else None]
-            + [x.data_ptr() for x in (first, dr, noise, eps, weights)]
-            + [x.data_ptr() for x in final] + [phase_f.data_ptr() if gait else None]
-            + [x.data_ptr() for x in steps + scratch])
+    obs_dim = es.hist + 2 * gait
+    steps = [empty(T, n, B) for n in (obs_dim, nu, nu, 1, soa_env.block_rows(s, es)[1][4])]
+    tensors = [q, v, env, wrap, phase, first, dr, noise, eps, weights, *final, phase_f, *steps,
+               *scratch]
     padded = dims + [0] * (MAX_LAYERS + 1 - len(dims))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.fused_unroll_launch(*ptrs, B, T, len(layers), ACTIVATIONS.index(activation),
-                                 int(gait), *padded, stream)
+    ints = [B, T, len(layers), ACTIVATIONS.index(activation), int(gait), *padded]
+    rc = fn(*[None if x is None else x.data_ptr() for x in tensors], *ints,
+            *([] if stream is None else [stream]))
     if rc != 0:
-        raise RuntimeError(f"fused_unroll kernel launch failed: cudaError {rc}")
-    unroll.launches += 1
+        raise RuntimeError(f"fused unroll kernel failed: error {rc}")
     return (*final, phase_f, *steps)
 
 
+def _route(wrapper, library, entry: str, weights_of, s, es, n_substeps: int,
+           episode_length: int, activation: str, layers: Layers, *blocks):
+    """CPU blocks through ``unroll_rows``; CUDA blocks through one launch of
+    ``library``'s ``entry`` on the current stream, counted on ``wrapper``."""
+    dev = blocks[0].device
+    if dev.type == "cpu":
+        _check_inputs(s, es, activation, layers, *blocks)
+        return unroll_rows(s, es, n_substeps, episode_length, activation, layers, *blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"fused unroll: unsupported device {dev}")
+    lib = library(s, es, n_substeps, episode_length)
+    out = kernel_call(getattr(lib, entry), s, es, activation, layers, weights_of(layers),
+                      *blocks, stream=torch.cuda.current_stream(dev).cuda_stream)
+    wrapper.launches += 1
+    return out
+
+
+def unroll(s, es, n_substeps: int, episode_length: int, activation: str, layers: Layers,
+           q, v, env, wrap, phase: Optional[torch.Tensor], first, dr, noise, eps):
+    """T fused policy + env steps over ``(rows, B)`` carry blocks and
+    ``(T, rows, B)`` noise and eps (arguments and results as
+    ``unroll_rows``).
+
+    CPU tensors run the plain version (``unroll_rows``); CUDA tensors launch
+    team K4 (``csrc/fused_unroll_team.cuh``) on the current stream, or
+    raise. Each launch adds one to ``unroll.launches``."""
+    return _route(unroll, build.fused_unroll_team_library, "fused_unroll_team_launch",
+                  team_weights, s, es, n_substeps, episode_length, activation, layers,
+                  q, v, env, wrap, phase, first, dr, noise, eps)
+
+
 unroll.launches = 0
+
+
+def unroll_one_thread(s, es, n_substeps: int, episode_length: int, activation: str,
+                      layers: Layers, q, v, env, wrap, phase: Optional[torch.Tensor], first, dr,
+                      noise, eps):
+    """``unroll`` through the one-thread K4 (``csrc/fused_unroll.cuh``, one
+    env per thread): the A/B baseline of team K4, off the main path. CPU
+    tensors run ``unroll_rows``; CUDA tensors launch it or raise. Each
+    launch adds one to ``unroll_one_thread.launches``."""
+    return _route(unroll_one_thread, build.fused_unroll_library, "fused_unroll_launch",
+                  one_thread_weights, s, es, n_substeps, episode_length, activation, layers,
+                  q, v, env, wrap, phase, first, dr, noise, eps)
+
+
+unroll_one_thread.launches = 0
 
 
 def policy_op_count(dims: Sequence[int], activation: str, nu: int, gait: bool) -> int:

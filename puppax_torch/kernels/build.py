@@ -85,12 +85,21 @@ ENV_STEP_TEAM = Kernel("env_step_team", CSRC / "env_step_team.cuh", 10, "env_ste
 PHYSICS_STEP_TEAM = Kernel("physics_step_team", CSRC / "physics_step_team.cuh", 7,
                            "physics_step_team_launch", "physics_step_team_host",
                            headers=(CSRC / "team.cuh",))
-# warps per block of each team kernel (chosen on the card from the sweep of
-# probes/profile_layout.py; PERF.md)
-TEAM_WARPS = {"env_step_team": 6, "physics_step_team": 4}
-# 10 in + 10 out + 4 scratch; ints T, n_layers, activation, gait, the 9 layer widths
+# 10 in + 10 out + 4 scratch; ints T, n_layers, activation, gait, the 9 layer
+# widths: the one-thread K4 (the A/B baseline) and team K4, the production K4
+# (env/fused_unroll.py::unroll)
 FUSED_UNROLL = Kernel("fused_unroll", CSRC / "fused_unroll.cuh", 24,
-                      "fused_unroll_launch", "fused_unroll_host", n_ints=13)
+                      "fused_unroll_launch", "fused_unroll_host", n_ints=13,
+                      headers=(CSRC / "fused_policy.cuh",))
+FUSED_UNROLL_TEAM = Kernel("fused_unroll_team", CSRC / "fused_unroll_team.cuh", 24,
+                           "fused_unroll_team_launch", "fused_unroll_team_host", n_ints=13,
+                           headers=(CSRC / "team.cuh", CSRC / "fused_policy.cuh"))
+# warps per block of each team kernel (chosen on the card from the sweeps of
+# probes/profile_layout.py and probes/profile_team.py; PERF.md)
+TEAM_WARPS = {"env_step_team": 6, "physics_step_team": 4, "fused_unroll_team": 6}
+# team K4's MLP outputs per thread at once (K4_R; chosen on the card from the
+# sweep of probes/profile_team.py --kernel K4; PERF.md)
+K4_MLP_ROWS = 16
 # the probes' shells: K1's body in two layouts (4 in + 3 out + the sink row;
 # ints threads, layout and the row counts nq, nv, nu, ndr, ncache); the multiply-add
 # chain (a, b, out; B = threads per block; ints K, mode, blocks); x + 1
@@ -101,7 +110,8 @@ FMA_CHAIN = Kernel("fma_chain", CSRC / "probe_fma.cuh", 3,
                    "fma_chain_launch", "fma_chain_host", n_ints=3)
 ADD_ONE = Kernel("add_one", CSRC / "probe_add_one.cuh", 2, "add_one_launch", "add_one_host")
 # the overhead probes' copy: q, v, ctrl, dr in; q, v, caches, sink out; ints
-# the mode (q, min, full) and the row counts nq, nv, nu, ndr, ncache
+# the mode (q, min, full) and the row counts nq, nv, nu, ndr, ncache; its
+# one-thread design, the A/B baseline, is the entry probe_copy_one_thread_*
 PROBE_COPY = Kernel("probe_copy", CSRC / "probe_copy.cuh", 8,
                     "probe_copy_launch", "probe_copy_host", n_ints=6)
 # probe group C: the synthetic SoA substep (q, v in; q out; a generated
@@ -181,8 +191,10 @@ def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
     return lib, False, secs
 
 
-def _bind(lib: ctypes.CDLL, kernel: Kernel, with_stream: bool):
-    fn = getattr(lib, kernel.launch if with_stream else kernel.host)
+def _bind(lib: ctypes.CDLL, kernel: Kernel, with_stream: bool, entry: Optional[str] = None):
+    """Set the argument types of ``kernel``'s launch (or host) entry, or of
+    another ``entry`` of its shell with the same arguments; returns it."""
+    fn = getattr(lib, entry or (kernel.launch if with_stream else kernel.host))
     args = [ctypes.c_void_p] * kernel.n_pointers + [ctypes.c_int] * (1 + kernel.n_ints)
     if with_stream:
         args.append(ctypes.c_void_p)
@@ -290,7 +302,8 @@ def physics_step_team_library(s, n_substeps: int, warps: Optional[int] = None) -
 
 
 def fused_unroll_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
-    """The fused unroll (K4) for this configuration (K3's body inside
+    """The one-thread fused unroll (K4, the A/B baseline of team K4) for
+    this configuration (K3's body inside
     ``csrc/fused_unroll.cuh``), built with nvcc for sm_90a at first use and
     cached for the process."""
     from puppax_torch.kernels import cgen
@@ -298,6 +311,30 @@ def fused_unroll_library(s, es, n_substeps: int, episode_length: int) -> ctypes.
     return _device_library(
         FUSED_UNROLL, s, es, (int(n_substeps), int(episode_length)),
         lambda: cgen.fused_unroll_body(s, es, n_substeps, episode_length),
+    )
+
+
+def fused_unroll_team_library(s, es, n_substeps: int, episode_length: int,
+                              warps: Optional[int] = None, mlp_rows: Optional[int] = None,
+                              mlp_only: bool = False) -> ctypes.CDLL:
+    """Team K4 (``csrc/fused_unroll_team.cuh`` around K3's program split
+    across ``warps`` warps, ``TEAM_WARPS`` by default, and ``mlp_rows`` MLP
+    outputs per thread, ``K4_MLP_ROWS`` by default), built with nvcc for
+    sm_90a at first use and cached for the process. ``mlp_only`` builds the
+    probe variant without the env step (``cgen.fused_unroll_team_body``)."""
+    from puppax_torch.kernels import cgen
+
+    warps = warps or TEAM_WARPS[FUSED_UNROLL_TEAM.name]
+    mlp_rows = mlp_rows or K4_MLP_ROWS
+    variant = " ".join(x for x in (team_variant(FUSED_UNROLL_TEAM, warps),
+                                   "" if mlp_rows == K4_MLP_ROWS else f"R={mlp_rows}",
+                                   "MLP only" if mlp_only else "") if x)
+    return _device_library(
+        FUSED_UNROLL_TEAM, s, es,
+        (int(n_substeps), int(episode_length), warps, mlp_rows, bool(mlp_only)),
+        lambda: cgen.fused_unroll_team_body(s, es, n_substeps, episode_length, warps, mlp_rows,
+                                            mlp_only),
+        variant=variant,
     )
 
 

@@ -15,10 +15,12 @@ that reads row r of env b at ``ptr[r * B + b]``; a hand-written shell wraps
 it in the kernel and the C entry points: ``csrc/wrapped_step.cuh`` for the
 wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2),
 ``csrc/physics_step.cuh`` for the physics-only step (K1), one env per
-thread. The fused unroll (K4, ``csrc/fused_unroll.cuh``) calls K3's body
-once per step. K2's and K1's production kernels are their team kernels:
-``kernels/team.py`` renders the same program split across the warps of a
-block, inside ``csrc/env_step_team.cuh`` and ``csrc/physics_step_team.cuh``.
+thread. The one-thread fused unroll (K4, ``csrc/fused_unroll.cuh``) calls
+K3's body once per step. K2's, K1's and K4's production kernels are team
+kernels: ``kernels/team.py`` renders the same program split across the
+warps of a block, inside ``csrc/env_step_team.cuh``,
+``csrc/physics_step_team.cuh`` and ``csrc/fused_unroll_team.cuh`` (K3's
+program, once per step of the unroll).
 
 Beside its lines, ``CProgram`` records each statement as a node (``Val``,
 ``Load``, ``Store``, ``Stack``, ``Dphi``, ``Loop``: name, kind, expression
@@ -376,11 +378,18 @@ def wrapped_step_body(s, es, n_substeps: int, episode_length: int) -> str:
     )
 
 
-def fused_unroll_body(s, es, n_substeps: int, episode_length: int) -> str:
-    """C source of the fused unroll's (K4) generated part: its layout and
-    head constants as ``#define``s (each float a ``float_literal`` of the
-    plain version's constant), then K3's ``wrapped_step_body``, which
-    ``csrc/fused_unroll.cuh`` calls once per step."""
+def wrapped_step_program(s, es, n_substeps: int, episode_length: int) -> CProgram:
+    """K3's emission as a ``CProgram`` (its nodes: ``kernels/team.py``)."""
+    from puppax_torch.env import soa_env
+
+    in_rows, _ = soa_env.block_rows(s, es)
+    return _program(IN_BLOCKS, OUT_BLOCKS, in_rows,
+                    lambda rows: soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows))
+
+
+def _fused_unroll_defines(s, es) -> str:
+    """The fused unroll's layout and head constants as ``#define``s, each
+    float a ``float_literal`` of the plain version's constant."""
     from puppax_torch.env import fused_unroll, soa_env
 
     _, out_rows = soa_env.block_rows(s, es)
@@ -398,8 +407,34 @@ def fused_unroll_body(s, es, n_substeps: int, episode_length: int) -> str:
     }
     header = "// Generated by puppax_torch/kernels/cgen.py: the fused unroll's constants.\n"
     header += "".join(f"#define {k} {v}\n" for k, v in ints.items())
-    header += "".join(f"#define {k} {float_literal(v)}\n" for k, v in floats.items())
-    return header + wrapped_step_body(s, es, n_substeps, episode_length)
+    return header + "".join(f"#define {k} {float_literal(v)}\n" for k, v in floats.items())
+
+
+def fused_unroll_body(s, es, n_substeps: int, episode_length: int) -> str:
+    """C source of the one-thread fused unroll's (K4) generated part: its
+    constants (``_fused_unroll_defines``), then K3's ``wrapped_step_body``,
+    which ``csrc/fused_unroll.cuh`` calls once per step."""
+    return _fused_unroll_defines(s, es) + wrapped_step_body(s, es, n_substeps, episode_length)
+
+
+def fused_unroll_team_body(s, es, n_substeps: int, episode_length: int, warps: int,
+                           mlp_rows: int, mlp_only: bool = False):
+    """Team K4's generated part (shell ``csrc/fused_unroll_team.cuh``): the
+    constants, ``K4_R`` (the MLP outputs a thread sums at once), then K3's
+    program split across ``warps`` warps (``team.wrapped_step_team_body``).
+    Returns (source, the schedule's stats). ``mlp_only`` (a probe variant)
+    leaves the env step out: the shell then runs the observation, the MLP,
+    the head and the clock alone, in a block with the whole kernel's shared
+    memory (``team.SHARED_BUDGET``)."""
+    from puppax_torch.kernels import team
+
+    head = _fused_unroll_defines(s, es) + f"#define K4_R {int(mlp_rows)}\n"
+    if mlp_only:  # with the whole kernel's shared memory, so L1 keeps what it keeps there
+        return head + f"#define K4_MLP_ONLY 1\n#define TEAM_W {int(warps)}\n" \
+            f"#define TEAM_SHARED_FLOATS {team.SHARED_BUDGET // 4}\n", \
+            {"warps": int(warps), "ops_per_env": 0}
+    body, stats = team.wrapped_step_team_body(s, es, n_substeps, episode_length, warps)
+    return head + body, stats
 
 
 def env_step_body(s, es, n_substeps: int) -> str:

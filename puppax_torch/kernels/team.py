@@ -876,3 +876,14 @@ def env_step_team_body(s, es, n_substeps: int, warps: int) -> Tuple[str, dict]:
     return team_body(cgen.env_step_program(s, es, n_substeps), warps,
                      "env_step_team_body", "ES_PARAMS",
                      f"env-step emission (n_substeps={n_substeps})")
+
+
+def wrapped_step_team_body(s, es, n_substeps: int, episode_length: int,
+                           warps: int) -> Tuple[str, dict]:
+    """K3's program (``cgen.wrapped_step_program``) as
+    ``wrapped_step_team_body``, which team K4 (``csrc/fused_unroll_team.cuh``)
+    runs once per step."""
+    return team_body(cgen.wrapped_step_program(s, es, n_substeps, episode_length), warps,
+                     "wrapped_step_team_body", "WS_PARAMS",
+                     f"wrapped-step emission (n_substeps={n_substeps}, "
+                     f"episode_length={episode_length})")

@@ -12,8 +12,10 @@
   (``csrc/probe_physics.cuh``: q, v, caches and the sink row out), and
   the block layouts it takes (``to_block_major`` / ``from_block_major``).
 - ``copy_probe``: the wrapper of the overhead probes' copy kernel
-  (``csrc/probe_copy.cuh``, three operand sets), its plain version
-  ``copy_rows`` and ``check_copy``, one launch held against it.
+  (``csrc/probe_copy.cuh``, three operand sets; element-parallel), its
+  plain version ``copy_rows`` and ``check_copy``, one launch held against
+  it; ``copy_probe_one_thread``: the same file's one-thread copy, the A/B
+  baseline.
 - ``sass_counts``: the FFMA / FMUL / FADD instructions of a build;
   ``ptxas_info``: its registers, stack and spill bytes.
 - ``nominal_setup`` / ``nominal_blocks``: the TPU probes' inputs.
@@ -328,15 +330,7 @@ def copy_rows(mode: str, blocks: Sequence[torch.Tensor], outs: Sequence[torch.Te
     outs[3][0].copy_(sink)
 
 
-def copy_probe(mode: str, blocks: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
-    """One copy of ``mode`` (``COPY_MODES``) into the preallocated ``outs``,
-    every block ``(rows, B)``: ``q``: (q,) -> (q',); ``min``: (q, v) ->
-    (q', v'); ``full``: (q, v, ctrl, dr) -> (q', v', caches, sink).
-
-    CPU tensors run the plain version (``copy_rows``); CUDA tensors launch
-    the kernel of ``csrc/probe_copy.cuh`` (128 threads per block) on the
-    current stream, or raise. Each launch counts in
-    ``launches[copy_name(mode, B)]``."""
+def _copy(mode: str, blocks, outs, entry: str, name: str):
     B, dev = _check_copy_blocks(mode, blocks, outs)
     if dev.type == "cpu":
         copy_rows(mode, blocks, outs)
@@ -344,26 +338,51 @@ def copy_probe(mode: str, blocks: Sequence[torch.Tensor], outs: Sequence[torch.T
     if dev.type != "cuda":
         raise ValueError(f"copy_probe: unsupported device {dev}")
     lib = build.probe_copy_library()
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:  # the one-thread entry, bound at its first launch
+        build._bind(lib, build.PROBE_COPY, True, entry)
     pad = [None] * (4 - len(blocks))  # operands the mode does not touch
     ins, outs = list(blocks) + pad, list(outs) + pad
     rows = [0 if x is None else x.shape[0] for x in ins + outs[2:3]]
-    build.launch_into("probe_copy", lib.probe_copy_launch, ins + outs, B,
-                      COPY_MODES.index(mode), *rows)
-    count_launch(copy_name(mode, B))
+    build.launch_into("probe_copy", fn, ins + outs, B, COPY_MODES.index(mode), *rows)
+    count_launch(name)
+
+
+def copy_probe(mode: str, blocks: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
+    """One copy of ``mode`` (``COPY_MODES``) into the preallocated ``outs``,
+    every block ``(rows, B)``: ``q``: (q,) -> (q',); ``min``: (q, v) ->
+    (q', v'); ``full``: (q, v, ctrl, dr) -> (q', v', caches, sink).
+
+    CPU tensors run the plain version (``copy_rows``); CUDA tensors launch
+    the element-parallel kernel of ``csrc/probe_copy.cuh`` (4 floats a
+    thread, 128 threads per block) on the current stream, or raise. Each
+    launch counts in ``launches[copy_name(mode, B)]``."""
+    _copy(mode, blocks, outs, "probe_copy_launch", copy_name(mode, blocks[0].shape[-1]))
+
+
+def copy_probe_one_thread(mode: str, blocks: Sequence[torch.Tensor],
+                          outs: Sequence[torch.Tensor]):
+    """``copy_probe`` through the one-thread copy of ``csrc/probe_copy.cuh``
+    (one env per thread, its rows in a loop): the A/B baseline. Each launch
+    counts in ``launches[copy_name(mode, B) + "[one-thread]"]``."""
+    _copy(mode, blocks, outs, "probe_copy_one_thread_launch",
+          copy_name(mode, blocks[0].shape[-1]) + "[one-thread]")
 
 
 def check_copy(mode: str, blocks: Sequence[torch.Tensor], ncache: int = 0):
-    """One ``copy_probe`` launch on the card held bit for bit against
-    ``copy_rows`` on the same blocks; raises if an env differs. Returns
-    (max abs err, differing envs, the plain version's ms)."""
-    got = copy_outputs(mode, blocks, ncache)
-    copy_probe(mode, blocks, got)
+    """One ``copy_probe`` launch and one ``copy_probe_one_thread`` launch on
+    the card, each held bit for bit against ``copy_rows`` on the same
+    blocks; raises if an env differs. Returns (max abs err, differing envs,
+    the plain version's ms) of ``copy_probe``."""
     want = copy_outputs(mode, blocks, ncache)
     plain_ms = window_ms(lambda: copy_rows(mode, blocks, want))
-    err, differing = compare_exact(got, want)
-    if differing:
-        raise AssertionError(f"{copy_name(mode, blocks[0].shape[1])}: {differing} of "
-                             f"{blocks[0].shape[1]} envs differ from the plain version")
+    for copy in (copy_probe_one_thread, copy_probe):  # copy_probe's result is returned
+        got = copy_outputs(mode, blocks, ncache)
+        copy(mode, blocks, got)
+        err, differing = compare_exact(got, want)
+        if differing:
+            raise AssertionError(f"{copy.__name__} {mode}: {differing} of {blocks[0].shape[1]} "
+                                 "envs differ from the plain version")
     return err, differing, plain_ms
 
 

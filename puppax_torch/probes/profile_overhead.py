@@ -21,7 +21,9 @@ from one CUDA graph, whose time is the device's):
   ``call_copy_1``'s grid = 1, where one TPU grid step was 1024 envs.
 
 Each copy is first held bit for bit against its plain version
-(``common.check_copy``). It prints us per launch and the cost of one more
+(``common.check_copy``), then timed beside the same file's one-thread copy
+(``common.copy_probe_one_thread``, the A/B baseline of the
+element-parallel design). It prints us per launch and the cost of one more
 block, ``(full at B - full at 128) / (B / 128 - 1)`` from the graphed
 times.
 """
@@ -42,9 +44,9 @@ def run(s, n_substeps: int, blocks, iters: int = common.ITERS,
     """Every case on ``blocks`` (K1's q, v, ctrl, dr as ``(rows, B)``).
     Returns, per case (``copy_full``, ``copy_min``, ``fk``,
     ``copy_full_one_block``): ``eager_us`` and ``graph_us`` per launch,
-    ``envs``, and for the copies ``max_abs_err``, ``differing`` and
-    ``plain_ms``; under ``per_block_us`` the graphed cost of one more
-    block."""
+    ``envs``, and for the copies ``max_abs_err``, ``differing``,
+    ``plain_ms`` and ``one_thread_us`` (the one-thread copy's eager and
+    graph us); under ``per_block_us`` the graphed cost of one more block."""
     q, v, ctrl, dr = blocks
     B, dev = q.shape[1], q.device
     one = [x[:, : common.TILE].contiguous() for x in blocks]
@@ -53,11 +55,11 @@ def run(s, n_substeps: int, blocks, iters: int = common.ITERS,
           f"carried, best of {runs} windows (CUDA events), eager and from one CUDA graph:",
           flush=True)
 
-    def copy_step(mode, ins):
+    def copy_step(mode, ins, copy=common.copy_probe):
         rest = common.copy_outputs(mode, ins, s.ncache)[2:]  # caches and the sink row
 
         def step(q_in, v_in, q_out, v_out):
-            common.copy_probe(mode, (q_in, v_in, *ins[2:]), (q_out, v_out, *rest))
+            copy(mode, (q_in, v_in, *ins[2:]), (q_out, v_out, *rest))
 
         return step
 
@@ -80,9 +82,14 @@ def run(s, n_substeps: int, blocks, iters: int = common.ITERS,
             res.update(max_abs_err=err, differing=differing, plain_ms=plain_ms)
         step = fk_step if mode is None else copy_step(mode, ins)
         res["eager_us"], res["graph_us"] = common.carried_us(step, ins[:2], iters, runs)
+        if mode is not None:
+            res["one_thread_us"] = common.carried_us(
+                copy_step(mode, ins, common.copy_probe_one_thread), ins[:2], iters, runs)
         results[name] = res
-        check = (f"; vs plain: max abs err {res['max_abs_err']!r}, {res['differing']} of "
-                 f"{res['envs']} envs differ; plain {res['plain_ms']:.3f} ms"
+        check = (f"; one-thread copy: eager {res['one_thread_us'][0]:.2f} us, graph "
+                 f"{res['one_thread_us'][1]:.2f} us ({res['one_thread_us'][1] / res['graph_us']:.2f}x"
+                 f" the graph); vs plain: max abs err {res['max_abs_err']!r}, {res['differing']} "
+                 f"of {res['envs']} envs differ; plain {res['plain_ms']:.3f} ms"
                  if mode is not None else " (K1 cut after fk, its sink row)")
         print(f"{name:20s} at {res['envs']:5d} envs: eager {res['eager_us']:9.2f} us, graph "
               f"{res['graph_us']:9.2f} us per launch{check}", flush=True)

@@ -12,7 +12,9 @@ the state carried (``common.carried_us``: best of 3 windows, CUDA events):
 - ``copy_q`` (``csrc/probe_copy.cuh``, mode q) on the ``(19, B)`` q block,
   held bit for bit against its plain version first: 50 eager launches
   (the TPU's ``pyloop-pallas``) and one CUDA graph of the 50 (its
-  ``scan-pallas`` and ``unroll-pallas``: both become one graph here);
+  ``scan-pallas`` and ``unroll-pallas``: both become one graph here),
+  beside ``torch.add(q, 1e-7)`` and the same file's one-thread copy (the
+  A/B baseline);
 - torch ``x + 1`` on ``(128,)`` and ``tanh(c) + 1`` on ``(B, 512)``, eager
   and graphed (``scan-xla-add``, ``scan-xla-add-big``).
 
@@ -121,8 +123,9 @@ def run(q: torch.Tensor, lane_case=None, iters: int = common.ITERS,
     plain version), the two torch bodies, and, when ``lane_case`` is given
     as (lane, state, params, noise, eps, last_kick), ``unroll_ab`` of it.
     Returns, per case, ``eager_us`` and ``graph_us`` per step (``copy_q``
-    also ``max_abs_err``, ``differing``, ``plain_ms`` and ``library_us``:
-    ``torch.add(q, 1e-7, out=)`` eager and graphed), and ``unroll``."""
+    also ``max_abs_err``, ``differing``, ``plain_ms``, ``library_us``:
+    ``torch.add(q, 1e-7, out=)`` eager and graphed, and ``one_thread_us``:
+    the one-thread copy's), and ``unroll``."""
     B, dev = q.shape[1], q.device
     print(common.nvidia_smi(), flush=True)
     print(f"the loop around a launch, {iters} steps per window with the state carried, best "
@@ -132,13 +135,16 @@ def run(q: torch.Tensor, lane_case=None, iters: int = common.ITERS,
                                      iters, runs)
     library = common.carried_us(lambda a, b: torch.add(a, common.COPY_EPS, out=b), (q,),
                                 iters, runs)
+    one = common.carried_us(lambda a, b: common.copy_probe_one_thread("q", (a,), (b,)), (q,),
+                            iters, runs)
     results = {"copy_q": dict(eager_us=eager, graph_us=graph, max_abs_err=err,
                               differing=differing, plain_ms=plain_ms, library_us=library,
-                              envs=B)}
+                              one_thread_us=one, envs=B)}
     print(f"copy_q {tuple(q.shape)}: eager (pyloop) {eager:9.2f} us, graph (scan, unroll) "
           f"{graph:9.2f} us per step; vs plain: max abs err {err!r}, {differing} of {B} envs "
           f"differ; plain {plain_ms:.3f} ms; torch.add(q, 1e-7) eager {library[0]:9.2f} us, "
-          f"graph {library[1]:9.2f} us", flush=True)
+          f"graph {library[1]:9.2f} us; one-thread copy eager {one[0]:9.2f} us, graph "
+          f"{one[1]:9.2f} us", flush=True)
     bodies = {
         "torch_add": (lambda a, b: torch.add(a, 1.0, out=b), SMALL_SHAPE),
         "torch_tanh_add": (lambda a, b: torch.add(torch.tanh(a), 1.0, out=b), (B, BIG_WIDTH)),

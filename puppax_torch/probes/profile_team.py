@@ -1,6 +1,7 @@
 """How do the team kernels' schedule knobs set their time on the card?
 
     python -m puppax_torch.probes.profile_team [--kernel K1|K2] [--variants W:cap:cross:kb,...]
+    python -m puppax_torch.probes.profile_team --kernel K4 [--warps 4,6,8] [--rows 1,4,8,16]
 
 Team K1 and team K2 (``csrc/physics_step_team.cuh``, ``csrc/env_step_team.cuh``)
 run each env's program split across the W warps of a block by
@@ -22,6 +23,21 @@ heaviest stream, shared bytes, the write gap) and ptxas summary.
 prices the line search (a timing variant: another program). Inputs:
 ``profile_layout.team_blocks`` (nominal states). No counterpart on the
 TPU: the team kernels are the H100's design of K1 and K2.
+
+``--kernel K4`` (``run_k4``) sweeps team K4 (``csrc/fused_unroll_team.cuh``)
+instead: the whole kernel at each W of ``--warps`` (the MLP at
+``build.K4_MLP_ROWS`` outputs per thread) and at the production W with
+each other R of ``--rows``, held bit for bit against the one-thread K4
+and timed per T=20 unroll at 4096 envs beside it (best of 3 windows, CUDA
+events); then its MLP alone, the probe variant without the env step
+(``cgen.fused_unroll_team_body(..., mlp_only=True)``: the observation,
+the MLP, the head and the clock, with the whole kernel's shared memory),
+at each W and each R, its first step held bit for bit against the
+one-thread K4's,
+timed from a CUDA graph per step beside a ``torch.nn.functional.linear``
+chain of the same folded layers on the same 4096 x 72 observations, also
+from a CUDA graph. Inputs: ``k4_inputs`` (a nominal reset of the default
+env, the default policy with random weights).
 """
 
 from __future__ import annotations
@@ -143,9 +159,133 @@ def run(s, es, n_substeps: int, kernel: str, blocks: Dict[int, list],
     return results
 
 
+K4_WARPS = (4, 6, 8)
+K4_ROWS = (1, 4, 8, 16)
+_F_ACT = {"elu": torch.nn.functional.elu, "relu": torch.relu, "tanh": torch.tanh,
+          "sigmoid": torch.sigmoid, "softmax": lambda x: torch.softmax(x, 1)}
+
+
+def k4_inputs(device, B: int = 4096, T: int = 20, seed: int = 0):
+    """(env, episode length, activation, folded layers, the 9 input blocks)
+    of one T-step unroll of the default configuration from a nominal reset
+    of ``B`` envs (the default policy, random weights from ``seed``, the
+    initial normalizer)."""
+    from puppax_torch.configs import EnvConfig, TrainConfig
+    from puppax_torch.env import fused_unroll
+    from puppax_torch.env.pupper import PupperV3Env
+    from puppax_torch.env.rollout import FastLane
+    from puppax_torch.env.wrappers import wrap_for_training
+    from puppax_torch.train import networks, running_statistics
+
+    env, tc = PupperV3Env.from_config(EnvConfig(), device=device), TrainConfig()
+    g = torch.Generator(device=device).manual_seed(seed)
+    wrapped = wrap_for_training(env, tc.episode_length)  # the nominal model
+    lane = FastLane(wrapped)
+    carry = lane.carry_from_state(wrapped.reset(B, g))
+    noise, _ = lane.draw_noise_block(g, B, T)
+    eps = torch.randn((T, env.action_size, B), generator=g, device=device)
+    policy = networks.make_ppo_networks(
+        env.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
+        tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g).policy_network
+    layers = fused_unroll.fold_normalizer(
+        running_statistics.init_state(env.observation_size, device=device), policy)
+    blocks = [carry[k] for k in ("q", "v", "env", "wrap")] + [
+        carry.get("phase"), carry["first"], carry["dr"], noise, eps]
+    return env, tc.episode_length, tc.activation, layers, blocks
+
+
+def _flat(xs):
+    return [x.reshape(-1, x.shape[-1]) for x in xs if x is not None]
+
+
+def run_k4(env, episode_length: int, activation: str, layers, blocks,
+           warps: Sequence[int] = K4_WARPS, rows: Sequence[int] = K4_ROWS,
+           runs: int = common.RUNS) -> Dict[tuple, dict]:
+    """Sweep team K4 on one unroll's inputs (``k4_inputs``); returns
+    {("K4", W, R): {"ms", "one_thread_ms"}, ("MLP", W, R): {"us_per_step"},
+    "linear_us": ...}, and fails unless each whole-kernel variant equals the
+    one-thread K4 bit for bit and each MLP variant's first step its first
+    step."""
+    from puppax_torch.env import fused_unroll
+
+    s, es, n, L = env._s, env._es, env._n_substeps, episode_length
+    T, B = blocks[-1].shape[0], blocks[0].shape[1]
+    w0 = build.TEAM_WARPS[build.FUSED_UNROLL_TEAM.name]
+    team_cases = [(w, build.K4_MLP_ROWS) for w in warps] + [
+        (w0, r) for r in rows if r != build.K4_MLP_ROWS]
+    mlp_cases = [(w, r) for w in warps for r in rows]
+    libs = build.build_in_parallel(
+        lambda: build.fused_unroll_library(s, es, n, L),
+        *[lambda w=w, r=r: build.fused_unroll_team_library(s, es, n, L, w, r)
+          for w, r in team_cases],
+        *[lambda w=w, r=r: build.fused_unroll_team_library(s, es, n, L, w, r, mlp_only=True)
+          for w, r in mlp_cases])
+    one, teams, mlps = libs[0], libs[1 : 1 + len(team_cases)], libs[1 + len(team_cases) :]
+    print(common.nvidia_smi(), flush=True)
+    for name, info in build.last_build.items():
+        if name.startswith("fused_unroll"):
+            p = common.ptxas_info(name)
+            print(f"build {name}: nvcc {info['compile_seconds']:.1f} s; {p['registers']} "
+                  f"registers, {p['stack']} B stack, {p['spill_stores']} B spill stores; "
+                  + (f"{info['barriers']} barriers, {info['shared_bytes']} B shared, heaviest "
+                     f"stream {max(info['stream_ops'])} ops" if "barriers" in info else ""),
+                  flush=True)
+
+    def call(lib, team_kernel=True):  # on the current stream: the capture's in a graph
+        entry = "fused_unroll_team_launch" if team_kernel else "fused_unroll_launch"
+        weights = (fused_unroll.team_weights if team_kernel else
+                   fused_unroll.one_thread_weights)(layers)
+        return fused_unroll.kernel_call(getattr(lib, entry), s, es, activation, layers, weights,
+                                        *blocks,
+                                        stream=torch.cuda.current_stream().cuda_stream)
+
+    ref = call(one, False)
+    results = {}
+    one_ms = common.best_ms(lambda: call(one, False), runs)
+    print(f"one-thread K4: {one_ms:.3f} ms per T={T} unroll at {B} envs", flush=True)
+    for (w, r), lib in zip(team_cases, teams):
+        _, differing = common.compare_exact(_flat(call(lib)), _flat(ref))
+        if differing:
+            raise AssertionError(f"team K4 on {w} warps, R={r}: {differing} envs differ from "
+                                 "the one-thread K4")
+        ms = common.best_ms(lambda: call(lib), runs)
+        results[("K4", w, r)] = dict(ms=ms, one_thread_ms=one_ms)
+        print(f"team K4 W={w} R={r}: {ms:.3f} ms per T={T} unroll "
+              f"({one_ms / ms:.2f}x the one-thread K4), bit for bit", flush=True)
+    first = [x[0] for x in ref[5:9]]  # the first step's obs, act, raw, logp
+    for (w, r), lib in zip(mlp_cases, mlps):
+        _, differing = common.compare_exact(_flat([x[0] for x in call(lib)[5:9]]), _flat(first))
+        if differing:
+            raise AssertionError(f"team K4's MLP on {w} warps, R={r}: {differing} envs differ")
+        _, graph_ms = common.eager_and_graph_ms(lambda: call(lib), runs)
+        results[("MLP", w, r)] = dict(us_per_step=graph_ms * 1e3 / T)
+        print(f"team K4 MLP alone W={w} R={r}: {graph_ms * 1e3 / T:.2f} us per step (graph, "
+              f"observation + MLP + head + clock), first step bit for bit", flush=True)
+    r0, hist = es.env_rows["obs_history"]
+    x = blocks[2][r0 : r0 + hist].t().contiguous()
+
+    def chain():
+        h = x
+        for i, (wt, b) in enumerate(layers):
+            h = torch.nn.functional.linear(h, wt, b)
+            if i != len(layers) - 1:
+                h = _F_ACT[activation](h)
+        return h
+
+    _, linear_ms = common.eager_and_graph_ms(chain, runs)
+    results["linear_us"] = linear_ms * 1e3
+    print(f"torch.nn.functional.linear chain of the same layers on ({B}, {x.shape[1]}): "
+          f"{linear_ms * 1e3:.2f} us per step (graph)", flush=True)
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("K1", "K2"), default="K1")
+    ap.add_argument("--kernel", choices=("K1", "K2", "K4"), default="K1")
+    ap.add_argument("--warps", type=lambda t: tuple(int(x) for x in t.split(",")),
+                    default=K4_WARPS, help="K4: the warps per block to sweep")
+    ap.add_argument("--rows", type=lambda t: tuple(int(x) for x in t.split(",")),
+                    default=K4_ROWS, help="K4: the MLP outputs per thread to sweep")
     ap.add_argument("--variants", type=parse_variants, default=VARIANTS,
                     help="comma-separated W:cap:cross:shared_kb[:sum_unroll]")
     ap.add_argument("--trips", type=lambda t: tuple(int(x) for x in t.split(",")),
@@ -156,9 +296,12 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     smi = common.nvidia_smi()
     print(smi, flush=True)
-    env, blocks = profile_layout.team_blocks(device)
-    run(env._s, env._es, env._n_substeps, args.kernel, blocks[args.kernel], args.variants,
-        args.trips)
+    if args.kernel == "K4":
+        run_k4(*k4_inputs(device), warps=args.warps, rows=args.rows)
+    else:
+        env, blocks = profile_layout.team_blocks(device)
+        run(env._s, env._es, env._n_substeps, args.kernel, blocks[args.kernel], args.variants,
+            args.trips)
     print(smi, flush=True)
 
 

@@ -1,5 +1,5 @@
 """The K3, K2, K1 and K4 kernels on an NVIDIA GPU against their plain
-versions (K1 and K2 as the team kernels, and as the one-thread kernels
+versions (K1, K2 and K4 as the team kernels, and as the one-thread kernels
 beside them), short training runs through them, and the kernel-time
 probes' kernels (``puppax_torch/probes``) against their plain versions.
 
@@ -229,6 +229,33 @@ def test_fused_unroll_kernel_matches_plain(B, gait, activation):
         np.testing.assert_allclose(got[4].cpu().numpy(), want[4].cpu().numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("B,gait,activation", [(4096, False, "elu"), (130, True, "softmax")])
+def test_team_k4_bit_for_bit(B, gait, activation):
+    """Team K4 (``fused_unroll.unroll``) over T=3, every env ending an
+    episode inside the unroll, bit for bit with the one-thread K4
+    (``unroll_one_thread``) and with ``unroll_rows``; one counted launch
+    of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.env.pupper import PupperV3Env
+    from puppax_torch.probes import common
+
+    T, L = 3, 4
+    env = PupperV3Env(device="cuda", gait_phase_observation=gait, **H.env_kwargs(5))
+    s, es = env._s, env._es
+    layers, blocks = H.fused_unroll_inputs(env, B, T, activation, L)
+    before = (fused_unroll.unroll.launches, fused_unroll.unroll_one_thread.launches)
+    got = fused_unroll.unroll(s, es, 5, L, activation, layers, *blocks)
+    one = fused_unroll.unroll_one_thread(s, es, 5, L, activation, layers, *blocks)
+    torch.cuda.synchronize()
+    assert (fused_unroll.unroll.launches, fused_unroll.unroll_one_thread.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fused_unroll.unroll_rows(s, es, 5, L, activation, layers, *blocks)
+    flat = lambda xs: [x.reshape(-1, B) for x in xs if x is not None]  # noqa: E731
+    assert common.compare_exact(flat(got), flat(want)) == (0.0, 0)
+    assert common.compare_exact(flat(one), flat(want)) == (0.0, 0)
+
+
 @pytest.mark.parametrize("cut", ["fk", "smooth", None])
 def test_probe_physics_kernel_matches_plain(env, cut):
     """K1's probe build (cut after ``cut``; None: the whole body) on random
@@ -354,6 +381,26 @@ def test_copy_kernel_matches_plain_and_replays(mode):
     want = common.copy_outputs(mode, blocks, 351)
     common.copy_rows(mode, blocks, want)
     assert common.compare_exact(outs, want) == (0.0, 0)
+
+
+@pytest.mark.parametrize("B,offset", [(4096, 1), (130, 0)], ids=["4096-offset", "130"])
+@pytest.mark.parametrize("mode", ["q", "min", "full"])
+def test_copy_scalar_path_matches_plain(mode, B, offset):
+    """The element-parallel copy on blocks offset by one float (no 16-byte
+    alignment) and at 130 envs (counts that are no multiple of 4): its
+    scalar path, and the one-thread copy, bit for bit with the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    blocks = []
+    for n in (19, 18, 12, 166)[: {"q": 1, "min": 2, "full": 4}[mode]]:
+        buf = torch.empty(n * B + offset, device="cuda")
+        blocks.append(buf[offset:].view(n, B))
+        blocks[-1].copy_(torch.randn((n, B), generator=g, device="cuda"))
+    assert common.check_copy(mode, blocks, 351)[:2] == (0.0, 0)
 
 
 def test_boundary_variants_agree_on_the_card(env):

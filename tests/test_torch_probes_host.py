@@ -2,8 +2,11 @@
 ``profile_scan``, ``profile_boundary``, ``probe_degradation``) on the CPU.
 
 - ``csrc/probe_copy.cuh`` built with g++ against its plain version
-  (``common.copy_rows``), each operand set, bit for bit; the card's build
-  waits for ``tests/test_torch_cuda.py``.
+  (``common.copy_rows``), each operand set, bit for bit: the
+  element-parallel copy (every thread of its grid in turn) at B = 4096,
+  at B = 130 (a count that is no multiple of 4) and on blocks offset by
+  one float (no 16-byte alignment: the scalar path), and its one-thread
+  copy beside it; the card's build waits for ``tests/test_torch_cuda.py``.
 - The plain copy against the TPU's copy kernels: the dev scripts run at
   import, so their kernel bodies (``dev/profile_scan.py:77-79``,
   ``dev/profile_overhead.py:88-94,112-116``) are restated here under
@@ -80,6 +83,41 @@ def test_copy_host_build_is_bit_for_bit(copy_host, mode):
                 sink = sink + r
         assert torch.equal(want[3][0], sink) and torch.equal(want[2], ins[0][:1].expand(351, -1))
     assert copy_host.probe_copy_host(*ptrs, 200, 3, *rows) != 0  # no such mode
+
+
+def _offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """``x`` copied into a contiguous block that starts ``offset`` floats
+    into its storage."""
+    buf = torch.empty(x.numel() + offset)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _host_copy(fn, mode, ins, outs):
+    pad = [None] * (4 - len(ins))
+    ptrs = [None if t is None else t.data_ptr() for t in list(ins) + pad + list(outs) + pad]
+    rows = [x.shape[0] for x in ins] + [0] * len(pad) + [outs[2].shape[0] if mode == "full" else 0]
+    assert fn(*ptrs, ins[0].shape[1], common.COPY_MODES.index(mode), *rows) == 0
+
+
+@pytest.mark.parametrize("B,offset", [(4096, 0), (130, 0), (4096, 1)],
+                         ids=["4096", "130", "4096-offset"])
+@pytest.mark.parametrize("mode", common.COPY_MODES)
+def test_element_parallel_copy_is_bit_for_bit(copy_host, mode, B, offset):
+    """The element-parallel copy's g++ build (float4 units where the bases
+    are 16-byte aligned and the count a multiple of 4, one float a thread
+    elsewhere; the sink one thread per env) and the one-thread copy's, both
+    equal to ``copy_rows`` bit for bit."""
+    ins = [_offset(x, offset) for x in _ins(mode, _copy_inputs(B, seed=4))]
+    assert all(x.data_ptr() % 16 == 4 * offset for x in ins)
+    want = common.copy_outputs(mode, ins, ROWS["ncache"])
+    common.copy_rows(mode, ins, want)
+    one_thread = build._bind(copy_host, build.PROBE_COPY, False, "probe_copy_one_thread_host")
+    for fn in (copy_host.probe_copy_host, one_thread):
+        got = [_offset(torch.full_like(x, np.nan), offset) for x in want]
+        _host_copy(fn, mode, ins, got)
+        assert common.compare_exact(got, want) == (0.0, 0), fn
 
 
 def _pallas_copy(mode, blocks):
