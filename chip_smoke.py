@@ -10,18 +10,23 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the seven kernels from the checkout's sources, in
+2. the builds of the eight kernels from the checkout's sources, in
    parallel nvcc processes: the wrapped env step (K3), the unwrapped env
    step (K2), the physics-only step (K1) and the fused unroll (K4) as team
    kernels (32 envs per block, each env's program split across the block's
-   warps, ``kernels/team.py``; team K4 also splits its MLP) and K2, K1 and
-   K4 as one-thread kernels (one env per thread, the A/B baseline), each
-   with its generated lines, nvcc seconds and ptxas summary (the team
-   kernels with their warps, barriers, shared memory and heaviest stream);
+   warps, ``kernels/team.py``; team K4 also splits its MLP) and as
+   one-thread kernels (one env per thread, the A/B baseline), each with
+   its generated lines, nvcc seconds and ptxas summary (the team kernels
+   with their warps, barriers, shared memory and heaviest stream);
 3. K3 against its plain version at 4096 envs: after a few kernel steps
-   from a DR reset, one wrapped step through ``wrapped_step`` (the kernel)
-   and ``wrapped_step_rows`` (its plain PyTorch version) on the same
-   inputs, held at the parity tolerances env by env; then both timed;
+   from a DR reset, one wrapped step through ``wrapped_step`` (team K3),
+   ``wrapped_step_one_thread`` (the one-thread K3) and
+   ``wrapped_step_rows`` (its plain PyTorch version) on the same inputs,
+   held at the parity tolerances env by env, the two kernels bit for bit
+   with each other; the same on the first 128 and the first 130 envs (a
+   ragged 32-env group); both kernels timed at 4096 envs in turns
+   (one-thread, team, team, one-thread), the A/B printed, the plain
+   version twice;
 4. K4 against its plain version: from the K3 check's 4096 DR'd states,
    T=4 steps through ``fused_unroll.unroll`` (team K4),
    ``fused_unroll.unroll_one_thread`` (the one-thread K4) and
@@ -58,14 +63,15 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    K2 step on the same inputs and draws: obs and reward within 2e-4, done
    exact;
 8. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
-   warm-up, timed with CUDA events, with K3's launches over those unrolls;
-   then the same with ``PUPPAX_FUSED_UNROLL=on`` (one team K4 launch per
-   unroll, no K3 and no one-thread K4), and the A/B of the two;
+   warm-up, timed with CUDA events, with team K3's launches over those
+   unrolls (no one-thread K3); then the same with
+   ``PUPPAX_FUSED_UNROLL=on`` (one team K4 launch per unroll, no K3 and no
+   one-thread K4), and the A/B of the two;
 9. the main path: ``ppo.train`` at the default configuration but for
    491,520 env steps (3 training steps) and 2 evaluations, with its
    checkpoint in a temporary directory; the launches of the kernels are
-   counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4; K2, K1 and
-   K4 are the team kernels, the one-thread kernels launch 0 times), and the
+   counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4, all the
+   team kernels; the one-thread kernels launch 0 times), and the
    run is checked (env steps, the normalizer's count, finite losses,
    changed parameters, plausible eval metrics, the checkpoint against the
    final state);
@@ -86,13 +92,14 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    SPD solve), then each probe's ``run``: K1's time per phase, K1
    by layout and threads per block, the chain and ``--fmad=true`` K1, and
    launch overhead eager and from a CUDA graph, with the host's time per
-   launch layer by layer and through K3's and K1's production wrappers;
+   launch layer by layer and through team K3's and team K1's production
+   wrappers;
    then the copy (element-parallel, and the same file's one-thread copy)
    in its three operand sets at 4096 and at 128 envs, each bit for bit,
    and the launch and host-overhead probes: the copies beside the fk cut
    and beside the one-thread copy;
-   the loop around a launch, with the K3 lane's T=20 unroll eager against
-   one captured CUDA graph (its outputs bit for bit); K1's boundary on the
+   the loop around a launch, with the K3 lane's T=20 unroll (team K3)
+   eager against one captured CUDA graph (its outputs bit for bit); K1's boundary on the
    physics-only lane (rows-resident, transposed, the transposes alone, the
    splice); the launch cost after each setup stage, one subprocess per
    stage, and around a host sync; then probe group C on the TPU probes'
@@ -105,8 +112,9 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    this phase;
 13. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
-   team K2, team K1 and team K4 beside the one-thread K2, K1 and K4, whose
-   launches on the main path are 0) and, last, the device JSON line.
+   team K3, team K2, team K1 and team K4 beside the one-thread K3, K2, K1
+   and K4, whose launches on the main path are 0) and, last, the device
+   JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is visible or when it is
@@ -416,18 +424,19 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build the seven kernels, in parallel nvcc processes ----
-    with Phase("build K3 + team K2 + team K1 + team K4 + K2 + K1 + K4"):
-        build.build_in_parallel(lambda: build.wrapped_step_library(s, es, n_sub, L),
+    # ---- build the eight kernels, in parallel nvcc processes ----
+    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4"):
+        build.build_in_parallel(lambda: build.wrapped_step_team_library(s, es, n_sub, L),
                                 lambda: build.env_step_team_library(s, es, n_sub),
                                 lambda: build.physics_step_team_library(s1, n_sub),
                                 lambda: build.fused_unroll_team_library(s, es, n_sub, L),
+                                lambda: build.wrapped_step_library(s, es, n_sub, L),
                                 lambda: build.env_step_library(s, es, n_sub),
                                 lambda: build.physics_step_library(s1, n_sub),
                                 lambda: build.fused_unroll_library(s, es, n_sub, L))
-        for kname, label in (("wrapped_step", "K3"), ("env_step_team", "team K2"),
+        for kname, label in (("wrapped_step_team", "team K3"), ("env_step_team", "team K2"),
                              ("physics_step_team", "team K1"), ("fused_unroll_team", "team K4"),
-                             ("env_step", "K2"), ("physics_step", "K1"),
+                             ("wrapped_step", "K3"), ("env_step", "K2"), ("physics_step", "K1"),
                              ("fused_unroll", "K4")):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
@@ -444,7 +453,7 @@ def main():
                 if "registers" in line or "spill" in line or "stack frame" in line:
                     print("  ptxas:" + line.split(":", 1)[-1].rstrip())
 
-    # ---- K3 against plain at 4096 envs ----
+    # ---- team K3 and the one-thread K3 against plain at 4096, 128 and 130 envs ----
     with Phase("K3 vs plain"):
         state = wrapped.reset(B, generator=g)
         state, _ = lane.unroll(state, params, generator=g, T=WARM_STEPS)
@@ -457,34 +466,55 @@ def main():
                 carry["env"][r0 : r0 + n], eps)
         blocks = [carry["q"], carry["v"], act, carry["env"], noise[0].contiguous(),
                   carry["dr"], carry["first"], carry["wrap"]]
-        got = soa_env.wrapped_step(s, es, n_sub, L, *blocks)
-        torch.cuda.synchronize()
-        want = soa_env.wrapped_step_rows(s, es, n_sub, L, *blocks)
-        torch.cuda.synchronize()
-        per_block, differing, k3_err = compare_outputs(s, es, soa_env.aux_row_map(es),
-                                                       got, want)
-        c0, cn = es.env_rows["last_contact"]
-        in_contact = int((got[2][c0 : c0 + cn] > 0.5).any(0).sum())
-        print(f"K3 vs plain at {B} envs after {WARM_STEPS} kernel steps "
-              f"({in_contact} envs with a foot on the floor): max abs err per block "
-              + json.dumps(per_block), flush=True)
-        for b, what in differing:
-            print(f"  env {b} differs: {what}")
-        if len(differing) > MAX_DIFFERING_ENVS:
-            raise AssertionError(f"{len(differing)} envs differ (limit {MAX_DIFFERING_ENVS})")
-        if in_contact == 0:
-            raise AssertionError("no env touches the floor: the contact path went unchecked")
+        k3_err, k3_one_err = 0.0, 0.0
+        for n_envs in (B, EVAL_ENVS, EVAL_ENVS + 2):
+            ins = blocks if n_envs == B else [x[:, :n_envs].contiguous() for x in blocks]
+            got = soa_env.wrapped_step(s, es, n_sub, L, *ins)
+            one = soa_env.wrapped_step_one_thread(s, es, n_sub, L, *ins)
+            torch.cuda.synchronize()
+            want = soa_env.wrapped_step_rows(s, es, n_sub, L, *ins)
+            torch.cuda.synchronize()
+            per_block, differing, err = compare_outputs(s, es, soa_env.aux_row_map(es), got, want)
+            _, one_differing, one_err = compare_outputs(s, es, soa_env.aux_row_map(es), one, want)
+            bits_err, bits_envs = probes.compare_exact(got, one)
+            k3_err, k3_one_err = max(k3_err, err), max(k3_one_err, one_err)
+            c0, cn = es.env_rows["last_contact"]
+            in_contact = int((got[2][c0 : c0 + cn] > 0.5).any(0).sum())
+            print(f"team K3 vs plain at {n_envs} envs after {WARM_STEPS} kernel steps "
+                  f"({in_contact} envs with a foot on the floor): max abs err per block "
+                  + json.dumps(per_block) + f"; {len(differing)} envs outside tolerance; "
+                  f"one-thread K3 vs plain: max abs err {one_err!r}, {len(one_differing)} "
+                  f"outside tolerance; team K3 vs one-thread K3 (bit for bit): {bits_envs} envs "
+                  f"differ, max abs err {bits_err!r}", flush=True)
+            for b, what in differing + one_differing:
+                print(f"  env {b} differs: {what}")
+            if len(differing) > MAX_DIFFERING_ENVS or len(one_differing) > MAX_DIFFERING_ENVS:
+                raise AssertionError(f"{len(differing)} (team) and {len(one_differing)} "
+                                     f"(one-thread) of {n_envs} envs differ (limit "
+                                     f"{MAX_DIFFERING_ENVS})")
+            if (bits_envs, bits_err) != (0, 0.0):
+                raise AssertionError("team K3 and the one-thread K3 differ: the same program "
+                                     "must give the same bits")
+            if in_contact == 0:
+                raise AssertionError("no env touches the floor: the contact path went unchecked")
 
         def k3_step():
             soa_env.wrapped_step(s, es, n_sub, L, *blocks)
+
+        def k3_one():
+            soa_env.wrapped_step_one_thread(s, es, n_sub, L, *blocks)
 
         def k3_plain():
             soa_env.wrapped_step_rows(s, es, n_sub, L, *blocks)
 
         k3_plain_ms = [cuda_ms(k3_plain, 1)]
+        k3_one_ms = [cuda_ms(k3_one, 20)]
         k3_ms = [cuda_ms(k3_step, 20), cuda_ms(k3_step, 20)]
+        k3_one_ms.append(cuda_ms(k3_one, 20))
         k3_plain_ms.append(cuda_ms(k3_plain, 1))
-        print(f"K3 step at {B} envs: kernel {statistics.median(k3_ms):.4f} ms (runs {k3_ms}), "
+        print(f"team K3 step at {B} envs: {statistics.median(k3_ms):.4f} ms (runs {k3_ms}); "
+              f"one-thread K3 {statistics.median(k3_one_ms):.4f} ms (runs {k3_one_ms}); A/B K3, "
+              f"one-thread / team: {statistics.median(k3_one_ms) / statistics.median(k3_ms):.3f}x; "
               f"plain {statistics.median(k3_plain_ms):.1f} ms (runs {k3_plain_ms})", flush=True)
 
     # ---- K4 against plain: T=4 steps from the K3 check's states ----
@@ -810,13 +840,14 @@ def main():
     # ---- the rollout lane: FastLane.unroll, T=20, through K3 and through K4 ----
     def timed_unrolls(label):
         """One warm-up and N_UNROLLS timed unrolls from a fresh reset;
-        checks the transitions; returns (median ms, (K3 launches, team K4
-        launches, one-thread K4 launches)) of the timed unrolls."""
+        checks the transitions; returns (median ms, (team K3 launches,
+        one-thread K3 launches, team K4 launches, one-thread K4 launches))
+        of the timed unrolls."""
         state = wrapped.reset(B, generator=g)
         state, _ = lane.unroll(state, params, generator=g, T=T_UNROLL)  # warm-up
         torch.cuda.synchronize()
-        soa_env.wrapped_step.launches = fused_unroll.unroll.launches = 0
-        fused_unroll.unroll_one_thread.launches = 0
+        soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
+        fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
         unroll_ms, datas = [], []
         for _ in range(N_UNROLLS):
             start = torch.cuda.Event(enable_timing=True)
@@ -827,13 +858,13 @@ def main():
             torch.cuda.synchronize()
             unroll_ms.append(start.elapsed_time(end))
             datas.append(data)
-        launches = (soa_env.wrapped_step.launches, fused_unroll.unroll.launches,
-                    fused_unroll.unroll_one_thread.launches)
+        launches = (soa_env.wrapped_step.launches, soa_env.wrapped_step_one_thread.launches,
+                    fused_unroll.unroll.launches, fused_unroll.unroll_one_thread.launches)
         med = statistics.median(unroll_ms)
         print(f"{label}: unroll T={T_UNROLL} x {B} envs: median {med:.3f} ms (runs {unroll_ms}), "
               f"{B * T_UNROLL / (med / 1000.0):.0f} env-steps/s", flush=True)
-        print(f"{label}: K3 launches {launches[0]}, team K4 launches {launches[1]}, one-thread "
-              f"K4 launches {launches[2]} in the "
+        print(f"{label}: team K3 launches {launches[0]}, one-thread K3 launches {launches[1]}, "
+              f"team K4 launches {launches[2]}, one-thread K4 launches {launches[3]} in the "
               f"{N_UNROLLS} unrolls", flush=True)
         for data in datas:
             if (data.observation.shape != (T_UNROLL, B, env.observation_size)
@@ -857,8 +888,9 @@ def main():
 
     with Phase("rollout lane"):
         k3_lane_ms, launches = timed_unrolls("K3 lane")
-        if launches != (N_UNROLLS * T_UNROLL, 0, 0):
-            raise AssertionError(f"expected {N_UNROLLS * T_UNROLL} K3 launches, got {launches}")
+        if launches != (N_UNROLLS * T_UNROLL, 0, 0, 0):
+            raise AssertionError(f"expected {N_UNROLLS * T_UNROLL} team K3 launches and no other, "
+                                 f"got {launches}")
 
     with Phase("fused-unroll lane"):
         os.environ["PUPPAX_FUSED_UNROLL"] = "on"
@@ -866,7 +898,7 @@ def main():
             k4_lane_ms, launches = timed_unrolls("K4 lane")
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
-        if launches != (0, N_UNROLLS, 0):
+        if launches != (0, 0, N_UNROLLS, 0):
             raise AssertionError(f"expected {N_UNROLLS} team K4 launches and no K3 or one-thread "
                                  f"K4, got {launches}")
         print(f"A/B, median unroll T={T_UNROLL} x {B} envs: K3 lane {k3_lane_ms:.3f} ms, K4 lane "
@@ -879,8 +911,8 @@ def main():
 
     def train_and_check(environment, label, want, lane_line):
         """One ppo.train run at the default configuration (3 training steps,
-        2 evaluations); its kernel launches (K3, team K2, team K1, team K4)
-        against ``want`` and the one-thread K2's, K1's and K4's against none, its
+        2 evaluations); its kernel launches (team K3, K2, K1 and K4) against
+        ``want`` and the one-thread K3's, K2's, K1's and K4's against none, its
         lane line against ``lane_line``, and the checks of the run. Returns
         the launches and the one-thread kernels' launches."""
         initial = {}
@@ -896,7 +928,7 @@ def main():
 
         progress = []
         ckpt_dir = tempfile.mkdtemp(prefix="puppax_torch_smoke_")
-        soa_env.wrapped_step.launches = 0
+        soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
         soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
         soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
         fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
@@ -922,13 +954,14 @@ def main():
             raise AssertionError(f"the lane line is not {lane_line!r}")
         launches = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
                     soa.step_batched.launches, fused_unroll.unroll.launches)
-        one_thread = (soa_env.env_step_one_thread.launches, soa.step_batched_one_thread.launches,
+        one_thread = (soa_env.wrapped_step_one_thread.launches,
+                      soa_env.env_step_one_thread.launches, soa.step_batched_one_thread.launches,
                       fused_unroll.unroll_one_thread.launches)
-        print(f"{label}: K3 launches {launches[0]} (expected {want[0]}), team K2 launches "
+        print(f"{label}: team K3 launches {launches[0]} (expected {want[0]}), team K2 launches "
               f"{launches[1]} (expected {want[1]}), team K1 launches {launches[2]} (expected "
-              f"{want[2]}), team K4 launches {launches[3]} (expected {want[3]}); one-thread K2, "
-              f"K1 and K4 launches {one_thread} (expected (0, 0, 0))", flush=True)
-        if launches != want or one_thread != (0, 0, 0):
+              f"{want[2]}), team K4 launches {launches[3]} (expected {want[3]}); one-thread K3, "
+              f"K2, K1 and K4 launches {one_thread} (expected (0, 0, 0, 0))", flush=True)
+        if launches != want or one_thread != (0, 0, 0, 0):
             raise AssertionError("the training run did not launch the kernels as expected")
         tree = checkpoint.restore_checkpoint(os.path.join(ckpt_dir, "state"), map_location=device)
         if tree["env_steps"] != TRAIN_TIMESTEPS or float(norm_out.count) != TRAIN_TIMESTEPS:
@@ -973,15 +1006,17 @@ def main():
 
     evals = 2 * tc.episode_length
     with Phase("ppo.train"):
-        (k3_launches, k2_launches, _, _), (k2_one_launches, _, _) = train_and_check(
+        launches, one_thread = train_and_check(
             env, "ppo.train", (unroll_steps, evals, 0, 0),
             "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
+        k3_launches, k2_launches = launches[:2]
+        k3_one_launches, k2_one_launches = one_thread[:2]
 
     # ---- the physics-only lane: ppo.train under PUPPAX_SOA_ENV=off ----
     with Phase("ppo.train, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"
         try:
-            (_, _, k1_launches, _), (_, k1_one_launches, _) = train_and_check(
+            (_, _, k1_launches, _), (_, _, k1_one_launches, _) = train_and_check(
                 env_po, "ppo.train physics-only", (0, 0, unroll_steps + evals, 0),
                 "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
         finally:
@@ -991,7 +1026,7 @@ def main():
     with Phase("ppo.train, fused-unroll lane"):
         os.environ["PUPPAX_FUSED_UNROLL"] = "on"
         try:
-            (_, _, _, k4_launches), (_, _, k4_one_launches) = train_and_check(
+            (_, _, _, k4_launches), (_, _, _, k4_one_launches) = train_and_check(
                 env, "ppo.train fused-unroll", (0, evals, 0, unroll_steps // tc.unroll_length),
                 "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
         finally:
@@ -1034,7 +1069,7 @@ def main():
         chain = probe_fma_fusion.run_chain(device)
         k1_fmad = probe_fma_fusion.run_k1(s1, n_sub, k1_blocks)
         overhead = probe_launch_overhead.run(s1, n_sub, k1_blocks, production={
-            "K3: soa_env.wrapped_step (4096 envs)": k3_step,
+            "team K3: soa_env.wrapped_step (4096 envs)": k3_step,
             "K1: soa.step_batched (4096 envs)": lambda: soa.step_batched(s1, *k1_blocks, n_sub),
         })
         # every copy at 4096 and at one block of 128 envs, bit for bit, the
@@ -1066,8 +1101,11 @@ def main():
         if missing:
             raise AssertionError(f"probe kernels never launched in the probe phase: {missing}")
 
-    k3_bound, k3_by = bound_ms(build.last_build["wrapped_step"]["ops_per_env"],
-                               *(sum(r) for r in soa_env.block_rows(s, es)), B)
+    # team K3's record counts the one-thread program's operations: the same work
+    k3_ops = build.last_build["wrapped_step_team"]["ops_per_env"]
+    if k3_ops != build.last_build["wrapped_step"]["ops_per_env"]:
+        raise AssertionError("team K3's and the one-thread K3's operation counts differ")
+    k3_bound, k3_by = bound_ms(k3_ops, *(sum(r) for r in soa_env.block_rows(s, es)), B)
     k2_bound, k2_by = bound_ms(build.last_build["env_step"]["ops_per_env"],
                                *(sum(r) for r in soa_env.env_block_rows(s, es)), EVAL_ENVS)
     k1_bound, k1_by = bound_ms(build.last_build["physics_step"]["ops_per_env"],
@@ -1087,9 +1125,12 @@ def main():
     k4_out_rows = carry_rows + T_UNROLL * (es.hist + 2 * env.action_size + 1 + out_rows[4])
     k4_bound, k4_by = bound_ms(k4_ops, k4_in_rows, k4_out_rows, B)
     kernels = [{
-        "name": "wrapped_step",
+        # K3, K2 and K1 as the team kernels (the main path) and as the
+        # one-thread kernels (their A/B baseline, launched 0 times on the main
+        # path); max_abs_err is the largest of the widths held against plain
+        "name": "wrapped_step_team",
         "route": "cuda",
-        "source": "puppax_torch/csrc/wrapped_step.cuh",
+        "source": "puppax_torch/csrc/wrapped_step_team.cuh",
         "replaces": "puppax/env/soa_env.py:877",
         "launches": k3_launches,
         "max_abs_err": k3_err,
@@ -1099,9 +1140,18 @@ def main():
         "bound_by": k3_by,
         "library_ms": None,
     }, {
-        # K2 and K1 as the team kernels (the main path) and as the one-thread
-        # kernels (their A/B baseline, launched 0 times on the main path);
-        # max_abs_err is the larger of the two widths held against plain
+        "name": "wrapped_step",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/wrapped_step.cuh",
+        "replaces": "puppax/env/soa_env.py:877",
+        "launches": k3_one_launches,
+        "max_abs_err": k3_one_err,
+        "ms": statistics.median(k3_one_ms),
+        "plain_ms": statistics.median(k3_plain_ms),
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": None,
+    }, {
         "name": "env_step_team",
         "route": "cuda",
         "source": "puppax_torch/csrc/env_step_team.cuh",

@@ -10,7 +10,7 @@ parameter rows). The lane runs one of two ways:
 * by default, a Python loop of T steps, each the policy MLP + NormalTanh
   sample on the observation rows (``policy_rows``: ``torch.matmul`` in
   full float32, feature-major) and one fused wrapped env step
-  (``soa_env.wrapped_step``, K3): auto-reset prologue, kick, action
+  (``soa_env.wrapped_step``, team K3): auto-reset prologue, kick, action
   latency, physics, observation, rewards, termination and episode
   bookkeeping in one kernel launch; then the gait clock's tick;
 * with ``PUPPAX_FUSED_UNROLL=on`` (``use_fused``), the whole unroll in one

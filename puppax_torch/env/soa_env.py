@@ -4,13 +4,16 @@ Counterpart of ``puppax/env/soa_env.py``. ``_emit_env_step`` re-emits the
 env step core (kick -> action latency -> motor targets -> physics
 substeps -> observation -> 18 rewards -> termination -> command resample)
 in the value algebra of ``physics/soa.py``. Two programs are built on it,
-each with two back-ends:
+each with a plain version and two kernels:
 
 * the wrapped step (K3, the rollout fast lane): ``_emit_wrapped_step``
   adds the Episode/AutoReset wrapper algebra. ``wrapped_step_rows`` is the
   plain version, every value a ``(B,)`` torch tensor (counterpart of
   ``wrapped_step_rows_xla``); ``wrapped_step`` launches the same program
-  generated as CUDA C (``kernels/cgen.py``) inside ``csrc/wrapped_step.cuh``;
+  split across the warps of a block (``kernels/team.py``) inside
+  ``csrc/wrapped_step_team.cuh`` (team K3); ``wrapped_step_one_thread``
+  the generated C (``kernels/cgen.py``) inside ``csrc/wrapped_step.cuh``,
+  one env per thread (the A/B baseline);
 * the unwrapped step (K2, ``PupperV3Env.step``, the evaluator's lane):
   ``emit_env_rows`` adds the last forward pass's caches
   (``soa._emit_caches``). ``env_step_rows`` is the plain version and
@@ -21,9 +24,9 @@ each with two back-ends:
 
 Every array is ``(rows, B)`` row-major float32, with no padding (the JAX
 package's ``TILE_B`` tiles have no counterpart). Random draws enter as
-input rows (``noise``), so both back-ends and the JAX package can be fed
+input rows (``noise``), so every back-end and the JAX package can be fed
 the same numbers. ``env_block`` lays a State's info out in the env rows
-both kernels read.
+every kernel reads.
 """
 
 from __future__ import annotations
@@ -634,26 +637,46 @@ def wrapped_step_rows(s, es, n_substeps, episode_length, *blocks):
                   blocks)
 
 
-def wrapped_step(s, es, n_substeps, episode_length, *blocks):
-    """One wrapped env step over ``(rows, B)`` blocks.
-
-    CPU tensors run the plain version (``wrapped_step_rows``); CUDA tensors
-    launch the generated CUDA kernel (``csrc/wrapped_step.cuh``) on the
-    current stream, or raise. Each launch adds one to
-    ``wrapped_step.launches``."""
+def _wrapped_step(wrapper, kernel: build.Kernel, library, s, es, n_substeps, episode_length,
+                  blocks):
+    """The K3 wrappers' body: the plain version on CPU tensors, else one
+    launch of ``kernel`` from ``library(s, es, n_substeps, episode_length)``,
+    counted on ``wrapper``."""
     in_rows, out_rows = block_rows(s, es)
     B, dev = build.check_blocks(in_rows, blocks)
     if dev.type == "cpu":
         return wrapped_step_rows(s, es, n_substeps, episode_length, *blocks)
     if dev.type != "cuda":
-        raise ValueError(f"wrapped_step: unsupported device {dev}")
-    lib = build.wrapped_step_library(s, es, n_substeps, episode_length)
-    outs = build.launch("wrapped_step", lib.wrapped_step_launch, blocks, out_rows, B, dev)
-    wrapped_step.launches += 1
+        raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
+    lib = library(s, es, n_substeps, episode_length)
+    outs = build.launch(kernel.name, getattr(lib, kernel.launch), blocks, out_rows, B, dev)
+    wrapper.launches += 1
     return outs
 
 
+def wrapped_step(s, es, n_substeps, episode_length, *blocks):
+    """One wrapped env step over ``(rows, B)`` blocks.
+
+    CPU tensors run the plain version (``wrapped_step_rows``); CUDA tensors
+    launch team K3 (``csrc/wrapped_step_team.cuh``: 32 envs per block, each
+    env's program split across the block's warps) on the current stream, or
+    raise. Each launch adds one to ``wrapped_step.launches``."""
+    return _wrapped_step(wrapped_step, build.WRAPPED_STEP_TEAM, build.wrapped_step_team_library,
+                         s, es, n_substeps, episode_length, blocks)
+
+
 wrapped_step.launches = 0
+
+
+def wrapped_step_one_thread(s, es, n_substeps, episode_length, *blocks):
+    """``wrapped_step`` through the one-thread K3 (``csrc/wrapped_step.cuh``,
+    one env per thread): the A/B baseline of ``chip_smoke.py``. Each launch
+    adds one to ``wrapped_step_one_thread.launches``."""
+    return _wrapped_step(wrapped_step_one_thread, build.WRAPPED_STEP, build.wrapped_step_library,
+                         s, es, n_substeps, episode_length, blocks)
+
+
+wrapped_step_one_thread.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -78,8 +78,12 @@ ENV_STEP = Kernel("env_step", CSRC / "env_step.cuh", 10,  # 6 in + 4 out
                   "env_step_launch", "env_step_host")
 PHYSICS_STEP = Kernel("physics_step", CSRC / "physics_step.cuh", 7,  # 4 in + 3 out
                       "physics_step_launch", "physics_step_host")
-# the team kernels: K2's and K1's programs split across the warps of a block
-# (kernels/team.py); the production K2 and K1 (soa_env.env_step, soa.step_batched)
+# the team kernels: K3's, K2's and K1's programs split across the warps of a
+# block (kernels/team.py); the production K3, K2 and K1 (soa_env.wrapped_step,
+# soa_env.env_step, soa.step_batched)
+WRAPPED_STEP_TEAM = Kernel("wrapped_step_team", CSRC / "wrapped_step_team.cuh", 13,
+                           "wrapped_step_team_launch", "wrapped_step_team_host",
+                           headers=(CSRC / "team.cuh",))
 ENV_STEP_TEAM = Kernel("env_step_team", CSRC / "env_step_team.cuh", 10, "env_step_team_launch",
                        "env_step_team_host", headers=(CSRC / "team.cuh",))
 PHYSICS_STEP_TEAM = Kernel("physics_step_team", CSRC / "physics_step_team.cuh", 7,
@@ -96,7 +100,8 @@ FUSED_UNROLL_TEAM = Kernel("fused_unroll_team", CSRC / "fused_unroll_team.cuh", 
                            headers=(CSRC / "team.cuh", CSRC / "fused_policy.cuh"))
 # warps per block of each team kernel (chosen on the card from the sweeps of
 # probes/profile_layout.py and probes/profile_team.py; PERF.md)
-TEAM_WARPS = {"env_step_team": 6, "physics_step_team": 4, "fused_unroll_team": 6}
+TEAM_WARPS = {"wrapped_step_team": 6, "env_step_team": 6, "physics_step_team": 4,
+              "fused_unroll_team": 6}
 # team K4's MLP outputs per thread at once (K4_R; chosen on the card from the
 # sweep of probes/profile_team.py --kernel K4; PERF.md)
 K4_MLP_ROWS = 16
@@ -235,8 +240,9 @@ def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
 
 
 def wrapped_step_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
-    """The wrapped-step kernel (K3) for this configuration, built with nvcc
-    for sm_90a at first use and cached for the process."""
+    """The one-thread wrapped-step kernel (K3, the A/B baseline of team K3)
+    for this configuration, built with nvcc for sm_90a at first use and
+    cached for the process."""
     from puppax_torch.kernels import cgen
 
     return _device_library(
@@ -271,6 +277,22 @@ def team_variant(kernel: Kernel, warps: int) -> str:
     """The variant of a team build: none at ``TEAM_WARPS``, else its warps
     (a sweep's build is its own record, ``record_name(kernel, variant)``)."""
     return "" if warps == TEAM_WARPS[kernel.name] else f"{warps} warps"
+
+
+def wrapped_step_team_library(s, es, n_substeps: int, episode_length: int,
+                              warps: Optional[int] = None) -> ctypes.CDLL:
+    """Team K3 (``kernels/team.py`` around K3's program, ``warps`` warps per
+    block, ``TEAM_WARPS`` by default), built with nvcc for sm_90a at first
+    use and cached for the process. Its build record's ``ops_per_env`` is
+    the one-thread program's count, so a bound reads the same work."""
+    from puppax_torch.kernels import team
+
+    warps = warps or TEAM_WARPS[WRAPPED_STEP_TEAM.name]
+    return _device_library(
+        WRAPPED_STEP_TEAM, s, es, (int(n_substeps), int(episode_length), warps),
+        lambda: team.wrapped_step_team_body(s, es, n_substeps, episode_length, warps),
+        variant=team_variant(WRAPPED_STEP_TEAM, warps),
+    )
 
 
 def env_step_team_library(s, es, n_substeps: int, warps: Optional[int] = None) -> ctypes.CDLL:

@@ -16,9 +16,9 @@ it in the kernel and the C entry points: ``csrc/wrapped_step.cuh`` for the
 wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2),
 ``csrc/physics_step.cuh`` for the physics-only step (K1), one env per
 thread. The one-thread fused unroll (K4, ``csrc/fused_unroll.cuh``) calls
-K3's body once per step. K2's, K1's and K4's production kernels are team
-kernels: ``kernels/team.py`` renders the same program split across the
-warps of a block, inside ``csrc/env_step_team.cuh``,
+K3's body once per step. The production kernels are team kernels:
+``kernels/team.py`` renders the same program split across the warps of a
+block, inside ``csrc/wrapped_step_team.cuh``, ``csrc/env_step_team.cuh``,
 ``csrc/physics_step_team.cuh`` and ``csrc/fused_unroll_team.cuh`` (K3's
 program, once per step of the unroll).
 
@@ -50,7 +50,8 @@ _UNARY = {
 }
 
 # the pointer parameters of each body, in block order (shells: WS_PARAMS
-# in wrapped_step.cuh, ES_PARAMS in env_step.cuh and env_step_team.cuh,
+# in common.cuh for wrapped_step.cuh, wrapped_step_team.cuh and the K4 shells,
+# ES_PARAMS in env_step.cuh and env_step_team.cuh,
 # PS_PARAMS in physics_step.cuh and physics_step_team.cuh)
 IN_BLOCKS = ("q", "v", "act", "env", "noi", "dr", "first", "wrap")
 OUT_BLOCKS = ("q_out", "v_out", "env_out", "wrap_out", "aux_out")

@@ -24,9 +24,9 @@ The H100 counterpart of ``dev/probe_fma_fusion.py`` (``run`` :47,
    of carried launches, false / true / true / false) and how far q, v and
    the caches move (envs outside qpos 5e-5 / scaled qvel 5e-4, the largest
    difference).
-3. ``--k3``: the same for K3 (the wrapped env step) on a reset of the
-   default training configuration; ``chip_smoke.py`` leaves it out to save
-   one full build.
+3. ``--k3``: the same for the one-thread K3 (the wrapped env step) on a
+   DR'd reset of the default training configuration; ``chip_smoke.py``
+   leaves it out to save one full build.
 """
 
 from __future__ import annotations
@@ -241,30 +241,14 @@ def run_k1(s, n_substeps: int, blocks, iters: int = K1_ITERS) -> dict:
 
 
 def run_k3(device, seed: int = 0) -> dict:
-    """K3 under ``--fmad=true`` against production K3, on one wrapped step
-    of a reset of the default training configuration (DR on)."""
-    from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
+    """The one-thread K3 under ``--fmad=true`` against its production
+    ``--fmad=false`` build, on one wrapped step of a DR'd reset of the
+    default training configuration (``profile_team.k3_inputs``)."""
     from puppax_torch.env import soa_env
-    from puppax_torch.env.domain_randomization import domain_randomize
-    from puppax_torch.env.pupper import PupperV3Env
-    from puppax_torch.env.rollout import FastLane
-    from puppax_torch.env.wrappers import wrap_for_training
+    from puppax_torch.probes import profile_team
 
-    tc, dr_cfg = TrainConfig(), DomainRandomizationConfig()
-    B, L = tc.num_envs, tc.episode_length
-    g = torch.Generator(device=device).manual_seed(seed)
-    env = PupperV3Env.from_config(EnvConfig(), device=device)
-    ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
-    wrapped = wrap_for_training(
-        env, L, randomization_fn=lambda m, gen, n: domain_randomize(m, gen, n, **ranges),
-        generator=g, num_envs=B)
-    lane = FastLane(wrapped)
-    s, es, n_sub = env._s, env._es, env._n_substeps
-    carry = lane.carry_from_state(wrapped.reset(B, generator=g))
-    noise, _ = lane.draw_noise_block(g, B, 1)
-    act = torch.rand((env.action_size, B), generator=g, device=device) * 2 - 1
-    blocks = [carry["q"], carry["v"], act, carry["env"], noise[0].contiguous(), carry["dr"],
-              carry["first"], carry["wrap"]]
+    env, L, blocks = profile_team.k3_inputs(device, seed=seed)
+    s, es, n_sub, B = env._s, env._es, env._n_substeps, blocks[0].shape[1]
     libs = build.build_in_parallel(
         lambda: build.wrapped_step_library(s, es, n_sub, L),
         lambda: build.wrapped_step_fmad_library(s, es, n_sub, L))

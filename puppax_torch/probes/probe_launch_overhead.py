@@ -28,8 +28,8 @@ without waiting for the card, best of 3, host clock), layer by layer for
 ``x + 1``: the bare C entry point through ctypes with its arguments made
 once, ``build.launch_into`` with the library looked up once, the
 ``add_one`` wrapper (checks, library lookup, count), and ``torch.add``.
-``run`` also takes production launch paths (``chip_smoke.py`` passes K3's
-``soa_env.wrapped_step`` and K1's ``soa.step_batched`` on its 4096-env
+``run`` also takes production launch paths (``chip_smoke.py`` passes team
+K3's ``soa_env.wrapped_step`` and team K1's ``soa.step_batched`` on its 4096-env
 states) and times their host side the same way. The bare launches bypass
 the wrapper and its count.
 """

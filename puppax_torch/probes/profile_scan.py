@@ -19,8 +19,8 @@ the state carried (``common.carried_us``: best of 3 windows, CUDA events):
   and graphed (``scan-xla-add``, ``scan-xla-add-big``).
 
 Then the question this asks of the H100 (``unroll_ab``): the K3 lane's
-T=20 ``FastLane.unroll_from_draws`` (the policy and one K3 launch per
-step) at B envs, run eagerly and captured once as a ``torch.cuda.CUDAGraph``
+T=20 ``FastLane.unroll_from_draws`` (the policy and one team K3 launch
+per step) at B envs, run eagerly and captured once as a ``torch.cuda.CUDAGraph``
 and replayed, on draws made once before the timed windows. It prints ms
 per unroll for each and ``(eager - graph) / T``, the host's time per step
 that the graph removes; the graph's outputs (the final state and every
@@ -157,7 +157,7 @@ def run(q: torch.Tensor, lane_case=None, iters: int = common.ITERS,
               f"step", flush=True)
     if lane_case is not None:
         ab = results["unroll"] = unroll_ab(*lane_case, runs=runs)
-        print(f"K3 lane unroll T={ab['T']} x {ab['envs']} envs: eager {ab['eager_ms']:.3f} ms, "
+        print(f"K3 lane (team K3) unroll T={ab['T']} x {ab['envs']} envs: eager {ab['eager_ms']:.3f} ms, "
               f"one CUDA graph {ab['graph_ms']:.3f} ms per unroll; host time per step "
               f"(eager - graph) / T {ab['host_ms_per_step']:.4f} ms; the graph's {ab['leaves']} "
               f"output tensors equal the eager ones bit for bit", flush=True)
@@ -180,10 +180,10 @@ def main(argv=None):
     smi = common.nvidia_smi()
     print(smi, flush=True)
     env, tc = PupperV3Env.from_config(EnvConfig(), device=device), TrainConfig()
-    build.build_in_parallel(build.probe_copy_library, lambda: build.wrapped_step_library(
+    build.build_in_parallel(build.probe_copy_library, lambda: build.wrapped_step_team_library(
         env._s, env._es, env._n_substeps, tc.episode_length))
     common.print_builds([build.record_name(build.PROBE_COPY),
-                         build.record_name(build.WRAPPED_STEP)])
+                         build.record_name(build.WRAPPED_STEP_TEAM)])
     g = torch.Generator(device=device).manual_seed(args.seed)
     wrapped = wrap_for_training(env, tc.episode_length)  # the nominal model
     lane = FastLane(wrapped)

@@ -1,10 +1,10 @@
 """How do the team kernels' schedule knobs set their time on the card?
 
-    python -m puppax_torch.probes.profile_team [--kernel K1|K2] [--variants W:cap:cross:kb,...]
+    python -m puppax_torch.probes.profile_team [--kernel K1|K2|K3] [--variants W:cap:cross:kb,...]
     python -m puppax_torch.probes.profile_team --kernel K4 [--warps 4,6,8] [--rows 1,4,8,16]
 
-Team K1 and team K2 (``csrc/physics_step_team.cuh``, ``csrc/env_step_team.cuh``)
-run each env's program split across the W warps of a block by
+Team K1, team K2 and team K3 (``csrc/physics_step_team.cuh``,
+``csrc/env_step_team.cuh``, ``csrc/wrapped_step_team.cuh``) run each env's program split across the W warps of a block by
 ``kernels/team.py``, whose schedule has four knobs: the warps per block W,
 a warp's budget of weighted operations per stage (``team.CAP``), the cost
 in stages of sending one more operand through shared memory
@@ -22,7 +22,12 @@ heaviest stream, shared bytes, the write gap) and ptxas summary.
 ``--trips E,I`` emits both with other line-search trip counts, which
 prices the line search (a timing variant: another program). Inputs:
 ``profile_layout.team_blocks`` (nominal states). No counterpart on the
-TPU: the team kernels are the H100's design of K1 and K2.
+TPU: the team kernels are the H100's design of K1, K2 and K3.
+
+``--kernel K3`` sweeps team K3 at W = 4, 6 and 8 by default (``K3_VARIANTS``,
+the production schedule otherwise) at 4096 envs only, on ``k3_inputs``:
+the 8 input blocks of one wrapped step of a DR'd reset of the default
+training configuration, random actions in [-1, 1].
 
 ``--kernel K4`` (``run_k4``) sweeps team K4 (``csrc/fused_unroll_team.cuh``)
 instead: the whole kernel at each W of ``--warps`` (the MLP at
@@ -66,6 +71,8 @@ def parse_variants(text: str) -> Tuple[tuple, ...]:
 # 8 warps, and each knob moved once
 VARIANTS = parse_variants("4:48:1:227,8:48:1:227,4:48:1:160,4:96:1:227,4:24:1:227,4:48:0:227,"
                           "4:48:1:227:0,4:48:1:227:10")
+# team K3's sweep: the warps per block at the production schedule
+K3_VARIANTS = parse_variants("4:48:1:227,6:48:1:227,8:48:1:227")
 
 
 def _label(v: tuple) -> str:
@@ -73,9 +80,11 @@ def _label(v: tuple) -> str:
 
 
 def build_variants(s, es, n_substeps: int, kernel: str, variants: Sequence[tuple],
-                   trips: Optional[Tuple[int, int]] = None):
+                   trips: Optional[Tuple[int, int]] = None,
+                   episode_length: Optional[int] = None):
     """The one-thread kernel's and each team variant's launch function and
-    build stats, all nvcc at once. ``trips`` (expand, Illinois) emits the
+    build stats, all nvcc at once (K3 bakes ``episode_length`` into its
+    body). ``trips`` (expand, Illinois) emits the
     line search with other trip counts than ``soa.LS_EXPAND_ITERS`` /
     ``LS_ILLINOIS_ITERS`` (a timing variant only: it is another program)."""
     saved = soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS
@@ -87,6 +96,11 @@ def build_variants(s, es, n_substeps: int, kernel: str, variants: Sequence[tuple
                 cgen.physics_step_body(s, n_substeps)
             shells = build.PHYSICS_STEP, build.PHYSICS_STEP_TEAM
             name, params = "physics_step_team_body", "PS_PARAMS"
+        elif kernel == "K3":
+            prog, one_body = cgen.wrapped_step_program(s, es, n_substeps, episode_length), \
+                cgen.wrapped_step_body(s, es, n_substeps, episode_length)
+            shells = build.WRAPPED_STEP, build.WRAPPED_STEP_TEAM
+            name, params = "wrapped_step_team_body", "WS_PARAMS"
         else:
             prog, one_body = cgen.env_step_program(s, es, n_substeps), \
                 cgen.env_step_body(s, es, n_substeps)
@@ -114,15 +128,18 @@ def build_variants(s, es, n_substeps: int, kernel: str, variants: Sequence[tuple
 
 def run(s, es, n_substeps: int, kernel: str, blocks: Dict[int, list],
         variants: Sequence[tuple] = VARIANTS, trips: Optional[Tuple[int, int]] = None,
-        iters: int = 20, runs: int = common.RUNS) -> Dict[tuple, dict]:
+        iters: int = 20, runs: int = common.RUNS,
+        episode_length: Optional[int] = None) -> Dict[tuple, dict]:
     """Time each variant of team ``kernel`` on ``blocks`` ({B: input blocks});
     returns {(variant, B): {"us", ...}} and fails unless each launch equals
     the one-thread kernel's bit for bit."""
     from puppax_torch.env import soa_env
 
-    out_rows = soa.physics_block_rows(s)[1] if kernel == "K1" else \
-        soa_env.env_block_rows(s, es)[1]
-    (one, *fns), (one_stats, *stats) = build_variants(s, es, n_substeps, kernel, variants, trips)
+    out_rows = {"K1": lambda: soa.physics_block_rows(s)[1],
+                "K2": lambda: soa_env.env_block_rows(s, es)[1],
+                "K3": lambda: soa_env.block_rows(s, es)[1]}[kernel]()
+    (one, *fns), (one_stats, *stats) = build_variants(s, es, n_substeps, kernel, variants, trips,
+                                                      episode_length)
     print(common.nvidia_smi(), flush=True)
     p = one_stats["ptxas"]
     print(f"one-thread {kernel}{f' at line-search trips {trips}' if trips else ''}: "
@@ -157,6 +174,33 @@ def run(s, es, n_substeps: int, kernel: str, blocks: Dict[int, list],
             print(f"{kernel} {B} envs {_label(v)}: {us:.1f} us "
                   f"({base / us:.2f}x the one-thread kernel)", flush=True)
     return results
+
+
+def k3_inputs(device, B: int = 4096, seed: int = 0):
+    """(env, episode length, the 8 input blocks of one wrapped step) of the
+    default training configuration: a DR'd reset of ``B`` envs, the
+    reset's first noise draw, random actions in [-1, 1] (from ``seed``)."""
+    from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
+    from puppax_torch.env.domain_randomization import domain_randomize
+    from puppax_torch.env.pupper import PupperV3Env
+    from puppax_torch.env.rollout import FastLane
+    from puppax_torch.env.wrappers import wrap_for_training
+
+    tc, dr_cfg = TrainConfig(), DomainRandomizationConfig()
+    g = torch.Generator(device=device).manual_seed(seed)
+    env = PupperV3Env.from_config(EnvConfig(), device=device)
+    ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
+    wrapped = wrap_for_training(
+        env, tc.episode_length,
+        randomization_fn=lambda m, gen, n: domain_randomize(m, gen, n, **ranges),
+        generator=g, num_envs=B)
+    lane = FastLane(wrapped)
+    carry = lane.carry_from_state(wrapped.reset(B, generator=g))
+    noise, _ = lane.draw_noise_block(g, B, 1)
+    act = torch.rand((env.action_size, B), generator=g, device=device) * 2 - 1
+    return env, tc.episode_length, [carry["q"], carry["v"], act, carry["env"],
+                                    noise[0].contiguous(), carry["dr"], carry["first"],
+                                    carry["wrap"]]
 
 
 K4_WARPS = (4, 6, 8)
@@ -281,13 +325,14 @@ def run_k4(env, episode_length: int, activation: str, layers, blocks,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("K1", "K2", "K4"), default="K1")
+    ap.add_argument("--kernel", choices=("K1", "K2", "K3", "K4"), default="K1")
     ap.add_argument("--warps", type=lambda t: tuple(int(x) for x in t.split(",")),
                     default=K4_WARPS, help="K4: the warps per block to sweep")
     ap.add_argument("--rows", type=lambda t: tuple(int(x) for x in t.split(",")),
                     default=K4_ROWS, help="K4: the MLP outputs per thread to sweep")
-    ap.add_argument("--variants", type=parse_variants, default=VARIANTS,
-                    help="comma-separated W:cap:cross:shared_kb[:sum_unroll]")
+    ap.add_argument("--variants", type=parse_variants, default=None,
+                    help="comma-separated W:cap:cross:shared_kb[:sum_unroll] (default: "
+                    "VARIANTS, or K3_VARIANTS for K3)")
     ap.add_argument("--trips", type=lambda t: tuple(int(x) for x in t.split(",")),
                     default=None, help="the line search's expand,Illinois trips (a timing "
                     "variant: another program than the production one)")
@@ -298,10 +343,14 @@ def main(argv=None):
     print(smi, flush=True)
     if args.kernel == "K4":
         run_k4(*k4_inputs(device), warps=args.warps, rows=args.rows)
+    elif args.kernel == "K3":
+        env, L, blocks = k3_inputs(device)
+        run(env._s, env._es, env._n_substeps, "K3", {blocks[0].shape[1]: blocks},
+            args.variants or K3_VARIANTS, args.trips, episode_length=L)
     else:
         env, blocks = profile_layout.team_blocks(device)
-        run(env._s, env._es, env._n_substeps, args.kernel, blocks[args.kernel], args.variants,
-            args.trips)
+        run(env._s, env._es, env._n_substeps, args.kernel, blocks[args.kernel],
+            args.variants or VARIANTS, args.trips)
     print(smi, flush=True)
 
 

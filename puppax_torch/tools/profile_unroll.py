@@ -9,7 +9,7 @@ prints, for the K3 lane or, with ``--fused``, the fused-unroll lane
 
 - each phase of the unroll timed alone, with CUDA events and on the host
   clock: ``draw_noise_block`` (T steps of env noise), ``carry_from_state``
-  and, for the K3 lane, one ``policy_rows`` apply and one K3
+  and, for the K3 lane, one ``policy_rows`` apply and one team K3
   ``wrapped_step`` launch; for the fused lane, ``fold_normalizer``, one K4
   ``fused_unroll.unroll`` launch (all T steps) and ``_assemble_unroll``;
 - the whole unroll, unprofiled, timed with CUDA events (median of 3);
@@ -157,7 +157,7 @@ def main(argv=None):
     else:
         with torch.no_grad():
             phase("policy_rows", lambda: apply(obs, eps), 20)
-        phase("wrapped_step (K3)", lambda: soa_env.wrapped_step(
+        phase("wrapped_step (team K3)", lambda: soa_env.wrapped_step(
             lane.s, lane.es, lane.n_substeps, L, *blocks), 20)
     unroll = [_event_ms(lambda: lane.unroll(state, params, generator=g, T=T), 1)
               for _ in range(3)]

@@ -1,6 +1,6 @@
 """The K3, K2, K1 and K4 kernels on an NVIDIA GPU against their plain
-versions (K1, K2 and K4 as the team kernels, and as the one-thread kernels
-beside them), short training runs through them, and the kernel-time
+versions (as the team kernels, and as the one-thread kernels beside
+them), short training runs through them, and the kernel-time
 probes' kernels (``puppax_torch/probes``) against their plain versions.
 
 These tests need a CUDA device and nvcc; without them they skip. On the
@@ -39,17 +39,25 @@ def _blocks(env, B, seed):
 
 @pytest.mark.parametrize("B", [256, 300])
 def test_kernel_matches_plain(env, B):
-    """Full and ragged last blocks (the b < B guard) on random states."""
+    """Team K3 (``soa_env.wrapped_step``) on full and ragged last 32-env
+    groups of random states: within tolerance of its plain version, and bit
+    for bit with the one-thread K3 (``wrapped_step_one_thread``); one
+    counted launch of each."""
+    from puppax_torch.probes import common
+
     s, es = env._s, env._es
     blocks = _blocks(env, B, seed=B)
-    before = soa_env.wrapped_step.launches
+    before = (soa_env.wrapped_step.launches, soa_env.wrapped_step_one_thread.launches)
     got = soa_env.wrapped_step(s, es, 5, 1000, *blocks)
+    one = soa_env.wrapped_step_one_thread(s, es, 5, 1000, *blocks)
     torch.cuda.synchronize()
-    assert soa_env.wrapped_step.launches == before + 1
+    assert (soa_env.wrapped_step.launches, soa_env.wrapped_step_one_thread.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert common.compare_exact(got, one) == (0.0, 0)
     want = soa_env.wrapped_step_rows(s, es, 5, 1000, *blocks)
     H.assert_wrapped_outputs_close(
         [g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want], s, es,
-        soa_env.aux_row_map(es), f"kernel vs plain at B={B}",
+        soa_env.aux_row_map(es), f"team K3 vs plain at B={B}",
     )
 
 
@@ -123,7 +131,8 @@ def test_team_k2_bit_for_bit(env, B):
 
 def test_short_training_launches_both_kernels(env, tmp_path):
     """One training step (4 unroll steps of 256 envs) and two evaluations of
-    16 envs: 4 K3 launches and 2 x 1000 K2 launches."""
+    16 envs: 4 team K3 launches and 2 x 1000 team K2 launches, none of the
+    one-thread kernels."""
     from puppax_torch.train import networks, ppo
 
     def factory(obs, act, device=None, generator=None):
@@ -131,15 +140,18 @@ def test_short_training_launches_both_kernels(env, tmp_path):
                                           generator=generator)
 
     soa_env.wrapped_step.launches = soa_env.env_step.launches = 0
-    soa_env.env_step_one_thread.launches = 0
+    soa_env.wrapped_step_one_thread.launches = soa_env.env_step_one_thread.launches = 0
     _, (norm, _), metrics = ppo.train(
         env, num_timesteps=64 * 4 * 4, episode_length=1000, num_envs=256, num_eval_envs=16,
         unroll_length=4, batch_size=64, num_minibatches=4, num_updates_per_batch=1,
         num_evals=2, network_factory=factory, device="cuda", checkpoint_dir=str(tmp_path),
     )
     assert (soa_env.wrapped_step.launches, soa_env.env_step.launches) == (4, 2000)
-    # K2's launches are the team kernel's: the one-thread K2 is not on the path
-    assert soa_env.env_step_one_thread.launches == 0 and "env_step_team" in build.last_build
+    # K3's and K2's launches are the team kernels': the one-thread kernels are
+    # not on the path
+    assert (soa_env.wrapped_step_one_thread.launches, soa_env.env_step_one_thread.launches) == (
+        0, 0)
+    assert "wrapped_step_team" in build.last_build and "env_step_team" in build.last_build
     assert float(norm.count) == 4 * 256
     assert np.isfinite(metrics["training/total_loss"])
     assert 0 < metrics["eval/avg_episode_length"] <= 1000
