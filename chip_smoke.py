@@ -84,13 +84,18 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    team K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1,
    0 one-thread K4, the same checks;
 12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 15 libraries built in one parallel batch (K1's
-   body cut after each phase, with the sink row that keeps the cut pass
-   live, and whole in the probe shell, the whole body under
+   4096 DR'd states: their 23 libraries built in one parallel batch (K1's
+   program cut after each phase, with the sink row that keeps the cut pass
+   live, and whole, in two designs: team K1's, split across 4 warps in
+   ``csrc/probe_physics_team.cuh``, and one thread per env in
+   ``csrc/probe_physics.cuh``; the whole body under
    ``--fmad=true``, the multiply-add chain under both flags, ``x + 1``,
    the copy kernel, the synthetic SoA substep at 60 rounds, the 18 x 18
-   SPD solve), then each probe's ``run``: K1's time per phase, K1
-   by layout and threads per block, the chain and ``--fmad=true`` K1, and
+   SPD solve), then each probe's ``run``: K1's time per phase in both
+   designs in turns (each cut held bit for bit against its plain version,
+   the team full cut against the production team K1), K1 by layout and
+   threads per block, the team fk and full cuts by layout, the chain and
+   ``--fmad=true`` K1, and
    launch overhead eager and from a CUDA graph, with the host's time per
    launch layer by layer and through team K3's and team K1's production
    wrappers;
@@ -1043,6 +1048,8 @@ def main():
     with Phase("probes: build"):
         build.build_in_parallel(
             *[(lambda cut=cut: build.probe_physics_library(s1, n_sub, cut)) for cut in soa.PHASES],
+            *[(lambda cut=cut: build.probe_physics_team_library(s1, n_sub, cut))
+              for cut in soa.PHASES],
             lambda: build.probe_physics_library(s1, n_sub, None, fmad=True),
             lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
             build.add_one_library, build.probe_copy_library,
@@ -1050,6 +1057,9 @@ def main():
         fmad_flags = build.probe_flags(True)
         probe_records = {
             **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
+               for cut in soa.PHASES},
+            **{probes.k1_probe_name(cut, team=True): build.record_name(build.PROBE_PHYSICS_TEAM,
+                                                                       cut or "full")
                for cut in soa.PHASES},
             probes.k1_probe_name(None, fmad=True): build.record_name(build.PROBE_PHYSICS, "full",
                                                                      fmad_flags),
@@ -1066,6 +1076,7 @@ def main():
         probes.launches.clear()
         cuts = profile_kernel_phases.run(s1, n_sub, k1_blocks)
         layouts = profile_layout.run(s1, n_sub, k1_blocks)
+        team_layouts = profile_layout.run_team(s1, n_sub, k1_blocks)
         chain = probe_fma_fusion.run_chain(device)
         k1_fmad = probe_fma_fusion.run_k1(s1, n_sub, k1_blocks)
         overhead = probe_launch_overhead.run(s1, n_sub, k1_blocks, production={
@@ -1095,8 +1106,8 @@ def main():
             spd_res = spd_probe.run(device, B, 0, (B, EVAL_ENVS))
         probe_launches = dict(probes.launches)
         print("probe launches: " + json.dumps(probe_launches), flush=True)
-        expected = [*probe_records, probes.k1_probe_name("fk", probes.BLOCK_MAJOR),
-                    probes.k1_probe_name(None, probes.BLOCK_MAJOR)]
+        expected = [*probe_records, *[probes.k1_probe_name(cut, probes.BLOCK_MAJOR, team=team)
+                                      for cut in profile_layout.PHASES for team in (False, True)]]
         missing = [name for name in expected if probe_launches.get(name, 0) == 0]
         if missing:
             raise AssertionError(f"probe kernels never launched in the probe phase: {missing}")
@@ -1237,18 +1248,27 @@ def main():
     def k1_bound_of(record):
         return bound_ms(build.last_build[record]["ops_per_env"], *k1_rows, B)
 
-    for cut in soa.PHASES:
-        name = probes.k1_probe_name(cut)
-        kernels.append(probe_entry(
-            name, "probe_physics.cuh", "dev/profile_kernel_phases.py:68",
-            cuts[cut]["max_abs_err"], cuts[cut]["us"] / 1e3, cuts[cut]["plain_ms"],
-            k1_bound_of(probe_records[name])))
-    for cut in profile_layout.PHASES:
-        lay = layouts[(cut, probes.BLOCK_MAJOR, 128)]
-        kernels.append(probe_entry(
-            probes.k1_probe_name(cut, probes.BLOCK_MAJOR), "probe_physics.cuh",
-            "dev/profile_layout.py:113", lay["max_abs_err"], lay["us"] / 1e3,
-            cuts[cut]["plain_ms"], k1_bound_of(probe_records[probes.k1_probe_name(cut)])))
+    # the phase cuts and the block-major fk and full, one-thread (128
+    # threads) and team; a design's cut runs one program: the cut's bound
+    designs = (
+        (False, "probe_physics.cuh", lambda cut: layouts[(cut, probes.BLOCK_MAJOR, 128)]),
+        (True, "probe_physics_team.cuh", lambda cut: team_layouts[(cut, probes.BLOCK_MAJOR)]),
+    )
+    for team, source, _ in designs:
+        for cut in soa.PHASES:
+            name = probes.k1_probe_name(cut, team=team)
+            res = cuts[cut]["team" if team else "one-thread"]
+            kernels.append(probe_entry(
+                name, source, "dev/profile_kernel_phases.py:68", res["max_abs_err"],
+                res["us"] / 1e3, cuts[cut]["plain_ms"], k1_bound_of(probe_records[name])))
+    for team, source, block_major in designs:
+        for cut in profile_layout.PHASES:
+            lay = block_major(cut)
+            kernels.append(probe_entry(
+                probes.k1_probe_name(cut, probes.BLOCK_MAJOR, team=team), source,
+                "dev/profile_layout.py:113", lay["max_abs_err"], lay["us"] / 1e3,
+                cuts[cut]["plain_ms"],
+                k1_bound_of(probe_records[probes.k1_probe_name(cut, team=team)])))
     fmad_name = probes.k1_probe_name(None, fmad=True)
     kernels.append(probe_entry(
         fmad_name, "probe_physics.cuh", "dev/probe_fma_fusion.py:47",

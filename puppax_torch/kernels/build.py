@@ -15,11 +15,11 @@ finished library in that directory is reused; nothing is built at import.
 the build directory's ``build.log``.
 
 The kernel-time probes (``puppax_torch/probes``) build other variants:
-K1's body cut after a phase, in their own launch shell, or under
-``--fmad=true`` (``probe_flags``). A variant is its own library and its
-own ``last_build`` record (``record_name``: the shell, the cut, the flags
-that differ from ``NVCC_FLAGS``), so a probe build never stands in for
-a production one. The production kernels build with ``NVCC_FLAGS`` only.
+K1's body cut after a phase, one-thread or team, in their own launch
+shells, or under ``--fmad=true`` (``probe_flags``). A variant is its own
+library and its own ``last_build`` record (``record_name``: the shell, the
+cut, the flags that differ from ``NVCC_FLAGS``), so a probe build never
+stands in for a production one. The production kernels build with ``NVCC_FLAGS`` only.
 
 Each nvcc is one subprocess, so ``build_in_parallel`` builds several
 kernels at once from threads. ``check_blocks`` and ``launch`` are the
@@ -111,6 +111,12 @@ K4_MLP_ROWS = 16
 # (x, out; B = elements)
 PROBE_PHYSICS = Kernel("probe_physics", CSRC / "probe_physics.cuh", 8,
                        "probe_physics_launch", "probe_physics_host", n_ints=7)
+# the team probes' shell: team K1's body (kernels/team.py) cut after a phase,
+# with the sink row, in two layouts (the same 8 blocks; ints layout and the
+# row counts nq, nv, nu, ndr, ncache)
+PROBE_PHYSICS_TEAM = Kernel("probe_physics_team", CSRC / "probe_physics_team.cuh", 8,
+                            "probe_physics_team_launch", "probe_physics_team_host", n_ints=6,
+                            headers=(CSRC / "team.cuh",))
 FMA_CHAIN = Kernel("fma_chain", CSRC / "probe_fma.cuh", 3,
                    "fma_chain_launch", "fma_chain_host", n_ints=3)
 ADD_ONE = Kernel("add_one", CSRC / "probe_add_one.cuh", 2, "add_one_launch", "add_one_host")
@@ -373,6 +379,25 @@ def probe_physics_library(s, n_substeps: int, phase_limit: Optional[str] = None,
         PROBE_PHYSICS, s, None, (int(n_substeps),),
         lambda: cgen.physics_step_body(s, n_substeps, phase_limit, sink=True),
         variant=phase_limit or "full", flags=probe_flags(fmad),
+    )
+
+
+def probe_physics_team_library(s, n_substeps: int,
+                               phase_limit: Optional[str] = None) -> ctypes.CDLL:
+    """Team K1's program (``team.physics_step_team_body`` at
+    ``TEAM_WARPS["physics_step_team"]`` warps, production's schedule), cut
+    after ``phase_limit`` (None: the whole program) and with its sink row,
+    in the team probes' shell ``csrc/probe_physics_team.cuh`` (row-major and
+    block-major layouts): a probe-only build, recorded as
+    ``probe_physics_team[<cut or full>]``. Its ``ops_per_env`` is the
+    one-thread cut's (``probe_physics[<cut or full>]``): the same program."""
+    from puppax_torch.kernels import team
+
+    warps = TEAM_WARPS[PHYSICS_STEP_TEAM.name]
+    return _device_library(
+        PROBE_PHYSICS_TEAM, s, None, (int(n_substeps), warps),
+        lambda: team.physics_step_team_body(s, n_substeps, warps, phase_limit, sink=True),
+        variant=phase_limit or "full",
     )
 
 

@@ -460,11 +460,15 @@ def env_step_program(s, es, n_substeps: int) -> CProgram:
                     lambda rows: soa_env.emit_env_rows(s, es, n_substeps, rows))
 
 
-def physics_step_program(s, n_substeps: int) -> CProgram:
-    """K1's emission as a ``CProgram`` (its nodes: ``kernels/team.py``)."""
+def physics_step_program(s, n_substeps: int, phase_limit=None, sink: bool = False) -> CProgram:
+    """K1's emission as a ``CProgram`` (its nodes: ``kernels/team.py``).
+    ``phase_limit`` and ``sink`` as in ``physics_step_body``: the program
+    cut after that phase and, with ``sink``, the output block ``sink_out``
+    (the team probes' program, ``team.physics_step_team_body``)."""
     in_rows, _ = soa.physics_block_rows(s)
-    return _program(PHYSICS_IN_BLOCKS, PHYSICS_OUT_BLOCKS, in_rows,
-                    lambda rows: soa.emit_physics_rows(s, n_substeps, rows))
+    return _program(PHYSICS_IN_BLOCKS, PHYSICS_OUT_BLOCKS + (("sink_out",) if sink else ()),
+                    in_rows,
+                    lambda rows: soa.emit_physics_rows(s, n_substeps, rows, phase_limit, sink))
 
 
 def physics_step_body(s, n_substeps: int, phase_limit=None, sink: bool = False) -> str:

@@ -862,12 +862,18 @@ def team_body(prog: cgen.CProgram, warps: int, name: str, params: str, what: str
                   base_ops, sum_unroll)
 
 
-def physics_step_team_body(s, n_substeps: int, warps: int) -> Tuple[str, dict]:
+def physics_step_team_body(s, n_substeps: int, warps: int, phase_limit=None,
+                           sink: bool = False) -> Tuple[str, dict]:
     """Team K1: ``cgen.physics_step_program`` as ``physics_step_team_body``
-    (shell ``csrc/physics_step_team.cuh``)."""
-    return team_body(cgen.physics_step_program(s, n_substeps), warps,
-                     "physics_step_team_body", "PS_PARAMS",
-                     f"physics-step emission (n_substeps={n_substeps})")
+    (shell ``csrc/physics_step_team.cuh``). ``phase_limit`` and ``sink``
+    give the team probes' program (``cgen.physics_step_body``'s cut and
+    sink row), rendered under ``PP_PARAMS`` for ``csrc/probe_physics_team.cuh``;
+    the schedule's knobs are production's."""
+    cut = "" if phase_limit is None else f", cut after phase {phase_limit}"
+    return team_body(cgen.physics_step_program(s, n_substeps, phase_limit, sink), warps,
+                     "physics_step_team_body", "PP_PARAMS" if sink else "PS_PARAMS",
+                     f"physics-step emission (n_substeps={n_substeps}{cut}"
+                     f"{', sink row' if sink else ''})")
 
 
 def env_step_team_body(s, es, n_substeps: int, warps: int) -> Tuple[str, dict]:

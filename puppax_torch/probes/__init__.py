@@ -5,10 +5,13 @@ hand-written CUDA kernel, a plain PyTorch version beside it, a ``run``
 function (``chip_smoke.py`` drives it) and a command line
 (``python -m puppax_torch.probes.<name>``, on ``cuda:0``):
 
-- ``profile_kernel_phases``: K1 cut after each physics phase, timed
-  (``dev/profile_kernel_phases.py``);
+- ``profile_kernel_phases``: K1 cut after each physics phase, timed in
+  the production K1's team design (its program split across the warps of
+  a block, ``csrc/probe_physics_team.cuh``) beside one thread per env
+  (``csrc/probe_physics.cuh``, the A/B) (``dev/profile_kernel_phases.py``);
 - ``profile_layout``: K1 in row-major and block-major layouts at 32, 64 and
-  128 threads per block (``dev/profile_layout.py``);
+  128 threads per block, and the team fk and full cuts in both layouts
+  (``dev/profile_layout.py``);
 - ``probe_fma_fusion``: a dependent multiply-add chain and K1 under
   ``--fmad=false`` and ``--fmad=true`` (``dev/probe_fma_fusion.py``);
 - ``probe_launch_overhead``: an ``x + 1`` kernel, K1 and a torch

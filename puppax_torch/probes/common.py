@@ -10,7 +10,9 @@
   name, graph replays included.
 - ``physics_probe``: the wrapper of K1's probe builds
   (``csrc/probe_physics.cuh``: q, v, caches and the sink row out), and
-  the block layouts it takes (``to_block_major`` / ``from_block_major``).
+  the block layouts it takes (``to_block_major`` / ``from_block_major``);
+  ``physics_probe_team``: the same for team K1's probe builds
+  (``csrc/probe_physics_team.cuh``, 32-env tiles).
 - ``copy_probe``: the wrapper of the overhead probes' copy kernel
   (``csrc/probe_copy.cuh``, three operand sets; element-parallel), its
   plain version ``copy_rows`` and ``check_copy``, one launch held against
@@ -42,6 +44,7 @@ from puppax_torch.physics import soa
 ROW_MAJOR, BLOCK_MAJOR = 0, 1
 LAYOUT_NAMES = {ROW_MAJOR: "row-major", BLOCK_MAJOR: "block-major"}
 TILE = 128  # envs per tile of the block-major layout (csrc/probe_physics.cuh)
+TEAM_TILE = 32  # envs per tile, and per block, of the team probes (csrc/probe_physics_team.cuh)
 ITERS = 50  # launches per timed window, as the TPU probes' 50-step scans
 RUNS = 3  # timed windows; the best one counts
 
@@ -184,26 +187,28 @@ def sass_counts(record: str, kernel: build.Kernel) -> Optional[dict]:
     return {op: len(re.findall(rf"\b{op}\b", out)) for op in ("FFMA", "FMUL", "FADD")}
 
 
-def to_block_major(x: torch.Tensor) -> torch.Tensor:
-    """A ``(rows, B)`` block as the block-major ``(B / 128, rows, 128)``
-    layout of ``csrc/probe_physics.cuh`` (env b in tile b // 128, lane
-    b % 128)."""
+def to_block_major(x: torch.Tensor, tile: int = TILE) -> torch.Tensor:
+    """A ``(rows, B)`` block as the block-major ``(B / tile, rows, tile)``
+    layout (env b in tile b // tile, lane b % tile): ``TILE`` for
+    ``csrc/probe_physics.cuh``, ``TEAM_TILE`` for
+    ``csrc/probe_physics_team.cuh``."""
     rows, B = x.shape
-    if B % TILE:
-        raise ValueError(f"block-major needs B a multiple of {TILE}, got {B}")
-    return x.reshape(rows, B // TILE, TILE).permute(1, 0, 2).contiguous()
+    if B % tile:
+        raise ValueError(f"block-major needs B a multiple of {tile}, got {B}")
+    return x.reshape(rows, B // tile, tile).permute(1, 0, 2).contiguous()
 
 
 def from_block_major(x: torch.Tensor) -> torch.Tensor:
-    """A block-major ``(B / 128, rows, 128)`` block back as ``(rows, B)``."""
+    """A block-major ``(B / tile, rows, tile)`` block back as ``(rows, B)``."""
     tiles, rows, lanes = x.shape
     return x.permute(1, 0, 2).reshape(rows, tiles * lanes)
 
 
 def k1_probe_name(phase_limit: Optional[str] = None, layout: int = ROW_MAJOR,
-                  fmad: bool = False) -> str:
-    """The name of one K1 probe kernel: its cut, layout and flags."""
-    name = f"k1_probe_{phase_limit or 'full'}"
+                  fmad: bool = False, team: bool = False) -> str:
+    """The name of one K1 probe kernel: its design (``team``: team K1's
+    program), cut, layout and flags."""
+    name = f"k1_{'team_' if team else ''}probe_{phase_limit or 'full'}"
     if layout == BLOCK_MAJOR:
         name += "_block_major"
     return name + ("_fmad" if fmad else "")
@@ -215,18 +220,21 @@ def probe_out_rows(s) -> Tuple[int, ...]:
     return (*soa.physics_block_rows(s)[1], 1)
 
 
-def _check_physics_blocks(s, blocks, outs, layout: int) -> Tuple[int, torch.device]:
+def _check_physics_blocks(s, blocks, outs, layout: int, tile: int = TILE,
+                          multiple: int = TILE) -> Tuple[int, torch.device]:
+    """(B, device) of a probe's blocks in ``layout`` (block-major in
+    ``tile``-env tiles); B must be a multiple of ``multiple``."""
     in_rows, out_rows = soa.physics_block_rows(s)[0], probe_out_rows(s)
     if layout not in LAYOUT_NAMES:
         raise ValueError(f"layout {layout!r} is not one of {sorted(LAYOUT_NAMES)}")
     if len(blocks) != len(in_rows) or len(outs) != len(out_rows):
         raise ValueError(f"expected {len(in_rows)} input and {len(out_rows)} output blocks")
     dev = blocks[0].device
-    B = blocks[0].shape[-1] if layout == ROW_MAJOR else blocks[0].shape[0] * TILE
-    if B % TILE:
-        raise ValueError(f"the probe shell needs B a multiple of {TILE}, got {B}")
+    B = blocks[0].shape[-1] if layout == ROW_MAJOR else blocks[0].shape[0] * tile
+    if B % multiple:
+        raise ValueError(f"the probe shell needs B a multiple of {multiple}, got {B}")
     for i, (x, n) in enumerate(zip(list(blocks) + list(outs), list(in_rows) + list(out_rows))):
-        shape = (n, B) if layout == ROW_MAJOR else (B // TILE, n, TILE)
+        shape = (n, B) if layout == ROW_MAJOR else (B // tile, n, tile)
         if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"block {i}: {x.dtype} {tuple(x.shape)}, expected contiguous "
                              f"float32 {shape}")
@@ -264,9 +272,40 @@ def physics_probe(s, n_substeps: int, blocks: Sequence[torch.Tensor],
     count_launch(k1_probe_name(phase_limit, layout, fmad))
 
 
-def empty_outputs(s, B: int, device, layout: int = ROW_MAJOR):
-    """Preallocated output blocks (q, v, caches, sink) for ``physics_probe``."""
-    shape = (lambda n: (n, B)) if layout == ROW_MAJOR else (lambda n: (B // TILE, n, TILE))
+def physics_probe_team(s, n_substeps: int, blocks: Sequence[torch.Tensor],
+                       outs: Sequence[torch.Tensor], phase_limit: Optional[str] = None,
+                       layout: int = ROW_MAJOR):
+    """``physics_probe`` through team K1's probe build (team K1's program cut
+    after ``phase_limit``, its sink row, ``build.TEAM_WARPS`` warps): every
+    block in ``layout``, block-major in ``TEAM_TILE``-env tiles; any B
+    row-major (lanes past B compute and store nothing).
+
+    CPU tensors run the plain version (``soa.physics_step_rows`` with the
+    cut and the sink); CUDA tensors launch the kernel of
+    ``csrc/probe_physics_team.cuh`` on the current stream, or raise. Each
+    launch counts in ``launches[k1_probe_name(..., team=True)]``. The
+    kernel sizes its shared memory at its first launch, so launch it once
+    eagerly before capturing it in a CUDA graph."""
+    B, dev = _check_physics_blocks(s, blocks, outs, layout, TEAM_TILE, 1)
+    if dev.type == "cpu":
+        rows = blocks if layout == ROW_MAJOR else [from_block_major(x) for x in blocks]
+        want = soa.physics_step_rows(s, n_substeps, *rows, phase_limit=phase_limit, sink=True)
+        for o, w in zip(outs, want):
+            o.copy_(w if layout == ROW_MAJOR else to_block_major(w, TEAM_TILE))
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"physics_probe_team: unsupported device {dev}")
+    lib = build.probe_physics_team_library(s, n_substeps, phase_limit)
+    rows = (s.nq, s.nv, s.nu, s.ndr, s.ncache)
+    build.launch_into("probe_physics_team", lib.probe_physics_team_launch,
+                      list(blocks) + list(outs), B, layout, *rows)
+    count_launch(k1_probe_name(phase_limit, layout, team=True))
+
+
+def empty_outputs(s, B: int, device, layout: int = ROW_MAJOR, tile: int = TILE):
+    """Preallocated output blocks (q, v, caches, sink) for ``physics_probe``
+    (``tile``: ``TEAM_TILE`` for ``physics_probe_team``)."""
+    shape = (lambda n: (n, B)) if layout == ROW_MAJOR else (lambda n: (B // tile, n, tile))
     return [torch.empty(shape(n), dtype=torch.float32, device=device)
             for n in probe_out_rows(s)]
 

@@ -16,6 +16,14 @@ device's time) and eagerly. Every configuration's first launch,
 converted back to row-major, must equal the row-major 128-thread one bit
 for bit (which the phase probe holds against the plain version).
 
+``run_team`` asks the same of the production K1's design: team K1's
+program cut after fk and whole (``csrc/probe_physics_team.cuh``, 4 warps,
+32 envs per block) in row-major ``(rows, B)`` and in block-major
+``(B/32, rows, 32)`` (one contiguous tile per block), timed the same way
+in turns (row-major, block-major, block-major, row-major; the better of
+each pair). Each block-major launch, converted back, must equal the
+row-major one bit for bit. The command line runs both designs.
+
 The question on the H100: at 4096 envs K1's 32 blocks of 128 threads fill
 32 of the 132 SMs, and one block alone took ~1.29 ms against ~1.7 ms for
 all 32 on an NVIDIA H100 80GB HBM3 (``chip_smoke.py``, PERF.md). Smaller blocks spread the same envs over more SMs (128 blocks of 32
@@ -45,7 +53,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from puppax_torch.kernels import build
-from puppax_torch.probes import common
+from puppax_torch.probes import common, profile_kernel_phases
 from puppax_torch.probes.common import BLOCK_MAJOR, ROW_MAJOR, from_block_major, to_block_major
 
 PHASES = ("fk", None)
@@ -53,11 +61,9 @@ THREADS = (32, 64, 128)
 
 
 def build_all(s, n_substeps: int):
-    """The two libraries (fk cut and full body); returns their
-    ``build.last_build`` names."""
-    build.build_in_parallel(*[
-        (lambda cut=cut: build.probe_physics_library(s, n_substeps, cut)) for cut in PHASES])
-    return [build.record_name(build.PROBE_PHYSICS, cut or "full") for cut in PHASES]
+    """The four libraries (fk cut and full body, one-thread and team);
+    returns their ``build.last_build`` names."""
+    return profile_kernel_phases.build_all(s, n_substeps, PHASES)
 
 
 def run(s, n_substeps: int, blocks, phases: Sequence[Optional[str]] = PHASES,
@@ -103,6 +109,56 @@ def run(s, n_substeps: int, blocks, phases: Sequence[Optional[str]] = PHASES,
             ratio = results[(cut, BLOCK_MAJOR, t)]["us"] / results[(cut, ROW_MAJOR, t)]["us"]
             print(f"{cut or 'full'} at {t} threads: block-major / row-major {ratio:.3f}",
                   flush=True)
+    return results
+
+
+def run_team(s, n_substeps: int, blocks, phases: Sequence[Optional[str]] = PHASES,
+             iters: int = common.ITERS, runs: int = common.RUNS) -> Dict[tuple, dict]:
+    """Time team K1's cuts (``common.physics_probe_team``) in both layouts
+    on ``blocks`` (q, v, ctrl, dr as ``(rows, B)``, B a multiple of 32), in
+    turns. Returns, per (cut, layout): ``us`` per step, ``eager_us`` and
+    ``max_abs_err`` against the row-major launch (0.0: they are held bit
+    for bit)."""
+    B, dev = blocks[0].shape[1], blocks[0].device
+    tile = common.TEAM_TILE
+    print(common.nvidia_smi(), flush=True)
+    print(f"team K1 cuts by layout ({build.TEAM_WARPS['physics_step_team']} warps, {tile} envs "
+          f"per block), {B} envs, {iters} launches per window with q and v carried, best of "
+          f"{runs} windows (CUDA events), the layouts in turns; us/step from one CUDA graph of "
+          f"the window (the device's time), eager beside:", flush=True)
+    results = {}
+    for cut in phases:
+        ref = common.empty_outputs(s, B, dev)
+        common.physics_probe_team(s, n_substeps, blocks, ref, cut)
+        steps = {}
+        for layout in (ROW_MAJOR, BLOCK_MAJOR):
+            lb = list(blocks) if layout == ROW_MAJOR else [to_block_major(x, tile) for x in blocks]
+            outs = common.empty_outputs(s, B, dev, layout, tile)
+            common.physics_probe_team(s, n_substeps, lb, outs, cut, layout)
+            got = outs if layout == ROW_MAJOR else [from_block_major(x) for x in outs]
+            err, differing = common.compare_exact(got, ref)
+            if differing:
+                raise AssertionError(f"team K1 {cut or 'full'} {common.LAYOUT_NAMES[layout]}: "
+                                     f"{differing} envs differ from row-major")
+            results[(cut, layout)] = dict(max_abs_err=err, us=float("inf"))
+
+            def step(q_in, v_in, q_out, v_out, cut=cut, layout=layout, lb=lb, rest=outs[2:]):
+                common.physics_probe_team(s, n_substeps, (q_in, v_in, lb[2], lb[3]),
+                                          (q_out, v_out, *rest), cut, layout)
+
+            steps[layout] = (step, lb[:2])
+        for layout in (ROW_MAJOR, BLOCK_MAJOR, BLOCK_MAJOR, ROW_MAJOR):  # in turns
+            eager, us = common.carried_us(*steps[layout], iters, runs)
+            if us < results[(cut, layout)]["us"]:
+                results[(cut, layout)].update(us=us, eager_us=eager)
+        for layout in (ROW_MAJOR, BLOCK_MAJOR):
+            r = results[(cut, layout)]
+            print(f"team {common.LAYOUT_NAMES[layout]:11s} {cut or 'full':4s} ({-(-B // tile)} "
+                  f"blocks): {r['us']:10.1f} us/step, {B / r['us']:8.3f} M env-steps/s; eager "
+                  f"{r['eager_us']:10.1f} us/step; vs row-major: max abs err "
+                  f"{r['max_abs_err']!r}", flush=True)
+        ratio = results[(cut, BLOCK_MAJOR)]["us"] / results[(cut, ROW_MAJOR)]["us"]
+        print(f"team {cut or 'full'}: block-major / row-major {ratio:.3f}", flush=True)
     return results
 
 
@@ -220,7 +276,9 @@ def main(argv=None):
     else:
         s, n_substeps, model = common.nominal_setup(device)
         common.print_builds(build_all(s, n_substeps))
-        run(s, n_substeps, common.nominal_blocks(s, model, args.envs, device))
+        blocks = common.nominal_blocks(s, model, args.envs, device)
+        run(s, n_substeps, blocks)
+        run_team(s, n_substeps, blocks)
     print(smi, flush=True)
 
 

@@ -294,6 +294,67 @@ def test_probe_physics_kernel_matches_plain(env, cut):
     assert common.launches[name] == before + 2
 
 
+TEAM_PROBE_CUTS = ("fk", "efc", None)
+
+
+@pytest.fixture(scope="module")
+def team_probes(env):
+    """Team K1's probe builds of ``TEAM_PROBE_CUTS``, built at once."""
+    build.build_in_parallel(*[(lambda cut=cut: build.probe_physics_team_library(env._s, 5, cut))
+                              for cut in TEAM_PROBE_CUTS])
+    return env
+
+
+@pytest.mark.parametrize("cut", ["fk", "efc"])
+def test_team_probe_physics_kernel_matches_plain(team_probes, cut):
+    """Team K1's probe build (its program cut after ``cut``, 4 warps) on
+    random states against the plain version with the cut and the sink row,
+    bit for bit: at 256 envs row-major and block-major (32-env tiles), and
+    at a ragged 300 row-major; one counted launch each."""
+    from puppax_torch.probes import common
+
+    env = team_probes
+    s = env._s
+    for B, layouts in ((256, (common.ROW_MAJOR, common.BLOCK_MAJOR)), (300, (common.ROW_MAJOR,))):
+        dr = env.dr_rows(B).cpu().numpy()
+        blocks = [b.cuda() for b in H.to_torch(
+            H.physics_step_blocks(env.model, dr, np.random.RandomState(B + 1), n=B))]
+        want = soa.physics_step_rows(s, 5, *blocks, phase_limit=cut, sink=True)
+        for layout in layouts:
+            name = common.k1_probe_name(cut, layout, team=True)
+            before = common.launches[name]
+            ins = blocks if layout == common.ROW_MAJOR else [
+                common.to_block_major(x, common.TEAM_TILE) for x in blocks]
+            outs = common.empty_outputs(s, B, "cuda", layout, common.TEAM_TILE)
+            common.physics_probe_team(s, 5, ins, outs, cut, layout)
+            torch.cuda.synchronize()
+            got = outs if layout == common.ROW_MAJOR else [common.from_block_major(x)
+                                                          for x in outs]
+            assert common.compare_exact(got, want) == (0.0, 0), (cut, B, layout)
+            assert common.launches[name] == before + 1
+
+
+def test_team_full_cut_equals_team_k1(team_probes):
+    """The team full cut (sink row 0) at 4096 envs and a ragged 1000 equals
+    the production team K1 (``soa.step_batched``) and the plain version bit
+    for bit."""
+    from puppax_torch.probes import common
+
+    env = team_probes
+    s = env._s
+    for B in (4096, 1000):
+        dr = env.dr_rows(B).cpu().numpy()
+        blocks = [b.cuda() for b in H.to_torch(
+            H.physics_step_blocks(env.model, dr, np.random.RandomState(B + 2), n=B))]
+        outs = common.empty_outputs(s, B, "cuda")
+        common.physics_probe_team(s, 5, blocks, outs)
+        prod = soa.step_batched(s, *blocks, 5)
+        torch.cuda.synchronize()
+        assert common.compare_exact(outs[:3], prod) == (0.0, 0), B
+        assert common.compare_exact(outs[:3], soa.physics_step_rows(s, 5, *blocks)) == (0.0, 0)
+        assert torch.equal(outs[3], torch.zeros_like(outs[3]))
+
+
 @pytest.mark.parametrize("fmad", [False, True])
 def test_fma_chain_kernel_against_plain(fmad):
     """The chain at K = 64 on both probe grids: the ``--fmad=false`` build
