@@ -84,18 +84,26 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    team K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1,
    0 one-thread K4, the same checks;
 12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 23 libraries built in one parallel batch (K1's
+   4096 DR'd states: their 27 libraries built in one parallel batch (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
    ``csrc/probe_physics_team.cuh``, and one thread per env in
-   ``csrc/probe_physics.cuh``; the whole body under
-   ``--fmad=true``, the multiply-add chain under both flags, ``x + 1``,
-   the copy kernel, the synthetic SoA substep at 60 rounds, the 18 x 18
-   SPD solve), then each probe's ``run``: K1's time per phase in both
-   designs in turns (each cut held bit for bit against its plain version,
-   the team full cut against the production team K1), K1 by layout and
-   threads per block, the team fk and full cuts by layout, the chain and
-   ``--fmad=true`` K1, and
+   ``csrc/probe_physics.cuh``; the whole body under ``--fmad=true`` in both
+   designs, the multiply-add chain's two designs (8 interleaved elements
+   per thread on the resident blocks, and one element per thread) under
+   both flags, ``x + 1``, the copy kernel, the synthetic SoA substep at 60
+   rounds one thread per env and as a team kernel, the 18 x 18 SPD solve),
+   then each probe's ``run``: K1's time per phase in both designs in turns
+   (each cut held bit for bit against its plain version, the team full cut
+   against the production team K1), K1 by layout and threads per block,
+   the team fk and full cuts by layout, the chain's two designs in turns
+   (the ``--fmad=false`` launches bit for bit with the plain loop and with
+   each other, the ``--fmad=true`` redesign bit for bit with the
+   ``--fmad=true`` one-element kernel, which needs both builds' SASS to
+   show every pair as one FFMA; the issue floors at ``clocks.max.sm`` and
+   at the ``clocks.sm`` read under load, each loop's SASS mix) and K1
+   under ``--fmad=true`` in both designs against ``--fmad=false`` (at most
+   ``MAX_DIFFERING_ENVS`` envs outside qpos 5e-5 / scaled qvel 5e-4), and
    launch overhead eager and from a CUDA graph, with the host's time per
    launch layer by layer and through team K3's and team K1's production
    wrappers;
@@ -108,12 +116,18 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    physics-only lane (rows-resident, transposed, the transposes alone, the
    splice); the launch cost after each setup stage, one subprocess per
    stage, and around a host sync; then probe group C on the TPU probes'
-   own input recipes: the SoA substep and the SPD solve, each at 4096 and
-   128 envs, the solve beside ``cholesky_ex`` + ``cholesky_solve`` (within
-   1e-4 of max|x|), both timed eagerly and from a CUDA graph, with their
-   registers and spills. Each probe kernel is held against its
-   plain version (bit for bit; the ``--fmad=true`` builds are reported
-   and must stay finite), and every probe kernel must have launched in
+   own input recipes: the SoA substep (one thread per env, P12's kernel,
+   and the team kernel, tried and not adopted but kept as the A/B that
+   answers whether the team design pays on a straight-line body: the team
+   bit for bit with both the plain version and the one-thread kernel, timed
+   in turns; its heaviest stream, barriers and ns per heaviest-stream
+   operation printed beside team K1's) and the SPD
+   solve, each at 4096 and 128 envs, the solve beside ``cholesky_ex`` +
+   ``cholesky_solve`` (within 1e-4 of max|x|), both timed eagerly and from
+   a CUDA graph, with their registers and spills. Each probe kernel is
+   held against its
+   plain version (bit for bit; the ``--fmad=true`` builds as above), and
+   every probe kernel must have launched in
    this phase;
 13. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
@@ -1051,9 +1065,11 @@ def main():
             *[(lambda cut=cut: build.probe_physics_team_library(s1, n_sub, cut))
               for cut in soa.PHASES],
             lambda: build.probe_physics_library(s1, n_sub, None, fmad=True),
+            lambda: build.probe_physics_team_library(s1, n_sub, None, fmad=True),
             lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
+            lambda: build.fma_chain_ilp_library(False), lambda: build.fma_chain_ilp_library(True),
             build.add_one_library, build.probe_copy_library,
-            soa_probe.library, build.probe_spd_library)
+            soa_probe.library, lambda: soa_probe.library(team=True), build.probe_spd_library)
         fmad_flags = build.probe_flags(True)
         probe_records = {
             **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
@@ -1063,11 +1079,16 @@ def main():
                for cut in soa.PHASES},
             probes.k1_probe_name(None, fmad=True): build.record_name(build.PROBE_PHYSICS, "full",
                                                                      fmad_flags),
-            "fma_chain": build.record_name(build.FMA_CHAIN),
-            "fma_chain_fmad": build.record_name(build.FMA_CHAIN, "", fmad_flags),
+            probes.k1_probe_name(None, fmad=True, team=True): build.record_name(
+                build.PROBE_PHYSICS_TEAM, "full", fmad_flags),
+            **{probe_fma_fusion.chain_name(fmad, one_element): build.record_name(
+                build.FMA_CHAIN if one_element else build.FMA_CHAIN_ILP, "",
+                build.probe_flags(fmad))
+               for one_element in (False, True) for fmad in (False, True)},
             "add_one": build.record_name(build.ADD_ONE),
             **{name: build.record_name(build.PROBE_COPY) for name in copy_names},
             soa_probe.soa_name(): soa_probe.record(),
+            soa_probe.soa_name(team=True): soa_probe.record(team=True),
             "spd_solve": build.record_name(build.PROBE_SPD),
         }
         probes.print_builds(list(dict.fromkeys(probe_records.values())))
@@ -1078,7 +1099,10 @@ def main():
         layouts = profile_layout.run(s1, n_sub, k1_blocks)
         team_layouts = profile_layout.run_team(s1, n_sub, k1_blocks)
         chain = probe_fma_fusion.run_chain(device)
-        k1_fmad = probe_fma_fusion.run_k1(s1, n_sub, k1_blocks)
+        if not chain[("tpu", "muladd", True, "redesign")]["exact"]:
+            raise AssertionError("the --fmad=true chain was not held bit for bit: the SASS does "
+                                 "not show every pair as one FFMA in both designs")
+        k1_fmad = probe_fma_fusion.run_k1(s1, n_sub, k1_blocks, max_outside=MAX_DIFFERING_ENVS)
         overhead = probe_launch_overhead.run(s1, n_sub, k1_blocks, production={
             "team K3: soa_env.wrapped_step (4096 envs)": k3_step,
             "K1: soa.step_batched (4096 envs)": lambda: soa.step_batched(s1, *k1_blocks, n_sub),
@@ -1102,8 +1126,17 @@ def main():
         probe_degradation.run()
         # probe group C on their own inputs (the TPU probes' recipes), at 4096 and 128 envs
         with Phase("probes: group C"):
-            soa_res = soa_probe.run(device, (soa_probe.ROUNDS,), B, args.seed, (B, EVAL_ENVS))
+            soa_res = soa_probe.run(device, (soa_probe.ROUNDS,), B, args.seed, (B, EVAL_ENVS),
+                                    team_warps=[soa_probe.TEAM_WARPS])
             spd_res = spd_probe.run(device, B, 0, (B, EVAL_ENVS))
+            # team P12's time per heaviest-stream operation beside production team K1's
+            soa_t = soa_res[soa_probe.ROUNDS]["team"][soa_probe.TEAM_WARPS]
+            k1_heaviest = max(build.last_build["physics_step_team"]["stream_ops"])
+            print(f"team P12 ({soa_probe.TEAM_WARPS} warps): heaviest stream {soa_t['heaviest']}, "
+                  f"{soa_t['barriers']} barriers, {soa_t['ns_per_heaviest_op']:.3f} ns per "
+                  f"heaviest-stream op; team K1: heaviest stream {k1_heaviest}, "
+                  f"{statistics.median(k1_ms) * 1e6 / k1_heaviest:.3f} ns per heaviest-stream op",
+                  flush=True)
         probe_launches = dict(probes.launches)
         print("probe launches: " + json.dumps(probe_launches), flush=True)
         expected = [*probe_records, *[probes.k1_probe_name(cut, probes.BLOCK_MAJOR, team=team)
@@ -1269,19 +1302,26 @@ def main():
                 "dev/profile_layout.py:113", lay["max_abs_err"], lay["us"] / 1e3,
                 cuts[cut]["plain_ms"],
                 k1_bound_of(probe_records[probes.k1_probe_name(cut, team=team)])))
-    fmad_name = probes.k1_probe_name(None, fmad=True)
-    kernels.append(probe_entry(
-        fmad_name, "probe_physics.cuh", "dev/probe_fma_fusion.py:47",
-        max(k1_fmad["max_q"], k1_fmad["max_v"], k1_fmad["max_caches"]), k1_fmad["ms_on"],
-        cuts[None]["plain_ms"], k1_bound_of(probe_records[fmad_name])))
-    blocks_, n_ = probe_fma_fusion.TPU_GRID
-    chain_ops = 2 * probe_fma_fusion.K_DEFAULT  # per thread; a multiply-add counts 2
-    for fmad in (False, True):
-        res = chain[("tpu", "muladd", fmad)]
+    # K1 under --fmad=true, one thread per env and team K1's: its distance
+    # from the --fmad=false build is the error reported (run_k1 holds the
+    # envs outside the movement tolerance to MAX_DIFFERING_ENVS)
+    for team, source, half in ((False, "probe_physics.cuh", k1_fmad),
+                               (True, "probe_physics_team.cuh", k1_fmad["team"])):
+        fmad_name = probes.k1_probe_name(None, fmad=True, team=team)
         kernels.append(probe_entry(
-            "fma_chain_fmad" if fmad else "fma_chain", "probe_fma.cuh",
-            "dev/probe_fma_fusion.py:47", res["max_abs_err"], res["ms"], res["plain_ms"],
-            bound_ms(chain_ops, 2 / blocks_, 1, blocks_ * n_)))
+            fmad_name, source, "dev/probe_fma_fusion.py:47",
+            max(half["max_q"], half["max_v"], half["max_caches"]), half["ms_on"],
+            cuts[None]["plain_ms"], k1_bound_of(probe_records[fmad_name])))
+    # the chain's muladd on the TPU's grid in both designs; its bound is the
+    # FP32 issue floor at clocks.max.sm (one instruction per lane per clock:
+    # K FFMA contracted, 2K FMUL / FADD not), which the bytes never reach
+    for one_element in (False, True):
+        for fmad in (False, True):
+            res = chain[("tpu", "muladd", fmad, "one-element" if one_element else "redesign")]
+            kernels.append(probe_entry(
+                probe_fma_fusion.chain_name(fmad, one_element), "probe_fma.cuh",
+                "dev/probe_fma_fusion.py:47", res["max_abs_err"], res["ms"], res["plain_ms"],
+                (res["issue_floor_us"] / 1e3, "operations")))
     # add_one's time and torch's x + 1 (its plain version and the one library
     # call of the same function) from CUDA graphs: the device's, not the host's
     add = overhead["add_one_nb32"]
@@ -1315,6 +1355,12 @@ def main():
         soa_probe.soa_name(), "probe_soa.cuh", "dev/pallas_soa_probe.py:103",
         max(c["max_abs_err"] for c in soa60["checks"].values()), soa60["graph_us"] / 1e3,
         soa60["plain_ms"], bound_ms(soa60["ops_per_env"], soa_probe.NQ + soa_probe.NV,
+                                    soa_probe.NQ, B)))
+    soa_t = soa60["team"][soa_probe.TEAM_WARPS]
+    kernels.append(probe_entry(
+        soa_probe.soa_name(team=True), "probe_soa_team.cuh", "dev/pallas_soa_probe.py:103",
+        max(c["max_abs_err"] for c in soa_t["checks"].values()), soa_t["graph_us"] / 1e3,
+        soa_t["plain_ms"], bound_ms(soa_t["ops_per_env"], soa_probe.NQ + soa_probe.NV,
                                     soa_probe.NQ, B)))
     kernels.append(probe_entry(
         "spd_solve", "probe_spd.cuh", "dev/pallas_spd_poc.py:57",

@@ -119,6 +119,11 @@ PROBE_PHYSICS_TEAM = Kernel("probe_physics_team", CSRC / "probe_physics_team.cuh
                             headers=(CSRC / "team.cuh",))
 FMA_CHAIN = Kernel("fma_chain", CSRC / "probe_fma.cuh", 3,
                    "fma_chain_launch", "fma_chain_host", n_ints=3)
+# the chain's redesign, the same shell: 8 interleaved elements per thread on
+# a grid sized to the resident blocks (a, b, out; B = n; ints K, mode,
+# blocks)
+FMA_CHAIN_ILP = Kernel("fma_chain_ilp", CSRC / "probe_fma.cuh", 3,
+                       "fma_chain_ilp_launch", "fma_chain_ilp_host", n_ints=3)
 ADD_ONE = Kernel("add_one", CSRC / "probe_add_one.cuh", 2, "add_one_launch", "add_one_host")
 # the overhead probes' copy: q, v, ctrl, dr in; q, v, caches, sink out; ints
 # the mode (q, min, full) and the row counts nq, nv, nu, ndr, ncache; its
@@ -128,6 +133,10 @@ PROBE_COPY = Kernel("probe_copy", CSRC / "probe_copy.cuh", 8,
 # probe group C: the synthetic SoA substep (q, v in; q out; a generated
 # body) and the batched 18 x 18 SPD solve (A, b in; x out)
 PROBE_SOA = Kernel("probe_soa", CSRC / "probe_soa.cuh", 3, "probe_soa_launch", "probe_soa_host")
+# the SoA substep's program split across the warps of a block (kernels/team.py)
+PROBE_SOA_TEAM = Kernel("probe_soa_team", CSRC / "probe_soa_team.cuh", 3,
+                        "probe_soa_team_launch", "probe_soa_team_host",
+                        headers=(CSRC / "team.cuh",))
 PROBE_SPD = Kernel("probe_spd", CSRC / "probe_spd.cuh", 3, "probe_spd_launch", "probe_spd_host")
 
 # (record name, model statics, env statics, config) -> loaded library
@@ -169,8 +178,12 @@ def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
     ``<out_root>/<hash>/lib_name``. Returns (library path, whether it was
     cached, seconds spent)."""
     headers = {h.name: h.read_text() for h in (kernel.shell, COMMON, *kernel.headers)}
+    # the unit names the kernel: two kernels of one shell never share a directory
+    unit_text = (f'#define PUPPAX_KERNEL_BODY "{kernel.name}_body.inc"\n'
+                 f'#include "{kernel.shell.name}"\n')
     digest = hashlib.sha256(
-        "\0".join([body, *headers.values(), " ".join(compiler), " ".join(flags)]).encode()
+        "\0".join([body, unit_text, *headers.values(), " ".join(compiler),
+                    " ".join(flags)]).encode()
     ).hexdigest()
     d = Path(out_root) / digest
     lib = d / lib_name
@@ -181,10 +194,7 @@ def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
     for name, text in headers.items():
         (d / name).write_text(text)
     unit = d / f"{kernel.name}_unit.cu"
-    unit.write_text(
-        f'#define PUPPAX_KERNEL_BODY "{kernel.name}_body.inc"\n'
-        f'#include "{kernel.shell.name}"\n'
-    )
+    unit.write_text(unit_text)
     tmp = d / f".{lib_name}.{os.getpid()}.tmp"
     cmd = [*compiler, *flags, "-I", str(d), "-o", str(tmp), str(unit)]
     t0 = time.perf_counter()
@@ -382,22 +392,23 @@ def probe_physics_library(s, n_substeps: int, phase_limit: Optional[str] = None,
     )
 
 
-def probe_physics_team_library(s, n_substeps: int,
-                               phase_limit: Optional[str] = None) -> ctypes.CDLL:
+def probe_physics_team_library(s, n_substeps: int, phase_limit: Optional[str] = None,
+                               fmad: bool = False) -> ctypes.CDLL:
     """Team K1's program (``team.physics_step_team_body`` at
     ``TEAM_WARPS["physics_step_team"]`` warps, production's schedule), cut
     after ``phase_limit`` (None: the whole program) and with its sink row,
     in the team probes' shell ``csrc/probe_physics_team.cuh`` (row-major and
-    block-major layouts): a probe-only build, recorded as
-    ``probe_physics_team[<cut or full>]``. Its ``ops_per_env`` is the
-    one-thread cut's (``probe_physics[<cut or full>]``): the same program."""
+    block-major layouts), with multiply-add contraction if ``fmad``: a
+    probe-only build, recorded as ``probe_physics_team[<cut or full>]``
+    (plus ``[--fmad=true]``). Its ``ops_per_env`` is the one-thread cut's
+    (``probe_physics[<cut or full>]``): the same program."""
     from puppax_torch.kernels import team
 
     warps = TEAM_WARPS[PHYSICS_STEP_TEAM.name]
     return _device_library(
         PROBE_PHYSICS_TEAM, s, None, (int(n_substeps), warps),
         lambda: team.physics_step_team_body(s, n_substeps, warps, phase_limit, sink=True),
-        variant=phase_limit or "full",
+        variant=phase_limit or "full", flags=probe_flags(fmad),
     )
 
 
@@ -414,9 +425,24 @@ def wrapped_step_fmad_library(s, es, n_substeps: int, episode_length: int) -> ct
 
 
 def fma_chain_library(fmad: bool) -> ctypes.CDLL:
-    """The multiply-add chain probe (``csrc/probe_fma.cuh``; no generated
-    body), with or without multiply-add contraction."""
+    """The multiply-add chain probe's one-element-per-thread design
+    (``csrc/probe_fma.cuh``; no generated body), with or without
+    multiply-add contraction: recorded as ``fma_chain`` (plus
+    ``[--fmad=true]``)."""
     return _device_library(FMA_CHAIN, None, None, (), lambda: "", flags=probe_flags(fmad))
+
+
+def fma_chain_ilp_library(fmad: bool) -> ctypes.CDLL:
+    """The chain's redesign (``csrc/probe_fma.cuh``'s ``fma_chain_ilp_launch``:
+    8 interleaved elements per thread, a grid of the resident blocks), with
+    or without multiply-add contraction: recorded as ``fma_chain_ilp``
+    (plus ``[--fmad=true]``). The entries ``fma_chain_occupancy`` and
+    ``fma_chain_ilp_grid`` report the resident blocks and the grid."""
+    lib = _device_library(FMA_CHAIN_ILP, None, None, (), lambda: "", flags=probe_flags(fmad))
+    if lib.fma_chain_ilp_grid.argtypes is None:
+        for fn in (lib.fma_chain_occupancy, lib.fma_chain_ilp_grid):
+            fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return lib
 
 
 def add_one_library() -> ctypes.CDLL:
@@ -436,6 +462,18 @@ def probe_soa_library(rounds: int, make_body: Callable[[], str]) -> ctypes.CDLL:
     a probe-only build, recorded as ``probe_soa[<rounds> rounds]``."""
     return _device_library(PROBE_SOA, None, None, (int(rounds),), make_body,
                            variant=f"{int(rounds)} rounds")
+
+
+def probe_soa_team_library(rounds: int, warps: int, variant: str,
+                           make_body: Callable[[], Tuple[str, dict]]) -> ctypes.CDLL:
+    """The synthetic SoA substep split across ``warps`` warps
+    (``csrc/probe_soa_team.cuh`` around the team body and stats that
+    ``make_body`` returns, the caller's schedule of ``rounds`` rounds): a
+    probe-only build, recorded as ``probe_soa_team[<variant>]``. Its
+    ``ops_per_env`` is the one-thread body's (``probe_soa[<rounds>
+    rounds]``): the same program."""
+    return _device_library(PROBE_SOA_TEAM, None, None, (int(rounds), int(warps)), make_body,
+                           variant=variant)
 
 
 def probe_spd_library() -> ctypes.CDLL:

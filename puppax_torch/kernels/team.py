@@ -433,7 +433,7 @@ class Schedule:
                         for a in self._uses(sy.node):
                             out.append((a, REPL, sy.start, sy.end, reg.path))
                     elif sy.what == "rloop":
-                        for a in self.free(sy.node):
+                        for a in sorted(self.free(sy.node)):  # the same text in every process
                             out.append((a, REPL, sy.start, sy.end, reg.path + (id(sy.node),)))
                     else:
                         for (c, _, init), w in zip(sy.node.carries, sy.init_writers):

@@ -12,8 +12,10 @@ function (``chip_smoke.py`` drives it) and a command line
 - ``profile_layout``: K1 in row-major and block-major layouts at 32, 64 and
   128 threads per block, and the team fk and full cuts in both layouts
   (``dev/profile_layout.py``);
-- ``probe_fma_fusion``: a dependent multiply-add chain and K1 under
-  ``--fmad=false`` and ``--fmad=true`` (``dev/probe_fma_fusion.py``);
+- ``probe_fma_fusion``: a dependent multiply-add chain (8 interleaved
+  elements per thread on the resident blocks, beside one element per
+  thread) and K1 (one-thread and team) under ``--fmad=false`` and
+  ``--fmad=true`` (``dev/probe_fma_fusion.py``);
 - ``probe_launch_overhead``: an ``x + 1`` kernel, K1 and a torch
   elementwise body, 50 launches eager and as one CUDA graph
   (``dev/probe_launch_overhead.py``);
@@ -28,8 +30,9 @@ function (``chip_smoke.py`` drives it) and a command line
 - ``probe_degradation``: the copy's launch cost after each setup stage, a
   fresh process each, and around a host sync (``dev/probe_degradation.py``).
 - ``pallas_soa_probe``: a synthetic SoA substep emitted as one
-  straight-line body per env, its nvcc time and throughput against the
-  body's size (``dev/pallas_soa_probe.py``);
+  straight-line body per env, one thread per env and as a team kernel,
+  its nvcc time and throughput against the body's size
+  (``dev/pallas_soa_probe.py``);
 - ``pallas_spd_poc``: the batched 18 x 18 SPD solve of the Newton step, one
   thread per env, beside cuSOLVER's (``dev/pallas_spd_poc.py``).
 

@@ -18,8 +18,12 @@
   plain version ``copy_rows`` and ``check_copy``, one launch held against
   it; ``copy_probe_one_thread``: the same file's one-thread copy, the A/B
   baseline.
-- ``sass_counts``: the FFMA / FMUL / FADD instructions of a build;
-  ``ptxas_info``: its registers, stack and spill bytes.
+- ``sass_counts``: the FFMA / FMUL / FADD instructions of a build
+  (``fp32_counts`` of one kernel function); ``sass_loops``: the
+  instruction mix of each loop of a kernel function; ``ptxas_info``: a
+  build's registers, stack and spill bytes.
+- ``clock_under_load``: ``nvidia-smi``'s SM clock sampled while a window
+  of launches runs back to back.
 - ``nominal_setup`` / ``nominal_blocks``: the TPU probes' inputs.
 - ``compare_exact``: the bit-for-bit comparison of a probe with its plain
   version.
@@ -33,6 +37,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -174,17 +179,156 @@ def carried_us(step: Callable, state: Sequence[torch.Tensor], iters: int = ITERS
     return eager * 1e3 / iters, graph * 1e3 / iters
 
 
-def sass_counts(record: str, kernel: build.Kernel) -> Optional[dict]:
-    """How many FFMA, FMUL and FADD instructions the SASS of a build holds
-    (``cuobjdump -sass`` of its library; None where the toolkit has no
-    cuobjdump)."""
+def sass_text(record: str, kernel: build.Kernel) -> Optional[str]:
+    """``cuobjdump -sass`` of a build's library (None where the toolkit has
+    no cuobjdump)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     lib = os.path.join(build.last_build[record]["dir"], f"lib{kernel.name}.so")
-    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
-                         check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", out)) for op in ("FFMA", "FMUL", "FADD")}
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+
+
+FP32_OPS = ("FFMA", "FMUL", "FADD")
+_SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)"
+                         r"(?:\.\S*)?\s*(.*?)\s*;")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
+_SASS_REG = re.compile(r"^[-|!]*R(\d+)(\.reuse)?")
+
+
+def _operand_reads(body) -> dict:
+    """The FP32 instructions of a loop body by how they read their source
+    registers: ``three_register`` (three sources in registers, not RZ),
+    ``reused`` (sources served by the operand reuse cache: the previous
+    instruction flagged the same register ``.reuse`` in the same slot) and
+    ``bank_conflicts`` (two sources read from the register file in one of
+    the two banks, by register number mod 2; a guess at Hopper's banks from
+    published microbenchmarks of Volta and Turing)."""
+    out = dict(three_register=0, reused=0, bank_conflicts=0)
+    prev = []
+    for _, op, args in body:
+        srcs = []
+        for a in [x.strip() for x in args.split(",")][1:]:
+            m = _SASS_REG.match(a)
+            srcs.append((int(m.group(1)), bool(m.group(2))) if m else None)
+        if op in FP32_OPS:
+            regs = [s for s in srcs if s is not None]
+            out["three_register"] += len(regs) == 3
+            file_reads = []
+            for slot, src in enumerate(srcs):
+                if src is None:
+                    continue
+                if slot < len(prev) and prev[slot] is not None and prev[slot] == (src[0], True):
+                    out["reused"] += 1
+                else:
+                    file_reads.append(src[0] % 2)
+            out["bank_conflicts"] += len(file_reads) > len(set(file_reads))
+        prev = srcs
+    return out
+
+
+def sass_functions(text: str) -> dict:
+    """The kernel functions of ``cuobjdump -sass`` text: (mangled) name ->
+    its instructions as (address, mnemonic without modifiers, operands)
+    and its labels (label -> index of the next instruction)."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = _SASS_FUNCTION.match(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {"instrs": [], "labels": {}})
+            continue
+        if cur is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            cur["labels"][m.group(1)] = len(cur["instrs"])
+            continue
+        m = _SASS_INSTR.match(line)
+        if m:
+            cur["instrs"].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def fp32_counts(text: str, function: str = "") -> dict:
+    """How many FFMA, FMUL and FADD instructions ``cuobjdump -sass`` text
+    holds: in every kernel function, or in those whose mangled name holds
+    ``function``."""
+    counts = collections.Counter()
+    for name, f in sass_functions(text).items():
+        if function in name:
+            counts.update(op for _, op, _ in f["instrs"] if op in FP32_OPS)
+    return {op: counts[op] for op in FP32_OPS}
+
+
+def sass_counts(record: str, kernel: build.Kernel) -> Optional[dict]:
+    """``fp32_counts`` of a build's every kernel function (None where the
+    toolkit has no cuobjdump)."""
+    text = sass_text(record, kernel)
+    return None if text is None else fp32_counts(text)
+
+
+def sass_loops(text: str, function: str = "") -> list:
+    """Each loop (a branch back to an earlier instruction) of the kernel
+    functions whose mangled name holds ``function``, innermost first within
+    a function: ``function``, ``instructions`` of its body, ``fp32`` (its
+    FFMA / FMUL / FADD), ``other`` (every other mnemonic of the body, with
+    counts: the loop's counter, compare and branch among them), ``reads``
+    (``_operand_reads``) and ``inner`` (no other loop lies inside it)."""
+    loops = []
+    for name, f in sass_functions(text).items():
+        if function not in name:
+            continue
+        instrs, labels = f["instrs"], f["labels"]
+        index = {addr: i for i, (addr, _, _) in enumerate(instrs)}
+        found = []
+        for j, (_, op, args) in enumerate(instrs):
+            if op != "BRA":
+                continue
+            m = _SASS_TARGET.search(args)
+            if not m:
+                continue
+            i = labels.get(m.group(1)) if m.group(1) else index.get(int(m.group(2), 16))
+            if i is None or i > j:
+                continue
+            body = collections.Counter(op for _, op, _ in instrs[i:j + 1])
+            found.append(dict(function=name, instructions=j + 1 - i,
+                              fp32={op: body[op] for op in FP32_OPS if body[op]},
+                              other={op: n for op, n in sorted(body.items())
+                                     if op not in FP32_OPS},
+                              reads=_operand_reads(instrs[i:j + 1]), span=(i, j)))
+        spans = [x.pop("span") for x in found]
+        for x, (i, j) in zip(found, spans):
+            x["inner"] = not any(i <= a and b <= j and (a, b) != (i, j) for a, b in spans)
+        loops += sorted(found, key=lambda x: x["instructions"])
+    return loops
+
+
+def clock_under_load(window: Callable[[], object], seconds: float = 1.0) -> list:
+    """``nvidia-smi``'s ``clocks.sm`` (MHz) sampled from a second thread
+    while ``window()`` runs back to back on the card for ``seconds``; the
+    samples in order."""
+    samples, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            samples.append(float(nvidia_smi("clocks.sm", units=False)))
+
+    window()
+    torch.cuda.synchronize()
+    sampler = threading.Thread(target=sample)
+    t0 = time.perf_counter()
+    sampler.start()
+    try:
+        while time.perf_counter() - t0 < seconds or not samples:
+            window()
+            torch.cuda.synchronize()
+    finally:
+        done.set()
+        sampler.join()
+    return samples
 
 
 def to_block_major(x: torch.Tensor, tile: int = TILE) -> torch.Tensor:
@@ -274,11 +418,12 @@ def physics_probe(s, n_substeps: int, blocks: Sequence[torch.Tensor],
 
 def physics_probe_team(s, n_substeps: int, blocks: Sequence[torch.Tensor],
                        outs: Sequence[torch.Tensor], phase_limit: Optional[str] = None,
-                       layout: int = ROW_MAJOR):
+                       layout: int = ROW_MAJOR, fmad: bool = False):
     """``physics_probe`` through team K1's probe build (team K1's program cut
-    after ``phase_limit``, its sink row, ``build.TEAM_WARPS`` warps): every
-    block in ``layout``, block-major in ``TEAM_TILE``-env tiles; any B
-    row-major (lanes past B compute and store nothing).
+    after ``phase_limit``, its sink row, ``build.TEAM_WARPS`` warps;
+    ``fmad``: built with multiply-add contraction): every block in
+    ``layout``, block-major in ``TEAM_TILE``-env tiles; any B row-major
+    (lanes past B compute and store nothing).
 
     CPU tensors run the plain version (``soa.physics_step_rows`` with the
     cut and the sink); CUDA tensors launch the kernel of
@@ -295,11 +440,11 @@ def physics_probe_team(s, n_substeps: int, blocks: Sequence[torch.Tensor],
         return
     if dev.type != "cuda":
         raise ValueError(f"physics_probe_team: unsupported device {dev}")
-    lib = build.probe_physics_team_library(s, n_substeps, phase_limit)
+    lib = build.probe_physics_team_library(s, n_substeps, phase_limit, fmad)
     rows = (s.nq, s.nv, s.nu, s.ndr, s.ncache)
     build.launch_into("probe_physics_team", lib.probe_physics_team_launch,
                       list(blocks) + list(outs), B, layout, *rows)
-    count_launch(k1_probe_name(phase_limit, layout, team=True))
+    count_launch(k1_probe_name(phase_limit, layout, fmad, team=True))
 
 
 def empty_outputs(s, B: int, device, layout: int = ROW_MAJOR, tile: int = TILE):

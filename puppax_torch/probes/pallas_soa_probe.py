@@ -1,6 +1,7 @@
 """Is a large straight-line per-env body viable on the card? A synthetic SoA substep.
 
     python -m puppax_torch.probes.pallas_soa_probe [--rounds 60,240,960] [--envs 4096]
+        [--team] [--warps 2,4,6,8]
 
 The H100 counterpart of ``dev/pallas_soa_probe.py`` (``soa_substep`` :103,
 ``pallas_call`` :106), which approximated one physics substep's op mix on
@@ -26,6 +27,22 @@ stays a multiply; ``0.001 * s * q`` is ``(0.001 * s) * q``. With
 card's ``cosf`` / ``sinf`` are torch's CUDA ``cos`` / ``sin``), and
 ``check`` holds it so.
 
+The team design (``soa_substep(..., team=True)``, ``csrc/probe_soa_team.cuh``)
+runs the same ``CProgram`` split across the W warps of a 32-env block by
+``kernels/team.py`` (``soa_substep_team_body``), as the production kernels
+K1-K4 run theirs: one thread per env leaves 4096 envs on one warp per SM,
+one of its four schedulers. It was tried on the H100 and not adopted: it is
+slower than the one-thread kernel at every W and stage budget measured
+(PERF.md section 6), so the one-thread kernel stays P12's kernel and the
+team kernel its A/B. A small stage budget splits each round's products and
+updates across the warps at the price of a barrier per stage (16 at W = 4:
+a heaviest stream of 2,903 of 6,715 operations, 271 barriers); each
+barrier cost more than the split gained, and the least slow schedule has
+no budget (``TEAM_CAP`` is larger than the program): the rounds' dependent
+chain on one warp, the hinge chains beside it, 5 barriers. Every operation
+is the one-thread program's, so the team kernel equals the one-thread
+kernel and the plain version bit for bit; ``check`` holds it against both.
+
 Inputs are standard normals from ``numpy.random.default_rng(seed)``: q
 ``(19, B)``, then v ``(18, B)``. The TPU probe drew them with
 ``jax.random.normal(PRNGKey(0))``, which the port cannot reproduce until
@@ -34,16 +51,22 @@ its threefry port, so the values differ; the program does not.
 Timing, as the TPU probe timed it (:131-146): 100 chained substeps, ``q <-
 soa_substep(q, v)``, carried between two preallocated buffer sets,
 eagerly and replayed from one CUDA graph (the device's time), best of 5
-windows. For each ``rounds`` it prints us per substep, the build's
-generated lines, float operations per env, nvcc seconds, registers, stack
-and spill bytes, and the ns per operation of one env's body (all envs in
-parallel); larger bodies (``--rounds``; 960 rounds is about K3's operation
-count) chart nvcc time and throughput against the size of the body.
+windows, the designs in turns (one-thread, each team build, the team
+builds again, one-thread; the median of each design's two). For each
+``rounds`` it prints us per substep, the build's generated lines, float
+operations per env, nvcc seconds, registers, stack and spill bytes, and the
+ns per operation of one env's body (all envs in parallel); each team
+build adds its heaviest stream, barriers, shared bytes and ns per
+heaviest-stream operation. Larger bodies (``--rounds``; 960 rounds is about
+K3's operation count) chart nvcc time and throughput against the size of
+the body; ``--team --warps`` sweeps the team's warps beside the one-thread
+body.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 from types import SimpleNamespace
 from typing import Dict, Sequence
 
@@ -51,6 +74,7 @@ import numpy as np
 import torch
 
 from puppax_torch.kernels import build, cgen
+from puppax_torch.kernels.team import team_body
 from puppax_torch.probes import common
 
 NQ, NV = 19, 18
@@ -59,6 +83,12 @@ B_DEFAULT = 4096  # dev/pallas_soa_probe.py:20
 CHAIN = 100  # chained substeps per timed window (dev/pallas_soa_probe.py:134)
 RUNS = 5  # timed windows (dev/pallas_soa_probe.py:142)
 CLI_ROUNDS = (60, 240, 960)
+# the team design: warps per block and the schedule's stage budget (no
+# budget: larger than the program), the least slow of the card's sweep (W =
+# 2, 4, 8 x budget 8-100000; PERF.md)
+TEAM_WARPS = 2
+TEAM_CAP = 100000
+CLI_WARPS = (2, 4, 6, 8)
 
 
 def _f32(x: float) -> float:
@@ -142,10 +172,10 @@ def soa_substep_rows(q: torch.Tensor, v: torch.Tensor, rounds: int = ROUNDS) -> 
     return torch.stack(substep_program(q.unbind(0), v.unbind(0), rounds, _TORCH_MATH))
 
 
-def soa_substep_body(rounds: int = ROUNDS) -> str:
-    """C source of ``soa_substep_body`` (``csrc/probe_soa.cuh``'s body):
-    ``substep_program`` emitted as one SSA statement per operation, row r of
-    env b at ``ptr[r * B + b]``."""
+def soa_substep_program(rounds: int = ROUNDS) -> cgen.CProgram:
+    """``substep_program`` on a ``cgen.CProgram``: one SSA statement (and
+    one node) per operation, the loads of q and v, the stores of q_out. Both
+    designs' bodies are emitted from it."""
     prog = cgen.CProgram()
     q = [prog.load("q", r) for r in range(NQ)]
     v = [prog.load("v", r) for r in range(NV)]
@@ -153,6 +183,14 @@ def soa_substep_body(rounds: int = ROUNDS) -> str:
                                for f in ("rsqrt", "cos", "sin", "abs")})
     for r, x in enumerate(substep_program(q, v, rounds, math_)):
         prog.store("q_out", r, x)
+    return prog
+
+
+def soa_substep_body(rounds: int = ROUNDS) -> str:
+    """C source of ``soa_substep_body`` (``csrc/probe_soa.cuh``'s body):
+    ``soa_substep_program`` as one thread's straight-line body, row r of
+    env b at ``ptr[r * B + b]``."""
+    prog = soa_substep_program(rounds)
     header = (
         "// Generated by puppax_torch/probes/pallas_soa_probe.py from the synthetic\n"
         f"// SoA substep at {rounds} rounds, {prog.count} values. Do not edit.\n"
@@ -161,41 +199,88 @@ def soa_substep_body(rounds: int = ROUNDS) -> str:
     return header + "\n".join(prog.lines) + "\n}\n"
 
 
-def library(rounds: int = ROUNDS):
-    """The kernel of ``rounds`` rounds, built at first use
-    (``build.probe_soa_library`` around ``soa_substep_body(rounds)``)."""
-    return build.probe_soa_library(rounds, lambda: soa_substep_body(rounds))
+def soa_substep_team_body(rounds: int = ROUNDS, warps: int = TEAM_WARPS,
+                          cap: int = TEAM_CAP):
+    """(C source, stats) of ``soa_substep_team_body``
+    (``csrc/probe_soa_team.cuh``'s body): ``soa_substep_program(rounds)``
+    split across ``warps`` warps by ``kernels/team.py``'s ``team_body``
+    with the stage budget ``cap`` and no crossing cost (the schedule the
+    card measured); the stats' ``ops_per_env`` is the one-thread body's
+    count."""
+    return team_body(soa_substep_program(rounds), warps, "soa_substep_team_body", "SOA_PARAMS",
+                     f"synthetic SoA substep at {rounds} rounds", cap=cap, cross=0.0)
 
 
-def soa_name(rounds: int = ROUNDS) -> str:
-    """The launch name of one build: ``soa_substep``, with the round count
-    where it is not the TPU probe's 60."""
-    return "soa_substep" if rounds == ROUNDS else f"soa_substep_{rounds}_rounds"
+def _team_warps(warps) -> int:
+    return TEAM_WARPS if warps is None else int(warps)
 
 
-def record(rounds: int = ROUNDS) -> str:
-    """The build's ``build.last_build`` record."""
+def team_variant(rounds: int = ROUNDS, warps=None) -> str:
+    """The team build's variant: its rounds, then its warps where they are
+    not ``TEAM_WARPS``."""
+    warps = _team_warps(warps)
+    return f"{int(rounds)} rounds" + ("" if warps == TEAM_WARPS else f", {warps} warps")
+
+
+def library(rounds: int = ROUNDS, team: bool = False, warps=None):
+    """The kernel of ``rounds`` rounds, built at first use: one thread per env
+    (``build.probe_soa_library`` around ``soa_substep_body(rounds)``) or,
+    with ``team``, the team design (``build.probe_soa_team_library`` around
+    ``soa_substep_team_body(rounds, warps)``)."""
+    if not team:
+        return build.probe_soa_library(rounds, lambda: soa_substep_body(rounds))
+    warps = _team_warps(warps)
+    return build.probe_soa_team_library(rounds, warps, team_variant(rounds, warps),
+                                        lambda: soa_substep_team_body(rounds, warps))
+
+
+def soa_name(rounds: int = ROUNDS, team: bool = False, warps=None) -> str:
+    """The launch name of one build: ``soa_substep`` (``soa_substep_team``),
+    with the round count where it is not the TPU probe's 60, and a team
+    build's warps where they are not ``TEAM_WARPS``."""
+    name = "soa_substep_team" if team else "soa_substep"
+    name += "" if rounds == ROUNDS else f"_{rounds}_rounds"
+    if team and _team_warps(warps) != TEAM_WARPS:
+        name += f"_{_team_warps(warps)}_warps"
+    return name
+
+
+def record(rounds: int = ROUNDS, team: bool = False, warps=None) -> str:
+    """The build's ``build.last_build`` record: ``probe_soa[<rounds> rounds]``
+    or ``probe_soa_team[<team_variant>]``."""
+    if team:
+        return build.record_name(build.PROBE_SOA_TEAM, team_variant(rounds, warps))
     return build.record_name(build.PROBE_SOA, f"{int(rounds)} rounds")
 
 
-def soa_substep(q: torch.Tensor, v: torch.Tensor, out: torch.Tensor, rounds: int = ROUNDS):
+def soa_substep(q: torch.Tensor, v: torch.Tensor, out: torch.Tensor, rounds: int = ROUNDS,
+                team: bool = False, warps=None):
     """One substep of q ``(19, B)`` and v ``(18, B)`` into the preallocated
     ``out`` ``(19, B)`` (another buffer than q's), every block contiguous
     float32 on one device. CPU tensors run the plain version
     (``soa_substep_rows``); CUDA tensors launch the kernel of
-    ``csrc/probe_soa.cuh`` on the current stream, or raise. Each launch
-    counts in ``common.launches[soa_name(rounds)]``."""
+    ``csrc/probe_soa.cuh`` (one thread per env) or, with ``team``, of
+    ``csrc/probe_soa_team.cuh`` (``warps`` warps per 32-env block, default
+    ``TEAM_WARPS``) on the current stream, or raise. Each launch counts in
+    ``common.launches[soa_name(rounds, team, warps)]``. The team kernel
+    sizes its shared memory at its first launch, so launch it once eagerly
+    before capturing it in a CUDA graph."""
     B, dev = build.check_blocks((NQ, NV, NQ), (q, v, out))
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"soa_substep: unsupported device {dev}")
     if out.data_ptr() in (q.data_ptr(), v.data_ptr()):
         raise ValueError("soa_substep: out must not be q's or v's buffer")
+    if team and not 1 <= _team_warps(warps) <= 32:
+        raise ValueError(f"soa_substep: {warps} warps")
     if dev.type == "cpu":
         out.copy_(soa_substep_rows(q, v, rounds))
         return
-    lib = library(rounds)
-    build.launch_into("probe_soa", lib.probe_soa_launch, [q, v, out], B)
-    common.count_launch(soa_name(rounds))
+    lib = library(rounds, team, warps)
+    if team:
+        build.launch_into("probe_soa_team", lib.probe_soa_team_launch, [q, v, out], B)
+    else:
+        build.launch_into("probe_soa", lib.probe_soa_launch, [q, v, out], B)
+    common.count_launch(soa_name(rounds, team, warps))
 
 
 def soa_inputs(B: int, seed: int, device):
@@ -207,66 +292,135 @@ def soa_inputs(B: int, seed: int, device):
     return torch.from_numpy(q).to(device), torch.from_numpy(v).to(device)
 
 
-def check(q: torch.Tensor, v: torch.Tensor, rounds: int = ROUNDS) -> Dict[str, object]:
+def check(q: torch.Tensor, v: torch.Tensor, rounds: int = ROUNDS, team: bool = False,
+          warps=None) -> Dict[str, object]:
     """One ``soa_substep`` launch held bit for bit against
-    ``soa_substep_rows`` on the same blocks; raises if an env differs or the
-    plain version is not finite. Returns ``max_abs_err``, ``differing`` envs
-    and the plain version's ``plain_ms``."""
+    ``soa_substep_rows`` on the same blocks and, for a ``team`` build,
+    against one launch of the one-thread kernel; raises if an env differs
+    or the plain version is not finite. Returns ``max_abs_err``,
+    ``differing`` envs and the plain version's ``plain_ms`` (a team build
+    adds ``one_thread_differing``)."""
     got = torch.empty_like(q)
-    soa_substep(q, v, got, rounds)
+    soa_substep(q, v, got, rounds, team, warps)
     want = []
     plain_ms = common.window_ms(lambda: want.append(soa_substep_rows(q, v, rounds)))
     err, differing = common.compare_exact([got], [want[0]])
-    if differing or not bool(torch.isfinite(want[0]).all()):
-        raise AssertionError(f"{soa_name(rounds)}: {differing} of {q.shape[1]} envs differ "
-                             f"from the plain version, or it is not finite")
-    return dict(max_abs_err=err, differing=differing, plain_ms=plain_ms)
+    res = dict(max_abs_err=err, differing=differing, plain_ms=plain_ms)
+    if team:
+        one = torch.empty_like(q)
+        soa_substep(q, v, one, rounds)
+        res["one_thread_differing"] = common.compare_exact([got], [one])[1]
+    name = soa_name(rounds, team, warps)
+    if differing or res.get("one_thread_differing") or not bool(torch.isfinite(want[0]).all()):
+        raise AssertionError(f"{name}: {differing} of {q.shape[1]} envs differ from the plain "
+                             f"version ({res.get('one_thread_differing', 0)} from the one-thread "
+                             f"kernel), or it is not finite")
+    return res
+
+
+def _build_info(rec: str) -> dict:
+    info = build.last_build[rec]
+    return dict(lines=info["lines"], ops_per_env=info["ops_per_env"],
+                nvcc_s=info["compile_seconds"], **common.ptxas_info(rec))
 
 
 def run(device, rounds_list: Sequence[int] = (ROUNDS,), B: int = B_DEFAULT, seed: int = 0,
         check_envs: Sequence[int] = (B_DEFAULT, common.TILE), chain: int = CHAIN,
-        runs: int = RUNS) -> Dict[int, dict]:
-    """For each round count (built before, ``library``): the
-    kernel held against the plain version at each of ``check_envs`` (the
-    first envs of the inputs), then ``chain`` chained substeps at ``B`` envs
-    timed. Returns, per round count: ``checks`` (envs -> ``check``'s
-    dict), ``eager_us`` and ``graph_us`` per substep, ``plain_ms`` at B,
-    ``envs``, ``lines``, ``ops_per_env``, ``nvcc_s``, ptxas's
-    ``registers``, ``stack``, ``spill_stores``, ``spill_loads``, and
-    ``ns_per_op`` (the graphed time over one env's operations)."""
+        runs: int = RUNS, team_warps: Sequence[int] = ()) -> Dict[int, dict]:
+    """For each round count (built before, ``library``): the one-thread
+    kernel and the team kernel at each of ``team_warps`` held against the
+    plain version (a team build also against the one-thread kernel) at each of
+    ``check_envs`` (the first envs of the inputs), then ``chain`` chained
+    substeps at ``B`` envs timed, the designs in turns (one-thread, the
+    team builds, the team builds reversed, one-thread). Returns, per
+    round count, the one-thread kernel's ``checks`` (envs -> ``check``'s
+    dict), ``eager_us`` and ``graph_us`` per substep (the median of its two
+    turns), ``plain_ms`` at B, ``envs``, ``lines``, ``ops_per_env``,
+    ``nvcc_s``, ptxas's ``registers``, ``stack``, ``spill_stores``,
+    ``spill_loads``, and ``ns_per_op`` (the graphed time over one env's
+    operations); under ``team`` the same per warps, with the schedule's
+    ``heaviest`` stream, ``barriers``, ``shared_bytes``,
+    ``replicated_ops``, ``ns_per_heaviest_op`` and the one-thread kernel's
+    time over the team's (``speedup``)."""
     q, v = soa_inputs(B, seed, device)
     print(common.nvidia_smi(), flush=True)
     print(f"synthetic SoA substep at {B} envs: {chain} chained substeps per window (q carried), "
-          f"best of {runs} windows (CUDA events), eager and from one CUDA graph:", flush=True)
+          f"best of {runs} windows (CUDA events), eager and from one CUDA graph; one thread "
+          f"per env and the team kernel at warps {list(team_warps)} in turns:", flush=True)
     results = {}
     for rounds in rounds_list:
-        name = soa_name(rounds)
-        checks = {}
-        for n in check_envs:
-            checks[n] = check(q[:, :n].contiguous(), v[:, :n].contiguous(), rounds)
-            print(f"soa_substep vs plain ({rounds} rounds) at {n} envs: max abs err "
-                  f"{checks[n]['max_abs_err']!r}, {checks[n]['differing']} envs differ",
-                  flush=True)
-        carry = common.Carry(lambda a, b: soa_substep(a, v, b, rounds), (q,), chain)
-        carry.reset()
-        carry.window()
-        if not bool(torch.isfinite(carry.sets[chain % 2][0]).all()):
-            raise AssertionError(f"{name}: {chain} chained substeps are not finite")
-        eager, graph = common.eager_and_graph_ms(carry.window, runs, carry.reset)
+        designs = [dict(team=False)] + [dict(team=True, warps=w) for w in team_warps]
+        checks = []
+        for d in designs:
+            checks.append({})
+            for n in check_envs:
+                res = check(q[:, :n].contiguous(), v[:, :n].contiguous(), rounds, **d)
+                checks[-1][n] = res
+                print(f"{soa_name(rounds, **d)} vs plain ({rounds} rounds) at {n} envs: max abs "
+                      f"err {res['max_abs_err']!r}, {res['differing']} envs differ"
+                      + (f"; vs the one-thread kernel: {res['one_thread_differing']} envs differ"
+                         if d["team"] else ""), flush=True)
+        carries = []
+        for d in designs:
+            carry = common.Carry(lambda a, b, d=d: soa_substep(a, v, b, rounds, **d), (q,), chain)
+            carry.reset()
+            carry.window()
+            if not bool(torch.isfinite(carry.sets[chain % 2][0]).all()):
+                raise AssertionError(f"{soa_name(rounds, **d)}: {chain} chained substeps are "
+                                     f"not finite")
+            carries.append(carry)
+        times = [[] for _ in designs]
+        order = list(range(len(designs)))
+        for i in [0] + order[1:] + order[:0:-1] + [0]:
+            times[i].append(common.eager_and_graph_ms(carries[i].window, runs, carries[i].reset))
         plain = []
         plain_ms = common.window_ms(lambda: plain.append(soa_substep_rows(q, v, rounds)))
-        info = build.last_build[record(rounds)]
-        res = dict(checks=checks, eager_us=eager * 1e3 / chain, graph_us=graph * 1e3 / chain,
-                   plain_ms=plain_ms, envs=B, lines=info["lines"], ops_per_env=info["ops_per_env"],
-                   nvcc_s=info["compile_seconds"], **common.ptxas_info(record(rounds)))
-        res["ns_per_op"] = res["graph_us"] * 1e3 / res["ops_per_env"]
-        results[rounds] = res
-        print(f"{name:28s} {rounds:4d} rounds: {res['lines']} lines, {res['ops_per_env']} ops per "
-              f"env, nvcc {res['nvcc_s']:.1f} s, {res['registers']} registers, stack "
-              f"{res['stack']} B, spills {res['spill_stores']} / {res['spill_loads']} B; eager "
-              f"{res['eager_us']:9.3f} us, graph {res['graph_us']:9.3f} us per substep, "
-              f"{res['ns_per_op']:.4f} ns per env-op; plain {plain_ms:.3f} ms", flush=True)
+        per = []
+        for d, chk, ts in zip(designs, checks, times):
+            res = dict(checks=chk, eager_us=statistics.median(e for e, _ in ts) * 1e3 / chain,
+                       graph_us=statistics.median(g for _, g in ts) * 1e3 / chain,
+                       plain_ms=plain_ms, envs=B, **_build_info(record(rounds, **d)))
+            res["ns_per_op"] = res["graph_us"] * 1e3 / res["ops_per_env"]
+            per.append(res)
+        one = per[0]
+        one["team"] = {}
+        print(f"{soa_name(rounds):28s} {rounds:4d} rounds: {one['lines']} lines, "
+              f"{one['ops_per_env']} ops per env, nvcc {one['nvcc_s']:.1f} s, "
+              f"{one['registers']} registers, stack {one['stack']} B, spills "
+              f"{one['spill_stores']} / {one['spill_loads']} B; eager {one['eager_us']:9.3f} us, "
+              f"graph {one['graph_us']:9.3f} us per substep, {one['ns_per_op']:.4f} ns per "
+              f"env-op; plain {plain_ms:.3f} ms", flush=True)
+        for w, res in zip(team_warps, per[1:]):
+            info = build.last_build[record(rounds, True, w)]
+            res.update(heaviest=max(info["stream_ops"]), barriers=info["barriers"],
+                       shared_bytes=info["shared_bytes"], replicated_ops=info["replicated_ops"],
+                       warps=w, speedup=one["graph_us"] / res["graph_us"])
+            res["ns_per_heaviest_op"] = res["graph_us"] * 1e3 / res["heaviest"]
+            one["team"][w] = res
+            print(f"{soa_name(rounds, True, w):28s} {rounds:4d} rounds, {w} warps: heaviest "
+                  f"stream {res['heaviest']} of {res['ops_per_env']} ops, "
+                  f"{res['barriers']} barriers, {res['shared_bytes']} B shared, "
+                  f"{res['lines']} lines, nvcc {res['nvcc_s']:.1f} s, {res['registers']} "
+                  f"registers, stack {res['stack']} B, spills {res['spill_stores']} / "
+                  f"{res['spill_loads']} B; eager {res['eager_us']:9.3f} us, graph "
+                  f"{res['graph_us']:9.3f} us per substep ({res['speedup']:.3f}x the "
+                  f"one-thread kernel), {res['ns_per_heaviest_op']:.4f} ns per heaviest-stream "
+                  f"op", flush=True)
+        results[rounds] = one
     return results
+
+
+def build_all(rounds_list: Sequence[int], team_warps: Sequence[int] = ()) -> list:
+    """The one-thread kernel of each round count and its team kernel at each
+    of ``team_warps``, at once; returns their ``build.last_build`` names."""
+    builds = [(r, dict(team=False)) for r in rounds_list]
+    builds += [(r, dict(team=True, warps=w)) for r in rounds_list for w in team_warps]
+    build.build_in_parallel(*[(lambda r=r, d=d: library(r, **d)) for r, d in builds])
+    return [record(r, **d) for r, d in builds]
+
+
+def _ints(text: str) -> list:
+    return [int(x) for x in text.split(",") if x]
 
 
 def main(argv=None):
@@ -275,23 +429,30 @@ def main(argv=None):
                     help="comma-separated round counts, one build each")
     ap.add_argument("--envs", type=int, default=B_DEFAULT)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--team", action="store_true",
+                    help="also the team design, at each of --warps")
+    ap.add_argument("--warps", default=",".join(map(str, CLI_WARPS)),
+                    help="comma-separated warps per block of the team builds")
     args = ap.parse_args(argv)
-    rounds_list = [int(r) for r in args.rounds.split(",")]
+    rounds_list = _ints(args.rounds)
+    warps = _ints(args.warps) if args.team else []
     common.require_cuda("pallas_soa_probe")
     device = torch.device("cuda", 0)
     smi = common.nvidia_smi()
     print(smi, flush=True)
-    build.build_in_parallel(*[(lambda r=r: library(r)) for r in rounds_list])
-    common.print_builds([record(r) for r in rounds_list])
+    common.print_builds(build_all(rounds_list, warps))
     results = run(device, rounds_list, args.envs, args.seed,
-                  check_envs=(args.envs, min(args.envs, common.TILE)))
-    if len(rounds_list) > 1:
-        print("nvcc seconds and graphed us per substep against the body's size:", flush=True)
-        for r, res in results.items():
-            print(f"  {r:4d} rounds: {res['lines']:6d} lines, {res['ops_per_env']:6d} ops, nvcc "
-                  f"{res['nvcc_s']:6.1f} s, {res['registers']} registers, spills "
-                  f"{res['spill_stores']} B, {res['graph_us']:9.3f} us, {res['ns_per_op']:.4f} ns "
-                  f"per env-op", flush=True)
+                  check_envs=(args.envs, min(args.envs, common.TILE)), team_warps=warps)
+    print("nvcc seconds and graphed us per substep against the body's size:", flush=True)
+    for r, res in results.items():
+        for name, x in [("one-thread", res)] + [(f"team {w} warps", x)
+                                                for w, x in res["team"].items()]:
+            team_cols = (f", heaviest {x['heaviest']:6d}, {x['barriers']:5d} barriers, "
+                         f"{x['shared_bytes']:6d} B shared" if "heaviest" in x else "")
+            print(f"  {r:4d} rounds {name:22s}: {x['lines']:6d} lines, {x['ops_per_env']:6d} "
+                  f"ops{team_cols}, nvcc {x['nvcc_s']:6.1f} s, {x['registers']} registers, "
+                  f"spills {x['spill_stores']} B, {x['graph_us']:9.3f} us, "
+                  f"{x['ns_per_op']:.4f} ns per env-op", flush=True)
     print(smi, flush=True)
 
 

@@ -535,6 +535,82 @@ def test_soa_substep_kernel_matches_plain(B):
 
 
 @pytest.mark.parametrize("B", [4096, 128, 300])
+def test_team_soa_substep_kernel_matches_plain(B):
+    """Team P12 (``TEAM_WARPS`` warps) equals its plain version and the
+    one-thread P12 bit for bit, also on a ragged last 32-env group, one
+    counted launch; 100 chained substeps from a CUDA graph stay finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+    from puppax_torch.probes import pallas_soa_probe as P
+
+    q, v = P.soa_inputs(B, seed=1, device="cuda")
+    before = common.launches["soa_substep_team"]
+    res = P.check(q, v, team=True)
+    assert (res["max_abs_err"], res["differing"], res["one_thread_differing"]) == (0.0, 0, 0)
+    assert common.launches["soa_substep_team"] == before + 1
+    carry = common.Carry(lambda a, b: P.soa_substep(a, v, b, team=True), (q,), 100)
+    common.eager_and_graph_ms(carry.window, 1, carry.reset)
+    assert torch.isfinite(carry.sets[0][0]).all()
+
+
+def test_fma_chain_redesign_matches_one_element():
+    """The chain's redesign on the TPU's grid at K = 64: under
+    ``--fmad=false`` bit for bit with the plain loop and the one-element
+    kernel; under ``--fmad=true`` finite, within 1e-5 of the plain loop, and
+    bit for bit with the one-element kernel in add2k and mul2k (no pairs)
+    and in muladd where both builds' SASS shows every pair as one FFMA; its
+    grid at most the resident blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import probe_fma_fusion as F
+
+    dev = torch.device("cuda", 0)
+    blocks, n = F.TPU_GRID
+    a, b = F.chain_inputs(n, dev)
+    build.build_in_parallel(*[(lambda f=f, lib=lib: lib(f)) for f in (False, True)
+                              for lib in (build.fma_chain_library, build.fma_chain_ilp_library)])
+    contracted = all(F.contracts_every_pair(F._sass_report(True, d))
+                     for d in ("one-element", "redesign"))
+    for mode in F.MODES:
+        want = F.chain_rows(a, b, 64, mode, blocks)
+        for fmad in (False, True):
+            got, one = (torch.empty((blocks, n), device=dev) for _ in range(2))
+            F.fma_chain(a, b, got, 64, mode, blocks, fmad)
+            F.fma_chain_one_element(a, b, one, 64, mode, blocks, fmad)
+            if fmad:
+                assert torch.isfinite(got).all()
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+                if mode != "muladd" or contracted:
+                    assert torch.equal(got, one), mode
+            else:
+                assert torch.equal(got, want) and torch.equal(one, want), mode
+    lib = build.fma_chain_ilp_library(False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = lib.fma_chain_occupancy(1, F.ILP_THREADS)
+    assert 0 < lib.fma_chain_ilp_grid(n, blocks) <= sms * per_sm
+
+
+def test_team_k1_fmad_probe_moves_within_tolerance(env):
+    """Team K1's program under ``--fmad=true`` against ``--fmad=false`` on
+    the probe's 4096 nominal DR'd states: finite outputs, at most
+    ``MAX_OUTSIDE_ENVS`` envs outside qpos 5e-5 / scaled qvel 5e-4
+    (``k1_fmad_outputs`` raises otherwise), one counted launch of
+    ``k1_team_probe_full_fmad``."""
+    from puppax_torch.probes import common
+    from puppax_torch.probes import probe_fma_fusion as F
+
+    s = env._s
+    blocks = common.nominal_blocks(s, env.model, 4096, "cuda")
+    build.build_in_parallel(*[(lambda f=f: build.probe_physics_team_library(s, 5, None, fmad=f))
+                              for f in (False, True)])
+    before = common.launches["k1_team_probe_full_fmad"]
+    _, moved = F.k1_fmad_outputs(s, 5, blocks, team=True)
+    assert moved["outside"] <= F.MAX_OUTSIDE_ENVS
+    assert common.launches["k1_team_probe_full_fmad"] == before + 1
+
+
+@pytest.mark.parametrize("B", [4096, 128, 300])
 def test_spd_solve_kernel_matches_plain_and_cusolver(B):
     """The batched 18 x 18 SPD solve on the TPU probe's systems equals its
     plain version (``linalg.spd_solve``) bit for bit, one counted launch,
