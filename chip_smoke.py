@@ -84,7 +84,7 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    team K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1,
    0 one-thread K4, the same checks;
 12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 27 libraries built in one parallel batch (K1's
+   4096 DR'd states: their 29 libraries built in one parallel batch (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
    ``csrc/probe_physics_team.cuh``, and one thread per env in
@@ -92,7 +92,9 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    designs, the multiply-add chain's two designs (8 interleaved elements
    per thread on the resident blocks, and one element per thread) under
    both flags, ``x + 1``, the copy kernel, the synthetic SoA substep at 60
-   rounds one thread per env and as a team kernel, the 18 x 18 SPD solve),
+   rounds one thread per env and as a team kernel, the 18 x 18 SPD solve
+   one warp per env and one thread per env, and P7's team fk cut with its
+   substep loop partitioned),
    then each probe's ``run``: K1's time per phase in both designs in turns
    (each cut held bit for bit against its plain version, the team full cut
    against the production team K1), K1 by layout and threads per block,
@@ -109,8 +111,10 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    wrappers;
    then the copy (element-parallel, and the same file's one-thread copy)
    in its three operand sets at 4096 and at 128 envs, each bit for bit,
-   and the launch and host-overhead probes: the copies beside the fk cut
-   and beside the one-thread copy;
+   and the launch and host-overhead probes: the copies beside the one-thread
+   copy, and the fk cut (P7) as the one-thread cut and as the team build
+   whose substep loop is partitioned, each bit for bit with the plain fk
+   cut at 4096 and 128 envs, timed in turns;
    the loop around a launch, with the K3 lane's T=20 unroll (team K3)
    eager against one captured CUDA graph (its outputs bit for bit); K1's boundary on the
    physics-only lane (rows-resident, transposed, the transposes alone, the
@@ -122,9 +126,12 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    bit for bit with both the plain version and the one-thread kernel, timed
    in turns; its heaviest stream, barriers and ns per heaviest-stream
    operation printed beside team K1's) and the SPD
-   solve, each at 4096 and 128 envs, the solve beside ``cholesky_ex`` +
-   ``cholesky_solve`` (within 1e-4 of max|x|), both timed eagerly and from
-   a CUDA graph, with their registers and spills. Each probe kernel is
+   solve (one warp per env, and the one-thread kernel as its A/B, both bit
+   for bit at 4096, 128 and a ragged 130 envs, timed in turns at 4096 and
+   128), each at 4096 and 128 envs, the solve beside ``cholesky_ex`` +
+   ``cholesky_solve`` (within 1e-4 of max|x|) and ``solve_ex``, timed
+   eagerly and from a CUDA graph, with their registers and spills. Each
+   probe kernel is
    held against its
    plain version (bit for bit; the ``--fmad=true`` builds as above), and
    every probe kernel must have launched in
@@ -1069,7 +1076,8 @@ def main():
             lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
             lambda: build.fma_chain_ilp_library(False), lambda: build.fma_chain_ilp_library(True),
             build.add_one_library, build.probe_copy_library,
-            soa_probe.library, lambda: soa_probe.library(team=True), build.probe_spd_library)
+            soa_probe.library, lambda: soa_probe.library(team=True), build.probe_spd_library,
+            build.probe_spd_warp_library, lambda: profile_overhead.fk_team_library(s1, n_sub))
         fmad_flags = build.probe_flags(True)
         probe_records = {
             **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
@@ -1089,7 +1097,10 @@ def main():
             **{name: build.record_name(build.PROBE_COPY) for name in copy_names},
             soa_probe.soa_name(): soa_probe.record(),
             soa_probe.soa_name(team=True): soa_probe.record(team=True),
-            "spd_solve": build.record_name(build.PROBE_SPD),
+            "spd_solve": build.record_name(build.PROBE_SPD_WARP),
+            "spd_solve[one-thread]": build.record_name(build.PROBE_SPD),
+            profile_overhead.FK: build.record_name(build.PROBE_PHYSICS, "fk"),
+            profile_overhead.FK_TEAM: profile_overhead.fk_team_record(),
         }
         probes.print_builds(list(dict.fromkeys(probe_records.values())))
 
@@ -1118,7 +1129,7 @@ def main():
                 print(f"{probes.copy_name(mode, n_envs)} vs plain at {n_envs} envs: max abs err "
                       f"{err!r}, {differing} envs differ (the one-thread copy: 0 too)",
                       flush=True)
-        copies = profile_overhead.run(s1, n_sub, k1_blocks)
+        copies = profile_overhead.run(s1, n_sub, k1_blocks, fk_check_envs=(EVAL_ENVS,))
         scan_state = wrapped.reset(B, generator=g)
         scan = profile_scan.run(k1_blocks[0], (lane, scan_state, params,
                                                *profile_scan.lane_draws(lane, g, B)))
@@ -1128,7 +1139,7 @@ def main():
         with Phase("probes: group C"):
             soa_res = soa_probe.run(device, (soa_probe.ROUNDS,), B, args.seed, (B, EVAL_ENVS),
                                     team_warps=[soa_probe.TEAM_WARPS])
-            spd_res = spd_probe.run(device, B, 0, (B, EVAL_ENVS))
+            spd_res = spd_probe.run(device, B, 0, (B, EVAL_ENVS, EVAL_ENVS + 2), (B, EVAL_ENVS))
             # team P12's time per heaviest-stream operation beside production team K1's
             soa_t = soa_res[soa_probe.ROUNDS]["team"][soa_probe.TEAM_WARPS]
             k1_heaviest = max(build.last_build["physics_step_team"]["stream_ops"])
@@ -1347,9 +1358,21 @@ def main():
         res = copies[name]
         kernels.append(probe_entry(name, "probe_copy.cuh", replaces, res["max_abs_err"],
                                    res["graph_us"] / 1e3, res["plain_ms"], bound))
+    # P7, the fk cut: the one-thread cut and the team build with its substep
+    # loop partitioned, timed in turns from CUDA graphs (the fk cut's bound)
+    fk_checks = copies["fk"]["checks"]
+    for name, source, res, err in (
+            (profile_overhead.FK, "probe_physics.cuh", copies["fk"],
+             max(c["one_thread"]["max_abs_err"] for c in fk_checks.values())),
+            (profile_overhead.FK_TEAM, "probe_physics_team.cuh", copies["fk_team"],
+             max(c["max_abs_err"] for c in fk_checks.values()))):
+        kernels.append(probe_entry(
+            name, source, "dev/profile_overhead.py:138", err, res["graph_us"] / 1e3,
+            fk_checks[B]["plain_ms"], k1_bound_of(probe_records[profile_overhead.FK])))
     # the SoA substep reads q and v and writes q; the solve reads A's
     # triangle on and below the diagonal and b, and writes x; times from
-    # CUDA graphs; the solve's library twin is cholesky_ex + cholesky_solve
+    # CUDA graphs; the solve's library twin is torch.linalg.solve_ex, the one
+    # PyTorch call of the same function
     soa60 = soa_res[soa_probe.ROUNDS]
     kernels.append(probe_entry(
         soa_probe.soa_name(), "probe_soa.cuh", "dev/pallas_soa_probe.py:103",
@@ -1362,11 +1385,16 @@ def main():
         max(c["max_abs_err"] for c in soa_t["checks"].values()), soa_t["graph_us"] / 1e3,
         soa_t["plain_ms"], bound_ms(soa_t["ops_per_env"], soa_probe.NQ + soa_probe.NV,
                                     soa_probe.NQ, B)))
+    spd_bound = bound_ms(spd_res["ops_per_env"], *spd_probe.spd_rows(), B)
     kernels.append(probe_entry(
-        "spd_solve", "probe_spd.cuh", "dev/pallas_spd_poc.py:57",
+        "spd_solve", "probe_spd_warp.cuh", "dev/pallas_spd_poc.py:57",
         max(c["max_abs_err"] for c in spd_res["checks"].values()), spd_res["graph_us"] / 1e3,
-        spd_res["plain_ms"], bound_ms(spd_res["ops_per_env"], *spd_probe.spd_rows(), B),
-        library_ms=spd_res["cusolver_us"][1] / 1e3))
+        spd_res["plain_ms"], spd_bound, library_ms=spd_res["solve_ex_us"][1] / 1e3))
+    kernels.append(probe_entry(
+        "spd_solve[one-thread]", "probe_spd.cuh", "dev/pallas_spd_poc.py:57",
+        max(c["one_thread"]["max_abs_err"] for c in spd_res["checks"].values()),
+        spd_res["one_thread_us"][1] / 1e3, spd_res["plain_ms"], spd_bound,
+        library_ms=spd_res["solve_ex_us"][1] / 1e3))
     print(f"bounds (team and one-thread alike): K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), "
           f"K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "

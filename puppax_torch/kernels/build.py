@@ -138,6 +138,9 @@ PROBE_SOA_TEAM = Kernel("probe_soa_team", CSRC / "probe_soa_team.cuh", 3,
                         "probe_soa_team_launch", "probe_soa_team_host",
                         headers=(CSRC / "team.cuh",))
 PROBE_SPD = Kernel("probe_spd", CSRC / "probe_spd.cuh", 3, "probe_spd_launch", "probe_spd_host")
+# its redesign, one warp per env (A, b in; x out; int W, the warps per block)
+PROBE_SPD_WARP = Kernel("probe_spd_warp", CSRC / "probe_spd_warp.cuh", 3,
+                        "probe_spd_warp_launch", "probe_spd_warp_host", n_ints=1)
 
 # (record name, model statics, env statics, config) -> loaded library
 _LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
@@ -393,23 +396,44 @@ def probe_physics_library(s, n_substeps: int, phase_limit: Optional[str] = None,
 
 
 def probe_physics_team_library(s, n_substeps: int, phase_limit: Optional[str] = None,
-                               fmad: bool = False) -> ctypes.CDLL:
-    """Team K1's program (``team.physics_step_team_body`` at
-    ``TEAM_WARPS["physics_step_team"]`` warps, production's schedule), cut
-    after ``phase_limit`` (None: the whole program) and with its sink row,
-    in the team probes' shell ``csrc/probe_physics_team.cuh`` (row-major and
-    block-major layouts), with multiply-add contraction if ``fmad``: a
-    probe-only build, recorded as ``probe_physics_team[<cut or full>]``
-    (plus ``[--fmad=true]``). Its ``ops_per_env`` is the one-thread cut's
+                               fmad: bool = False, warps: Optional[int] = None,
+                               loop_weight: Optional[int] = None,
+                               cap: Optional[int] = None) -> ctypes.CDLL:
+    """Team K1's program (``team.physics_step_team_body`` at ``warps`` warps,
+    ``TEAM_WARPS["physics_step_team"]`` by default, production's schedule
+    unless ``loop_weight`` or ``cap`` is given), cut after ``phase_limit``
+    (None: the whole program) and with its sink row, in the team probes'
+    shell ``csrc/probe_physics_team.cuh`` (row-major and block-major
+    layouts), with multiply-add contraction if ``fmad``: a probe-only build,
+    recorded as ``probe_physics_team[<cut or full>]`` (plus each knob that
+    differs from production's, ``team_probe_variant``, and
+    ``[--fmad=true]``). Its ``ops_per_env`` is the one-thread cut's
     (``probe_physics[<cut or full>]``): the same program."""
     from puppax_torch.kernels import team
 
-    warps = TEAM_WARPS[PHYSICS_STEP_TEAM.name]
+    warps = warps or TEAM_WARPS[PHYSICS_STEP_TEAM.name]
+    loop_weight = team.REPLICATED_LOOP_WEIGHT if loop_weight is None else int(loop_weight)
+    cap = cap or team.CAP
     return _device_library(
-        PROBE_PHYSICS_TEAM, s, None, (int(n_substeps), warps),
-        lambda: team.physics_step_team_body(s, n_substeps, warps, phase_limit, sink=True),
-        variant=phase_limit or "full", flags=probe_flags(fmad),
+        PROBE_PHYSICS_TEAM, s, None, (int(n_substeps), warps, loop_weight, cap),
+        lambda: team.physics_step_team_body(s, n_substeps, warps, phase_limit, sink=True,
+                                            loop_weight=loop_weight, cap=cap),
+        variant=team_probe_variant(phase_limit, warps, loop_weight, cap), flags=probe_flags(fmad),
     )
+
+
+def team_probe_variant(phase_limit: Optional[str] = None, warps: Optional[int] = None,
+                       loop_weight: Optional[int] = None, cap: Optional[int] = None) -> str:
+    """The variant of a team probe build: its cut (``full`` for none), then
+    each knob that differs from production's (``4 warps``, ``loop weight
+    0``, ``cap 16``)."""
+    from puppax_torch.kernels import team
+
+    knobs = ((warps, TEAM_WARPS[PHYSICS_STEP_TEAM.name], "{} warps"),
+             (loop_weight, team.REPLICATED_LOOP_WEIGHT, "loop weight {}"),
+             (cap, team.CAP, "cap {}"))
+    return " ".join([phase_limit or "full"] + [fmt.format(v) for v, default, fmt in knobs
+                                               if v is not None and v != default])
 
 
 def wrapped_step_fmad_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
@@ -480,6 +504,13 @@ def probe_spd_library() -> ctypes.CDLL:
     """The batched 18 x 18 SPD solve (``csrc/probe_spd.cuh``; no generated
     body): a probe-only build, recorded as ``probe_spd``."""
     return _device_library(PROBE_SPD, None, None, (), lambda: "")
+
+
+def probe_spd_warp_library() -> ctypes.CDLL:
+    """The batched 18 x 18 SPD solve, one warp per env
+    (``csrc/probe_spd_warp.cuh``; no generated body; one build serves every
+    W): a probe-only build, recorded as ``probe_spd_warp``."""
+    return _device_library(PROBE_SPD_WARP, None, None, (), lambda: "")
 
 
 def build_in_parallel(*builds: Callable[[], object]) -> list:

@@ -28,7 +28,8 @@ the W streams:
   carries in registers: its scalar work is replicated. A large loop (the
   substep ``fori_loop``) is partitioned like straight-line code; its
   carries live in shared slots, rewritten between two barriers at the end
-  of each trip.
+  of each trip. Small means a body weight of at most ``loop_weight``
+  (``REPLICATED_LOOP_WEIGHT`` in production; a probe may lower it).
 * Statements whose operands are all replicated values are replicated too.
 * ``Dphi`` (the line search's row sum over the 140 one-sided rows): each
   warp computes the terms of its range of rows into a double-buffered
@@ -142,9 +143,11 @@ class Schedule:
     """The W streams of one program (see the module docstring)."""
 
     def __init__(self, prog: cgen.CProgram, warps: int, cap: int = CAP,
-                 cross: float = CROSS, shared_budget: int = SHARED_BUDGET):
+                 cross: float = CROSS, shared_budget: int = SHARED_BUDGET,
+                 loop_weight: int = REPLICATED_LOOP_WEIGHT):
         self.W = warps
         self.cap = cap
+        self.loop_weight = loop_weight
         self.cross = cross
         self.shared_budget = shared_budget
         self._readers: Dict[str, set] = {}  # value -> the other warps that read it
@@ -368,7 +371,7 @@ class Schedule:
 
     def _schedule_loop(self, loop: cgen.Loop, reg: _Region, path, k: int) -> _Sync:
         body_weight = sum(weight(n.expr) for n in loop.body if isinstance(n, cgen.Val))
-        if body_weight <= REPLICATED_LOOP_WEIGHT:
+        if body_weight <= self.loop_weight:
             self._replicate(loop, reg, k)
             return _Sync("rloop", loop)
         sy = _Sync("ploop", loop)
@@ -774,34 +777,10 @@ _SHARED_READ = re.compile(r"\b(?:SH|TEAM_TERM)\([^()]*\)|\w+\[[^\]]*\]")
 _STMT = re.compile(r"(?:const )?(?:float|bool|int) \w+ = (.*);$|(\w+) = \2 \+ (.*);$")
 
 
-def stream_ops(lines: List[str]) -> int:
-    """Float operations one rendered stream performs for one env: the
-    operators of every statement (and of every row sum's adds), each
-    weighted by the trips of the loops around it, counted as
-    ``cgen.op_count`` counts the one-thread body. Shared-memory and input
-    reads are operands, not work."""
-    trips, total = [1], 0
-    for line in lines:
-        line = line.strip()
-        m = _TRIPS.match(line)
-        if m:
-            trips.append(trips[-1] * (int(m.group(2)) - int(m.group(1))))
-            continue
-        if line == "}":
-            trips.pop()
-            continue
-        m = _STMT.match(line)
-        if m:
-            rhs = m.group(1) if m.group(1) is not None else f"x + {m.group(3)}"
-            rhs = _SHARED_READ.sub("x", rhs)
-            rhs = re.sub(r"\bteam_(?:bool|int)\(x\)", "x", rhs)
-            total += trips[-1] * cgen.expr_ops(rhs)
-    return total
-
-
-def stream_barriers(lines: List[str]) -> int:
-    """Barriers one rendered stream passes for one env (loop trips counted)."""
-    trips, total = [1], 0
+def _trip_lines(lines: List[str]):
+    """Each statement line of a rendered stream, stripped, with the trips
+    of the loops around it."""
+    trips = [1]
     for line in lines:
         line = line.strip()
         m = _TRIPS.match(line)
@@ -809,9 +788,52 @@ def stream_barriers(lines: List[str]) -> int:
             trips.append(trips[-1] * (int(m.group(2)) - int(m.group(1))))
         elif line == "}":
             trips.pop()
-        elif line == "TEAM_BAR();":
-            total += trips[-1]
+        else:
+            yield trips[-1], line
+
+
+def stream_ops(lines: List[str]) -> int:
+    """Float operations one rendered stream performs for one env: the
+    operators of every statement (and of every row sum's adds), each
+    weighted by the trips of the loops around it, counted as
+    ``cgen.op_count`` counts the one-thread body. Shared-memory and input
+    reads are operands, not work."""
+    total = 0
+    for trips, line in _trip_lines(lines):
+        m = _STMT.match(line)
+        if m:
+            rhs = m.group(1) if m.group(1) is not None else f"x + {m.group(3)}"
+            rhs = _SHARED_READ.sub("x", rhs)
+            rhs = re.sub(r"\bteam_(?:bool|int)\(x\)", "x", rhs)
+            total += trips * cgen.expr_ops(rhs)
     return total
+
+
+def stream_barriers(lines: List[str]) -> int:
+    """Barriers one rendered stream passes for one env (loop trips counted)."""
+    return sum(trips for trips, line in _trip_lines(lines) if line == "TEAM_BAR();")
+
+
+_INPUT_READ = re.compile(r"\b\w+\[\d+ \* B \+ bl\]")
+_SLOT = re.compile(r"\b(?:SH|TEAM_TERM)\(")
+
+
+def stream_traffic(lines: List[str]) -> Dict[str, int]:
+    """The memory traffic of one rendered stream for one env, loop trips
+    counted: ``loads`` (input rows read from global memory, each use a
+    read), ``stores`` (output rows written), ``shared_writes`` and
+    ``shared_reads`` (slots, stacked rows and row terms)."""
+    out = dict(loads=0, stores=0, shared_writes=0, shared_reads=0)
+    for trips, line in _trip_lines(lines):
+        if line.startswith("if (live) "):
+            out["stores"] += trips
+            line = line.split(" = ", 1)[1]
+        elif _SLOT.match(line):
+            out["shared_writes"] += trips
+            line = line.split(" = ", 1)[1]
+        out["loads"] += trips * len(_INPUT_READ.findall(line))
+        out["shared_reads"] += trips * len(_SLOT.findall(line))
+    return out
 
 
 def render(sch: Schedule, name: str, params: str, what: str, base_ops: int,
@@ -855,25 +877,30 @@ def render(sch: Schedule, name: str, params: str, what: str, base_ops: int,
 
 def team_body(prog: cgen.CProgram, warps: int, name: str, params: str, what: str,
               cap: int = CAP, cross: float = CROSS, shared_budget: int = SHARED_BUDGET,
-              sum_unroll: int = SUM_UNROLL) -> Tuple[str, dict]:
-    """Schedule ``prog`` across ``warps`` warps and render it."""
+              sum_unroll: int = SUM_UNROLL,
+              loop_weight: int = REPLICATED_LOOP_WEIGHT) -> Tuple[str, dict]:
+    """Schedule ``prog`` across ``warps`` warps and render it (a loop whose
+    body weighs no more than ``loop_weight`` runs whole in every warp)."""
     base_ops = cgen.op_count("\n".join(prog.lines))
-    return render(Schedule(prog, warps, cap, cross, shared_budget), name, params, what,
-                  base_ops, sum_unroll)
+    return render(Schedule(prog, warps, cap, cross, shared_budget, loop_weight), name, params,
+                  what, base_ops, sum_unroll)
 
 
 def physics_step_team_body(s, n_substeps: int, warps: int, phase_limit=None,
-                           sink: bool = False) -> Tuple[str, dict]:
+                           sink: bool = False, loop_weight: int = REPLICATED_LOOP_WEIGHT,
+                           cap: int = CAP) -> Tuple[str, dict]:
     """Team K1: ``cgen.physics_step_program`` as ``physics_step_team_body``
     (shell ``csrc/physics_step_team.cuh``). ``phase_limit`` and ``sink``
     give the team probes' program (``cgen.physics_step_body``'s cut and
     sink row), rendered under ``PP_PARAMS`` for ``csrc/probe_physics_team.cuh``;
-    the schedule's knobs are production's."""
+    the schedule's knobs are production's unless a probe passes
+    ``loop_weight`` (below the substep loop's weight, the loop is
+    partitioned) or ``cap``."""
     cut = "" if phase_limit is None else f", cut after phase {phase_limit}"
     return team_body(cgen.physics_step_program(s, n_substeps, phase_limit, sink), warps,
                      "physics_step_team_body", "PP_PARAMS" if sink else "PS_PARAMS",
                      f"physics-step emission (n_substeps={n_substeps}{cut}"
-                     f"{', sink row' if sink else ''})")
+                     f"{', sink row' if sink else ''})", cap=cap, loop_weight=loop_weight)
 
 
 def env_step_team_body(s, es, n_substeps: int, warps: int) -> Tuple[str, dict]:

@@ -20,7 +20,9 @@ function (``chip_smoke.py`` drives it) and a command line
   elementwise body, 50 launches eager and as one CUDA graph
   (``dev/probe_launch_overhead.py``);
 - ``profile_overhead``: a copy kernel over K1's operand set, over q and v
-  only and at one block, beside K1 cut after FK (``dev/profile_overhead.py``);
+  only and at one block, beside K1 cut after FK, one thread per env and as
+  a team build whose substep loop is partitioned across the warps
+  (``dev/profile_overhead.py``);
 - ``profile_scan``: the copy and torch bodies eager and graphed, and the K3
   lane's T=20 unroll eager against one captured CUDA graph
   (``dev/profile_scan.py``);
@@ -34,13 +36,16 @@ function (``chip_smoke.py`` drives it) and a command line
   its nvcc time and throughput against the body's size
   (``dev/pallas_soa_probe.py``);
 - ``pallas_spd_poc``: the batched 18 x 18 SPD solve of the Newton step, one
-  thread per env, beside cuSOLVER's (``dev/pallas_spd_poc.py``).
+  warp per env (lane i owns row i) and one thread per env, beside
+  ``solve_ex`` and cuSOLVER's pair (``dev/pallas_spd_poc.py``).
 
 Two probes have no TPU original; they ask the team kernels' questions
 (K1 and K2 split across the warps of a block, ``kernels/team.py``):
 ``profile_layout --team`` sweeps the warps per block, and
 ``profile_team`` the schedule's knobs (stage budget, crossing cost, shared
-memory budget, the row sums' unroll) and prices the line search.
+memory budget, the row sums' unroll) and prices the line search;
+``profile_team --kernel P7`` sweeps P7's team fk build by W and stage
+budget.
 
 The probes' builds are their own libraries (``kernels/build.py``); the
 production kernels K1-K4 and their flags are untouched by them.

@@ -19,7 +19,8 @@
   it; ``copy_probe_one_thread``: the same file's one-thread copy, the A/B
   baseline.
 - ``sass_counts``: the FFMA / FMUL / FADD instructions of a build
-  (``fp32_counts`` of one kernel function); ``sass_loops``: the
+  (``fp32_counts`` of one kernel function); ``mnemonic_counts``: any
+  mnemonics' counts; ``sass_loops``: the
   instruction mix of each loop of a kernel function; ``ptxas_info``: a
   build's registers, stack and spill bytes.
 - ``clock_under_load``: ``nvidia-smi``'s SM clock sampled while a window
@@ -179,15 +180,19 @@ def carried_us(step: Callable, state: Sequence[torch.Tensor], iters: int = ITERS
     return eager * 1e3 / iters, graph * 1e3 / iters
 
 
-def sass_text(record: str, kernel: build.Kernel) -> Optional[str]:
-    """``cuobjdump -sass`` of a build's library (None where the toolkit has
-    no cuobjdump)."""
+def sass_of(lib) -> Optional[str]:
+    """``cuobjdump -sass`` of a library (None where the toolkit has no
+    cuobjdump)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    lib = os.path.join(build.last_build[record]["dir"], f"lib{kernel.name}.so")
-    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=600,
-                          check=True).stdout
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+
+
+def sass_text(record: str, kernel: build.Kernel) -> Optional[str]:
+    """``sass_of`` a build's library."""
+    return sass_of(os.path.join(build.last_build[record]["dir"], f"lib{kernel.name}.so"))
 
 
 FP32_OPS = ("FFMA", "FMUL", "FADD")
@@ -261,6 +266,15 @@ def fp32_counts(text: str, function: str = "") -> dict:
         if function in name:
             counts.update(op for _, op, _ in f["instrs"] if op in FP32_OPS)
     return {op: counts[op] for op in FP32_OPS}
+
+
+def mnemonic_counts(text: str, mnemonics: Sequence[str], function: str = "") -> dict:
+    """How many instructions of each of ``mnemonics`` (and ``total``, all
+    of them) the kernel functions of ``cuobjdump -sass`` text whose mangled
+    name holds ``function`` hold."""
+    ops = [op for name, f in sass_functions(text).items() if function in name
+           for _, op, _ in f["instrs"]]
+    return dict({m: ops.count(m) for m in mnemonics}, total=len(ops))
 
 
 def sass_counts(record: str, kernel: build.Kernel) -> Optional[dict]:
@@ -389,7 +403,8 @@ def _check_physics_blocks(s, blocks, outs, layout: int, tile: int = TILE,
 
 def physics_probe(s, n_substeps: int, blocks: Sequence[torch.Tensor],
                   outs: Sequence[torch.Tensor], phase_limit: Optional[str] = None,
-                  layout: int = ROW_MAJOR, threads: int = 128, fmad: bool = False):
+                  layout: int = ROW_MAJOR, threads: int = 128, fmad: bool = False,
+                  name: Optional[str] = None):
     """One physics step of K1's probe build (the body cut after
     ``phase_limit``; ``fmad``: built with multiply-add contraction) into
     the preallocated ``outs`` (q, v, caches, sink), every block in ``layout``.
@@ -397,7 +412,7 @@ def physics_probe(s, n_substeps: int, blocks: Sequence[torch.Tensor],
     CPU tensors run the plain version (``soa.physics_step_rows`` with the
     cut and the sink); CUDA tensors launch the kernel of ``csrc/probe_physics.cuh`` with
     ``threads`` per block on the current stream, or raise. Each launch
-    counts in ``launches[k1_probe_name(...)]``."""
+    counts in ``launches[name]``, by default ``k1_probe_name(...)``."""
     B, dev = _check_physics_blocks(s, blocks, outs, layout)
     if threads not in (32, 64, 128):
         raise ValueError(f"threads per block {threads} is not 32, 64 or 128")
@@ -413,24 +428,29 @@ def physics_probe(s, n_substeps: int, blocks: Sequence[torch.Tensor],
     rows = (s.nq, s.nv, s.nu, s.ndr, s.ncache)
     build.launch_into("probe_physics", lib.probe_physics_launch, list(blocks) + list(outs), B,
                       threads, layout, *rows)
-    count_launch(k1_probe_name(phase_limit, layout, fmad))
+    count_launch(name or k1_probe_name(phase_limit, layout, fmad))
 
 
 def physics_probe_team(s, n_substeps: int, blocks: Sequence[torch.Tensor],
                        outs: Sequence[torch.Tensor], phase_limit: Optional[str] = None,
-                       layout: int = ROW_MAJOR, fmad: bool = False):
+                       layout: int = ROW_MAJOR, fmad: bool = False, warps: Optional[int] = None,
+                       loop_weight: Optional[int] = None, cap: Optional[int] = None,
+                       name: Optional[str] = None):
     """``physics_probe`` through team K1's probe build (team K1's program cut
-    after ``phase_limit``, its sink row, ``build.TEAM_WARPS`` warps;
-    ``fmad``: built with multiply-add contraction): every block in
-    ``layout``, block-major in ``TEAM_TILE``-env tiles; any B row-major
-    (lanes past B compute and store nothing).
+    after ``phase_limit``, its sink row, ``build.TEAM_WARPS`` warps and
+    production's schedule unless ``warps``, ``loop_weight`` or ``cap`` say
+    otherwise, ``build.probe_physics_team_library``; ``fmad``: built with
+    multiply-add contraction): every block in ``layout``, block-major in
+    ``TEAM_TILE``-env tiles; any B row-major (lanes past B compute and store
+    nothing).
 
     CPU tensors run the plain version (``soa.physics_step_rows`` with the
     cut and the sink); CUDA tensors launch the kernel of
     ``csrc/probe_physics_team.cuh`` on the current stream, or raise. Each
-    launch counts in ``launches[k1_probe_name(..., team=True)]``. The
-    kernel sizes its shared memory at its first launch, so launch it once
-    eagerly before capturing it in a CUDA graph."""
+    launch counts in ``launches[name]``, by default
+    ``k1_probe_name(..., team=True)``. The kernel sizes its shared memory at
+    its first launch, so launch it once eagerly before capturing it in a
+    CUDA graph."""
     B, dev = _check_physics_blocks(s, blocks, outs, layout, TEAM_TILE, 1)
     if dev.type == "cpu":
         rows = blocks if layout == ROW_MAJOR else [from_block_major(x) for x in blocks]
@@ -440,11 +460,12 @@ def physics_probe_team(s, n_substeps: int, blocks: Sequence[torch.Tensor],
         return
     if dev.type != "cuda":
         raise ValueError(f"physics_probe_team: unsupported device {dev}")
-    lib = build.probe_physics_team_library(s, n_substeps, phase_limit, fmad)
+    lib = build.probe_physics_team_library(s, n_substeps, phase_limit, fmad, warps, loop_weight,
+                                           cap)
     rows = (s.nq, s.nv, s.nu, s.ndr, s.ncache)
     build.launch_into("probe_physics_team", lib.probe_physics_team_launch,
                       list(blocks) + list(outs), B, layout, *rows)
-    count_launch(k1_probe_name(phase_limit, layout, fmad, team=True))
+    count_launch(name or k1_probe_name(phase_limit, layout, fmad, team=True))
 
 
 def empty_outputs(s, B: int, device, layout: int = ROW_MAJOR, tile: int = TILE):
@@ -618,6 +639,18 @@ def ptxas_of_log(log: str) -> dict:
         ("registers", r"Used (\d+) registers"), ("stack", r"(\d+) bytes stack frame"),
         ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads"))}
     return {key: max(vals, default=0) for key, vals in found.items()}
+
+
+def ptxas_functions(log: str) -> dict:
+    """What ptxas reported for each entry function of a build log's text:
+    (mangled) name -> ``ptxas_of_log`` of its lines plus ``smem``, its
+    static shared bytes."""
+    out = {}
+    for part in re.split(r"Compiling entry function '", log)[1:]:
+        name, text = part.split("'", 1)
+        smem = re.search(r"(\d+) bytes smem", text)
+        out[name] = dict(ptxas_of_log(text), smem=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def print_builds(names: Sequence[str]):

@@ -2,6 +2,7 @@
 
     python -m puppax_torch.probes.profile_team [--kernel K1|K2|K3] [--variants W:cap:cross:kb,...]
     python -m puppax_torch.probes.profile_team --kernel K4 [--warps 4,6,8] [--rows 1,4,8,16]
+    python -m puppax_torch.probes.profile_team --kernel P7 [--warps 2,4,8] [--caps 16,48,128]
 
 Team K1, team K2 and team K3 (``csrc/physics_step_team.cuh``,
 ``csrc/env_step_team.cuh``, ``csrc/wrapped_step_team.cuh``) run each env's program split across the W warps of a block by
@@ -43,12 +44,28 @@ timed from a CUDA graph per step beside a ``torch.nn.functional.linear``
 chain of the same folded layers on the same 4096 x 72 observations, also
 from a CUDA graph. Inputs: ``k4_inputs`` (a nominal reset of the default
 env, the default policy with random weights).
+
+``--kernel P7`` (``run_p7``) sweeps P7's team build instead: the fk cut of
+K1 (``dev/profile_overhead.py::call_fk``) with its substep loop partitioned
+(loop weight ``profile_overhead.P7_LOOP_WEIGHT``), at each W of ``--warps``
+(default ``P7_WARPS``) and each stage budget of ``--caps`` (default
+``P7_CAPS``), beside the one-thread fk cut and production's team fk
+schedule (the loop replicated), all nvcc at once. For each build: the
+heaviest stream, replicated operations, barriers, shared bytes, ptxas's
+registers, stack and spills, the SASS instruction mix of the whole kernel
+(``common.sass_functions``: FP32 operations, MUFU, global and shared loads
+and stores, barriers), and per rendered stream its operations, input-row
+reads, stores and shared reads and writes (``team.stream_traffic``); then
+each held bit for bit against the plain fk cut and timed at 4096 and 128
+envs (50 carried launches per window from one CUDA graph, best of 3),
+with the ns per heaviest-stream operation. Inputs: the nominal blocks.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -323,13 +340,158 @@ def run_k4(env, episode_length: int, activation: str, layers, blocks,
     return results
 
 
+P7_WARPS = (2, 4, 8)
+P7_CAPS = (16, 48, 128)
+SASS_MIX = ("FFMA", "FMUL", "FADD", "MUFU", "LDG", "STG", "LDS", "STS", "BAR")
+
+
+def sass_mix(record: str, kernel: build.Kernel) -> Optional[dict]:
+    """Instructions of a build's kernel functions by mnemonic (``SASS_MIX``
+    and ``total``); None where the toolkit has no cuobjdump."""
+    text = common.sass_text(record, kernel)
+    return None if text is None else common.mnemonic_counts(text, SASS_MIX)
+
+
+def one_stream(source: str, keep: Optional[int]) -> str:
+    """A rendered team body with the case of every warp but ``keep`` emptied
+    (None: every case): compiled, not run, its SASS is that one stream's
+    (each case is its own code, ``team.render``) plus the shell's."""
+    out, skip = [], False
+    for line in source.splitlines(keepends=True):
+        m = re.match(r"  case (\d+): \{$", line.rstrip("\n"))
+        if m:
+            out.append(line)
+            skip = int(m.group(1)) != keep
+            continue
+        if line == "  } break;\n":
+            skip = False
+        if not skip:
+            out.append(line)
+    return "".join(out)
+
+
+def stream_sass(s, n_substeps: int, knobs: dict) -> Optional[list]:
+    """Each stream of the fk cut's team build at ``knobs`` alone: the SASS mix
+    (``SASS_MIX``) of the body with only that warp's case, less that of the
+    body with every case emptied (the shell), all nvcc at once; None where
+    the toolkit has no cuobjdump."""
+    source, _ = team.physics_step_team_body(s, n_substeps, knobs["warps"], "fk", sink=True,
+                                            loop_weight=knobs["loop_weight"], cap=knobs["cap"])
+    nvcc = build.nvcc_path()
+    bodies = [one_stream(source, w) for w in range(knobs["warps"])] + [one_stream(source, None)]
+    built = build.build_in_parallel(*[lambda src=src: build.compile_library(
+        build.PROBE_PHYSICS_TEAM, src, [nvcc], build.NVCC_FLAGS, build.BUILD_ROOT,
+        f"lib{build.PROBE_PHYSICS_TEAM.name}.so") for src in bodies])
+    texts = [common.sass_of(path) for path, _, _ in built]
+    if texts[0] is None:
+        return None
+    mixes = [common.mnemonic_counts(x, SASS_MIX) for x in texts]
+    return [{k: m[k] - mixes[-1][k] for k in m} for m in mixes[:-1]]
+
+
+def run_p7(s, n_substeps: int, blocks, warps: Sequence[int] = P7_WARPS,
+           caps: Sequence[int] = P7_CAPS, envs: Sequence[int] = (4096, common.TILE),
+           iters: int = common.ITERS, runs: int = common.RUNS) -> Dict[tuple, dict]:
+    """Sweep P7's team build over ``warps`` x ``caps`` on ``blocks`` (K1's
+    q, v, ctrl, dr; the first envs of each of ``envs``). Returns
+    {("one-thread",): ..., ("production",): ..., (W, cap): ...}, each with
+    its build's numbers and {B: graph us} under ``us``; fails unless every
+    build equals the plain fk cut bit for bit. Under ``"stream_sass"``: each
+    stream's SASS mix alone (``stream_sass``) of P7's own build
+    (``profile_overhead``'s knobs)."""
+    from puppax_torch.probes import profile_overhead as P
+
+    lw = P.P7_LOOP_WEIGHT
+    points = [(w, c) for w in warps for c in caps]
+    build.build_in_parallel(
+        lambda: build.probe_physics_library(s, n_substeps, "fk"),
+        lambda: build.probe_physics_team_library(s, n_substeps, "fk"),
+        *[lambda w=w, c=c: build.probe_physics_team_library(s, n_substeps, "fk", warps=w,
+                                                            loop_weight=lw, cap=c)
+          for w, c in points])
+    prog = cgen.physics_step_program(s, n_substeps, "fk", sink=True)
+    production = dict(warps=build.TEAM_WARPS["physics_step_team"],
+                      loop_weight=team.REPLICATED_LOOP_WEIGHT, cap=team.CAP)
+    cases = {("one-thread",): (build.record_name(build.PROBE_PHYSICS, "fk"), None),
+             ("production",): (build.record_name(build.PROBE_PHYSICS_TEAM, "fk"), production)}
+    for w, c in points:
+        cases[(w, c)] = (build.record_name(build.PROBE_PHYSICS_TEAM, build.team_probe_variant(
+            "fk", w, lw, c)), dict(warps=w, loop_weight=lw, cap=c))
+    p7 = dict(warps=P.P7_WARPS, loop_weight=lw, cap=P.P7_CAP)
+    results = {"stream_sass": stream_sass(s, n_substeps, p7)}
+    print(common.nvidia_smi(), flush=True)
+    print(f"P7's build (W={p7['warps']}, cap {p7['cap']}), each stream alone (its case only, "
+          f"less the shell), SASS: {results['stream_sass']}", flush=True)
+    for key, (record, knobs) in cases.items():
+        info, p = build.last_build[record], common.ptxas_info(record)
+        kernel = build.PROBE_PHYSICS if knobs is None else build.PROBE_PHYSICS_TEAM
+        res = dict(record=record, nvcc_s=info["compile_seconds"], ptxas=p,
+                   sass=sass_mix(record, kernel), us={})
+        line = (f"P7 {' '.join(map(str, key)):12s}: nvcc {info['compile_seconds']:.1f} s; "
+                f"{p['registers']} registers, {p['stack']} B stack, {p['spill_stores']} / "
+                f"{p['spill_loads']} B spills; SASS {res['sass']}")
+        if knobs is not None:
+            sch = team.Schedule(prog, knobs["warps"], knobs["cap"],
+                                loop_weight=knobs["loop_weight"])
+            res["streams"] = [dict(ops=team.stream_ops(x), **team.stream_traffic(x))
+                              for x in team.render_streams(sch)]
+            res.update(heaviest=max(info["stream_ops"]), replicated=info["replicated_ops"],
+                       barriers=info["barriers"], shared_bytes=info["shared_bytes"])
+            line += (f"; heaviest stream {res['heaviest']} of {info['ops_per_env']} ops, "
+                     f"{res['replicated']} replicated, {res['barriers']} barriers, "
+                     f"{res['shared_bytes']} B shared; per stream (ops, input reads, stores, "
+                     f"shared reads, shared writes): "
+                     + ", ".join(f"({x['ops']}, {x['loads']}, {x['stores']}, "
+                                 f"{x['shared_reads']}, {x['shared_writes']})"
+                                 for x in res["streams"]))
+        print(line, flush=True)
+        results[key] = res
+    for B in envs:
+        ins = [x[:, :B].contiguous() for x in blocks]
+        rest = common.empty_outputs(s, B, ins[0].device)[2:]
+        want = soa.physics_step_rows(s, n_substeps, *ins, phase_limit="fk", sink=True)
+        for key, (record, knobs) in cases.items():
+            def step(q_in, v_in, q_out, v_out, knobs=knobs):
+                bl, outs = (q_in, v_in, *ins[2:]), (q_out, v_out, *rest)
+                if knobs is None:
+                    common.physics_probe(s, n_substeps, bl, outs, "fk", name=P.FK)
+                else:
+                    common.physics_probe_team(s, n_substeps, bl, outs, "fk", name=P.FK_TEAM,
+                                              **knobs)
+
+            got = common.empty_outputs(s, B, ins[0].device)
+            step(*ins[:2], *got[:2])
+            got[2:] = rest
+            _, differing = common.compare_exact(got, want)
+            if differing:
+                raise AssertionError(f"P7 {key} at {B} envs: {differing} envs differ from the "
+                                     "plain fk cut")
+            us = common.carried_us(step, ins[:2], iters, runs)[1]
+            res = results[key]
+            res["us"][B] = us
+            per_op = (f", {us * 1e3 / res['heaviest']:.3f} ns per heaviest-stream op"
+                      if "heaviest" in res else
+                      f", {us * 1e3 / build.last_build[record]['ops_per_env']:.3f} ns per op")
+            print(f"P7 {' '.join(map(str, key)):12s} at {B:5d} envs: {us:9.2f} us per step "
+                  f"(graph), bit for bit with the plain fk cut; "
+                  f"{results[('one-thread',)]['us'][B] / us:.2f}x the one-thread cut{per_op}",
+                  flush=True)
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("K1", "K2", "K3", "K4"), default="K1")
+    ap.add_argument("--kernel", choices=("K1", "K2", "K3", "K4", "P7"), default="K1")
     ap.add_argument("--warps", type=lambda t: tuple(int(x) for x in t.split(",")),
-                    default=K4_WARPS, help="K4: the warps per block to sweep")
+                    default=None, help="K4 and P7: the warps per block to sweep (default "
+                    "K4_WARPS, P7_WARPS)")
     ap.add_argument("--rows", type=lambda t: tuple(int(x) for x in t.split(",")),
                     default=K4_ROWS, help="K4: the MLP outputs per thread to sweep")
+    ap.add_argument("--caps", type=lambda t: tuple(int(x) for x in t.split(",")),
+                    default=P7_CAPS, help="P7: the stage budgets to sweep")
+    ap.add_argument("--envs", type=lambda t: tuple(int(x) for x in t.split(",")),
+                    default=(4096, common.TILE), help="P7: the env counts to time at (multiples "
+                    "of 128, at most 4096)")
     ap.add_argument("--variants", type=parse_variants, default=None,
                     help="comma-separated W:cap:cross:shared_kb[:sum_unroll] (default: "
                     "VARIANTS, or K3_VARIANTS for K3)")
@@ -342,7 +504,11 @@ def main(argv=None):
     smi = common.nvidia_smi()
     print(smi, flush=True)
     if args.kernel == "K4":
-        run_k4(*k4_inputs(device), warps=args.warps, rows=args.rows)
+        run_k4(*k4_inputs(device), warps=args.warps or K4_WARPS, rows=args.rows)
+    elif args.kernel == "P7":
+        s, n_substeps, model = common.nominal_setup(device)
+        run_p7(s, n_substeps, common.nominal_blocks(s, model, max(args.envs), device),
+               args.warps or P7_WARPS, args.caps, args.envs)
     elif args.kernel == "K3":
         env, L, blocks = k3_inputs(device)
         run(env._s, env._es, env._n_substeps, "K3", {blocks[0].shape[1]: blocks},

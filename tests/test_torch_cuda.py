@@ -612,9 +612,11 @@ def test_team_k1_fmad_probe_moves_within_tolerance(env):
 
 @pytest.mark.parametrize("B", [4096, 128, 300])
 def test_spd_solve_kernel_matches_plain_and_cusolver(B):
-    """The batched 18 x 18 SPD solve on the TPU probe's systems equals its
-    plain version (``linalg.spd_solve``) bit for bit, one counted launch,
-    and agrees with cholesky_ex + cholesky_solve within 1e-4 of max|x|."""
+    """The batched 18 x 18 SPD solve on the TPU probe's systems, one warp
+    per env (``spd_solve``) and one thread per env (``spd_solve_one_thread``),
+    equals its plain version (``linalg.spd_solve``) bit for bit, one counted
+    launch each, and agrees with cholesky_ex + cholesky_solve within 1e-4
+    of max|x|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from puppax_torch.probes import common
@@ -622,9 +624,11 @@ def test_spd_solve_kernel_matches_plain_and_cusolver(B):
 
     A, b = (torch.from_numpy(x).cuda() for x in S.spd_inputs(B))
     A_t, b_t = S.to_lanes(A, b)
-    before = common.launches["spd_solve"]
-    assert S.check(A_t, b_t)["differing"] == 0
-    assert common.launches["spd_solve"] == before + 1
+    before = common.launches["spd_solve"], common.launches["spd_solve[one-thread]"]
+    res = S.check(A_t, b_t)
+    assert res["differing"] == 0 and res["one_thread"]["differing"] == 0
+    assert (common.launches["spd_solve"], common.launches["spd_solve[one-thread]"]) == (
+        before[0] + 1, before[1] + 1)
     x = torch.empty_like(b_t)
     S.spd_solve(A_t, b_t, x)
     with S.cusolver_backend():
@@ -632,3 +636,56 @@ def test_spd_solve_kernel_matches_plain_and_cusolver(B):
     assert not info.any()
     lib = lib.t()
     assert float((lib - x).abs().max()) < S.LIBRARY_TOL * float(x.abs().max())
+
+
+@pytest.mark.parametrize("B", [4096, 130, 300])
+def test_spd_solve_warp_kernel_at_every_w(B):
+    """The one-warp-per-env solve at each W of its launch (4, 8, 16, 32 warps
+    per block) equals the plain version and the one-thread kernel bit for
+    bit, on whole and ragged 32-env blocks; the scalar staging path (a B
+    that is no multiple of 4) as well as the 16-byte one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+    from puppax_torch.probes import pallas_spd_poc as S
+
+    A, b = (torch.from_numpy(x).cuda() for x in S.spd_inputs(B, seed=3))
+    A_t, b_t = S.to_lanes(A, b)
+    want = S.spd_solve_rows(A_t, b_t)
+    one = torch.empty_like(b_t)
+    S.spd_solve_one_thread(A_t, b_t, one)
+    for warps in S.WARPS:
+        x = torch.full_like(b_t, float("nan"))
+        S.spd_solve(A_t, b_t, x, warps)
+        torch.cuda.synchronize()
+        assert common.compare_exact([x], [want]) == (0.0, 0), warps
+        assert common.compare_exact([x], [one]) == (0.0, 0), warps
+
+
+@pytest.mark.parametrize("B", [4096, 300])
+def test_p7_team_fk_matches_plain(env, B):
+    """P7's team build (the fk cut with its substep loop partitioned) and the
+    one-thread fk cut on random states equal the plain fk cut bit for bit
+    (``profile_overhead.check_fk``), one counted launch each."""
+    from puppax_torch.probes import profile_overhead as P
+    from puppax_torch.probes import common
+
+    s = env._s
+    dr = env.dr_rows(B).cpu().numpy()
+    blocks = [b.cuda() for b in H.to_torch(
+        H.physics_step_blocks(env.model, dr, np.random.RandomState(B + 3), n=B))]
+    if B % common.TILE:  # the one-thread probe shell takes whole 128-env blocks
+        with pytest.raises(ValueError):
+            P.check_fk(s, 5, blocks)
+        outs = common.empty_outputs(s, B, "cuda")
+        before = common.launches[P.FK_TEAM]
+        P.fk_step(s, 5, blocks, outs, team=True)
+        want = soa.physics_step_rows(s, 5, *blocks, phase_limit="fk", sink=True)
+        torch.cuda.synchronize()
+        assert common.compare_exact(outs, want) == (0.0, 0)
+        assert common.launches[P.FK_TEAM] == before + 1
+        return
+    before = common.launches[P.FK], common.launches[P.FK_TEAM]
+    res = P.check_fk(s, 5, blocks)
+    assert res["differing"] == 0 and res["one_thread"]["differing"] == 0
+    assert (common.launches[P.FK], common.launches[P.FK_TEAM]) == (before[0] + 1, before[1] + 1)

@@ -1,7 +1,9 @@
 """Probe group C (``pallas_soa_probe``, ``pallas_spd_poc``) on the CPU.
 
-- ``csrc/probe_soa.cuh`` around the emitted body (60 rounds) and
-  ``csrc/probe_spd.cuh``, built with g++, against their programs bit for
+- ``csrc/probe_soa.cuh`` around the emitted body (60 rounds),
+  ``csrc/probe_spd.cuh`` and the solve's one-warp-per-env redesign
+  ``csrc/probe_spd_warp.cuh`` (its warp emulated on the host, a loop over
+  the lanes per step), built with g++, against their programs bit for
   bit where the math functions are the same on both sides: the host's
   correctly rounded sqrt and libm's ``cosf`` / ``sinf``. torch's CPU
   ``sqrt`` (vectorized) is not correctly rounded and its ``cos`` / ``sin``
@@ -84,6 +86,13 @@ def spd_host(tmp_path_factory):
     return build.host_library(build.PROBE_SPD, "", tmp_path_factory.mktemp("spd"))
 
 
+@pytest.fixture(scope="module")
+def spd_warp_host(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the probe's C cannot be built on the host")
+    return build.host_library(build.PROBE_SPD_WARP, "", tmp_path_factory.mktemp("spd_warp"))
+
+
 def _spd_blocks(B: int, seed: int = 0):
     A, b = pallas_spd_poc.spd_inputs(B, seed)
     return pallas_spd_poc.to_lanes(torch.from_numpy(A), torch.from_numpy(b))
@@ -127,6 +136,44 @@ def test_spd_host_build_is_bit_for_bit(spd_host, monkeypatch, B):
     monkeypatch.setattr(torch, "sqrt", lambda x: real_sqrt(x.double()).to(x.dtype))
     exact = pallas_spd_poc.spd_solve_rows(A_t, b_t)
     assert common.compare_exact([got], [exact]) == (0.0, 0)
+
+
+@pytest.mark.parametrize("B", [256, 200, 130])
+def test_spd_warp_host_build_is_bit_for_bit(spd_host, spd_warp_host, monkeypatch, B):
+    """The g++ build of the one-warp-per-env solve (each step a loop over the
+    lanes, each shuffle a read of the source lane) equals the one-thread
+    g++ build and ``spd_solve_rows`` with a correctly rounded sqrt bit for
+    bit, on whole 32-env blocks and ragged ones, at every W the launch
+    takes; another W is refused."""
+    A_t, b_t = _spd_blocks(B, seed=7)
+    one = torch.empty_like(b_t)
+    assert spd_host.probe_spd_host(A_t.data_ptr(), b_t.data_ptr(), one.data_ptr(), B) == 0
+    for warps in pallas_spd_poc.WARPS:
+        got = torch.full_like(b_t, float("nan"))
+        assert spd_warp_host.probe_spd_warp_host(A_t.data_ptr(), b_t.data_ptr(), got.data_ptr(),
+                                                 B, warps) == 0
+        assert common.compare_exact([got], [one]) == (0.0, 0)
+    real_sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda x: real_sqrt(x.double()).to(x.dtype))
+    exact = pallas_spd_poc.spd_solve_rows(A_t, b_t)
+    assert common.compare_exact([got], [exact]) == (0.0, 0)
+    assert spd_warp_host.probe_spd_warp_host(A_t.data_ptr(), b_t.data_ptr(), got.data_ptr(), B,
+                                             5) != 0
+
+
+def test_spd_warp_ptxas_per_function():
+    """``common.ptxas_functions`` splits a build log by entry function: the
+    warp kernel's registers and shared bytes at each W."""
+    log = ("ptxas info    : Compiling entry function '_Z21probe_spd_warp_kernelILi4EEvPKfS1_Pfii'"
+           " for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 40 registers, used 1 barriers, 24192 bytes smem\n"
+           "ptxas info    : Compiling entry function '_Z21probe_spd_warp_kernelILi32EEvPKfS1_Pfii'"
+           " for 'sm_90a'\n    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers, 24192 bytes smem\n")
+    funcs = common.ptxas_functions(log)
+    assert funcs["_Z21probe_spd_warp_kernelILi4EEvPKfS1_Pfii"] == dict(
+        registers=40, stack=0, spill_stores=0, spill_loads=0, smem=24192)
+    assert funcs["_Z21probe_spd_warp_kernelILi32EEvPKfS1_Pfii"]["spill_stores"] == 4
 
 
 def test_plain_soa_matches_the_tpu_kernel_body():
@@ -235,7 +282,14 @@ def test_spd_wrapper_refuses_bad_inputs():
         pallas_spd_poc.spd_solve(A_t.to("meta"), b_t, x)
     with pytest.raises(ValueError, match="unsupported device"):
         pallas_spd_poc.spd_solve(A_t.to("meta"), b_t.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError, match="warps"):  # the kernel takes 4, 8, 16 or 32
+        pallas_spd_poc.spd_solve(A_t, b_t, x, warps=6)
+    with pytest.raises(ValueError, match="buffer"):  # the one-thread A/B checks alike
+        pallas_spd_poc.spd_solve_one_thread(A_t, b_t, b_t)
+    pallas_spd_poc.spd_solve_one_thread(A_t, b_t, x)
+    assert torch.equal(x, pallas_spd_poc.spd_solve_rows(A_t, b_t))
     assert build.record_name(build.PROBE_SPD) == "probe_spd"
+    assert build.record_name(build.PROBE_SPD_WARP) == "probe_spd_warp"
 
 
 @pytest.mark.parametrize("probe", PROBES, ids=[p.__name__.rsplit(".", 1)[1] for p in PROBES])

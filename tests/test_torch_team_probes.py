@@ -5,7 +5,9 @@ production K1's design (``csrc/probe_physics_team.cuh`` around
 - The g++ build of the team probe shell (W ``std::thread``s per 32-env
   group, a ``std::barrier`` for each barrier) on 4 warps, for the fk cut at
   2 substeps (the substep loop is light enough that the scheduler
-  replicates it in every warp) and the efc cut at 1 substep: bit for bit
+  replicates it in every warp), the efc cut at 1 substep, and P7's team
+  build (the fk cut at 2 substeps with its substep loop partitioned,
+  ``profile_overhead.P7_*``, 0 replicated operations): bit for bit
   with the one-thread probe's g++ build (``csrc/probe_physics.cuh``) on a
   ragged 37 envs, block-major at 64 envs bit for bit with row-major, and
   both at the parity tolerances against the plain version
@@ -15,7 +17,9 @@ production K1's design (``csrc/probe_physics_team.cuh`` around
 - Each cut's rendered warp streams run symbolically in lockstep
   (``test_torch_team.py``'s checker).
 - ``cgen.physics_step_program`` and ``team.physics_step_team_body`` with
-  their default arguments build today's production program and body.
+  their default arguments build today's production program and body, and
+  the production team bodies (team K1, K2, K3, K4 at 1 substep) render the
+  text whose sha256 the test pins.
 - The build records' names, the wrapper on the CPU and the command lines
   without a card.
 
@@ -23,6 +27,7 @@ The chain to JAX is ``test_torch_probes.py::test_phase_cut_matches_jax``,
 which holds the plain cut against puppax's ``PHASE_LIMIT`` emission.
 """
 
+import hashlib
 import shutil
 import subprocess
 import sys
@@ -35,25 +40,31 @@ import torch
 import torch_port_helpers as H
 from puppax_torch.kernels import build, cgen, team
 from puppax_torch.physics import soa
-from puppax_torch.probes import common, profile_kernel_phases, profile_layout
+from puppax_torch.probes import common, profile_kernel_phases, profile_layout, profile_overhead
 from test_torch_team import _lockstep
 
 torch.set_num_threads(1)
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 WARPS = 4
-CASES = [("fk", 2), ("efc", 1)]  # (cut, substeps)
+PRODUCTION = dict(warps=WARPS, loop_weight=team.REPLICATED_LOOP_WEIGHT, cap=team.CAP)
+P7 = dict(warps=profile_overhead.P7_WARPS, loop_weight=profile_overhead.P7_LOOP_WEIGHT,
+          cap=profile_overhead.P7_CAP)
+# (cut, substeps, schedule knobs): production's schedule, and P7's team build
+CASES = [("fk", 2, PRODUCTION), ("efc", 1, PRODUCTION), ("fk", 2, P7)]
+IDS = ["fk-2substep", "efc-1substep", "fk-2substep-loop-partitioned"]
 ROWS_B, BLOCK_B = 37, 64
 
 
-@pytest.fixture(scope="module", params=CASES, ids=[f"{c}-{n}substep" for c, n in CASES])
+@pytest.fixture(scope="module", params=CASES, ids=IDS)
 def case(request, tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the probes' C cannot be built on the host")
-    cut, n = request.param
+    cut, n, knobs = request.param
     env = H.torch_env(n_substeps=n)
     s = env._s
-    source, stats = team.physics_step_team_body(s, n, WARPS, cut, sink=True)
+    source, stats = team.physics_step_team_body(s, n, knobs["warps"], cut, sink=True,
+                                                loop_weight=knobs["loop_weight"], cap=knobs["cap"])
     one = cgen.physics_step_body(s, n, cut, sink=True)
     out = tmp_path_factory.mktemp(f"team_probe_{cut}")
     lib, one_lib = build.build_in_parallel(
@@ -64,7 +75,7 @@ def case(request, tmp_path_factory):
     dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, common.TILE)).numpy()
     blocks = H.to_torch(H.physics_step_blocks(env.model, dr, np.random.RandomState(12),
                                               n=common.TILE))
-    return dict(cut=cut, n=n, env=env, source=source, stats=stats, one=one, lib=lib,
+    return dict(cut=cut, n=n, knobs=knobs, env=env, source=source, stats=stats, one=one, lib=lib,
                 one_lib=one_lib, blocks=blocks)
 
 
@@ -135,9 +146,11 @@ def test_team_cut_streams_in_lockstep(case):
     once, in one stream, or in all where the schedule replicates it; every
     cross-warp read after its write and a barrier; equal barrier counts;
     the streams' operations the one-thread program's plus the replicated
-    ones. The fk cut at 2 substeps is the replicated schedule."""
+    ones. Production's fk cut at 2 substeps is the replicated schedule;
+    P7's partitions the substep loop and replicates nothing."""
     prog = cgen.physics_step_program(case["env"]._s, case["n"], case["cut"], sink=True)
-    sch = team.Schedule(prog, WARPS)
+    knobs = case["knobs"]
+    sch = team.Schedule(prog, knobs["warps"], knobs["cap"], loop_weight=knobs["loop_weight"])
     streams = team.render_streams(sch)
     barriers, computed, runs = _lockstep(streams, prog, sch)
     replicated = {a for a, i in sch.info.items() if i.owner == team.REPL}
@@ -152,7 +165,10 @@ def test_team_cut_streams_in_lockstep(case):
     assert ops == stats["stream_ops"]
     assert sum(ops) == stats["ops_per_env"] + sch.replicated_ops() == \
         stats["ops_per_env"] + stats["replicated_ops"]
-    if case["cut"] == "fk":  # the substep loop runs whole in every warp
+    if knobs == P7:  # the substep loop is split: its carries cross in shared slots
+        assert stats["replicated_ops"] == 0 and max(ops) < stats["ops_per_env"]
+        assert any(sy.what == "ploop" for st in sch.regions[0].stages for sy in st.syncs)
+    elif case["cut"] == "fk":  # the substep loop runs whole in every warp
         assert stats["replicated_ops"] > stats["ops_per_env"]
         assert max(ops) > stats["ops_per_env"] / 2
     else:
@@ -164,7 +180,7 @@ def test_team_probe_counts_the_one_thread_cuts_operations(case):
     """The build record's ``ops_per_env`` of a team cut (``team.render``'s)
     is the one-thread probe body's ``cgen.op_count``: the same program."""
     assert case["stats"]["ops_per_env"] == cgen.op_count(case["one"])
-    assert case["stats"]["warps"] == WARPS
+    assert case["stats"]["warps"] == case["knobs"]["warps"]
     assert f"cut after phase {case['cut']}, sink row" in case["source"].splitlines()[0]
     assert "(PP_PARAMS, int B, int b, int warp" in case["source"]
 
@@ -193,6 +209,73 @@ def test_default_programs_are_production():
     cut = cgen.physics_step_program(s, 1, "compos", sink=True)
     assert cut.lines == _inner(cgen.physics_step_body(s, 1, "compos", sink=True))
     assert any(line.strip().startswith("sink_out[0 * B + b] = ") for line in cut.lines)
+
+
+# sha256 of the production team bodies rendered for the test env (1 substep,
+# episode length 1000), as the scheduler rendered them before it took its
+# replicated-loop threshold as an argument
+PRODUCTION_SHA256 = {
+    "K1": "5c252340cbc6e18a543bbc35d78035f3b2826d434a694e22452fac8ebbf770c5",
+    "K2": "88e765fe2b8361142d2a363ac79b51005e613238b92cc41e4d68f99af6602c70",
+    "K3": "f817628f28f1ab62e1171a734a356fed32d38ba76dfcde3e9895b812f0f1263b",
+    "K4": "39be34a2870de9f274301866608e99183cfddc5c8db2fd67587f3dcce0dc1a67",
+}
+
+
+def test_production_team_bodies_render_as_before():
+    """Team K1, K2, K3 and K4 at their production W (and K4's MLP rows)
+    render byte for byte the text they rendered before the probes could
+    move the replicated-loop threshold: the same sha256."""
+    env = H.torch_env()
+    s, es, w = env._s, env._es, build.TEAM_WARPS
+    bodies = {
+        "K1": team.physics_step_team_body(s, 1, w["physics_step_team"]),
+        "K2": team.env_step_team_body(s, es, 1, w["env_step_team"]),
+        "K3": team.wrapped_step_team_body(s, es, 1, 1000, w["wrapped_step_team"]),
+        "K4": cgen.fused_unroll_team_body(s, es, 1, 1000, w["fused_unroll_team"],
+                                          build.K4_MLP_ROWS),
+    }
+    got = {k: hashlib.sha256(src.encode()).hexdigest() for k, (src, _) in bodies.items()}
+    assert got == PRODUCTION_SHA256
+
+
+def test_p7_wrapper_and_records_on_the_cpu():
+    """P7's two designs on CPU tensors run the plain fk cut; the team
+    build's record names its knobs, apart from P1's team fk cut and from
+    the one-thread cut."""
+    env = H.torch_env()
+    s, B = env._s, common.TILE
+    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
+    blocks = H.to_torch(H.physics_step_blocks(env.model, dr, np.random.RandomState(14), n=B))
+    want = soa.physics_step_rows(s, 1, *blocks, phase_limit="fk", sink=True)
+    for team_build in (False, True):
+        outs = common.empty_outputs(s, B, "cpu")
+        profile_overhead.fk_step(s, 1, blocks, outs, team_build)
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    assert profile_overhead.fk_team_record() == "probe_physics_team[fk loop weight 0 cap 128]"
+    assert build.team_probe_variant("fk") == "fk"
+    assert build.team_probe_variant(None, 8, 0, 16) == "full 8 warps loop weight 0 cap 16"
+    assert profile_overhead.FK_TEAM != common.k1_probe_name("fk", team=True)
+
+
+def test_one_stream_keeps_one_case():
+    """``profile_team.one_stream``, P7's per-stream SASS build: the body with
+    only warp w's case keeps that case's statements line for line and
+    empties every other case; with None every case is empty."""
+    from puppax_torch.probes import profile_team
+
+    source, stats = team.physics_step_team_body(H.torch_env()._s, 1, P7["warps"], "fk",
+                                                sink=True, loop_weight=P7["loop_weight"],
+                                                cap=P7["cap"])
+    prog = cgen.physics_step_program(H.torch_env()._s, 1, "fk", sink=True)
+    streams = team.render_streams(team.Schedule(prog, P7["warps"], P7["cap"],
+                                                loop_weight=P7["loop_weight"]))
+    empty = profile_team.one_stream(source, None)
+    assert all(f"  case {w}: {{\n  }} break;\n" in empty for w in range(P7["warps"]))
+    for w, lines in enumerate(streams):
+        one = profile_team.one_stream(source, w)
+        assert "\n".join(lines) in one and len(one) == len(empty) + len("\n".join(lines)) + 1
+    assert stats["stream_ops"] == [team.stream_ops(x) for x in streams]
 
 
 def test_team_probe_records_and_names():
@@ -243,11 +326,13 @@ def test_team_probe_wrapper_on_the_cpu():
         common.physics_probe_team(s, 1, meta, [torch.empty(x.shape, device="meta") for x in row])
 
 
-@pytest.mark.parametrize("probe", ["profile_kernel_phases", "profile_layout"])
+@pytest.mark.parametrize("probe", ["profile_kernel_phases", "profile_layout",
+                                   "profile_team --kernel P7"])
 def test_probe_cli_exits_1_without_a_card(probe):
     """``python -m puppax_torch.probes.<probe>`` exits 1, printing no
     table, where no CUDA device is visible."""
-    proc = subprocess.run([sys.executable, "-m", f"puppax_torch.probes.{probe}"],
+    name, *args = probe.split()
+    proc = subprocess.run([sys.executable, "-m", f"puppax_torch.probes.{name}", *args],
                           capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
     assert proc.returncode == 1, proc.stderr[-2000:]
     assert "no CUDA device found" in proc.stderr
