@@ -75,23 +75,42 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    run is checked (env steps, the normalizer's count, finite losses,
    changed parameters, plausible eval metrics, the checkpoint against the
    final state);
-10. the physics-only lane: the same ``ppo.train`` with
+10. the export of that run's policy: its parameters saved as the training
+   CLI saves them, exported through ``python -m
+   puppax_torch.scripts.export_policy`` (the file equal, as a string, to
+   ``export.convert_params`` called directly), the native runtime
+   (``native/policy_runtime.cc``) built with g++ into ``build/`` and
+   loaded with ``export.native.NativePolicy``, and replayed on 256 raw
+   observations of the K3 check's states: against the runtime's own
+   float32 arithmetic (``export.native.runtime_forward``; rtol 1e-5 / atol
+   1e-6, every element), ``apply_exported_policy`` (float64; 1e-5 / 1e-6)
+   and the card's deterministic policy (TF32 off; 1e-4 / 1e-5), and the
+   same fold done in float64 against the card's policy (1e-4 / 1e-5, every
+   element); then the same for the K4 check's gait-clock policy (the
+   trained normalizer and the clock's statistics), 8 ticks of the
+   runtime's own clock after ``reset_clock``; the JSON's size, the layer
+   widths, the export's wall time, the observation dims at the
+   normalizer's std floor and each largest deviation printed (see
+   ``export_and_replay`` for what fails the run);
+11. the physics-only lane: the same ``ppo.train`` with
    ``PUPPAX_SOA_ENV=off`` (the fast lane off, training and evaluation
    through the standard lane's env layer around K1): 2120 K1 launches, 0
    K2, K3 and K4, the same checks;
-11. the fused-unroll lane: the same ``ppo.train`` with
+12. the fused-unroll lane: the same ``ppo.train`` with
    ``PUPPAX_FUSED_UNROLL=on``: the lane line reads ``fused-unroll=ON``, 6
    team K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1,
    0 one-thread K4, the same checks;
-12. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 29 libraries built in one parallel batch (K1's
+13. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
+   4096 DR'd states: their 30 libraries built in one parallel batch (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
    ``csrc/probe_physics_team.cuh``, and one thread per env in
    ``csrc/probe_physics.cuh``; the whole body under ``--fmad=true`` in both
    designs, the multiply-add chain's two designs (8 interleaved elements
    per thread on the resident blocks, and one element per thread) under
-   both flags, ``x + 1``, the copy kernel, the synthetic SoA substep at 60
+   both flags, ``x + 1`` in two designs (float4 on a grid sized to the
+   card, launched with programmatic dependent launch, and one element per
+   thread), the copy kernel, the synthetic SoA substep at 60
    rounds one thread per env and as a team kernel, the 18 x 18 SPD solve
    one warp per env and one thread per env, and P7's team fk cut with its
    substep loop partitioned),
@@ -106,9 +125,13 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    at the ``clocks.sm`` read under load, each loop's SASS mix) and K1
    under ``--fmad=true`` in both designs against ``--fmad=false`` (at most
    ``MAX_DIFFERING_ENVS`` envs outside qpos 5e-5 / scaled qvel 5e-4), and
-   launch overhead eager and from a CUDA graph, with the host's time per
-   launch layer by layer and through team K3's and team K1's production
-   wrappers;
+   launch overhead eager and from a CUDA graph: ``x + 1``'s two designs
+   bit for bit at nb = 4 and 32 and at a ragged and a misaligned count,
+   the redesign with and without PDL, the one-element kernel and
+   ``torch.add`` in turns, the programmatic edges of a captured PDL chain
+   counted (the run fails without them) and the graphed chain at 1, 2, 10
+   and 50 launches, with the host's time per launch layer by layer and
+   through team K3's and team K1's production wrappers;
    then the copy (element-parallel, and the same file's one-thread copy)
    in its three operand sets at 4096 and at 128 envs, each bit for bit,
    and the launch and host-overhead probes: the copies beside the one-thread
@@ -136,7 +159,7 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    plain version (bit for bit; the ``--fmad=true`` builds as above), and
    every probe kernel must have launched in
    this phase;
-13. a JSON line of the kernels (launches in their training run or probe
+14. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
    team K3, team K2, team K1 and team K4 beside the one-thread K3, K2, K1
    and K4, whose launches on the main path are 0) and, last, the device
@@ -173,6 +196,8 @@ MAX_DIFFERING_ENVS = 4  # of 4096 (K3, K1, K4)
 # torch pipeline (the kernel's own are soa.LS_EXPAND_ITERS / LS_ILLINOIS_ITERS)
 CONVERGED_LS_TRIPS = (40, 200)
 EVAL_ENVS = 128
+EXPORT_OBS = 256  # raw observations the exported policy is replayed on
+GAIT_TICKS = 8  # ticks of the native runtime's gait clock
 TRAIN_TIMESTEPS = 491_520  # 3 training steps of 256 x 20 x 32 env steps
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
@@ -369,6 +394,153 @@ def state_blocks(s, ps):
     return ps.qpos.t().contiguous(), ps.qvel.t().contiguous(), caches
 
 
+def _outside(got, want, rtol, atol):
+    """(largest |got - want|, elements outside ``atol + rtol * |want|``)."""
+    import numpy as np
+
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return float(err.max()), int((err > atol + rtol * np.abs(want)).sum())
+
+
+def export_and_replay(label, norm, nets, raw_obs, env, env_cfg, tc, device, gait):
+    """Export ``(norm, nets)`` to the robot's JSON through the export CLI
+    (``python -m puppax_torch.scripts.export_policy``) from a checkpoint the
+    training CLI's way; hold the file against ``export.convert_params``
+    called directly (the same string), then replay it in the native runtime
+    (``export.native.NativePolicy``, built with g++) on ``raw_obs``
+    (``(n, 72)``, on the card): against ``native.runtime_forward`` (the
+    runtime's float32 arithmetic in numpy) and ``apply_exported_policy``
+    (float64) at rtol 1e-5 / atol 1e-6, and against the card's deterministic
+    policy (TF32 off) at 1e-4 / 1e-5, beside the float64 replay of the same
+    fold done in float64. With ``gait`` the policy takes the clock:
+    ``GAIT_TICKS`` ticks of ``infer_clocked`` after ``reset_clock``, tick t
+    against the card's policy on ``[obs, cos phi_t, sin phi_t]``, phi_t = 2
+    pi f dt t mod 2 pi.
+
+    It fails unless the runtime matches its float32 arithmetic and the
+    exact fold the card's policy at every element. Elements outside the
+    other two tolerances are then the float32 rounding of the JSON's fold
+    and evaluation, and are counted, not failed: a normalizer std at its
+    1e-6 floor (an observation that never changed, like the desired body z
+    without pitch or roll commands) multiplies that column of the folded
+    kernel by 1e6, and the reference's fold and runtime, which the export
+    reproduces exactly, round it in float32."""
+    import numpy as np
+    import torch
+
+    from puppax_torch.export import apply_exported_policy, convert_params, fold_in_normalization
+    from puppax_torch.export.native import NativePolicy, build_native_runtime, runtime_forward
+    from puppax_torch.export.params import normalizer_arrays, policy_layers
+    from puppax_torch.scripts import export_policy
+    from puppax_torch.train import checkpoint, ppo, running_statistics
+    from puppax_torch.train.distribution import NormalTanhDistribution
+
+    tmp = tempfile.mkdtemp(prefix="puppax_torch_export_")
+    ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "policy.json")
+    checkpoint.save_checkpoint(TRAIN_TIMESTEPS, ppo.params_state_dict((norm, nets)), ckpt)
+    abi = dict(activation=tc.activation, action_scale=env_cfg.action_scale,
+               kp=env_cfg.position_control_kp, kd=env_cfg.dof_damping,
+               observation_history=env_cfg.observation_history,
+               gait_frequency=env_cfg.gait_frequency, control_dt=env_cfg.environment_timestep)
+    argv = ["--checkpoint", ckpt, "--out", out, "--device", str(device),
+            *[a for k, v in abi.items() for a in (f"--{k.replace('_', '-')}", str(v))]]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+        export_policy.main(argv + (["--gait-phase-observation"] if gait else []))
+    export_s = time.perf_counter() - t0
+    text = open(out).read()
+    exported = json.loads(text)
+    direct = convert_params(
+        (norm, nets.policy), default_pose=env._default_pose, joint_upper_limits=env.uppers,
+        joint_lower_limits=env.lowers, use_imu=True, maximum_pitch_command=0.0,
+        maximum_roll_command=0.0, gait_phase_observation=gait, **abi)
+    if text != json.dumps(direct):
+        raise AssertionError(f"export of {label}: the CLI's JSON differs from convert_params'")
+    t0 = time.perf_counter()
+    lib = build_native_runtime()
+    build_s = time.perf_counter() - t0
+    policy = NativePolicy(out, lib)
+    widths = [exported["in_shape"][1]] + [lay["shape"][1] for lay in exported["layers"]]
+    print(f"export of {label}: {cli_out.getvalue().strip()}; {len(text)} bytes of JSON, layer "
+          f"widths {widths}, export CLI {export_s:.3f} s wall, native runtime {build_s:.3f} s "
+          f"(g++ or cached: {lib}); CLI JSON == convert_params JSON: True", flush=True)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if gait:
+            n = GAIT_TICKS
+            phases = (2.0 * np.pi * abi["gait_frequency"] * abi["control_dt"] * np.arange(n)
+                      % (2.0 * np.pi))
+            clock = torch.tensor(np.stack([np.cos(phases), np.sin(phases)], 1),
+                                 dtype=torch.float32, device=device)
+            full = torch.cat([raw_obs[:n], clock], 1)
+            policy.reset_clock()
+            native = np.stack([policy.infer_clocked(o) for o in raw_obs[:n].cpu().numpy()])
+        else:
+            full = raw_obs
+            native = np.stack([policy(o) for o in full.cpu().numpy()])
+        with torch.no_grad():
+            card = NormalTanhDistribution(policy.out_dim).mode(
+                nets.policy(running_statistics.normalize(full, norm))).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    policy.close()
+    obs = full.cpu().numpy()
+    replay = apply_exported_policy(exported, obs)
+    # the same fold in float64 from the same float32 weights, replayed in
+    # float64: the policy the JSON would carry without float32 rounding
+    mean, std = (a.astype(np.float64) for a in normalizer_arrays(norm))
+    exact = [(k.astype(np.float64), b.astype(np.float64)) for k, b in policy_layers(nets.policy)]
+    exact[0] = fold_in_normalization(*exact[0], mean, std)
+    half = exact[-1][1].shape[0] // 2
+    exact[-1] = (exact[-1][0][:, :half], exact[-1][1][:half])
+    ideal = apply_exported_policy({"layers": [
+        {"weights": w, "activation": lay["activation"]}
+        for w, lay in zip(exact, exported["layers"])]}, obs)
+    checks = {  # name: (deviation, elements outside, tolerance)
+        "vs the runtime's float32 arithmetic (runtime_forward)":
+            (*_outside(native, runtime_forward(exported, obs), 1e-5, 1e-6), "1e-5 / 1e-6"),
+        "vs apply_exported_policy (float64)":
+            (*_outside(native, replay, 1e-5, 1e-6), "1e-5 / 1e-6"),
+        "vs the card's policy (TF32 off)": (*_outside(native, card, 1e-4, 1e-5), "1e-4 / 1e-5"),
+        "the exact float64 fold's replay vs the card's policy":
+            (*_outside(ideal, card, 1e-4, 1e-5), "1e-4 / 1e-5"),
+        "apply_exported_policy vs the card's policy":
+            (*_outside(replay, card, 1e-4, 1e-5), "1e-4 / 1e-5"),
+    }
+    clamped = int((std <= 1e-6 * (1 + 1e-6)).sum())
+    what = f"{len(native)} ticks of the gait clock" if gait else f"{len(native)} raw observations"
+    print(f"export of {label}, native runtime on {what} ({clamped} of {len(std)} observation "
+          f"dims at the normalizer's std floor 1e-6; largest |folded weight| "
+          f"{max(abs(v) for row in exported['layers'][0]['weights'][0] for v in row):.6g}):",
+          flush=True)
+    for name, (err, outside, tol) in checks.items():
+        print(f"  {name}: max abs err {err!r}, {outside} of {native.size} outside rtol / atol "
+              f"{tol}", flush=True)
+    names = list(checks)
+    # the runtime must compute the JSON's float32 forward pass, and the
+    # exact fold must give the card's policy, at every element; where those
+    # hold, what parts the runtime from the float64 replay and from the card
+    # is the float32 rounding of the JSON's fold and of its evaluation
+    # (large where a std sits at its floor: the fold multiplies by 1e6)
+    for name in (names[0], names[3]):
+        if checks[name][1]:
+            raise AssertionError(f"export of {label}: {name}: {checks[name][1]} elements outside "
+                                 f"rtol / atol {checks[name][2]}")
+    inside = int((np.abs(native) < 0.99).sum())
+    print(f"  {inside} of {native.size} actions inside (-0.99, 0.99)", flush=True)
+    if inside == 0:
+        raise AssertionError(f"export of {label}: every action saturates, so the comparisons "
+                             f"above hold nothing")
+    for name in (names[1], names[2]):
+        if checks[name][1]:
+            print(f"  {name}: the {checks[name][1]} elements outside tolerance are the float32 "
+                  f"rounding of the JSON's fold and evaluation (the two checks above hold at "
+                  f"every element)", flush=True)
+    if not (np.isfinite(native).all() and (np.abs(native) <= 1.0).all()):
+        raise AssertionError(f"export of {label}: the native actions leave [-1, 1]")
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -484,6 +656,7 @@ def main():
         state = wrapped.reset(B, generator=g)
         state, _ = lane.unroll(state, params, generator=g, T=WARM_STEPS)
         carry = lane.carry_from_state(state)
+        export_obs = state.obs[:EXPORT_OBS].clone()  # raw observations for the export phase
         noise, _ = lane.draw_noise_block(g, B, 1)
         eps = torch.randn((env.action_size, B), generator=g, device=device)
         r0, n = es.env_rows["obs_history"]
@@ -609,11 +782,11 @@ def main():
             gstate.info, steps=gsteps, gait_phase=torch.linspace(0.5, 6.27, EVAL_ENVS,
                                                                  device=device)))
         gait_lane = FastLane(gait_wrapped)
-        gait_policy = networks.make_ppo_networks(
+        gait_nets = networks.make_ppo_networks(
             env_gait.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
             tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
-        ).policy_network
-        gait_layers = fused_unroll.fold_normalizer(None, gait_policy)
+        )
+        gait_layers = fused_unroll.fold_normalizer(None, gait_nets.policy_network)
         g_in = k4_blocks(gait_lane, gait_lane.carry_from_state(gstate), EVAL_ENVS, T_CHECK)
         k4_gait_err, k4_one_gait_err, _, want = k4_check(
             f"with the gait clock at {EVAL_ENVS} envs x T={T_CHECK}", env_gait._s, env_gait._es,
@@ -940,7 +1113,8 @@ def main():
         2 evaluations); its kernel launches (team K3, K2, K1 and K4) against
         ``want`` and the one-thread K3's, K2's, K1's and K4's against none, its
         lane line against ``lane_line``, and the checks of the run. Returns
-        the launches and the one-thread kernels' launches."""
+        the launches, the one-thread kernels' launches and the trained
+        ``(normalizer, PPONetworkParams)``."""
         initial = {}
 
         def network_factory(obs_size, action_size, device=None, generator=None):
@@ -1028,21 +1202,38 @@ def main():
             + f"; final eval/episode_reward {m['eval/episode_reward']:.5f}, "
             f"eval/avg_episode_length {m['eval/avg_episode_length']:.1f}", flush=True)
         print(f"{label} losses " + json.dumps(losses), flush=True)
-        return launches, one_thread
+        return launches, one_thread, (norm_out, params_out)
 
     evals = 2 * tc.episode_length
     with Phase("ppo.train"):
-        launches, one_thread = train_and_check(
+        launches, one_thread, trained = train_and_check(
             env, "ppo.train", (unroll_steps, evals, 0, 0),
             "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
         k3_launches, k2_launches = launches[:2]
         k3_one_launches, k2_one_launches = one_thread[:2]
 
+    # ---- the export: the trained policy (and the gait-clock policy) to the
+    # robot's JSON through the CLI, replayed by the native runtime ----
+    with Phase("export"):
+        # the gait-clock policy's normalizer: the trained run's statistics of
+        # the 72 observation dims, then the clock's over the K4 check's 128
+        # phases, so the raw observations lie in its range
+        clock = running_statistics.update(running_statistics.init_state(2, device=device),
+                                          gstate.obs[:, -2:])
+        gait_norm = running_statistics.RunningStatisticsState(
+            count=trained[0].count, **{f: torch.cat([getattr(trained[0], f), getattr(clock, f)])
+                                       for f in ("mean", "summed_variance", "std")})
+        for label, (norm_, nets_), gait in (
+                ("the trained policy", trained, False),
+                ("the gait-clock policy", (gait_norm, gait_nets.params), True)):
+            export_and_replay(label, norm_, nets_, export_obs, env_gait if gait else env,
+                              env_cfg, tc, device, gait)
+
     # ---- the physics-only lane: ppo.train under PUPPAX_SOA_ENV=off ----
     with Phase("ppo.train, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"
         try:
-            (_, _, k1_launches, _), (_, _, k1_one_launches, _) = train_and_check(
+            (_, _, k1_launches, _), (_, _, k1_one_launches, _), _ = train_and_check(
                 env_po, "ppo.train physics-only", (0, 0, unroll_steps + evals, 0),
                 "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
         finally:
@@ -1052,7 +1243,7 @@ def main():
     with Phase("ppo.train, fused-unroll lane"):
         os.environ["PUPPAX_FUSED_UNROLL"] = "on"
         try:
-            (_, _, _, k4_launches), (_, _, _, k4_one_launches) = train_and_check(
+            (_, _, _, k4_launches), (_, _, _, k4_one_launches), _ = train_and_check(
                 env, "ppo.train fused-unroll", (0, evals, 0, unroll_steps // tc.unroll_length),
                 "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
         finally:
@@ -1075,7 +1266,7 @@ def main():
             lambda: build.probe_physics_team_library(s1, n_sub, None, fmad=True),
             lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
             lambda: build.fma_chain_ilp_library(False), lambda: build.fma_chain_ilp_library(True),
-            build.add_one_library, build.probe_copy_library,
+            build.add_one_library, build.add_one_pdl_library, build.probe_copy_library,
             soa_probe.library, lambda: soa_probe.library(team=True), build.probe_spd_library,
             build.probe_spd_warp_library, lambda: profile_overhead.fk_team_library(s1, n_sub))
         fmad_flags = build.probe_flags(True)
@@ -1093,7 +1284,8 @@ def main():
                 build.FMA_CHAIN if one_element else build.FMA_CHAIN_ILP, "",
                 build.probe_flags(fmad))
                for one_element in (False, True) for fmad in (False, True)},
-            "add_one": build.record_name(build.ADD_ONE),
+            "add_one": build.record_name(build.ADD_ONE_PDL),
+            probe_launch_overhead.ONE_ELEMENT: build.record_name(build.ADD_ONE),
             **{name: build.record_name(build.PROBE_COPY) for name in copy_names},
             soa_probe.soa_name(): soa_probe.record(),
             soa_probe.soa_name(team=True): soa_probe.record(team=True),
@@ -1333,13 +1525,16 @@ def main():
                 probe_fma_fusion.chain_name(fmad, one_element), "probe_fma.cuh",
                 "dev/probe_fma_fusion.py:47", res["max_abs_err"], res["ms"], res["plain_ms"],
                 (res["issue_floor_us"] / 1e3, "operations")))
-    # add_one's time and torch's x + 1 (its plain version and the one library
-    # call of the same function) from CUDA graphs: the device's, not the host's
-    add = overhead["add_one_nb32"]
-    kernels.append(probe_entry(
-        "add_one", "probe_add_one.cuh", "dev/probe_launch_overhead.py:48", add["max_abs_err"],
-        add["graph_us"] / 1e3, add["torch_us"][1] / 1e3, bound_ms(1, 1, 1, add["numel"]),
-        library_ms=add["torch_us"][1] / 1e3))
+    # x + 1 in both designs at nb = 32, the redesign with PDL, and torch's
+    # x + 1 (its plain version and the one library call of the same
+    # function) from CUDA graphs, timed in turns: the device's, not the host's
+    add = overhead["add_one_nb32"]["designs"]
+    torch_ms = add["torch.add"][1] / 1e3
+    for name, design in (("add_one", "PDL"), (probe_launch_overhead.ONE_ELEMENT, "one-element")):
+        kernels.append(probe_entry(
+            name, "probe_add_one.cuh", "dev/probe_launch_overhead.py:48",
+            max(r[design][0] for r in overhead["check"].values()), add[design][1] / 1e3,
+            torch_ms, bound_ms(1, 1, 1, overhead["add_one_nb32"]["numel"]), library_ms=torch_ms))
     # the copies: one add per q (and v) row and per summed ctrl and dr row;
     # times from CUDA graphs; copy_q's library twin is torch.add(q, 1e-7)
     cq = scan["copy_q"]

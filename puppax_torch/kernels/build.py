@@ -125,6 +125,11 @@ FMA_CHAIN = Kernel("fma_chain", CSRC / "probe_fma.cuh", 3,
 FMA_CHAIN_ILP = Kernel("fma_chain_ilp", CSRC / "probe_fma.cuh", 3,
                        "fma_chain_ilp_launch", "fma_chain_ilp_host", n_ints=3)
 ADD_ONE = Kernel("add_one", CSRC / "probe_add_one.cuh", 2, "add_one_launch", "add_one_host")
+# its redesign, the same shell: float4 on a grid of per_sm blocks on each SM,
+# launched with programmatic dependent launch (x, out; B = n; ints threads,
+# per_sm, pdl)
+ADD_ONE_PDL = Kernel("add_one_pdl", CSRC / "probe_add_one.cuh", 2, "add_one_pdl_launch",
+                     "add_one_pdl_host", n_ints=3)
 # the overhead probes' copy: q, v, ctrl, dr in; q, v, caches, sink out; ints
 # the mode (q, min, full) and the row counts nq, nv, nu, ndr, ncache; its
 # one-thread design, the A/B baseline, is the entry probe_copy_one_thread_*
@@ -470,8 +475,28 @@ def fma_chain_ilp_library(fmad: bool) -> ctypes.CDLL:
 
 
 def add_one_library() -> ctypes.CDLL:
-    """The launch-overhead probe's ``x + 1`` kernel (``csrc/probe_add_one.cuh``)."""
+    """The launch-overhead probe's one-element ``x + 1`` kernel
+    (``csrc/probe_add_one.cuh``'s ``add_one_launch``), the A/B baseline."""
     return _device_library(ADD_ONE, None, None, (), lambda: "")
+
+
+def add_one_pdl_library() -> ctypes.CDLL:
+    """``x + 1``'s redesign (``csrc/probe_add_one.cuh``'s
+    ``add_one_pdl_launch``: float4 on a grid sized to the card, launched
+    with programmatic dependent launch), recorded as ``add_one_pdl``. The
+    entries ``add_one_pdl_grid`` (the grid of a threads / per-SM choice),
+    ``add_one_capture_edges`` (the edges of the graph being captured on a
+    stream) and ``add_one_versions`` (toolkit, runtime and CUDA driver) are
+    bound beside it."""
+    lib = _device_library(ADD_ONE_PDL, None, None, (), lambda: "")
+    if lib.add_one_capture_edges.argtypes is None:
+        lib.add_one_pdl_grid.argtypes = [ctypes.c_int] * 2
+        lib.add_one_pdl_grid.restype = ctypes.c_int
+        lib.add_one_capture_edges.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        lib.add_one_capture_edges.restype = ctypes.c_int
+        lib.add_one_versions.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.add_one_versions.restype = ctypes.c_int
+    return lib
 
 
 def probe_copy_library() -> ctypes.CDLL:

@@ -5,7 +5,8 @@
 - ``eager_and_graph_ms`` and ``carried_us``: a window of launches timed
   with CUDA events (best of several windows), the state carried between
   two preallocated buffer sets, eagerly and replayed from one captured
-  CUDA graph; ``host_us``: the host's time to issue one call.
+  CUDA graph (``capture_graph``); ``host_us``: the host's time to issue
+  one call.
 - ``launches`` / ``count_launch``: the probe kernels' launch counts by
   name, graph replays included.
 - ``physics_probe``: the wrapper of K1's probe builds
@@ -123,6 +124,19 @@ def count_launch(name: str):
         launches[name] += 1
 
 
+def capture_graph(window: Callable[[], object]) -> Tuple[torch.cuda.CUDAGraph, dict]:
+    """``window`` captured once as a CUDA graph (on the capture stream,
+    which ``build.launch_into`` launches on). Returns the graph and the
+    launches recorded into it by kernel name, which each replay adds to
+    ``launches``."""
+    _captured.clear()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        window()
+    return graph, dict(_captured)
+
+
 def eager_and_graph_ms(window: Callable[[], object], runs: int = RUNS,
                        setup: Optional[Callable[[], object]] = None) -> Tuple[float, float]:
     """(eager ms, graph ms) of one window of launches: the best of ``runs``
@@ -135,12 +149,7 @@ def eager_and_graph_ms(window: Callable[[], object], runs: int = RUNS,
     eager = best_ms(window, runs, setup)
     if setup is not None:
         setup()
-    _captured.clear()
-    graph = torch.cuda.CUDAGraph()
-    torch.cuda.synchronize()
-    with torch.cuda.graph(graph):
-        window()
-    per_replay = dict(_captured)
+    graph, per_replay = capture_graph(window)
     best = math.inf
     for _ in range(runs):
         if setup is not None:

@@ -3,9 +3,11 @@
 Counterpart of ``puppax/train/checkpoint.py:20-81``. The JAX package writes
 orbax directories; the port writes one ``torch.save`` file,
 ``<checkpoint_path>/<step>/checkpoint.pt``, of a tree of dicts, lists,
-tensors and numbers, and reads it back with ``weights_only=True``. Reading
-the JAX package's orbax checkpoints belongs to the export item of ROADMAP
-queue 1, and ``download_checkpoint`` (W&B) to its tools item.
+tensors and numbers, and reads it back with ``weights_only=True``
+(``scripts/export_policy.py`` exports it). Reading the JAX package's orbax
+checkpoints belongs to the converter of ROADMAP queue 1's export item, a
+script outside the package, and ``download_checkpoint`` (W&B) to its tools
+item.
 """
 
 from __future__ import annotations

@@ -402,6 +402,98 @@ def test_add_one_kernel_and_graph_replay():
     assert eager > 0 and graphed > 0 and common.launches["add_one"] == before + 1 + 4 * 2 + 4 * 2
 
 
+@pytest.mark.parametrize("nb", [4, 32, "ragged"])
+def test_add_one_redesign_and_one_element_bit_for_bit(nb):
+    """The redesign (with and without PDL) and ``add_one[one-element]``
+    against ``x + 1`` at nb = 4 and 32 and a ragged, misaligned n (``check``
+    raises on one differing element), then a carried chain of 50 of each
+    captured as one CUDA graph: the PDL chain's graph holds 49
+    programmatic edges, and both replays equal 50 torch adds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from puppax_torch.probes import common
+    from puppax_torch.probes import probe_launch_overhead as P
+
+    if nb == 4:
+        res = P.check(torch.device("cuda", 0))
+        assert all(d == 0 for r in res.values() for _, d in r.values()) and len(res) == 4
+    n = P.RAGGED if nb == "ragged" else 8 * nb * 8 * 128
+    x = torch.randn(n, device="cuda")
+    before = dict(common.launches)
+    res = P.graph_chain(x, 50)
+    assert (res["edges"], res["programmatic"], res["differing"]) == (49, 49, 0)
+    assert common.launches["add_one"] == before.get("add_one", 0) + 50
+    c = common.Carry(P.add_one_one_element, (x,), 50)
+    graph, per_replay = common.capture_graph(c.window)
+    c.reset()
+    graph.replay()
+    want = x.clone()
+    for _ in range(50):
+        want = want + 1
+    assert torch.equal(c.sets[0][0], want) and per_replay == {P.ONE_ELEMENT: 50}
+
+
+def test_export_on_the_card(tmp_path):
+    """A policy on the card exported through the CLI (``--device cuda``)
+    and replayed by the native runtime: within 1e-5 / 1e-6 of the JSON's
+    replay and within 1e-4 / 1e-5 of the card's deterministic policy
+    (TF32 off), the gait clock's ticks too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dataclasses import replace as dc_replace
+
+    from puppax_torch.configs import EnvConfig
+    from puppax_torch.env.pupper import PupperV3Env
+    from puppax_torch.export import apply_exported_policy, convert_params
+    from puppax_torch.export.native import NativePolicy
+    from puppax_torch.scripts import export_policy
+    from puppax_torch.train import checkpoint, networks, ppo, running_statistics
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for gait in (False, True):
+        env = PupperV3Env.from_config(dc_replace(EnvConfig(), gait_phase_observation=gait),
+                                      device="cuda")
+        nets = networks.make_ppo_networks(env.observation_size, env.action_size, (128,) * 4,
+                                          (32,), "elu", device="cuda", generator=g)
+        obs = torch.randn((64, env.observation_size), generator=g, device="cuda") * 2.0 + 0.3
+        norm = running_statistics.update(running_statistics.init_state(env.observation_size,
+                                                                       device="cuda"), obs)
+        ckpt = tmp_path / f"ckpt{int(gait)}"
+        checkpoint.save_checkpoint(7, ppo.params_state_dict((norm, nets.params)), ckpt)
+        out = tmp_path / f"policy{int(gait)}.json"
+        exported = export_policy.main(["--checkpoint", str(ckpt), "--out", str(out),
+                                       "--device", "cuda"]
+                                      + (["--gait-phase-observation"] if gait else []))
+        assert exported == convert_params(
+            (norm, nets.policy_network), "elu", 0.75, 5.0, 0.25, env._default_pose, env.uppers,
+            env.lowers, True, 2, 0.0, 0.0, gait_phase_observation=gait, gait_frequency=2.5,
+            control_dt=0.02)
+        policy = NativePolicy(str(out))
+        with torch.no_grad():
+            card = nets.action_distribution.mode(
+                nets.policy_network(running_statistics.normalize(obs, norm))).cpu().numpy()
+        raw = obs.cpu().numpy()
+        if gait:
+            policy.reset_clock()
+        for i in range(8):
+            if gait:
+                phase = (2.0 * np.pi * 2.5 * 0.02 * i) % (2.0 * np.pi)
+                full = np.concatenate([raw[i, :-2], [np.cos(phase), np.sin(phase)]]).astype(
+                    np.float32)
+                got = policy.infer_clocked(raw[i, :-2])
+                with torch.no_grad():
+                    x = torch.from_numpy(full).cuda()
+                    want = nets.action_distribution.mode(
+                        nets.policy_network(running_statistics.normalize(x, norm))).cpu().numpy()
+            else:
+                full, got, want = raw[i], policy(raw[i]), card[i]
+            np.testing.assert_allclose(got, apply_exported_policy(exported, full), rtol=1e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        policy.close()
+
+
 def test_short_training_on_the_fused_lane(env, tmp_path, monkeypatch):
     """PUPPAX_FUSED_UNROLL=on: one training step (one 4-step unroll of 256
     envs) and two evaluations of 16 envs launch K4 once, K3 never and K2

@@ -172,7 +172,8 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "from puppax_torch.probes import pallas_soa_probe, pallas_spd_poc, profile_team\n"
         "from puppax_torch.tools import metrics, profile_unroll\n"
         "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
-        "from puppax_torch.scripts import train\n"
+        "from puppax_torch.scripts import export_policy, train\n"
+        "from puppax_torch.export import native, params\n"
         "load_model()\n"
         "banned = {'jax', 'flax', 'optax', 'orbax', 'ml_collections', 'mujoco', 'puppax', 'dev'}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"

@@ -4,8 +4,9 @@
   ``puppax``'s ``PHASE_LIMIT`` emission on the same states, at the
   tolerances of ``tests/test_soa.py:199-204``.
 - The probes' CUDA sources built with g++ (``csrc/probe_physics.cuh`` in
-  both layouts, the multiply-add chain, ``x + 1``) against their plain
-  versions; the card's builds wait for ``tests/test_torch_cuda.py``.
+  both layouts, the multiply-add chain, ``x + 1`` in both designs) against
+  their plain versions; the card's builds wait for
+  ``tests/test_torch_cuda.py``.
 - The sink row that keeps a cut pass live, the live operation count, the
   layout helpers, the cut bodies, the build records, the wrappers' checks
   and the probes' command lines without a card.
@@ -226,6 +227,54 @@ def test_add_one_host_build_matches_plain(tmp_path):
     assert torch.equal(y, x + 1)
 
 
+@pytest.fixture(scope="module")
+def add_one_pdl_host(tmp_path_factory):
+    _gxx()
+    return build.host_library(build.ADD_ONE_PDL, "", tmp_path_factory.mktemp("add_one_pdl"))
+
+
+@pytest.mark.parametrize("n", [4096, 4097, 4099, 1, 0])
+def test_add_one_redesign_host_build_matches_plain(add_one_pdl_host, n):
+    """``x + 1``'s redesign (float4 where both pointers are 16-byte aligned,
+    a scalar tail, a grid stride) on the host's grid, bit for bit with
+    ``x + 1`` at aligned and misaligned inputs and outputs; every element
+    outside the n is left as it was."""
+    g = torch.Generator().manual_seed(n)
+    for x_off, y_off in ((0, 0), (1, 1), (0, 2), (3, 0)):
+        x = torch.randn(n + x_off, generator=g)[x_off:]
+        ybuf = torch.full((n + y_off + 1,), float("nan"))
+        y = ybuf[y_off:y_off + n]
+        assert add_one_pdl_host.add_one_pdl_host(x.data_ptr(), y.data_ptr(), n,
+                                                 probe_launch_overhead.THREADS,
+                                                 probe_launch_overhead.PER_SM, 1) == 0
+        assert torch.equal(y, x + 1), (n, x_off, y_off)
+        assert torch.isnan(ybuf[:y_off]).all() and torch.isnan(ybuf[y_off + n:]).all()
+
+
+def test_add_one_redesign_host_build_refuses_bad_shapes(add_one_pdl_host):
+    x, y = torch.zeros(8), torch.zeros(8)
+    for n, threads, per_sm in ((-1, 256, 2), (8, 0, 2), (8, 100, 2), (8, 2048, 2), (8, 256, 0)):
+        assert add_one_pdl_host.add_one_pdl_host(x.data_ptr(), y.data_ptr(), n, threads, per_sm,
+                                                 1) == 1
+
+
+def test_add_one_wrappers_on_the_cpu():
+    """Both designs' wrappers run the plain version on CPU tensors, count
+    no launch and refuse a meta tensor."""
+    x = torch.linspace(-2, 2, 4099)
+    before = dict(common.launches)
+    for fn in (probe_launch_overhead.add_one, probe_launch_overhead.add_one_one_element):
+        y = torch.empty_like(x)
+        fn(x, y)
+        assert torch.equal(y, x + 1)
+        with pytest.raises(ValueError):
+            fn(torch.zeros(4, device="meta"), torch.zeros(4, device="meta"))
+    probe_launch_overhead.add_one(x, y, pdl=False)
+    assert torch.equal(y, x + 1) and dict(common.launches) == before
+    assert build.record_name(build.ADD_ONE_PDL) == "add_one_pdl"
+    assert probe_launch_overhead.ONE_ELEMENT == "add_one[one-element]"
+
+
 def test_wrappers_refuse_bad_inputs():
     s = H.torch_env()._s
     q = torch.zeros((s.nq, 100))
@@ -243,6 +292,8 @@ def test_wrappers_refuse_bad_inputs():
         probe_fma_fusion.fma_chain(a, b, torch.empty(2, 8), 4, "fma", 2, False)
     with pytest.raises(ValueError):
         probe_launch_overhead.add_one(torch.zeros(4), torch.zeros(5))
+    with pytest.raises(ValueError):
+        probe_launch_overhead.add_one_one_element(torch.zeros(4), torch.zeros(4)[::1].double())
 
 
 @pytest.mark.parametrize("probe", PROBES, ids=[p.__name__.rsplit(".", 1)[1] for p in PROBES])
