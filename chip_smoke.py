@@ -10,14 +10,17 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the eight kernels from the checkout's sources, in
+2. the builds of the thirteen kernels from the checkout's sources, in
    parallel nvcc processes: the wrapped env step (K3), the unwrapped env
    step (K2), the physics-only step (K1) and the fused unroll (K4) as team
    kernels (32 envs per block, each env's program split across the block's
    warps, ``kernels/team.py``; team K4 also splits its MLP) and as
-   one-thread kernels (one env per thread, the A/B baseline), each with
-   its generated lines, nvcc seconds and ptxas summary (the team kernels
-   with their warps, barriers, shared memory and heaviest stream);
+   one-thread kernels (one env per thread, the A/B baseline), and the
+   bodies of run12's env (``dev/run_configs/run12_2b_cse.json``: history
+   4, the privileged rows, the gait clock): team K3, K3, team K2 (history
+   4 only), team K4 and K4; each with its generated lines, nvcc seconds
+   and ptxas summary (the team kernels with their warps, barriers, shared
+   memory and heaviest stream);
 3. K3 against its plain version at 4096 envs: after a few kernel steps
    from a DR reset, one wrapped step through ``wrapped_step`` (team K3),
    ``wrapped_step_one_thread`` (the one-thread K3) and
@@ -100,7 +103,22 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``PUPPAX_FUSED_UNROLL=on``: the lane line reads ``fused-unroll=ON``, 6
    team K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1,
    0 one-thread K4, the same checks;
-13. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
+13. run12: its team K3 and one-thread K3 against the plain version at
+   4096 and 128 DR'd envs after a few steps (every third env at the
+   episode limit, so the privileged rows restore from the ``first``
+   block), its team K4 and one-thread K4 over T=4 steps at 4096 envs, each
+   team kernel bit for bit with its one-thread kernel, its team K2 at
+   history 4 against the plain version at 128 envs, and their times in
+   turns (K4 per T=4 unroll on the check's inputs, where the plain version
+   was timed, and per T=20 unroll); then ``python -m puppax_torch.scripts.train --config
+   dev/run_configs/run12_2b_cse.json`` (4096 envs, the privileged critic,
+   ``value_precision`` "high", the cosine lr, the linear entropy schedule)
+   for 3 training steps and 2 evaluations on the K3, physics-only and
+   fused lanes, the curriculum over those steps: each run's lane line, its
+   launches, the difficulty before each training step (at least three
+   values), the critic normalizer's count, finite losses and evaluations,
+   its ``training/sps``, phase times and evaluation seconds;
+14. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
    4096 DR'd states: their 30 libraries built in one parallel batch (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
@@ -159,11 +177,14 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    plain version (bit for bit; the ``--fmad=true`` builds as above), and
    every probe kernel must have launched in
    this phase;
-14. a JSON line of the kernels (launches in their training run or probe
+15. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
    team K3, team K2, team K1 and team K4 beside the one-thread K3, K2, K1
-   and K4, whose launches on the main path are 0) and, last, the device
-   JSON line.
+   and K4, whose launches on the main path are 0; run12's bodies as
+   ``wrapped_step_team[run12]``, ``env_step_team[hist4]``,
+   ``fused_unroll_team[run12]`` and their one-thread kernels, each with
+   the run12 CLI run its launches come from as ``launches_in``) and, last,
+   the device JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is visible or when it is
@@ -199,6 +220,8 @@ EVAL_ENVS = 128
 EXPORT_OBS = 256  # raw observations the exported policy is replayed on
 GAIT_TICKS = 8  # ticks of the native runtime's gait clock
 TRAIN_TIMESTEPS = 491_520  # 3 training steps of 256 x 20 x 32 env steps
+# the JAX package's best run, driven at full width through the training CLI
+RUN12_CONFIG = os.path.join("dev", "run_configs", "run12_2b_cse.json")
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -297,6 +320,12 @@ def wrapped_tols(es, aux_rows, got, want):
         tol_aux[aux_rows[name][0]] = 0.0
     r0, n = aux_rows["rewards"]
     tol_aux[r0 : r0 + n] = 2e-4 * want[4][r0 : r0 + n].abs().clamp_min(1.0)
+    if "privileged" in aux_rows:  # the velocities among them as qvel, the rest 2e-4
+        r0, _ = aux_rows["privileged"]
+        vel = torch.cat([want[4][r0 : r0 + 6], want[4][r0 + 9 : r0 + 21]])
+        scale = 5e-4 * vel.abs().amax(0, keepdim=True).clamp_min(1.0)
+        tol_aux[r0 : r0 + 6] = scale.expand(6, -1)
+        tol_aux[r0 + 9 : r0 + 21] = scale.expand(12, -1)
     return tols
 
 
@@ -579,8 +608,10 @@ def main():
     from puppax_torch.env.wrappers import wrap_for_training
     from puppax_torch.kernels import build
     from puppax_torch.physics import pipeline, soa
+    from puppax_torch.configs import experiment
     from puppax_torch.probes import common as probes
-    from puppax_torch.train import checkpoint, networks, ppo, running_statistics
+    from puppax_torch.scripts import train as train_cli
+    from puppax_torch.train import acting, checkpoint, networks, ppo, running_statistics
 
     smi = nvidia_smi_line()
     print(smi)
@@ -615,6 +646,24 @@ def main():
     params = (normalizer, nets.policy_network)
     lane = FastLane(wrapped)
     s, es, n_sub, L = env._s, env._es, env._n_substeps, tc.episode_length
+    # run12's env (history 4, privileged obs, the gait clock, the curriculum)
+    # at full width, with the default DR
+    with open(os.path.join(HERE, RUN12_CONFIG)) as f:
+        cfg12 = experiment.from_dict(json.load(f))
+    env12 = PupperV3Env.from_config(cfg12.env, device=device)
+    wrapped12 = wrap_for_training(env12, L, randomization_fn=randomization_fn, generator=g,
+                                  num_envs=B)
+    lane12 = FastLane(wrapped12)
+    s12, es12, tc12 = env12._s, env12._es, cfg12.train
+    if cfg12.train.episode_length != L or cfg12.env.environment_timestep != env_cfg.environment_timestep:
+        raise AssertionError("run12's episode and env step differ from the default's")
+    rec12 = {  # the run12 bodies' build records
+        "team K3[run12]": build.record_name(build.WRAPPED_STEP_TEAM, build.env_variant(es12)),
+        "K3[run12]": build.record_name(build.WRAPPED_STEP, build.env_variant(es12)),
+        "team K2[hist4]": build.record_name(build.ENV_STEP_TEAM, build.env_variant(es12, False)),
+        "team K4[run12]": build.record_name(build.FUSED_UNROLL_TEAM, build.env_variant(es12)),
+        "K4[run12]": build.record_name(build.FUSED_UNROLL, build.env_variant(es12)),
+    }
     s1 = env_po._cv_step.s  # K1's static digest (the physics-only env's step)
     print(f"config: envs {B}, substeps {n_sub}, episode {L}, unroll {T_UNROLL}, "
           f"obs {env.observation_size}, policy {tc.policy_hidden_layer_sizes}, "
@@ -622,8 +671,9 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build the eight kernels, in parallel nvcc processes ----
-    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4"):
+    # ---- build the thirteen kernels, in parallel nvcc processes ----
+    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4, and run12's "
+               "team K3 + K3 + team K2 + team K4 + K4"):
         build.build_in_parallel(lambda: build.wrapped_step_team_library(s, es, n_sub, L),
                                 lambda: build.env_step_team_library(s, es, n_sub),
                                 lambda: build.physics_step_team_library(s1, n_sub),
@@ -631,11 +681,16 @@ def main():
                                 lambda: build.wrapped_step_library(s, es, n_sub, L),
                                 lambda: build.env_step_library(s, es, n_sub),
                                 lambda: build.physics_step_library(s1, n_sub),
-                                lambda: build.fused_unroll_library(s, es, n_sub, L))
+                                lambda: build.fused_unroll_library(s, es, n_sub, L),
+                                lambda: build.wrapped_step_team_library(s12, es12, n_sub, L),
+                                lambda: build.wrapped_step_library(s12, es12, n_sub, L),
+                                lambda: build.env_step_team_library(s12, es12, n_sub),
+                                lambda: build.fused_unroll_team_library(s12, es12, n_sub, L),
+                                lambda: build.fused_unroll_library(s12, es12, n_sub, L))
         for kname, label in (("wrapped_step_team", "team K3"), ("env_step_team", "team K2"),
                              ("physics_step_team", "team K1"), ("fused_unroll_team", "team K4"),
                              ("wrapped_step", "K3"), ("env_step", "K2"), ("physics_step", "K1"),
-                             ("fused_unroll", "K4")):
+                             ("fused_unroll", "K4"), *((v, k) for k, v in rec12.items())):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
                   f"{info['ops_per_env']} float ops per env, generate "
@@ -652,6 +707,55 @@ def main():
                     print("  ptxas:" + line.split(":", 1)[-1].rstrip())
 
     # ---- team K3 and the one-thread K3 against plain at 4096, 128 and 130 envs ----
+    def k3_check(name, s_, es_, blocks_, limit):
+        """Team K3 and the one-thread K3 against the plain version on the
+        same inputs (at most ``limit`` envs outside tolerance) and against
+        each other bit for bit. Some env must touch the floor, and where the
+        env has privileged rows, some env must be done and every done env's
+        privileged rows must be its ``first`` block's. Returns (team's max
+        abs err, the one-thread's)."""
+        n_envs = blocks_[0].shape[1]
+        aux = soa_env.aux_row_map(es_)
+        got = soa_env.wrapped_step(s_, es_, n_sub, L, *blocks_)
+        one = soa_env.wrapped_step_one_thread(s_, es_, n_sub, L, *blocks_)
+        torch.cuda.synchronize()
+        want = soa_env.wrapped_step_rows(s_, es_, n_sub, L, *blocks_)
+        torch.cuda.synchronize()
+        per_block, differing, err = compare_outputs(s_, es_, aux, got, want)
+        _, one_differing, one_err = compare_outputs(s_, es_, aux, one, want)
+        bits_err, bits_envs = probes.compare_exact(got, one)
+        c0, cn = es_.env_rows["last_contact"]
+        in_contact = int((got[2][c0 : c0 + cn] > 0.5).any(0).sum())
+        restored, restore_note = True, ""
+        if "privileged" in aux:
+            done = got[3][1] > 0.5
+            r0, n = aux["privileged"]
+            f0 = s_.nq + s_.nv + es_.hist
+            restored = bool(done.any()) and torch.equal(got[4][r0 : r0 + n][:, done],
+                                                        blocks_[6][f0 : f0 + n][:, done])
+            restore_note = (f"; {int(done.sum())} envs done, their privileged rows restored: "
+                            f"{restored}")
+        print(f"team {name} vs plain at {n_envs} envs after {WARM_STEPS} kernel steps "
+              f"({in_contact} envs with a foot on the floor): max abs err per block "
+              + json.dumps(per_block) + f"; {len(differing)} envs outside tolerance; "
+              f"one-thread {name} vs plain: max abs err {one_err!r}, {len(one_differing)} "
+              f"outside tolerance; team {name} vs one-thread {name} (bit for bit): {bits_envs} "
+              f"envs differ, max abs err {bits_err!r}" + restore_note, flush=True)
+        for b, what in differing + one_differing:
+            print(f"  env {b} differs: {what}")
+        if len(differing) > limit or len(one_differing) > limit:
+            raise AssertionError(f"{len(differing)} (team) and {len(one_differing)} "
+                                 f"(one-thread) of {n_envs} envs differ (limit {limit})")
+        if (bits_envs, bits_err) != (0, 0.0):
+            raise AssertionError(f"team {name} and the one-thread {name} differ: the same "
+                                 "program must give the same bits")
+        if in_contact == 0:
+            raise AssertionError("no env touches the floor: the contact path went unchecked")
+        if not restored:
+            raise AssertionError(f"{name}: no env done, or the done envs' privileged rows "
+                                 "are not their first block's")
+        return err, one_err
+
     with Phase("K3 vs plain"):
         state = wrapped.reset(B, generator=g)
         state, _ = lane.unroll(state, params, generator=g, T=WARM_STEPS)
@@ -668,34 +772,8 @@ def main():
         k3_err, k3_one_err = 0.0, 0.0
         for n_envs in (B, EVAL_ENVS, EVAL_ENVS + 2):
             ins = blocks if n_envs == B else [x[:, :n_envs].contiguous() for x in blocks]
-            got = soa_env.wrapped_step(s, es, n_sub, L, *ins)
-            one = soa_env.wrapped_step_one_thread(s, es, n_sub, L, *ins)
-            torch.cuda.synchronize()
-            want = soa_env.wrapped_step_rows(s, es, n_sub, L, *ins)
-            torch.cuda.synchronize()
-            per_block, differing, err = compare_outputs(s, es, soa_env.aux_row_map(es), got, want)
-            _, one_differing, one_err = compare_outputs(s, es, soa_env.aux_row_map(es), one, want)
-            bits_err, bits_envs = probes.compare_exact(got, one)
+            err, one_err = k3_check("K3", s, es, ins, MAX_DIFFERING_ENVS)
             k3_err, k3_one_err = max(k3_err, err), max(k3_one_err, one_err)
-            c0, cn = es.env_rows["last_contact"]
-            in_contact = int((got[2][c0 : c0 + cn] > 0.5).any(0).sum())
-            print(f"team K3 vs plain at {n_envs} envs after {WARM_STEPS} kernel steps "
-                  f"({in_contact} envs with a foot on the floor): max abs err per block "
-                  + json.dumps(per_block) + f"; {len(differing)} envs outside tolerance; "
-                  f"one-thread K3 vs plain: max abs err {one_err!r}, {len(one_differing)} "
-                  f"outside tolerance; team K3 vs one-thread K3 (bit for bit): {bits_envs} envs "
-                  f"differ, max abs err {bits_err!r}", flush=True)
-            for b, what in differing + one_differing:
-                print(f"  env {b} differs: {what}")
-            if len(differing) > MAX_DIFFERING_ENVS or len(one_differing) > MAX_DIFFERING_ENVS:
-                raise AssertionError(f"{len(differing)} (team) and {len(one_differing)} "
-                                     f"(one-thread) of {n_envs} envs differ (limit "
-                                     f"{MAX_DIFFERING_ENVS})")
-            if (bits_envs, bits_err) != (0, 0.0):
-                raise AssertionError("team K3 and the one-thread K3 differ: the same program "
-                                     "must give the same bits")
-            if in_contact == 0:
-                raise AssertionError("no env touches the floor: the contact path went unchecked")
 
         def k3_step():
             soa_env.wrapped_step(s, es, n_sub, L, *blocks)
@@ -734,6 +812,7 @@ def main():
         abs err, the one-thread's, the plain version's ms, the plain
         outputs)."""
         n_envs, T = k4_in[0].shape[1], k4_in[-1].shape[0]
+        aux_rows = soa_env.aux_row_map(es_)
         got = fused_unroll.unroll(s_, es_, n_sub, L, activation, layers_, *k4_in)
         one = fused_unroll.unroll_one_thread(s_, es_, n_sub, L, activation, layers_, *k4_in)
         torch.cuda.synchronize()
@@ -1249,6 +1328,234 @@ def main():
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
 
+    # ---- run12: its bodies against their plain versions at full width ----
+    with Phase("run12 kernels vs plain"):
+        nets12 = networks.make_ppo_networks(
+            env12.observation_size, env12.action_size, tc12.policy_hidden_layer_sizes,
+            tc12.value_hidden_layer_sizes, tc12.activation, device=device, generator=g,
+            value_precision=tc12.value_precision, privileged_size=env12.privileged_obs_size)
+        params12 = (None, nets12.policy_network)
+        state12 = wrapped12.reset(B, generator=g)
+        state12, _ = lane12.unroll(state12, params12, generator=g, T=WARM_STEPS)
+        carry12 = lane12.carry_from_state(state12)
+        noise12, _ = lane12.draw_noise_block(g, B, 1)
+        eps12 = torch.randn((env12.action_size, B), generator=g, device=device)
+        with torch.no_grad():
+            act12, _, _ = lane12.policy_rows(None, nets12.policy_network)(
+                lane12._full_obs(carry12["env"], carry12["phase"]), eps12)
+        wrap12 = carry12["wrap"].clone()
+        wrap12[0, ::3] = L - 1  # every third env reaches the episode limit: the restore
+        blocks12 = [carry12["q"], carry12["v"], act12, carry12["env"], noise12[0].contiguous(),
+                    carry12["dr"], carry12["first"], wrap12]
+        k3_12_err, k3_12_one_err = 0.0, 0.0
+        for n_envs in (B, EVAL_ENVS):
+            ins = blocks12 if n_envs == B else [x[:, :n_envs].contiguous() for x in blocks12]
+            err, one_err = k3_check("K3[run12]", s12, es12, ins, MAX_DIFFERING_ENVS)
+            k3_12_err, k3_12_one_err = max(k3_12_err, err), max(k3_12_one_err, one_err)
+
+        # K4 at run12's env: T=4 steps from the same states, every third env
+        # reaching the episode limit at the second step
+        layers12 = fused_unroll.fold_normalizer(None, nets12.policy_network)
+        k4_carry12 = dict(carry12, wrap=carry12["wrap"].clone())
+        k4_carry12["wrap"][0, ::3] = L - 2
+        k4_in12 = k4_blocks(lane12, k4_carry12, B, T_CHECK)
+        k4_12_err, k4_12_one_err, k4_12_plain_ms, want = k4_check(
+            f"[run12] at {B} envs x T={T_CHECK}", s12, es12, layers12, k4_in12,
+            MAX_DIFFERING_ENVS)
+        aux12 = soa_env.aux_row_map(es12)
+        done = want[9][:, aux12["done"][0]] > 0.5
+        r0, n = aux12["privileged"]
+        first = k4_in12[5][s12.nq + s12.nv + es12.hist :]
+        restored = all(torch.equal(want[9][t][r0 : r0 + n][:, done[t]], first[:, done[t]])
+                       for t in range(T_CHECK))
+        print(f"  ({int(done.sum())} env-steps ending an episode, their privileged rows "
+              f"restored: {restored})", flush=True)
+        if not restored or int(done.sum()) == 0:
+            raise AssertionError("run12's K4 did not restore the privileged rows on done")
+
+        # team K2 at history 4, the evaluator's shape: 128 nominal envs
+        eval12 = wrap_for_training(env12, L)
+        estate12 = eval12.reset(EVAL_ENVS, g, caches=True)
+        for _ in range(WARM_STEPS):
+            estate12 = eval12.step(
+                estate12, torch.rand((EVAL_ENVS, env12.action_size), generator=g,
+                                     device=device) * 2 - 1, g)
+        k2_blocks12 = [soa_env.rows_block([estate12.qpos]), soa_env.rows_block([estate12.qvel]),
+                       soa_env.rows_block([torch.rand((EVAL_ENVS, env12.action_size), generator=g,
+                                                      device=device) * 2 - 1]),
+                       soa_env.env_block(es12, estate12.info, estate12.obs),
+                       soa_env.noise_block(es12, env12.draw_step_noise(g, EVAL_ENVS)),
+                       eval12.dr_rows(EVAL_ENVS)]
+        got = soa_env.env_step(s12, es12, n_sub, *k2_blocks12)
+        torch.cuda.synchronize()
+        want = soa_env.env_step_rows(s12, es12, n_sub, *k2_blocks12)
+        per_block, differing, k2_12_err = compare_env_outputs(s12, es12, got, want)
+        print(f"team K2[hist4] vs plain at {EVAL_ENVS} envs after {WARM_STEPS} K2 steps "
+              f"({int(estate12.info['last_contact'].any(1).sum())} envs with a foot on the "
+              f"floor): max abs err per block " + json.dumps(per_block), flush=True)
+        for b, what in differing:
+            print(f"  env {b} differs: {what}")
+        if differing:
+            raise AssertionError(f"{len(differing)} of {EVAL_ENVS} envs differ (limit 0)")
+
+        # the new bodies' times, team and one-thread in turns; the plain versions once
+        def k3_12():
+            soa_env.wrapped_step(s12, es12, n_sub, L, *blocks12)
+
+        def k3_12_one():
+            soa_env.wrapped_step_one_thread(s12, es12, n_sub, L, *blocks12)
+
+        k4_in12_long = k4_blocks(lane12, carry12, B, T_UNROLL)
+
+        def k4_12(ins):
+            return lambda: fused_unroll.unroll(s12, es12, n_sub, L, activation, layers12, *ins)
+
+        def k4_12_one(ins):
+            return lambda: fused_unroll.unroll_one_thread(s12, es12, n_sub, L, activation,
+                                                          layers12, *ins)
+
+        k3_12_one_ms = [cuda_ms(k3_12_one, 20)]
+        k3_12_ms = [cuda_ms(k3_12, 20), cuda_ms(k3_12, 20)]
+        k3_12_one_ms.append(cuda_ms(k3_12_one, 20))
+        k3_12_plain_ms = cuda_ms(lambda: soa_env.wrapped_step_rows(s12, es12, n_sub, L,
+                                                                   *blocks12), 1)
+        # K4 on the T=4 check's inputs, where its plain version was timed
+        # (the kernels line), and per T=20 unroll beside the default K4's
+        k4_12_one_ms = [cuda_ms(k4_12_one(k4_in12), 5)]
+        k4_12_ms = [cuda_ms(k4_12(k4_in12), 5), cuda_ms(k4_12(k4_in12), 5)]
+        k4_12_one_ms.append(cuda_ms(k4_12_one(k4_in12), 5))
+        k4_12_long_one_ms = [cuda_ms(k4_12_one(k4_in12_long), 3)]
+        k4_12_long_ms = [cuda_ms(k4_12(k4_in12_long), 3), cuda_ms(k4_12(k4_in12_long), 3)]
+        k4_12_long_one_ms.append(cuda_ms(k4_12_one(k4_in12_long), 3))
+        k2_12_ms = [cuda_ms(lambda: soa_env.env_step(s12, es12, n_sub, *k2_blocks12), 20)
+                    for _ in range(2)]
+        k2_12_plain_ms = cuda_ms(lambda: soa_env.env_step_rows(s12, es12, n_sub, *k2_blocks12),
+                                 1)
+        print(f"team K3[run12] step at {B} envs: {statistics.median(k3_12_ms):.4f} ms (runs "
+              f"{k3_12_ms}); one-thread K3[run12] {statistics.median(k3_12_one_ms):.4f} ms (runs "
+              f"{k3_12_one_ms}); A/B {statistics.median(k3_12_one_ms) / statistics.median(k3_12_ms):.3f}x; "
+              f"plain {k3_12_plain_ms:.1f} ms", flush=True)
+        for T, team_ms, one_ms, plain in (
+                (T_CHECK, k4_12_ms, k4_12_one_ms, f"; plain {k4_12_plain_ms:.1f} ms"),
+                (T_UNROLL, k4_12_long_ms, k4_12_long_one_ms, "")):
+            print(f"team K4[run12] per T={T} unroll at {B} envs: "
+                  f"{statistics.median(team_ms):.4f} ms (runs {team_ms}), "
+                  f"{statistics.median(team_ms) / T:.4f} ms per step; one-thread K4[run12] "
+                  f"{statistics.median(one_ms):.4f} ms (runs {one_ms}); A/B "
+                  f"{statistics.median(one_ms) / statistics.median(team_ms):.3f}x" + plain,
+                  flush=True)
+        print(f"team K2[hist4] step at {EVAL_ENVS} envs: {statistics.median(k2_12_ms):.4f} ms "
+              f"(runs {k2_12_ms}); plain {k2_12_plain_ms:.1f} ms", flush=True)
+
+    # ---- run12 through the training CLI on the three lanes ----
+    tc12_steps = tc12.batch_size * tc12.unroll_length * tc12.num_minibatches
+    n_train12 = math.ceil(TRAIN_TIMESTEPS / tc12_steps)
+    unroll12 = n_train12 * (tc12.batch_size * tc12.num_minibatches // B) * tc12.unroll_length
+    evals12 = 2 * tc12.episode_length
+
+    def train12(label, want, lane_line):
+        """``python -m puppax_torch.scripts.train --config run12`` for 3
+        training steps and 2 evaluations on the card, the curriculum over
+        those steps; its launches against ``want`` (team K3, K2, K1, K4;
+        the one-thread kernels none), its lane line, the difficulty before
+        each training step's rollout (at least three values), the critic
+        normalizer's count, finite losses and eval metrics."""
+        tmp = tempfile.mkdtemp(prefix="puppax_torch_run12_")
+        seen = []
+        real = {"lane": FastLane.unroll, "standard": acting.generate_unroll}
+
+        def lane_spy(self, state, *a, **kw):
+            seen.append(float(state.info["difficulty"][0]))
+            return real["lane"](self, state, *a, **kw)
+
+        def standard_spy(env_, state, *a, **kw):
+            if state.qpos.shape[0] == B:  # the training env's unrolls
+                seen.append(float(state.info["difficulty"][0]))
+            return real["standard"](env_, state, *a, **kw)
+
+        over = {"train.num_timesteps": TRAIN_TIMESTEPS, "train.num_evals": 2,
+                "train.num_eval_envs": EVAL_ENVS, "train.curriculum_steps": TRAIN_TIMESTEPS,
+                "train.seed": args.seed, "train.checkpoint_path": os.path.join(tmp, "ckpt"),
+                "train.metrics_jsonl": os.path.join(tmp, "metrics.jsonl")}
+        argv = ["--config", os.path.join(HERE, RUN12_CONFIG), "--device", str(device)]
+        for k, v in over.items():
+            argv += ["--set", f"{k}={json.dumps(v)}"]
+        soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
+        soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
+        soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
+        fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
+        out = io.StringIO()
+        FastLane.unroll, acting.generate_unroll = lane_spy, standard_spy
+        try:
+            with contextlib.redirect_stdout(out):
+                m = train_cli.main(argv)
+        finally:
+            FastLane.unroll, acting.generate_unroll = real["lane"], real["standard"]
+        torch.cuda.synchronize()
+        lines = [x for x in out.getvalue().splitlines() if x.startswith(("config hash", "[puppax"))]
+        print("\n".join(lines), flush=True)
+        if lane_line not in out.getvalue():
+            raise AssertionError(f"{label}: the lane line is not {lane_line!r}")
+        launches = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
+                    soa.step_batched.launches, fused_unroll.unroll.launches)
+        one_thread = (soa_env.wrapped_step_one_thread.launches,
+                      soa_env.env_step_one_thread.launches, soa.step_batched_one_thread.launches,
+                      fused_unroll.unroll_one_thread.launches)
+        print(f"{label}: team K3 launches {launches[0]} (expected {want[0]}), team K2 launches "
+              f"{launches[1]} (expected {want[1]}), team K1 launches {launches[2]} (expected "
+              f"{want[2]}), team K4 launches {launches[3]} (expected {want[3]}); one-thread "
+              f"launches {one_thread} (expected (0, 0, 0, 0))", flush=True)
+        if launches != want or one_thread != (0, 0, 0, 0):
+            raise AssertionError(f"{label} did not launch the kernels as expected")
+        print(f"{label}: difficulty before each training step's unrolls {seen}", flush=True)
+        if len(set(seen)) < 3 or seen != sorted(seen):
+            raise AssertionError(f"{label}: the curriculum did not move the difficulty: {seen}")
+        tree = checkpoint.restore_checkpoint(os.path.join(tmp, "ckpt", "state"))
+        cn = tree["critic_normalizer"]
+        print(f"{label}: critic normalizer count {float(cn['count'])} over "
+              f"{cn['mean'].numel()} inputs (obs {env12.observation_size} + privileged "
+              f"{env12.privileged_obs_size}); env steps {tree['env_steps']}", flush=True)
+        if float(cn["count"]) != TRAIN_TIMESTEPS or tree["env_steps"] != TRAIN_TIMESTEPS:
+            raise AssertionError(f"{label}: the critic normalizer's count did not grow as the "
+                                 f"run: {float(cn['count'])}")
+        losses = {k: v for k, v in m.items() if k.endswith("_loss")}
+        if len(losses) != 4 or not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{label}: loss metrics {losses}")
+        evals = [r for r in map(json.loads, open(os.path.join(tmp, "metrics.jsonl")))
+                 if "eval/episode_reward" in r]
+        if ([r["step"] for r in evals] != [0, TRAIN_TIMESTEPS]
+                or not all(math.isfinite(v) for r in evals for k, v in r.items()
+                           if k.startswith("eval/"))):
+            raise AssertionError(f"{label}: evaluations {evals}")
+        print(f"{label}: training/sps {m['training/sps']:.1f}, epoch {m['training/walltime']:.3f} "
+              f"s for {n_train12} training steps; per training step: rollout "
+              f"{m['training/rollout_ms']:.3f} ms, reorder + normalizer "
+              f"{m['training/prepare_ms']:.3f} ms, SGD {m['training/sgd_ms']:.3f} ms (CUDA "
+              f"events); one evaluation " + ", ".join(
+                  f"at step {r['step']}: {r['eval/epoch_eval_time']:.3f} s wall" for r in evals)
+              + f"; losses " + json.dumps(losses), flush=True)
+        return launches
+
+    with Phase("run12 training, K3 lane"):
+        k3_12_launches, k2_12_launches, _, _ = train12(
+            "run12 K3 lane", (unroll12, evals12, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
+    with Phase("run12 training, physics-only lane"):
+        os.environ["PUPPAX_SOA_ENV"] = "off"  # read when the CLI builds the env
+        try:
+            train12("run12 physics-only lane", (0, 0, unroll12 + evals12, 0),
+                    "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
+        finally:
+            del os.environ["PUPPAX_SOA_ENV"]
+    with Phase("run12 training, fused-unroll lane"):
+        os.environ["PUPPAX_FUSED_UNROLL"] = "on"
+        try:
+            _, _, _, k4_12_launches = train12(
+                "run12 fused-unroll lane", (0, evals12, 0, unroll12 // tc12.unroll_length),
+                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
+        finally:
+            del os.environ["PUPPAX_FUSED_UNROLL"]
+
     # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
     from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
     from puppax_torch.probes import profile_boundary, profile_kernel_phases, profile_layout
@@ -1473,6 +1780,47 @@ def main():
         "library_ms": None,
     }]
 
+    # run12's bodies: team K3 and K4 (one-thread beside them) with history 4
+    # and the privileged rows, team K2 with history 4. Each entry's launches
+    # are one run12 CLI run's, named in its "launches_in": team K3's and team
+    # K2's the K3 lane's (K2 in its evaluations), team K4's the fused lane's;
+    # K4's ms, plain_ms and bound_ms are per T=4 unroll, the K4 check's
+    in12, out12 = soa_env.block_rows(s12, es12)
+    k3_12_bound = bound_ms(build.last_build[rec12["team K3[run12]"]]["ops_per_env"],
+                           sum(in12), sum(out12), B)
+    k2_12_bound = bound_ms(build.last_build[rec12["team K2[hist4]"]]["ops_per_env"],
+                           *(sum(r) for r in soa_env.env_block_rows(s12, es12)), EVAL_ENVS)
+    dims12 = [env12.observation_size] + [w.shape[0] for w, _ in layers12]
+    k4_12_ops = T_CHECK * (build.last_build[rec12["K4[run12]"]]["ops_per_env"]
+                            + fused_unroll.policy_op_count(dims12, activation, env12.action_size,
+                                                           True))
+    carry12_rows = s12.nq + s12.nv + es12.nenv_rows + 2 + 1  # and the clock's phase row
+    k4_12_in = (carry12_rows + in12[6] + in12[5] + T_CHECK * (in12[4] + in12[2])
+                + sum(w.numel() + b.numel() for w, b in layers12) / B)
+    k4_12_out = carry12_rows + T_CHECK * (env12.observation_size + 2 * env12.action_size + 1
+                                           + out12[4])
+    k4_12_bound = bound_ms(k4_12_ops, k4_12_in, k4_12_out, B)
+    k3_run, k4_run = "run12 training, K3 lane", "run12 training, fused-unroll lane"
+    for name, source, replaces, launches_, run, err, ms, plain, bound in (
+            ("wrapped_step_team[run12]", "wrapped_step_team.cuh", "puppax/env/soa_env.py:877",
+             k3_12_launches, k3_run, k3_12_err, statistics.median(k3_12_ms), k3_12_plain_ms,
+             k3_12_bound),
+            ("wrapped_step[run12]", "wrapped_step.cuh", "puppax/env/soa_env.py:877", 0, k3_run,
+             k3_12_one_err, statistics.median(k3_12_one_ms), k3_12_plain_ms, k3_12_bound),
+            ("env_step_team[hist4]", "env_step_team.cuh", "puppax/env/soa_env.py:533",
+             k2_12_launches, k3_run, k2_12_err, statistics.median(k2_12_ms), k2_12_plain_ms,
+             k2_12_bound),
+            ("fused_unroll_team[run12]", "fused_unroll_team.cuh",
+             "puppax/env/fused_unroll.py:152", k4_12_launches, k4_run, k4_12_err,
+             statistics.median(k4_12_ms), k4_12_plain_ms, k4_12_bound),
+            ("fused_unroll[run12]", "fused_unroll.cuh", "puppax/env/fused_unroll.py:152", 0,
+             k4_run, k4_12_one_err, statistics.median(k4_12_one_ms), k4_12_plain_ms,
+             k4_12_bound)):
+        kernels.append({"name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
+                        "replaces": replaces, "launches": launches_, "launches_in": run,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                        "bound_by": bound[1], "library_ms": None})
+
     def probe_entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
                 "replaces": replaces, "launches": probe_launches.get(name, 0),
@@ -1594,7 +1942,9 @@ def main():
           f"K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
           f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_UNROLL} "
-          f"unroll at {B} envs ({k4_by}); total wall "
+          f"unroll at {B} envs ({k4_by}); run12: team K3 {k3_12_bound[0]:.6f} ms, team K2 "
+          f"(history 4) {k2_12_bound[0]:.6f} ms at {EVAL_ENVS} envs, team K4 "
+          f"{k4_12_bound[0]:.6f} ms per unroll; total wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -58,7 +58,8 @@ _INFO_KEYS = (
     "last_act", "action_buffer", "imu_buffer", "last_vel", "command",
     "last_contact", "feet_air_time", "rewards", "kick", "step",
     "desired_world_z_in_body_frame", "steps", "truncation", "first_qpos",
-    "first_qvel", "first_obs", "gait_phase",
+    "first_qvel", "first_obs", "gait_phase", "privileged_obs", "first_privileged_obs",
+    "difficulty",
 )
 
 

@@ -25,6 +25,12 @@ stack in the observation. Training steps through the wrapped-step kernel
 K3, or the fused unroll K4, instead (``rollout.FastLane``) unless the lane
 is off (``rollout.support_reason``).
 
+With ``privileged_obs`` the env publishes ``info["privileged_obs"]``
+(``_privileged_observation``, torch ops at reset and after each step; the
+fast lane's kernels emit the same rows), the critic's view of the true
+state; with ``disturbance_curriculum``, ``info["difficulty"]`` (1 at
+reset) scales the step's disturbance draws (``scale_disturbances``).
+
 Reset needs only the root's FK: the reset observation reads the torso
 rotation and a zero angular velocity, so the port runs ``soa._emit_fk`` on
 the torch back-end instead of a full forward pass. ``pipeline_init`` runs
@@ -48,8 +54,18 @@ from puppax_torch.model.mjcf import load_model
 from puppax_torch.ops import math
 from puppax_torch.physics import pipeline, soa
 
-_ROADMAP_EXTRAS = "ROADMAP queue 1, training extras"
 _ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
+
+
+# the step's draws the disturbance curriculum scales (pupper.py:692-700)
+DISTURBANCE_KEYS = ("kick", "ang_vel_noise", "gravity_noise", "motor_ang_noise",
+                    "last_action_noise")
+
+
+def scale_disturbances(noise: Dict[str, torch.Tensor], difficulty) -> Dict[str, torch.Tensor]:
+    """``noise`` with its disturbance draws (``DISTURBANCE_KEYS``) times
+    ``difficulty`` (broadcast against each draw), the others as they are."""
+    return {k: v * difficulty if k in DISTURBANCE_KEYS else v for k, v in noise.items()}
 
 
 class PupperV3Env:
@@ -123,12 +139,6 @@ class PupperV3Env:
         disturbance_curriculum: bool = False,
         device=None,
     ):
-        if privileged_obs:
-            raise NotImplementedError(f"privileged_obs is not ported yet ({_ROADMAP_EXTRAS})")
-        if disturbance_curriculum:
-            raise NotImplementedError(
-                f"the disturbance curriculum is not ported yet ({_ROADMAP_EXTRAS})"
-            )
         if path is not None:
             raise NotImplementedError(
                 f"only the bundled model is carried across ({_ROADMAP_TERRAIN})"
@@ -219,6 +229,8 @@ class PupperV3Env:
         self._latency_distribution = np.asarray(latency_distribution, f32)
         self._imu_latency_distribution = np.asarray(imu_latency_distribution, f32)
         self._use_imu = use_imu
+        self._privileged_obs = privileged_obs
+        self._disturbance_curriculum = disturbance_curriculum
         self._gait_phase_obs = gait_phase_observation
         self._gait_frequency = gait_frequency
         # the clock's tick in float32, as the JAX env rounds it
@@ -290,6 +302,14 @@ class PupperV3Env:
     def action_size(self) -> int:
         return self.model.nu
 
+    @property
+    def privileged_obs_size(self) -> int:
+        """34: the torso's true local linear and angular velocity and gravity
+        (9), the joint velocities (12), the contact flags (4), the feet air
+        times (4), the kick (2) and the DR leaves friction, kp and torso
+        mass (3)."""
+        return 34
+
     def _t(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
 
@@ -358,8 +378,10 @@ class PupperV3Env:
     def reset(self, g: torch.Generator, B: int) -> State:
         return self.reset_from_draws(self.draw_reset(g, B))
 
-    def reset_from_draws(self, draws: Dict[str, torch.Tensor]) -> State:
-        """The deterministic reset core (``pupper.py:382-438``) on given draws."""
+    def reset_from_draws(self, draws: Dict[str, torch.Tensor], model=None) -> State:
+        """The deterministic reset core (``pupper.py:382-438``) on given
+        draws; ``model`` (default: this env's) gives the privileged obs its
+        DR leaves."""
         qpos = draws["qpos"].to(self.device, torch.float32)
         B = qpos.shape[0]
         zeros = lambda *shape: torch.zeros((B,) + shape, device=self.device)  # noqa: E731
@@ -384,6 +406,15 @@ class PupperV3Env:
             "step": torch.zeros(B, dtype=torch.int32, device=self.device),
             "desired_world_z_in_body_frame": draws["desired_z"].to(self.device, torch.float32),
         }
+        if self._privileged_obs:
+            # at rest: no velocity, no contact, no air time, no kick
+            info["privileged_obs"] = self._privileged_observation(
+                self.model if model is None else model, torso_quat, zeros(3), zeros(3),
+                zeros(12), info, info["kick"])
+        if self._disturbance_curriculum:
+            # the disturbance scale in [0, 1] of the step's kick and
+            # observation noise; full by default, ramped by ppo.train
+            info["difficulty"] = torch.ones(B, device=self.device)
         obs = self._get_obs(qpos, torso_quat, zeros(3), info, draws,
                             zeros(self._es.hist))
         if self._gait_phase_obs:
@@ -428,6 +459,10 @@ class PupperV3Env:
         if dr_rows is None:
             dr_rows = self.dr_rows(B, model)
         info = dict(state.info)
+        if self._disturbance_curriculum:
+            # the difficulty scales the disturbance draws outside the step
+            # core (``pupper.py:692-700``); at 1 the step is the plain env's
+            noise = scale_disturbances(noise, info["difficulty"][:, None])
         env_in = {
             "action_buffer": info["action_buffer"],
             "imu_buffer": info["imu_buffer"],
@@ -453,6 +488,12 @@ class PupperV3Env:
                      "rewards", "step", "command"):
             info[name] = env_out[name]
         info["desired_world_z_in_body_frame"] = env_out["desired_z"]
+        if self._privileged_obs:
+            t = self._torso_idx - 1
+            info["privileged_obs"] = self._privileged_observation(
+                self.model if model is None else model, pipeline_state.x_rot[:, t],
+                pipeline_state.xd_vel[:, t], pipeline_state.xd_ang[:, t],
+                pipeline_state.qvel[:, 6:], info, noise["kick"])
         obs = env_out["obs"]
         if self._gait_phase_obs:
             # the clock runs outside the step core (pupper.py:754-767); the
@@ -603,6 +644,31 @@ class PupperV3Env:
             "rewards": terms,
             "total_dist": math.normalize(ps.x_pos[:, torso])[1],
         }
+
+    def _privileged_observation(self, m, torso_quat, torso_vel, torso_ang, joint_vel, info,
+                                kick) -> torch.Tensor:
+        """The critic-only observation (``pupper.py:298-331``): the torso's
+        un-noised, un-lagged local velocities and gravity, the joint
+        velocities, ``info``'s contact flags and feet air times, the kick,
+        and the DR leaves of ``m`` (``geom_friction[0, 0]``,
+        ``actuator_gainprm[0, 0]``, the torso's ``body_mass``), (B, 34)."""
+        inv_rot = math.quat_inv(torso_quat)
+        B = torso_quat.shape[0]
+        dtype = torso_quat.dtype
+        leaves = [m.geom_friction[..., 0, 0], m.actuator_gainprm[..., 0, 0],
+                  m.body_mass[..., self._torso_idx]]
+        dr = torch.stack([torch.as_tensor(x, device=self.device).to(dtype).expand(B)
+                          for x in leaves], -1)
+        return torch.cat([
+            math.rotate(torso_vel, inv_rot),
+            math.rotate(torso_ang, inv_rot),
+            math.rotate(self._dev["down"].to(dtype), inv_rot),
+            joint_vel,
+            info["last_contact"].to(dtype),
+            info["feet_air_time"].to(dtype),
+            kick.to(dtype),
+            dr,
+        ], -1)
 
     def _geom_ids(self, ids) -> torch.Tensor:
         """Static ids (geoms, sites, bodies) as an int64 tensor on the device."""

@@ -20,7 +20,11 @@ parameter rows). The lane runs one of two ways:
 Both share ``_assemble_unroll``. Every random number is drawn before the
 loop from one ``torch.Generator`` (``draw_noise_block`` and the sampling
 eps), so ``unroll_from_draws`` can be fed the JAX package's draws in the
-parity tests.
+parity tests. The disturbance curriculum's difficulty scales those draws
+where they enter the lane (``unroll_from_draws``), as the JAX env scales
+its own. Where the env publishes privileged obs, the kernels emit them as
+aux rows, restored on done from the ``first`` block, and the transitions
+carry them in ``extras`` as ``acting.actor_step`` records them.
 
 The JAX lane's TPU devices (the ``(rows, B/128, 128)`` tiles, padding B
 to 1024, ``shard_map``) have no counterpart here; the JAX ``scan`` is a
@@ -40,6 +44,7 @@ import torch.nn.functional as F
 
 from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.env.base import State
+from puppax_torch.env.pupper import DISTURBANCE_KEYS
 from puppax_torch.env.wrappers import TrainingEnv
 from puppax_torch.physics import soa
 from puppax_torch.train.acting import Transition
@@ -57,7 +62,24 @@ def support_reason(wrapped: TrainingEnv) -> Tuple[bool, str]:
     if not wrapped.env._use_soa_env:
         return False, ("env built without the fused SoA step core "
                        "(PUPPAX_SOA_ENV=off at its construction)")
+    if wrapped.env._privileged_obs and not wrapped.env._es.priv:
+        # the kernel cannot read this model's friction leaf (soa_env._EnvStatic)
+        return False, ("privileged_obs requested but the kernel cannot source this "
+                       "model's privileged DR rows")
+    if wrapped.action_repeat != 1:
+        return False, f"action_repeat={wrapped.action_repeat} (kernel fuses 1)"
     return True, "ok"
+
+
+def scale_noise_block(es: soa_env._EnvStatic, noise: torch.Tensor,
+                      difficulty: torch.Tensor) -> torch.Tensor:
+    """A ``(T, nnoise, B)`` noise block with its disturbance rows
+    (``pupper.DISTURBANCE_KEYS``) times the per-env ``difficulty`` ``(B,)``."""
+    scale = torch.ones((noise.shape[1], noise.shape[2]), dtype=noise.dtype, device=noise.device)
+    for name in DISTURBANCE_KEYS:
+        r0, n = es.noise_rows[name]
+        scale[r0 : r0 + n] = difficulty
+    return noise * scale
 
 
 class FastLane:
@@ -77,6 +99,9 @@ class FastLane:
         # carries its phase as a row and appends (cos, sin) to the observation
         self.gait = bool(env._gait_phase_obs)
         self.obs_dim = self.es.hist + (2 if self.gait else 0)
+        self.priv = bool(self.es.priv)
+        if env._privileged_obs and not self.priv:
+            raise ValueError("the fast lane needs the kernels' privileged rows")
         self._dist = NormalTanhDistribution(env.action_size)
         # full float32 policy dots: the counterpart of the JAX lane's
         # Precision.HIGHEST (a TF32 product keeps ~3 decimal digits)
@@ -93,8 +118,8 @@ class FastLane:
             "v": rows([state.qvel]),
             "env": soa_env.env_block(es, info, state.obs),
             "wrap": rows([info["steps"], state.done]),
-            "first": rows([info["first_qpos"], info["first_qvel"],
-                           info["first_obs"][:, : es.hist]]),
+            "first": rows([info["first_qpos"], info["first_qvel"], info["first_obs"][:, : es.hist]]
+                          + ([info["first_privileged_obs"]] if self.priv else [])),
             "dr": self.wrapped.dr_rows(state.qpos.shape[0]),
             **({"phase": rows([info["gait_phase"]])} if self.gait else {}),
         }
@@ -138,6 +163,8 @@ class FastLane:
         info["truncation"] = aux("truncation")[:, 0]
         info["kick"] = last_kick
         info["rewards"] = {k: aux("rewards")[:, i] for i, k in enumerate(soa_env.REWARD_ORDER)}
+        if self.priv:
+            info["privileged_obs"] = aux("privileged")
         if self.gait:
             info["gait_phase"] = carry["phase"][0]
         metrics = dict(template.metrics)
@@ -213,10 +240,16 @@ class FastLane:
     def unroll_from_draws(self, state: State, policy_params: Tuple, noise: torch.Tensor,
                           eps: torch.Tensor, last_kick: torch.Tensor):
         """The unroll on given draws: ``noise`` ``(T, nnoise, B)`` env-noise
-        rows, ``eps`` ``(T, B, act)`` sampling eps, ``last_kick`` ``(B, 2)``."""
+        rows, ``eps`` ``(T, B, act)`` sampling eps, ``last_kick`` ``(B, 2)``;
+        the state's difficulty, where it has one, scales the noise rows and
+        the kick here."""
         normalizer, policy = policy_params
         carry = self.carry_from_state(state)
         T = noise.shape[0]
+        if "difficulty" in state.info:
+            d = state.info["difficulty"]
+            noise = scale_noise_block(self.es, noise, d)
+            last_kick = last_kick * d[:, None]
         if self.use_fused(T):
             # K4 on CUDA tensors, its plain version on CPU tensors
             (q, v, env_t, wrap, phase, obs_ts, act_ts, raw_ts, logp_ts,
@@ -267,6 +300,15 @@ class FastLane:
             return aux_b[:, :, r0]
 
         done = aux_col("done")
+        extras = {}
+        if self.priv:
+            # acting.actor_step's extras: privileged_obs is the pre-step
+            # value (the entry state's at t = 0, then the previous step's
+            # post-restore rows), next_privileged_obs the post-step value
+            r0, n = self._aux_rows["privileged"]
+            priv = aux_b[:, :, r0 : r0 + n]
+            extras = {"privileged_obs": torch.cat([state.info["privileged_obs"][None], priv[:-1]]),
+                      "next_privileged_obs": priv}
         final_state = self.state_from_carry(carry, state, last_kick, aux_ts[-1])
         data = Transition(
             observation=observation,
@@ -276,5 +318,6 @@ class FastLane:
             next_observation=next_observation,
             truncation=aux_col("truncation"),
             policy_extras={"log_prob": logp_ts, "raw_action": t_rows(raw_ts)},
+            extras=extras,
         )
         return final_state, data

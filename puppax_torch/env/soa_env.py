@@ -126,6 +126,25 @@ class _EnvStatic:
             if p.geom1 in torso_geoms or p.geom2 in torso_geoms
         ]
 
+        # the privileged (critic-only) rows, emitted in the wrapped step's
+        # aux block (K3, K4; the standard lane computes them in torch,
+        # ``PupperV3Env._privileged_observation``). The kernel reads the
+        # friction leaf from pair_mu[0], the larger slide friction of pair
+        # 0's geoms: DR sets one scalar on every geom, so that equals
+        # geom_friction[0, 0]. A model whose base frictions do not give that
+        # equality, or that has no pair, keeps priv off, and with it the
+        # standard lane (``rollout.support_reason``).
+        self.priv = bool(getattr(env, "_privileged_obs", False))
+        if self.priv:
+            gf = np.asarray(env.model.geom_friction)[..., 0]
+            if len(s.pairs) == 0:
+                self.priv = False
+            else:
+                p0 = s.pairs[0]
+                if gf.ndim != 1 or not np.isclose(max(gf[p0.geom1], gf[p0.geom2]), gf[0]):
+                    self.priv = False
+        self.npriv = int(env.privileged_obs_size) if self.priv else 0
+
         self.env_rows: Dict[str, Tuple[int, int]] = {}
         r = 0
         for name, n in (
@@ -497,6 +516,18 @@ def _emit_env_step(
         "rewards": [scaled[k] for k in REWARD_ORDER],
         "total_dist": [total_dist],
     }
+    if es.priv:
+        # the privileged rows (``pupper.py:292-331``), of the same post-step
+        # quantities: the torso's true local linear and angular velocity and
+        # gravity, the joint velocities, this step's contact, the updated
+        # feet air time, this step's kick and the DR leaves (friction as
+        # pair_mu[0], kp as gain0[0], the torso's mass)
+        out["privileged"] = (
+            list(local_vel) + list(local_angv) + list(qrot([0.0, 0.0, -1.0], qc))
+            + [v2[6 + j] for j in range(12)] + list(contact) + list(fat2) + list(noi["kick"])
+            + [dr["pair_mu"][0], dr["gain0"][0], dr["mass"][es.torso_body]]
+        )
+        assert len(out["privileged"]) == es.npriv
     return q2, v2, fw, out
 
 
@@ -505,16 +536,15 @@ def _emit_env_step(
 # ---------------------------------------------------------------------------
 
 def aux_row_map(es: _EnvStatic) -> Dict[str, Tuple[int, int]]:
-    """Row map of the wrapped step's aux output block."""
+    """Row map of the wrapped step's aux output block (the privileged rows
+    last, where the env has them)."""
     out: Dict[str, Tuple[int, int]] = {}
     r = 0
-    for name, n in (
-        ("reward", 1),
-        ("done", 1),
-        ("truncation", 1),
-        ("rewards", len(REWARD_ORDER)),
-        ("total_dist", 1),
-    ):
+    names = [("reward", 1), ("done", 1), ("truncation", 1), ("rewards", len(REWARD_ORDER)),
+             ("total_dist", 1)]
+    if es.priv:
+        names.append(("privileged", es.npriv))
+    for name, n in names:
         out[name] = (r, n)
         r += n
     return out
@@ -538,6 +568,7 @@ def _emit_wrapped_step(
     first_q: List,
     first_v: List,
     first_obs: List,
+    first_priv: List,
     steps,
     prev_done,
     n_substeps: int,
@@ -551,6 +582,7 @@ def _emit_wrapped_step(
       done2   = env_done OR steps2 >= episode_length
       trunc   = (steps2 >= L) * (1 - env_done)
       q/v/obs = where(done2, first_*, new)            # AutoReset restore
+      priv    = where(done2, first_priv, new)         # (with privileged rows)
 
     Returns (q_out, v_out, env_out rows in INPUT order, steps2, done2, aux).
     """
@@ -594,6 +626,11 @@ def _emit_wrapped_step(
         "rewards": out["rewards"],
         "total_dist": out["total_dist"],
     }
+    if es.priv:
+        # AutoReset restores the privileged obs on the effective done too
+        # (``wrappers.py:159-165``)
+        aux["privileged"] = [_sel(done2, first_priv[i], out["privileged"][i], ref)
+                             for i in range(es.npriv)]
     return q_out, v_out, env_out, steps2, done2, aux
 
 
@@ -601,7 +638,7 @@ def block_rows(s: soa._Static, es: _EnvStatic) -> Tuple[Tuple[int, ...], Tuple[i
     """Row counts of the 8 input blocks (q, v, act, env, noise, dr, first,
     wrap) and the 5 output blocks (q, v, env, wrap, aux)."""
     naux = sum(n for _, n in aux_row_map(es).values())
-    nfirst = s.nq + s.nv + es.hist
+    nfirst = s.nq + s.nv + es.hist + es.npriv
     return (
         (s.nq, s.nv, s.nu, es.nenv_rows, es.nnoise_rows, s.ndr, nfirst, 2),
         (s.nq, s.nv, es.nenv_rows, 2, naux),
@@ -620,8 +657,9 @@ def emit_wrapped_rows(s, es, n_substeps, episode_length, rows):
     first_q = first_r[: s.nq]
     first_v = first_r[s.nq : s.nq + s.nv]
     first_obs = first_r[s.nq + s.nv : s.nq + s.nv + es.hist]
+    first_priv = first_r[s.nq + s.nv + es.hist : s.nq + s.nv + es.hist + es.npriv]
     q_out, v_out, env_out, steps2, done2, aux = _emit_wrapped_step(
-        s, es, q, v, act, env, noi, dr, first_q, first_v, first_obs,
+        s, es, q, v, act, env, noi, dr, first_q, first_v, first_obs, first_priv,
         wrap_r[0], wrap_r[1], n_substeps, episode_length,
     )
     env_flat = [x for name in es.env_rows for x in env_out[name]]

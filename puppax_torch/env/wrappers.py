@@ -4,7 +4,8 @@ Counterpart of ``puppax/env/wrappers.py::wrap_for_training``: the JAX
 stack AutoReset(Vmap(Episode(env))) as one class over a batched env.
 
 * Reset adds the Episode ``steps`` and ``truncation`` fields and the
-  AutoReset ``first_qpos`` / ``first_qvel`` / ``first_obs`` rows; with
+  AutoReset ``first_qpos`` / ``first_qvel`` / ``first_obs`` rows (and
+  ``first_privileged_obs`` where the env publishes privileged obs); with
   ``caches=True`` (the standard lane) it also runs the reset-time forward
   pass (``pipeline.pipeline_init`` of the DR batch) and keeps it as
   ``first_pipeline_state``.
@@ -12,22 +13,24 @@ stack AutoReset(Vmap(Episode(env))) as one class over a batched env.
   the evaluator, and behind training when the fast lane is off) runs the
   brax order around ``PupperV3Env.step_from_draws`` (the env-step kernel
   K2, or the physics-only lane on K1): the AutoReset prologue zeroes ``steps`` where
-  the previous step ended, the Episode wrapper counts the step and
+  the previous step ended, the Episode wrapper steps the env
+  ``action_repeat`` times, sums their rewards, counts the steps and
   truncates at the episode limit, and on the effective done AutoReset
-  restores the reset-time pipeline state, qpos, qvel and observation and
-  restarts the gait clock.
+  restores the reset-time pipeline state, qpos, qvel, observation and
+  privileged obs and restarts the gait clock.
 * The DR batch is the per-env model: its parameter rows go to the kernels
   as their dr block, the model itself to the physics-only lane's torch
   pipeline; an unbatched model (the eval env) is broadcast.
 
 The rollout fast lane runs the same step side inside the wrapped-step
 kernel K3 or the fused unroll K4 (``soa_env._emit_wrapped_step``) and reads
-only the reset side.
+only the reset side; it fuses one env step, so an ``action_repeat`` other
+than 1 keeps training on the standard lane (``rollout.support_reason``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -37,17 +40,31 @@ from puppax_torch.env.base import State
 class TrainingEnv:
     """AutoReset(Vmap(Episode(env))) over a batched ``PupperV3Env``."""
 
-    def __init__(self, env, episode_length: int, model, num_envs: Optional[int]):
+    def __init__(self, env, episode_length: int, model, num_envs: Optional[int],
+                 action_repeat: int = 1):
         self.env = env
         self.episode_length = int(episode_length)
+        self.action_repeat = int(action_repeat)
         self.model = model  # base model, or the DR-batched one
         self.num_envs = num_envs  # fixed by DR; None = any batch size
         self._dr_rows: Dict[int, torch.Tensor] = {}
 
     def dr_rows(self, B: int) -> torch.Tensor:
-        """The ``(ndr, B)`` parameter rows of the (DR-batched) model."""
+        """The ``(ndr, B)`` parameter rows of the (DR-batched) model. With
+        privileged rows in the kernels, the friction leaf they read
+        (pair_mu[0]) must equal every env's ``geom_friction[0, 0]``, which
+        the standard lane reads: checked here, once per batch size."""
         if B not in self._dr_rows:
-            self._dr_rows[B] = self.env.dr_rows(B, self.model)
+            rows = self.env.dr_rows(B, self.model)
+            es = self.env._es
+            if es.priv:
+                r0, _ = self.env._s.dr_rows["pair_mu"]
+                leaf = torch.as_tensor(self.model.geom_friction[..., 0, 0], dtype=torch.float32,
+                                       device=rows.device).expand(B)
+                if not torch.equal(rows[r0], leaf):
+                    raise ValueError("privileged rows: pair 0's friction differs from "
+                                     "geom_friction[0, 0]; DR must set one friction on every geom")
+            self._dr_rows[B] = rows
         return self._dr_rows[B]
 
     def reset(self, num_envs: int, generator: torch.Generator, caches: bool = False) -> State:
@@ -60,7 +77,7 @@ class TrainingEnv:
     def reset_from_draws(self, draws, caches: bool = False) -> State:
         """Reset on given draws; ``caches=True`` adds the reset-time
         physics caches the standard lane restores on done."""
-        state = self.env.reset_from_draws(draws)
+        state = self.env.reset_from_draws(draws, self.model)
         info = dict(state.info)
         # EpisodeWrapper
         info["steps"] = torch.zeros_like(state.reward)
@@ -69,6 +86,8 @@ class TrainingEnv:
         info["first_qpos"] = state.qpos
         info["first_qvel"] = state.qvel
         info["first_obs"] = state.obs
+        if "privileged_obs" in info:
+            info["first_privileged_obs"] = info["privileged_obs"]
         pipeline_state = None
         if caches:
             pipeline_state = self.env.pipeline_init(state.qpos, state.qvel, self.model)
@@ -76,26 +95,37 @@ class TrainingEnv:
         return state.replace(info=info, pipeline_state=pipeline_state)
 
     def step(self, state: State, action: torch.Tensor, generator: torch.Generator) -> State:
-        """One wrapped step of every env, its draws taken from ``generator``."""
-        noise = self.env.draw_step_noise(generator, state.qpos.shape[0])
-        return self.step_from_draws(state, action, noise)
+        """One wrapped step of every env (``action_repeat`` env steps), its
+        draws taken from ``generator``."""
+        B = state.qpos.shape[0]
+        noise = [self.env.draw_step_noise(generator, B) for _ in range(self.action_repeat)]
+        return self.step_from_draws(state, action, noise[0] if len(noise) == 1 else noise)
 
     def step_from_draws(self, state: State, action: torch.Tensor,
-                        noise: Dict[str, torch.Tensor]) -> State:
-        """The wrapped step on given draws (``puppax/env/wrappers.py:56-72,
-        129-169``)."""
+                        noise: Union[Dict[str, torch.Tensor], Sequence[Dict]]) -> State:
+        """The wrapped step on given draws (``puppax/env/wrappers.py:45-70,
+        129-169``): ``noise`` is one step's draws, or with ``action_repeat``
+        above 1 a sequence of that many."""
         if "first_pipeline_state" not in state.info:
             raise ValueError("the standard lane steps a state reset with caches=True")
+        noises = [noise] if isinstance(noise, dict) else list(noise)
+        if len(noises) != self.action_repeat:
+            raise ValueError(f"{len(noises)} steps of draws for action_repeat="
+                             f"{self.action_repeat}")
         # AutoResetWrapper prologue
         info = dict(state.info)
         info["steps"] = torch.where(state.done > 0.5, torch.zeros_like(info["steps"]),
                                     info["steps"])
         state = state.replace(done=torch.zeros_like(state.done), info=info)
-        state = self.env.step_from_draws(state, action, noise,
-                                         self.dr_rows(state.qpos.shape[0]), self.model)
-        # EpisodeWrapper
+        # EpisodeWrapper: the env steps action_repeat times, its rewards summed
+        rows = self.dr_rows(state.qpos.shape[0])
+        reward = None
+        for n in noises:
+            state = self.env.step_from_draws(state, action, n, rows, self.model)
+            reward = state.reward if reward is None else reward + state.reward
+        state = state.replace(reward=reward)
         info = dict(state.info)
-        steps = info["steps"] + 1
+        steps = info["steps"] + self.action_repeat
         limit = steps >= self.episode_length
         info["truncation"] = torch.where(limit, 1.0 - state.done, torch.zeros_like(state.done))
         info["steps"] = steps
@@ -110,6 +140,8 @@ class TrainingEnv:
         if "gait_phase" in info:  # the gait clock restarts with the episode
             info["gait_phase"] = restore(torch.zeros_like(info["gait_phase"]),
                                          info["gait_phase"])
+        if "privileged_obs" in info:
+            info["privileged_obs"] = restore(info["first_privileged_obs"], info["privileged_obs"])
         return state.replace(qpos=ps.qpos, qvel=ps.qvel, pipeline_state=ps,
                              obs=restore(info["first_obs"], state.obs), done=done, info=info)
 
@@ -125,15 +157,10 @@ def wrap_for_training(
     """Episode + (DR-)batch + AutoReset. ``randomization_fn(model,
     generator, num_envs) -> model`` batches the DR leaves over
     ``num_envs`` envs with draws from ``generator``."""
-    if action_repeat != 1:
-        raise NotImplementedError(
-            "action_repeat != 1 (the wrapped-step kernel fuses one env step; "
-            "ROADMAP queue 1, training extras)"
-        )
     model = env.model
     if randomization_fn is not None:
         if generator is None or num_envs is None:
             raise ValueError("domain randomization needs a generator and num_envs")
         model = randomization_fn(model, generator, num_envs)
     return TrainingEnv(env, episode_length, model,
-                       num_envs if randomization_fn is not None else None)
+                       num_envs if randomization_fn is not None else None, action_repeat)

@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import pickle
 import shutil
 import subprocess
 import threading
@@ -147,8 +148,11 @@ PROBE_SPD = Kernel("probe_spd", CSRC / "probe_spd.cuh", 3, "probe_spd_launch", "
 PROBE_SPD_WARP = Kernel("probe_spd_warp", CSRC / "probe_spd_warp.cuh", 3,
                         "probe_spd_warp_launch", "probe_spd_warp_host", n_ints=1)
 
-# (record name, model statics, env statics, config) -> loaded library
-_LOADED: Dict[Tuple, Tuple[object, object, ctypes.CDLL]] = {}
+# (record name, the statics' content digest, config) -> loaded library
+_LOADED: Dict[Tuple, ctypes.CDLL] = {}
+# (id(s), id(es)) -> (s, es, their content digest); holding s and es keeps
+# their ids unique
+_DIGESTS: Dict[Tuple[int, int], Tuple[object, object, str]] = {}
 _EMIT_LOCK = threading.Lock()
 
 # what the last build of each kernel did: record_name -> {"compile_seconds":
@@ -238,10 +242,10 @@ def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
     """``make_body`` returns the generated source, or (source, stats) for a
     team body (``team.render``: its stats go into the build record)."""
     name = record_name(kernel, variant, flags)
-    key = (name, id(s), id(es), config)
+    key = (name, _statics_digest(s, es), config)
     hit = _LOADED.get(key)
     if hit is not None:
-        return hit[2]
+        return hit
     with _EMIT_LOCK:  # the value algebra's CSE memo is process-global
         t0 = time.perf_counter()
         body = make_body()
@@ -259,8 +263,36 @@ def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
         dir=str(path.parent), lines=body.count("\n"), host_cpus=os.cpu_count(),
         **({"ops_per_env": cgen.op_count(body)} if not stats else stats),
     )
-    _LOADED[key] = (s, es, lib)  # keeps s/es alive so their ids stay unique
+    _LOADED[key] = lib
     return lib
+
+
+def _statics_digest(s, es) -> str:
+    """sha256 of the model and env statics' contents (plain Python values),
+    computed once per pair of objects: envs built alike in one process, such
+    as the training CLI's and a caller's, share their kernels without
+    rendering the bodies again (seconds each)."""
+    k = (id(s), id(es))
+    hit = _DIGESTS.get(k)
+    if hit is None:
+        contents = pickle.dumps([None if x is None else vars(x) for x in (s, es)])
+        hit = _DIGESTS[k] = (s, es, hashlib.sha256(contents).hexdigest())
+    return hit[2]
+
+
+def env_variant(es, privileged: bool = True) -> str:
+    """The env configuration's part of a K2, K3 or K4 build's record name:
+    none at the default observation history of 2 without privileged rows,
+    else e.g. ``history 4, privileged`` (so such a build never overwrites
+    the default one's record). K2 passes ``privileged=False``: its body
+    stores no privileged rows."""
+    history = es.hist // es.obs_dim
+    parts = [f"history {history}"] if history != 2 else []
+    return ", ".join(parts + (["privileged"] if privileged and es.priv else []))
+
+
+def _variant(*parts: str) -> str:
+    return " ".join(p for p in parts if p)
 
 
 def wrapped_step_library(s, es, n_substeps: int, episode_length: int) -> ctypes.CDLL:
@@ -272,6 +304,7 @@ def wrapped_step_library(s, es, n_substeps: int, episode_length: int) -> ctypes.
     return _device_library(
         WRAPPED_STEP, s, es, (int(n_substeps), int(episode_length)),
         lambda: cgen.wrapped_step_body(s, es, n_substeps, episode_length),
+        variant=env_variant(es),
     )
 
 
@@ -283,6 +316,7 @@ def env_step_library(s, es, n_substeps: int) -> ctypes.CDLL:
     return _device_library(
         ENV_STEP, s, es, (int(n_substeps),),
         lambda: cgen.env_step_body(s, es, n_substeps),
+        variant=env_variant(es, privileged=False),
     )
 
 
@@ -315,7 +349,7 @@ def wrapped_step_team_library(s, es, n_substeps: int, episode_length: int,
     return _device_library(
         WRAPPED_STEP_TEAM, s, es, (int(n_substeps), int(episode_length), warps),
         lambda: team.wrapped_step_team_body(s, es, n_substeps, episode_length, warps),
-        variant=team_variant(WRAPPED_STEP_TEAM, warps),
+        variant=_variant(env_variant(es), team_variant(WRAPPED_STEP_TEAM, warps)),
     )
 
 
@@ -329,7 +363,7 @@ def env_step_team_library(s, es, n_substeps: int, warps: Optional[int] = None) -
     return _device_library(
         ENV_STEP_TEAM, s, es, (int(n_substeps), warps),
         lambda: team.env_step_team_body(s, es, n_substeps, warps),
-        variant=team_variant(ENV_STEP_TEAM, warps),
+        variant=_variant(env_variant(es, privileged=False), team_variant(ENV_STEP_TEAM, warps)),
     )
 
 
@@ -357,6 +391,7 @@ def fused_unroll_library(s, es, n_substeps: int, episode_length: int) -> ctypes.
     return _device_library(
         FUSED_UNROLL, s, es, (int(n_substeps), int(episode_length)),
         lambda: cgen.fused_unroll_body(s, es, n_substeps, episode_length),
+        variant=env_variant(es),
     )
 
 
@@ -372,9 +407,9 @@ def fused_unroll_team_library(s, es, n_substeps: int, episode_length: int,
 
     warps = warps or TEAM_WARPS[FUSED_UNROLL_TEAM.name]
     mlp_rows = mlp_rows or K4_MLP_ROWS
-    variant = " ".join(x for x in (team_variant(FUSED_UNROLL_TEAM, warps),
-                                   "" if mlp_rows == K4_MLP_ROWS else f"R={mlp_rows}",
-                                   "MLP only" if mlp_only else "") if x)
+    variant = _variant(env_variant(es), team_variant(FUSED_UNROLL_TEAM, warps),
+                       "" if mlp_rows == K4_MLP_ROWS else f"R={mlp_rows}",
+                       "MLP only" if mlp_only else "")
     return _device_library(
         FUSED_UNROLL_TEAM, s, es,
         (int(n_substeps), int(episode_length), warps, mlp_rows, bool(mlp_only)),

@@ -38,9 +38,15 @@ class Transition:
 def actor_step(env, env_state: State, policy: Callable, generator: torch.Generator,
                collect_metrics: bool = False) -> Tuple[State, Transition]:
     """One policy step on a wrapped env; ``collect_metrics`` also records
-    the env's per-step metrics (the evaluator's use)."""
+    the env's per-step metrics (the evaluator's use). Where the env
+    publishes privileged obs, ``extras`` holds the pre-step
+    ``privileged_obs`` and the post-step ``next_privileged_obs``."""
     actions, policy_extras = policy(env_state.obs, generator)
     next_state = env.step(env_state, actions, generator)
+    extras = {}
+    if "privileged_obs" in env_state.info:
+        extras = {"privileged_obs": env_state.info["privileged_obs"],
+                  "next_privileged_obs": next_state.info["privileged_obs"]}
     return next_state, Transition(
         observation=env_state.obs,
         action=actions,
@@ -50,6 +56,7 @@ def actor_step(env, env_state: State, policy: Callable, generator: torch.Generat
         truncation=next_state.info["truncation"],
         policy_extras=policy_extras,
         metrics=dict(next_state.metrics) if collect_metrics else {},
+        extras=extras,
     )
 
 
@@ -71,7 +78,7 @@ def generate_unroll(env, env_state: State, policy: Callable, generator: torch.Ge
         steps.append(transition)
     fields = {f: _stack([getattr(t, f) for t in steps])
               for f in ("observation", "action", "reward", "discount", "next_observation",
-                        "truncation", "policy_extras", "metrics")}
+                        "truncation", "policy_extras", "metrics", "extras")}
     return env_state, Transition(**fields)
 
 

@@ -4,10 +4,15 @@ Counterpart of ``puppax/train/checkpoint.py:20-81``. The JAX package writes
 orbax directories; the port writes one ``torch.save`` file,
 ``<checkpoint_path>/<step>/checkpoint.pt``, of a tree of dicts, lists,
 tensors and numbers, and reads it back with ``weights_only=True``
-(``scripts/export_policy.py`` exports it). Reading the JAX package's orbax
-checkpoints belongs to the converter of ROADMAP queue 1's export item, a
-script outside the package, and ``download_checkpoint`` (W&B) to its tools
-item.
+(``scripts/export_policy.py`` exports it).
+
+``save_jax_params`` writes a JAX package's params tree, ``(normalizer,
+PPONetworkParams)`` as its training CLI saves it, given as nested numpy
+arrays, in the port's layout: the top-level script
+``convert_orbax_checkpoint.py`` reads the orbax directory where JAX lives
+and calls it, so this package never imports orbax or JAX. A JAX train
+state (optax's Adam state) is not carried across. ``download_checkpoint``
+(W&B) belongs to ROADMAP queue 1's tools item.
 """
 
 from __future__ import annotations
@@ -16,7 +21,10 @@ import os
 from pathlib import Path
 from typing import Any, Optional
 
+import numpy as np
 import torch
+
+from puppax_torch.train import networks
 
 FILE = "checkpoint.pt"
 
@@ -61,3 +69,20 @@ def restore_checkpoint(checkpoint_path, step: Optional[int] = None, map_location
             raise FileNotFoundError(f"no checkpoints under {checkpoint_path}")
     path = (Path(checkpoint_path) / str(int(step)) / FILE).resolve()
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def save_jax_params(current_step: int, params, checkpoint_path) -> str:
+    """Save a JAX params tree, ``(normalizer, PPONetworkParams)`` as orbax
+    restores it (dicts of numpy leaves), as the tree ``ppo.params_state_dict``
+    writes: the normalizer's four fields, and the policy's and the value
+    net's flax trees as ``MLP`` state dicts (``networks.params_from_jax``; a
+    privileged critic's wider value net maps the same way). Returns
+    ``checkpoint_path/<step>/``."""
+    normalizer, nets = params
+    tree = {
+        "normalizer": {name: torch.tensor(np.asarray(normalizer[name], np.float32))
+                       for name in ("count", "mean", "summed_variance", "std")},
+        "policy": networks.params_from_jax(nets["policy"]),
+        "value": networks.params_from_jax(nets["value"]),
+    }
+    return save_checkpoint(current_step, tree, checkpoint_path)

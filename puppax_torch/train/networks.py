@@ -153,14 +153,18 @@ def make_ppo_networks(
     device=None,
     generator: torch.Generator = None,
     value_precision: str = "highest",
+    privileged_size: int = 0,
 ) -> PPONetworks:
     """Build the policy (obs -> 2 * action logits) and value (obs -> 1),
-    the policy's weights drawn from ``generator`` first."""
+    the policy's weights drawn from ``generator`` first. ``privileged_size``
+    widens the value network's input alone to ``observation_size +
+    privileged_size`` (the privileged critic); the policy and the export
+    ABI stay as they are."""
     device = utils.resolve_device(device)
     dist = NormalTanhDistribution(event_size=action_size)
     policy = MLP(observation_size, tuple(policy_hidden_layer_sizes) + (dist.param_size,),
                  activation, device=device, generator=generator)
-    value = MLP(observation_size, tuple(value_hidden_layer_sizes) + (1,),
+    value = MLP(observation_size + int(privileged_size), tuple(value_hidden_layer_sizes) + (1,),
                 activation, device=device, generator=generator, precision=value_precision)
     return PPONetworks(policy_network=policy, value_network=value, action_distribution=dist)
 

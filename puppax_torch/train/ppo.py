@@ -30,8 +30,12 @@ checkpoints. What differs:
   phases (CUDA events on the card, the host clock on the CPU); their means
   per epoch join the metrics as ``training/{rollout,prepare,sgd}_ms``.
 
-Privileged critic, the disturbance curriculum, ``action_repeat != 1`` and a
-multi-device mesh raise ``NotImplementedError``.
+The privileged critic (``privileged_critic``: the value net also sees the
+env's ``privileged_obs``, through a normalizer of its own over both), the
+disturbance curriculum (``curriculum_steps``: the env's difficulty set to
+``curriculum_difficulty`` before each training step's rollout) and
+``action_repeat`` are the JAX package's. A multi-device mesh raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from puppax_torch.train import acting, checkpoint, running_statistics
 from puppax_torch.train import networks as ppo_networks
 from puppax_torch.train.acting import Transition
 
-_ROADMAP_EXTRAS = "ROADMAP queue 1, training extras"
+# the base of the JAX package's two-limb env-step count (ppo.py StepCount)
+_STEP_BASE = 2**30
 
 STREAMS = ("network", "dr", "reset", "rollout", "sgd", "eval")
 
@@ -85,18 +90,45 @@ def compute_gae(truncation, termination, rewards, values, bootstrap_value,
     return vs.detach(), advantages.detach()
 
 
+def curriculum_difficulty(env_steps: int, curriculum_steps: int) -> np.float32:
+    """The disturbance curriculum's difficulty after ``env_steps`` env steps,
+    ``clip(steps / curriculum_steps, 0, 1)`` in float32 from the count split
+    as ``hi * 2**30 + lo``, as the JAX package computes it (``ppo.py:506-520``)."""
+    hi, lo = divmod(int(env_steps), _STEP_BASE)
+    f32 = np.float32
+    steps_f = f32(hi) * f32(_STEP_BASE) + f32(lo)
+    return f32(min(max(steps_f / f32(curriculum_steps), f32(0.0)), f32(1.0)))
+
+
+def critic_inputs(data: Transition) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The privileged critic's inputs of a time-major batch: the
+    observations beside their privileged obs, and the bootstrap's (the last
+    next observation beside its privileged obs)."""
+    return (torch.cat([data.observation, data.extras["privileged_obs"]], -1),
+            torch.cat([data.next_observation[-1], data.extras["next_privileged_obs"][-1]], -1))
+
+
 def compute_ppo_loss(networks, normalizer, data: Transition, entropy_eps: torch.Tensor,
                      entropy_cost: float, *, discounting: float = 0.97,
                      gae_lambda: float = 0.95, clipping_epsilon: float = 0.3,
                      reward_scaling: float = 1.0, normalize_advantage: bool = True,
+                     privileged_critic: bool = False, critic_normalizer=None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The PPO loss of a time-major (T, mb) minibatch (``ppo.py:306-384``);
     ``entropy_eps`` are the normal draws of the entropy estimate and
-    ``normalizer`` is None when observations are not normalized."""
+    ``normalizer`` is None when observations are not normalized. The
+    privileged critic's value net reads ``critic_inputs`` through
+    ``critic_normalizer`` (None when observations are not normalized)."""
     dist = networks.action_distribution
     policy_logits = networks.policy_apply(normalizer, data.observation)
-    baseline = networks.value_apply(normalizer, data.observation)
-    bootstrap_value = networks.value_apply(normalizer, data.next_observation[-1])
+    if privileged_critic:
+        critic_obs, critic_boot = critic_inputs(data)
+        value_norm = critic_normalizer
+    else:
+        critic_obs, critic_boot = data.observation, data.next_observation[-1]
+        value_norm = normalizer
+    baseline = networks.value_apply(value_norm, critic_obs)
+    bootstrap_value = networks.value_apply(value_norm, critic_boot)
 
     rewards = data.reward * reward_scaling
     truncation = data.truncation
@@ -214,32 +246,50 @@ class TrainingState:
     optimizer: Adam
     normalizer_params: running_statistics.RunningStatisticsState
     env_steps: int = 0
+    # the privileged critic's running statistics over [obs, privileged obs]
+    # (None without the privileged critic)
+    critic_normalizer_params: Optional[running_statistics.RunningStatisticsState] = None
 
     def state_dict(self) -> Dict:
-        """The checkpoint tree: parameters, optimizer, normalizer, env steps."""
-        return {
+        """The checkpoint tree: parameters, optimizer, normalizer, env steps,
+        and the critic normalizer where there is one."""
+        tree = {
             "params": params_state_dict((self.normalizer_params, self.networks.params)),
             "optimizer": self.optimizer.state_dict(),
             "env_steps": int(self.env_steps),
         }
+        if self.critic_normalizer_params is not None:
+            tree["critic_normalizer"] = _normalizer_tree(self.critic_normalizer_params)
+        return tree
 
     def load_state_dict(self, tree: Dict) -> None:
         p = tree["params"]
         self.networks.policy_network.load_state_dict(p["policy"])
         self.networks.value_network.load_state_dict(p["value"])
-        dev = self.normalizer_params.mean.device
-        self.normalizer_params = running_statistics.RunningStatisticsState(
-            **{k: v.to(dev) for k, v in p["normalizer"].items()}
-        )
+        self.normalizer_params = _normalizer_from_tree(p["normalizer"], self.normalizer_params)
+        if (self.critic_normalizer_params is None) != ("critic_normalizer" not in tree):
+            raise ValueError("the checkpoint and the run differ on the privileged critic")
+        if self.critic_normalizer_params is not None:
+            self.critic_normalizer_params = _normalizer_from_tree(
+                tree["critic_normalizer"], self.critic_normalizer_params)
         self.optimizer.load_state_dict(tree["optimizer"])
         self.env_steps = int(tree["env_steps"])
+
+
+def _normalizer_tree(normalizer) -> Dict:
+    return {f.name: getattr(normalizer, f.name) for f in fields(normalizer)}
+
+
+def _normalizer_from_tree(tree: Dict, like) -> running_statistics.RunningStatisticsState:
+    dev = like.mean.device
+    return running_statistics.RunningStatisticsState(**{k: v.to(dev) for k, v in tree.items()})
 
 
 def params_state_dict(params) -> Dict:
     """``(normalizer, PPONetworkParams)`` as a checkpoint tree."""
     normalizer, nets = params
     return {
-        "normalizer": {f.name: getattr(normalizer, f.name) for f in fields(normalizer)},
+        "normalizer": _normalizer_tree(normalizer),
         "policy": nets.policy.state_dict(),
         "value": nets.value.state_dict(),
     }
@@ -252,6 +302,7 @@ def _map_data(fn, data: Transition) -> Transition:
         **{f: fn(getattr(data, f)) for f in ("observation", "action", "reward", "discount",
                                               "next_observation", "truncation")},
         policy_extras={k: fn(v) for k, v in data.policy_extras.items()},
+        extras={k: fn(v) for k, v in data.extras.items()},
     )
 
 
@@ -364,13 +415,9 @@ def train(
     if devices is not None:
         device = devices[0]
     device = utils.resolve_device(device)
-    if privileged_critic:
-        raise NotImplementedError(f"the privileged critic is not ported yet ({_ROADMAP_EXTRAS})")
-    if curriculum_steps > 0:
-        raise NotImplementedError(
-            f"the disturbance curriculum is not ported yet ({_ROADMAP_EXTRAS})")
-    if action_repeat != 1:
-        raise NotImplementedError(f"action_repeat != 1 is not ported yet ({_ROADMAP_EXTRAS})")
+    if privileged_critic and not getattr(environment, "_privileged_obs", False):
+        raise ValueError("privileged_critic=True requires the env to publish "
+                         "info['privileged_obs'] (PupperV3Env(privileged_obs=True))")
     if entropy_schedule not in ("constant", "linear"):
         raise ValueError(f"unknown entropy_schedule {entropy_schedule!r}")
     if torch.device(environment.device) != device:
@@ -398,14 +445,18 @@ def train(
           f"devices=1{fused})", flush=True)
     obs_size, action_size = environment.observation_size, environment.action_size
 
-    networks = network_factory(obs_size, action_size, device=device, generator=gens["network"])
+    priv_size = environment.privileged_obs_size if privileged_critic else 0
+    networks = network_factory(obs_size, action_size, device=device, generator=gens["network"],
+                               **({"privileged_size": priv_size} if privileged_critic else {}))
     make_policy = ppo_networks.make_inference_fn(networks)
     params = list(networks.policy_network.parameters()) + list(networks.value_network.parameters())
     total_updates = (num_training_steps_per_epoch * num_evals_after_init
                      * num_updates_per_batch * num_minibatches)
     optimizer = Adam(params, lr_schedule_fn(learning_rate, lr_schedule, lr_final_fraction,
                                             total_updates), max_grad_norm)
-    ts = TrainingState(networks, optimizer, running_statistics.init_state(obs_size, device))
+    ts = TrainingState(networks, optimizer, running_statistics.init_state(obs_size, device),
+                       critic_normalizer_params=running_statistics.init_state(
+                           obs_size + priv_size, device) if privileged_critic else None)
     state_dir = None if checkpoint_dir is None else os.path.join(str(checkpoint_dir), "state")
     if resume and state_dir is not None:
         step = checkpoint.latest_checkpoint_step(state_dir)
@@ -414,6 +465,9 @@ def train(
 
     # the standard lane restores the reset-time pipeline state on done
     env_state = env.reset(num_envs, gens["reset"], caches=lane is None)
+    if curriculum_steps > 0 and "difficulty" not in env_state.info:
+        raise ValueError("curriculum_steps > 0 requires an environment with "
+                         "disturbance_curriculum=True (info['difficulty'] missing)")
 
     eval_wrapped = wrappers.wrap_for_training(
         environment if eval_env is None else eval_env, episode_length=episode_length,
@@ -431,6 +485,7 @@ def train(
 
     def sgd_step(data: Transition, ec_now: float, sums: Dict[str, torch.Tensor]):
         norm = ts.normalizer_params if normalize_observations else None
+        critic_norm = ts.critic_normalizer_params if normalize_observations else None
         perm = torch.randperm(batch_size * num_minibatches, generator=gens["sgd"],
                               device=device)
         for mb in minibatches(data, perm, num_minibatches, lazy_shuffle):
@@ -440,6 +495,7 @@ def train(
                 networks, norm, mb, eps, ec_now, discounting=discounting,
                 gae_lambda=gae_lambda, clipping_epsilon=clipping_epsilon,
                 reward_scaling=reward_scaling, normalize_advantage=normalize_advantage,
+                privileged_critic=privileged_critic, critic_normalizer=critic_norm,
             )
             optimizer.step(torch.autograd.grad(loss, params))
             for k, v in metrics.items():
@@ -449,6 +505,12 @@ def train(
 
     def training_step(env_state, sums):
         marks = timer.new_step()
+        if curriculum_steps > 0:
+            # the disturbance curriculum ramps with the env steps, set before
+            # each training step's rollout
+            d = float(curriculum_difficulty(ts.env_steps, curriculum_steps))
+            env_state = env_state.replace(info=dict(
+                env_state.info, difficulty=torch.full_like(env_state.info["difficulty"], d)))
         data = []
         for _ in range(num_unrolls_per_env):
             if lane is not None:
@@ -465,6 +527,9 @@ def train(
         if normalize_observations:
             ts.normalizer_params = running_statistics.update(ts.normalizer_params,
                                                              data.observation)
+            if privileged_critic:
+                ts.critic_normalizer_params = running_statistics.update(
+                    ts.critic_normalizer_params, critic_inputs(data)[0])
         timer.mark(marks)
         if entropy_schedule == "linear":
             progress = min(max(ts.env_steps / float(num_timesteps), 0.0), 1.0)
@@ -523,4 +588,5 @@ def _cat_unrolls(data: List[Transition]) -> Transition:
                      "truncation")},
         policy_extras={k: torch.cat([d.policy_extras[k] for d in data], dim=1)
                        for k in first.policy_extras},
+        extras={k: torch.cat([d.extras[k] for d in data], dim=1) for k in first.extras},
     )

@@ -781,3 +781,88 @@ def test_p7_team_fk_matches_plain(env, B):
     res = P.check_fk(s, 5, blocks)
     assert res["differing"] == 0 and res["one_thread"]["differing"] == 0
     assert (common.launches[P.FK], common.launches[P.FK_TEAM]) == (before[0] + 1, before[1] + 1)
+
+
+# ---- run12's env: history 4, the privileged rows, the clock, the curriculum ----
+
+
+@pytest.fixture(scope="module")
+def run12():
+    """run12's env on the card at 5 substeps, its five bodies (team K3, K3,
+    team K2 at history 4, team K4, K4) built in one parallel batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU host with "
+                    "`python -m pytest tests/test_torch_cuda.py --noconftest -m cuda`")
+    from puppax_torch.env.pupper import PupperV3Env
+
+    env = PupperV3Env(device="cuda", **H.run12_kwargs(5))
+    s, es = env._s, env._es
+    build.build_in_parallel(lambda: build.wrapped_step_team_library(s, es, 5, 1000),
+                            lambda: build.wrapped_step_library(s, es, 5, 1000),
+                            lambda: build.env_step_team_library(s, es, 5),
+                            lambda: build.fused_unroll_team_library(s, es, 5, 4),
+                            lambda: build.fused_unroll_library(s, es, 5, 4))
+    return env
+
+
+def test_run12_k3_on_the_card(run12):
+    """Team K3 at run12's env on a ragged batch: bit for bit with the
+    one-thread K3, within tolerance of the plain version, the privileged
+    rows of the envs at the episode limit restored."""
+    from puppax_torch.probes import common
+
+    env, B = run12, 300
+    s, es = env._s, env._es
+    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
+    blocks = [b.cuda() for b in H.to_torch(H.wrapped_step_blocks(
+        s, es, env.model, dr, np.random.RandomState(12), n=B, episode_length=1000))]
+    got = soa_env.wrapped_step(s, es, 5, 1000, *blocks)
+    one = soa_env.wrapped_step_one_thread(s, es, 5, 1000, *blocks)
+    want = soa_env.wrapped_step_rows(s, es, 5, 1000, *blocks)
+    torch.cuda.synchronize()
+    assert common.compare_exact(got, one) == (0.0, 0)
+    aux_rows = soa_env.aux_row_map(es)
+    H.assert_wrapped_outputs_close([g.cpu().numpy() for g in got],
+                                   [w.cpu().numpy() for w in want], s, es, aux_rows,
+                                   "team K3[run12] vs plain")
+    done = got[3][1] > 0.5
+    r0, n = aux_rows["privileged"]
+    f0 = s.nq + s.nv + es.hist
+    assert done[2:4].all()
+    assert torch.equal(got[4][r0 : r0 + n][:, done], blocks[6][f0 : f0 + n][:, done])
+
+
+def test_run12_k4_on_the_card(run12):
+    """Team K4 at run12's env (the clock on, episodes of 4 steps) over 3
+    steps: bit for bit with the one-thread K4, within tolerance of
+    ``unroll_rows``."""
+    env, B, T = run12, 130, 3
+    s, es = env._s, env._es
+    layers, blocks = H.fused_unroll_inputs(env, B, T, "elu", 4)
+    got = fused_unroll.unroll(s, es, 5, 4, "elu", layers, *blocks)
+    one = fused_unroll.unroll_one_thread(s, es, 5, 4, "elu", layers, *blocks)
+    want = fused_unroll.unroll_rows(s, es, 5, 4, "elu", layers, *blocks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, o) for g, o in zip(got, one))
+    aux_rows = soa_env.aux_row_map(es)
+    for t in range(T):
+        H.assert_wrapped_outputs_close(
+            [x.cpu().numpy() for x in got[:4] + (got[9][t],)],
+            [x.cpu().numpy() for x in want[:4] + (want[9][t],)], s, es, aux_rows,
+            f"team K4[run12] vs plain, step {t}")
+    assert (want[9][:, aux_rows["done"][0]] > 0.5).any()
+
+
+def test_run12_k2_history4_on_the_card(run12):
+    """Team K2 at history 4 (it stores no privileged rows) against its
+    plain version at the evaluator's 128 envs."""
+    env, B = run12, 128
+    s, es = env._s, env._es
+    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
+    blocks = [b.cuda() for b in H.to_torch(H.env_step_blocks(
+        s, es, env.model, dr, np.random.RandomState(13), n=B))]
+    got = soa_env.env_step(s, es, 5, *blocks)
+    want = soa_env.env_step_rows(s, es, 5, *blocks)
+    torch.cuda.synchronize()
+    H.assert_env_outputs_close([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
+                               s, es, "team K2[hist4] vs plain")

@@ -164,8 +164,21 @@ def test_observation_size_and_config():
     {"privileged_obs": True}, {"disturbance_curriculum": True}, {"path": "other.xml"},
 ])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PupperV3Env(device="cpu", **option)
+    """Another MJCF still raises (ROADMAP queue 1, terrain); the privileged
+    obs and the disturbance curriculum, ported since, build an env that
+    publishes them at reset (their parity: ``test_torch_privileged.py``,
+    ``test_torch_extras.py``)."""
+    if "path" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PupperV3Env(device="cpu", **option)
+        return
+    env = PupperV3Env(device="cpu", **option)
+    info = env.reset(torch.Generator().manual_seed(0), 4).info
+    if "privileged_obs" in option:
+        assert env.privileged_obs_size == 34 and info["privileged_obs"].shape == (4, 34)
+        assert "difficulty" not in info
+    else:
+        assert torch.equal(info["difficulty"], torch.ones(4)) and "privileged_obs" not in info
 
 
 def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
@@ -184,9 +197,13 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
 
 
 def test_unported_terrain_and_action_repeat_raise():
+    """Terrain still raises; ``action_repeat``, ported since, keeps training
+    on the standard lane with JAX's reason (``test_torch_extras.py``)."""
+    from puppax_torch.env.rollout import support_reason
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PupperV3Env.from_config(EnvConfig(n_obstacles=3), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PupperV3Env.from_config(EnvConfig(heightfield=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wrap_for_training(PupperV3Env(device="cpu"), 1000, action_repeat=2)
+    wrapped = wrap_for_training(PupperV3Env(device="cpu"), 1000, action_repeat=2)
+    assert support_reason(wrapped) == (False, "action_repeat=2 (kernel fuses 1)")

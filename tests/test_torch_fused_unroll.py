@@ -121,9 +121,9 @@ def test_activation_and_head_match_jax_in_float64(activation, jax_x64):
 
 
 def _torch_stub_emission(s, es, q, v, act, env, noi, dr, first_q, first_v, first_obs,
-                         steps, prev_done, n_substeps, episode_length):
+                         first_priv, steps, prev_done, n_substeps, episode_length):
     """``tests/test_fused_unroll.py::_stub_emission`` in torch, with the
-    port's emission signature (no privileged rows)."""
+    port's emission signature (the privileged rows unused, as there)."""
     nu = s.nu
     noi0 = next(iter(noi.values()))[0]
     dr0 = next(iter(dr.values()))[0]

@@ -356,6 +356,18 @@ def test_generators_per_stream():
     {"privileged_critic": True}, {"curriculum_steps": 10}, {"devices": ["cpu", "cpu"]},
 ])
 def test_unported_train_options_raise(option):
-    env = type("E", (), {"device": torch.device("cpu")})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppo.train(env, 8, 8, device="cpu", **option)
+    """A multi-device mesh still raises (ROADMAP queue 1, multi-GPU); the
+    privileged critic and the curriculum, ported since, raise JAX's
+    ``ValueError`` on an env that publishes no privileged obs or no
+    difficulty (their runs: ``test_torch_extras.py``)."""
+    if "devices" in option:
+        env = type("E", (), {"device": torch.device("cpu")})
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ppo.train(env, 8, 8, device="cpu", **option)
+        return
+    from puppax_torch.env.pupper import PupperV3Env
+
+    match = "privileged_obs" if "privileged_critic" in option else "disturbance_curriculum"
+    with pytest.raises(ValueError, match=match):
+        ppo.train(PupperV3Env(device="cpu"), 8, 8, num_envs=4, batch_size=4, num_minibatches=1,
+                  device="cpu", **option)

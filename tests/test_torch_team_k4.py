@@ -190,10 +190,11 @@ def _fmod(x, c: float):
     return x._bk.emit("f", "fmodf({}, {})", x.name, cgen.float_literal(c))
 
 
-def _stub_emission(s, es, q, v, act, env, noi, dr, first_q, first_v, first_obs, steps,
-                   prev_done, n_substeps, episode_length):
+def _stub_emission(s, es, q, v, act, env, noi, dr, first_q, first_v, first_obs, first_priv,
+                   steps, prev_done, n_substeps, episode_length):
     """``tests/test_fused_unroll.py::_stub_emission`` with the port's
-    emission signature (no privileged rows), on either back-end."""
+    emission signature (the privileged rows unused, as there), on either
+    back-end."""
     nu = s.nu
     noi0 = next(iter(noi.values()))[0]
     dr0 = next(iter(dr.values()))[0]

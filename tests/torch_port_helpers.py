@@ -31,6 +31,17 @@ def env_kwargs(n_substeps: int = 1) -> dict:
     )
 
 
+# run12's env options (dev/run_configs/run12_2b_cse.json): history 4, the
+# privileged obs, the gait clock and the disturbance curriculum
+RUN12_ENV = dict(observation_history=4, privileged_obs=True, gait_phase_observation=True,
+                 disturbance_curriculum=True)
+
+
+def run12_kwargs(n_substeps: int = 1) -> dict:
+    """``env_kwargs`` with run12's env options."""
+    return dict(env_kwargs(n_substeps), **RUN12_ENV)
+
+
 def jax_env(n_substeps: int = 1):
     from puppax.configs import get_config
     from puppax.env import PupperV3Env
@@ -178,6 +189,9 @@ def wrapped_step_blocks(s, es, model, dr_rows: np.ndarray, rng, n: int = B,
     prev_done = np.zeros(n, f32)
     prev_done[1] = 1.0
     wrap = np.stack([steps, prev_done]).astype(f32)
+    npriv = getattr(es, "npriv", 0)
+    if npriv:  # the reset-time privileged rows, drawn last
+        first = np.concatenate([first, rng.uniform(-1, 1, (npriv, n)).astype(f32)], 0)
     return [qpos.T.copy(), qvel.T.copy(), act.T.copy(), env, noise,
             np.ascontiguousarray(dr_rows, f32), first, wrap]
 
@@ -283,8 +297,32 @@ def assert_wrapped_outputs_close(got, want, s, es, aux_rows, what: str):
             assert not bad.any(), (
                 f"{what}: reward terms {np.argwhere(bad).tolist()}: {g[bad]} vs {w[bad]}"
             )
+        elif name == "privileged":
+            assert_privileged_close(g.T, w.T, f"{what}: aux privileged")
         else:
             np.testing.assert_allclose(g, w, atol=2e-4, err_msg=f"{what}: aux {name}")
+
+
+# the privileged obs' columns (puppax/env/pupper.py:292-331) and their
+# tolerances: the torso's local velocities and the joint velocities as qvel
+# (5e-4 times max(1, the env's largest of them)), gravity as the
+# observation (2e-4), the contact flags exact, the air times as the env
+# rows (1e-5), the kick and the DR leaves as copies (1e-6 relative)
+PRIV_VELOCITY = np.r_[0:6, 9:21]
+PRIV_ATOL = ((slice(6, 9), 2e-4, 0.0), (slice(21, 25), 0.0, 0.0), (slice(25, 29), 1e-5, 0.0),
+             (slice(29, 34), 0.0, 1e-6))
+
+
+def assert_privileged_close(got, want, what: str):
+    """``(B, 34)`` privileged observations at the tolerances above."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and got.shape[-1] == 34, (got.shape, want.shape)
+    scale = np.maximum(1.0, np.abs(want[..., PRIV_VELOCITY]).max(-1, keepdims=True))
+    np.testing.assert_allclose(got[..., PRIV_VELOCITY] / scale, want[..., PRIV_VELOCITY] / scale,
+                               atol=5e-4, rtol=0, err_msg=f"{what}: velocities")
+    for cols, atol, rtol in PRIV_ATOL:
+        np.testing.assert_allclose(got[..., cols], want[..., cols], atol=atol, rtol=rtol,
+                                   err_msg=f"{what}: columns {cols.start}:{cols.stop}")
 
 
 def fused_unroll_inputs(env, n: int, T: int, activation: str, episode_length: int,
