@@ -10,17 +10,20 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the thirteen kernels from the checkout's sources, in
+2. the builds of the twenty-one kernels from the checkout's sources, in
    parallel nvcc processes: the wrapped env step (K3), the unwrapped env
    step (K2), the physics-only step (K1) and the fused unroll (K4) as team
    kernels (32 envs per block, each env's program split across the block's
    warps, ``kernels/team.py``; team K4 also splits its MLP) and as
-   one-thread kernels (one env per thread, the A/B baseline), and the
+   one-thread kernels (one env per thread, the A/B baseline), the
    bodies of run12's env (``dev/run_configs/run12_2b_cse.json``: history
    4, the privileged rows, the gait clock): team K3, K3, team K2 (history
-   4 only), team K4 and K4; each with its generated lines, nvcc seconds
-   and ptxas summary (the team kernels with their warps, barriers, shared
-   memory and heaviest stream);
+   4 only), team K4 and K4, and the eight bodies of run9's heightfield
+   terrain (``dev/run_configs/run9_500m_hfield.json``: the hfield-sphere
+   pairs, the grid a table the bodies read): team K1, K2, K3, K4 and their
+   one-thread kernels (``[hfield]``); each with its generated lines, nvcc
+   seconds and ptxas summary (the team kernels with their warps, barriers,
+   shared memory and heaviest stream);
 3. K3 against its plain version at 4096 envs: after a few kernel steps
    from a DR reset, one wrapped step through ``wrapped_step`` (team K3),
    ``wrapped_step_one_thread`` (the one-thread K3) and
@@ -36,8 +39,9 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``fused_unroll.unroll_rows``, every step's outputs and the final carry
    held env by env (and counted bit for bit), the two kernels bit for bit
    with each other; the same with the gait clock on at 128 envs; both
-   timed per T=20 unroll at 4096 envs in turns (one-thread, team, team,
-   one-thread), the A/B printed, the plain version once;
+   timed per T=4 unroll on the check's inputs (where the plain version was
+   timed: the kernels line) and per T=20 unroll at 4096 envs, in turns
+   (one-thread, team, team, one-thread), the A/B printed;
 5. K1 against its plain version on the same 4096 DR'd states (feet on the
    floor) under the policy's motor targets: ``soa.step_batched`` (team K1)
    and ``soa.step_batched_one_thread`` (one-thread K1) against
@@ -118,7 +122,18 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    launches, the difficulty before each training step (at least three
    values), the critic normalizer's count, finite losses and evaluations,
    its ``training/sps``, phase times and evaluation seconds;
-14. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
+14. run9, the heightfield terrain: 4096 DR'd envs from run9's committed
+   tables after ``RUN9_WARM_STEPS`` kernel steps, every eighth moved past
+   the grid's edge; the envs with an active hfield-sphere contact on a
+   nonzero, sloped cell counted (at least ``MIN_HFIELD_ENVS``); team K1,
+   team K3 and team K4 (T=4) at 4096 envs and team K2 at 128 against their
+   one-thread kernels and their plain versions, bit for bit (0 envs
+   outside, max abs err 0.0), and timed in turns; then ``python -m
+   puppax_torch.scripts.train --config dev/run_configs/run9_500m_hfield.json``
+   on the K3 lane for 3 training steps and 2 evaluations, its launches
+   counted by body (team K3[hfield] and team K2[hfield]), its
+   ``training/sps``, phase times and evaluation seconds;
+15. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
    4096 DR'd states: their 30 libraries built in one parallel batch (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
@@ -177,13 +192,16 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    plain version (bit for bit; the ``--fmad=true`` builds as above), and
    every probe kernel must have launched in
    this phase;
-15. a JSON line of the kernels (launches in their training run or probe
+16. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
    team K3, team K2, team K1 and team K4 beside the one-thread K3, K2, K1
    and K4, whose launches on the main path are 0; run12's bodies as
    ``wrapped_step_team[run12]``, ``env_step_team[hist4]``,
    ``fused_unroll_team[run12]`` and their one-thread kernels, each with
-   the run12 CLI run its launches come from as ``launches_in``) and, last,
+   the run12 CLI run its launches come from as ``launches_in``; run9's
+   eight ``[hfield]`` bodies, launched in run9's CLI run; each K4 entry's
+   ``unroll_T`` the steps of the unroll its times and bound are per) and,
+   last,
    the device JSON line.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -222,6 +240,10 @@ GAIT_TICKS = 8  # ticks of the native runtime's gait clock
 TRAIN_TIMESTEPS = 491_520  # 3 training steps of 256 x 20 x 32 env steps
 # the JAX package's best run, driven at full width through the training CLI
 RUN12_CONFIG = os.path.join("dev", "run_configs", "run12_2b_cse.json")
+# the heightfield terrain's run (a 32 x 32 grid), from its committed tables
+RUN9_CONFIG = os.path.join("dev", "run_configs", "run9_500m_hfield.json")
+RUN9_WARM_STEPS = 25  # kernel steps from reset: the robots land on the bumps
+MIN_HFIELD_ENVS = 1000  # of 4096 with an active contact on a nonzero, sloped cell
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -664,6 +686,27 @@ def main():
         "team K4[run12]": build.record_name(build.FUSED_UNROLL_TEAM, build.env_variant(es12)),
         "K4[run12]": build.record_name(build.FUSED_UNROLL, build.env_variant(es12)),
     }
+    # run9's env (the heightfield, from its committed tables), with the default DR
+    with open(os.path.join(HERE, RUN9_CONFIG)) as f:
+        cfg9 = experiment.from_dict(json.load(f))
+    env9 = PupperV3Env.from_config(cfg9.env, device=device)
+    wrapped9 = wrap_for_training(env9, L, randomization_fn=randomization_fn, generator=g,
+                                 num_envs=B)
+    lane9 = FastLane(wrapped9)
+    s9, es9, tc9 = env9._s, env9._es, cfg9.train
+    if tc9.episode_length != L or cfg9.env.environment_timestep != env_cfg.environment_timestep:
+        raise AssertionError("run9's episode and env step differ from the default's")
+    hf = build.model_variant(s9)
+    rec9 = {  # run9's bodies' build records
+        "team K1[hfield]": build.record_name(build.PHYSICS_STEP_TEAM, hf),
+        "K1[hfield]": build.record_name(build.PHYSICS_STEP, hf),
+        "team K2[hfield]": build.record_name(build.ENV_STEP_TEAM, hf),
+        "K2[hfield]": build.record_name(build.ENV_STEP, hf),
+        "team K3[hfield]": build.record_name(build.WRAPPED_STEP_TEAM, hf),
+        "K3[hfield]": build.record_name(build.WRAPPED_STEP, hf),
+        "team K4[hfield]": build.record_name(build.FUSED_UNROLL_TEAM, hf),
+        "K4[hfield]": build.record_name(build.FUSED_UNROLL, hf),
+    }
     s1 = env_po._cv_step.s  # K1's static digest (the physics-only env's step)
     print(f"config: envs {B}, substeps {n_sub}, episode {L}, unroll {T_UNROLL}, "
           f"obs {env.observation_size}, policy {tc.policy_hidden_layer_sizes}, "
@@ -671,9 +714,9 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build the thirteen kernels, in parallel nvcc processes ----
-    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4, and run12's "
-               "team K3 + K3 + team K2 + team K4 + K4"):
+    # ---- build the twenty-one kernels, in parallel nvcc processes ----
+    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4, run12's "
+               "team K3 + K3 + team K2 + team K4 + K4, and run9's team K1-K4 + K1-K4"):
         build.build_in_parallel(lambda: build.wrapped_step_team_library(s, es, n_sub, L),
                                 lambda: build.env_step_team_library(s, es, n_sub),
                                 lambda: build.physics_step_team_library(s1, n_sub),
@@ -686,11 +729,20 @@ def main():
                                 lambda: build.wrapped_step_library(s12, es12, n_sub, L),
                                 lambda: build.env_step_team_library(s12, es12, n_sub),
                                 lambda: build.fused_unroll_team_library(s12, es12, n_sub, L),
-                                lambda: build.fused_unroll_library(s12, es12, n_sub, L))
+                                lambda: build.fused_unroll_library(s12, es12, n_sub, L),
+                                lambda: build.physics_step_team_library(s9, n_sub),
+                                lambda: build.physics_step_library(s9, n_sub),
+                                lambda: build.env_step_team_library(s9, es9, n_sub),
+                                lambda: build.env_step_library(s9, es9, n_sub),
+                                lambda: build.wrapped_step_team_library(s9, es9, n_sub, L),
+                                lambda: build.wrapped_step_library(s9, es9, n_sub, L),
+                                lambda: build.fused_unroll_team_library(s9, es9, n_sub, L),
+                                lambda: build.fused_unroll_library(s9, es9, n_sub, L))
         for kname, label in (("wrapped_step_team", "team K3"), ("env_step_team", "team K2"),
                              ("physics_step_team", "team K1"), ("fused_unroll_team", "team K4"),
                              ("wrapped_step", "K3"), ("env_step", "K2"), ("physics_step", "K1"),
-                             ("fused_unroll", "K4"), *((v, k) for k, v in rec12.items())):
+                             ("fused_unroll", "K4"), *((v, k) for k, v in rec12.items()),
+                             *((v, k) for k, v in rec9.items())):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
                   f"{info['ops_per_env']} float ops per env, generate "
@@ -700,14 +752,15 @@ def main():
                 print(f"  team: {info['warps']} warps per block, heaviest stream "
                       f"{max(info['stream_ops'])} float ops per env, {info['replicated_ops']} "
                       f"replicated in all, {info['barriers']} barriers, "
-                      f"{info['shared_bytes']} bytes of shared memory", flush=True)
+                      f"{info['shared_bytes']} bytes of shared memory ({info['slots']} slots, "
+                      f"write gap {info['write_gap']})", flush=True)
             log_path = os.path.join(info["dir"], "build.log")
             for line in open(log_path).read().splitlines():
                 if "registers" in line or "spill" in line or "stack frame" in line:
                     print("  ptxas:" + line.split(":", 1)[-1].rstrip())
 
     # ---- team K3 and the one-thread K3 against plain at 4096, 128 and 130 envs ----
-    def k3_check(name, s_, es_, blocks_, limit):
+    def k3_check(name, s_, es_, blocks_, limit, warm=WARM_STEPS):
         """Team K3 and the one-thread K3 against the plain version on the
         same inputs (at most ``limit`` envs outside tolerance) and against
         each other bit for bit. Some env must touch the floor, and where the
@@ -735,7 +788,7 @@ def main():
                                                         blocks_[6][f0 : f0 + n][:, done])
             restore_note = (f"; {int(done.sum())} envs done, their privileged rows restored: "
                             f"{restored}")
-        print(f"team {name} vs plain at {n_envs} envs after {WARM_STEPS} kernel steps "
+        print(f"team {name} vs plain at {n_envs} envs after {warm} kernel steps "
               f"({in_contact} envs with a foot on the floor): max abs err per block "
               + json.dumps(per_block) + f"; {len(differing)} envs outside tolerance; "
               f"one-thread {name} vs plain: max abs err {one_err!r}, {len(one_differing)} "
@@ -842,7 +895,7 @@ def main():
 
     with Phase("K4 vs plain"):
         k4_in = k4_blocks(lane, carry, B, T_CHECK)
-        k4_err, k4_one_err, k4_plain_check_ms, want = k4_check(
+        k4_err, k4_one_err, k4_plain_ms, want = k4_check(
             f"at {B} envs x T={T_CHECK} from the K3 check's states", s, es, layers, k4_in,
             MAX_DIFFERING_ENVS)
         done_steps = int((want[9][:, aux_rows["done"][0]] > 0.5).sum())
@@ -876,26 +929,33 @@ def main():
             raise AssertionError("no clock restarted: the done restore went unchecked")
         k4_err, k4_one_err = max(k4_err, k4_gait_err), max(k4_one_err, k4_one_gait_err)
 
-        # both K4s per T=20 unroll at 4096 envs, in turns; the plain version once
-        k4_in = k4_blocks(lane, carry, B, T_UNROLL)
+        # both K4s per T=4 unroll on the check's inputs (where the plain
+        # version was timed: the kernels line) and per T=20 unroll at 4096
+        # envs, in turns
+        k4_in_long = k4_blocks(lane, carry, B, T_UNROLL)
 
-        def k4_unroll():
-            fused_unroll.unroll(s, es, n_sub, L, activation, layers, *k4_in)
+        def k4_unroll(ins):
+            return lambda: fused_unroll.unroll(s, es, n_sub, L, activation, layers, *ins)
 
-        def k4_one_unroll():
-            fused_unroll.unroll_one_thread(s, es, n_sub, L, activation, layers, *k4_in)
+        def k4_one_unroll(ins):
+            return lambda: fused_unroll.unroll_one_thread(s, es, n_sub, L, activation, layers,
+                                                          *ins)
 
-        k4_one_ms = [cuda_ms(k4_one_unroll, 3)]
-        k4_ms = [cuda_ms(k4_unroll, 3), cuda_ms(k4_unroll, 3)]
-        k4_one_ms.append(cuda_ms(k4_one_unroll, 3))
-        k4_plain_ms = cuda_ms(lambda: fused_unroll.unroll_rows(s, es, n_sub, L, activation,
-                                                               layers, *k4_in), 1)
-        print(f"team K4 per T={T_UNROLL} unroll at {B} envs: {statistics.median(k4_ms):.4f} ms "
-              f"(runs {k4_ms}), {statistics.median(k4_ms) / T_UNROLL:.4f} ms per step; "
-              f"one-thread K4 {statistics.median(k4_one_ms):.4f} ms (runs {k4_one_ms}); A/B "
-              f"K4, one-thread / team: "
-              f"{statistics.median(k4_one_ms) / statistics.median(k4_ms):.3f}x; plain "
-              f"{k4_plain_ms:.1f} ms (T={T_CHECK}: {k4_plain_check_ms:.1f} ms)", flush=True)
+        k4_one_ms = [cuda_ms(k4_one_unroll(k4_in), 5)]
+        k4_ms = [cuda_ms(k4_unroll(k4_in), 5), cuda_ms(k4_unroll(k4_in), 5)]
+        k4_one_ms.append(cuda_ms(k4_one_unroll(k4_in), 5))
+        k4_long_one_ms = [cuda_ms(k4_one_unroll(k4_in_long), 3)]
+        k4_long_ms = [cuda_ms(k4_unroll(k4_in_long), 3), cuda_ms(k4_unroll(k4_in_long), 3)]
+        k4_long_one_ms.append(cuda_ms(k4_one_unroll(k4_in_long), 3))
+        for T, team_ms, one_ms, plain in ((T_CHECK, k4_ms, k4_one_ms,
+                                           f"; plain {k4_plain_ms:.1f} ms"),
+                                          (T_UNROLL, k4_long_ms, k4_long_one_ms, "")):
+            print(f"team K4 per T={T} unroll at {B} envs: {statistics.median(team_ms):.4f} ms "
+                  f"(runs {team_ms}), {statistics.median(team_ms) / T:.4f} ms per step; "
+                  f"one-thread K4 {statistics.median(one_ms):.4f} ms (runs {one_ms}); A/B "
+                  f"K4, one-thread / team: "
+                  f"{statistics.median(one_ms) / statistics.median(team_ms):.3f}x" + plain,
+                  flush=True)
 
     # ---- K1 against plain, and against the torch pipeline, at 4096 envs ----
     with Phase("K1 vs plain"):
@@ -1447,37 +1507,56 @@ def main():
         print(f"team K2[hist4] step at {EVAL_ENVS} envs: {statistics.median(k2_12_ms):.4f} ms "
               f"(runs {k2_12_ms}); plain {k2_12_plain_ms:.1f} ms", flush=True)
 
-    # ---- run12 through the training CLI on the three lanes ----
+    # ---- run12 through the training CLI on the K3 lane ----
     tc12_steps = tc12.batch_size * tc12.unroll_length * tc12.num_minibatches
     n_train12 = math.ceil(TRAIN_TIMESTEPS / tc12_steps)
     unroll12 = n_train12 * (tc12.batch_size * tc12.num_minibatches // B) * tc12.unroll_length
     evals12 = 2 * tc12.episode_length
+    team_libs = ("wrapped_step_team_library", "env_step_team_library",
+                 "physics_step_team_library", "fused_unroll_team_library")
 
-    def train12(label, want, lane_line):
-        """``python -m puppax_torch.scripts.train --config run12`` for 3
-        training steps and 2 evaluations on the card, the curriculum over
-        those steps; its launches against ``want`` (team K3, K2, K1, K4;
-        the one-thread kernels none), its lane line, the difficulty before
-        each training step's rollout (at least three values), the critic
-        normalizer's count, finite losses and eval metrics."""
-        tmp = tempfile.mkdtemp(prefix="puppax_torch_run12_")
+    def cli_run(label, config, want, lane_line, run12=True):
+        """``python -m puppax_torch.scripts.train --config <config>`` for 3
+        training steps and 2 evaluations on the card; its launches against
+        ``want`` (team K3, K2, K1, K4; the one-thread kernels none), each
+        counted by the body it went through (the model's variant), its lane
+        line, the env steps, finite losses and eval metrics; for run12 (the
+        curriculum over those steps) the difficulty before each training
+        step's rollout on any lane (at least three values) and the critic
+        normalizer's count. Returns the launches and the launches by
+        (library, variant)."""
+        tmp = tempfile.mkdtemp(prefix="puppax_torch_cli_")
         seen = []
         real = {"lane": FastLane.unroll, "standard": acting.generate_unroll}
+        by_body = {}
+
+        def lib_spy(name):
+            lib = real[name] = getattr(build, name)
+
+            def spy(s_, *a, **kw):  # each launch looks its library up
+                key = (name, build.model_variant(s_))
+                by_body[key] = by_body.get(key, 0) + 1
+                return lib(s_, *a, **kw)
+
+            return spy
 
         def lane_spy(self, state, *a, **kw):
-            seen.append(float(state.info["difficulty"][0]))
+            if run12:
+                seen.append(float(state.info["difficulty"][0]))
             return real["lane"](self, state, *a, **kw)
 
         def standard_spy(env_, state, *a, **kw):
-            if state.qpos.shape[0] == B:  # the training env's unrolls
+            if run12 and state.qpos.shape[0] == B:  # the training env's unrolls
                 seen.append(float(state.info["difficulty"][0]))
             return real["standard"](env_, state, *a, **kw)
 
         over = {"train.num_timesteps": TRAIN_TIMESTEPS, "train.num_evals": 2,
-                "train.num_eval_envs": EVAL_ENVS, "train.curriculum_steps": TRAIN_TIMESTEPS,
-                "train.seed": args.seed, "train.checkpoint_path": os.path.join(tmp, "ckpt"),
+                "train.num_eval_envs": EVAL_ENVS, "train.seed": args.seed,
+                "train.checkpoint_path": os.path.join(tmp, "ckpt"),
                 "train.metrics_jsonl": os.path.join(tmp, "metrics.jsonl")}
-        argv = ["--config", os.path.join(HERE, RUN12_CONFIG), "--device", str(device)]
+        if run12:
+            over["train.curriculum_steps"] = TRAIN_TIMESTEPS
+        argv = ["--config", os.path.join(HERE, config), "--device", str(device)]
         for k, v in over.items():
             argv += ["--set", f"{k}={json.dumps(v)}"]
         soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
@@ -1486,11 +1565,16 @@ def main():
         fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
         out = io.StringIO()
         FastLane.unroll, acting.generate_unroll = lane_spy, standard_spy
+        spies = {name: lib_spy(name) for name in team_libs}
+        for name, spy in spies.items():
+            setattr(build, name, spy)
         try:
             with contextlib.redirect_stdout(out):
                 m = train_cli.main(argv)
         finally:
             FastLane.unroll, acting.generate_unroll = real["lane"], real["standard"]
+            for name in team_libs:
+                setattr(build, name, real[name])
         torch.cuda.synchronize()
         lines = [x for x in out.getvalue().splitlines() if x.startswith(("config hash", "[puppax"))]
         print("\n".join(lines), flush=True)
@@ -1507,17 +1591,24 @@ def main():
               f"launches {one_thread} (expected (0, 0, 0, 0))", flush=True)
         if launches != want or one_thread != (0, 0, 0, 0):
             raise AssertionError(f"{label} did not launch the kernels as expected")
-        print(f"{label}: difficulty before each training step's unrolls {seen}", flush=True)
-        if len(set(seen)) < 3 or seen != sorted(seen):
-            raise AssertionError(f"{label}: the curriculum did not move the difficulty: {seen}")
+        print(f"{label}: team launches by body " + json.dumps(
+            {build.record_name(getattr(build, name.removesuffix("_library").upper()), v): n
+             for (name, v), n in by_body.items()}), flush=True)
         tree = checkpoint.restore_checkpoint(os.path.join(tmp, "ckpt", "state"))
-        cn = tree["critic_normalizer"]
-        print(f"{label}: critic normalizer count {float(cn['count'])} over "
-              f"{cn['mean'].numel()} inputs (obs {env12.observation_size} + privileged "
-              f"{env12.privileged_obs_size}); env steps {tree['env_steps']}", flush=True)
-        if float(cn["count"]) != TRAIN_TIMESTEPS or tree["env_steps"] != TRAIN_TIMESTEPS:
-            raise AssertionError(f"{label}: the critic normalizer's count did not grow as the "
-                                 f"run: {float(cn['count'])}")
+        if tree["env_steps"] != TRAIN_TIMESTEPS:
+            raise AssertionError(f"{label}: env steps {tree['env_steps']}")
+        if run12:
+            print(f"{label}: difficulty before each training step's unrolls {seen}", flush=True)
+            if len(set(seen)) < 3 or seen != sorted(seen):
+                raise AssertionError(f"{label}: the curriculum did not move the difficulty: "
+                                     f"{seen}")
+            cn = tree["critic_normalizer"]
+            print(f"{label}: critic normalizer count {float(cn['count'])} over "
+                  f"{cn['mean'].numel()} inputs (obs {env12.observation_size} + privileged "
+                  f"{env12.privileged_obs_size}); env steps {tree['env_steps']}", flush=True)
+            if float(cn["count"]) != TRAIN_TIMESTEPS:
+                raise AssertionError(f"{label}: the critic normalizer's count did not grow as "
+                                     f"the run: {float(cn['count'])}")
         losses = {k: v for k, v in m.items() if k.endswith("_loss")}
         if len(losses) != 4 or not all(math.isfinite(v) for v in losses.values()):
             raise AssertionError(f"{label}: loss metrics {losses}")
@@ -1534,27 +1625,164 @@ def main():
               f"events); one evaluation " + ", ".join(
                   f"at step {r['step']}: {r['eval/epoch_eval_time']:.3f} s wall" for r in evals)
               + f"; losses " + json.dumps(losses), flush=True)
-        return launches
+        return launches, by_body
 
     with Phase("run12 training, K3 lane"):
-        k3_12_launches, k2_12_launches, _, _ = train12(
-            "run12 K3 lane", (unroll12, evals12, 0, 0),
+        (k3_12_launches, k2_12_launches, _, _), _ = cli_run(
+            "run12 K3 lane", RUN12_CONFIG, (unroll12, evals12, 0, 0),
             "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
     with Phase("run12 training, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"  # read when the CLI builds the env
         try:
-            train12("run12 physics-only lane", (0, 0, unroll12 + evals12, 0),
+            cli_run("run12 physics-only lane", RUN12_CONFIG, (0, 0, unroll12 + evals12, 0),
                     "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
         finally:
             del os.environ["PUPPAX_SOA_ENV"]
     with Phase("run12 training, fused-unroll lane"):
         os.environ["PUPPAX_FUSED_UNROLL"] = "on"
         try:
-            _, _, _, k4_12_launches = train12(
-                "run12 fused-unroll lane", (0, evals12, 0, unroll12 // tc12.unroll_length),
+            (_, _, _, k4_12_launches), _ = cli_run(
+                "run12 fused-unroll lane", RUN12_CONFIG,
+                (0, evals12, 0, unroll12 // tc12.unroll_length),
                 "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
+
+    # ---- run9: the heightfield terrain's bodies against plain ----
+    with Phase("run9 kernels vs plain"):
+        nets9 = networks.make_ppo_networks(
+            env9.observation_size, env9.action_size, tc9.policy_hidden_layer_sizes,
+            tc9.value_hidden_layer_sizes, tc9.activation, device=device, generator=g)
+        layers9 = fused_unroll.fold_normalizer(None, nets9.policy_network)
+        state9 = wrapped9.reset(B, generator=g)
+        state9, _ = lane9.unroll(state9, (None, nets9.policy_network), generator=g,
+                                 T=RUN9_WARM_STEPS)
+        carry9 = lane9.carry_from_state(state9)
+        hs = [i for i, p in enumerate(s9.pairs) if p.kind == "hs"]
+        rx, ry = s9.pairs[hs[0]].hf_size[:2]
+        # every eighth env past the grid's edge in x (only the floor under it)
+        q9 = carry9["q"].clone()
+        off = torch.arange(B, device=device) % 8 == 7
+        edge = rx + 0.1 + 0.4 * torch.rand(B, generator=g, device=device)
+        q9[0] = torch.where(off, torch.where(q9[0] < 0, -edge, edge), q9[0])
+        carry9 = dict(carry9, q=q9)
+        noise9, _ = lane9.draw_noise_block(g, B, 1)
+        eps9 = torch.randn((env9.action_size, B), generator=g, device=device)
+        r0, n = es9.env_rows["obs_history"]
+        with torch.no_grad():
+            act9, _, _ = lane9.policy_rows(None, nets9.policy_network)(
+                carry9["env"][r0 : r0 + n], eps9)
+        blocks9 = [carry9["q"], carry9["v"], act9, carry9["env"], noise9[0].contiguous(),
+                   carry9["dr"], carry9["first"], carry9["wrap"]]
+        ctrl9 = es9.action_scale * act9 + env9._dev["default_pose"][:, None]
+        ctrl9 = torch.minimum(torch.maximum(ctrl9, env9._dev["lowers"][:, None]),
+                              env9._dev["uppers"][:, None]).contiguous()
+        k1_blocks9 = [carry9["q"], carry9["v"], ctrl9, carry9["dr"]]
+        res9 = {}
+
+        def exact9(k, got, one, want, compare, *args):
+            """Team and one-thread kernel against the plain version: 0 envs
+            outside tolerance and max abs err 0.0 for both."""
+            per_block, differing, err = compare(*args, got, want)
+            _, one_differing, one_err = compare(*args, one, want)
+            res9[k] = dict(err=err, one_err=one_err)
+            print(f"team {k}[hfield] vs plain: max abs err per block " + json.dumps(per_block)
+                  + f", {len(differing)} envs outside tolerance; one-thread {k}[hfield] vs "
+                  f"plain: max abs err {one_err!r}, {len(one_differing)} outside", flush=True)
+            if differing or one_differing or err != 0.0 or one_err != 0.0:
+                raise AssertionError(f"{k}[hfield] is not bit for bit with its plain version")
+
+        # team K1 at 4096 envs: the contacts on the terrain from its caches
+        got = soa.step_batched(s9, *k1_blocks9, n_sub)
+        one = soa.step_batched_one_thread(s9, *k1_blocks9, n_sub)
+        torch.cuda.synchronize()
+        want = soa.physics_step_rows(s9, n_sub, *k1_blocks9)
+        exact9("K1", got, one, want, compare_physics_outputs, s9)
+        d0, _ = s9.cache_rows["con_dist"]
+        p0, _ = s9.cache_rows["con_pos"]
+        grid = torch.tensor(s9.pairs[hs[0]].hf_grid, dtype=torch.float32, device=device)
+        nrow, ncol = grid.shape
+        x = got[2][[p0 + 3 * i for i in hs]]
+        y = got[2][[p0 + 3 * i + 1 for i in hs]]
+        iu = torch.clamp(torch.floor((x + rx) / (2 * rx) * (ncol - 1)), 0, ncol - 2).long()
+        iv = torch.clamp(torch.floor((y + ry) / (2 * ry) * (nrow - 1)), 0, nrow - 2).long()
+        corners = torch.stack([grid[iv, iu], grid[iv, iu + 1], grid[iv + 1, iu],
+                               grid[iv + 1, iu + 1]])
+        sloped = (corners != corners[:1]).any(0) & (corners > 0).any(0)
+        on_grid = (x.abs() <= rx) & (y.abs() <= ry)
+        active = (got[2][[d0 + i for i in hs]] < 0) & on_grid & sloped
+        n_hs = int(active.any(0).sum())
+        n_off = int(((carry9["q"][0].abs() > rx) | (carry9["q"][1].abs() > ry)).sum())
+        print(f"run9 at {B} DR'd envs after {RUN9_WARM_STEPS} kernel steps: {n_hs} envs with an "
+              f"active hfield-sphere contact on a nonzero, sloped cell ({int(active.sum())} "
+              f"contacts), {n_off} envs off the grid's edge", flush=True)
+        if n_hs < MIN_HFIELD_ENVS or n_off == 0:
+            raise AssertionError(f"{n_hs} envs touch the terrain's bumps (at least "
+                                 f"{MIN_HFIELD_ENVS}), {n_off} sit off the grid")
+
+        # team K2 at the evaluator's 128 envs (the same states' first 128)
+        k2_blocks9 = [x_[:, :EVAL_ENVS].contiguous() for x_ in blocks9[:6]]
+        got = soa_env.env_step(s9, es9, n_sub, *k2_blocks9)
+        one = soa_env.env_step_one_thread(s9, es9, n_sub, *k2_blocks9)
+        torch.cuda.synchronize()
+        want = soa_env.env_step_rows(s9, es9, n_sub, *k2_blocks9)
+        exact9("K2", got, one, want, compare_env_outputs, s9, es9)
+
+        # team K3 at 4096 envs (k3_check holds it bit for bit with the one-thread K3)
+        err, one_err = k3_check("K3[hfield]", s9, es9, blocks9, 0, RUN9_WARM_STEPS)
+        res9["K3"] = dict(err=err, one_err=one_err)
+        if (err, one_err) != (0.0, 0.0):
+            raise AssertionError("K3[hfield] is not bit for bit with its plain version")
+
+        # team K4 over T=4 steps from the same states
+        k4_in9 = k4_blocks(lane9, carry9, B, T_CHECK)
+        err, one_err, k4_9_plain_ms, _ = k4_check(f"[hfield] at {B} envs x T={T_CHECK}", s9,
+                                                  es9, layers9, k4_in9, 0)
+        res9["K4"] = dict(err=err, one_err=one_err, plain_ms=k4_9_plain_ms)
+        if (err, one_err) != (0.0, 0.0):
+            raise AssertionError("K4[hfield] is not bit for bit with its plain version")
+
+        # the times, team and one-thread in turns; each plain version once
+        calls9 = {
+            "K1": (lambda: soa.step_batched(s9, *k1_blocks9, n_sub),
+                   lambda: soa.step_batched_one_thread(s9, *k1_blocks9, n_sub),
+                   lambda: soa.physics_step_rows(s9, n_sub, *k1_blocks9), 20),
+            "K2": (lambda: soa_env.env_step(s9, es9, n_sub, *k2_blocks9),
+                   lambda: soa_env.env_step_one_thread(s9, es9, n_sub, *k2_blocks9),
+                   lambda: soa_env.env_step_rows(s9, es9, n_sub, *k2_blocks9), 20),
+            "K3": (lambda: soa_env.wrapped_step(s9, es9, n_sub, L, *blocks9),
+                   lambda: soa_env.wrapped_step_one_thread(s9, es9, n_sub, L, *blocks9),
+                   lambda: soa_env.wrapped_step_rows(s9, es9, n_sub, L, *blocks9), 20),
+            "K4": (lambda: fused_unroll.unroll(s9, es9, n_sub, L, activation, layers9, *k4_in9),
+                   lambda: fused_unroll.unroll_one_thread(s9, es9, n_sub, L, activation,
+                                                          layers9, *k4_in9), None, 5),
+        }
+        for k, (team_fn, one_fn, plain_fn, reps) in calls9.items():
+            one_ms = [cuda_ms(one_fn, reps)]
+            team_ms = [cuda_ms(team_fn, reps), cuda_ms(team_fn, reps)]
+            one_ms.append(cuda_ms(one_fn, reps))
+            if plain_fn is not None:
+                res9[k]["plain_ms"] = cuda_ms(plain_fn, 1)
+            res9[k].update(ms=team_ms, one_ms=one_ms)
+            what = f"per T={T_CHECK} unroll at {B} envs" if k == "K4" else \
+                f"step at {EVAL_ENVS if k == 'K2' else B} envs"
+            print(f"team {k}[hfield] {what}: {statistics.median(team_ms):.4f} ms (runs "
+                  f"{team_ms}); one-thread {k}[hfield] {statistics.median(one_ms):.4f} ms (runs "
+                  f"{one_ms}); A/B {statistics.median(one_ms) / statistics.median(team_ms):.3f}x; "
+                  f"plain {res9[k]['plain_ms']:.1f} ms ({smi})", flush=True)
+
+    # ---- run9 through the training CLI on the K3 lane ----
+    with Phase("run9 training, K3 lane"):
+        if (tc9.batch_size, tc9.unroll_length, tc9.num_minibatches) != (
+                tc12.batch_size, tc12.unroll_length, tc12.num_minibatches):
+            raise AssertionError("run9's training steps differ from run12's")
+        (k3_9_launches, k2_9_launches, _, _), by_body = cli_run(
+            "run9 K3 lane", RUN9_CONFIG, (unroll12, evals12, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", run12=False)
+        if (by_body.get(("wrapped_step_team_library", "hfield")) != k3_9_launches
+                or by_body.get(("env_step_team_library", "hfield")) != k2_9_launches):
+            raise AssertionError(f"run9's launches did not all go through the [hfield] "
+                                 f"bodies: {by_body}")
 
     # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
     from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
@@ -1669,14 +1897,15 @@ def main():
     # K4: T steps of K3's body and the policy per env; reads the carry, the
     # reset rows, the DR rows, T steps of noise and eps and the weights once,
     # writes the final carry and T steps of obs, act, raw, logp and aux
+    # (per T=4 unroll, the K4 check's, where the plain version was timed)
     dims = [env.observation_size] + [w.shape[0] for w, _ in layers]
-    k4_ops = T_UNROLL * (build.last_build["fused_unroll"]["ops_per_env"]
-                         + fused_unroll.policy_op_count(dims, activation, env.action_size, False))
+    k4_ops = T_CHECK * (build.last_build["fused_unroll"]["ops_per_env"]
+                        + fused_unroll.policy_op_count(dims, activation, env.action_size, False))
     in_rows, out_rows = soa_env.block_rows(s, es)
     carry_rows = s.nq + s.nv + es.nenv_rows + 2
-    k4_in_rows = (carry_rows + in_rows[6] + in_rows[5] + T_UNROLL * (in_rows[4] + in_rows[2])
+    k4_in_rows = (carry_rows + in_rows[6] + in_rows[5] + T_CHECK * (in_rows[4] + in_rows[2])
                   + sum(w.numel() + b.numel() for w, b in layers) / B)
-    k4_out_rows = carry_rows + T_UNROLL * (es.hist + 2 * env.action_size + 1 + out_rows[4])
+    k4_out_rows = carry_rows + T_CHECK * (es.hist + 2 * env.action_size + 1 + out_rows[4])
     k4_bound, k4_by = bound_ms(k4_ops, k4_in_rows, k4_out_rows, B)
     kernels = [{
         # K3, K2 and K1 as the team kernels (the main path) and as the
@@ -1781,9 +2010,9 @@ def main():
     }]
 
     # run12's bodies: team K3 and K4 (one-thread beside them) with history 4
-    # and the privileged rows, team K2 with history 4. Each entry's launches
-    # are one run12 CLI run's, named in its "launches_in": team K3's and team
-    # K2's the K3 lane's (K2 in its evaluations), team K4's the fused lane's;
+    # and the privileged rows, team K2 with history 4. Team K3's and team
+    # K2's launches are the run12 CLI's K3-lane run's (K2 in its
+    # evaluations), named in "launches_in", team K4's the fused lane's;
     # K4's ms, plain_ms and bound_ms are per T=4 unroll, the K4 check's
     in12, out12 = soa_env.block_rows(s12, es12)
     k3_12_bound = bound_ms(build.last_build[rec12["team K3[run12]"]]["ops_per_env"],
@@ -1820,6 +2049,43 @@ def main():
                         "replaces": replaces, "launches": launches_, "launches_in": run,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
                         "bound_by": bound[1], "library_ms": None})
+
+    # run9's eight [hfield] bodies: team K3's and team K2's launches are the
+    # run9 CLI's K3-lane run's (K2 in its evaluations); K1 and K4 are not on
+    # that lane. K4's numbers are per T=4 unroll, K2's at 128 envs
+    in9, out9 = soa_env.block_rows(s9, es9)
+
+    def ops9(label):
+        return build.last_build[rec9[label]]["ops_per_env"]
+
+    dims9 = [env9.observation_size] + [w.shape[0] for w, _ in layers9]
+    carry9_rows = s9.nq + s9.nv + es9.nenv_rows + 2
+    bounds9 = {
+        "K1": bound_ms(ops9("K1[hfield]"), *(sum(r) for r in soa.physics_block_rows(s9)), B),
+        "K2": bound_ms(ops9("K2[hfield]"), *(sum(r) for r in soa_env.env_block_rows(s9, es9)),
+                       EVAL_ENVS),
+        "K3": bound_ms(ops9("K3[hfield]"), sum(in9), sum(out9), B),
+        "K4": bound_ms(T_CHECK * (ops9("K4[hfield]") + fused_unroll.policy_op_count(
+            dims9, activation, env9.action_size, False)),
+            carry9_rows + in9[6] + in9[5] + T_CHECK * (in9[4] + in9[2])
+            + sum(w.numel() + b.numel() for w, b in layers9) / B,
+            carry9_rows + T_CHECK * (es9.hist + 2 * env9.action_size + 1 + out9[4]), B),
+    }
+    run9 = "run9 training, K3 lane"
+    for k, source, replaces, launches_ in (
+            ("K1", "physics_step", "puppax/physics/soa.py:2028", (0, 0)),
+            ("K2", "env_step", "puppax/env/soa_env.py:533", (k2_9_launches, 0)),
+            ("K3", "wrapped_step", "puppax/env/soa_env.py:877", (k3_9_launches, 0)),
+            ("K4", "fused_unroll", "puppax/env/fused_unroll.py:152", (0, 0))):
+        r = res9[k]
+        for team, n in zip((True, False), launches_):
+            kernels.append({
+                "name": f"{source}{'_team' if team else ''}[hfield]", "route": "cuda",
+                "source": f"puppax_torch/csrc/{source}{'_team' if team else ''}.cuh",
+                "replaces": replaces, "launches": n, "launches_in": run9 if n else None,
+                "max_abs_err": r["err" if team else "one_err"],
+                "ms": statistics.median(r["ms" if team else "one_ms"]), "plain_ms": r["plain_ms"],
+                "bound_ms": bounds9[k][0], "bound_by": bounds9[k][1], "library_ms": None})
 
     def probe_entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
@@ -1941,11 +2207,18 @@ def main():
     print(f"bounds (team and one-thread alike): K3 {k3_bound:.6f} ms at {B} envs ({k3_by}), "
           f"K2 {k2_bound:.6f} ms at "
           f"{EVAL_ENVS} envs ({k2_by}), K1 {k1_bound:.6f} ms at {B} envs ({k1_by}) and "
-          f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_UNROLL} "
+          f"{k1_bound_small:.6f} ms at {EVAL_ENVS}, K4 {k4_bound:.6f} ms per T={T_CHECK} "
           f"unroll at {B} envs ({k4_by}); run12: team K3 {k3_12_bound[0]:.6f} ms, team K2 "
           f"(history 4) {k2_12_bound[0]:.6f} ms at {EVAL_ENVS} envs, team K4 "
-          f"{k4_12_bound[0]:.6f} ms per unroll; total wall "
+          f"{k4_12_bound[0]:.6f} ms per unroll; run9: team K1 {bounds9['K1'][0]:.6f} ms, "
+          f"team K2 {bounds9['K2'][0]:.6f} ms at {EVAL_ENVS} envs, team K3 "
+          f"{bounds9['K3'][0]:.6f} ms, team K4 {bounds9['K4'][0]:.6f} ms per unroll; total wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # K4's times and bound are per unroll of T_CHECK steps (the check's
+    # inputs, where the plain version was timed), in every K4 entry
+    for k in kernels:
+        if k["source"].startswith("puppax_torch/csrc/fused_unroll"):
+            k["unroll_T"] = T_CHECK
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

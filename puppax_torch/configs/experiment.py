@@ -171,6 +171,17 @@ def from_dict(data: dict) -> ExperimentConfig:
     return _build(ExperimentConfig, data)
 
 
+def parse_override(kv: str):
+    """``KEY=VALUE`` of a CLI's ``--set`` as (key, value): the value as JSON
+    where it parses, else the string."""
+    key, _, raw = kv.partition("=")
+    try:
+        value = json.loads(raw)
+    except json.JSONDecodeError:
+        value = raw
+    return key, value
+
+
 def apply_overrides(cfg: ExperimentConfig, overrides: dict) -> ExperimentConfig:
     """Apply dotted-path overrides, e.g. ``{"train.num_envs": 8192}``; an
     unknown key raises ``KeyError: unknown config key``."""

@@ -50,7 +50,7 @@ from puppax_torch import utils
 from puppax_torch.configs.experiment import EnvConfig, StartPositionConfig
 from puppax_torch.env import domain_randomization, rewards, soa_env
 from puppax_torch.env.base import PhysicsState, State, physics_state_from_caches
-from puppax_torch.model.mjcf import load_model
+from puppax_torch.model.mjcf import config_tables_path, load_model
 from puppax_torch.ops import math
 from puppax_torch.physics import pipeline, soa
 
@@ -138,10 +138,11 @@ class PupperV3Env:
         gait_frequency: float = 2.5,
         disturbance_curriculum: bool = False,
         device=None,
+        tables: Optional[str] = None,
     ):
         if path is not None:
             raise NotImplementedError(
-                f"only the bundled model is carried across ({_ROADMAP_TERRAIN})"
+                f"only the bundled model is carried across ({_ROADMAP_TERRAIN}: another MJCF)"
             )
         if default_pose is None:
             default_pose = np.array(
@@ -171,7 +172,9 @@ class PupperV3Env:
             action_scale=action_scale,
         )
 
-        compiled = load_model()
+        # the model's committed tables: the bundled flat model's by default,
+        # a terrain's from from_config (mjcf.config_tables_path)
+        compiled = load_model() if tables is None else load_model(tables)
         model = compiled.robot.tree_replace({"opt.timestep": physics_timestep})
         # actuator override: PD with kp/kd
         gainprm = np.array(model.actuator_gainprm)
@@ -263,9 +266,11 @@ class PupperV3Env:
 
     @classmethod
     def from_config(cls, cfg: EnvConfig, reward_config: Dict = None, device=None):
-        """The env of an ``EnvConfig`` (terrain options are not ported)."""
-        if cfg.n_obstacles or cfg.heightfield:
-            raise NotImplementedError(f"obstacle/heightfield terrain ({_ROADMAP_TERRAIN})")
+        """The env of an ``EnvConfig``: the flat model, or its heightfield
+        terrain from the committed tables (``mjcf.config_tables_path``,
+        which raises for a terrain without them, for obstacles and for
+        another MJCF)."""
+        tables = config_tables_path(cfg)
         kw = {
             k: getattr(cfg, k)
             for k in (
@@ -283,8 +288,8 @@ class PupperV3Env:
                 "gait_frequency", "disturbance_curriculum",
             )
         }
-        return cls(path=cfg.path, reward_config=reward_config,
-                   start_position_config=cfg.start_position, device=device, **kw)
+        return cls(reward_config=reward_config, start_position_config=cfg.start_position,
+                   device=device, tables=tables, **kw)
 
     # ---- properties -----------------------------------------------------
     @property

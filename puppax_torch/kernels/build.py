@@ -153,6 +153,11 @@ _LOADED: Dict[Tuple, ctypes.CDLL] = {}
 # (id(s), id(es)) -> (s, es, their content digest); holding s and es keeps
 # their ids unique
 _DIGESTS: Dict[Tuple[int, int], Tuple[object, object, str]] = {}
+# (the statics' content digest, substeps, episode length, warps, the line
+# search's trips) -> team K3's rendered (source, stats): team K3 and team K4
+# build the same schedule, rendered once (seconds each); filled only under
+# _EMIT_LOCK by the two device libraries below
+_TEAM_K3_BODIES: Dict[Tuple, Tuple[str, dict]] = {}
 _EMIT_LOCK = threading.Lock()
 
 # what the last build of each kernel did: record_name -> {"compile_seconds":
@@ -280,6 +285,14 @@ def _statics_digest(s, es) -> str:
     return hit[2]
 
 
+def model_variant(s) -> str:
+    """The model's part of a build's record name: ``hfield`` for a model
+    with hfield-sphere pairs (heightfield terrain), none for the flat model
+    (so a terrain's body builds beside the flat one and never overwrites
+    its record)."""
+    return "hfield" if any(p.kind == "hs" for p in s.pairs) else ""
+
+
 def env_variant(es, privileged: bool = True) -> str:
     """The env configuration's part of a K2, K3 or K4 build's record name:
     none at the default observation history of 2 without privileged rows,
@@ -304,7 +317,7 @@ def wrapped_step_library(s, es, n_substeps: int, episode_length: int) -> ctypes.
     return _device_library(
         WRAPPED_STEP, s, es, (int(n_substeps), int(episode_length)),
         lambda: cgen.wrapped_step_body(s, es, n_substeps, episode_length),
-        variant=env_variant(es),
+        variant=_variant(model_variant(s), env_variant(es)),
     )
 
 
@@ -316,7 +329,7 @@ def env_step_library(s, es, n_substeps: int) -> ctypes.CDLL:
     return _device_library(
         ENV_STEP, s, es, (int(n_substeps),),
         lambda: cgen.env_step_body(s, es, n_substeps),
-        variant=env_variant(es, privileged=False),
+        variant=_variant(model_variant(s), env_variant(es, privileged=False)),
     )
 
 
@@ -328,6 +341,7 @@ def physics_step_library(s, n_substeps: int) -> ctypes.CDLL:
     return _device_library(
         PHYSICS_STEP, s, None, (int(n_substeps),),
         lambda: cgen.physics_step_body(s, n_substeps),
+        variant=model_variant(s),
     )
 
 
@@ -337,19 +351,33 @@ def team_variant(kernel: Kernel, warps: int) -> str:
     return "" if warps == TEAM_WARPS[kernel.name] else f"{warps} warps"
 
 
+def _team_k3_body(s, es, n_substeps: int, episode_length: int, warps: int):
+    """Team K3's (source, stats) for this configuration, rendered once in a
+    process (``_TEAM_K3_BODIES``); called under ``_EMIT_LOCK``."""
+    from puppax_torch.kernels import team
+    from puppax_torch.physics import soa
+
+    key = (_statics_digest(s, es), int(n_substeps), int(episode_length), int(warps),
+           soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS)
+    hit = _TEAM_K3_BODIES.get(key)
+    if hit is None:
+        hit = _TEAM_K3_BODIES[key] = team.wrapped_step_team_body(s, es, n_substeps,
+                                                                 episode_length, warps)
+    return hit[0], dict(hit[1])
+
+
 def wrapped_step_team_library(s, es, n_substeps: int, episode_length: int,
                               warps: Optional[int] = None) -> ctypes.CDLL:
     """Team K3 (``kernels/team.py`` around K3's program, ``warps`` warps per
     block, ``TEAM_WARPS`` by default), built with nvcc for sm_90a at first
     use and cached for the process. Its build record's ``ops_per_env`` is
     the one-thread program's count, so a bound reads the same work."""
-    from puppax_torch.kernels import team
-
     warps = warps or TEAM_WARPS[WRAPPED_STEP_TEAM.name]
     return _device_library(
         WRAPPED_STEP_TEAM, s, es, (int(n_substeps), int(episode_length), warps),
-        lambda: team.wrapped_step_team_body(s, es, n_substeps, episode_length, warps),
-        variant=_variant(env_variant(es), team_variant(WRAPPED_STEP_TEAM, warps)),
+        lambda: _team_k3_body(s, es, n_substeps, episode_length, warps),
+        variant=_variant(model_variant(s), env_variant(es),
+                         team_variant(WRAPPED_STEP_TEAM, warps)),
     )
 
 
@@ -363,7 +391,8 @@ def env_step_team_library(s, es, n_substeps: int, warps: Optional[int] = None) -
     return _device_library(
         ENV_STEP_TEAM, s, es, (int(n_substeps), warps),
         lambda: team.env_step_team_body(s, es, n_substeps, warps),
-        variant=_variant(env_variant(es, privileged=False), team_variant(ENV_STEP_TEAM, warps)),
+        variant=_variant(model_variant(s), env_variant(es, privileged=False),
+                         team_variant(ENV_STEP_TEAM, warps)),
     )
 
 
@@ -377,7 +406,7 @@ def physics_step_team_library(s, n_substeps: int, warps: Optional[int] = None) -
     return _device_library(
         PHYSICS_STEP_TEAM, s, None, (int(n_substeps), warps),
         lambda: team.physics_step_team_body(s, n_substeps, warps),
-        variant=team_variant(PHYSICS_STEP_TEAM, warps),
+        variant=_variant(model_variant(s), team_variant(PHYSICS_STEP_TEAM, warps)),
     )
 
 
@@ -391,7 +420,7 @@ def fused_unroll_library(s, es, n_substeps: int, episode_length: int) -> ctypes.
     return _device_library(
         FUSED_UNROLL, s, es, (int(n_substeps), int(episode_length)),
         lambda: cgen.fused_unroll_body(s, es, n_substeps, episode_length),
-        variant=env_variant(es),
+        variant=_variant(model_variant(s), env_variant(es)),
     )
 
 
@@ -407,14 +436,15 @@ def fused_unroll_team_library(s, es, n_substeps: int, episode_length: int,
 
     warps = warps or TEAM_WARPS[FUSED_UNROLL_TEAM.name]
     mlp_rows = mlp_rows or K4_MLP_ROWS
-    variant = _variant(env_variant(es), team_variant(FUSED_UNROLL_TEAM, warps),
+    variant = _variant(model_variant(s), env_variant(es), team_variant(FUSED_UNROLL_TEAM, warps),
                        "" if mlp_rows == K4_MLP_ROWS else f"R={mlp_rows}",
                        "MLP only" if mlp_only else "")
     return _device_library(
         FUSED_UNROLL_TEAM, s, es,
         (int(n_substeps), int(episode_length), warps, mlp_rows, bool(mlp_only)),
-        lambda: cgen.fused_unroll_team_body(s, es, n_substeps, episode_length, warps, mlp_rows,
-                                            mlp_only),
+        lambda: cgen.fused_unroll_team_body(
+            s, es, n_substeps, episode_length, warps, mlp_rows, mlp_only,
+            None if mlp_only else _team_k3_body(s, es, n_substeps, episode_length, warps)),
         variant=variant,
     )
 

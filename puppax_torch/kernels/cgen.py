@@ -11,8 +11,10 @@ one-sided rows of the line search become local ``float[n]`` arrays, and
 their sum an ordered loop.
 
 The generated body is one ``PUPPAX_HD`` (``__host__ __device__``) function
-that reads row r of env b at ``ptr[r * B + b]``; a hand-written shell wraps
-it in the kernel and the C entry points: ``csrc/wrapped_step.cuh`` for the
+that reads row r of env b at ``ptr[r * B + b]``, after the constant grid
+its ``grid_at`` reads, if any (the heightfield's: ``CProgram.preamble``);
+a hand-written shell wraps it in the kernel and the C entry points:
+``csrc/wrapped_step.cuh`` for the
 wrapped step (K3), ``csrc/env_step.cuh`` for the unwrapped step (K2),
 ``csrc/physics_step.cuh`` for the physics-only step (K1), one env per
 thread. The one-thread fused unroll (K4, ``csrc/fused_unroll.cuh``) calls
@@ -47,6 +49,7 @@ _UNARY = {
     "exp": "expf({})",
     "sin": "sinf({})",
     "cos": "cosf({})",
+    "floor": "floorf({})",
 }
 
 # the pointer parameters of each body, in block order (shells: WS_PARAMS
@@ -226,6 +229,7 @@ class CProgram:
         self.count = 0
         self.nodes: list = []  # the statement nodes, loops nested
         self._into = self.nodes  # where the next node goes (None: not recorded)
+        self.grid = None  # the constant grid grid_at reads (one per program)
 
     def _record(self, node):
         if self._into is not None:
@@ -292,6 +296,47 @@ class CProgram:
 
     def unary(self, name: str, x):
         return self.emit("f", _UNARY[name], self.arg(x))
+
+    def grid_at(self, grid, iv, iu, dv: int, du: int) -> CVal:
+        """A read of the constant grid at row ``iv + dv``, column ``iu +
+        du`` (``soa.grid_at``): ``hfield_at`` of the preamble, one value
+        whose operands are ``iv`` and ``iu``."""
+        if self.grid is None:
+            self.grid = grid
+        elif self.grid != grid:
+            raise ValueError("a program reads one constant grid")
+        return self.emit("f", "hfield_at({}, {}, " + f"{int(dv)}, {int(du)})",
+                         self.arg(iv), self.arg(iu))
+
+    def preamble(self) -> str:
+        """The C the body needs before it: the grid ``grid_at`` reads, as
+        float32 literals in memory order, in global memory on the card (a
+        ``__device__ const`` array) and in a host array for the g++ build,
+        and ``hfield_at``, which clips the indices as integers and reads the
+        cell. Empty for a program without a grid."""
+        if self.grid is None:
+            return ""
+        nrow, ncol = len(self.grid), len(self.grid[0])
+        cells = ",\n  ".join(", ".join(float_literal(x) for x in row) for row in self.grid)
+        return (
+            f"// The heightfield's grid, {nrow} x {ncol} float32 in memory order (row 0 at\n"
+            "// y = -ry): global memory on the card, a host array in the g++ build.\n"
+            "#ifdef __CUDACC__\n"
+            f"__device__ const float hfield_grid_dev[{nrow * ncol}] = {{\n  {cells}}};\n"
+            "#endif\n"
+            f"static const float hfield_grid_host[{nrow * ncol}] = {{\n  {cells}}};\n"
+            "// grid[iv + dv][iu + du] at whole-number iv, iu, clipped to the cells\n"
+            "PUPPAX_HD static inline float hfield_at(float iv, float iu, int dv, int du) {\n"
+            "  int r = (int)iv, c = (int)iu;\n"
+            f"  r = (r < 0 ? 0 : (r > {nrow - 2} ? {nrow - 2} : r)) + dv;\n"
+            f"  c = (c < 0 ? 0 : (c > {ncol - 2} ? {ncol - 2} : c)) + du;\n"
+            "#ifdef __CUDA_ARCH__\n"
+            f"  return hfield_grid_dev[r * {ncol} + c];\n"
+            "#else\n"
+            f"  return hfield_grid_host[r * {ncol} + c];\n"
+            "#endif\n"
+            "}\n"
+        )
 
     def stack(self, vals) -> CArr:
         name = self.fresh("a")
@@ -361,7 +406,8 @@ def _body(name, params, in_blocks, out_blocks, in_rows, emit, what) -> str:
     header = (
         f"// Generated by puppax_torch/kernels/cgen.py from the {what},\n"
         f"// {prog.count} values. Do not edit.\n"
-        f"PUPPAX_HD inline void {name}({params}, int B, int b) {{\n"
+        + prog.preamble()
+        + f"PUPPAX_HD inline void {name}({params}, int B, int b) {{\n"
     )
     return header + "\n".join(prog.lines) + "\n}\n"
 
@@ -419,10 +465,11 @@ def fused_unroll_body(s, es, n_substeps: int, episode_length: int) -> str:
 
 
 def fused_unroll_team_body(s, es, n_substeps: int, episode_length: int, warps: int,
-                           mlp_rows: int, mlp_only: bool = False):
+                           mlp_rows: int, mlp_only: bool = False, team_k3=None):
     """Team K4's generated part (shell ``csrc/fused_unroll_team.cuh``): the
     constants, ``K4_R`` (the MLP outputs a thread sums at once), then K3's
-    program split across ``warps`` warps (``team.wrapped_step_team_body``).
+    program split across ``warps`` warps (``team.wrapped_step_team_body``,
+    or ``team_k3``, its (source, stats) when already rendered).
     Returns (source, the schedule's stats). ``mlp_only`` (a probe variant)
     leaves the env step out: the shell then runs the observation, the MLP,
     the head and the clock alone, in a block with the whole kernel's shared
@@ -434,7 +481,8 @@ def fused_unroll_team_body(s, es, n_substeps: int, episode_length: int, warps: i
         return head + f"#define K4_MLP_ONLY 1\n#define TEAM_W {int(warps)}\n" \
             f"#define TEAM_SHARED_FLOATS {team.SHARED_BUDGET // 4}\n", \
             {"warps": int(warps), "ops_per_env": 0}
-    body, stats = team.wrapped_step_team_body(s, es, n_substeps, episode_length, warps)
+    body, stats = team_k3 or team.wrapped_step_team_body(s, es, n_substeps, episode_length,
+                                                         warps)
     return head + body, stats
 
 
@@ -491,7 +539,7 @@ def physics_step_body(s, n_substeps: int, phase_limit=None, sink: bool = False) 
 
 _LOOP = re.compile(r"for \(int \w+ = 0; \w+ < (\d+); \+\+\w+\) \{$")
 _OPS = re.compile(
-    r"(?<![eE])[-+*/](?![=+])|[<>]=?|[!=]=|\b(?:sqrtf|expf|sinf|cosf|fabsf|pmax|pmin|psign)\("
+    r"(?<![eE])[-+*/](?![=+])|[<>]=?|[!=]=|\b(?:sqrtf|expf|sinf|cosf|fabsf|floorf|pmax|pmin|psign)\("
 )
 # a declaration (value, carry, accumulator or stacked array), an assignment
 # of a carry or accumulator, a store into an output block

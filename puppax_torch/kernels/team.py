@@ -837,10 +837,11 @@ def stream_traffic(lines: List[str]) -> Dict[str, int]:
 
 
 def render(sch: Schedule, name: str, params: str, what: str, base_ops: int,
-           sum_unroll: int = SUM_UNROLL) -> Tuple[str, dict]:
+           sum_unroll: int = SUM_UNROLL, preamble: str = "") -> Tuple[str, dict]:
     """The team body: one ``PUPPAX_HD`` function whose ``switch (warp)``
     holds each warp's stream in its own ``case``, after the ``#define``s the
-    shell reads (``TEAM_W``, the shared memory layout). Returns (source,
+    shell reads (``TEAM_W``, the shared memory layout) and the program's
+    ``preamble`` (``cgen.CProgram.preamble``: its constant grid). Returns (source,
     stats): the one-thread program's operations, each stream's, the
     replicated ones, the barriers and the shared bytes."""
     streams = render_streams(sch, sum_unroll)
@@ -861,7 +862,8 @@ def render(sch: Schedule, name: str, params: str, what: str, base_ops: int,
         f"#define TEAM_TERMS {sch.n_slots + sch.stack_rows}\n"
         f"#define TEAM_TERM_ROWS {max(sch.rows_max, 1)}\n"
         f"#define TEAM_SHARED_FLOATS {sch.shared_floats}\n"
-        f"TEAM_FN inline void {name}({params}, int B, int b, int warp, int lane,\n"
+        + preamble
+        + f"TEAM_FN inline void {name}({params}, int B, int b, int warp, int lane,\n"
         f"    float* sh TEAM_BAR_PARAM) {{\n"
         "  const int bl = b < B ? b : B - 1;  // lanes past B compute env B - 1, store nothing\n"
         "  const bool live = b < B;\n"
@@ -883,7 +885,7 @@ def team_body(prog: cgen.CProgram, warps: int, name: str, params: str, what: str
     body weighs no more than ``loop_weight`` runs whole in every warp)."""
     base_ops = cgen.op_count("\n".join(prog.lines))
     return render(Schedule(prog, warps, cap, cross, shared_budget, loop_weight), name, params,
-                  what, base_ops, sum_unroll)
+                  what, base_ops, sum_unroll, prog.preamble())
 
 
 def physics_step_team_body(s, n_substeps: int, warps: int, phase_limit=None,

@@ -2,9 +2,10 @@
 
 Counterpart of ``puppax/model/mjcf.py``. There the MuJoCo C compiler runs
 host-side and its tables become a flax pytree. Here the same tables are
-read from ``pupper_v3_tables.json`` (written once by
-``python -m puppax_torch.model.tables --write`` on a host with ``mujoco``),
-so loading the model needs neither mujoco nor jax.
+read from JSON written once on a host with ``mujoco`` (``tables.py``):
+``pupper_v3_tables.json`` for the bundled flat model, and one committed
+file per terrain (``config_tables_path``), so loading a model needs
+neither mujoco nor jax, and the card's host never compiles one.
 
 ``RobotModel`` is a frozen dataclass: static topology as hashable tuples,
 numeric parameters as float32 numpy arrays. Domain randomization swaps six
@@ -14,6 +15,7 @@ leaves for batched ``(B, ...)`` torch tensors (``with_leaves``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 from dataclasses import dataclass
@@ -23,11 +25,15 @@ import numpy as np
 
 # mujoco enum values (mjtGeom / mjtJoint)
 GEOM_PLANE = 0
+GEOM_HFIELD = 1
 GEOM_SPHERE = 2
+GEOM_CAPSULE = 3
+GEOM_BOX = 6
 JNT_FREE = 0
 JNT_HINGE = 3
 
 TABLES_PATH = os.path.join(os.path.dirname(__file__), "pupper_v3_tables.json")
+_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
 
 # the six leaves domain randomization batches over the env axis
 DR_LEAVES = (
@@ -147,7 +153,8 @@ class RobotModel:
     actuator_gainprm: Any  # DR leaf
     actuator_biasprm: Any  # DR leaf
     actuator_forcerange: Any
-    # heightfield terrain is not ported yet: always None here
+    # the heightfield's float32 grid (nrow, ncol), memory order, and its
+    # (4,) size; None without one
     hfield_data: Any = None
     hfield_size: Any = None
 
@@ -217,14 +224,58 @@ def _tuple(x):
     return x
 
 
-def load_model() -> CompiledModel:
-    """Read the bundled flat Pupper v3 model's tables."""
-    with open(TABLES_PATH) as f:
+def tables_path(cfg) -> str:
+    """Where an ``EnvConfig``'s model's tables live: the bundled flat
+    model's, or its heightfield's beside this module, named by 12 hex
+    digits of sha256 over the config's ``heightfield*`` fields
+    (``pupper_v3_hfield_<digest>_tables.json``), whether or not the file
+    exists (the writer's target). Obstacles and another MJCF raise, naming
+    their slices."""
+    if cfg.path is not None:
+        raise NotImplementedError(
+            f"only the bundled model is carried across ({_ROADMAP_TERRAIN}: another MJCF)")
+    if cfg.n_obstacles:
+        raise NotImplementedError(
+            f"obstacle terrain: the sphere-box pair and run8 are the next slice "
+            f"({_ROADMAP_TERRAIN}: obstacles.py)")
+    if not cfg.heightfield:
+        return TABLES_PATH
+    digest = hashlib.sha256(json.dumps(_heightfield_fields(cfg), sort_keys=True,
+                                       default=list).encode())
+    return os.path.join(os.path.dirname(__file__),
+                        f"pupper_v3_hfield_{digest.hexdigest()[:12]}_tables.json")
+
+
+def _heightfield_fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name.startswith("heightfield")}
+
+
+def config_tables_path(cfg) -> str:
+    """The committed tables of an ``EnvConfig``'s model (``tables_path``).
+    Raises for a terrain without committed tables, naming the command that
+    writes them where mujoco lives; never falls back to the flat model."""
+    path = tables_path(cfg)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no committed tables for the heightfield {_heightfield_fields(cfg)} ({path}): "
+            f"write them where mujoco is installed with `python -m puppax_torch.model.tables "
+            f"--config <config.json> [--set env.heightfield_...=...]` and commit the file")
+    return path
+
+
+def load_model(path: str = TABLES_PATH) -> CompiledModel:
+    """Read a model's tables: the bundled flat Pupper v3 model's by
+    default, or a terrain's (``config_tables_path``)."""
+    with open(path) as f:
         data = json.load(f)
     robot = data["robot"]
     kw = {k: _tuple(robot[k]) for k in STATIC_FIELDS}
     for k in LEAF_FIELDS:
         kw[k] = np.asarray(robot[k], np.float32)
+    if robot["hfield_nrow"]:
+        kw["hfield_data"] = np.asarray(robot["hfield_data"], np.float32)
+        kw["hfield_size"] = np.asarray(robot["hfield_size"], np.float32)
     mj = MjTables({k: np.asarray(v, np.float64) for k, v in data["mj"].items()})
     names = data["names"]
     return CompiledModel(

@@ -3,10 +3,15 @@
 The port carries the compiled model across as data. This module is the
 only place in ``puppax_torch`` that imports ``mujoco``; it reproduces
 ``puppax/model/mjcf.py::put_model`` (the same tables, pair lists and
-caps) for the bundled flat model and writes ``pupper_v3_tables.json``
-beside ``mjcf.py``:
+caps, the heightfield's grid) and writes the JSON beside ``mjcf.py``:
 
-    python -m puppax_torch.model.tables --write
+    python -m puppax_torch.model.tables --write      # pupper_v3_tables.json
+    python -m puppax_torch.model.tables --config cfg.json [--set env.KEY=VALUE ...]
+
+``--config`` applies the config's terrain surgery to the bundled model as
+``scripts/train.py`` does (``terrain.add_heightfield_to_model``), compiles
+the XML string and writes ``mjcf.tables_path(cfg.env)``, the file
+the port's env reads for that config on a host without mujoco.
 """
 
 from __future__ import annotations
@@ -14,22 +19,30 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import xml.etree.ElementTree as ET
 
 import numpy as np
 
 from puppax_torch.model import assets
 from puppax_torch.model.mjcf import (
-    GEOM_PLANE, GEOM_SPHERE, JNT_FREE, JNT_HINGE, LEAF_FIELDS, MJ_FIELDS,
-    TABLES_PATH,
+    GEOM_BOX, GEOM_CAPSULE, GEOM_HFIELD, GEOM_PLANE, GEOM_SPHERE, JNT_FREE, JNT_HINGE,
+    LEAF_FIELDS, MJ_FIELDS, TABLES_PATH, tables_path,
 )
+
+_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
 
 
 def _collision_pairs(m):
-    """Candidate pairs with MuJoCo's filter (``mjcf._collision_pairs``).
-
-    Only the flat model's plane-sphere and sphere-sphere kinds are ported.
-    """
-    kinds = {(GEOM_PLANE, GEOM_SPHERE): "ps", (GEOM_SPHERE, GEOM_SPHERE): "ss"}
+    """Candidate pairs with MuJoCo's filter, in ``mjcf._collision_pairs``'s
+    order and with its raises. The plane-sphere, sphere-sphere and
+    hfield-sphere kinds are ported; sphere-box and the capsule kinds raise,
+    naming their slices."""
+    kinds = {(GEOM_PLANE, GEOM_SPHERE): "ps", (GEOM_SPHERE, GEOM_SPHERE): "ss",
+             (GEOM_HFIELD, GEOM_SPHERE): "hs"}
+    later = {(GEOM_SPHERE, GEOM_BOX): "sphere-box (obstacles.py, the next slice)",
+             (GEOM_PLANE, GEOM_CAPSULE): "plane-capsule", (GEOM_SPHERE, GEOM_CAPSULE):
+             "sphere-capsule", (GEOM_CAPSULE, GEOM_CAPSULE): "capsule-capsule"}
+    supported = {GEOM_PLANE, GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX, GEOM_HFIELD}
     out = {k: [] for k in kinds.values()}
     for g1, g2 in itertools.combinations(range(m.ngeom), 2):
         if not (
@@ -45,15 +58,22 @@ def _collision_pairs(m):
             continue
         if int(m.body_weldid[b1]) == int(m.body_weldid[b2]):
             continue
-        (ta, ga), (tb, gb) = sorted(
-            ((int(m.geom_type[g1]), g1), (int(m.geom_type[g2]), g2))
-        )
+        t1, t2 = int(m.geom_type[g1]), int(m.geom_type[g2])
+        if t1 not in supported or t2 not in supported:
+            raise NotImplementedError(f"geom pair type ({t1},{t2}) unsupported")
+        (ta, ga), (tb, gb) = sorted(((t1, g1), (t2, g2)))
         kind = kinds.get((ta, tb))
-        if kind is None:
+        if kind is not None:
+            out[kind].append([ga, gb])
+        elif (ta, tb) in later:
             raise NotImplementedError(
-                f"geom pair type ({ta},{tb}) is not ported yet (ROADMAP queue 1, terrain)"
-            )
-        out[kind].append([ga, gb])
+                f"{later[ta, tb]} pairs are not ported yet ({_ROADMAP_TERRAIN})")
+        elif ta == GEOM_PLANE and tb == GEOM_BOX:
+            raise NotImplementedError("plane-box collisions unsupported")
+        elif GEOM_HFIELD in (ta, tb):
+            raise NotImplementedError(f"hfield pair ({ta},{tb}) unsupported")
+        else:
+            raise NotImplementedError(f"pair ({ta},{tb}) unsupported")
     return out
 
 
@@ -71,6 +91,9 @@ def tables_from_mjmodel(m) -> dict:
     if np.any(m.body_jntnum > 1):
         raise NotImplementedError("at most one joint per body supported")
     pairs = _collision_pairs(m)
+    if int(m.nhfield) > 1:
+        raise NotImplementedError("at most one heightfield supported")
+    hf = int(m.nhfield) == 1
 
     def ints(x):
         return [int(v) for v in np.asarray(x).reshape(-1)]
@@ -100,9 +123,11 @@ def tables_from_mjmodel(m) -> dict:
         "dof_frictional": ints(np.nonzero(m.dof_frictionloss > 0)[0]),
         "pairs_plane_sphere": pairs["ps"],
         "pairs_sphere_sphere": pairs["ss"],
-        "pairs_sphere_box": [], "pairs_hfield_sphere": [],
+        "pairs_sphere_box": [], "pairs_hfield_sphere": pairs["hs"],
         "pairs_plane_capsule": [], "pairs_sphere_capsule": [],
-        "pairs_capsule_capsule": [], "hfield_nrow": 0, "hfield_ncol": 0,
+        "pairs_capsule_capsule": [],
+        "hfield_nrow": int(m.hfield_nrow[0]) if hf else 0,
+        "hfield_ncol": int(m.hfield_ncol[0]) if hf else 0,
         "max_contact_points": _custom_numeric(m, "max_contact_points", 8),
         "max_geom_pairs": _custom_numeric(m, "max_geom_pairs", 8),
         "timestep": float(m.opt.timestep), "impratio": float(m.opt.impratio),
@@ -120,6 +145,12 @@ def tables_from_mjmodel(m) -> dict:
         ).tolist()
         for k in MJ_FIELDS
     }
+    if hf:  # the grid in memory order (row 0 at y = -ry), as put_model keeps it
+        grid = np.asarray(m.hfield_data).reshape(int(m.hfield_nrow[0]), int(m.hfield_ncol[0]))
+        robot["hfield_data"] = f32(grid)
+        robot["hfield_size"] = f32(m.hfield_size[0])
+        mj["hfield_data"] = np.asarray(grid, np.float64).tolist()
+        mj["hfield_size"] = np.asarray(m.hfield_size[0], np.float64).tolist()
     names = {
         "body": [m.body(i).name for i in range(m.nbody)],
         "site": [m.site(i).name for i in range(m.nsite)],
@@ -129,25 +160,69 @@ def tables_from_mjmodel(m) -> dict:
     return {"robot": robot, "mj": mj, "names": names}
 
 
-def write_tables(out_path: str = TABLES_PATH) -> str:
-    """Compile the bundled MJCF and write its tables to ``out_path``."""
-    import mujoco
-
-    m = mujoco.MjModel.from_xml_path(assets.BUNDLED_XML)
+def _write(m, out_path: str) -> str:
     with open(out_path, "w") as f:
         json.dump(tables_from_mjmodel(m), f, indent=0)
         f.write("\n")
     return out_path
 
 
+def write_tables(out_path: str = TABLES_PATH) -> str:
+    """Compile the bundled MJCF and write its tables to ``out_path``."""
+    import mujoco
+
+    return _write(mujoco.MjModel.from_xml_path(assets.BUNDLED_XML), out_path)
+
+
+def config_xml(env_cfg) -> str:
+    """The XML string of an ``EnvConfig``'s model: the bundled model with
+    the config's heightfield added, as ``scripts/train.py`` builds it."""
+    from puppax_torch.model import terrain
+
+    tables_path(env_cfg)  # raises for obstacles, another MJCF
+    tree = assets.pupper_xml_tree()
+    if env_cfg.heightfield:
+        tree = terrain.add_heightfield_to_model(
+            tree, nrow=env_cfg.heightfield_nrow, ncol=env_cfg.heightfield_ncol,
+            size=env_cfg.heightfield_size, seed=env_cfg.heightfield_seed,
+        )
+    return ET.tostring(tree.getroot(), encoding="unicode")
+
+
+def write_config_tables(env_cfg, out_path: str = None) -> str:
+    """Compile an ``EnvConfig``'s terrain model and write its tables to
+    ``out_path`` (default: ``mjcf.tables_path(env_cfg)``)."""
+    import mujoco
+
+    if not env_cfg.heightfield:
+        raise ValueError("the config has no terrain: the flat model's tables are --write's")
+    out_path = out_path or tables_path(env_cfg)
+    return _write(mujoco.MjModel.from_xml_string(config_xml(env_cfg)), out_path)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--write", action="store_true",
                     help="regenerate the bundled pupper_v3_tables.json")
+    ap.add_argument("--config", default=None,
+                    help="an experiment config JSON: write its terrain's tables")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="dotted-path override of the config, e.g. env.heightfield_seed=3")
     args = ap.parse_args(argv)
-    if not args.write:
-        ap.error("nothing to do: pass --write")
-    print(write_tables())
+    if args.config is None and not args.set:
+        if not args.write:
+            ap.error("nothing to do: pass --write or --config")
+        print(write_tables())
+        return
+    from puppax_torch.configs import experiment as exp
+
+    cfg = exp.ExperimentConfig()
+    if args.config:
+        with open(args.config) as f:
+            cfg = exp.from_dict(json.load(f))
+    if args.set:
+        cfg = exp.apply_overrides(cfg, dict(exp.parse_override(s) for s in args.set))
+    print(write_config_tables(cfg.env))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Analytic narrowphase of the flat model class, with the MJX contact caps.
+"""Analytic narrowphase with the MJX contact caps.
 
-Counterpart of ``puppax/physics/collision.py`` for the two pair kinds the
-port's tables carry: plane-sphere and sphere-sphere. Every candidate pair
-is evaluated each step with fixed shapes. ``collide`` applies the MJX caps
+Counterpart of ``puppax/physics/collision.py`` for the three pair kinds
+the port's tables carry: plane-sphere, sphere-sphere and hfield-sphere
+(heightfield terrain). Every candidate pair is evaluated each step with
+fixed shapes. ``collide`` applies the MJX caps
 the solver sees (``max_geom_pairs`` per pair kind, then
 ``max_contact_points`` overall, each a top-k by penetration depth);
 ``collide_pairs`` is the uncapped report in static pair order that the
@@ -99,6 +100,46 @@ def _sphere_sphere(m: RobotModel, kin: Kinematics, g1, g2):
     return dist, pos, _make_frames(n)
 
 
+def _hfield_sphere(m: RobotModel, kin: Kinematics, g1, g2):
+    """Batched heightfield(g1) vs sphere(g2): the tangent plane of the
+    bilinear patch under the sphere's footprint. The four corner
+    elevations are picked by indexing the grid (the JAX package folds
+    one-hot masks over it, a TPU device; both pick the same values). A
+    footprint outside the grid gives a separated row (``_PAD_DIST``)."""
+    ref = kin.xpos
+    H = leaf(m, "hfield_data", ref)  # (nrow, ncol), row 0 at y = -ry
+    nrow, ncol = m.hfield_nrow, m.hfield_ncol
+    rx, ry, ez = (float(x) for x in np.asarray(m.hfield_size).reshape(-1)[:3])
+    hf_pos, hf_mat = kin.geom_xpos[:, g1], kin.geom_xmat[:, g1]
+    center = kin.geom_xpos[:, g2]
+    r = leaf(m, "geom_size", ref)[..., g2, 0]
+    # sphere centers in the heightfield frame: p = R^T (c - hf_pos)
+    p = torch.einsum("bkij,bki->bkj", hf_mat, center - hf_pos)
+    u = (p[..., 0] + rx) / (2.0 * rx) * (ncol - 1)
+    v = (p[..., 1] + ry) / (2.0 * ry) * (nrow - 1)
+    outside = (torch.abs(p[..., 0]) > rx) | (torch.abs(p[..., 1]) > ry)
+    iu = torch.clamp(torch.floor(u), 0.0, float(ncol - 2))
+    iv = torch.clamp(torch.floor(v), 0.0, float(nrow - 2))
+    fu = torch.clamp(u - iu, 0.0, 1.0)
+    fv = torch.clamp(v - iv, 0.0, 1.0)
+    ju = iu.long().clamp(0, ncol - 2)  # a NaN footprint picks a cell all the same
+    jv = iv.long().clamp(0, nrow - 2)
+    c00, c01 = H[jv, ju], H[jv, ju + 1]
+    c10, c11 = H[jv + 1, ju], H[jv + 1, ju + 1]
+    gu, gv = 1.0 - fu, 1.0 - fv
+    h = ez * (gv * (gu * c00 + fu * c01) + fv * (gu * c10 + fu * c11))
+    dhdx = ez * (gv * (c01 - c00) + fv * (c11 - c10)) * ((ncol - 1) / (2.0 * rx))
+    dhdy = ez * (gu * (c10 - c00) + fu * (c11 - c01)) * ((nrow - 1) / (2.0 * ry))
+    n_local = torch.stack([-dhdx, -dhdy, torch.ones_like(dhdx)], -1)
+    n_local = n_local / torch.linalg.vector_norm(n_local, dim=-1, keepdim=True)
+    dist = (p[..., 2] - h) * n_local[..., 2] - r
+    dist = torch.where(outside, torch.full_like(dist, _PAD_DIST), dist)
+    n = torch.einsum("bkij,bkj->bki", hf_mat, n_local)
+    safe = torch.where(outside, torch.zeros_like(dist), dist)
+    pos = center - n * (r + 0.5 * safe)[..., None]
+    return dist, pos, _make_frames(n)
+
+
 def _top_k_select(items, k: int):
     """Keep the k most-penetrating rows per env (ascending dist, first
     index on ties, as lax.top_k(-dist) orders them): k sequential argmins,
@@ -122,20 +163,23 @@ def _top_k_select(items, k: int):
 
 
 def _check_kinds(m: RobotModel):
-    for name in ("pairs_sphere_box", "pairs_hfield_sphere", "pairs_plane_capsule",
-                 "pairs_sphere_capsule", "pairs_capsule_capsule"):
+    for name in ("pairs_sphere_box", "pairs_plane_capsule", "pairs_sphere_capsule",
+                 "pairs_capsule_capsule"):
         if getattr(m, name):
-            raise NotImplementedError(f"{name}: box, heightfield and capsule pairs are not "
-                                      f"ported yet ({_ROADMAP_TERRAIN})")
+            raise NotImplementedError(f"{name}: box and capsule pairs are not ported yet "
+                                      f"({_ROADMAP_TERRAIN}: the box slice, then capsules)")
 
 
 def _pair_groups(m: RobotModel, kin: Kinematics):
-    """Evaluate every candidate pair; yields one contact tuple per kind."""
+    """Evaluate every candidate pair; yields one contact tuple per kind, in
+    the JAX package's kind order (plane-sphere, sphere-sphere, sphere-box,
+    hfield-sphere; sphere-box raises in ``_check_kinds``)."""
     _check_kinds(m)
     B = kin.xpos.shape[0]
     dev = kin.xpos.device
     for pairs, fn in ((m.pairs_plane_sphere, _plane_sphere),
-                      (m.pairs_sphere_sphere, _sphere_sphere)):
+                      (m.pairs_sphere_sphere, _sphere_sphere),
+                      (m.pairs_hfield_sphere, _hfield_sphere)):
         if not pairs:
             continue
         g1 = np.asarray([p[0] for p in pairs], np.int64)

@@ -10,7 +10,7 @@ Everything is batched over a leading env axis ``(B, ...)`` and runs in the
 state's dtype, float64 included.
 
 ``make_batched_step`` is the JAX package's custom_vmap splice written out
-as an explicit rule. For a model of the kernel's flat class:
+as an explicit rule. For a model of the kernel's class (``soa.soa_supported``):
 
 * float32 CUDA tensors run K1 (``soa.step_batched``), or raise;
 * float32 CPU tensors run K1's plain version (``soa.physics_step_rows``,
@@ -49,9 +49,8 @@ class PhysicsState:
     (B, nsite, 3), qfrc_actuator (B, nv), and the uncapped contact report
     in static pair order: contact_dist (B, npair), contact_pos (B, npair,
     3). The world body is dropped from the ``x_*``/``xd_*`` fields, as in
-    brax. The per-pair metadata (geoms, frames, solref) is static for the
-    flat model class; the env keeps what its rewards read
-    (``pair_contact_statics``)."""
+    brax. The per-pair geoms and bodies are static; the env keeps what its
+    rewards read (``pair_contact_statics``)."""
 
     qpos: torch.Tensor
     qvel: torch.Tensor
@@ -186,7 +185,7 @@ def _zeros_state(m: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor) -> Physi
     """A PhysicsState carrying qpos and qvel (all ``pipeline_step`` reads)."""
     B = qpos.shape[0]
     z = qpos.new_zeros
-    npair = len(m.pairs_plane_sphere) + len(m.pairs_sphere_sphere)
+    npair = len(m.pairs_plane_sphere) + len(m.pairs_sphere_sphere) + len(m.pairs_hfield_sphere)
     return PhysicsState(
         qpos=qpos, qvel=qvel, qacc=z((B, m.nv)), x_pos=z((B, m.nbody - 1, 3)),
         x_rot=z((B, m.nbody - 1, 4)), xd_vel=z((B, m.nbody - 1, 3)),
@@ -228,7 +227,7 @@ def make_batched_step(base_model: RobotModel, n_substeps: int, mj: MjTables = No
 
 
 def pair_contact_statics(base_model: RobotModel, mj: MjTables = None, device=None):
-    """Static per-pair contact metadata of the flat model class (pair order
+    """Static per-pair contact metadata of the emitter's model class (pair order
     of the contact report): frames, solref, solimp, invweight as float32
     tensors, geom and body ids as int64 tensors, and ``pair_geoms``; on
     ``device`` (default ``cuda:0``; ``"cpu"`` must be asked for)."""

@@ -19,9 +19,13 @@ values. The back-end ops below (``where``, ``maximum``, ``clip``, ...)
 dispatch on their operands: a torch tensor runs the torch op; any other
 value carries its back-end as ``._bk``.
 
-Only the flat model class is ported: a free+hinge tree with plane-sphere
-and sphere-sphere contacts. Box, heightfield and capsule pairs wait for
-the terrain item of the ROADMAP's queue 1.
+The supported class is a free+hinge tree with plane-sphere, sphere-sphere
+and world-static hfield-sphere contacts (``soa_supported``). The hfield
+pair's four corner elevations come from one more back-end op, ``grid_at``:
+a lookup into the model's constant grid at the footprint's cell (the JAX
+emission folds one-hot masks over the whole grid instead, a TPU device
+that picks the same values). Box and capsule pairs wait for the terrain
+item of the ROADMAP's queue 1.
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ from puppax_torch.kernels import build
 from puppax_torch.model.mjcf import JNT_FREE, JNT_HINGE, MjTables, RobotModel
 
 _MINVAL = 1e-15
+_PAD_DIST = 1e10  # collision._PAD_DIST: a footprint outside the heightfield
+
+# the largest heightfield grid the emitter takes (puppax/physics/soa.py's
+# bound; here the grid is a table the kernel reads, 4 bytes a cell)
+MAX_HFIELD_CELLS = 4096
 
 # Line-search trip counts of the Illinois regula falsi in _emit_newton.
 # Lowering them broke kernel parity in the JAX package; they stay fixed.
@@ -336,6 +345,27 @@ rsqrt = _unary(lambda x: torch.sqrt(x).reciprocal(), "rsqrt")
 exp = _unary(torch.exp, "exp")
 sin = _unary(torch.sin, "sin")
 cos = _unary(torch.cos, "cos")
+floor = _unary(torch.floor, "floor")
+
+
+@functools.lru_cache(maxsize=16)
+def _grid_tensor(grid: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(grid, dtype=torch.float32, device=device)
+
+
+def grid_at(grid: tuple, iv, iu, dv: int = 0, du: int = 0):
+    """``grid[iv + dv][iu + du]`` as float32: a lookup into a constant
+    (nrow, ncol) grid (tuple rows of Python floats, each rounded to float32)
+    at the whole-number values ``iv`` in [0, nrow - 2] and ``iu`` in
+    [0, ncol - 2]. The indices are clipped to that range as integers, so a
+    NaN index reads a cell all the same."""
+    bk = _peer(iv, iu)
+    if bk is not None:
+        return bk.grid_at(grid, iv, iu, dv, du)
+    g = _grid_tensor(grid, iv.device)
+    rows = iv.long().clamp(0, len(grid) - 2) + dv
+    cols = iu.long().clamp(0, len(grid[0]) - 2) + du
+    return g[rows, cols]
 
 
 def div_const(x, c: float):
@@ -399,7 +429,7 @@ def fori_loop(n: int, body, carry: List):
 
 
 class _Pair(NamedTuple):
-    kind: str  # 'ps' (plane-sphere) or 'ss' (sphere-sphere)
+    kind: str  # 'ps' (plane-sphere), 'ss' (sphere-sphere) or 'hs' (hfield-sphere)
     sphere_geom: int
     sphere_body: int
     radius: float
@@ -417,13 +447,29 @@ class _Pair(NamedTuple):
     body2: int
     radius1: float = 0.0
     sphere_off1: tuple = (0.0, 0.0, 0.0)
+    # hs only: the world-static heightfield's rotation (rows), position,
+    # (rx, ry, elevation z) and grid (rows of floats, row 0 at y = -ry)
+    hf_R: tuple = ()
+    hf_pos: tuple = (0.0, 0.0, 0.0)
+    hf_size: tuple = (0.0, 0.0, 0.0)
+    hf_grid: tuple = ()
 
 
 def soa_supported(m: RobotModel) -> bool:
-    """True when the model is in the emitter's supported (flat) class."""
-    if (m.pairs_hfield_sphere or m.pairs_sphere_box or m.pairs_plane_capsule
-            or m.pairs_sphere_capsule or m.pairs_capsule_capsule):
+    """True when the model is in the emitter's supported class: the flat
+    model, with a world-static heightfield of 2 x 2 to ``MAX_HFIELD_CELLS``
+    cells or none."""
+    if (m.pairs_sphere_box or m.pairs_plane_capsule or m.pairs_sphere_capsule
+            or m.pairs_capsule_capsule):
         return False
+    if m.pairs_hfield_sphere:
+        if m.hfield_data is None or m.hfield_nrow < 2 or m.hfield_ncol < 2:
+            return False
+        if m.hfield_nrow * m.hfield_ncol > MAX_HFIELD_CELLS:
+            return False
+        for g1, _ in m.pairs_hfield_sphere:
+            if m.geom_bodyid[g1] != 0:
+                return False
     if m.solver_iterations != 1:
         return False
     for j in range(m.njnt):
@@ -461,8 +507,9 @@ class _Static:
     def __init__(self, m: RobotModel, mj: MjTables = None):
         if not soa_supported(m):
             raise NotImplementedError(
-                "model outside the flat class (box/heightfield/capsule pairs "
-                "wait for the terrain item of ROADMAP queue 1)"
+                "model outside the emitter's class (box and capsule pairs wait for the "
+                "terrain item of ROADMAP queue 1; a heightfield must be world-static, "
+                f"2 x 2 to {MAX_HFIELD_CELLS} cells)"
             )
         self.nq, self.nv, self.nu = m.nq, m.nv, m.nu
         self.nbody, self.njnt, self.nsite = m.nbody, m.njnt, m.nsite
@@ -597,6 +644,44 @@ class _Static:
                     body2=int(b2),
                     radius1=float(geom_size[g1][0]),
                     sphere_off1=tuple(geom_pos[g1]),
+                )
+            )
+        # hfield-sphere (a world-static heightfield), after the sphere-box
+        # kind in collision's order; the float64 grid when MJ tables are given
+        if m.pairs_hfield_sphere:
+            if mj is not None:
+                hf_data = np.asarray(mj.hfield_data, np.float64).reshape(
+                    m.hfield_nrow, m.hfield_ncol)
+                hf_size = np.asarray(mj.hfield_size, np.float64).reshape(-1)
+            else:
+                hf_data = np.asarray(m.hfield_data, np.float64)
+                hf_size = np.asarray(m.hfield_size, np.float64).reshape(-1)
+            hf_grid = tuple(tuple(float(x) for x in row) for row in hf_data)
+        for g1, g2 in m.pairs_hfield_sphere:
+            sb = m.geom_bodyid[g2]
+            self.pairs.append(
+                _Pair(
+                    kind="hs",
+                    sphere_geom=g2,
+                    sphere_body=sb,
+                    radius=float(geom_size[g2][0]),
+                    sphere_off=tuple(geom_pos[g2]),
+                    plane_point=(0.0, 0.0, 0.0),
+                    plane_n=(0.0, 0.0, 1.0),
+                    frame_t1=(0.0, 1.0, 0.0),
+                    frame_t2=(-1.0, 0.0, 0.0),
+                    solref=tuple(0.5 * (geom_solref[g1] + geom_solref[g2])),
+                    solimp=tuple(0.5 * (geom_solimp[g1] + geom_solimp[g2])),
+                    invweight=float(body_iw[m.geom_bodyid[g1]] + body_iw[sb]),
+                    geom1=int(g1),
+                    geom2=int(g2),
+                    body1=int(m.geom_bodyid[g1]),
+                    body2=int(sb),
+                    hf_R=tuple(tuple(float(c) for c in row)
+                               for row in _quat_mat_np(geom_quat[g1])),
+                    hf_pos=tuple(float(c) for c in geom_pos[g1]),
+                    hf_size=tuple(float(c) for c in hf_size[:3]),
+                    hf_grid=hf_grid,
                 )
             )
         self.npair = len(self.pairs)
@@ -1050,6 +1135,10 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
             t1 = [float(x) for x in pr.frame_t1]
             t2 = [float(x) for x in pr.frame_t2]
             dof_coeff = {d: 1.0 for d in s.chains[b]}
+        elif pr.kind == "hs":
+            n, cpos, dist, t1, t2 = _emit_hfield_sphere(pr, center)
+            # the normal points from the heightfield to the sphere: J = +jac
+            dof_coeff = {d: 1.0 for d in s.chains[b]}
         else:  # sphere-sphere (collision._sphere_sphere semantics)
             b1 = pr.body1
             off1 = [float(x) for x in pr.sphere_off1]
@@ -1183,6 +1272,61 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
             for i in range(s.nsite)
         ],
     )
+
+
+def _emit_hfield_sphere(pr: _Pair, center):
+    """The hfield-sphere contact of one pair (collision._hfield_sphere, as
+    puppax/physics/soa.py emits it): the footprint's cell and fractions,
+    its four corners by ``grid_at``, the bilinear height and slopes, the
+    tangent-plane normal, distance and midpoint (``_PAD_DIST`` off the
+    grid) and the dynamic frame. Returns (n, cpos, dist, t1, t2)."""
+    R = pr.hf_R
+    rx, ry, ez = pr.hf_size
+    grid = pr.hf_grid
+    nrow, ncol = len(grid), len(grid[0])
+    ref0 = materialize(center[0], center[0])
+    d0 = vsub3(center, pr.hf_pos)
+    # p = R^T (c - hp): the sphere center in the heightfield frame
+    p = [
+        materialize(add(add(mul(R[0][j], d0[0]), mul(R[1][j], d0[1])), mul(R[2][j], d0[2])),
+                    ref0)
+        for j in range(3)
+    ]
+    # the footprint's fractional grid coordinates
+    uc = div_const(p[0] + rx, 2.0 * rx) * (ncol - 1)
+    vc = div_const(p[1] + ry, 2.0 * ry) * (nrow - 1)
+    outside = (abs_(p[0]) > rx) | (abs_(p[1]) > ry)
+    iu = clip(floor(uc), 0.0, float(ncol - 2))
+    iv = clip(floor(vc), 0.0, float(nrow - 2))
+    fu = clip(uc - iu, 0.0, 1.0)
+    fv = clip(vc - iv, 0.0, 1.0)
+    c00, c01 = grid_at(grid, iv, iu), grid_at(grid, iv, iu, 0, 1)
+    c10, c11 = grid_at(grid, iv, iu, 1, 0), grid_at(grid, iv, iu, 1, 1)
+    gu, gv = 1.0 - fu, 1.0 - fv
+    h = ez * (gu * (gv * c00 + fv * c10) + fu * (gv * c01 + fv * c11))
+    dhdx = ez * (gv * (c01 - c00) + fv * (c11 - c10)) * ((ncol - 1) / (2.0 * rx))
+    dhdy = ez * (gu * (c10 - c00) + fu * (c11 - c01)) * ((nrow - 1) / (2.0 * ry))
+    inv_nn = 1.0 / sqrt(dhdx * dhdx + dhdy * dhdy + 1.0)
+    n_loc = [-dhdx * inv_nn, -dhdy * inv_nn, inv_nn]
+    dist = (p[2] - h) * n_loc[2] - pr.radius
+    dist = where(outside, _PAD_DIST, dist)
+    # back to world: n = R n_loc (an identity R folds away)
+    n = [
+        materialize(add(add(mul(R[i][0], n_loc[0]), mul(R[i][1], n_loc[1])),
+                        mul(R[i][2], n_loc[2])), ref0)
+        for i in range(3)
+    ]
+    safe = where(outside, 0.0, dist)
+    cpos = [materialize(sub(center[i], mul(n[i], pr.radius + 0.5 * safe)), ref0)
+            for i in range(3)]
+    # dynamic contact frame (mju_makeFrame, as collision._make_frames)
+    use_y = abs_(n[1]) < 0.5
+    ax = [0.0, where(use_y, 1.0, 0.0), where(use_y, 0.0, 1.0)]
+    t2 = vcross3(n, ax)
+    t2n = maximum(sqrt(materialize(vdot3(t2, t2), ref0)), 1e-12)
+    t2 = [materialize(t2[i], ref0) / t2n for i in range(3)]
+    t1 = vcross3(t2, n)
+    return n, cpos, dist, t1, t2
 
 
 # ---------------------------------------------------------------------------

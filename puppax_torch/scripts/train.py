@@ -22,15 +22,6 @@ import functools
 import json
 
 
-def parse_override(kv: str):
-    key, _, raw = kv.partition("=")
-    try:
-        value = json.loads(raw)
-    except json.JSONDecodeError:
-        value = raw
-    return key, value
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train a Pupper v3 policy with puppax_torch.")
     parser.add_argument("--config", default=None, help="JSON config file")
@@ -52,7 +43,7 @@ def main(argv=None):
         with open(args.config) as f:
             cfg = exp.from_dict(json.load(f))
     if args.set:
-        cfg = exp.apply_overrides(cfg, dict(parse_override(s) for s in args.set))
+        cfg = exp.apply_overrides(cfg, dict(exp.parse_override(s) for s in args.set))
     print(f"config hash: {exp.config_hash(cfg)}", flush=True)
 
     from puppax_torch import utils

@@ -866,3 +866,81 @@ def test_run12_k2_history4_on_the_card(run12):
     torch.cuda.synchronize()
     H.assert_env_outputs_close([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
                                s, es, "team K2[hist4] vs plain")
+
+
+# ---- run9's heightfield terrain: the hfield-sphere pair in every body ----
+
+
+@pytest.fixture(scope="module")
+def run9():
+    """run9's env (``dev/run_configs/run9_500m_hfield.json``: a 32 x 32
+    heightfield, from its committed tables) on the card at 5 substeps, its
+    four team bodies (``[hfield]``) built in one parallel batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU host with "
+                    "`python -m pytest tests/test_torch_cuda.py --noconftest -m cuda`")
+    import json
+    import os
+
+    from puppax_torch.configs import experiment
+    from puppax_torch.env.pupper import PupperV3Env
+
+    with open(os.path.join(os.path.dirname(__file__), "..", "dev", "run_configs",
+                           "run9_500m_hfield.json")) as f:
+        cfg = experiment.from_dict(json.load(f))
+    env = PupperV3Env.from_config(cfg.env, device="cuda")
+    s, es = env._s, env._es
+    build.build_in_parallel(lambda: build.physics_step_team_library(s, 5),
+                            lambda: build.env_step_team_library(s, es, 5),
+                            lambda: build.wrapped_step_team_library(s, es, 5, 1000),
+                            lambda: build.fused_unroll_team_library(s, es, 5, 4))
+    return env
+
+
+def _spread(blocks, seed):
+    """The bases spread over the 8 x 8 m grid and past its edge."""
+    xy = np.random.RandomState(seed).uniform(-4.4, 4.4, (2, blocks[0].shape[1]))
+    blocks[0][0:2] = torch.as_tensor(xy, dtype=torch.float32, device=blocks[0].device)
+    return blocks
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_run9_team_kernels_bit_for_bit(run9, kernel):
+    """Team K1, K2 and K3 at run9's terrain on a ragged batch of states
+    spread over the grid: bit for bit with their plain versions."""
+    env, B = run9, 300
+    s, es = env._s, env._es
+    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
+    rng = np.random.RandomState(9)
+    if kernel == "K1":
+        blocks = _spread([b.cuda() for b in H.to_torch(
+            H.physics_step_blocks(env.model, dr, rng, n=B))], 1)
+        got, want = soa.step_batched(s, *blocks, 5), soa.physics_step_rows(s, 5, *blocks)
+    elif kernel == "K2":
+        blocks = _spread([b.cuda() for b in H.to_torch(
+            H.env_step_blocks(s, es, env.model, dr, rng, n=B))], 2)
+        got, want = soa_env.env_step(s, es, 5, *blocks), soa_env.env_step_rows(s, es, 5, *blocks)
+    else:
+        blocks = _spread([b.cuda() for b in H.to_torch(H.wrapped_step_blocks(
+            s, es, env.model, dr, rng, n=B, episode_length=1000))], 3)
+        got = soa_env.wrapped_step(s, es, 5, 1000, *blocks)
+        want = soa_env.wrapped_step_rows(s, es, 5, 1000, *blocks)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"team {kernel}[hfield] vs plain: output {i} differs"
+
+
+def test_run9_team_k4_bit_for_bit(run9):
+    """Team K4 at run9's terrain over 3 steps (episodes of 4), the bases
+    spread over the grid: bit for bit with ``unroll_rows``."""
+    env, B, T = run9, 130, 3
+    s, es = env._s, env._es
+    layers, blocks = H.fused_unroll_inputs(env, B, T, "elu", 4)
+    blocks[0] = blocks[0].clone()
+    _spread(blocks, 4)
+    got = fused_unroll.unroll(s, es, 5, 4, "elu", layers, *blocks)
+    want = fused_unroll.unroll_rows(s, es, 5, 4, "elu", layers, *blocks)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None and w is None) or torch.equal(g, w), \
+            f"team K4[hfield] vs plain: output {i} differs"

@@ -197,13 +197,18 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
 
 
 def test_unported_terrain_and_action_repeat_raise():
-    """Terrain still raises; ``action_repeat``, ported since, keeps training
-    on the standard lane with JAX's reason (``test_torch_extras.py``)."""
+    """Obstacle terrain still raises; a heightfield builds from its
+    committed tables (run9's, ``test_torch_terrain.py``) and raises without
+    them, naming the command that writes them; ``action_repeat``, ported
+    since, keeps training on the standard lane with JAX's reason
+    (``test_torch_extras.py``)."""
     from puppax_torch.env.rollout import support_reason
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PupperV3Env.from_config(EnvConfig(n_obstacles=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PupperV3Env.from_config(EnvConfig(heightfield=True), device="cpu")
+    env = PupperV3Env.from_config(EnvConfig(heightfield=True), device="cpu")
+    assert env.model.pairs_hfield_sphere
+    with pytest.raises(FileNotFoundError, match="puppax_torch.model.tables --config"):
+        PupperV3Env.from_config(EnvConfig(heightfield=True, heightfield_seed=5), device="cpu")
     wrapped = wrap_for_training(PupperV3Env(device="cpu"), 1000, action_repeat=2)
     assert support_reason(wrapped) == (False, "action_repeat=2 (kernel fuses 1)")

@@ -113,6 +113,21 @@ def test_wrapped_step_schedule():
     assert "wrapped_step_team_body(WS_PARAMS" in source
 
 
+def test_team_k4_renders_team_k3_body_once(monkeypatch):
+    """``build._team_k3_body`` renders team K3's schedule once per
+    configuration, and team K4 runs that rendering after its constants."""
+    monkeypatch.setattr(build, "_TEAM_K3_BODIES", {})
+    env = H.torch_env()
+    s, es, w = env._s, env._es, build.TEAM_WARPS["fused_unroll_team"]
+    direct = team.wrapped_step_team_body(s, es, 1, L, w)
+    first = build._team_k3_body(s, es, 1, L, w)
+    assert first == direct and len(build._TEAM_K3_BODIES) == 1
+    again = build._team_k3_body(s, es, 1, L, w)
+    assert again[0] is first[0] and again == direct
+    source, stats = cgen.fused_unroll_team_body(s, es, 1, L, w, build.K4_MLP_ROWS, team_k3=again)
+    assert source.endswith(direct[0]) and stats == direct[1]
+
+
 def _inputs(gait: bool, activation: str):
     env = PupperV3Env(device="cpu", gait_phase_observation=gait, **H.env_kwargs(1))
     layers, blocks = H.fused_unroll_inputs(env, B, T, activation, L)

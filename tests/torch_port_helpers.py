@@ -84,6 +84,9 @@ def model_from_jax(jax_model):
 
     kw = {k: getattr(jax_model, k) for k in STATIC_FIELDS}
     kw.update({k: np.array(getattr(jax_model, k)) for k in LEAF_FIELDS})
+    for k in ("hfield_data", "hfield_size"):  # the heightfield's, if the model has one
+        if getattr(jax_model, k) is not None:
+            kw[k] = np.array(getattr(jax_model, k))
     names = {f.name for f in dataclasses.fields(RobotModel)}
     assert names == set(kw) | {"hfield_data", "hfield_size"}, names ^ set(kw)
     return RobotModel(**kw)
