@@ -10,18 +10,23 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the twenty-one kernels from the checkout's sources, in
-   parallel nvcc processes: the wrapped env step (K3), the unwrapped env
-   step (K2), the physics-only step (K1) and the fused unroll (K4) as team
-   kernels (32 envs per block, each env's program split across the block's
-   warps, ``kernels/team.py``; team K4 also splits its MLP) and as
-   one-thread kernels (one env per thread, the A/B baseline), the
+2. the builds of the twenty-four kernels from the checkout's sources, in
+   parallel nvcc processes, their bodies rendered in a pool of processes,
+   each nvcc started as its body lands (``build.build_batch``): the
+   wrapped env step (K3), the unwrapped env step (K2), the physics-only
+   step (K1) and the fused unroll (K4) as team kernels (32 envs per
+   block, each env's program split across the block's warps,
+   ``kernels/team.py``; team K4 also splits its MLP) and as one-thread
+   kernels (one env per thread, the A/B baseline), the
    bodies of run12's env (``dev/run_configs/run12_2b_cse.json``: history
    4, the privileged rows, the gait clock): team K3, K3, team K2 (history
    4 only), team K4 and K4, and the eight bodies of run9's heightfield
    terrain (``dev/run_configs/run9_500m_hfield.json``: the hfield-sphere
    pairs, the grid a table the bodies read): team K1, K2, K3, K4 and their
-   one-thread kernels (``[hfield]``); each with its generated lines, nvcc
+   one-thread kernels (``[hfield]``), and the default lane's three bodies
+   of run8's obstacle terrain (``dev/run_configs/run8_500m_obstacles.json``:
+   20 boxes, the sphere-box pairs as loops over a table of the boxes):
+   team K3, K3 and team K2 (``[boxes]``); each with its generated lines, nvcc
    seconds and ptxas summary (the team kernels with their warps, barriers,
    shared memory and heaviest stream);
 3. K3 against its plain version at 4096 envs: after a few kernel steps
@@ -32,7 +37,8 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    with each other; the same on the first 128 and the first 130 envs (a
    ragged 32-env group); both kernels timed at 4096 envs in turns
    (one-thread, team, team, one-thread), the A/B printed, the plain
-   version twice;
+   version timed on its check's run at 4096 envs (each plain version below
+   is timed once, on the run its check compares with);
 4. K4 against its plain version: from the K3 check's 4096 DR'd states,
    T=4 steps through ``fused_unroll.unroll`` (team K4),
    ``fused_unroll.unroll_one_thread`` (the one-thread K4) and
@@ -48,7 +54,7 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``soa.physics_step_rows``, env by env, at 4096 envs and at the first
    128, the two kernels bit for bit with each other; both timed at 4096
    and 128 envs in turns (one-thread, team, team, one-thread), the A/B
-   printed, the plain version at 4096;
+   printed, the plain version's time at 4096;
 6. K1 against the torch ``pipeline.pipeline_step`` (float32, TF32 off) on
    the same inputs, env by env at qpos 5e-5 / scaled qvel 5e-4: the envs
    outside tolerance are counted and split into those outside the MJX caps
@@ -133,7 +139,19 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    on the K3 lane for 3 training steps and 2 evaluations, its launches
    counted by body (team K3[hfield] and team K2[hfield]), its
    ``training/sps``, phase times and evaluation seconds;
-15. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
+15. run8, the obstacle terrain: 4096 DR'd envs from run8's committed
+   tables after ``RUN8_WARM_STEPS`` kernel steps, every second env's base
+   moved onto a box where that puts a sphere into it; the envs with an
+   active sphere-box row in team K2's last forward pass counted (at least
+   ``MIN_BOX_ENVS``); team K3 and the one-thread K3 at 4096 and 128 envs
+   and team K2 at 128 against their plain versions (at most
+   ``MAX_DIFFERING_ENVS`` envs outside tolerance), team K3 against the
+   one-thread K3 bit for bit, timed in turns; then ``python -m
+   puppax_torch.scripts.train --config dev/run_configs/run8_500m_obstacles.json``
+   on the default (K3) lane for 3 training steps and 2 evaluations, its
+   launches counted by body (team K3[boxes] and team K2[boxes]), its
+   ``training/sps``, phase times and evaluation seconds;
+16. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
    4096 DR'd states: their 30 libraries built in one parallel batch (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
@@ -192,21 +210,23 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    plain version (bit for bit; the ``--fmad=true`` builds as above), and
    every probe kernel must have launched in
    this phase;
-16. a JSON line of the kernels (launches in their training run or probe
+17. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
    team K3, team K2, team K1 and team K4 beside the one-thread K3, K2, K1
    and K4, whose launches on the main path are 0; run12's bodies as
    ``wrapped_step_team[run12]``, ``env_step_team[hist4]``,
    ``fused_unroll_team[run12]`` and their one-thread kernels, each with
    the run12 CLI run its launches come from as ``launches_in``; run9's
-   eight ``[hfield]`` bodies, launched in run9's CLI run; each K4 entry's
+   eight ``[hfield]`` bodies, launched in run9's CLI run; run8's three
+   bodies as ``wrapped_step_team[run8]``, ``wrapped_step[run8]`` and
+   ``env_step_team[run8]``, launched in run8's CLI run; each K4 entry's
    ``unroll_T`` the steps of the unroll its times and bound are per) and,
    last,
    the device JSON line.
 
-Any failed check raises, so the script exits non-zero; it also exits
-non-zero, printing no result, when no CUDA device is visible or when it is
-run outside a checkout of the repository.
+Each phase prints its wall seconds. Any failed check raises, so the script
+exits non-zero; it also exits non-zero, printing no result, when no CUDA
+device is visible or when it is run outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -244,6 +264,10 @@ RUN12_CONFIG = os.path.join("dev", "run_configs", "run12_2b_cse.json")
 RUN9_CONFIG = os.path.join("dev", "run_configs", "run9_500m_hfield.json")
 RUN9_WARM_STEPS = 25  # kernel steps from reset: the robots land on the bumps
 MIN_HFIELD_ENVS = 1000  # of 4096 with an active contact on a nonzero, sloped cell
+# the obstacle terrain's run (20 boxes), from its committed tables
+RUN8_CONFIG = os.path.join("dev", "run_configs", "run8_500m_obstacles.json")
+RUN8_WARM_STEPS = 5  # kernel steps from reset before its checks
+MIN_BOX_ENVS = 64  # of 4096 with an active sphere-box row
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -252,6 +276,45 @@ PEAK_BYTES_PER_S = 3.35e12
 def fail(msg: str):
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def place_over_boxes(s, model_t, q, envs, g, rounds: int = 64):
+    """Move the bases (x, y) of the envs of the bool mask ``envs`` of the
+    ``(nq, B)`` block ``q`` onto the box model's boxes, each to the first of
+    ``rounds`` random poses (along a random box, at most 15 cm across it)
+    where a sphere penetrates a box; an env with no such pose keeps its
+    own. Returns (the new q, the bool mask of the envs with a penetrating
+    sphere-box pair)."""
+    import torch
+
+    from puppax_torch.physics import collision, smooth
+
+    bx = s.boxes
+    nbs = bx.n * len(bx.spheres)
+    table = torch.tensor(bx.table, dtype=torch.float32, device=q.device)  # (n, 15)
+
+    def box_contact(qq):
+        dist = collision.collide_pairs(model_t, smooth.kinematics(model_t, qq.t())).dist
+        return (dist[:, bx.first:bx.first + nbs] < 0).any(1)
+
+    q = q.clone()
+    hit = box_contact(q)
+    for _ in range(rounds):
+        todo = envs & ~hit
+        if not todo.any():
+            break
+        k = torch.randint(bx.n, (q.shape[1],), generator=g, device=q.device)
+        along = (torch.rand(q.shape[1], generator=g, device=q.device) - 0.5) * 2 * table[k, 13]
+        across = (torch.rand(q.shape[1], generator=g, device=q.device) - 0.5) * 0.3
+        # the box's local y (its length) and x axes in the world: R's columns
+        xy = table[k, 9:11] + along[:, None] * table[k][:, [1, 4]] \
+            + across[:, None] * table[k][:, [0, 3]]
+        cand = q.clone()
+        cand[0:2] = torch.where(todo, xy.t(), q[0:2])
+        ok = todo & box_contact(cand)
+        q[0:2] = torch.where(ok, cand[0:2], q[0:2])
+        hit = hit | ok
+    return q, hit
 
 
 def nvidia_smi_line() -> str:
@@ -273,6 +336,14 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """``fn()``'s result and its milliseconds (CUDA events, one call): a
+    plain version is run once, for its check, and that run is its time."""
+    out = []
+    ms = cuda_ms(lambda: out.append(fn()), 1)
+    return out[0], ms
 
 
 def bound_ms(ops_per_env: int, in_rows: int, out_rows: int, B: int):
@@ -707,6 +778,22 @@ def main():
         "team K4[hfield]": build.record_name(build.FUSED_UNROLL_TEAM, hf),
         "K4[hfield]": build.record_name(build.FUSED_UNROLL, hf),
     }
+    # run8's env (20 boxes, from its committed tables), with the default DR
+    with open(os.path.join(HERE, RUN8_CONFIG)) as f:
+        cfg8 = experiment.from_dict(json.load(f))
+    env8 = PupperV3Env.from_config(cfg8.env, device=device)
+    wrapped8 = wrap_for_training(env8, L, randomization_fn=randomization_fn, generator=g,
+                                 num_envs=B)
+    lane8 = FastLane(wrapped8)
+    s8, es8, tc8 = env8._s, env8._es, cfg8.train
+    if tc8.episode_length != L or cfg8.env.environment_timestep != env_cfg.environment_timestep:
+        raise AssertionError("run8's episode and env step differ from the default's")
+    bx = build.model_variant(s8)
+    rec8 = {  # run8's bodies' build records (the default lane's)
+        "team K3[boxes]": build.record_name(build.WRAPPED_STEP_TEAM, bx),
+        "K3[boxes]": build.record_name(build.WRAPPED_STEP, bx),
+        "team K2[boxes]": build.record_name(build.ENV_STEP_TEAM, bx),
+    }
     s1 = env_po._cv_step.s  # K1's static digest (the physics-only env's step)
     print(f"config: envs {B}, substeps {n_sub}, episode {L}, unroll {T_UNROLL}, "
           f"obs {env.observation_size}, policy {tc.policy_hidden_layer_sizes}, "
@@ -714,35 +801,44 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build the twenty-one kernels, in parallel nvcc processes ----
+    # ---- build the twenty-four kernels: their bodies rendered in a pool of
+    # processes, one nvcc process per kernel as its body lands ----
     with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4, run12's "
-               "team K3 + K3 + team K2 + team K4 + K4, and run9's team K1-K4 + K1-K4"):
-        build.build_in_parallel(lambda: build.wrapped_step_team_library(s, es, n_sub, L),
-                                lambda: build.env_step_team_library(s, es, n_sub),
-                                lambda: build.physics_step_team_library(s1, n_sub),
-                                lambda: build.fused_unroll_team_library(s, es, n_sub, L),
-                                lambda: build.wrapped_step_library(s, es, n_sub, L),
-                                lambda: build.env_step_library(s, es, n_sub),
-                                lambda: build.physics_step_library(s1, n_sub),
-                                lambda: build.fused_unroll_library(s, es, n_sub, L),
-                                lambda: build.wrapped_step_team_library(s12, es12, n_sub, L),
-                                lambda: build.wrapped_step_library(s12, es12, n_sub, L),
-                                lambda: build.env_step_team_library(s12, es12, n_sub),
-                                lambda: build.fused_unroll_team_library(s12, es12, n_sub, L),
-                                lambda: build.fused_unroll_library(s12, es12, n_sub, L),
-                                lambda: build.physics_step_team_library(s9, n_sub),
-                                lambda: build.physics_step_library(s9, n_sub),
-                                lambda: build.env_step_team_library(s9, es9, n_sub),
-                                lambda: build.env_step_library(s9, es9, n_sub),
-                                lambda: build.wrapped_step_team_library(s9, es9, n_sub, L),
-                                lambda: build.wrapped_step_library(s9, es9, n_sub, L),
-                                lambda: build.fused_unroll_team_library(s9, es9, n_sub, L),
-                                lambda: build.fused_unroll_library(s9, es9, n_sub, L))
+               "team K3 + K3 + team K2 + team K4 + K4, run9's team K1-K4 + K1-K4, and run8's "
+               "team K3 + K3 + team K2"):
+        batch = [(build.wrapped_step_team_library, (s, es, n_sub, L)),
+                 (build.env_step_team_library, (s, es, n_sub)),
+                 (build.physics_step_team_library, (s1, n_sub)),
+                 (build.fused_unroll_team_library, (s, es, n_sub, L)),
+                 (build.wrapped_step_library, (s, es, n_sub, L)),
+                 (build.env_step_library, (s, es, n_sub)),
+                 (build.physics_step_library, (s1, n_sub)),
+                 (build.fused_unroll_library, (s, es, n_sub, L)),
+                 (build.wrapped_step_team_library, (s12, es12, n_sub, L)),
+                 (build.wrapped_step_library, (s12, es12, n_sub, L)),
+                 (build.env_step_team_library, (s12, es12, n_sub)),
+                 (build.fused_unroll_team_library, (s12, es12, n_sub, L)),
+                 (build.fused_unroll_library, (s12, es12, n_sub, L)),
+                 (build.physics_step_team_library, (s9, n_sub)),
+                 (build.physics_step_library, (s9, n_sub)),
+                 (build.env_step_team_library, (s9, es9, n_sub)),
+                 (build.env_step_library, (s9, es9, n_sub)),
+                 (build.wrapped_step_team_library, (s9, es9, n_sub, L)),
+                 (build.wrapped_step_library, (s9, es9, n_sub, L)),
+                 (build.fused_unroll_team_library, (s9, es9, n_sub, L)),
+                 (build.fused_unroll_library, (s9, es9, n_sub, L)),
+                 (build.wrapped_step_team_library, (s8, es8, n_sub, L)),
+                 (build.wrapped_step_library, (s8, es8, n_sub, L)),
+                 (build.env_step_team_library, (s8, es8, n_sub))]
+        build.build_batch(*batch)
+        print(f"{len(batch)} bodies rendered in a pool of {min(len(batch), os.cpu_count())} "
+              f"processes, each nvcc started as its body landed", flush=True)
         for kname, label in (("wrapped_step_team", "team K3"), ("env_step_team", "team K2"),
                              ("physics_step_team", "team K1"), ("fused_unroll_team", "team K4"),
                              ("wrapped_step", "K3"), ("env_step", "K2"), ("physics_step", "K1"),
                              ("fused_unroll", "K4"), *((v, k) for k, v in rec12.items()),
-                             *((v, k) for k, v in rec9.items())):
+                             *((v, k) for k, v in rec9.items()),
+                             *((v, k) for k, v in rec8.items())):
             info = build.last_build[kname]
             print(f"build: {label} {kname}, {info['lines']} generated lines, "
                   f"{info['ops_per_env']} float ops per env, generate "
@@ -753,27 +849,32 @@ def main():
                       f"{max(info['stream_ops'])} float ops per env, {info['replicated_ops']} "
                       f"replicated in all, {info['barriers']} barriers, "
                       f"{info['shared_bytes']} bytes of shared memory ({info['slots']} slots, "
-                      f"write gap {info['write_gap']})", flush=True)
+                      f"write gap {info['write_gap']})" + (
+                          f", {info['scratch_bytes_per_env']} bytes of global scratch per env"
+                          if "scratch_bytes_per_env" in info else ""), flush=True)
             log_path = os.path.join(info["dir"], "build.log")
             for line in open(log_path).read().splitlines():
                 if "registers" in line or "spill" in line or "stack frame" in line:
                     print("  ptxas:" + line.split(":", 1)[-1].rstrip())
 
     # ---- team K3 and the one-thread K3 against plain at 4096, 128 and 130 envs ----
-    def k3_check(name, s_, es_, blocks_, limit, warm=WARM_STEPS):
+    def k3_check(name, s_, es_, blocks_, limit, warm=WARM_STEPS, times=None):
         """Team K3 and the one-thread K3 against the plain version on the
         same inputs (at most ``limit`` envs outside tolerance) and against
         each other bit for bit. Some env must touch the floor, and where the
         env has privileged rows, some env must be done and every done env's
         privileged rows must be its ``first`` block's. Returns (team's max
-        abs err, the one-thread's)."""
+        abs err, the one-thread's); with ``times`` (a list), appends the
+        plain version's milliseconds there."""
         n_envs = blocks_[0].shape[1]
         aux = soa_env.aux_row_map(es_)
         got = soa_env.wrapped_step(s_, es_, n_sub, L, *blocks_)
         one = soa_env.wrapped_step_one_thread(s_, es_, n_sub, L, *blocks_)
         torch.cuda.synchronize()
-        want = soa_env.wrapped_step_rows(s_, es_, n_sub, L, *blocks_)
-        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: soa_env.wrapped_step_rows(s_, es_, n_sub, L,
+                                                                      *blocks_))
+        if times is not None:
+            times.append(plain_ms)
         per_block, differing, err = compare_outputs(s_, es_, aux, got, want)
         _, one_differing, one_err = compare_outputs(s_, es_, aux, one, want)
         bits_err, bits_envs = probes.compare_exact(got, one)
@@ -822,10 +923,11 @@ def main():
                 carry["env"][r0 : r0 + n], eps)
         blocks = [carry["q"], carry["v"], act, carry["env"], noise[0].contiguous(),
                   carry["dr"], carry["first"], carry["wrap"]]
-        k3_err, k3_one_err = 0.0, 0.0
+        k3_err, k3_one_err, k3_plain_ms = 0.0, 0.0, []
         for n_envs in (B, EVAL_ENVS, EVAL_ENVS + 2):
             ins = blocks if n_envs == B else [x[:, :n_envs].contiguous() for x in blocks]
-            err, one_err = k3_check("K3", s, es, ins, MAX_DIFFERING_ENVS)
+            err, one_err = k3_check("K3", s, es, ins, MAX_DIFFERING_ENVS,
+                                    times=k3_plain_ms if n_envs == B else None)
             k3_err, k3_one_err = max(k3_err, err), max(k3_one_err, one_err)
 
         def k3_step():
@@ -834,14 +936,9 @@ def main():
         def k3_one():
             soa_env.wrapped_step_one_thread(s, es, n_sub, L, *blocks)
 
-        def k3_plain():
-            soa_env.wrapped_step_rows(s, es, n_sub, L, *blocks)
-
-        k3_plain_ms = [cuda_ms(k3_plain, 1)]
         k3_one_ms = [cuda_ms(k3_one, 20)]
         k3_ms = [cuda_ms(k3_step, 20), cuda_ms(k3_step, 20)]
         k3_one_ms.append(cuda_ms(k3_one, 20))
-        k3_plain_ms.append(cuda_ms(k3_plain, 1))
         print(f"team K3 step at {B} envs: {statistics.median(k3_ms):.4f} ms (runs {k3_ms}); "
               f"one-thread K3 {statistics.median(k3_one_ms):.4f} ms (runs {k3_one_ms}); A/B K3, "
               f"one-thread / team: {statistics.median(k3_one_ms) / statistics.median(k3_ms):.3f}x; "
@@ -968,8 +1065,8 @@ def main():
         got = soa.step_batched(s1, *k1_blocks, n_sub)
         one = soa.step_batched_one_thread(s1, *k1_blocks, n_sub)
         torch.cuda.synchronize()
-        want = soa.physics_step_rows(s1, n_sub, *k1_blocks)
-        torch.cuda.synchronize()
+        want, k1_plain_ms = timed_once(lambda: soa.physics_step_rows(s1, n_sub, *k1_blocks))
+        k1_plain_ms = [k1_plain_ms]
         per_block, differing, k1_err = compare_physics_outputs(s1, got, want)
         _, _, k1_one_err = compare_physics_outputs(s1, one, want)
         r0, n = s1.cache_rows["con_dist"]
@@ -1013,16 +1110,11 @@ def main():
         def k1_one_small():
             soa.step_batched_one_thread(s1, *k1_small, n_sub)
 
-        def k1_plain():
-            soa.physics_step_rows(s1, n_sub, *k1_blocks)
-
-        k1_plain_ms = [cuda_ms(k1_plain, 1)]
         k1_one_ms, k1_one_small_ms = [cuda_ms(k1_one, 20)], [cuda_ms(k1_one_small, 20)]
         k1_ms = [cuda_ms(k1_step, 20), cuda_ms(k1_step, 20)]
         k1_small_ms = [cuda_ms(k1_step_small, 20), cuda_ms(k1_step_small, 20)]
         k1_one_ms.append(cuda_ms(k1_one, 20))
         k1_one_small_ms.append(cuda_ms(k1_one_small, 20))
-        k1_plain_ms.append(cuda_ms(k1_plain, 1))
         print(f"team K1 step: {statistics.median(k1_ms):.4f} ms at {B} envs (runs {k1_ms}), "
               f"{statistics.median(k1_small_ms):.4f} ms at {EVAL_ENVS} envs (runs "
               f"{k1_small_ms}); plain {statistics.median(k1_plain_ms):.1f} ms at {B} envs "
@@ -1407,11 +1499,13 @@ def main():
         wrap12[0, ::3] = L - 1  # every third env reaches the episode limit: the restore
         blocks12 = [carry12["q"], carry12["v"], act12, carry12["env"], noise12[0].contiguous(),
                     carry12["dr"], carry12["first"], wrap12]
-        k3_12_err, k3_12_one_err = 0.0, 0.0
+        k3_12_err, k3_12_one_err, plain12 = 0.0, 0.0, []
         for n_envs in (B, EVAL_ENVS):
             ins = blocks12 if n_envs == B else [x[:, :n_envs].contiguous() for x in blocks12]
-            err, one_err = k3_check("K3[run12]", s12, es12, ins, MAX_DIFFERING_ENVS)
+            err, one_err = k3_check("K3[run12]", s12, es12, ins, MAX_DIFFERING_ENVS,
+                                    times=plain12 if n_envs == B else None)
             k3_12_err, k3_12_one_err = max(k3_12_err, err), max(k3_12_one_err, one_err)
+        k3_12_plain_ms = plain12[0]
 
         # K4 at run12's env: T=4 steps from the same states, every third env
         # reaching the episode limit at the second step
@@ -1448,7 +1542,8 @@ def main():
                        eval12.dr_rows(EVAL_ENVS)]
         got = soa_env.env_step(s12, es12, n_sub, *k2_blocks12)
         torch.cuda.synchronize()
-        want = soa_env.env_step_rows(s12, es12, n_sub, *k2_blocks12)
+        want, k2_12_plain_ms = timed_once(
+            lambda: soa_env.env_step_rows(s12, es12, n_sub, *k2_blocks12))
         per_block, differing, k2_12_err = compare_env_outputs(s12, es12, got, want)
         print(f"team K2[hist4] vs plain at {EVAL_ENVS} envs after {WARM_STEPS} K2 steps "
               f"({int(estate12.info['last_contact'].any(1).sum())} envs with a foot on the "
@@ -1477,8 +1572,6 @@ def main():
         k3_12_one_ms = [cuda_ms(k3_12_one, 20)]
         k3_12_ms = [cuda_ms(k3_12, 20), cuda_ms(k3_12, 20)]
         k3_12_one_ms.append(cuda_ms(k3_12_one, 20))
-        k3_12_plain_ms = cuda_ms(lambda: soa_env.wrapped_step_rows(s12, es12, n_sub, L,
-                                                                   *blocks12), 1)
         # K4 on the T=4 check's inputs, where its plain version was timed
         # (the kernels line), and per T=20 unroll beside the default K4's
         k4_12_one_ms = [cuda_ms(k4_12_one(k4_in12), 5)]
@@ -1489,8 +1582,6 @@ def main():
         k4_12_long_one_ms.append(cuda_ms(k4_12_one(k4_in12_long), 3))
         k2_12_ms = [cuda_ms(lambda: soa_env.env_step(s12, es12, n_sub, *k2_blocks12), 20)
                     for _ in range(2)]
-        k2_12_plain_ms = cuda_ms(lambda: soa_env.env_step_rows(s12, es12, n_sub, *k2_blocks12),
-                                 1)
         print(f"team K3[run12] step at {B} envs: {statistics.median(k3_12_ms):.4f} ms (runs "
               f"{k3_12_ms}); one-thread K3[run12] {statistics.median(k3_12_one_ms):.4f} ms (runs "
               f"{k3_12_one_ms}); A/B {statistics.median(k3_12_one_ms) / statistics.median(k3_12_ms):.3f}x; "
@@ -1680,12 +1771,14 @@ def main():
         k1_blocks9 = [carry9["q"], carry9["v"], ctrl9, carry9["dr"]]
         res9 = {}
 
-        def exact9(k, got, one, want, compare, *args):
-            """Team and one-thread kernel against the plain version: 0 envs
-            outside tolerance and max abs err 0.0 for both."""
+        def exact9(k, got, one, plain, compare, *args):
+            """Team and one-thread kernel against the plain version (``plain``:
+            its outputs and milliseconds, ``timed_once``): 0 envs outside
+            tolerance and max abs err 0.0 for both."""
+            want, plain_ms = plain
             per_block, differing, err = compare(*args, got, want)
             _, one_differing, one_err = compare(*args, one, want)
-            res9[k] = dict(err=err, one_err=one_err)
+            res9[k] = dict(err=err, one_err=one_err, plain_ms=plain_ms)
             print(f"team {k}[hfield] vs plain: max abs err per block " + json.dumps(per_block)
                   + f", {len(differing)} envs outside tolerance; one-thread {k}[hfield] vs "
                   f"plain: max abs err {one_err!r}, {len(one_differing)} outside", flush=True)
@@ -1696,8 +1789,8 @@ def main():
         got = soa.step_batched(s9, *k1_blocks9, n_sub)
         one = soa.step_batched_one_thread(s9, *k1_blocks9, n_sub)
         torch.cuda.synchronize()
-        want = soa.physics_step_rows(s9, n_sub, *k1_blocks9)
-        exact9("K1", got, one, want, compare_physics_outputs, s9)
+        plain = timed_once(lambda: soa.physics_step_rows(s9, n_sub, *k1_blocks9))
+        exact9("K1", got, one, plain, compare_physics_outputs, s9)
         d0, _ = s9.cache_rows["con_dist"]
         p0, _ = s9.cache_rows["con_pos"]
         grid = torch.tensor(s9.pairs[hs[0]].hf_grid, dtype=torch.float32, device=device)
@@ -1725,12 +1818,14 @@ def main():
         got = soa_env.env_step(s9, es9, n_sub, *k2_blocks9)
         one = soa_env.env_step_one_thread(s9, es9, n_sub, *k2_blocks9)
         torch.cuda.synchronize()
-        want = soa_env.env_step_rows(s9, es9, n_sub, *k2_blocks9)
-        exact9("K2", got, one, want, compare_env_outputs, s9, es9)
+        exact9("K2", got, one, timed_once(lambda: soa_env.env_step_rows(s9, es9, n_sub,
+                                                                        *k2_blocks9)),
+               compare_env_outputs, s9, es9)
 
         # team K3 at 4096 envs (k3_check holds it bit for bit with the one-thread K3)
-        err, one_err = k3_check("K3[hfield]", s9, es9, blocks9, 0, RUN9_WARM_STEPS)
-        res9["K3"] = dict(err=err, one_err=one_err)
+        plain9 = []
+        err, one_err = k3_check("K3[hfield]", s9, es9, blocks9, 0, RUN9_WARM_STEPS, plain9)
+        res9["K3"] = dict(err=err, one_err=one_err, plain_ms=plain9[0])
         if (err, one_err) != (0.0, 0.0):
             raise AssertionError("K3[hfield] is not bit for bit with its plain version")
 
@@ -1742,27 +1837,22 @@ def main():
         if (err, one_err) != (0.0, 0.0):
             raise AssertionError("K4[hfield] is not bit for bit with its plain version")
 
-        # the times, team and one-thread in turns; each plain version once
+        # the times, team and one-thread in turns (each plain version's from its check)
         calls9 = {
             "K1": (lambda: soa.step_batched(s9, *k1_blocks9, n_sub),
-                   lambda: soa.step_batched_one_thread(s9, *k1_blocks9, n_sub),
-                   lambda: soa.physics_step_rows(s9, n_sub, *k1_blocks9), 20),
+                   lambda: soa.step_batched_one_thread(s9, *k1_blocks9, n_sub), 20),
             "K2": (lambda: soa_env.env_step(s9, es9, n_sub, *k2_blocks9),
-                   lambda: soa_env.env_step_one_thread(s9, es9, n_sub, *k2_blocks9),
-                   lambda: soa_env.env_step_rows(s9, es9, n_sub, *k2_blocks9), 20),
+                   lambda: soa_env.env_step_one_thread(s9, es9, n_sub, *k2_blocks9), 20),
             "K3": (lambda: soa_env.wrapped_step(s9, es9, n_sub, L, *blocks9),
-                   lambda: soa_env.wrapped_step_one_thread(s9, es9, n_sub, L, *blocks9),
-                   lambda: soa_env.wrapped_step_rows(s9, es9, n_sub, L, *blocks9), 20),
+                   lambda: soa_env.wrapped_step_one_thread(s9, es9, n_sub, L, *blocks9), 20),
             "K4": (lambda: fused_unroll.unroll(s9, es9, n_sub, L, activation, layers9, *k4_in9),
                    lambda: fused_unroll.unroll_one_thread(s9, es9, n_sub, L, activation,
-                                                          layers9, *k4_in9), None, 5),
+                                                          layers9, *k4_in9), 5),
         }
-        for k, (team_fn, one_fn, plain_fn, reps) in calls9.items():
+        for k, (team_fn, one_fn, reps) in calls9.items():
             one_ms = [cuda_ms(one_fn, reps)]
             team_ms = [cuda_ms(team_fn, reps), cuda_ms(team_fn, reps)]
             one_ms.append(cuda_ms(one_fn, reps))
-            if plain_fn is not None:
-                res9[k]["plain_ms"] = cuda_ms(plain_fn, 1)
             res9[k].update(ms=team_ms, one_ms=one_ms)
             what = f"per T={T_CHECK} unroll at {B} envs" if k == "K4" else \
                 f"step at {EVAL_ENVS if k == 'K2' else B} envs"
@@ -1782,6 +1872,100 @@ def main():
         if (by_body.get(("wrapped_step_team_library", "hfield")) != k3_9_launches
                 or by_body.get(("env_step_team_library", "hfield")) != k2_9_launches):
             raise AssertionError(f"run9's launches did not all go through the [hfield] "
+                                 f"bodies: {by_body}")
+
+    # ---- run8: the obstacle terrain's bodies against plain ----
+    with Phase("run8 kernels vs plain"):
+        nets8 = networks.make_ppo_networks(
+            env8.observation_size, env8.action_size, tc8.policy_hidden_layer_sizes,
+            tc8.value_hidden_layer_sizes, tc8.activation, device=device, generator=g)
+        state8 = wrapped8.reset(B, generator=g)
+        state8, _ = lane8.unroll(state8, (None, nets8.policy_network), generator=g,
+                                 T=RUN8_WARM_STEPS)
+        carry8 = lane8.carry_from_state(state8)
+        # the resets spread over 4 x 4 m and the boxes over 10 x 10 m: every
+        # second env's base is moved onto a box, where that puts a sphere in it
+        model8 = pipeline.model_tensors(env8.model, torch.float32, device)
+        _, natural8 = place_over_boxes(s8, model8, carry8["q"],
+                                       torch.zeros(B, dtype=torch.bool, device=device), g, 0)
+        q8, placed8 = place_over_boxes(s8, model8, carry8["q"],
+                                       torch.arange(B, device=device) % 2 == 0, g)
+        carry8 = dict(carry8, q=q8)
+        noise8, _ = lane8.draw_noise_block(g, B, 1)
+        eps8 = torch.randn((env8.action_size, B), generator=g, device=device)
+        r0, n = es8.env_rows["obs_history"]
+        with torch.no_grad():
+            act8, _, _ = lane8.policy_rows(None, nets8.policy_network)(
+                carry8["env"][r0 : r0 + n], eps8)
+        blocks8 = [carry8["q"], carry8["v"], act8, carry8["env"], noise8[0].contiguous(),
+                   carry8["dr"], carry8["first"], carry8["wrap"]]
+        # the envs with an active sphere-box row in the step's last forward
+        # pass: a box pair's distance below 0 in team K2's contact caches
+        d0, _ = s8.cache_rows["con_dist"]
+        nbs = s8.boxes.n * len(s8.boxes.spheres)
+        caches8 = soa_env.env_step(s8, es8, n_sub, *blocks8[:6])[2]
+        active8 = caches8[d0 + s8.boxes.first : d0 + s8.boxes.first + nbs] < 0
+        n_box = int(active8.any(0).sum())
+        print(f"run8 at {B} DR'd envs after {RUN8_WARM_STEPS} kernel steps: "
+              f"{int(natural8.sum())} envs with a sphere in a box as they stand, "
+              f"{int(placed8.sum())} after moving every second base onto a box; {n_box} envs "
+              f"with an active sphere-box row after the step ({int(active8.sum())} rows of "
+              f"{nbs} pairs)", flush=True)
+        if n_box < MIN_BOX_ENVS:
+            raise AssertionError(f"{n_box} envs have an active sphere-box row (at least "
+                                 f"{MIN_BOX_ENVS})")
+        # the plain versions, each timed once where it is checked (the
+        # loops over the boxes are a torch op each: seconds per call)
+        res8 = {"K3": dict(err=0.0, one_err=0.0)}
+        plain8 = []
+        for n_envs in (B, EVAL_ENVS):
+            ins = blocks8 if n_envs == B else [x_[:, :n_envs].contiguous() for x_ in blocks8]
+            err, one_err = k3_check("K3[boxes]", s8, es8, ins, MAX_DIFFERING_ENVS,
+                                    RUN8_WARM_STEPS, plain8)
+            res8["K3"] = dict(err=max(err, res8["K3"]["err"]),
+                              one_err=max(one_err, res8["K3"]["one_err"]))
+        # team K2 at the evaluator's 128 envs (the same states' first 128)
+        k2_blocks8 = [x_[:, :EVAL_ENVS].contiguous() for x_ in blocks8[:6]]
+        got = soa_env.env_step(s8, es8, n_sub, *k2_blocks8)
+        torch.cuda.synchronize()
+        want, k2_8_plain_ms = timed_once(
+            lambda: soa_env.env_step_rows(s8, es8, n_sub, *k2_blocks8))
+        per_block, differing, err = compare_env_outputs(s8, es8, got, want)
+        res8["K2"] = dict(err=err, plain_ms=k2_8_plain_ms)
+        print(f"team K2[boxes] vs plain at {EVAL_ENVS} envs: max abs err per block "
+              + json.dumps(per_block) + f", {len(differing)} envs outside tolerance",
+              flush=True)
+        for b_, what in differing:
+            print(f"  env {b_} differs: {what}")
+        if len(differing) > MAX_DIFFERING_ENVS:
+            raise AssertionError(f"{len(differing)} of {EVAL_ENVS} envs differ (team K2[boxes])")
+        # the times, team and one-thread K3 in turns (the plain versions' above)
+        k3_8 = (lambda: soa_env.wrapped_step(s8, es8, n_sub, L, *blocks8),
+                lambda: soa_env.wrapped_step_one_thread(s8, es8, n_sub, L, *blocks8))
+        one_ms = [cuda_ms(k3_8[1], 10)]
+        team_ms = [cuda_ms(k3_8[0], 10), cuda_ms(k3_8[0], 10)]
+        one_ms.append(cuda_ms(k3_8[1], 10))
+        res8["K3"].update(ms=team_ms, one_ms=one_ms, plain_ms=plain8[0])
+        res8["K2"]["ms"] = [cuda_ms(lambda: soa_env.env_step(s8, es8, n_sub, *k2_blocks8), 20)
+                            for _ in range(2)]
+        print(f"team K3[boxes] step at {B} envs: {statistics.median(team_ms):.4f} ms (runs "
+              f"{team_ms}); one-thread K3[boxes] {statistics.median(one_ms):.4f} ms (runs "
+              f"{one_ms}); A/B {statistics.median(one_ms) / statistics.median(team_ms):.3f}x; "
+              f"plain {res8['K3']['plain_ms']:.1f} ms; team K2[boxes] step at {EVAL_ENVS} "
+              f"envs: {statistics.median(res8['K2']['ms']):.4f} ms (runs {res8['K2']['ms']}), "
+              f"plain {res8['K2']['plain_ms']:.1f} ms ({smi})", flush=True)
+
+    # ---- run8 through the training CLI on the default (K3) lane ----
+    with Phase("run8 training, K3 lane"):
+        if (tc8.batch_size, tc8.unroll_length, tc8.num_minibatches) != (
+                tc12.batch_size, tc12.unroll_length, tc12.num_minibatches):
+            raise AssertionError("run8's training steps differ from run12's")
+        (k3_8_launches, k2_8_launches, _, _), by_body = cli_run(
+            "run8 K3 lane", RUN8_CONFIG, (unroll12, evals12, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", run12=False)
+        if (by_body.get(("wrapped_step_team_library", "boxes")) != k3_8_launches
+                or by_body.get(("env_step_team_library", "boxes")) != k2_8_launches):
+            raise AssertionError(f"run8's launches did not all go through the [boxes] "
                                  f"bodies: {by_body}")
 
     # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
@@ -2087,6 +2271,31 @@ def main():
                 "ms": statistics.median(r["ms" if team else "one_ms"]), "plain_ms": r["plain_ms"],
                 "bound_ms": bounds9[k][0], "bound_by": bounds9[k][1], "library_ms": None})
 
+    # run8's three [boxes] bodies, the default lane's: team K3's and team
+    # K2's launches are the run8 CLI's (K2 in its evaluations); K2's numbers
+    # at 128 envs
+    in8, out8 = soa_env.block_rows(s8, es8)
+    bounds8 = {
+        "K3": bound_ms(build.last_build[rec8["K3[boxes]"]]["ops_per_env"], sum(in8), sum(out8), B),
+        "K2": bound_ms(build.last_build[rec8["team K2[boxes]"]]["ops_per_env"],
+                       *(sum(r) for r in soa_env.env_block_rows(s8, es8)), EVAL_ENVS),
+    }
+    run8 = "run8 training, K3 lane"
+    for name, source, replaces, k, team, n in (
+            ("wrapped_step_team[run8]", "wrapped_step_team.cuh", "puppax/env/soa_env.py:877",
+             "K3", True, k3_8_launches),
+            ("wrapped_step[run8]", "wrapped_step.cuh", "puppax/env/soa_env.py:877", "K3", False,
+             0),
+            ("env_step_team[run8]", "env_step_team.cuh", "puppax/env/soa_env.py:533", "K2", True,
+             k2_8_launches)):
+        r = res8[k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
+            "replaces": replaces, "launches": n, "launches_in": run8 if n else None,
+            "max_abs_err": r["err" if team else "one_err"],
+            "ms": statistics.median(r["ms" if team else "one_ms"]), "plain_ms": r["plain_ms"],
+            "bound_ms": bounds8[k][0], "bound_by": bounds8[k][1], "library_ms": None})
+
     def probe_entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
                 "replaces": replaces, "launches": probe_launches.get(name, 0),
@@ -2212,7 +2421,9 @@ def main():
           f"(history 4) {k2_12_bound[0]:.6f} ms at {EVAL_ENVS} envs, team K4 "
           f"{k4_12_bound[0]:.6f} ms per unroll; run9: team K1 {bounds9['K1'][0]:.6f} ms, "
           f"team K2 {bounds9['K2'][0]:.6f} ms at {EVAL_ENVS} envs, team K3 "
-          f"{bounds9['K3'][0]:.6f} ms, team K4 {bounds9['K4'][0]:.6f} ms per unroll; total wall "
+          f"{bounds9['K3'][0]:.6f} ms, team K4 {bounds9['K4'][0]:.6f} ms per unroll; run8: team "
+          f"K3 {bounds8['K3'][0]:.6f} ms ({bounds8['K3'][1]}), team K2 {bounds8['K2'][0]:.6f} ms "
+          f"at {EVAL_ENVS} envs ({bounds8['K2'][1]}); total wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     # K4's times and bound are per unroll of T_CHECK steps (the check's
     # inputs, where the plain version was timed), in every K4 entry

@@ -8,7 +8,8 @@
 // Shared memory is one float array of [rows][32], the lane fastest: the
 // values that cross warps (SH(slot)), the line search's stacked rows, and the
 // double-buffered row terms of its sums (TEAM_TERM(buffer, row)). A bool or
-// int crosses as a float (team_bool, team_int read it back exactly).
+// int crosses as a float (team_bool, team_int read it back exactly). A box
+// model's body keeps its indexed arrays in a global scratch instead (SCR).
 //
 // On the card TEAM_BAR() is the named barrier 1 over the block's 32 * TEAM_W
 // threads. The same source builds with g++ (no __CUDACC__): team_host_run()
@@ -22,6 +23,11 @@
 
 #define SH(i) sh[(i) * 32 + lane]
 #define TEAM_TERM(buf, r) sh[(TEAM_TERMS + (buf) * TEAM_TERM_ROWS + (r)) * 32 + lane]
+// A row of the global scratch of a body with TEAM_SCRATCH_ROWS (a box model's
+// indexed arrays and their row terms): each 32-env group's rows together,
+// [group][row][32], the lane fastest, so a warp's read or write of a row
+// is one 128-byte line.
+#define SCR(r) scr[((size_t)(b >> 5) * TEAM_SCRATCH_ROWS + (r)) * 32 + lane]
 
 static inline PUPPAX_HD bool team_bool(float x) { return x != 0.0f; }
 static inline PUPPAX_HD int team_int(float x) { return (int)x; }

@@ -38,6 +38,7 @@ import torch
 
 from puppax_torch.env import soa_env
 from puppax_torch.kernels import build
+from puppax_torch.physics import soa
 
 # hidden activations, in the order of the kernel's runtime codes
 ACTIVATIONS = ("elu", "relu", "tanh", "sigmoid", "softmax")
@@ -252,6 +253,7 @@ def _route(wrapper, library, entry: str, weights_of, s, es, n_substeps: int,
         return unroll_rows(s, es, n_substeps, episode_length, activation, layers, *blocks)
     if dev.type != "cuda":
         raise ValueError(f"fused unroll: unsupported device {dev}")
+    soa.check_box_lane(s, "K4, the fused unroll")
     lib = library(s, es, n_substeps, episode_length)
     out = kernel_call(getattr(lib, entry), s, es, activation, layers, weights_of(layers),
                       *blocks, stream=torch.cuda.current_stream(dev).cuda_stream)

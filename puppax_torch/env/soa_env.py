@@ -447,8 +447,16 @@ def _emit_env_step(
     r_term = mul(done, _lt(env["step"][0], float(es.early_term), ref))
 
     def _pair_count(pair_ids):
+        # the box pairs among them (obstacle terrain) as one loop over the boxes
+        box = fw.get("boxes")
+        in_box = [] if box is None else [p for p in pair_ids if box.holds(p)]
         acc = 0.0
         for p in pair_ids:
+            if p in in_box:
+                if p == in_box[0]:
+                    acc = box.fold_dist(acc, in_box, lambda a, d: add(a, _lt(d, 0.0, ref)),
+                                        ref)
+                continue
             acc = add(acc, _lt(fw["con_dist"][p], 0.0, ref))
         return acc
 
@@ -687,6 +695,7 @@ def _wrapped_step(wrapper, kernel: build.Kernel, library, s, es, n_substeps, epi
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
     lib = library(s, es, n_substeps, episode_length)
+    build.bind_scratch(lib, kernel, B, dev)
     outs = build.launch(kernel.name, getattr(lib, kernel.launch), blocks, out_rows, B, dev)
     wrapper.launches += 1
     return outs
@@ -767,6 +776,7 @@ def _env_step(wrapper, kernel: build.Kernel, library, s, es, n_substeps, blocks)
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
     lib = library(s, es, n_substeps)
+    build.bind_scratch(lib, kernel, B, dev)
     outs = build.launch(kernel.name, getattr(lib, kernel.launch), blocks, out_rows, B, dev)
     wrapper.launches += 1
     return outs

@@ -22,23 +22,28 @@ cut, the flags that differ from ``NVCC_FLAGS``), so a probe build never
 stands in for a production one. The production kernels build with ``NVCC_FLAGS`` only.
 
 Each nvcc is one subprocess, so ``build_in_parallel`` builds several
-kernels at once from threads. ``check_blocks`` and ``launch`` are the
-wrappers' shared checks of the ``(rows, B)`` input blocks and their launch
-on the current stream; ``launch_into`` launches into outputs the caller
-allocated.
+kernels at once from threads. Rendering a body is Python under one lock
+(seconds each); ``build_batch`` renders a batch's bodies in a pool of
+processes (``render_in_processes``) and starts each nvcc as its body
+lands.
+``check_blocks`` and ``launch`` are the wrappers' shared checks of the
+``(rows, B)`` input blocks and their launch on the current stream;
+``launch_into`` launches into outputs the caller allocated;
+``bind_scratch`` gives a box model's team body its global scratch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import multiprocessing
 import os
 import pickle
 import shutil
 import subprocess
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, as_completed
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -159,6 +164,12 @@ _DIGESTS: Dict[Tuple[int, int], Tuple[object, object, str]] = {}
 # _EMIT_LOCK by the two device libraries below
 _TEAM_K3_BODIES: Dict[Tuple, Tuple[str, dict]] = {}
 _EMIT_LOCK = threading.Lock()
+# (record name, the statics' content digest, config) -> (body, seconds) that
+# render_in_processes rendered ahead; taken by the library's first build
+_RENDERED: Dict[Tuple, Tuple[object, float]] = {}
+# what a library call does instead of building: "render" (in a render
+# process) returns its body, "key" returns its _LOADED key
+_INSTEAD: Optional[str] = None
 
 # what the last build of each kernel did: record_name -> {"compile_seconds":
 # ..., "ops_per_env": float operations of one env's run, cgen.op_count,
@@ -248,13 +259,19 @@ def _device_library(kernel: Kernel, s, es, config: Tuple[int, ...],
     team body (``team.render``: its stats go into the build record)."""
     name = record_name(kernel, variant, flags)
     key = (name, _statics_digest(s, es), config)
+    if _INSTEAD == "key":
+        return key
+    if _INSTEAD == "render":
+        return make_body()
     hit = _LOADED.get(key)
     if hit is not None:
         return hit
-    with _EMIT_LOCK:  # the value algebra's CSE memo is process-global
-        t0 = time.perf_counter()
-        body = make_body()
-        gen_secs = time.perf_counter() - t0
+    body, gen_secs = _RENDERED.pop(key, (None, 0.0))
+    if body is None:
+        with _EMIT_LOCK:  # the value algebra's CSE memo is process-global
+            t0 = time.perf_counter()
+            body = make_body()
+            gen_secs = time.perf_counter() - t0
     body, stats = body if isinstance(body, tuple) else (body, {})
     path, cached, secs = compile_library(
         kernel, body, [nvcc_path()], flags, BUILD_ROOT, f"lib{kernel.name}.so"
@@ -286,11 +303,13 @@ def _statics_digest(s, es) -> str:
 
 
 def model_variant(s) -> str:
-    """The model's part of a build's record name: ``hfield`` for a model
-    with hfield-sphere pairs (heightfield terrain), none for the flat model
-    (so a terrain's body builds beside the flat one and never overwrites
-    its record)."""
-    return "hfield" if any(p.kind == "hs" for p in s.pairs) else ""
+    """The model's part of a build's record name: ``boxes`` for a model
+    with sphere-box pairs (obstacle terrain), ``hfield`` for one with
+    hfield-sphere pairs (heightfield terrain), both for both, none for the
+    flat model (so a terrain's body builds beside the flat one and never
+    overwrites its record)."""
+    kinds = {p.kind for p in s.pairs}
+    return _variant("boxes" if "bs" in kinds else "", "hfield" if "hs" in kinds else "")
 
 
 def env_variant(es, privileged: bool = True) -> str:
@@ -603,6 +622,62 @@ def probe_spd_warp_library() -> ctypes.CDLL:
     return _device_library(PROBE_SPD_WARP, None, None, (), lambda: "")
 
 
+def _instead(mode: str, call):
+    global _INSTEAD
+    _INSTEAD = mode
+    try:
+        fn, args = call
+        return fn(*args)
+    finally:
+        _INSTEAD = None
+
+
+def _render(call):
+    """A render process's job: the body of one library call, unbuilt."""
+    t0 = time.perf_counter()
+    body = _instead("render", call)
+    return body, time.perf_counter() - t0
+
+
+def render_in_processes(*calls: Tuple[Callable, tuple], workers: Optional[int] = None,
+                        then: Optional[Callable[[int], None]] = None) -> None:
+    """Render the bodies of the library calls ``(library function, args)``
+    (e.g. ``(wrapped_step_team_library, (s, es, 5, 1000))``) in a pool of
+    ``workers`` processes (the host's CPUs by default), so that a parallel
+    build of them does not render them one after another under
+    ``_EMIT_LOCK``; each build then takes its body (``_RENDERED``) and
+    records the render's seconds as its ``generate_seconds``. As each body
+    lands, ``then(i)`` is called with its call's index. The processes are
+    spawned (a forked child of a process that holds a CUDA context may not
+    use it) and each renders the same text as this process would."""
+    keys = [_instead("key", call) for call in calls]  # before any build reads _INSTEAD
+    ctx = multiprocessing.get_context("spawn")
+    n = workers or min(len(calls), os.cpu_count() or 1)
+    with ProcessPoolExecutor(max_workers=n, mp_context=ctx) as pool:
+        futures = {pool.submit(_render, call): i for i, call in enumerate(calls)}
+        for future in as_completed(futures):
+            i = futures[future]
+            _RENDERED[keys[i]] = future.result()
+            if then is not None:
+                then(i)
+
+
+def build_batch(*calls: Tuple[Callable, tuple]) -> list:
+    """Build the library calls ``(library function, args)`` at once: their
+    bodies rendered in a pool of processes (``render_in_processes``), each
+    nvcc started in a thread as soon as its body is ready. Returns the
+    libraries in the calls' order."""
+    with ThreadPoolExecutor(max_workers=len(calls)) as threads:
+        builds = [None] * len(calls)
+
+        def start(i):
+            fn, args = calls[i]
+            builds[i] = threads.submit(fn, *args)
+
+        render_in_processes(*calls, then=start)
+        return [b.result() for b in builds]
+
+
 def build_in_parallel(*builds: Callable[[], object]) -> list:
     """Run the given library builds (e.g. ``lambda: env_step_library(...)``)
     in threads, so their nvcc processes run at the same time."""
@@ -618,6 +693,29 @@ def host_library(kernel: Kernel, body: str, out_root: Path,
     lib = ctypes.CDLL(str(path))
     _bind(lib, kernel, with_stream=False)
     return lib
+
+
+# id(library) -> the scratch its team body's indexed arrays live in
+_SCRATCH: Dict[int, torch.Tensor] = {}
+
+
+def bind_scratch(lib: ctypes.CDLL, kernel: Kernel, B: int, dev: torch.device) -> None:
+    """Give a team library whose body keeps indexed arrays in a global
+    scratch (a box model's: ``TEAM_SCRATCH_ROWS`` rows per env,
+    ``csrc/team.cuh``) its scratch for ``B`` envs: allocated at the first
+    launch that needs more than the last one had and kept for the process,
+    so launches at one B (a CUDA graph's capture among them) reuse it. A
+    no-op for a body without arrays (0 rows) and for a shell without a
+    scratch (no ``<kernel>_scratch_rows`` entry)."""
+    rows_of = getattr(lib, f"{kernel.name}_scratch_rows", None)
+    rows = 0 if rows_of is None else rows_of()
+    if rows == 0:
+        return
+    need = rows * ((B + 31) // 32) * 32
+    t = _SCRATCH.get(id(lib))
+    if t is None or t.numel() < need or t.device != dev:
+        t = _SCRATCH[id(lib)] = torch.empty(need, dtype=torch.float32, device=dev)
+        getattr(lib, f"{kernel.name}_set_scratch")(ctypes.c_void_p(t.data_ptr()))
 
 
 def check_blocks(in_rows: Sequence[int], blocks) -> Tuple[int, torch.device]:

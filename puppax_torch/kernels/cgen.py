@@ -8,7 +8,11 @@ exactly as JAX's weak typing rounds it. ``fori_loop`` becomes a C ``for``
 whose carries are declared before it; its body is emitted under a fresh
 CSE scope, so no value born inside the loop is used after it. The stacked
 one-sided rows of the line search become local ``float[n]`` arrays, and
-their sum an ordered loop.
+their sum an ordered loop. A box model's loops over its box table
+(``fori_loop(..., split=True)``) read the table (``box_at``, a constant
+array in the preamble) and their input rows (``row_at``) at the loop
+index, and pass rows to later stages through local ``float[n]`` arrays
+stored and loaded at an index (``array``, ``array_store``, ``array_load``).
 
 The generated body is one ``PUPPAX_HD`` (``__host__ __device__``) function
 that reads row r of env b at ``ptr[r * B + b]``, after the constant grid
@@ -25,7 +29,8 @@ block, inside ``csrc/wrapped_step_team.cuh``, ``csrc/env_step_team.cuh``,
 program, once per step of the unroll).
 
 Beside its lines, ``CProgram`` records each statement as a node (``Val``,
-``Load``, ``Store``, ``Stack``, ``Dphi``, ``Loop``: name, kind, expression
+``Load``, ``Store``, ``Stack``, ``Dphi``, ``Loop``, and a box model's
+``Arr``, ``ArrStore``, ``ArrLoad`` and ``DynLoad``: name, kind, expression
 template, operand names, loop nesting), which ``kernels/team.py`` schedules
 across the warps of a block.
 """
@@ -148,13 +153,15 @@ class CVal:
 
 
 class CArr:
-    """A local ``float name[n]`` of stacked row values."""
+    """A local ``float name[n]`` of stacked row values (or an indexed
+    array of a box model's loops, with its back-end ``_bk``)."""
 
-    __slots__ = ("name", "n")
+    __slots__ = ("name", "n", "_bk")
 
-    def __init__(self, name: str, n: int):
+    def __init__(self, name: str, n: int, bk: "CProgram" = None):
         self.name = name
         self.n = n
+        self._bk = bk
 
 
 # ---- the statement nodes CProgram records beside its lines ----
@@ -212,12 +219,53 @@ class Dphi:
 
 class Loop:
     """A ``fori_loop`` of ``n`` trips: carries ``(name, kind, init)``, the
-    body's nodes, and the body's new value of each carry (``new``)."""
+    body's nodes, and the body's new value of each carry (``new``). A loop
+    whose body reads its index (a loop over the box table) names the index
+    variable ``var``; ``split``: partition it across the warps whatever its
+    weight (``kernels/team.py``)."""
 
-    __slots__ = ("n", "carries", "body", "new")
+    __slots__ = ("n", "carries", "body", "new", "var", "split")
 
     def __init__(self, n, carries):
         self.n, self.carries, self.body, self.new = n, carries, [], []
+        self.var, self.split = None, False
+
+
+class Arr:
+    """``float name[n];``: an indexed array of per-env rows (a box model's)."""
+
+    __slots__ = ("name", "n")
+
+    def __init__(self, name, n):
+        self.name, self.n = name, n
+
+
+class ArrStore:
+    """``arr[index] = arg;`` (``index``: a C int expression, a constant or
+    one that reads a loop index)."""
+
+    __slots__ = ("arr", "index", "arg")
+
+    def __init__(self, arr, index, arg):
+        self.arr, self.index, self.arg = arr, index, arg
+
+
+class ArrLoad(Val):
+    """``const float name = arr[index];``: a ``Val`` whose one operand is
+    the array."""
+
+    __slots__ = ("arr", "index")
+
+    def __init__(self, name, arr, index):
+        super().__init__(name, "f", "{}[" + index + "]", (arr,))
+        self.arr, self.index = arr, index
+
+
+class DynLoad(Val):
+    """``const float name = ptr[(row0 + k * stride) * B + b];``: an input
+    row at a loop index ``k`` (its operand, the loop variable)."""
+
+    __slots__ = ()
 
 
 class CProgram:
@@ -230,6 +278,9 @@ class CProgram:
         self.nodes: list = []  # the statement nodes, loops nested
         self._into = self.nodes  # where the next node goes (None: not recorded)
         self.grid = None  # the constant grid grid_at reads (one per program)
+        self.table = None  # the constant table table_at reads (one per program)
+        self.loaded: Dict[str, Load] = {}  # the input rows' loads by value name
+        self.index_reads: set = set()  # the loop variables a value reads
 
     def _record(self, node):
         if self._into is not None:
@@ -269,7 +320,8 @@ class CProgram:
     def load(self, ptr: str, row: int) -> CVal:
         name = self.fresh()
         self.line(f"const float {name} = {ptr}[{row} * B + b];")
-        self._record(Load(name, ptr, row))
+        self.loaded[name] = node = Load(name, ptr, row)
+        self._record(node)
         return CVal(self, name, "f")
 
     def store(self, ptr: str, row: int, x):
@@ -308,12 +360,90 @@ class CProgram:
         return self.emit("f", "hfield_at({}, {}, " + f"{int(dv)}, {int(du)})",
                          self.arg(iv), self.arg(iu))
 
+    def table_at(self, table, k: CVal, j: int) -> CVal:
+        """``table[k][j]`` at the loop index ``k`` (``soa.table_at``):
+        ``box_at`` of the preamble."""
+        if self.table is None:
+            self.table = table
+        elif self.table != table:
+            raise ValueError("a program reads one constant table")
+        self.index_reads.add(k.name)
+        return self.emit("f", "box_at({}, " + f"{int(j)})", k.name)
+
+    def row_at(self, values, k: CVal, stride: int, j: int, n: int) -> CVal:
+        """``values[j + k * stride]`` for k in [0, n) (``soa.row_at``):
+        the values must be loads of one input block whose rows step by
+        ``stride``; one read of the block at the trip's row."""
+        loads = [values[j + t * stride] for t in range(n)]
+        loads = [x if isinstance(x, Unloaded) else self.loaded.get(getattr(x, "name", None))
+                 for x in loads]
+        if any(ld is None for ld in loads) or any(
+                ld.ptr != loads[0].ptr or ld.row != loads[0].row + t * stride
+                for t, ld in enumerate(loads)):
+            raise ValueError("row_at reads rows of one input block at a fixed stride")
+        name = self.fresh()
+        self.index_reads.add(k.name)
+        template = f"{loads[0].ptr}[({{}} * {int(stride)} + {loads[0].row}) * B + b]"
+        self.line(f"const float {name} = {template.format(k.name)};")
+        self._record(DynLoad(name, "f", template, (k.name,)))
+        return CVal(self, name, "f")
+
+    def array(self, n: int) -> CArr:
+        name = self.fresh("a")
+        self.line(f"float {name}[{int(n)}];")
+        self._record(Arr(name, int(n)))
+        return CArr(name, int(n), self)
+
+    def _index(self, j: int, k, stride: int) -> str:
+        if k is None:
+            return str(int(j))
+        self.index_reads.add(k.name)
+        return f"{k.name} * {int(stride)} + {int(j)}"
+
+    def array_store(self, arr: CArr, x, j: int, k=None, stride: int = 0):
+        index, arg = self._index(j, k, stride), self.arg(x)
+        self.line(f"{arr.name}[{index}] = {arg};")
+        self._record(ArrStore(arr.name, index, arg))
+
+    def array_load(self, arr: CArr, j: int, k=None, stride: int = 0) -> CVal:
+        name, index = self.fresh(), self._index(j, k, stride)
+        self.line(f"const float {name} = {arr.name}[{index}];")
+        self._record(ArrLoad(name, arr.name, index))
+        return CVal(self, name, "f")
+
     def preamble(self) -> str:
         """The C the body needs before it: the grid ``grid_at`` reads, as
         float32 literals in memory order, in global memory on the card (a
         ``__device__ const`` array) and in a host array for the g++ build,
         and ``hfield_at``, which clips the indices as integers and reads the
-        cell. Empty for a program without a grid."""
+        cell; then the table ``table_at`` reads, in constant memory on the
+        card, and ``box_at``. Empty for a program without either."""
+        return self._grid_preamble() + self._table_preamble()
+
+    def _table_preamble(self) -> str:
+        if self.table is None:
+            return ""
+        n, width = len(self.table), len(self.table[0])
+        cells = ",\n  ".join(", ".join(float_literal(x) for x in row) for row in self.table)
+        return (
+            f"// The obstacle boxes' table, {n} rows of {width} float32 (each box's rotation\n"
+            "// by rows, position and half-sizes): constant memory on the card, a host\n"
+            "// array in the g++ build.\n"
+            "#ifdef __CUDACC__\n"
+            f"__constant__ float box_table_dev[{n * width}] = {{\n  {cells}}};\n"
+            "#endif\n"
+            f"static const float box_table_host[{n * width}] = {{\n  {cells}}};\n"
+            "// table[k][j] at the loop index k\n"
+            "PUPPAX_HD static inline float box_at(int k, int j) {\n"
+            "#ifdef __CUDA_ARCH__\n"
+            f"  return box_table_dev[k * {width} + j];\n"
+            "#else\n"
+            f"  return box_table_host[k * {width} + j];\n"
+            "#endif\n"
+            "}\n"
+        )
+
+    def _grid_preamble(self) -> str:
         if self.grid is None:
             return ""
         nrow, ncol = len(self.grid), len(self.grid[0])
@@ -363,7 +493,7 @@ class CProgram:
         self._record(Dphi(acc, D.name, jar.name, jv.name, alpha.name, jar.n))
         return CVal(self, acc, "f")
 
-    def fori_loop(self, n: int, body, carry):
+    def fori_loop(self, n: int, body, carry, split: bool = False):
         kinds = [self._kind(x) for x in carry]
         names, inits = [], []
         for x, kind in zip(carry, kinds):
@@ -375,13 +505,16 @@ class CProgram:
         self._record(loop)
         into, self._into = self._into, (loop.body if self._into is not None else None)
         it = self.fresh("i")
+        loop.split = split
         self.line(f"for (int {it} = 0; {it} < {n}; ++{it}) {{")
         self.depth += 1
         with soa.cse_scope(fresh=True):
-            new = body(None, [CVal(self, nm, k) for nm, k in zip(names, kinds)])
+            new = body(CVal(self, it, "i"), [CVal(self, nm, k) for nm, k in zip(names, kinds)])
             # read every new value before any carry is assigned
             tmps = [self.emit(k, "{}", self.arg(x, k)) for x, k in zip(new, kinds)]
         loop.new = [t.name for t in tmps]
+        if it in self.index_reads:
+            loop.var = it
         self._into = into
         for nm, t in zip(names, tmps):
             self.line(f"{nm} = {t.name};")
@@ -390,10 +523,29 @@ class CProgram:
         return [CVal(self, nm, k) for nm, k in zip(names, kinds)]
 
 
-def _program(in_blocks, out_blocks, in_rows, emit) -> CProgram:
-    """Run ``emit`` on the loads of every input row and store its outputs."""
+class Unloaded:
+    """An input row the program reads only at a loop index (``row_at``):
+    no load of its own, and no operand."""
+
+    __slots__ = ("ptr", "row")
+
+    def __init__(self, ptr, row):
+        self.ptr, self.row = ptr, row
+
+
+def _unread(s) -> set:
+    """The (block, row) of the input rows a box model reads only at the box
+    loop's index: the DR rows of the pairs of every box but the first
+    (``soa.row_at``), so the body does not grow with the boxes."""
+    return {("dr", r) for r in soa.indexed_dr_rows(s)}
+
+
+def _program(in_blocks, out_blocks, in_rows, emit, unread=()) -> CProgram:
+    """Run ``emit`` on the loads of every input row (``Unloaded`` for the
+    rows of ``unread``) and store its outputs."""
     prog = CProgram()
-    rows = [[prog.load(ptr, r) for r in range(n)] for ptr, n in zip(in_blocks, in_rows)]
+    rows = [[Unloaded(ptr, r) if (ptr, r) in unread else prog.load(ptr, r) for r in range(n)]
+            for ptr, n in zip(in_blocks, in_rows)]
     outs = emit(rows)
     for ptr, vals in zip(out_blocks, outs):
         for r, x in enumerate(vals):
@@ -401,8 +553,8 @@ def _program(in_blocks, out_blocks, in_rows, emit) -> CProgram:
     return prog
 
 
-def _body(name, params, in_blocks, out_blocks, in_rows, emit, what) -> str:
-    prog = _program(in_blocks, out_blocks, in_rows, emit)
+def _body(name, params, in_blocks, out_blocks, in_rows, emit, what, unread=()) -> str:
+    prog = _program(in_blocks, out_blocks, in_rows, emit, unread)
     header = (
         f"// Generated by puppax_torch/kernels/cgen.py from the {what},\n"
         f"// {prog.count} values. Do not edit.\n"
@@ -422,6 +574,7 @@ def wrapped_step_body(s, es, n_substeps: int, episode_length: int) -> str:
         "wrapped_step_body", "WS_PARAMS", IN_BLOCKS, OUT_BLOCKS, in_rows,
         lambda rows: soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows),
         f"wrapped-step\n// emission: n_substeps={n_substeps}, episode_length={episode_length}",
+        _unread(s),
     )
 
 
@@ -431,7 +584,8 @@ def wrapped_step_program(s, es, n_substeps: int, episode_length: int) -> CProgra
 
     in_rows, _ = soa_env.block_rows(s, es)
     return _program(IN_BLOCKS, OUT_BLOCKS, in_rows,
-                    lambda rows: soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows))
+                    lambda rows: soa_env.emit_wrapped_rows(s, es, n_substeps, episode_length, rows),
+                    _unread(s))
 
 
 def _fused_unroll_defines(s, es) -> str:
@@ -496,6 +650,7 @@ def env_step_body(s, es, n_substeps: int) -> str:
         "env_step_body", "ES_PARAMS", ENV_IN_BLOCKS, ENV_OUT_BLOCKS, in_rows,
         lambda rows: soa_env.emit_env_rows(s, es, n_substeps, rows),
         f"env-step\n// emission: n_substeps={n_substeps}",
+        _unread(s),
     )
 
 
@@ -505,7 +660,7 @@ def env_step_program(s, es, n_substeps: int) -> CProgram:
 
     in_rows, _ = soa_env.env_block_rows(s, es)
     return _program(ENV_IN_BLOCKS, ENV_OUT_BLOCKS, in_rows,
-                    lambda rows: soa_env.emit_env_rows(s, es, n_substeps, rows))
+                    lambda rows: soa_env.emit_env_rows(s, es, n_substeps, rows), _unread(s))
 
 
 def physics_step_program(s, n_substeps: int, phase_limit=None, sink: bool = False) -> CProgram:
@@ -516,7 +671,8 @@ def physics_step_program(s, n_substeps: int, phase_limit=None, sink: bool = Fals
     in_rows, _ = soa.physics_block_rows(s)
     return _program(PHYSICS_IN_BLOCKS, PHYSICS_OUT_BLOCKS + (("sink_out",) if sink else ()),
                     in_rows,
-                    lambda rows: soa.emit_physics_rows(s, n_substeps, rows, phase_limit, sink))
+                    lambda rows: soa.emit_physics_rows(s, n_substeps, rows, phase_limit, sink),
+                    _unread(s))
 
 
 def physics_step_body(s, n_substeps: int, phase_limit=None, sink: bool = False) -> str:
@@ -534,6 +690,7 @@ def physics_step_body(s, n_substeps: int, phase_limit=None, sink: bool = False) 
         PHYSICS_OUT_BLOCKS + (("sink_out",) if sink else ()), in_rows,
         lambda rows: soa.emit_physics_rows(s, n_substeps, rows, phase_limit, sink),
         f"physics-step\n// emission: n_substeps={n_substeps}{cut}{', sink row' if sink else ''}",
+        _unread(s),
     )
 
 
@@ -546,6 +703,7 @@ _OPS = re.compile(
 _DECL = re.compile(r"(?:const )?(?:float|bool|int) (\w+)(?:\[\d+\])? = (.*);$")
 _ASSIGN = re.compile(r"(\w+) = (.*);$")
 _STORE = re.compile(r"\w+\[[^\]]*\* B \+ b\] = (.*);$")
+_ARR_STORE = re.compile(r"(\w+)\[[^\]]*\] = (.*);$")  # an indexed array's element
 _NAME = re.compile(r"\b[a-z]\d+\b")  # the names CProgram.fresh makes
 
 
@@ -584,7 +742,7 @@ def op_count(body: str) -> int:
         if m:
             roots.extend(_NAME.findall(m.group(1)))
             continue
-        m = _DECL.match(line) or _ASSIGN.match(line)
+        m = _DECL.match(line) or _ASSIGN.match(line) or _ARR_STORE.match(line)
         if not m:
             continue
         rhs = m.group(2)

@@ -37,6 +37,17 @@ the W streams:
   rows in the order r = 0..rows-1, the plain version's order (its loop
   unrolled by ``SUM_UNROLL``, so loads run ahead of the dependent adds).
   The stacked rows (``Stack``) live in shared memory.
+* A box model's loops over its box table (``Loop.split``) are partitioned
+  whatever their weight; a table read or an input row read at the loop
+  index has no operand but the index and is replicated. Its indexed arrays
+  (``Arr``: the rows one loop passes to a later stage, and the line
+  search's stacked rows, ~780 of them for 20 boxes) do not fit in shared
+  memory: they live in a per-launch scratch in global memory,
+  ``SCR(row)`` of ``TEAM_SCRATCH_ROWS`` rows per 32-env group, the lane
+  fastest (``csrc/team.cuh``), and so do the row terms of the sums over
+  them. A store goes to the warp that holds the value; a read of an array
+  (a load, a loop or a row sum) is placed after every store before it in
+  program order, a barrier between (a loop ends with one).
 
 ``render`` writes the streams as one ``TEAM_FN`` (``__device__``) function with a
 ``switch (warp)``, each warp's whole stream in its own ``case`` (so nvcc
@@ -59,7 +70,7 @@ from puppax_torch.kernels import cgen
 
 LANES = 32
 # owners besides a warp index
-REPL, SHARED, INLINE, STACK = -1, -2, -3, -4
+REPL, SHARED, INLINE, STACK, ARR = -1, -2, -3, -4, -5
 # a loop whose body (row sums aside) weighs no more runs whole in every warp
 REPLICATED_LOOP_WEIGHT = 4000
 # shared memory one block may use: Hopper's 227 KB
@@ -156,6 +167,9 @@ class Schedule:
         self.regions: List[_Region] = []
         self.loads: Dict[str, cgen.Load] = {}
         self.stack_len: Dict[str, int] = {}
+        self.arr_base: Dict[str, int] = {}  # indexed array -> its first scratch row
+        self.scratch_rows = 0
+        self._astores = 0
         self._free: Dict[int, set] = {}
         self._sole: Dict[str, Optional[cgen.Val]] = {}  # name -> its one reader, if one
         self._defined = self._definitions()
@@ -165,6 +179,11 @@ class Schedule:
                 for a in self._uses(n):
                     self._sole[a] = None
         self._schedule_region(self.nodes, ())
+        # the row terms of the sums over arrays, double-buffered, after the arrays
+        arr_sums = [n.n for n in _walk(self.nodes) if isinstance(n, cgen.Dphi)
+                    and n.D in self.arr_base and self.is_live(n)]
+        self.term_base = self.scratch_rows
+        self.scratch_rows += 2 * max(arr_sums, default=0)
         for reg in self.regions:
             reg.stages = [st for st in reg.stages if st.syncs or st.entries]
         self.epochs = 0
@@ -175,7 +194,7 @@ class Schedule:
     def _definitions(self) -> set:
         names = set()
         for n in _walk(self.nodes):
-            if isinstance(n, (cgen.Val, cgen.Load, cgen.Stack, cgen.Dphi)):
+            if isinstance(n, (cgen.Val, cgen.Load, cgen.Stack, cgen.Dphi, cgen.Arr)):
                 names.add(n.name)
             elif isinstance(n, cgen.Loop):
                 names.update(c for c, _, _ in n.carries)
@@ -201,6 +220,10 @@ class Schedule:
                     deps[c] = self._names((init, new))
             elif isinstance(n, cgen.Store):
                 roots.extend(self._names((n.arg,)))
+            elif isinstance(n, cgen.Arr):
+                deps.setdefault(n.name, [])
+            elif isinstance(n, cgen.ArrStore):  # an array is live with what it holds
+                deps.setdefault(n.arr, []).extend(self._names((n.arg,)))
         live, todo = set(), roots
         while todo:
             a = todo.pop()
@@ -216,7 +239,7 @@ class Schedule:
             return self._names(n.args)
         if isinstance(n, cgen.Dphi):
             return self._names((n.D, n.jar, n.jv, n.alpha))
-        if isinstance(n, cgen.Store):
+        if isinstance(n, (cgen.Store, cgen.ArrStore)):
             return self._names((n.arg,))
         if isinstance(n, cgen.Loop):
             return sorted(self.free(n))
@@ -232,7 +255,7 @@ class Schedule:
                 used.update(self._uses(n))
                 if isinstance(n, cgen.Loop):
                     inside.update(c for c, _, _ in n.carries)
-                elif not isinstance(n, cgen.Store):
+                elif not isinstance(n, (cgen.Store, cgen.ArrStore)):
                     inside.add(n.name)
             used.update(self._names(init for _, _, init in loop.carries))
             self._free[key] = used - inside
@@ -241,8 +264,11 @@ class Schedule:
     def is_live(self, n) -> bool:
         if isinstance(n, cgen.Store):
             return True
+        if isinstance(n, cgen.ArrStore):
+            return n.arr in self.live
         if isinstance(n, cgen.Loop):
-            return any(c in self.live for c, _, _ in n.carries)
+            return (any(c in self.live for c, _, _ in n.carries)
+                    or any(self.is_live(m) for m in _walk(n.body) if isinstance(m, cgen.ArrStore)))
         return n.name in self.live
 
     # ---- scheduling ----
@@ -256,7 +282,7 @@ class Schedule:
         inf = self.info[a]
         if inf.region != reg.rid or inf.owner == INLINE:
             return 0
-        if inf.owner in (REPL, SHARED) or inf.owner == w:
+        if inf.owner in (REPL, SHARED, ARR) or inf.owner == w:
             return inf.stage
         return inf.stage + 1
 
@@ -267,7 +293,7 @@ class Schedule:
             inf = self.info[a]
             if inf.region != reg.rid or inf.owner == INLINE:
                 continue
-            if inf.owner in (REPL, SHARED) and inf.sync:
+            if inf.owner in (REPL, SHARED, ARR) and inf.sync:
                 k = max(k, inf.stage)
             else:
                 k = max(k, inf.stage + 1)
@@ -309,7 +335,24 @@ class Schedule:
                 last_sync = k
                 sy = self._schedule_loop(n, reg, path, k)
                 self._stage(reg, k).syncs.append(sy)
+                for m in _walk(n.body):  # its stores are read after its last barrier
+                    if isinstance(m, cgen.ArrStore) and self.is_live(m):
+                        self._array_ready(m.arr, reg, k)
+            elif isinstance(n, cgen.Arr):
+                self.info[n.name] = _Info(ARR, 0, reg.rid, sync=True)
+                self.arr_base[n.name] = self.scratch_rows
+                self.scratch_rows += n.n
+            elif isinstance(n, cgen.ArrStore):
+                self._astores += 1
+                k = self._place_write(reg, n.arg, self._astores, ("astore", n))
+                self._array_ready(n.arr, reg, k + 1)
         return reg
+
+    def _array_ready(self, arr: str, reg: _Region, k: int):
+        """An array written in region ``reg`` is read from stage ``k`` on."""
+        inf = self.info[arr]
+        if inf.region == reg.rid:
+            inf.stage = max(inf.stage, k)
 
     def _place_write(self, reg, a, row, item, late=0):
         """Place a write of ``a`` (an output store or a stacked row): by its
@@ -322,6 +365,7 @@ class Schedule:
         else:
             w, k = (inf.owner if inf.owner >= 0 else row % self.W), inf.stage
         self._stage(reg, k).entries.append((w, item))
+        return k
 
     def _schedule_val(self, n: cgen.Val, reg: _Region):
         W = self.W
@@ -371,7 +415,7 @@ class Schedule:
 
     def _schedule_loop(self, loop: cgen.Loop, reg: _Region, path, k: int) -> _Sync:
         body_weight = sum(weight(n.expr) for n in loop.body if isinstance(n, cgen.Val))
-        if body_weight <= self.loop_weight:
+        if body_weight <= self.loop_weight and not loop.split:
             self._replicate(loop, reg, k)
             return _Sync("rloop", loop)
         sy = _Sync("ploop", loop)
@@ -446,7 +490,7 @@ class Schedule:
                 for w, item in st.entries:
                     if item[0] == "val":
                         names = self._names(item[1].args)
-                    elif item[0] == "store":
+                    elif item[0] in ("store", "astore"):
                         names = self._names((item[1].arg,))
                     else:
                         names = self._names((item[3],))
@@ -483,7 +527,7 @@ class Schedule:
                             end[c] = sy.end
         for a, w, e0, e1, upath in uses:
             inf = self.info[a]
-            if inf.owner in (REPL, INLINE) or inf.owner == w:
+            if inf.owner in (REPL, INLINE, ARR) or inf.owner == w:
                 continue
             dpath = defs[a][0].path
             for lid in upath:
@@ -654,7 +698,12 @@ class _Writer:
         self.line(f"SH({inf.slot}) = {x};")
 
     def val(self, n: cgen.Val):
+        if isinstance(n, cgen.ArrLoad):
+            self.line(f"const float {n.name} = SCR({self.sch.arr_base[n.arr]} + {n.index});")
+            return
         expr = n.template.format(*[self.ref(a) for a in n.args])
+        if isinstance(n, cgen.DynLoad):  # lanes past B read env B - 1
+            expr = expr.replace(" * B + b]", " * B + bl]")
         self.line(f"const {cgen._CTYPE[n.kind]} {n.name} = {expr};")
 
     def bar(self):
@@ -677,6 +726,8 @@ class _Writer:
     def dphi(self, n: cgen.Dphi):
         """Terms of this warp's rows into the shared terms buffer, a barrier,
         then the in-order sum of all rows (``CProgram.os_dphi``'s order)."""
+        if n.D in self.sch.arr_base:
+            return self.dphi_scratch(n)
         base = {a: f"TEAM_STACK0 + {self.sch.info[a].slot}" for a in (n.D, n.jar, n.jv)}
         alpha = self.ref(n.alpha)
         d = n.name
@@ -696,13 +747,34 @@ class _Writer:
         self.line(f"{d} = {d} + TEAM_TERM({d}_b, {r});")
         self.close()
 
+    def dphi_scratch(self, n: cgen.Dphi):
+        """``dphi`` over stacked rows in the scratch (indexed arrays): the
+        terms go to the scratch's double-buffered term rows."""
+        base = {a: self.sch.arr_base[a] for a in (n.D, n.jar, n.jv)}
+        alpha, d, t0 = self.ref(n.alpha), n.name, self.sch.term_base
+        self.line(f"const int {d}_b = tb; tb ^= 1;")
+        r0, r1 = self.sch.rows(n.n, self.w)
+        r = self.open_loop(r1, r0, f"{d}_r")
+        self.line(f"const float {d}_m = {alpha} * SCR({base[n.jv]} + {r});")
+        self.line(f"const float {d}_j = SCR({base[n.jar]} + {r}) + {d}_m;")
+        self.line(f"const float {d}_d = SCR({base[n.D]} + {r}) * {d}_j;")
+        self.line(f"const float {d}_t = pmin({d}_d, 0.0f);")
+        self.line(f"const float {d}_p = {d}_t * SCR({base[n.jv]} + {r});")
+        self.line(f"SCR({t0} + {d}_b * {n.n} + {r}) = {d}_p;")
+        self.close()
+        self.bar()
+        self.line(f"float {d} = 0.0f;")
+        r = self.open_loop(n.n, 0, f"{d}_r", self.sum_unroll)
+        self.line(f"{d} = {d} + SCR({t0} + {d}_b * {n.n} + {r});")
+        self.close()
+
     def rloop(self, loop: cgen.Loop):
         """A loop run whole by every warp, its carries in registers."""
         live = [j for j, (c, _, _) in enumerate(loop.carries) if c in self.sch.live]
         for j in live:
             c, kind, init = loop.carries[j]
             self.line(f"{cgen._CTYPE[kind]} {c} = {self.ref(init)};")
-        self.open_loop(loop.n)
+        self.open_loop(loop.n, var=loop.var)
         for n in loop.body:
             if not self.sch.is_live(n):
                 continue
@@ -725,7 +797,7 @@ class _Writer:
             if sy.init_writers[j] == self.w:
                 self.write_slot(loop.carries[j][0], self.ref(loop.carries[j][2]))
         self.bar()
-        self.open_loop(loop.n)
+        self.open_loop(loop.n, var=loop.var)
         self.region(sy.body)
         self.bar()
         for j in live:
@@ -754,6 +826,9 @@ class _Writer:
                 elif item[0] == "store":
                     n = item[1]
                     self.line(f"if (live) {n.ptr}[{n.row} * B + b] = {self.ref(n.arg)};")
+                elif item[0] == "astore":
+                    n = item[1]
+                    self.line(f"SCR({sch.arr_base[n.arr]} + {n.index}) = {self.ref(n.arg)};")
                 else:
                     _, stack, row, a = item
                     self.line(f"SH(TEAM_STACK0 + {sch.info[stack].slot + row}) = {self.ref(a)};")
@@ -773,7 +848,7 @@ def render_streams(sch: Schedule, sum_unroll: int = SUM_UNROLL) -> List[List[str
 
 
 _TRIPS = re.compile(r"for \(int \w+ = (\d+); \w+ < (\d+); \+\+\w+\) \{$")
-_SHARED_READ = re.compile(r"\b(?:SH|TEAM_TERM)\([^()]*\)|\w+\[[^\]]*\]")
+_SHARED_READ = re.compile(r"\b(?:SH|TEAM_TERM|SCR)\([^()]*\)|\w+\[[^\]]*\]")
 _STMT = re.compile(r"(?:const )?(?:float|bool|int) \w+ = (.*);$|(\w+) = \2 \+ (.*);$")
 
 
@@ -851,11 +926,18 @@ def render(sch: Schedule, name: str, params: str, what: str, base_ops: int,
         barriers=stream_barriers(streams[0]), stages=[len(r.stages) for r in sch.regions],
         slots=sch.n_slots, shared_bytes=4 * sch.shared_floats, write_gap=sch.write_gap,
     )
+    scratch, scr_param = "", ""
+    if sch.scratch_rows:  # a box model's arrays, in a global scratch
+        stats["scratch_bytes_per_env"] = 4 * sch.scratch_rows
+        scratch = (f"// Its indexed arrays: {4 * sch.scratch_rows} bytes of global scratch per "
+                   f"env.\n#define TEAM_SCRATCH_ROWS {sch.scratch_rows}\n")
+        scr_param = ", float* scr"
     head = (
         f"// Generated by puppax_torch/kernels/team.py from the {what},\n"
         f"// split across {sch.W} warps: {base_ops} operations per env in one thread,\n"
         f"// the heaviest stream {max(ops)}, {stats['replicated_ops']} replicated in all,\n"
         f"// {stats['barriers']} barriers, {stats['shared_bytes']} bytes of shared memory.\n"
+        f"{scratch}"
         f"// Do not edit.\n"
         f"#define TEAM_W {sch.W}\n"
         f"#define TEAM_STACK0 {sch.n_slots}\n"
@@ -864,7 +946,7 @@ def render(sch: Schedule, name: str, params: str, what: str, base_ops: int,
         f"#define TEAM_SHARED_FLOATS {sch.shared_floats}\n"
         + preamble
         + f"TEAM_FN inline void {name}({params}, int B, int b, int warp, int lane,\n"
-        f"    float* sh TEAM_BAR_PARAM) {{\n"
+        f"    float* sh{scr_param} TEAM_BAR_PARAM) {{\n"
         "  const int bl = b < B ? b : B - 1;  // lanes past B compute env B - 1, store nothing\n"
         "  const bool live = b < B;\n"
         "  int tb = 0;  // the row terms' buffer\n"

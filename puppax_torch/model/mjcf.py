@@ -226,29 +226,44 @@ def _tuple(x):
 
 def tables_path(cfg) -> str:
     """Where an ``EnvConfig``'s model's tables live: the bundled flat
-    model's, or its heightfield's beside this module, named by 12 hex
-    digits of sha256 over the config's ``heightfield*`` fields
-    (``pupper_v3_hfield_<digest>_tables.json``), whether or not the file
-    exists (the writer's target). Obstacles and another MJCF raise, naming
-    their slices."""
+    model's, or its terrain's beside this module, whether or not the file
+    exists (the writer's target). A terrain's file is named by 12 hex
+    digits of sha256 over the config's fields of each terrain it holds:
+    ``n_obstacles`` and the ``obstacle*`` fields (``boxes_<digest>``), then
+    the ``heightfield*`` fields (``hfield_<digest>``), as in
+    ``pupper_v3_boxes_<digest>_tables.json``. Another MJCF raises, naming
+    its slice."""
     if cfg.path is not None:
         raise NotImplementedError(
             f"only the bundled model is carried across ({_ROADMAP_TERRAIN}: another MJCF)")
+    parts = []
     if cfg.n_obstacles:
-        raise NotImplementedError(
-            f"obstacle terrain: the sphere-box pair and run8 are the next slice "
-            f"({_ROADMAP_TERRAIN}: obstacles.py)")
-    if not cfg.heightfield:
+        parts.append(f"boxes_{_digest(_obstacle_fields(cfg))}")
+    if cfg.heightfield:
+        parts.append(f"hfield_{_digest(_heightfield_fields(cfg))}")
+    if not parts:
         return TABLES_PATH
-    digest = hashlib.sha256(json.dumps(_heightfield_fields(cfg), sort_keys=True,
-                                       default=list).encode())
-    return os.path.join(os.path.dirname(__file__),
-                        f"pupper_v3_hfield_{digest.hexdigest()[:12]}_tables.json")
+    return os.path.join(os.path.dirname(__file__), f"pupper_v3_{'_'.join(parts)}_tables.json")
+
+
+def _digest(fields: dict) -> str:
+    text = json.dumps(fields, sort_keys=True, default=list)
+    return hashlib.sha256(text.encode()).hexdigest()[:12]
+
+
+def _obstacle_fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name == "n_obstacles" or f.name.startswith("obstacle")}
 
 
 def _heightfield_fields(cfg) -> dict:
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
             if f.name.startswith("heightfield")}
+
+
+def _terrain_fields(cfg) -> dict:
+    return {**(_obstacle_fields(cfg) if cfg.n_obstacles else {}),
+            **(_heightfield_fields(cfg) if cfg.heightfield else {})}
 
 
 def config_tables_path(cfg) -> str:
@@ -258,9 +273,9 @@ def config_tables_path(cfg) -> str:
     path = tables_path(cfg)
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"no committed tables for the heightfield {_heightfield_fields(cfg)} ({path}): "
+            f"no committed tables for the terrain {_terrain_fields(cfg)} ({path}): "
             f"write them where mujoco is installed with `python -m puppax_torch.model.tables "
-            f"--config <config.json> [--set env.heightfield_...=...]` and commit the file")
+            f"--config <config.json> [--set env.KEY=VALUE ...]` and commit the file")
     return path
 
 

@@ -9,9 +9,10 @@ caps, the heightfield's grid) and writes the JSON beside ``mjcf.py``:
     python -m puppax_torch.model.tables --config cfg.json [--set env.KEY=VALUE ...]
 
 ``--config`` applies the config's terrain surgery to the bundled model as
-``scripts/train.py`` does (``terrain.add_heightfield_to_model``), compiles
-the XML string and writes ``mjcf.tables_path(cfg.env)``, the file
-the port's env reads for that config on a host without mujoco.
+``scripts/train.py`` does (the boxes of ``obstacles.add_boxes_to_model``,
+then ``terrain.add_heightfield_to_model``), compiles the XML string and
+writes ``mjcf.tables_path(cfg.env)``, the file the port's env reads for
+that config on a host without mujoco.
 """
 
 from __future__ import annotations
@@ -34,13 +35,13 @@ _ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
 
 def _collision_pairs(m):
     """Candidate pairs with MuJoCo's filter, in ``mjcf._collision_pairs``'s
-    order and with its raises. The plane-sphere, sphere-sphere and
-    hfield-sphere kinds are ported; sphere-box and the capsule kinds raise,
-    naming their slices."""
+    order and with its raises. The plane-sphere, sphere-sphere, sphere-box
+    (sphere first, box second; the boxes are world geoms, so the pairs come
+    box by box) and hfield-sphere kinds are ported; the capsule kinds raise,
+    naming their slice."""
     kinds = {(GEOM_PLANE, GEOM_SPHERE): "ps", (GEOM_SPHERE, GEOM_SPHERE): "ss",
-             (GEOM_HFIELD, GEOM_SPHERE): "hs"}
-    later = {(GEOM_SPHERE, GEOM_BOX): "sphere-box (obstacles.py, the next slice)",
-             (GEOM_PLANE, GEOM_CAPSULE): "plane-capsule", (GEOM_SPHERE, GEOM_CAPSULE):
+             (GEOM_SPHERE, GEOM_BOX): "bs", (GEOM_HFIELD, GEOM_SPHERE): "hs"}
+    later = {(GEOM_PLANE, GEOM_CAPSULE): "plane-capsule", (GEOM_SPHERE, GEOM_CAPSULE):
              "sphere-capsule", (GEOM_CAPSULE, GEOM_CAPSULE): "capsule-capsule"}
     supported = {GEOM_PLANE, GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX, GEOM_HFIELD}
     out = {k: [] for k in kinds.values()}
@@ -67,7 +68,7 @@ def _collision_pairs(m):
             out[kind].append([ga, gb])
         elif (ta, tb) in later:
             raise NotImplementedError(
-                f"{later[ta, tb]} pairs are not ported yet ({_ROADMAP_TERRAIN})")
+                f"{later[ta, tb]} pairs are not ported yet ({_ROADMAP_TERRAIN}: capsules)")
         elif ta == GEOM_PLANE and tb == GEOM_BOX:
             raise NotImplementedError("plane-box collisions unsupported")
         elif GEOM_HFIELD in (ta, tb):
@@ -123,7 +124,7 @@ def tables_from_mjmodel(m) -> dict:
         "dof_frictional": ints(np.nonzero(m.dof_frictionloss > 0)[0]),
         "pairs_plane_sphere": pairs["ps"],
         "pairs_sphere_sphere": pairs["ss"],
-        "pairs_sphere_box": [], "pairs_hfield_sphere": pairs["hs"],
+        "pairs_sphere_box": pairs["bs"], "pairs_hfield_sphere": pairs["hs"],
         "pairs_plane_capsule": [], "pairs_sphere_capsule": [],
         "pairs_capsule_capsule": [],
         "hfield_nrow": int(m.hfield_nrow[0]) if hf else 0,
@@ -176,11 +177,18 @@ def write_tables(out_path: str = TABLES_PATH) -> str:
 
 def config_xml(env_cfg) -> str:
     """The XML string of an ``EnvConfig``'s model: the bundled model with
-    the config's heightfield added, as ``scripts/train.py`` builds it."""
-    from puppax_torch.model import terrain
+    the config's boxes, then its heightfield, added as ``scripts/train.py``
+    adds them (so the geom ids are the JAX package's)."""
+    from puppax_torch.model import obstacles, terrain
 
-    tables_path(env_cfg)  # raises for obstacles, another MJCF
+    tables_path(env_cfg)  # raises for another MJCF
     tree = assets.pupper_xml_tree()
+    if env_cfg.n_obstacles:
+        tree = obstacles.add_boxes_to_model(
+            tree, n_boxes=env_cfg.n_obstacles, x_range=env_cfg.obstacle_x_range,
+            y_range=env_cfg.obstacle_y_range, height=env_cfg.obstacle_height,
+            length=env_cfg.obstacle_length, seed=env_cfg.obstacle_seed,
+        )
     if env_cfg.heightfield:
         tree = terrain.add_heightfield_to_model(
             tree, nrow=env_cfg.heightfield_nrow, ncol=env_cfg.heightfield_ncol,
@@ -194,7 +202,7 @@ def write_config_tables(env_cfg, out_path: str = None) -> str:
     ``out_path`` (default: ``mjcf.tables_path(env_cfg)``)."""
     import mujoco
 
-    if not env_cfg.heightfield:
+    if not (env_cfg.n_obstacles or env_cfg.heightfield):
         raise ValueError("the config has no terrain: the flat model's tables are --write's")
     out_path = out_path or tables_path(env_cfg)
     return _write(mujoco.MjModel.from_xml_string(config_xml(env_cfg)), out_path)
@@ -207,7 +215,7 @@ def main(argv=None):
     ap.add_argument("--config", default=None,
                     help="an experiment config JSON: write its terrain's tables")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                    help="dotted-path override of the config, e.g. env.heightfield_seed=3")
+                    help="dotted-path override of the config, e.g. env.obstacle_seed=3")
     args = ap.parse_args(argv)
     if args.config is None and not args.set:
         if not args.write:

@@ -1,10 +1,10 @@
 """Analytic narrowphase with the MJX contact caps.
 
-Counterpart of ``puppax/physics/collision.py`` for the three pair kinds
-the port's tables carry: plane-sphere, sphere-sphere and hfield-sphere
-(heightfield terrain). Every candidate pair is evaluated each step with
-fixed shapes. ``collide`` applies the MJX caps
-the solver sees (``max_geom_pairs`` per pair kind, then
+Counterpart of ``puppax/physics/collision.py`` for the four pair kinds
+the port's tables carry: plane-sphere, sphere-sphere, sphere-box
+(obstacle terrain) and hfield-sphere (heightfield terrain). Every
+candidate pair is evaluated each step with fixed shapes. ``collide``
+applies the MJX caps the solver sees (``max_geom_pairs`` per pair kind, then
 ``max_contact_points`` overall, each a top-k by penetration depth);
 ``collide_pairs`` is the uncapped report in static pair order that the
 env's rewards read.
@@ -100,6 +100,41 @@ def _sphere_sphere(m: RobotModel, kin: Kinematics, g1, g2):
     return dist, pos, _make_frames(n)
 
 
+def _sphere_box(m: RobotModel, kin: Kinematics, g1, g2):
+    """Batched sphere(g1) vs box(g2); the normal points from the sphere
+    into the box. Outside the box: the nearest surface point (the center
+    clamped to the box). Inside: out through the nearest face (the first
+    on a tie, as ``argmin``; a center on the face's plane goes out on the
+    + side)."""
+    ref = kin.xpos
+    center = kin.geom_xpos[:, g1]
+    size = leaf(m, "geom_size", ref)
+    r = size[..., g1, 0]
+    box_pos, box_mat = kin.geom_xpos[:, g2], kin.geom_xmat[:, g2]
+    half = size[..., g2, :].expand(center.shape)
+    # sphere centers in the box frames: p = R^T (c - box_pos)
+    p = torch.einsum("bkij,bki->bkj", box_mat, center - box_pos)
+    clamped = torch.minimum(torch.maximum(p, -half), half)
+    inside = torch.all(torch.abs(p) < half, dim=-1)
+    delta_out = p - clamped
+    dist_out = torch.linalg.vector_norm(delta_out, dim=-1)
+    n_out = -delta_out / torch.clamp_min(dist_out, 1e-12)[..., None]
+    gaps = half - torch.abs(p)
+    oh = torch.nn.functional.one_hot(torch.argmin(gaps, dim=-1), 3).to(p.dtype)
+    sign = torch.sign(torch.sum(p * oh, dim=-1))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    n_in = -sign[..., None] * oh
+    dist_in = -torch.sum(gaps * oh, dim=-1)
+    surf_in = p * (1.0 - oh) + oh * sign[..., None] * half
+    dist = torch.where(inside, dist_in, dist_out) - r
+    n_local = torch.where(inside[..., None], n_in, n_out)
+    surf_local = torch.where(inside[..., None], surf_in, clamped)
+    n = torch.einsum("bkij,bkj->bki", box_mat, n_local)
+    surface = box_pos + torch.einsum("bkij,bkj->bki", box_mat, surf_local)
+    pos = 0.5 * (center + n * r[..., None] + surface)
+    return dist, pos, _make_frames(n)
+
+
 def _hfield_sphere(m: RobotModel, kin: Kinematics, g1, g2):
     """Batched heightfield(g1) vs sphere(g2): the tangent plane of the
     bilinear patch under the sphere's footprint. The four corner
@@ -163,22 +198,22 @@ def _top_k_select(items, k: int):
 
 
 def _check_kinds(m: RobotModel):
-    for name in ("pairs_sphere_box", "pairs_plane_capsule", "pairs_sphere_capsule",
-                 "pairs_capsule_capsule"):
+    for name in ("pairs_plane_capsule", "pairs_sphere_capsule", "pairs_capsule_capsule"):
         if getattr(m, name):
-            raise NotImplementedError(f"{name}: box and capsule pairs are not ported yet "
-                                      f"({_ROADMAP_TERRAIN}: the box slice, then capsules)")
+            raise NotImplementedError(f"{name}: capsule pairs are not ported yet "
+                                      f"({_ROADMAP_TERRAIN}: capsules)")
 
 
 def _pair_groups(m: RobotModel, kin: Kinematics):
     """Evaluate every candidate pair; yields one contact tuple per kind, in
     the JAX package's kind order (plane-sphere, sphere-sphere, sphere-box,
-    hfield-sphere; sphere-box raises in ``_check_kinds``)."""
+    hfield-sphere; the capsule kinds raise in ``_check_kinds``)."""
     _check_kinds(m)
     B = kin.xpos.shape[0]
     dev = kin.xpos.device
     for pairs, fn in ((m.pairs_plane_sphere, _plane_sphere),
                       (m.pairs_sphere_sphere, _sphere_sphere),
+                      (m.pairs_sphere_box, _sphere_box),
                       (m.pairs_hfield_sphere, _hfield_sphere)):
         if not pairs:
             continue

@@ -19,12 +19,25 @@ values. The back-end ops below (``where``, ``maximum``, ``clip``, ...)
 dispatch on their operands: a torch tensor runs the torch op; any other
 value carries its back-end as ``._bk``.
 
-The supported class is a free+hinge tree with plane-sphere, sphere-sphere
-and world-static hfield-sphere contacts (``soa_supported``). The hfield
-pair's four corner elevations come from one more back-end op, ``grid_at``:
-a lookup into the model's constant grid at the footprint's cell (the JAX
-emission folds one-hot masks over the whole grid instead, a TPU device
-that picks the same values). Box and capsule pairs wait for the terrain
+The supported class is a free+hinge tree with plane-sphere, sphere-sphere,
+world-static sphere-box and world-static hfield-sphere contacts
+(``soa_supported``). The hfield pair's four corner elevations come from one
+more back-end op, ``grid_at``: a lookup into the model's constant grid at
+the footprint's cell (the JAX emission folds one-hot masks over the whole
+grid instead, a TPU device that picks the same values).
+
+The sphere-box pairs (obstacle terrain) are emitted as loops over a
+constant table of the boxes (``_Boxes``), not pair by pair as the JAX
+emission unrolls them, so the program does not grow with the number of
+boxes: one trip computes, for every sphere in turn, what one pair computes
+(``_emit_sphere_box``, ``_pair_rows``), with the box's rotation, position
+and half-sizes read at the trip index (``table_at``) and the pair's DR row
+likewise (``row_at``). What a later stage needs of the box rows goes
+through indexed row arrays (``new_array``, ``array_store``,
+``array_load``). The rows keep the JAX emission's order, box by box and
+sphere by sphere, so every in-order sum adds the same terms in the same
+order; the table's exact 0 and 1 entries, which JAX folds away, give the
+same values up to the sign of a zero. Capsule pairs wait for the terrain
 item of the ROADMAP's queue 1.
 """
 
@@ -41,6 +54,20 @@ from puppax_torch.model.mjcf import JNT_FREE, JNT_HINGE, MjTables, RobotModel
 
 _MINVAL = 1e-15
 _PAD_DIST = 1e10  # collision._PAD_DIST: a footprint outside the heightfield
+
+# the lanes whose kernels a box model (obstacle terrain) has no build of yet
+_BOX_LANES_LATER = "ROADMAP queue 1, terrain: K1[boxes] and K4[boxes], the next slice"
+
+
+def check_box_lane(s: "_Static", lane: str) -> None:
+    """Raise for a box model on a lane whose kernel (K1, the physics-only
+    lane's, or K4, the fused lane's) is not built for boxes yet; such a
+    model trains on the default lane (K3 and K2). Never a fallback."""
+    if s.boxes is not None:
+        raise NotImplementedError(
+            f"{lane} on a model with boxes (obstacle terrain) is not ported yet "
+            f"({_BOX_LANES_LATER}); the default lane (K3 and K2) runs it")
+
 
 # the largest heightfield grid the emitter takes (puppax/physics/soa.py's
 # bound; here the grid is a table the kernel reads, 4 bytes a cell)
@@ -411,16 +438,68 @@ def os_dphi(D_os, jar_os, jv_os, alpha):
     return alpha._bk.os_dphi(D_os, jar_os, jv_os, alpha)
 
 
-def fori_loop(n: int, body, carry: List):
+def fori_loop(n: int, body, carry: List, ref=None, split: bool = False):
     """lax.fori_loop over a flat list of carried values. The body runs in
-    a fresh CSE scope (a Python loop for torch, a C ``for`` for C)."""
-    bk = _peer(*carry)
+    a fresh CSE scope (a Python loop for torch, a C ``for`` for C) and
+    gets the trip index: an int for torch, the C loop variable for C.
+    ``split`` marks a loop over the box table, which the team renderer
+    partitions across the warps whatever its weight; ``ref`` gives the
+    back-end of a loop without carries."""
+    bk = _peer(*carry, *([] if ref is None else [ref]))
     if bk is None:
         for i in range(n):
             with cse_scope(fresh=True):
                 carry = list(body(i, carry))
         return carry
-    return bk.fori_loop(n, body, carry)
+    return bk.fori_loop(n, body, carry, split=split)
+
+
+def table_at(table: tuple, k, j: int, ref):
+    """``table[k][j]`` as float32, a lookup into a constant table (rows of
+    Python floats) at the loop index ``k``; a value of ``ref``'s back-end
+    (never a trace-time constant, so nothing folds away)."""
+    bk = _peer(ref)
+    if bk is None:
+        return torch.full_like(ref, float(table[k][j]))
+    return bk.table_at(table, k, j)
+
+
+def row_at(values: List, k, stride: int, j: int, n: int):
+    """``values[j + k * stride]`` at the loop index ``k`` in [0, n): the
+    input rows ``values`` (for C, rows of one input block whose row numbers
+    step by ``stride``) read at the trip's row."""
+    if isinstance(k, int):
+        return values[j + k * stride]
+    return k._bk.row_at(values, k, stride, j, n)
+
+
+def new_array(n: int, ref):
+    """An indexed array of ``n`` per-env rows (a list for torch, a local
+    array for C); written and read at constant or loop-index offsets."""
+    bk = _peer(ref)
+    return [None] * n if bk is None else bk.array(n)
+
+
+def array_store(arr, x, j: int, k=None, stride: int = 0):
+    """``arr[j + k * stride] = x`` (``k`` None: ``arr[j]``)."""
+    if isinstance(arr, list):
+        arr[j + (k or 0) * stride] = x
+    else:
+        arr._bk.array_store(arr, x, j, k, stride)
+
+
+def array_load(arr, j: int, k=None, stride: int = 0):
+    """``arr[j + k * stride]`` (``k`` None: ``arr[j]``)."""
+    if isinstance(arr, list):
+        return arr[j + (k or 0) * stride]
+    return arr._bk.array_load(arr, j, k, stride)
+
+
+def array_rows(arr, ref):
+    """The whole array as the line search's stacked rows (``os_dphi``)."""
+    if isinstance(arr, list):
+        return torch.stack([materialize(x, ref) for x in arr])
+    return arr
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +508,8 @@ def fori_loop(n: int, body, carry: List):
 
 
 class _Pair(NamedTuple):
-    kind: str  # 'ps' (plane-sphere), 'ss' (sphere-sphere) or 'hs' (hfield-sphere)
+    # 'ps' (plane-sphere), 'ss' (sphere-sphere), 'bs' (sphere-box) or 'hs' (hfield-sphere)
+    kind: str
     sphere_geom: int
     sphere_body: int
     radius: float
@@ -447,6 +527,10 @@ class _Pair(NamedTuple):
     body2: int
     radius1: float = 0.0
     sphere_off1: tuple = (0.0, 0.0, 0.0)
+    # bs only: the world-static box's rotation (rows), position and half-sizes
+    box_R: tuple = ()
+    box_pos: tuple = (0.0, 0.0, 0.0)
+    box_half: tuple = (0.0, 0.0, 0.0)
     # hs only: the world-static heightfield's rotation (rows), position,
     # (rx, ry, elevation z) and grid (rows of floats, row 0 at y = -ry)
     hf_R: tuple = ()
@@ -455,13 +539,40 @@ class _Pair(NamedTuple):
     hf_grid: tuple = ()
 
 
+class _Boxes(NamedTuple):
+    """The sphere-box pairs as one loop over the boxes: pairs ``first`` to
+    ``first + n * len(spheres) - 1`` of ``_Static.pairs``, box by box, each
+    box's pairs one per sphere in the order of ``spheres`` (box 0's pairs),
+    and per box its table row: the rotation's rows (9), position (3) and
+    half-sizes (3)."""
+
+    first: int
+    n: int
+    spheres: tuple
+    table: tuple
+
+
+def _box_major(pairs) -> bool:
+    """True when the sphere-box pairs come box by box, each box paired
+    with the same spheres in the same order (``tables._collision_pairs``'s
+    order for world boxes)."""
+    boxes = list(dict.fromkeys(b for _, b in pairs))
+    spheres = [g for g, b in pairs if b == boxes[0]]
+    return list(pairs) == [(g, b) for b in boxes for g in spheres]
+
+
 def soa_supported(m: RobotModel) -> bool:
     """True when the model is in the emitter's supported class: the flat
-    model, with a world-static heightfield of 2 x 2 to ``MAX_HFIELD_CELLS``
-    cells or none."""
-    if (m.pairs_sphere_box or m.pairs_plane_capsule or m.pairs_sphere_capsule
-            or m.pairs_capsule_capsule):
+    model, with world-static boxes paired box by box with the same spheres,
+    and a world-static heightfield of 2 x 2 to ``MAX_HFIELD_CELLS`` cells,
+    or without either."""
+    if m.pairs_plane_capsule or m.pairs_sphere_capsule or m.pairs_capsule_capsule:
         return False
+    if m.pairs_sphere_box:
+        if any(m.geom_bodyid[g2] != 0 for _, g2 in m.pairs_sphere_box):
+            return False
+        if not _box_major(m.pairs_sphere_box):
+            return False
     if m.pairs_hfield_sphere:
         if m.hfield_data is None or m.hfield_nrow < 2 or m.hfield_ncol < 2:
             return False
@@ -498,6 +609,30 @@ def _quat_mat_np(q):
     )
 
 
+def _boxes(pairs: List[_Pair]) -> Optional[_Boxes]:
+    """The sphere-box pairs of ``pairs`` as one loop over the boxes, or None
+    without any. Every box's pair with a given sphere must carry the same
+    constants (the spheres' and the boxes' contact parameters alike), as
+    ``obstacles.py``'s boxes do; the boxes' own poses and sizes go into the
+    table."""
+    idx = [i for i, p in enumerate(pairs) if p.kind == "bs"]
+    if not idx:
+        return None
+    bs = [pairs[i] for i in idx]
+    nsph = sum(1 for p in bs if p.geom2 == bs[0].geom2)
+    spheres = tuple(bs[:nsph])
+    same = ("sphere_geom", "sphere_body", "radius", "sphere_off", "solref", "solimp",
+            "invweight", "body1", "body2")
+    for i, p in enumerate(bs):
+        if any(getattr(p, f) != getattr(spheres[i % nsph], f) for f in same):
+            raise NotImplementedError(
+                "boxes whose pairs differ in their contact parameters (solref, solimp or "
+                "the box's body) are outside the emitter's box loop")
+    table = tuple(tuple(c for row in p.box_R for c in row) + tuple(p.box_pos) + tuple(p.box_half)
+                  for p in bs[::nsph])
+    return _Boxes(first=idx[0], n=len(bs) // nsph, spheres=spheres, table=table)
+
+
 class _Static:
     """Everything the emission bakes in as Python constants. Numeric
     tables come from the float64 MjModel tables when given (as the JAX
@@ -507,8 +642,9 @@ class _Static:
     def __init__(self, m: RobotModel, mj: MjTables = None):
         if not soa_supported(m):
             raise NotImplementedError(
-                "model outside the emitter's class (box and capsule pairs wait for the "
-                "terrain item of ROADMAP queue 1; a heightfield must be world-static, "
+                "model outside the emitter's class (capsule pairs wait for the terrain "
+                "item of ROADMAP queue 1, capsules; boxes must be world-static and paired "
+                "box by box with the same spheres; a heightfield must be world-static, "
                 f"2 x 2 to {MAX_HFIELD_CELLS} cells)"
             )
         self.nq, self.nv, self.nu = m.nq, m.nv, m.nu
@@ -646,6 +782,35 @@ class _Static:
                     sphere_off1=tuple(geom_pos[g1]),
                 )
             )
+        # sphere-box (world-static boxes: obstacle terrain), after the
+        # sphere-sphere kind in collision's order; the sphere is geom1
+        for g1, g2 in m.pairs_sphere_box:
+            sb = m.geom_bodyid[g1]
+            self.pairs.append(
+                _Pair(
+                    kind="bs",
+                    sphere_geom=g1,
+                    sphere_body=sb,
+                    radius=float(geom_size[g1][0]),
+                    sphere_off=tuple(geom_pos[g1]),
+                    plane_point=(0.0, 0.0, 0.0),
+                    plane_n=(0.0, 0.0, 1.0),
+                    frame_t1=(0.0, 1.0, 0.0),
+                    frame_t2=(-1.0, 0.0, 0.0),
+                    solref=tuple(0.5 * (geom_solref[g1] + geom_solref[g2])),
+                    solimp=tuple(0.5 * (geom_solimp[g1] + geom_solimp[g2])),
+                    invweight=float(body_iw[sb] + body_iw[m.geom_bodyid[g2]]),
+                    geom1=int(g1),
+                    geom2=int(g2),
+                    body1=int(sb),
+                    body2=int(m.geom_bodyid[g2]),
+                    box_R=tuple(tuple(float(c) for c in row)
+                                for row in _quat_mat_np(geom_quat[g2])),
+                    box_pos=tuple(float(c) for c in geom_pos[g2]),
+                    box_half=tuple(float(c) for c in geom_size[g2]),
+                )
+            )
+        self.boxes = _boxes(self.pairs)
         # hfield-sphere (a world-static heightfield), after the sphere-box
         # kind in collision's order; the float64 grid when MJ tables are given
         if m.pairs_hfield_sphere:
@@ -917,6 +1082,9 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
     ``_sink`` of every value the cut pass computed, which keeps them live."""
     if phase_limit not in PHASES:
         raise ValueError(f"phase_limit {phase_limit!r} is not one of {PHASES}")
+    if s.boxes is not None and (phase_limit is not None or sink):
+        raise NotImplementedError("the phase cuts and the sink row are emitted for models "
+                                  "without boxes (the kernel-time probes' model)")
     xpos, xquat, xanchor, xaxis = _emit_fk(s, q, dr)
 
     # inertial frames (DR ipos) + subtree COM of the single tree
@@ -1123,7 +1291,15 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
 
     # ---- contacts: ALL candidate pairs, no caps (C semantics) ----
     con_dist, con_pos, rows_con = [], [], []
+    box = None
     for pi, pr in enumerate(s.pairs):
+        if pr.kind == "bs":  # the box loop's rows, at the first box pair's place
+            if pi == s.boxes.first:
+                box = _BoxRows(s, xpos, xquat, com_root, cdof, v, dr["pair_mu"])
+                rows_con.append(box)
+            con_dist.append(None)
+            con_pos.append(None)
+            continue
         b = pr.sphere_body
         off = [float(x) for x in pr.sphere_off]
         center = vadd3(xpos[b], qrot(off, xquat[b]))
@@ -1165,44 +1341,8 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
             dof_coeff = {d: c for d, c in dof_coeff.items() if c != 0.0}
         con_dist.append(dist)
         con_pos.append(cpos)
-
-        offc = vsub3(cpos, com_root)
-        jn, jt1, jt2 = {}, {}, {}
-        dofs = sorted(dof_coeff)
-        for d in dofs:
-            ang, lin = cdof[d]
-            jac3 = vscale3(vadd3(lin, vcross3(ang, offc)), dof_coeff[d])
-            jn[d] = vdot3(n, jac3)
-            jt1[d] = vdot3(t1, jac3)
-            jt2[d] = vdot3(t2, jac3)
-        mu = dr["pair_mu"][pi]
-        jn_v = functools.reduce(add, [mul(jn[d], v[d]) for d in dofs])
-        jt1_v = functools.reduce(add, [mul(jt1[d], v[d]) for d in dofs])
-        jt2_v = functools.reduce(add, [mul(jt2[d], v[d]) for d in dofs])
-
-        imp = _impedance(pr.solimp, dist)
-        K, Bc = _kb(pr.solref, pr.solimp)
-        mu2 = mul(mu, mu)
-        r_t = mul(mul(pr.invweight * 2.0 / s.impratio, mu2), add(1.0, mu2))
-        base_R = maximum((1.0 - imp) / maximum(imp, _MINVAL), _MINVAL)
-        pen_active = dist < 0
-        # facet order [t1+, t1-, t2+, t2-]; the -facet reuses mu*jt (IEEE:
-        # a + (-x) == a - x), exactly as the JAX emitter does
-        base0 = neg(mul(mul(imp, K), dist))
-        R = maximum(base_R * materialize(r_t, base_R), _MINVAL)
-        D = where(pen_active, 1.0 / R, 0.0)
-        for jt, jtv in ((jt1, jt1_v), (jt2, jt2_v)):
-            mujt = {d: mul(mu, jt[d]) for d in dofs}
-            mujtv = mul(mu, jtv)
-            for pos_facet in (True, False):
-                if pos_facet:
-                    J = {d: add(jn[d], mujt[d]) for d in dofs}
-                    jvel = add(jn_v, mujtv)
-                else:
-                    J = {d: sub(jn[d], mujt[d]) for d in dofs}
-                    jvel = sub(jn_v, mujtv)
-                aref = sub(base0, mul(Bc, jvel))
-                rows_con.append(_Row(J=J, aref=aref, D=D, R=R, floss=0.0, fric=False))
+        rows_con.extend(_pair_rows(s, pr, dr["pair_mu"][pi], n, t1, t2, cpos, dist, dof_coeff,
+                                   com_root, cdof, v))
 
     # ---- dof friction rows (static D/R) ----
     rows_fric = []
@@ -1262,8 +1402,9 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
         cvel=cvel,
         com_root=com_root,
         qfrc_actuator=qfrc_act,
-        con_dist=con_dist,
+        con_dist=con_dist,  # None at a box pair: ``boxes`` holds those
         con_pos=con_pos,
+        boxes=box,
         sites=[
             vadd3(
                 xpos[s.site_bodyid[i]],
@@ -1327,6 +1468,266 @@ def _emit_hfield_sphere(pr: _Pair, center):
     t2 = [materialize(t2[i], ref0) / t2n for i in range(3)]
     t1 = vcross3(t2, n)
     return n, cpos, dist, t1, t2
+
+
+def _pair_rows(s: _Static, pr: _Pair, mu, n, t1, t2, cpos, dist, dof_coeff, com_root, cdof,
+               v) -> List["_Row"]:
+    """The four pyramidal friction-cone rows of one contact (facets t1+,
+    t1-, t2+, t2-): J over the dofs of ``dof_coeff`` (each dof's signed
+    coefficient), aref, R and D with the pair's friction ``mu``."""
+    offc = vsub3(cpos, com_root)
+    jn, jt1, jt2 = {}, {}, {}
+    dofs = sorted(dof_coeff)
+    for d in dofs:
+        ang, lin = cdof[d]
+        jac3 = vscale3(vadd3(lin, vcross3(ang, offc)), dof_coeff[d])
+        jn[d] = vdot3(n, jac3)
+        jt1[d] = vdot3(t1, jac3)
+        jt2[d] = vdot3(t2, jac3)
+    jn_v = functools.reduce(add, [mul(jn[d], v[d]) for d in dofs])
+    jt1_v = functools.reduce(add, [mul(jt1[d], v[d]) for d in dofs])
+    jt2_v = functools.reduce(add, [mul(jt2[d], v[d]) for d in dofs])
+
+    imp = _impedance(pr.solimp, dist)
+    K, Bc = _kb(pr.solref, pr.solimp)
+    mu2 = mul(mu, mu)
+    r_t = mul(mul(pr.invweight * 2.0 / s.impratio, mu2), add(1.0, mu2))
+    base_R = maximum((1.0 - imp) / maximum(imp, _MINVAL), _MINVAL)
+    pen_active = dist < 0
+    # facet order [t1+, t1-, t2+, t2-]; the -facet reuses mu*jt (IEEE:
+    # a + (-x) == a - x), exactly as the JAX emitter does
+    base0 = neg(mul(mul(imp, K), dist))
+    R = maximum(base_R * materialize(r_t, base_R), _MINVAL)
+    D = where(pen_active, 1.0 / R, 0.0)
+    rows = []
+    for jt, jtv in ((jt1, jt1_v), (jt2, jt2_v)):
+        mujt = {d: mul(mu, jt[d]) for d in dofs}
+        mujtv = mul(mu, jtv)
+        for pos_facet in (True, False):
+            if pos_facet:
+                J = {d: add(jn[d], mujt[d]) for d in dofs}
+                jvel = add(jn_v, mujtv)
+            else:
+                J = {d: sub(jn[d], mujt[d]) for d in dofs}
+                jvel = sub(jn_v, mujtv)
+            aref = sub(base0, mul(Bc, jvel))
+            rows.append(_Row(J=J, aref=aref, D=D, R=R, floss=0.0, fric=False))
+
+
+    return rows
+
+
+def _emit_sphere_box(pr: _Pair, center, R, bp, half):
+    """The sphere-box contact of one pair (collision._sphere_box, as
+    puppax/physics/soa.py emits it) for a box whose rotation ``R`` (rows),
+    position ``bp`` and half-sizes ``half`` are values (the box table's
+    entries at the trip): the center in the box frame, the clamp, the
+    outside and the inside branch (the nearest face, the first on a tie;
+    a center on its plane goes out on the + side), the distance, the
+    midpoint of the two surfaces and the dynamic frame. The normal points
+    from the sphere into the box. Returns (n, cpos, dist, t1, t2)."""
+    ref0 = materialize(center[0], center[0])
+    d0 = vsub3(center, bp)
+    # p = R^T (c - bp): the sphere center in the box frame
+    p = [
+        materialize(add(add(mul(R[0][j], d0[0]), mul(R[1][j], d0[1])), mul(R[2][j], d0[2])),
+                    ref0)
+        for j in range(3)
+    ]
+    clamped = [clip(p[j], neg(half[j]), half[j]) for j in range(3)]
+    absp = [abs_(p[j]) for j in range(3)]
+    inside = (absp[0] < half[0]) & (absp[1] < half[1]) & (absp[2] < half[2])
+    # outside: the closest surface point
+    d_out = vsub3(p, clamped)
+    dist_out = sqrt(materialize(vdot3(d_out, d_out), ref0))
+    inv_out = 1.0 / maximum(dist_out, 1e-12)
+    n_out = [-materialize(d_out[j], ref0) * inv_out for j in range(3)]
+    # inside: out along the nearest face (first-min tie-break, as argmin)
+    gaps = [half[j] - absp[j] for j in range(3)]
+    m0 = where((gaps[0] <= gaps[1]) & (gaps[0] <= gaps[2]), 1.0, 0.0)
+    m1 = where(gaps[1] <= gaps[2], 1.0 - m0, 0.0)
+    m2 = 1.0 - m0 - m1
+    oh = [m0, m1, m2]
+    psel = p[0] * m0 + p[1] * m1 + p[2] * m2
+    sgn = where(psel >= 0.0, 1.0, -1.0)
+    n_in = [-sgn * oh[j] for j in range(3)]
+    dist_in = -(gaps[0] * m0 + gaps[1] * m1 + gaps[2] * m2)
+    surf_in = [p[j] * (1.0 - oh[j]) + oh[j] * sgn * half[j] for j in range(3)]
+    dist = where(inside, dist_in, dist_out) - pr.radius
+    n_loc = [where(inside, n_in[j], n_out[j]) for j in range(3)]
+    surf_loc = [where(inside, surf_in[j], clamped[j]) for j in range(3)]
+    # back to world: n = R n_loc, surface = bp + R surf_loc
+    n = [add(add(mul(R[i][0], n_loc[0]), mul(R[i][1], n_loc[1])), mul(R[i][2], n_loc[2]))
+         for i in range(3)]
+    surface = [
+        add(bp[i], add(add(mul(R[i][0], surf_loc[0]), mul(R[i][1], surf_loc[1])),
+                       mul(R[i][2], surf_loc[2])))
+        for i in range(3)
+    ]
+    sph_surf = [add(center[i], mul(n[i], pr.radius)) for i in range(3)]
+    cpos = [mul(0.5, add(sph_surf[i], surface[i])) for i in range(3)]
+    # dynamic contact frame (mju_makeFrame, as collision._make_frames)
+    use_y = abs_(materialize(n[1], ref0)) < 0.5
+    ax = [0.0, where(use_y, 1.0, 0.0), where(use_y, 0.0, 1.0)]
+    t2 = vcross3(n, ax)
+    t2n = maximum(sqrt(materialize(vdot3(t2, t2), ref0)), 1e-12)
+    t2 = [materialize(t2[i], ref0) / t2n for i in range(3)]
+    t1 = vcross3(t2, n)
+    return n, cpos, dist, t1, t2
+
+
+class _BoxRows:
+    """The sphere-box rows of one forward pass, in the rows list at the
+    place of the first box pair: ``s.boxes.n`` boxes, one row group per
+    sphere of ``s.boxes.spheres`` in each, four rows per pair, in the JAX
+    emission's order (box by box). ``_emit_newton`` emits them as three
+    loops over the boxes (``fori_loop(..., split=True)``):
+
+    * ``rows_and_grad``: per pair the narrowphase, the rows, jar, the
+      force and the gradient's terms (the gradient of the rows' dofs is
+      the loop's carry); J, jar and D go to arrays, and the contact's
+      distance and midpoint too (``contacts`` reads them back);
+    * ``hessian``: the Hessian's terms of the rows' pattern (carried);
+    * ``jv``: J dx, into the line search's stacked rows.
+
+    Every running sum adds the same terms in the same order as the
+    straight-line emission of the same rows would."""
+
+    def __init__(self, s: _Static, xpos, xquat, com_root, cdof, v, mu):
+        bx = s.boxes
+        self.s, self.bx, self.nsph = s, bx, len(bx.spheres)
+        self.centers = [
+            vadd3(xpos[p.sphere_body], qrot([float(x) for x in p.sphere_off],
+                                            xquat[p.sphere_body]))
+            for p in bx.spheres
+        ]
+        self.com_root, self.cdof, self.v, self.mu = com_root, cdof, v, mu
+        self.chains = [sorted(s.chains[p.sphere_body]) for p in bx.spheres]
+        self.nrows = 4 * self.nsph * bx.n
+        # J's array: per box, per sphere, per facet, the chain's dofs
+        self.joff, off = [], 0
+        for ch in self.chains:
+            self.joff.append(off)
+            off += 4 * len(ch)
+        self.jstride = off
+        self.J = self.dist = self.pos = None
+
+    def rows_and_grad(self, x, grad, jar_os, D_os, os0: int, ref):
+        bx, s, nsph = self.bx, self.s, self.nsph
+        gdofs = sorted({d for ch in self.chains for d in ch})
+        self.J = new_array(bx.n * self.jstride, ref)
+        self.dist = new_array(bx.n * nsph, ref)
+        self.pos = new_array(bx.n * nsph * 3, ref)
+
+        def body(k, carry):
+            g = dict(zip(gdofs, carry))
+            tab = [table_at(bx.table, k, c, ref) for c in range(15)]
+            R, bp, half = [tab[0:3], tab[3:6], tab[6:9]], tab[9:12], tab[12:15]
+            for j, sp in enumerate(bx.spheres):
+                chain = self.chains[j]
+                n, cpos, dist, t1, t2 = _emit_sphere_box(sp, self.centers[j], R, bp, half)
+                mu = row_at(self.mu, k, nsph, bx.first + j, bx.n)
+                # J = frame (jac(box) - jac(sphere)) = -jac(sphere): the
+                # sphere is geom1, the opposite of the plane-sphere pair
+                rows = _pair_rows(s, sp, mu, n, t1, t2, cpos, dist, {d: -1.0 for d in chain},
+                                  self.com_root, self.cdof, self.v)
+                array_store(self.dist, dist, j, k, nsph)
+                for c in range(3):
+                    array_store(self.pos, cpos[c], 3 * j + c, k, 3 * nsph)
+                for f, r in enumerate(rows):
+                    acc = neg(r.aref)
+                    for d, jv in r.J.items():
+                        acc = fma(acc, jv, x[d])
+                    ja_t = materialize(acc, ref)
+                    quad = ja_t < 0
+                    force = where(quad, -materialize(r.D, ref) * ja_t, 0.0)
+                    for d, jv in r.J.items():
+                        g[d] = sub(g[d], mul(jv, force))
+                    for di, d in enumerate(chain):
+                        array_store(self.J, r.J[d], self.joff[j] + f * len(chain) + di, k,
+                                    self.jstride)
+                    array_store(jar_os, ja_t, os0 + 4 * j + f, k, 4 * nsph)
+                    array_store(D_os, materialize(r.D, ref), os0 + 4 * j + f, k, 4 * nsph)
+            return [materialize(g[d], ref) for d in gdofs]
+
+        out = fori_loop(bx.n, body, [materialize(grad[d], ref) for d in gdofs], ref, split=True)
+        grad = list(grad)
+        for d, val in zip(gdofs, out):
+            grad[d] = val
+        return grad
+
+    def _trip_J(self, k, j: int, f: int):
+        chain = self.chains[j]
+        return {d: array_load(self.J, self.joff[j] + f * len(chain) + di, k, self.jstride)
+                for di, d in enumerate(chain)}
+
+    def hessian(self, H, jar_os, D_os, os0: int, ref):
+        nsph = self.nsph
+        keys = sorted({(max(d1, d2), min(d1, d2)) for ch in self.chains
+                       for d1 in ch for d2 in ch})
+
+        def body(k, carry):
+            h = dict(zip(keys, carry))
+            for j, chain in enumerate(self.chains):
+                for f in range(4):
+                    J = self._trip_J(k, j, f)
+                    ja = array_load(jar_os, os0 + 4 * j + f, k, 4 * nsph)
+                    w = where(ja < 0, array_load(D_os, os0 + 4 * j + f, k, 4 * nsph), 0.0)
+                    for a_i, d1 in enumerate(chain):
+                        for d2 in chain[: a_i + 1]:
+                            hi, lo = (d1, d2) if d1 >= d2 else (d2, d1)
+                            h[(hi, lo)] = fma(h[(hi, lo)], mul(w, J[d1]), J[d2])
+            return [materialize(h[key], ref) for key in keys]
+
+        out = fori_loop(self.bx.n, body, [materialize(H[key], ref) for key in keys], ref,
+                        split=True)
+        H = dict(H)
+        H.update(zip(keys, out))
+        return H
+
+    def jv(self, dx, jv_os, os0: int, ref):
+        nsph = self.nsph
+
+        def body(k, carry):
+            for j, chain in enumerate(self.chains):
+                for f in range(4):
+                    J = self._trip_J(k, j, f)
+                    acc = 0.0
+                    for d in chain:
+                        acc = fma(acc, J[d], dx[d])
+                    array_store(jv_os, materialize(acc, ref), os0 + 4 * j + f, k, 4 * nsph)
+            return []
+
+        fori_loop(self.bx.n, body, [], ref, split=True)
+
+    def contacts(self, con_dist, con_pos):
+        """Fill the box pairs' entries of the contact report from the
+        arrays the first loop wrote."""
+        bx, nsph = self.bx, self.nsph
+        for i in range(bx.n * nsph):
+            con_dist[bx.first + i] = array_load(self.dist, i)
+            con_pos[bx.first + i] = [array_load(self.pos, 3 * i + c) for c in range(3)]
+
+    def holds(self, pair: int) -> bool:
+        return self.bx.first <= pair < self.bx.first + self.bx.n * self.nsph
+
+    def fold_dist(self, acc, pairs: List[int], fn, ref):
+        """``acc = fn(acc, dist)`` over the distances of the box pairs
+        ``pairs`` in pair order, as one loop over the boxes: the same
+        spheres of every box (``pairs`` must hold them all)."""
+        bx, nsph = self.bx, self.nsph
+        slots = sorted({(p - bx.first) % nsph for p in pairs})
+        if sorted(pairs) != [bx.first + k * nsph + j for k in range(bx.n) for j in slots]:
+            raise ValueError("fold_dist reads the same spheres of every box")
+
+        def body(k, carry):
+            (a,) = carry
+            for j in slots:
+                a = fn(a, array_load(self.dist, j, k, nsph))
+            return [materialize(a, ref)]
+
+        (acc,) = fori_loop(bx.n, body, [materialize(acc, ref)], ref)
+        return acc
 
 
 # ---------------------------------------------------------------------------
@@ -1396,6 +1797,9 @@ def _sym_mv(s: _Static, M: Dict[Tuple[int, int], object], x):
 
 
 def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
+    """The Newton step. ``rows`` may hold one ``_BoxRows``, the box loop's
+    rows: each stage that goes over the rows runs its loop there, and the
+    line search's stacked rows are arrays the loops write into."""
     x = list(qacc_smooth)
     nr = len(rows)
     if nr == 0:
@@ -1405,10 +1809,25 @@ def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
         if not _c(val):
             ref = val
             break
+    box = next((r for r in rows if isinstance(r, _BoxRows)), None)
 
     for _ in range(max(s.solver_iterations, 1)):
+        if box is not None:
+            # the one-sided rows' places in the stacked rows, the box rows' block
+            os_at, n_os = {}, 0
+            for i, r in enumerate(rows):
+                if r is box:
+                    box_os0 = n_os
+                    n_os += box.nrows
+                elif not r.fric:
+                    os_at[i] = n_os
+                    n_os += 1
+            jar_arr, jv_arr, D_arr = (new_array(n_os, ref) for _ in range(3))
         jar = []
         for r in rows:
+            if r is box:
+                jar.append(None)
+                continue
             acc = neg(r.aref)
             for d, jv in r.J.items():
                 acc = fma(acc, jv, x[d])
@@ -1417,6 +1836,10 @@ def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
         # per-row force + quadratic-zone mask
         force, quadw = [], []
         for r, ja in zip(rows, jar):
+            if r is box:
+                force.append(None)
+                quadw.append(None)
+                continue
             ja_t = materialize(ja, ref)
             if r.fric:
                 thresh = r.floss * r.R  # static for friction rows
@@ -1432,6 +1855,9 @@ def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
         ma = _sym_mv(s, M, dx0)
         grad = list(ma)
         for r, f in zip(rows, force):
+            if r is box:
+                grad = box.rows_and_grad(x, grad, jar_arr, D_arr, box_os0, ref)
+                continue
             for d, jv in r.J.items():
                 grad[d] = sub(grad[d], mul(jv, f))
 
@@ -1443,6 +1869,9 @@ def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
             if s.hess[j, k]
         }
         for r, w in zip(rows, quadw):
+            if r is box:
+                H = box.hessian(H, jar_arr, D_arr, box_os0, ref)
+                continue
             dofs = list(r.J.keys())
             for a_i, d1 in enumerate(dofs):
                 for d2 in dofs[: a_i + 1]:
@@ -1453,6 +1882,10 @@ def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
         # ---- exact line search (solver.py:97-139), one-sided rows stacked ----
         jv_rows = []
         for r in rows:
+            if r is box:
+                box.jv(dx, jv_arr, box_os0, ref)
+                jv_rows.append(None)
+                continue
             acc = 0.0
             for d, jval in r.J.items():
                 acc = fma(acc, jval, dx[d])
@@ -1468,11 +1901,18 @@ def _emit_newton(s: _Static, M, qacc_smooth, rows: List[_Row], v):
         )
         g0 = materialize(g0, ref)
 
-        os_rows = [i for i, r in enumerate(rows) if not r.fric]
-        fr_rows = [i for i, r in enumerate(rows) if r.fric]
-        jar_os = stack_rows([jar[i] for i in os_rows], ref)
-        jv_os = stack_rows([jv_rows[i] for i in os_rows], ref)
-        D_os = stack_rows([rows[i].D for i in os_rows], ref)
+        os_rows = [i for i, r in enumerate(rows) if r is not box and not r.fric]
+        fr_rows = [i for i, r in enumerate(rows) if r is not box and r.fric]
+        if box is None:
+            jar_os = stack_rows([jar[i] for i in os_rows], ref)
+            jv_os = stack_rows([jv_rows[i] for i in os_rows], ref)
+            D_os = stack_rows([rows[i].D for i in os_rows], ref)
+        else:
+            for i in os_rows:
+                array_store(jar_arr, materialize(jar[i], ref), os_at[i])
+                array_store(jv_arr, materialize(jv_rows[i], ref), os_at[i])
+                array_store(D_arr, materialize(rows[i].D, ref), os_at[i])
+            jar_os, jv_os, D_os = (array_rows(a, ref) for a in (jar_arr, jv_arr, D_arr))
         jar_fr = [jar[i] for i in fr_rows]
         jv_fr = [jv_rows[i] for i in fr_rows]
 
@@ -1614,6 +2054,9 @@ def _emit_caches(s: _Static, fw) -> List:
     """The last forward pass's caches as one flat list in ``s.cache_rows``
     order (world body dropped from xquat and the link velocities)."""
     ang_l, vel_l = _link_velocities(s, fw)
+    con_dist, con_pos = list(fw["con_dist"]), list(fw["con_pos"])
+    if fw.get("boxes") is not None:
+        fw["boxes"].contacts(con_dist, con_pos)
     parts = {
         "qacc": list(fw["qacc"]),
         "xpos": [c for b in range(s.nbody) for c in fw["xpos"][b]],
@@ -1622,14 +2065,25 @@ def _emit_caches(s: _Static, fw) -> List:
         "xd_vel": [c for vv in vel_l for c in vv],
         "site_xpos": [c for sxyz in fw["sites"] for c in sxyz],
         "qfrc_actuator": list(fw["qfrc_actuator"]),
-        "con_dist": list(fw["con_dist"]),
-        "con_pos": [c for p3 in fw["con_pos"] for c in p3],
+        "con_dist": con_dist,
+        "con_pos": [c for p3 in con_pos for c in p3],
     }
     out = []
     for name, (_, n) in s.cache_rows.items():
         assert len(parts[name]) == n, (name, len(parts[name]), n)
         out.extend(parts[name])
     return out
+
+
+def indexed_dr_rows(s: _Static) -> List[int]:
+    """The rows of the DR block that a box model's emission reads only at
+    the box loop's index (``row_at``): the pair frictions of the pairs of
+    every box but the first."""
+    if s.boxes is None:
+        return []
+    bx, r0 = s.boxes, s.dr_rows["pair_mu"][0]
+    nsph = len(bx.spheres)
+    return [r0 + bx.first + i for i in range(nsph, bx.n * nsph)]
 
 
 def dr_inputs(m: RobotModel, s: _Static, B: int, device=None) -> Dict[str, torch.Tensor]:
@@ -1729,6 +2183,7 @@ def _physics_step(wrapper, kernel: build.Kernel, library, s: _Static, blocks,
         return physics_step_rows(s, n_substeps, *blocks)
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
+    check_box_lane(s, "K1, the physics-only step")
     lib = library(s, n_substeps)
     outs = build.launch(kernel.name, getattr(lib, kernel.launch), blocks, out_rows, B, dev)
     wrapper.launches += 1

@@ -944,3 +944,61 @@ def test_run9_team_k4_bit_for_bit(run9):
     for i, (g, w) in enumerate(zip(got, want)):
         assert (g is None and w is None) or torch.equal(g, w), \
             f"team K4[hfield] vs plain: output {i} differs"
+
+
+# ---- run8's obstacle terrain: the sphere-box pairs as loops over the boxes ----
+
+
+@pytest.fixture(scope="module")
+def run8():
+    """run8's env (``dev/run_configs/run8_500m_obstacles.json``: 20 boxes,
+    from its committed tables) on the card at 5 substeps, team K3, the
+    one-thread K3 and team K2 (``[boxes]``, the default lane's) built in one
+    parallel batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU host with "
+                    "`python -m pytest tests/test_torch_cuda.py --noconftest -m cuda`")
+    import json
+    import os
+
+    from puppax_torch.configs import experiment
+    from puppax_torch.env.pupper import PupperV3Env
+
+    with open(os.path.join(os.path.dirname(__file__), "..", "dev", "run_configs",
+                           "run8_500m_obstacles.json")) as f:
+        cfg = experiment.from_dict(json.load(f))
+    env = PupperV3Env.from_config(cfg.env, device="cuda")
+    s, es = env._s, env._es
+    build.build_in_parallel(lambda: build.wrapped_step_team_library(s, es, 5, 1000),
+                            lambda: build.wrapped_step_library(s, es, 5, 1000),
+                            lambda: build.env_step_team_library(s, es, 5))
+    return env
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_run8_team_kernels_bit_for_bit(run8, kernel):
+    """Team K2 and team K3 at run8's terrain on a ragged batch of states,
+    the even envs' bases on the boxes: bit for bit with their plain
+    versions (and team K3 with the one-thread K3), spheres on boxes."""
+    from puppax_torch.probes import common
+
+    env, B = run8, 300
+    s, es = env._s, env._es
+    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
+    rng = np.random.RandomState(8)
+    blocks = H.wrapped_step_blocks(s, es, env.model, dr, rng, n=B, episode_length=1000)
+    blocks[0] = H.place_over_boxes(env.model, blocks[0].T, rng, range(0, B, 2)).T.copy()
+    assert H.box_contacts(env.model, blocks[0].T).sum() >= B // 4
+    blocks = [b.cuda() for b in H.to_torch(blocks)]
+    if kernel == "K2":
+        got = soa_env.env_step(s, es, 5, *blocks[:6])
+        want = soa_env.env_step_rows(s, es, 5, *blocks[:6])
+    else:
+        got = soa_env.wrapped_step(s, es, 5, 1000, *blocks)
+        one = soa_env.wrapped_step_one_thread(s, es, 5, 1000, *blocks)
+        want = soa_env.wrapped_step_rows(s, es, 5, 1000, *blocks)
+        torch.cuda.synchronize()
+        assert common.compare_exact(got, one) == (0.0, 0)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"team {kernel}[boxes] vs plain: output {i} differs"

@@ -196,16 +196,24 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
     assert PupperV3Env(device="cpu").device == torch.device("cpu")
 
 
-def test_unported_terrain_and_action_repeat_raise():
-    """Obstacle terrain still raises; a heightfield builds from its
-    committed tables (run9's, ``test_torch_terrain.py``) and raises without
-    them, naming the command that writes them; ``action_repeat``, ported
-    since, keeps training on the standard lane with JAX's reason
+def test_unported_terrain_and_action_repeat_raise(monkeypatch):
+    """A terrain builds from its committed tables (run8's boxes,
+    ``test_torch_obstacles.py``; run9's heightfield,
+    ``test_torch_terrain.py``) and raises without them, naming the command
+    that writes them; the physics-only lane, whose K1 is not built for boxes
+    yet, raises for a box model, naming the ROADMAP item; ``action_repeat``,
+    ported since, keeps training on the standard lane with JAX's reason
     (``test_torch_extras.py``)."""
     from puppax_torch.env.rollout import support_reason
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="puppax_torch.model.tables --config"):
         PupperV3Env.from_config(EnvConfig(n_obstacles=3), device="cpu")
+    assert len(PupperV3Env.from_config(EnvConfig(n_obstacles=20), device="cpu")
+               .model.pairs_sphere_box) == 160
+    monkeypatch.setenv("PUPPAX_SOA_ENV", "off")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PupperV3Env.from_config(EnvConfig(n_obstacles=20), device="cpu")
+    monkeypatch.delenv("PUPPAX_SOA_ENV")
     env = PupperV3Env.from_config(EnvConfig(heightfield=True), device="cpu")
     assert env.model.pairs_hfield_sphere
     with pytest.raises(FileNotFoundError, match="puppax_torch.model.tables --config"):

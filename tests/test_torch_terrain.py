@@ -6,8 +6,8 @@ the JAX package's XML string for the same arguments; the tables writer
 (``dev/run_configs/run9_500m_hfield.json``) into the pair lists and the
 grid ``puppax.model.mjcf.load_model`` gives, and the committed tables are
 what the writer writes; ``mjcf.config_tables_path`` finds them, and raises
-for a terrain without them, for obstacles and for another MJCF; the env
-of run9's config resets and steps.
+for a terrain without them and for another MJCF; the writer raises for the
+capsule pairs, still to port; the env of run9's config resets and steps.
 """
 
 import dataclasses
@@ -127,8 +127,8 @@ def test_config_tables_path_raises_without_tables():
                                 {"env.heightfield_seed": 7}).env
     with pytest.raises(FileNotFoundError, match="python -m puppax_torch.model.tables --config"):
         mjcf.config_tables_path(other)
-    with pytest.raises(NotImplementedError, match="obstacles.py"):
-        mjcf.config_tables_path(exp.EnvConfig(n_obstacles=3))
+    with pytest.raises(FileNotFoundError, match="python -m puppax_torch.model.tables --config"):
+        mjcf.config_tables_path(exp.EnvConfig(n_obstacles=3))  # boxes without committed tables
     with pytest.raises(NotImplementedError, match="another MJCF"):
         mjcf.config_tables_path(exp.EnvConfig(path="robot.xml"))
     with pytest.raises(NotImplementedError, match="another MJCF"):
@@ -136,11 +136,20 @@ def test_config_tables_path_raises_without_tables():
 
 
 def test_writer_raises_for_unported_pairs():
-    """The writer refuses a model with boxes, naming the next slice."""
-    tree = jobstacles.add_boxes_to_model(jassets.pupper_xml_tree(), 2, (-1, 1), (-1, 1), seed=0)
+    """The writer refuses a model with capsule pairs (the feet as capsules,
+    ``bench.py``'s variant), naming their slice; boxes are ported since
+    (``test_torch_obstacles.py``)."""
+    tree = jassets.pupper_xml_tree()
+    for geom in tree.getroot().iter("geom"):
+        if geom.get("type") == "sphere" and geom.get("size") == "0.01995":
+            geom.set("type", "capsule")
+            geom.set("size", "0.015 0.02")
     m = mujoco.MjModel.from_xml_string(_xml(tree))
-    with pytest.raises(NotImplementedError, match="sphere-box"):
+    with pytest.raises(NotImplementedError, match="capsule pairs are not ported yet"):
         tables.tables_from_mjmodel(m)
+    boxes = jobstacles.add_boxes_to_model(jassets.pupper_xml_tree(), 2, (-1, 1), (-1, 1), seed=0)
+    assert len(tables.tables_from_mjmodel(mujoco.MjModel.from_xml_string(
+        _xml(boxes)))["robot"]["pairs_sphere_box"]) == 16
 
 
 def test_dr_friction_covers_the_hfield_pairs():

@@ -362,3 +362,44 @@ def fused_unroll_inputs(env, n: int, T: int, activation: str, episode_length: in
     blocks = [carry[k] for k in ("q", "v", "env", "wrap")] + [
         carry.get("phase"), carry["first"], carry["dr"], noise, eps]
     return fused_unroll.fold_normalizer(norm, policy), blocks
+
+
+def box_model_config(n_boxes: int = 3, seed: int = 0):
+    """A small obstacle terrain: ``n_boxes`` boxes within a metre of the
+    origin, where random bases find them."""
+    from puppax_torch.configs.experiment import EnvConfig
+
+    return EnvConfig(n_obstacles=n_boxes, obstacle_x_range=(-1.0, 1.0),
+                     obstacle_y_range=(-1.0, 1.0), obstacle_seed=seed)
+
+
+def place_over_boxes(model, qpos: np.ndarray, rng: np.random.RandomState, envs,
+                     tries: int = 1024) -> np.ndarray:
+    """``(n, nq)`` qpos with the bases of ``envs`` moved (x, y within a
+    metre of the origin, z 0.10-0.16) to a pose where a sphere penetrates a
+    box, the first of ``tries`` random ones that does (the pose is kept
+    where none does). Returns the qpos; ``box_contacts`` counts them."""
+    from puppax_torch.physics import pipeline
+
+    m = pipeline.model_tensors(model, torch.float32, "cpu")
+    out = np.array(qpos, np.float32)
+    for e in envs:
+        cand = np.repeat(out[e:e + 1], tries, 0)
+        cand[:, 0:2] = rng.uniform(-1.0, 1.0, (tries, 2))
+        cand[:, 2] = rng.uniform(0.10, 0.16, tries)
+        hit = np.flatnonzero(box_contacts(model, cand, m))
+        if len(hit):
+            out[e] = cand[hit[0]]
+    return out
+
+
+def box_contacts(model, qpos: np.ndarray, m=None) -> np.ndarray:
+    """Per env of ``(n, nq)`` qpos: whether a sphere penetrates a box."""
+    from puppax_torch.physics import collision, pipeline, smooth
+
+    m = pipeline.model_tensors(model, torch.float32, "cpu") if m is None else m
+    dist = collision.collide_pairs(m, smooth.kinematics(m, torch.from_numpy(
+        np.asarray(qpos, np.float32)))).dist.numpy()
+    nb = len(model.pairs_sphere_box)
+    first = len(model.pairs_plane_sphere) + len(model.pairs_sphere_sphere)
+    return (dist[:, first:first + nb] < 0).any(1)
