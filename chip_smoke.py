@@ -10,32 +10,42 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the twenty-four kernels from the checkout's sources, in
+2. the builds of the twenty-six kernels from the checkout's sources, in
    parallel nvcc processes, their bodies rendered in a pool of processes,
-   each nvcc started as its body lands (``build.build_batch``): the
+   each nvcc started as its body lands (``build.build_batch``): first the
    wrapped env step (K3), the unwrapped env step (K2), the physics-only
    step (K1) and the fused unroll (K4) as team kernels (32 envs per
    block, each env's program split across the block's warps,
    ``kernels/team.py``; team K4 also splits its MLP) and as one-thread
-   kernels (one env per thread, the A/B baseline), the
+   kernels (one env per thread, the A/B baseline), and the
    bodies of run12's env (``dev/run_configs/run12_2b_cse.json``: history
    4, the privileged rows, the gait clock): team K3, K3, team K2 (history
-   4 only), team K4 and K4, and the eight bodies of run9's heightfield
+   4 only), team K4 and K4; then, in the background
+   (``build.start_batch``, compilers and render processes at niceness 19)
+   while phases 3-13 use the card, the eight bodies of run9's heightfield
    terrain (``dev/run_configs/run9_500m_hfield.json``: the hfield-sphere
    pairs, the grid a table the bodies read): team K1, K2, K3, K4 and their
-   one-thread kernels (``[hfield]``), and the default lane's three bodies
-   of run8's obstacle terrain (``dev/run_configs/run8_500m_obstacles.json``:
-   20 boxes, the sphere-box pairs as loops over a table of the boxes):
-   team K3, K3 and team K2 (``[boxes]``); each with its generated lines, nvcc
-   seconds and ptxas summary (the team kernels with their warps, barriers,
-   shared memory and heaviest stream);
+   one-thread kernels (``[hfield]``), the five bodies of run8's obstacle
+   terrain (``dev/run_configs/run8_500m_obstacles.json``: 20 boxes, the
+   sphere-box pairs as loops over a table of the boxes): team K3, K3, team
+   K2, team K1 and team K4 (``[boxes]``; the one-thread K1[boxes] and
+   K4[boxes] are built with g++ by the CPU tests only), and the probes' 30
+   libraries (phase 16), awaited before phase 14. Each build prints its
+   generated lines, nvcc seconds and ptxas summary (the team kernels with
+   their warps, barriers, shared memory, global scratch and heaviest
+   stream). The host-bound numbers of phases 3-13 (the plain versions'
+   times, the training runs' phases and ``training/sps``) are taken
+   beside those builds; the card's kernel times are not host-bound;
 3. K3 against its plain version at 4096 envs: after a few kernel steps
    from a DR reset, one wrapped step through ``wrapped_step`` (team K3),
    ``wrapped_step_one_thread`` (the one-thread K3) and
    ``wrapped_step_rows`` (its plain PyTorch version) on the same inputs,
    held at the parity tolerances env by env, the two kernels bit for bit
    with each other; the same on the first 128 and the first 130 envs (a
-   ragged 32-env group); both kernels timed at 4096 envs in turns
+   ragged 32-env group), held against the 4096-env plain run's first
+   envs (each env's rows are its own: the plain version on those blocks;
+   so below wherever a narrower check follows a wider one on the same
+   states); both kernels timed at 4096 envs in turns
    (one-thread, team, team, one-thread), the A/B printed, the plain
    version timed on its check's run at 4096 envs (each plain version below
    is timed once, on the run its check compares with);
@@ -123,8 +133,9 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    was timed, and per T=20 unroll); then ``python -m puppax_torch.scripts.train --config
    dev/run_configs/run12_2b_cse.json`` (4096 envs, the privileged critic,
    ``value_precision`` "high", the cosine lr, the linear entropy schedule)
-   for 3 training steps and 2 evaluations on the K3, physics-only and
-   fused lanes, the curriculum over those steps: each run's lane line, its
+   for 3 training steps and 2 evaluations on the K3 lane, and 3 training
+   steps and 1 evaluation on the physics-only and fused lanes, the
+   curriculum over those steps: each run's lane line, its
    launches, the difficulty before each training step (at least three
    values), the critic normalizer's count, finite losses and evaluations,
    its ``training/sps``, phase times and evaluation seconds;
@@ -136,7 +147,7 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    one-thread kernels and their plain versions, bit for bit (0 envs
    outside, max abs err 0.0), and timed in turns; then ``python -m
    puppax_torch.scripts.train --config dev/run_configs/run9_500m_hfield.json``
-   on the K3 lane for 3 training steps and 2 evaluations, its launches
+   on the K3 lane for 3 training steps and 1 evaluation, its launches
    counted by body (team K3[hfield] and team K2[hfield]), its
    ``training/sps``, phase times and evaluation seconds;
 15. run8, the obstacle terrain: 4096 DR'd envs from run8's committed
@@ -146,13 +157,26 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``MIN_BOX_ENVS``); team K3 and the one-thread K3 at 4096 and 128 envs
    and team K2 at 128 against their plain versions (at most
    ``MAX_DIFFERING_ENVS`` envs outside tolerance), team K3 against the
-   one-thread K3 bit for bit, timed in turns; then ``python -m
-   puppax_torch.scripts.train --config dev/run_configs/run8_500m_obstacles.json``
-   on the default (K3) lane for 3 training steps and 2 evaluations, its
-   launches counted by body (team K3[boxes] and team K2[boxes]), its
-   ``training/sps``, phase times and evaluation seconds;
+   one-thread K3 bit for bit, timed in turns; team K1[boxes] under the
+   policy's motor targets at 4096 envs against ``physics_step_rows`` and at
+   128 against that run's first 128 envs (each env's rows are its own),
+   the envs with an active sphere-box row in its caches counted; team
+   K4[boxes] over T=2 steps at 4096 envs against ``unroll_rows`` (the
+   carry's ping-pong and the box scratch's reuse across steps), at most
+   ``MAX_DIFFERING_ENVS`` envs outside tolerance each; team K1[boxes]
+   timed at 4096 and 128 envs and team K4[boxes] per T=4 unroll; then
+   ``python -m puppax_torch.scripts.train --config
+   dev/run_configs/run8_500m_obstacles.json`` for 3 training steps on each
+   lane: the default (K3) lane with 1 evaluation, and with 2 the
+   physics-only lane
+   (``PUPPAX_SOA_ENV=off``: 2120 team K1[boxes] launches) and the
+   fused-unroll lane (``PUPPAX_FUSED_UNROLL=on``: 6 team K4[boxes] and 2000
+   team K2[boxes]), each run's launches counted by body (a launch through
+   another body fails the run), its ``training/sps``, phase times and
+   evaluation seconds;
 16. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 30 libraries built in one parallel batch (K1's
+   4096 DR'd states: their 30 libraries, built in the background batch
+   started after phase 2 (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
    ``csrc/probe_physics_team.cuh``, and one thread per env in
@@ -193,7 +217,8 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    eager against one captured CUDA graph (its outputs bit for bit); K1's boundary on the
    physics-only lane (rows-resident, transposed, the transposes alone, the
    splice); the launch cost after each setup stage, one subprocess per
-   stage, and around a host sync; then probe group C on the TPU probes'
+   stage (their setups at once, their windows in turn), and around a host
+   sync; then probe group C on the TPU probes'
    own input recipes: the SoA substep (one thread per env, P12's kernel,
    and the team kernel, tried and not adopted but kept as the A/B that
    answers whether the team design pays on a straight-line body: the team
@@ -217,9 +242,13 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``wrapped_step_team[run12]``, ``env_step_team[hist4]``,
    ``fused_unroll_team[run12]`` and their one-thread kernels, each with
    the run12 CLI run its launches come from as ``launches_in``; run9's
-   eight ``[hfield]`` bodies, launched in run9's CLI run; run8's three
+   eight ``[hfield]`` bodies, launched in run9's CLI run; run8's five
    bodies as ``wrapped_step_team[run8]``, ``wrapped_step[run8]`` and
-   ``env_step_team[run8]``, launched in run8's CLI run; each K4 entry's
+   ``env_step_team[run8]``, launched in run8's K3-lane CLI run,
+   ``physics_step_team[run8]``, launched in its physics-only run, and
+   ``fused_unroll_team[run8]``, launched in its fused-unroll run (these
+   two with ptxas's registers and spills, the shared and scratch bytes,
+   the barriers and the nvcc seconds); each K4 entry's
    ``unroll_T`` the steps of the unroll its times and bound are per) and,
    last,
    the device JSON line.
@@ -353,6 +382,29 @@ def bound_ms(ops_per_env: int, in_rows: int, out_rows: int, B: int):
     t_ops = ops_per_env * B / PEAK_FP32_FLOPS * 1e3
     t_bytes = (in_rows + out_rows) * 4 * B / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def build_numbers(record: str) -> dict:
+    """A team build's numbers from its record (``build.last_build``) and its
+    ``build.log``: ptxas's registers and spill bytes (the largest over the
+    library's kernels), the shared and global scratch bytes, the barriers
+    one stream passes, the nvcc seconds."""
+    import re
+
+    from puppax_torch.kernels import build
+
+    info = build.last_build[record]
+    log = open(os.path.join(info["dir"], "build.log")).read()
+
+    def most(pattern):
+        return max((int(x) for x in re.findall(pattern, log)), default=0)
+
+    return {"registers": most(r"Used (\d+) registers"),
+            "spill_store_bytes": most(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": most(r"(\d+) bytes spill loads"),
+            "shared_bytes": info["shared_bytes"],
+            "scratch_bytes_per_env": info.get("scratch_bytes_per_env", 0),
+            "barriers": info["barriers"], "nvcc_s": info["compile_seconds"]}
 
 
 def _differing(names, got, want, tols):
@@ -793,6 +845,8 @@ def main():
         "team K3[boxes]": build.record_name(build.WRAPPED_STEP_TEAM, bx),
         "K3[boxes]": build.record_name(build.WRAPPED_STEP, bx),
         "team K2[boxes]": build.record_name(build.ENV_STEP_TEAM, bx),
+        "team K1[boxes]": build.record_name(build.PHYSICS_STEP_TEAM, bx),
+        "team K4[boxes]": build.record_name(build.FUSED_UNROLL_TEAM, bx),
     }
     s1 = env_po._cv_step.s  # K1's static digest (the physics-only env's step)
     print(f"config: envs {B}, substeps {n_sub}, episode {L}, unroll {T_UNROLL}, "
@@ -801,11 +855,32 @@ def main():
           f"{tc.num_minibatches}, updates {tc.num_updates_per_batch}, eval envs "
           f"{EVAL_ENVS}, DR on", flush=True)
 
-    # ---- build the twenty-four kernels: their bodies rendered in a pool of
-    # processes, one nvcc process per kernel as its body lands ----
-    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4, run12's "
-               "team K3 + K3 + team K2 + team K4 + K4, run9's team K1-K4 + K1-K4, and run8's "
-               "team K3 + K3 + team K2"):
+    def print_build(kname, label):
+        """A build's record: lines, operations, seconds, the team schedule's
+        numbers and ptxas's."""
+        info = build.last_build[kname]
+        print(f"build: {label} {kname}, {info['lines']} generated lines, "
+              f"{info['ops_per_env']} float ops per env, generate "
+              f"{info['generate_seconds']:.1f} s, nvcc {info['compile_seconds']:.1f} s, "
+              f"cached {info['cached']}", flush=True)
+        if "warps" in info:
+            print(f"  team: {info['warps']} warps per block, heaviest stream "
+                  f"{max(info['stream_ops'])} float ops per env, {info['replicated_ops']} "
+                  f"replicated in all, {info['barriers']} barriers, "
+                  f"{info['shared_bytes']} bytes of shared memory ({info['slots']} slots, "
+                  f"write gap {info['write_gap']})" + (
+                      f", {info['scratch_bytes_per_env']} bytes of global scratch per env"
+                      if "scratch_bytes_per_env" in info else ""), flush=True)
+        log_path = os.path.join(info["dir"], "build.log")
+        for line in open(log_path).read().splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                print("  ptxas:" + line.split(":", 1)[-1].rstrip())
+
+    # ---- build the default's and run12's thirteen kernels: their bodies
+    # rendered in a pool of processes, one nvcc process per kernel as its
+    # body lands (run9's and run8's thirteen build behind the checks) ----
+    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4, and run12's "
+               "team K3 + K3 + team K2 + team K4 + K4"):
         batch = [(build.wrapped_step_team_library, (s, es, n_sub, L)),
                  (build.env_step_team_library, (s, es, n_sub)),
                  (build.physics_step_team_library, (s1, n_sub)),
@@ -818,63 +893,82 @@ def main():
                  (build.wrapped_step_library, (s12, es12, n_sub, L)),
                  (build.env_step_team_library, (s12, es12, n_sub)),
                  (build.fused_unroll_team_library, (s12, es12, n_sub, L)),
-                 (build.fused_unroll_library, (s12, es12, n_sub, L)),
-                 (build.physics_step_team_library, (s9, n_sub)),
-                 (build.physics_step_library, (s9, n_sub)),
-                 (build.env_step_team_library, (s9, es9, n_sub)),
-                 (build.env_step_library, (s9, es9, n_sub)),
-                 (build.wrapped_step_team_library, (s9, es9, n_sub, L)),
-                 (build.wrapped_step_library, (s9, es9, n_sub, L)),
-                 (build.fused_unroll_team_library, (s9, es9, n_sub, L)),
-                 (build.fused_unroll_library, (s9, es9, n_sub, L)),
-                 (build.wrapped_step_team_library, (s8, es8, n_sub, L)),
-                 (build.wrapped_step_library, (s8, es8, n_sub, L)),
-                 (build.env_step_team_library, (s8, es8, n_sub))]
+                 (build.fused_unroll_library, (s12, es12, n_sub, L))]
         build.build_batch(*batch)
         print(f"{len(batch)} bodies rendered in a pool of {min(len(batch), os.cpu_count())} "
               f"processes, each nvcc started as its body landed", flush=True)
         for kname, label in (("wrapped_step_team", "team K3"), ("env_step_team", "team K2"),
                              ("physics_step_team", "team K1"), ("fused_unroll_team", "team K4"),
                              ("wrapped_step", "K3"), ("env_step", "K2"), ("physics_step", "K1"),
-                             ("fused_unroll", "K4"), *((v, k) for k, v in rec12.items()),
-                             *((v, k) for k, v in rec9.items()),
-                             *((v, k) for k, v in rec8.items())):
-            info = build.last_build[kname]
-            print(f"build: {label} {kname}, {info['lines']} generated lines, "
-                  f"{info['ops_per_env']} float ops per env, generate "
-                  f"{info['generate_seconds']:.1f} s, nvcc {info['compile_seconds']:.1f} s, "
-                  f"cached {info['cached']}", flush=True)
-            if "warps" in info:
-                print(f"  team: {info['warps']} warps per block, heaviest stream "
-                      f"{max(info['stream_ops'])} float ops per env, {info['replicated_ops']} "
-                      f"replicated in all, {info['barriers']} barriers, "
-                      f"{info['shared_bytes']} bytes of shared memory ({info['slots']} slots, "
-                      f"write gap {info['write_gap']})" + (
-                          f", {info['scratch_bytes_per_env']} bytes of global scratch per env"
-                          if "scratch_bytes_per_env" in info else ""), flush=True)
-            log_path = os.path.join(info["dir"], "build.log")
-            for line in open(log_path).read().splitlines():
-                if "registers" in line or "spill" in line or "stack frame" in line:
-                    print("  ptxas:" + line.split(":", 1)[-1].rstrip())
+                             ("fused_unroll", "K4"), *((v, k) for k, v in rec12.items())):
+            print_build(kname, label)
+
+    # ---- run9's and run8's thirteen kernels and the probes' 30 libraries,
+    # built behind the default's and run12's phases below (their host-bound
+    # times run beside the builds): render processes and compilers niced,
+    # so those phases keep their CPU; awaited before run9's phases ----
+    from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
+    from puppax_torch.probes import profile_boundary, profile_kernel_phases, profile_layout
+    from puppax_torch.probes import profile_overhead, profile_scan
+    from puppax_torch.probes import pallas_soa_probe as soa_probe
+    from puppax_torch.probes import pallas_spd_poc as spd_probe
+
+    copy_names = ("copy_q", "copy_min", "copy_full", "copy_full_one_block")
+    build.nice = 19
+    background = build.start_batch(
+        (build.physics_step_team_library, (s9, n_sub)),
+        (build.physics_step_library, (s9, n_sub)),
+        (build.env_step_team_library, (s9, es9, n_sub)),
+        (build.env_step_library, (s9, es9, n_sub)),
+        (build.wrapped_step_team_library, (s9, es9, n_sub, L)),
+        (build.wrapped_step_library, (s9, es9, n_sub, L)),
+        (build.fused_unroll_team_library, (s9, es9, n_sub, L)),
+        (build.fused_unroll_library, (s9, es9, n_sub, L)),
+        (build.wrapped_step_team_library, (s8, es8, n_sub, L)),
+        (build.wrapped_step_library, (s8, es8, n_sub, L)),
+        (build.env_step_team_library, (s8, es8, n_sub)),
+        (build.physics_step_team_library, (s8, n_sub)),
+        (build.fused_unroll_team_library, (s8, es8, n_sub, L)),
+        *[(build.probe_physics_library, (s1, n_sub, cut)) for cut in soa.PHASES],
+        *[(build.probe_physics_team_library, (s1, n_sub, cut)) for cut in soa.PHASES],
+        (build.probe_physics_library, (s1, n_sub, None, True)),
+        (build.probe_physics_team_library, (s1, n_sub, None, True)),
+        (build.fma_chain_library, (False,)), (build.fma_chain_library, (True,)),
+        (build.fma_chain_ilp_library, (False,)), (build.fma_chain_ilp_library, (True,)),
+        (build.add_one_library, ()), (build.add_one_pdl_library, ()),
+        (build.probe_copy_library, ()), (soa_probe.library, ()),
+        (soa_probe.library, (soa_probe.ROUNDS, True)), (build.probe_spd_library, ()),
+        (build.probe_spd_warp_library, ()), (profile_overhead.fk_team_library, (s1, n_sub)))
+    print("run9's and run8's 13 bodies and the 30 probe libraries started in the background "
+          "(niceness 19)", flush=True)
 
     # ---- team K3 and the one-thread K3 against plain at 4096, 128 and 130 envs ----
-    def k3_check(name, s_, es_, blocks_, limit, warm=WARM_STEPS, times=None):
+    def k3_check(name, s_, es_, blocks_, limit, warm=WARM_STEPS, times=None, wider=None):
         """Team K3 and the one-thread K3 against the plain version on the
         same inputs (at most ``limit`` envs outside tolerance) and against
         each other bit for bit. Some env must touch the floor, and where the
         env has privileged rows, some env must be done and every done env's
-        privileged rows must be its ``first`` block's. Returns (team's max
-        abs err, the one-thread's); with ``times`` (a list), appends the
-        plain version's milliseconds there."""
+        privileged rows must be its ``first`` block's. ``wider`` (a list
+        holding the plain outputs of a wider check whose first envs are
+        these blocks) stands in for a plain run: each env's rows are its
+        own, so its first columns are the plain version on these blocks.
+        Returns (team's max abs err, the one-thread's); with ``times`` (a
+        list), appends the plain version's milliseconds there, and with
+        ``wider`` empty, puts the plain outputs into it."""
         n_envs = blocks_[0].shape[1]
         aux = soa_env.aux_row_map(es_)
         got = soa_env.wrapped_step(s_, es_, n_sub, L, *blocks_)
         one = soa_env.wrapped_step_one_thread(s_, es_, n_sub, L, *blocks_)
         torch.cuda.synchronize()
-        want, plain_ms = timed_once(lambda: soa_env.wrapped_step_rows(s_, es_, n_sub, L,
-                                                                      *blocks_))
-        if times is not None:
-            times.append(plain_ms)
+        if wider:
+            want = [w_[:, :n_envs] for w_ in wider[0]]
+        else:
+            want, plain_ms = timed_once(lambda: soa_env.wrapped_step_rows(s_, es_, n_sub, L,
+                                                                          *blocks_))
+            if times is not None:
+                times.append(plain_ms)
+            if wider is not None:
+                wider.append(want)
         per_block, differing, err = compare_outputs(s_, es_, aux, got, want)
         _, one_differing, one_err = compare_outputs(s_, es_, aux, one, want)
         bits_err, bits_envs = probes.compare_exact(got, one)
@@ -923,11 +1017,11 @@ def main():
                 carry["env"][r0 : r0 + n], eps)
         blocks = [carry["q"], carry["v"], act, carry["env"], noise[0].contiguous(),
                   carry["dr"], carry["first"], carry["wrap"]]
-        k3_err, k3_one_err, k3_plain_ms = 0.0, 0.0, []
-        for n_envs in (B, EVAL_ENVS, EVAL_ENVS + 2):
+        k3_err, k3_one_err, k3_plain_ms, wide = 0.0, 0.0, [], []
+        for n_envs in (B, EVAL_ENVS, EVAL_ENVS + 2):  # 128 and 130 against the 4096 plain run
             ins = blocks if n_envs == B else [x[:, :n_envs].contiguous() for x in blocks]
             err, one_err = k3_check("K3", s, es, ins, MAX_DIFFERING_ENVS,
-                                    times=k3_plain_ms if n_envs == B else None)
+                                    times=k3_plain_ms if n_envs == B else None, wider=wide)
             k3_err, k3_one_err = max(k3_err, err), max(k3_one_err, one_err)
 
         def k3_step():
@@ -1087,7 +1181,7 @@ def main():
         got_small = soa.step_batched(s1, *k1_small, n_sub)
         one_small = soa.step_batched_one_thread(s1, *k1_small, n_sub)
         torch.cuda.synchronize()
-        want_small = soa.physics_step_rows(s1, n_sub, *k1_small)
+        want_small = [w[:, :EVAL_ENVS] for w in want]  # the 4096 plain run's first envs
         _, differing_small, k1_err_small = compare_physics_outputs(s1, got_small, want_small)
         _, _, k1_one_err_small = compare_physics_outputs(s1, one_small, want_small)
         print(f"team K1 vs plain at {EVAL_ENVS} envs: max abs err {k1_err_small!r}; one-thread "
@@ -1196,8 +1290,7 @@ def main():
         got = soa_env.env_step(s, es, n_sub, *k2_blocks)
         one = soa_env.env_step_one_thread(s, es, n_sub, *k2_blocks)
         torch.cuda.synchronize()
-        want = soa_env.env_step_rows(s, es, n_sub, *k2_blocks)
-        torch.cuda.synchronize()
+        want, k2_plain_ms = timed_once(lambda: soa_env.env_step_rows(s, es, n_sub, *k2_blocks))
         per_block, differing, k2_err = compare_env_outputs(s, es, got, want)
         _, one_differing, k2_one_err = compare_env_outputs(s, es, one, want)
         print(f"team K2 vs plain at {EVAL_ENVS} envs after {WARM_STEPS} K2 steps "
@@ -1239,7 +1332,6 @@ def main():
         def k2_one_4096():
             soa_env.env_step_one_thread(s, es, n_sub, *blocks[:6])
 
-        k2_plain_ms = cuda_ms(lambda: soa_env.env_step_rows(s, es, n_sub, *k2_blocks), 1)
         k2_one_ms, k2_one_4096_ms = [cuda_ms(k2_one, 20)], [cuda_ms(k2_one_4096, 20)]
         k2_ms = [cuda_ms(k2_step, 20), cuda_ms(k2_step, 20)]
         k2_4096_ms = [cuda_ms(k2_step_4096, 20), cuda_ms(k2_step_4096, 20)]
@@ -1499,11 +1591,11 @@ def main():
         wrap12[0, ::3] = L - 1  # every third env reaches the episode limit: the restore
         blocks12 = [carry12["q"], carry12["v"], act12, carry12["env"], noise12[0].contiguous(),
                     carry12["dr"], carry12["first"], wrap12]
-        k3_12_err, k3_12_one_err, plain12 = 0.0, 0.0, []
+        k3_12_err, k3_12_one_err, plain12, wide12 = 0.0, 0.0, [], []
         for n_envs in (B, EVAL_ENVS):
             ins = blocks12 if n_envs == B else [x[:, :n_envs].contiguous() for x in blocks12]
             err, one_err = k3_check("K3[run12]", s12, es12, ins, MAX_DIFFERING_ENVS,
-                                    times=plain12 if n_envs == B else None)
+                                    times=plain12 if n_envs == B else None, wider=wide12)
             k3_12_err, k3_12_one_err = max(k3_12_err, err), max(k3_12_one_err, one_err)
         k3_12_plain_ms = plain12[0]
 
@@ -1606,9 +1698,10 @@ def main():
     team_libs = ("wrapped_step_team_library", "env_step_team_library",
                  "physics_step_team_library", "fused_unroll_team_library")
 
-    def cli_run(label, config, want, lane_line, run12=True):
+    def cli_run(label, config, want, lane_line, run12=True, evals=2):
         """``python -m puppax_torch.scripts.train --config <config>`` for 3
-        training steps and 2 evaluations on the card; its launches against
+        training steps and ``evals`` evaluations (2: before and after the
+        training, 1: after it) on the card; its launches against
         ``want`` (team K3, K2, K1, K4; the one-thread kernels none), each
         counted by the body it went through (the model's variant), its lane
         line, the env steps, finite losses and eval metrics; for run12 (the
@@ -1641,7 +1734,7 @@ def main():
                 seen.append(float(state.info["difficulty"][0]))
             return real["standard"](env_, state, *a, **kw)
 
-        over = {"train.num_timesteps": TRAIN_TIMESTEPS, "train.num_evals": 2,
+        over = {"train.num_timesteps": TRAIN_TIMESTEPS, "train.num_evals": evals,
                 "train.num_eval_envs": EVAL_ENVS, "train.seed": args.seed,
                 "train.checkpoint_path": os.path.join(tmp, "ckpt"),
                 "train.metrics_jsonl": os.path.join(tmp, "metrics.jsonl")}
@@ -1703,18 +1796,18 @@ def main():
         losses = {k: v for k, v in m.items() if k.endswith("_loss")}
         if len(losses) != 4 or not all(math.isfinite(v) for v in losses.values()):
             raise AssertionError(f"{label}: loss metrics {losses}")
-        evals = [r for r in map(json.loads, open(os.path.join(tmp, "metrics.jsonl")))
-                 if "eval/episode_reward" in r]
-        if ([r["step"] for r in evals] != [0, TRAIN_TIMESTEPS]
-                or not all(math.isfinite(v) for r in evals for k, v in r.items()
+        eval_records = [r for r in map(json.loads, open(os.path.join(tmp, "metrics.jsonl")))
+                        if "eval/episode_reward" in r]
+        if ([r["step"] for r in eval_records] != [0, TRAIN_TIMESTEPS][2 - evals:]
+                or not all(math.isfinite(v) for r in eval_records for k, v in r.items()
                            if k.startswith("eval/"))):
-            raise AssertionError(f"{label}: evaluations {evals}")
+            raise AssertionError(f"{label}: evaluations {eval_records}")
         print(f"{label}: training/sps {m['training/sps']:.1f}, epoch {m['training/walltime']:.3f} "
               f"s for {n_train12} training steps; per training step: rollout "
               f"{m['training/rollout_ms']:.3f} ms, reorder + normalizer "
               f"{m['training/prepare_ms']:.3f} ms, SGD {m['training/sgd_ms']:.3f} ms (CUDA "
               f"events); one evaluation " + ", ".join(
-                  f"at step {r['step']}: {r['eval/epoch_eval_time']:.3f} s wall" for r in evals)
+                  f"at step {r['step']}: {r['eval/epoch_eval_time']:.3f} s wall" for r in eval_records)
               + f"; losses " + json.dumps(losses), flush=True)
         return launches, by_body
 
@@ -1722,11 +1815,14 @@ def main():
         (k3_12_launches, k2_12_launches, _, _), _ = cli_run(
             "run12 K3 lane", RUN12_CONFIG, (unroll12, evals12, 0, 0),
             "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
+    # the physics-only and fused lanes with one evaluation (after the
+    # training): the K3 lane's run evaluates twice, as the default's
     with Phase("run12 training, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"  # read when the CLI builds the env
         try:
-            cli_run("run12 physics-only lane", RUN12_CONFIG, (0, 0, unroll12 + evals12, 0),
-                    "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
+            cli_run("run12 physics-only lane", RUN12_CONFIG,
+                    (0, 0, unroll12 + evals12 // 2, 0),
+                    "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)", evals=1)
         finally:
             del os.environ["PUPPAX_SOA_ENV"]
     with Phase("run12 training, fused-unroll lane"):
@@ -1734,10 +1830,19 @@ def main():
         try:
             (_, _, _, k4_12_launches), _ = cli_run(
                 "run12 fused-unroll lane", RUN12_CONFIG,
-                (0, evals12, 0, unroll12 // tc12.unroll_length),
-                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
+                (0, evals12 // 2, 0, unroll12 // tc12.unroll_length),
+                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)", evals=1)
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
+
+    with Phase("the background builds' end: run9's and run8's bodies, the probes"):
+        libs = background.result()
+        build.nice = 0
+        print(f"{len(libs)} libraries built behind the default's and run12's phases",
+              flush=True)
+        for kname, label in (*((v, k) for k, v in rec9.items()),
+                             *((v, k) for k, v in rec8.items())):
+            print_build(kname, label)
 
     # ---- run9: the heightfield terrain's bodies against plain ----
     with Phase("run9 kernels vs plain"):
@@ -1867,8 +1972,8 @@ def main():
                 tc12.batch_size, tc12.unroll_length, tc12.num_minibatches):
             raise AssertionError("run9's training steps differ from run12's")
         (k3_9_launches, k2_9_launches, _, _), by_body = cli_run(
-            "run9 K3 lane", RUN9_CONFIG, (unroll12, evals12, 0, 0),
-            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", run12=False)
+            "run9 K3 lane", RUN9_CONFIG, (unroll12, evals12 // 2, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", run12=False, evals=1)
         if (by_body.get(("wrapped_step_team_library", "hfield")) != k3_9_launches
                 or by_body.get(("env_step_team_library", "hfield")) != k2_9_launches):
             raise AssertionError(f"run9's launches did not all go through the [hfield] "
@@ -1917,11 +2022,11 @@ def main():
         # the plain versions, each timed once where it is checked (the
         # loops over the boxes are a torch op each: seconds per call)
         res8 = {"K3": dict(err=0.0, one_err=0.0)}
-        plain8 = []
+        plain8, wide8 = [], []
         for n_envs in (B, EVAL_ENVS):
             ins = blocks8 if n_envs == B else [x_[:, :n_envs].contiguous() for x_ in blocks8]
             err, one_err = k3_check("K3[boxes]", s8, es8, ins, MAX_DIFFERING_ENVS,
-                                    RUN8_WARM_STEPS, plain8)
+                                    RUN8_WARM_STEPS, plain8, wider=wide8)
             res8["K3"] = dict(err=max(err, res8["K3"]["err"]),
                               one_err=max(one_err, res8["K3"]["one_err"]))
         # team K2 at the evaluator's 128 envs (the same states' first 128)
@@ -1939,6 +2044,60 @@ def main():
             print(f"  env {b_} differs: {what}")
         if len(differing) > MAX_DIFFERING_ENVS:
             raise AssertionError(f"{len(differing)} of {EVAL_ENVS} envs differ (team K2[boxes])")
+        # team K1[boxes] (the physics-only lane's) under the policy's motor
+        # targets at 4096 envs, and at the evaluator's 128 against the first
+        # 128 envs of the same plain run (each env's rows are its own)
+        ctrl8 = es8.action_scale * act8 + env8._dev["default_pose"][:, None]
+        ctrl8 = torch.minimum(torch.maximum(ctrl8, env8._dev["lowers"][:, None]),
+                              env8._dev["uppers"][:, None]).contiguous()
+        k1_blocks8 = [carry8["q"], carry8["v"], ctrl8, carry8["dr"]]
+        k1_small8 = [x_[:, :EVAL_ENVS].contiguous() for x_ in k1_blocks8]
+        got = soa.step_batched(s8, *k1_blocks8, n_sub)
+        got_small = soa.step_batched(s8, *k1_small8, n_sub)
+        torch.cuda.synchronize()
+        want, k1_8_plain_ms = timed_once(lambda: soa.physics_step_rows(s8, n_sub, *k1_blocks8))
+        want_small = [w_[:, :EVAL_ENVS] for w_ in want]
+        active_k1 = got[2][d0 + s8.boxes.first : d0 + s8.boxes.first + nbs] < 0
+        res8["K1"] = dict(plain_ms=k1_8_plain_ms, err=0.0)
+        for n_envs, g_, w_ in ((B, got, want), (EVAL_ENVS, got_small, want_small)):
+            per_block, differing, err = compare_physics_outputs(s8, g_, w_)
+            _, bits = probes.compare_exact(g_, w_)
+            res8["K1"]["err"] = max(res8["K1"]["err"], err)
+            print(f"team K1[boxes] vs plain at {n_envs} envs: max abs err per block "
+                  + json.dumps(per_block) + f", {len(differing)} envs outside tolerance, "
+                  f"{bits} not bit for bit", flush=True)
+            for b_, what in differing:
+                print(f"  env {b_} differs: {what}")
+            if len(differing) > MAX_DIFFERING_ENVS:
+                raise AssertionError(f"{len(differing)} of {n_envs} envs differ "
+                                     f"(team K1[boxes])")
+        n_box_k1 = int(active_k1.any(0).sum())
+        print(f"team K1[boxes]'s caches: {n_box_k1} of {B} envs with an active sphere-box row "
+              f"({int(active_k1.sum())} rows)", flush=True)
+        if n_box_k1 < MIN_BOX_ENVS:
+            raise AssertionError(f"{n_box_k1} envs have an active sphere-box row in K1's "
+                                 f"caches (at least {MIN_BOX_ENVS})")
+        # team K4[boxes] (the fused lane's) over T=2 steps from the same
+        # states: the carry's ping-pong and the box scratch's reuse across
+        # steps; its plain version takes ~20 s a step
+        layers8 = fused_unroll.fold_normalizer(None, nets8.policy_network)
+        k4_in8 = k4_blocks(lane8, carry8, B, 2)
+        got = fused_unroll.unroll(s8, es8, n_sub, L, activation, layers8, *k4_in8)
+        torch.cuda.synchronize()
+        want, k4_8_plain_ms = timed_once(lambda: fused_unroll.unroll_rows(
+            s8, es8, n_sub, L, activation, layers8, *k4_in8))
+        per_block, differing, err = compare_unroll(s8, es8, soa_env.aux_row_map(es8), got, want)
+        _, bits = probes.compare_exact([x_.reshape(-1, B) for x_ in got if x_ is not None],
+                                       [x_.reshape(-1, B) for x_ in want if x_ is not None])
+        res8["K4"] = dict(err=err, plain_ms=k4_8_plain_ms)
+        print(f"team K4[boxes] vs plain at {B} envs x T=2: max abs err per block "
+              + json.dumps(per_block) + f", {len(differing)} envs outside tolerance, {bits} not "
+              f"bit for bit; the plain version {k4_8_plain_ms:.1f} ms for the 2 steps",
+              flush=True)
+        for b_, what in differing:
+            print(f"  env {b_} differs: {what}")
+        if len(differing) > MAX_DIFFERING_ENVS:
+            raise AssertionError(f"{len(differing)} of {B} envs differ (team K4[boxes])")
         # the times, team and one-thread K3 in turns (the plain versions' above)
         k3_8 = (lambda: soa_env.wrapped_step(s8, es8, n_sub, L, *blocks8),
                 lambda: soa_env.wrapped_step_one_thread(s8, es8, n_sub, L, *blocks8))
@@ -1948,12 +2107,26 @@ def main():
         res8["K3"].update(ms=team_ms, one_ms=one_ms, plain_ms=plain8[0])
         res8["K2"]["ms"] = [cuda_ms(lambda: soa_env.env_step(s8, es8, n_sub, *k2_blocks8), 20)
                             for _ in range(2)]
+        res8["K1"]["ms"] = [cuda_ms(lambda: soa.step_batched(s8, *k1_blocks8, n_sub), 10)
+                            for _ in range(2)]
+        res8["K1"]["ms_small"] = [cuda_ms(lambda: soa.step_batched(s8, *k1_small8, n_sub), 20)
+                                  for _ in range(2)]
+        k4_t8 = k4_blocks(lane8, carry8, B, T_CHECK)  # every K4 entry's unit: a T=4 unroll
+        res8["K4"]["ms"] = [cuda_ms(lambda: fused_unroll.unroll(s8, es8, n_sub, L, activation,
+                                                                layers8, *k4_t8), 3)
+                            for _ in range(2)]
         print(f"team K3[boxes] step at {B} envs: {statistics.median(team_ms):.4f} ms (runs "
               f"{team_ms}); one-thread K3[boxes] {statistics.median(one_ms):.4f} ms (runs "
               f"{one_ms}); A/B {statistics.median(one_ms) / statistics.median(team_ms):.3f}x; "
               f"plain {res8['K3']['plain_ms']:.1f} ms; team K2[boxes] step at {EVAL_ENVS} "
               f"envs: {statistics.median(res8['K2']['ms']):.4f} ms (runs {res8['K2']['ms']}), "
               f"plain {res8['K2']['plain_ms']:.1f} ms ({smi})", flush=True)
+        print(f"team K1[boxes] step at {B} envs: {statistics.median(res8['K1']['ms']):.4f} ms "
+              f"(runs {res8['K1']['ms']}), plain {res8['K1']['plain_ms']:.1f} ms; at "
+              f"{EVAL_ENVS} envs {statistics.median(res8['K1']['ms_small']):.4f} ms (runs "
+              f"{res8['K1']['ms_small']}); team K4[boxes] per T={T_CHECK} unroll at {B} envs: "
+              f"{statistics.median(res8['K4']['ms']):.4f} ms (runs {res8['K4']['ms']}), plain "
+              f"{res8['K4']['plain_ms']:.1f} ms per T=2 unroll ({smi})", flush=True)
 
     # ---- run8 through the training CLI on the default (K3) lane ----
     with Phase("run8 training, K3 lane"):
@@ -1961,33 +2134,41 @@ def main():
                 tc12.batch_size, tc12.unroll_length, tc12.num_minibatches):
             raise AssertionError("run8's training steps differ from run12's")
         (k3_8_launches, k2_8_launches, _, _), by_body = cli_run(
-            "run8 K3 lane", RUN8_CONFIG, (unroll12, evals12, 0, 0),
-            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", run12=False)
+            "run8 K3 lane", RUN8_CONFIG, (unroll12, evals12 // 2, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", run12=False, evals=1)
         if (by_body.get(("wrapped_step_team_library", "boxes")) != k3_8_launches
                 or by_body.get(("env_step_team_library", "boxes")) != k2_8_launches):
             raise AssertionError(f"run8's launches did not all go through the [boxes] "
                                  f"bodies: {by_body}")
 
-    # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
-    from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
-    from puppax_torch.probes import profile_boundary, profile_kernel_phases, profile_layout
-    from puppax_torch.probes import profile_overhead, profile_scan
-    from puppax_torch.probes import pallas_soa_probe as soa_probe
-    from puppax_torch.probes import pallas_spd_poc as spd_probe
+    # ---- run8 through the training CLI on the physics-only and fused lanes ----
+    with Phase("run8 training, physics-only lane"):
+        os.environ["PUPPAX_SOA_ENV"] = "off"  # read when the CLI builds the env
+        try:
+            (_, _, k1_8_launches, _), by_body = cli_run(
+                "run8 physics-only lane", RUN8_CONFIG, (0, 0, unroll12 + evals12, 0),
+                "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)", run12=False)
+        finally:
+            del os.environ["PUPPAX_SOA_ENV"]
+        if by_body != {("physics_step_team_library", "boxes"): k1_8_launches}:
+            raise AssertionError(f"run8's physics-only launches did not all go through team "
+                                 f"K1[boxes]: {by_body}")
+    with Phase("run8 training, fused-unroll lane"):
+        os.environ["PUPPAX_FUSED_UNROLL"] = "on"
+        try:
+            (_, k2_8f_launches, _, k4_8_launches), by_body = cli_run(
+                "run8 fused-unroll lane", RUN8_CONFIG,
+                (0, evals12, 0, unroll12 // tc8.unroll_length),
+                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)", run12=False)
+        finally:
+            del os.environ["PUPPAX_FUSED_UNROLL"]
+        if by_body != {("fused_unroll_team_library", "boxes"): k4_8_launches,
+                       ("env_step_team_library", "boxes"): k2_8f_launches}:
+            raise AssertionError(f"run8's fused-unroll launches did not all go through team "
+                                 f"K4[boxes] and team K2[boxes]: {by_body}")
 
-    copy_names = ("copy_q", "copy_min", "copy_full", "copy_full_one_block")
-    with Phase("probes: build"):
-        build.build_in_parallel(
-            *[(lambda cut=cut: build.probe_physics_library(s1, n_sub, cut)) for cut in soa.PHASES],
-            *[(lambda cut=cut: build.probe_physics_team_library(s1, n_sub, cut))
-              for cut in soa.PHASES],
-            lambda: build.probe_physics_library(s1, n_sub, None, fmad=True),
-            lambda: build.probe_physics_team_library(s1, n_sub, None, fmad=True),
-            lambda: build.fma_chain_library(False), lambda: build.fma_chain_library(True),
-            lambda: build.fma_chain_ilp_library(False), lambda: build.fma_chain_ilp_library(True),
-            build.add_one_library, build.add_one_pdl_library, build.probe_copy_library,
-            soa_probe.library, lambda: soa_probe.library(team=True), build.probe_spd_library,
-            build.probe_spd_warp_library, lambda: profile_overhead.fk_team_library(s1, n_sub))
+    # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
+    with Phase("probes: build records"):
         fmad_flags = build.probe_flags(True)
         probe_records = {
             **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
@@ -2279,7 +2460,20 @@ def main():
         "K3": bound_ms(build.last_build[rec8["K3[boxes]"]]["ops_per_env"], sum(in8), sum(out8), B),
         "K2": bound_ms(build.last_build[rec8["team K2[boxes]"]]["ops_per_env"],
                        *(sum(r) for r in soa_env.env_block_rows(s8, es8)), EVAL_ENVS),
+        "K1": bound_ms(build.last_build[rec8["team K1[boxes]"]]["ops_per_env"],
+                       *(sum(r) for r in soa.physics_block_rows(s8)), B),
     }
+    # team K4[boxes] per T=4 unroll: T steps of K3[boxes]'s program and the
+    # policy; the carry, reset and DR rows, T steps of noise and eps and the
+    # weights read once, the final carry and T steps of the outputs written
+    dims8 = [env8.observation_size] + [w.shape[0] for w, _ in layers8]
+    carry8_rows = s8.nq + s8.nv + es8.nenv_rows + 2
+    bounds8["K4"] = bound_ms(
+        T_CHECK * (build.last_build[rec8["team K4[boxes]"]]["ops_per_env"]
+                   + fused_unroll.policy_op_count(dims8, activation, env8.action_size, False)),
+        carry8_rows + in8[6] + in8[5] + T_CHECK * (in8[4] + in8[2])
+        + sum(w.numel() + b.numel() for w, b in layers8) / B,
+        carry8_rows + T_CHECK * (es8.hist + 2 * env8.action_size + 1 + out8[4]), B)
     run8 = "run8 training, K3 lane"
     for name, source, replaces, k, team, n in (
             ("wrapped_step_team[run8]", "wrapped_step_team.cuh", "puppax/env/soa_env.py:877",
@@ -2295,6 +2489,27 @@ def main():
             "max_abs_err": r["err" if team else "one_err"],
             "ms": statistics.median(r["ms" if team else "one_ms"]), "plain_ms": r["plain_ms"],
             "bound_ms": bounds8[k][0], "bound_by": bounds8[k][1], "library_ms": None})
+    # the physics-only lane's team K1[boxes] (its time and bound at 4096
+    # envs, ms_128 at the evaluator's 128) and the fused lane's team
+    # K4[boxes] (per T=4 unroll; its plain version timed on the T=2 check)
+    for name, source, replaces, k, n, run in (
+            ("physics_step_team[run8]", "physics_step_team.cuh", "puppax/physics/soa.py:2028",
+             "K1", k1_8_launches, "run8 training, physics-only lane"),
+            ("fused_unroll_team[run8]", "fused_unroll_team.cuh",
+             "puppax/env/fused_unroll.py:152", "K4", k4_8_launches,
+             "run8 training, fused-unroll lane")):
+        r = res8[k]
+        entry = {
+            "name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
+            "replaces": replaces, "launches": n, "launches_in": run, "max_abs_err": r["err"],
+            "ms": statistics.median(r["ms"]), "plain_ms": r["plain_ms"],
+            "bound_ms": bounds8[k][0], "bound_by": bounds8[k][1], "library_ms": None,
+            **build_numbers(rec8[f"team {k}[boxes]"])}
+        if k == "K1":
+            entry["ms_128"] = statistics.median(r["ms_small"])
+        else:
+            entry["plain_unroll_T"] = 2
+        kernels.append(entry)
 
     def probe_entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"puppax_torch/csrc/{source}",
@@ -2423,7 +2638,9 @@ def main():
           f"team K2 {bounds9['K2'][0]:.6f} ms at {EVAL_ENVS} envs, team K3 "
           f"{bounds9['K3'][0]:.6f} ms, team K4 {bounds9['K4'][0]:.6f} ms per unroll; run8: team "
           f"K3 {bounds8['K3'][0]:.6f} ms ({bounds8['K3'][1]}), team K2 {bounds8['K2'][0]:.6f} ms "
-          f"at {EVAL_ENVS} envs ({bounds8['K2'][1]}); total wall "
+          f"at {EVAL_ENVS} envs ({bounds8['K2'][1]}), team K1 {bounds8['K1'][0]:.6f} ms "
+          f"({bounds8['K1'][1]}), team K4 {bounds8['K4'][0]:.6f} ms per unroll "
+          f"({bounds8['K4'][1]}); total wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     # K4's times and bound are per unroll of T_CHECK steps (the check's
     # inputs, where the plain version was timed), in every K4 entry

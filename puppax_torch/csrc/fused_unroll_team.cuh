@@ -64,6 +64,25 @@
 
 #include "fused_policy.cuh"
 
+// A body whose indexed arrays live outside shared memory (a box model's:
+// TEAM_SCRATCH_ROWS rows per env, csrc/team.cuh's SCR) reads and writes them
+// in a global scratch of TEAM_SCRATCH_ROWS * 32 floats per block, its own
+// operand (not the carry's scratch set, which the pointers q_s .. wrap_s
+// name): the caller allocates it and passes it with
+// fused_unroll_team_set_scratch before launching
+// (puppax_torch/kernels/build.py, bind_scratch); the host build allocates
+// its own. Each of the T steps reuses it: the barrier after a step's env
+// step (a bar.sync, which orders the block's global accesses too) puts
+// every read of a row in step t before any store to it in step t + 1.
+#ifdef TEAM_SCRATCH_ROWS
+#define TEAM_SCR , scr
+#else
+#define TEAM_SCRATCH_ROWS 0
+#define TEAM_SCR
+#endif
+
+extern "C" int fused_unroll_team_scratch_rows() { return TEAM_SCRATCH_ROWS; }
+
 #ifndef K4_MLP_ONLY
 #define K4_MLP_ONLY 0
 #endif
@@ -128,7 +147,8 @@ TEAM_FN static inline void k4_softmax(int n, float* sh, int src, int dst, int wi
 
 // T steps of env b: this warp's share
 TEAM_FN inline void fused_unroll_team_env(K4_PARAMS, int B, int T, const K4Mlp& mlp, int gait,
-                                          int b, int warp, int lane, float* sh TEAM_BAR_PARAM) {
+                                          int b, int warp, int lane, float* sh,
+                                          float* scr TEAM_BAR_PARAM) {
   const long Bl = B;
   const int bl = b < B ? b : B - 1;  // lanes past B compute env B - 1, store nothing
   const bool live = b < B;
@@ -142,6 +162,7 @@ TEAM_FN inline void fused_unroll_team_env(K4_PARAMS, int B, int T, const K4Mlp& 
   (void)q;
   (void)v;
   (void)wrap;
+  (void)scr;
   for (int t = 0; t < T; ++t) {
     // the last step writes the final buffers; the steps before alternate
     const bool to_final = ((T - 1 - t) % 2) == 0;
@@ -216,7 +237,7 @@ TEAM_FN inline void fused_unroll_team_env(K4_PARAMS, int B, int T, const K4Mlp& 
     // step's action and noise
     float* aux_t = aux_ts + t * K4_NAUX * Bl;
     wrapped_step_team_body(q, v, act, env, noise + t * K4_NNOISE * Bl, dr, first, wrap, q_o,
-                           v_o, env_o, wrap_o, aux_t, B, b, warp, lane, sh TEAM_BAR_ARG);
+                           v_o, env_o, wrap_o, aux_t, B, b, warp, lane, sh TEAM_SCR TEAM_BAR_ARG);
     TEAM_BAR();
 
     // (e) the gait clock ticks, and restarts on the effective done
@@ -233,15 +254,23 @@ TEAM_FN inline void fused_unroll_team_env(K4_PARAMS, int B, int T, const K4Mlp& 
 #ifdef __CUDACC__
 
 __global__ void __launch_bounds__(32 * TEAM_W, 1)
-    fused_unroll_team_kernel(K4_PARAMS, int B, int T, K4Mlp mlp, int gait) {
+    fused_unroll_team_kernel(K4_PARAMS, int B, int T, K4Mlp mlp, int gait, float* scr) {
   extern __shared__ float sh[];
   const int lane = threadIdx.x & 31;
   fused_unroll_team_env(K4_ARGS, B, T, mlp, gait, blockIdx.x * 32 + lane, threadIdx.x >> 5,
-                        lane, sh);
+                        lane, sh, scr);
+}
+
+static float* team_scratch = nullptr;
+
+extern "C" int fused_unroll_team_set_scratch(void* scr) {
+  team_scratch = (float*)scr;
+  return 0;
 }
 
 extern "C" int fused_unroll_team_launch(K4_PARAMS, int B, K4_INTS, void* stream) {
   if (B <= 0 || T <= 0) return 0;
+  if (TEAM_SCRATCH_ROWS && team_scratch == nullptr) return (int)cudaErrorInvalidValue;
   const K4Mlp mlp = k4_mlp(T, n_layers, act, gait, d0, d1, d2, d3, d4, d5, d6, d7, d8);
   static bool sized = false;
   if (!sized) {  // the most any policy needs
@@ -255,7 +284,8 @@ extern "C" int fused_unroll_team_launch(K4_PARAMS, int B, K4_INTS, void* stream)
     sized = true;
   }
   fused_unroll_team_kernel<<<(B + 31) / 32, 32 * TEAM_W, k4_team_shared_floats(mlp) * 4,
-                             (cudaStream_t)stream>>>(K4_ARGS, B, T, mlp, gait);
+                             (cudaStream_t)stream>>>(K4_ARGS, B, T, mlp, gait,
+                                                                team_scratch);
   return (int)cudaGetLastError();
 }
 
@@ -264,9 +294,12 @@ extern "C" int fused_unroll_team_launch(K4_PARAMS, int B, K4_INTS, void* stream)
 extern "C" int fused_unroll_team_host(K4_PARAMS, int B, K4_INTS) {
   if (B <= 0 || T <= 0) return 0;
   const K4Mlp mlp = k4_mlp(T, n_layers, act, gait, d0, d1, d2, d3, d4, d5, d6, d7, d8);
+  std::vector<float> scratch((size_t)TEAM_SCRATCH_ROWS * ((B + 31) / 32) * 32);
+  float* scr = scratch.data();
   return team_host_run(B, TEAM_W, k4_team_shared_floats(mlp),
                        [&](int b, int warp, int lane, float* sh, std::barrier<>& bar) {
-                         fused_unroll_team_env(K4_ARGS, B, T, mlp, gait, b, warp, lane, sh, bar);
+                         fused_unroll_team_env(K4_ARGS, B, T, mlp, gait, b, warp, lane, sh, scr,
+                                               bar);
                        });
 }
 

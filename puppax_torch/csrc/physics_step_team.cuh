@@ -41,16 +41,42 @@
 
 #include PUPPAX_KERNEL_BODY
 
+// A body whose indexed arrays live outside shared memory (a box model's:
+// TEAM_SCRATCH_ROWS rows per env, csrc/team.cuh's SCR) reads and writes them
+// in a scratch of TEAM_SCRATCH_ROWS * 32 floats per block: the caller
+// allocates it and passes it with physics_step_team_set_scratch before
+// launching (puppax_torch/kernels/build.py, bind_scratch); the host build
+// allocates its own.
+#ifdef TEAM_SCRATCH_ROWS
+#define TEAM_SCR , scr
+#else
+#define TEAM_SCRATCH_ROWS 0
+#define TEAM_SCR
+#endif
+
+extern "C" int physics_step_team_scratch_rows() { return TEAM_SCRATCH_ROWS; }
+
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(32 * TEAM_W, 1) physics_step_team_kernel(PS_PARAMS, int B) {
+__global__ void __launch_bounds__(32 * TEAM_W, 1)
+    physics_step_team_kernel(PS_PARAMS, int B, float* scr) {
+  (void)scr;
   extern __shared__ float sh[];
   const int lane = threadIdx.x & 31;
-  physics_step_team_body(PS_ARGS, B, blockIdx.x * 32 + lane, threadIdx.x >> 5, lane, sh);
+  physics_step_team_body(PS_ARGS, B, blockIdx.x * 32 + lane, threadIdx.x >> 5, lane,
+                         sh TEAM_SCR);
+}
+
+static float* team_scratch = nullptr;
+
+extern "C" int physics_step_team_set_scratch(void* scr) {
+  team_scratch = (float*)scr;
+  return 0;
 }
 
 extern "C" int physics_step_team_launch(PS_PARAMS, int B, void* stream) {
   if (B <= 0) return 0;
+  if (TEAM_SCRATCH_ROWS && team_scratch == nullptr) return (int)cudaErrorInvalidValue;
   const int bytes = TEAM_SHARED_FLOATS * 4;
   static bool sized = false;
   if (!sized) {
@@ -60,16 +86,19 @@ extern "C" int physics_step_team_launch(PS_PARAMS, int B, void* stream) {
     sized = true;
   }
   physics_step_team_kernel<<<(B + 31) / 32, 32 * TEAM_W, bytes, (cudaStream_t)stream>>>(
-      PS_ARGS, B);
+      PS_ARGS, B, team_scratch);
   return (int)cudaGetLastError();
 }
 
 #else
 
 extern "C" int physics_step_team_host(PS_PARAMS, int B) {
+  std::vector<float> scratch((size_t)TEAM_SCRATCH_ROWS * ((B + 31) / 32) * 32);
+  float* scr = scratch.data();
+  (void)scr;
   return team_host_run(B, TEAM_W, TEAM_SHARED_FLOATS,
                        [&](int b, int warp, int lane, float* sh, std::barrier<>& bar) {
-                         physics_step_team_body(PS_ARGS, B, b, warp, lane, sh, bar);
+                         physics_step_team_body(PS_ARGS, B, b, warp, lane, sh TEAM_SCR, bar);
                        });
 }
 

@@ -38,7 +38,6 @@ import torch
 
 from puppax_torch.env import soa_env
 from puppax_torch.kernels import build
-from puppax_torch.physics import soa
 
 # hidden activations, in the order of the kernel's runtime codes
 ACTIVATIONS = ("elu", "relu", "tanh", "sigmoid", "softmax")
@@ -243,19 +242,21 @@ def kernel_call(fn, s, es, activation: str, layers: Layers, weights: torch.Tenso
     return (*final, phase_f, *steps)
 
 
-def _route(wrapper, library, entry: str, weights_of, s, es, n_substeps: int,
+def _route(wrapper, kernel: build.Kernel, library, weights_of, s, es, n_substeps: int,
            episode_length: int, activation: str, layers: Layers, *blocks):
     """CPU blocks through ``unroll_rows``; CUDA blocks through one launch of
-    ``library``'s ``entry`` on the current stream, counted on ``wrapper``."""
+    ``kernel`` from ``library`` on the current stream (a box model's team
+    body with its global scratch, ``build.bind_scratch``), counted on
+    ``wrapper``."""
     dev = blocks[0].device
     if dev.type == "cpu":
         _check_inputs(s, es, activation, layers, *blocks)
         return unroll_rows(s, es, n_substeps, episode_length, activation, layers, *blocks)
     if dev.type != "cuda":
         raise ValueError(f"fused unroll: unsupported device {dev}")
-    soa.check_box_lane(s, "K4, the fused unroll")
     lib = library(s, es, n_substeps, episode_length)
-    out = kernel_call(getattr(lib, entry), s, es, activation, layers, weights_of(layers),
+    build.bind_scratch(lib, kernel, blocks[0].shape[-1], dev)
+    out = kernel_call(getattr(lib, kernel.launch), s, es, activation, layers, weights_of(layers),
                       *blocks, stream=torch.cuda.current_stream(dev).cuda_stream)
     wrapper.launches += 1
     return out
@@ -270,7 +271,7 @@ def unroll(s, es, n_substeps: int, episode_length: int, activation: str, layers:
     CPU tensors run the plain version (``unroll_rows``); CUDA tensors launch
     team K4 (``csrc/fused_unroll_team.cuh``) on the current stream, or
     raise. Each launch adds one to ``unroll.launches``."""
-    return _route(unroll, build.fused_unroll_team_library, "fused_unroll_team_launch",
+    return _route(unroll, build.FUSED_UNROLL_TEAM, build.fused_unroll_team_library,
                   team_weights, s, es, n_substeps, episode_length, activation, layers,
                   q, v, env, wrap, phase, first, dr, noise, eps)
 
@@ -285,7 +286,7 @@ def unroll_one_thread(s, es, n_substeps: int, episode_length: int, activation: s
     env per thread): the A/B baseline of team K4, off the main path. CPU
     tensors run ``unroll_rows``; CUDA tensors launch it or raise. Each
     launch adds one to ``unroll_one_thread.launches``."""
-    return _route(unroll_one_thread, build.fused_unroll_library, "fused_unroll_launch",
+    return _route(unroll_one_thread, build.FUSED_UNROLL, build.fused_unroll_library,
                   one_thread_weights, s, es, n_substeps, episode_length, activation, layers,
                   q, v, env, wrap, phase, first, dr, noise, eps)
 

@@ -248,8 +248,6 @@ class PupperV3Env:
         # the lane of step(): the fused env kernel K2, or the physics-only
         # lane (the env layer in torch around K1) under PUPPAX_SOA_ENV=off
         self._use_soa_env = os.environ.get("PUPPAX_SOA_ENV", "auto") != "off"
-        if not self._use_soa_env:
-            soa.check_box_lane(self._s, "PUPPAX_SOA_ENV=off (the physics-only lane, K1)")
         self._cv_step = pipeline.make_batched_step(model, self._n_substeps, compiled.mj)
         statics = pipeline.pair_contact_statics(model, compiled.mj, device=self.device)
         self._pair_geom1, self._pair_geom2 = statics["geom1"], statics["geom2"]

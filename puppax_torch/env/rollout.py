@@ -251,7 +251,6 @@ class FastLane:
             noise = scale_noise_block(self.es, noise, d)
             last_kick = last_kick * d[:, None]
         if self.use_fused(T):
-            soa.check_box_lane(self.s, "PUPPAX_FUSED_UNROLL=on (the fused lane, K4)")
             # K4 on CUDA tensors, its plain version on CPU tensors
             (q, v, env_t, wrap, phase, obs_ts, act_ts, raw_ts, logp_ts,
              aux_ts) = fused_unroll.unroll(

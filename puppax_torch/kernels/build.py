@@ -25,7 +25,8 @@ Each nvcc is one subprocess, so ``build_in_parallel`` builds several
 kernels at once from threads. Rendering a body is Python under one lock
 (seconds each); ``build_batch`` renders a batch's bodies in a pool of
 processes (``render_in_processes``) and starts each nvcc as its body
-lands.
+lands; ``start_batch`` runs such a batch behind the caller, its processes
+at the niceness ``nice``.
 ``check_blocks`` and ``launch`` are the wrappers' shared checks of the
 ``(rows, B)`` input blocks and their launch on the current stream;
 ``launch_into`` launches into outputs the caller allocated;
@@ -43,7 +44,7 @@ import shutil
 import subprocess
 import threading
 import time
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, as_completed
+from concurrent.futures import Future, ProcessPoolExecutor, ThreadPoolExecutor, as_completed
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -170,6 +171,9 @@ _RENDERED: Dict[Tuple, Tuple[object, float]] = {}
 # what a library call does instead of building: "render" (in a render
 # process) returns its body, "key" returns its _LOADED key
 _INSTEAD: Optional[str] = None
+# the niceness of the compilers and render processes a build starts (0: as
+# this process); a caller that builds while it measures raises it
+nice = 0
 
 # what the last build of each kernel did: record_name -> {"compile_seconds":
 # ..., "ops_per_env": float operations of one env's run, cgen.op_count,
@@ -224,7 +228,8 @@ def compile_library(kernel: Kernel, body: str, compiler: Sequence[str],
     unit = d / f"{kernel.name}_unit.cu"
     unit.write_text(unit_text)
     tmp = d / f".{lib_name}.{os.getpid()}.tmp"
-    cmd = [*compiler, *flags, "-I", str(d), "-o", str(tmp), str(unit)]
+    cmd = (["nice", "-n", str(nice)] if nice else []) + [*compiler, *flags, "-I", str(d), "-o",
+                                                         str(tmp), str(unit)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -552,7 +557,7 @@ def fma_chain_ilp_library(fmad: bool) -> ctypes.CDLL:
     (plus ``[--fmad=true]``). The entries ``fma_chain_occupancy`` and
     ``fma_chain_ilp_grid`` report the resident blocks and the grid."""
     lib = _device_library(FMA_CHAIN_ILP, None, None, (), lambda: "", flags=probe_flags(fmad))
-    if lib.fma_chain_ilp_grid.argtypes is None:
+    if _INSTEAD is None and lib.fma_chain_ilp_grid.argtypes is None:  # a library, bound once
         for fn in (lib.fma_chain_occupancy, lib.fma_chain_ilp_grid):
             fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
     return lib
@@ -573,7 +578,7 @@ def add_one_pdl_library() -> ctypes.CDLL:
     stream) and ``add_one_versions`` (toolkit, runtime and CUDA driver) are
     bound beside it."""
     lib = _device_library(ADD_ONE_PDL, None, None, (), lambda: "")
-    if lib.add_one_capture_edges.argtypes is None:
+    if _INSTEAD is None and lib.add_one_capture_edges.argtypes is None:  # a library, bound once
         lib.add_one_pdl_grid.argtypes = [ctypes.c_int] * 2
         lib.add_one_pdl_grid.restype = ctypes.c_int
         lib.add_one_capture_edges.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
@@ -640,7 +645,8 @@ def _render(call):
 
 
 def render_in_processes(*calls: Tuple[Callable, tuple], workers: Optional[int] = None,
-                        then: Optional[Callable[[int], None]] = None) -> None:
+                        then: Optional[Callable[[int], None]] = None,
+                        keys: Optional[list] = None) -> None:
     """Render the bodies of the library calls ``(library function, args)``
     (e.g. ``(wrapped_step_team_library, (s, es, 5, 1000))``) in a pool of
     ``workers`` processes (the host's CPUs by default), so that a parallel
@@ -649,11 +655,15 @@ def render_in_processes(*calls: Tuple[Callable, tuple], workers: Optional[int] =
     records the render's seconds as its ``generate_seconds``. As each body
     lands, ``then(i)`` is called with its call's index. The processes are
     spawned (a forked child of a process that holds a CUDA context may not
-    use it) and each renders the same text as this process would."""
-    keys = [_instead("key", call) for call in calls]  # before any build reads _INSTEAD
+    use it) and each renders the same text as this process would. ``keys``
+    are the calls' build keys when the caller took them already
+    (``start_batch``)."""
+    if keys is None:
+        keys = [_instead("key", call) for call in calls]  # before any build reads _INSTEAD
     ctx = multiprocessing.get_context("spawn")
     n = workers or min(len(calls), os.cpu_count() or 1)
-    with ProcessPoolExecutor(max_workers=n, mp_context=ctx) as pool:
+    niced = dict(initializer=os.nice, initargs=(nice,)) if nice else {}
+    with ProcessPoolExecutor(max_workers=n, mp_context=ctx, **niced) as pool:
         futures = {pool.submit(_render, call): i for i, call in enumerate(calls)}
         for future in as_completed(futures):
             i = futures[future]
@@ -662,7 +672,7 @@ def render_in_processes(*calls: Tuple[Callable, tuple], workers: Optional[int] =
                 then(i)
 
 
-def build_batch(*calls: Tuple[Callable, tuple]) -> list:
+def build_batch(*calls: Tuple[Callable, tuple], keys: Optional[list] = None) -> list:
     """Build the library calls ``(library function, args)`` at once: their
     bodies rendered in a pool of processes (``render_in_processes``), each
     nvcc started in a thread as soon as its body is ready. Returns the
@@ -674,8 +684,24 @@ def build_batch(*calls: Tuple[Callable, tuple]) -> list:
             fn, args = calls[i]
             builds[i] = threads.submit(fn, *args)
 
-        render_in_processes(*calls, then=start)
+        render_in_processes(*calls, then=start, keys=keys)
         return [b.result() for b in builds]
+
+
+def start_batch(*calls: Tuple[Callable, tuple]) -> Future:
+    """``build_batch`` of the calls in a background thread, so the caller
+    goes on (with the card) while they render and compile; the returned
+    future's result is the libraries. The calls' keys are taken here, in
+    the caller's thread: a key lookup sets ``_INSTEAD``, which a library
+    call of the caller's must not meet. The caller looks up none of these
+    libraries before the future is done. With ``nice`` above 0 the render
+    processes and compilers run at that niceness, so a caller measuring on
+    the card keeps its CPU."""
+    keys = [_instead("key", call) for call in calls]
+    pool = ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(build_batch, *calls, keys=keys)
+    pool.shutdown(wait=False)
+    return future
 
 
 def build_in_parallel(*builds: Callable[[], object]) -> list:
@@ -697,16 +723,25 @@ def host_library(kernel: Kernel, body: str, out_root: Path,
 
 # id(library) -> the scratch its team body's indexed arrays live in
 _SCRATCH: Dict[int, torch.Tensor] = {}
+# the scratches a larger one replaced: kept for the process, never freed
+_RETIRED_SCRATCH: list = []
 
 
 def bind_scratch(lib: ctypes.CDLL, kernel: Kernel, B: int, dev: torch.device) -> None:
     """Give a team library whose body keeps indexed arrays in a global
     scratch (a box model's: ``TEAM_SCRATCH_ROWS`` rows per env,
-    ``csrc/team.cuh``) its scratch for ``B`` envs: allocated at the first
-    launch that needs more than the last one had and kept for the process,
-    so launches at one B (a CUDA graph's capture among them) reuse it. A
+    ``csrc/team.cuh``) its scratch for ``B`` envs, before each launch. A
     no-op for a body without arrays (0 rows) and for a shell without a
-    scratch (no ``<kernel>_scratch_rows`` entry)."""
+    scratch (no ``<kernel>_scratch_rows`` entry).
+
+    The rule: a library's scratch is allocated at the first launch that
+    needs more than the one it has (one library serves several B in a
+    process: the physics-only lane's 4096 training envs and 128 evaluation
+    envs), and a scratch once passed to a launch is never freed. A CUDA
+    graph captured at a smaller B keeps the pointer it was launched with;
+    the scratch a larger one replaced stays allocated for the process
+    (``_RETIRED_SCRATCH``), so such a graph still replays into live memory,
+    which no later launch of the library touches."""
     rows_of = getattr(lib, f"{kernel.name}_scratch_rows", None)
     rows = 0 if rows_of is None else rows_of()
     if rows == 0:
@@ -714,6 +749,8 @@ def bind_scratch(lib: ctypes.CDLL, kernel: Kernel, B: int, dev: torch.device) ->
     need = rows * ((B + 31) // 32) * 32
     t = _SCRATCH.get(id(lib))
     if t is None or t.numel() < need or t.device != dev:
+        if t is not None:
+            _RETIRED_SCRATCH.append(t)
         t = _SCRATCH[id(lib)] = torch.empty(need, dtype=torch.float32, device=dev)
         getattr(lib, f"{kernel.name}_set_scratch")(ctypes.c_void_p(t.data_ptr()))
 

@@ -37,8 +37,11 @@ through indexed row arrays (``new_array``, ``array_store``,
 ``array_load``). The rows keep the JAX emission's order, box by box and
 sphere by sphere, so every in-order sum adds the same terms in the same
 order; the table's exact 0 and 1 entries, which JAX folds away, give the
-same values up to the sign of a zero. Capsule pairs wait for the terrain
-item of the ROADMAP's queue 1.
+same values up to the sign of a zero. Every kernel built from this
+emission takes a box model: K1, K2, K3 and K4, one-thread and team (the
+team bodies keep the arrays in a global scratch, ``kernels/team.py``), so
+such a model trains on every lane. Capsule pairs wait for the terrain item
+of the ROADMAP's queue 1.
 """
 
 from __future__ import annotations
@@ -54,20 +57,6 @@ from puppax_torch.model.mjcf import JNT_FREE, JNT_HINGE, MjTables, RobotModel
 
 _MINVAL = 1e-15
 _PAD_DIST = 1e10  # collision._PAD_DIST: a footprint outside the heightfield
-
-# the lanes whose kernels a box model (obstacle terrain) has no build of yet
-_BOX_LANES_LATER = "ROADMAP queue 1, terrain: K1[boxes] and K4[boxes], the next slice"
-
-
-def check_box_lane(s: "_Static", lane: str) -> None:
-    """Raise for a box model on a lane whose kernel (K1, the physics-only
-    lane's, or K4, the fused lane's) is not built for boxes yet; such a
-    model trains on the default lane (K3 and K2). Never a fallback."""
-    if s.boxes is not None:
-        raise NotImplementedError(
-            f"{lane} on a model with boxes (obstacle terrain) is not ported yet "
-            f"({_BOX_LANES_LATER}); the default lane (K3 and K2) runs it")
-
 
 # the largest heightfield grid the emitter takes (puppax/physics/soa.py's
 # bound; here the grid is a table the kernel reads, 4 bytes a cell)
@@ -2183,8 +2172,8 @@ def _physics_step(wrapper, kernel: build.Kernel, library, s: _Static, blocks,
         return physics_step_rows(s, n_substeps, *blocks)
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
-    check_box_lane(s, "K1, the physics-only step")
     lib = library(s, n_substeps)
+    build.bind_scratch(lib, kernel, B, dev)
     outs = build.launch(kernel.name, getattr(lib, kernel.launch), blocks, out_rows, B, dev)
     wrapper.launches += 1
     return outs

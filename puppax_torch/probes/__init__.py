@@ -30,7 +30,8 @@ function (``chip_smoke.py`` drives it) and a command line
   transposes, the transposes alone and the physics-only lane's splice
   (``dev/profile_boundary.py``);
 - ``probe_degradation``: the copy's launch cost after each setup stage, a
-  fresh process each, and around a host sync (``dev/probe_degradation.py``).
+  fresh process each (set up together, timed in turn), and around a host
+  sync (``dev/probe_degradation.py``).
 - ``pallas_soa_probe``: a synthetic SoA substep emitted as one
   straight-line body per env, one thread per env and as a team kernel,
   its nvcc time and throughput against the body's size

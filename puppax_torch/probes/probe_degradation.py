@@ -2,6 +2,7 @@
 
     python -m puppax_torch.probes.probe_degradation            # every stage, one process each
     python -m puppax_torch.probes.probe_degradation --stage N  # one stage in this process
+    python -m puppax_torch.probes.probe_degradation --stage N --wait  # as run() drives it
 
 The H100 counterpart of ``dev/probe_degradation.py`` (``kcall`` :92 /
 ``pallas_call`` :93), which timed a trivial 50-step copy scan after each
@@ -17,8 +18,13 @@ counterpart runs under both numbers (``STAGES``). The probe's own imports
 (torch and the probes' ``common`` module, which imports ``physics.soa``)
 come before every stage.
 
-``run`` drives every stage as a subprocess (``sys.executable -m``, each
-with a timeout) and collects their lines. In its own process it also asks
+``run`` drives every stage as a subprocess (``sys.executable -m ...
+--stage N --wait``, each with a timeout) and collects their lines: the
+processes start together and run their setups at once, each then waits;
+once every one is ready, each in turn times its window while the others
+idle, so the setups share the host's CPUs but no window does (the stages'
+start-up, ~8 s of imports and CUDA context each, overlaps). In its own
+process it also asks
 the question ``ppo.train`` raises by reading its metrics back every epoch:
 the window, then a host sync (``.item()`` of a device tensor), then the
 window again.
@@ -29,8 +35,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import select
 import subprocess
 import sys
+import tempfile
+import time
 from typing import Dict, Sequence
 
 import torch
@@ -100,10 +109,27 @@ def window_us(device, iters: int = common.ITERS, runs: int = common.RUNS):
     return common.carried_us(lambda a, b: common.copy_probe("q", (a,), (b,)), (q,), iters, runs)
 
 
+def _ready(stage: int, proc: subprocess.Popen, err, deadline: float) -> None:
+    """Wait (until ``deadline``) for the stage's process to say that its
+    setup is done; raise with its output if it exits or stays silent."""
+    if select.select([proc.stdout], [], [], max(deadline - time.monotonic(), 0.0))[0]:
+        line = proc.stdout.readline()
+        if line.strip() == "ready":
+            return
+    else:
+        line = "(no line before the timeout)\n"
+    proc.kill()
+    proc.wait()
+    err.seek(0)
+    raise RuntimeError(f"stage {stage} did not finish its setup (exit {proc.returncode}):\n"
+                       + (line + err.read().decode(errors="replace"))[-3000:])
+
+
 def run(stages: Sequence[int] = tuple(STAGES), timeout: float = 180.0) -> Dict[object, dict]:
-    """Every stage in a fresh process (``--stage N``), then, in this
-    process, the window before and after a host sync. Returns stage ->
-    its line (``eager_us``, ``graph_us``), and ``"sync"`` -> the window's
+    """Every stage in a fresh process (``--stage N --wait``: all set up at
+    once, then each times its window in turn while the others wait), then,
+    in this process, the window before and after a host sync. Returns stage
+    -> its line (``eager_us``, ``graph_us``), and ``"sync"`` -> the window's
     (eager, graph) us ``before`` and ``after``; the children's launches are
     added to ``common.launches``."""
     device = torch.device("cuda", 0)
@@ -114,19 +140,34 @@ def run(stages: Sequence[int] = tuple(STAGES), timeout: float = 180.0) -> Dict[o
           f"and from one CUDA graph:", flush=True)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(build.REPO_ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    results = {}
-    for stage in stages:
-        proc = subprocess.run([sys.executable, "-m", MODULE, "--stage", str(stage)],
-                              cwd=build.REPO_ROOT, env=env, capture_output=True, text=True,
-                              timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(f"stage {stage} exited {proc.returncode}:\n"
-                               + (proc.stdout + proc.stderr)[-3000:])
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        common.launches.update(line.pop("launches"))
-        results[stage] = line
-        print(f"stage {stage:2d} ({line['what']}): eager {line['eager_us']:8.2f} us, graph "
-              f"{line['graph_us']:8.2f} us per launch", flush=True)
+    results, procs = {}, {}
+    try:
+        for stage in stages:
+            err = tempfile.TemporaryFile()
+            procs[stage] = err, subprocess.Popen(
+                [sys.executable, "-m", MODULE, "--stage", str(stage), "--wait"],
+                cwd=build.REPO_ROOT, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=err, text=True)
+        deadline = time.monotonic() + timeout
+        for stage, (err, proc) in procs.items():  # every setup done before any window
+            _ready(stage, proc, err, deadline)
+        for stage, (err, proc) in procs.items():
+            out, _ = proc.communicate("go\n", timeout=timeout)
+            if proc.returncode != 0:
+                err.seek(0)
+                raise RuntimeError(f"stage {stage} exited {proc.returncode}:\n"
+                                   + (out + err.read().decode(errors="replace"))[-3000:])
+            line = json.loads(out.strip().splitlines()[-1])
+            common.launches.update(line.pop("launches"))
+            results[stage] = line
+            print(f"stage {stage:2d} ({line['what']}): eager {line['eager_us']:8.2f} us, graph "
+                  f"{line['graph_us']:8.2f} us per launch", flush=True)
+    finally:
+        for err, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
     before = window_us(device)
     torch.ones(1, device=device).sum().item()  # a host sync and a device-to-host read
     after = window_us(device)
@@ -141,11 +182,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stage", type=int, choices=sorted(STAGES),
                     help="run this one stage in this process and print its JSON line")
+    ap.add_argument("--wait", action="store_true",
+                    help="with --stage: after the setup print 'ready' and time the window "
+                         "once a line comes on stdin (run's other stages then idle)")
     args = ap.parse_args(argv)
     common.require_cuda("probe_degradation")
     device = torch.device("cuda", 0)
     if args.stage is not None:
         setup(args.stage, device)
+        if args.wait:
+            print("ready", flush=True)
+            sys.stdin.readline()
         eager, graph = window_us(device)
         print(json.dumps(dict(stage=args.stage, what=STAGES[args.stage], eager_us=eager,
                               graph_us=graph, launches=dict(common.launches))), flush=True)

@@ -17,8 +17,9 @@ substep, bases placed so that spheres penetrate boxes, JAX's DR rows):
   the flat body's 68,082 lines, and the 2-box and the 20-box bodies
   differing only in the table, the loops' trip counts and the arrays'
   sizes;
-* the statics (the box table, the build variants) and the lanes that raise
-  for a box model (the physics-only K1 and the fused K4, the next slice).
+* the statics (the box table, the build variants), and run8 building and
+  stepping on the physics-only lane (K1) and the fused lane (K4), whose
+  parity is ``tests/test_torch_box_lanes.py``'s.
 """
 
 import difflib
@@ -37,7 +38,7 @@ from puppax.configs import get_config
 from puppax.env import PupperV3Env as JaxEnv
 from puppax.env import soa_env as jax_soa_env
 from puppax_torch.configs import experiment as exp
-from puppax_torch.env import soa_env
+from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.env.pupper import PupperV3Env
 from puppax_torch.env.rollout import FastLane
 from puppax_torch.env.wrappers import wrap_for_training
@@ -217,22 +218,45 @@ def test_box_body_size_does_not_grow_with_the_boxes(tmp_path):
     assert cgen.op_count(two) < cgen.op_count(run8) == 1963685
 
 
-def test_box_lanes_raise(boxes, monkeypatch):
-    """The physics-only lane and the fused lane raise for a box model,
-    naming the next slice; they never fall back."""
-    tenv = boxes[0]
+def test_box_lanes_build_and_step_run8(monkeypatch):
+    """run8's env (20 boxes; 1 substep to keep the plain versions short)
+    builds and steps on the physics-only lane (its batched step is K1's, on
+    a box static) and on the fused lane (one T = 1 unroll through
+    ``fused_unroll.unroll``), on the CPU; float32 never reaches the torch
+    ``pipeline_step``."""
+    from dataclasses import replace
+
+    from puppax_torch.physics import pipeline
+    from puppax_torch.train import networks
+
+    cfg = replace(_run8(), environment_timestep=H.PHYSICS_DT)
+    g = torch.Generator().manual_seed(0)
     monkeypatch.setenv("PUPPAX_SOA_ENV", "off")
-    with pytest.raises(NotImplementedError, match=r"K1\[boxes\] and K4\[boxes\]"):
-        PupperV3Env.from_config(_run8(), device="cpu")
+    po = PupperV3Env.from_config(cfg, device="cpu")
     monkeypatch.delenv("PUPPAX_SOA_ENV")
+    assert not po._use_soa_env and po._cv_step.s.boxes.n == 20
+    assert build.model_variant(po._cv_step.s) == "boxes"
+    monkeypatch.setattr(pipeline, "pipeline_step", lambda *a: pytest.fail("pipeline_step"))
+    monkeypatch.setattr(soa_env, "env_step", lambda *a: pytest.fail("K2 lane taken"))
+    wrapped = wrap_for_training(po, H.EPISODE_LENGTH)
+    state = wrapped.reset(2, g, caches=True)
+    before = soa.step_batched.launches
+    state = wrapped.step(state, torch.zeros(2, po.action_size), g)
+    assert soa.step_batched.launches == before  # the plain version on the CPU
+    assert torch.isfinite(state.obs).all() and state.pipeline_state.contact_dist.shape == (2, 192)
+
     monkeypatch.setenv("PUPPAX_FUSED_UNROLL", "on")
-    wrapped = wrap_for_training(tenv, H.EPISODE_LENGTH)
-    state = wrapped.reset(4, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="PUPPAX_FUSED_UNROLL=on"):
-        FastLane(wrapped).unroll(state, (None, None), torch.Generator().manual_seed(1), 2)
-    with pytest.raises(NotImplementedError, match="K1, the physics-only step"):
-        soa.check_box_lane(tenv._s, "K1, the physics-only step")
-    soa.check_box_lane(H.torch_env()._s, "K1")  # no boxes: nothing to raise
+    env = PupperV3Env.from_config(cfg, device="cpu")
+    calls = []
+    unroll = fused_unroll.unroll
+    monkeypatch.setattr(fused_unroll, "unroll", lambda *a: calls.append(a[6].shape[1])
+                        or unroll(*a))
+    monkeypatch.setattr(soa_env, "wrapped_step", lambda *a: pytest.fail("K3 lane taken"))
+    wrapped = wrap_for_training(env, H.EPISODE_LENGTH)
+    policy = networks.make_ppo_networks(env.observation_size, env.action_size, (32, 32),
+                                        (32, 32), device="cpu", generator=g).policy_network
+    final, data = FastLane(wrapped).unroll(wrapped.reset(2, g), (None, policy), g, 1)
+    assert calls == [2] and torch.isfinite(final.obs).all() and data.reward.shape == (1, 2)
 
 
 def test_bodies_rendered_in_processes_are_the_same_text(boxes):

@@ -953,8 +953,9 @@ def test_run9_team_k4_bit_for_bit(run9):
 def run8():
     """run8's env (``dev/run_configs/run8_500m_obstacles.json``: 20 boxes,
     from its committed tables) on the card at 5 substeps, team K3, the
-    one-thread K3 and team K2 (``[boxes]``, the default lane's) built in one
-    parallel batch."""
+    one-thread K3 and team K2 (``[boxes]``, the default lane's), team K1
+    (the physics-only lane's) and team K4 (the fused lane's, episode 1000)
+    built in one parallel batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run on the GPU host with "
                     "`python -m pytest tests/test_torch_cuda.py --noconftest -m cuda`")
@@ -971,29 +972,62 @@ def run8():
     s, es = env._s, env._es
     build.build_in_parallel(lambda: build.wrapped_step_team_library(s, es, 5, 1000),
                             lambda: build.wrapped_step_library(s, es, 5, 1000),
-                            lambda: build.env_step_team_library(s, es, 5))
+                            lambda: build.env_step_team_library(s, es, 5),
+                            lambda: build.physics_step_team_library(s, 5),
+                            lambda: build.fused_unroll_team_library(s, es, 5, 1000))
     return env
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def _run8_blocks(env, B, seed=8):
+    """K3's input blocks of ``B`` random states of run8 on the card, the
+    even envs' bases moved onto the boxes."""
+    s, es = env._s, env._es
+    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
+    rng = np.random.RandomState(seed)
+    blocks = H.wrapped_step_blocks(s, es, env.model, dr, rng, n=B, episode_length=1000)
+    blocks[0] = H.place_over_boxes(env.model, blocks[0].T, rng, range(0, B, 2)).T.copy()
+    assert H.box_contacts(env.model, blocks[0].T).sum() >= B // 4
+    return [b.cuda() for b in H.to_torch(blocks)]
+
+
+def _run8_k1_blocks(env, B, seed=8):
+    """Team K1's (q, v, ctrl, dr) of ``_run8_blocks``: ctrl the action's
+    motor targets."""
+    q, v, act, _, _, dr = _run8_blocks(env, B, seed)[:6]
+    ctrl = (env._es.action_scale * act + env._dev["default_pose"][:, None]).contiguous()
+    return [q, v, ctrl, dr]
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
 def test_run8_team_kernels_bit_for_bit(run8, kernel):
-    """Team K2 and team K3 at run8's terrain on a ragged batch of states,
-    the even envs' bases on the boxes: bit for bit with their plain
-    versions (and team K3 with the one-thread K3), spheres on boxes."""
+    """Team K1, K2, K3 and K4 (T = 2) at run8's terrain on a ragged batch
+    of states, the even envs' bases on the boxes: bit for bit with their
+    plain versions (and team K3 with the one-thread K3), spheres on boxes."""
     from puppax_torch.probes import common
 
     env, B = run8, 300
     s, es = env._s, env._es
-    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
-    rng = np.random.RandomState(8)
-    blocks = H.wrapped_step_blocks(s, es, env.model, dr, rng, n=B, episode_length=1000)
-    blocks[0] = H.place_over_boxes(env.model, blocks[0].T, rng, range(0, B, 2)).T.copy()
-    assert H.box_contacts(env.model, blocks[0].T).sum() >= B // 4
-    blocks = [b.cuda() for b in H.to_torch(blocks)]
-    if kernel == "K2":
+    if kernel == "K1":
+        blocks = _run8_k1_blocks(env, B)
+        got = soa.step_batched(s, *blocks, 5)
+        want = soa.physics_step_rows(s, 5, *blocks)
+    elif kernel == "K4":
+        layers, blocks = H.fused_unroll_inputs(env, B, 2, "elu", 1000)
+        q = H.place_over_boxes(env.model, blocks[0].t().cpu().numpy(), np.random.RandomState(8),
+                               range(0, B, 2))
+        assert H.box_contacts(env.model, q).sum() >= B // 4
+        blocks[0] = torch.from_numpy(q.T.copy()).cuda()
+        before = fused_unroll.unroll.launches
+        got = fused_unroll.unroll(s, es, 5, 1000, "elu", layers, *blocks)
+        want = fused_unroll.unroll_rows(s, es, 5, 1000, "elu", layers, *blocks)
+        assert fused_unroll.unroll.launches == before + 1
+        got, want = [x for x in got if x is not None], [x for x in want if x is not None]
+    elif kernel == "K2":
+        blocks = _run8_blocks(env, B)
         got = soa_env.env_step(s, es, 5, *blocks[:6])
         want = soa_env.env_step_rows(s, es, 5, *blocks[:6])
     else:
+        blocks = _run8_blocks(env, B)
         got = soa_env.wrapped_step(s, es, 5, 1000, *blocks)
         one = soa_env.wrapped_step_one_thread(s, es, 5, 1000, *blocks)
         want = soa_env.wrapped_step_rows(s, es, 5, 1000, *blocks)
@@ -1002,3 +1036,37 @@ def test_run8_team_kernels_bit_for_bit(run8, kernel):
     torch.cuda.synchronize()
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g, w), f"team {kernel}[boxes] vs plain: output {i} differs"
+
+
+def test_run8_team_k1_scratch_across_batch_sizes(run8):
+    """One team K1[boxes] library at 128, then 4096, then 128 envs (the
+    physics-only lane's evaluator and trainer in one process): every launch
+    bit for bit with the plain version, and a CUDA graph captured at 128
+    before the 4096 launch (which binds a larger scratch) still replays
+    right after it (``build.bind_scratch`` frees no scratch a capture may
+    hold)."""
+    env = run8
+    s = env._s
+    small = _run8_k1_blocks(env, 128, seed=9)
+    big = [x.repeat(1, 32) for x in small]  # 4096 envs: the 128 states 32 times
+    want_small = soa.physics_step_rows(s, 5, *small)
+    want_big = soa.physics_step_rows(s, 5, *big)
+    got = soa.step_batched(s, *small, 5)  # binds the scratch for 128 envs
+    assert all(torch.equal(g, w) for g, w in zip(got, want_small)), "team K1[boxes] at 128"
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = soa.step_batched(s, *small, 5)
+    torch.cuda.synchronize()
+    got = soa.step_batched(s, *big, 5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want_big)), "team K1[boxes] at 4096"
+    for out in captured:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(captured, want_small)), "the graph at 128"
+    got = soa.step_batched(s, *small, 5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want_small)), "team K1[boxes] at 128"

@@ -200,8 +200,8 @@ def test_unported_terrain_and_action_repeat_raise(monkeypatch):
     """A terrain builds from its committed tables (run8's boxes,
     ``test_torch_obstacles.py``; run9's heightfield,
     ``test_torch_terrain.py``) and raises without them, naming the command
-    that writes them; the physics-only lane, whose K1 is not built for boxes
-    yet, raises for a box model, naming the ROADMAP item; ``action_repeat``,
+    that writes them; the physics-only lane builds run8 (K1 on a box static,
+    ``test_torch_box_lanes.py``); ``action_repeat``,
     ported since, keeps training on the standard lane with JAX's reason
     (``test_torch_extras.py``)."""
     from puppax_torch.env.rollout import support_reason
@@ -211,8 +211,8 @@ def test_unported_terrain_and_action_repeat_raise(monkeypatch):
     assert len(PupperV3Env.from_config(EnvConfig(n_obstacles=20), device="cpu")
                .model.pairs_sphere_box) == 160
     monkeypatch.setenv("PUPPAX_SOA_ENV", "off")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PupperV3Env.from_config(EnvConfig(n_obstacles=20), device="cpu")
+    po = PupperV3Env.from_config(EnvConfig(n_obstacles=20), device="cpu")
+    assert not po._use_soa_env and po._cv_step.s.boxes.n == 20
     monkeypatch.delenv("PUPPAX_SOA_ENV")
     env = PupperV3Env.from_config(EnvConfig(heightfield=True), device="cpu")
     assert env.model.pairs_hfield_sphere

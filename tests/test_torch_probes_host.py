@@ -16,7 +16,9 @@
   the splice) bit for bit, transpose-only as its inputs times 1.0000001,
   the splice's q and v against JAX's XLA ``pipeline_step`` at qpos 5e-5 /
   scaled qvel 5e-4, as ``tests/test_torch_physics_step.py`` holds K1.
-- Every degradation stage's setup on the CPU (nothing is timed here), the
+- Every degradation stage's setup on the CPU (nothing is timed here),
+  ``probe_degradation.run``'s orchestration with stand-in stages (every
+  setup before the first window, the windows in stage order), the
   scan probe's comparison of output nests, the wrappers' checks and the
   four command lines without a card.
 """
@@ -222,6 +224,59 @@ def test_degradation_stage_setup_runs_on_cpu(stage):
 def test_degradation_refuses_an_unknown_stage():
     with pytest.raises(ValueError, match="stage 12"):
         probe_degradation.setup(12, "cpu")
+
+
+_FAKE_STAGE = """
+import json, sys, time
+stage = int(sys.argv[sys.argv.index("--stage") + 1])
+assert "--wait" in sys.argv
+time.sleep(0.05 * (12 - stage))  # the late stages ready first
+if stage == FAIL:
+    sys.exit("no setup")
+with open(LOG, "a") as f:
+    f.write(f"ready {stage}\\n")
+print("ready", flush=True)
+sys.stdin.readline()
+with open(LOG, "a") as f:
+    f.write(f"window {stage}\\n")
+print(json.dumps(dict(stage=stage, what="", eager_us=stage, graph_us=0.5,
+                      launches={"copy_q": 150})), flush=True)
+"""
+
+
+@pytest.mark.parametrize("fail", [None, 5])
+def test_degradation_sets_up_every_stage_before_any_window(tmp_path, monkeypatch, fail):
+    """``probe_degradation.run``'s orchestration, its stages a stand-in
+    module (the card's part stubbed): every stage's setup is done before
+    the first window, the windows run in stage order, the lines and
+    launches are collected; a stage that exits during its setup fails the
+    run before any window."""
+    from types import SimpleNamespace
+
+    log = tmp_path / "log.txt"
+    (tmp_path / "fake_stage.py").write_text(
+        _FAKE_STAGE.replace("FAIL", repr(fail)).replace("LOG", repr(str(log))))
+    monkeypatch.setenv("PYTHONPATH", str(tmp_path))
+    monkeypatch.setattr(probe_degradation, "MODULE", "fake_stage")
+    monkeypatch.setattr(probe_degradation.build, "probe_copy_library", lambda: None)
+    monkeypatch.setattr(probe_degradation.common, "nvidia_smi", lambda: "")
+    monkeypatch.setattr(probe_degradation, "window_us", lambda device: (1.0, 0.5))
+    monkeypatch.setattr(probe_degradation, "torch", SimpleNamespace(
+        device=lambda *a: "cpu", ones=lambda *a, **k: torch.ones(1)))
+    monkeypatch.setattr(common, "launches", type(common.launches)())
+    stages = sorted(probe_degradation.STAGES)
+    if fail is not None:
+        with pytest.raises(RuntimeError, match="stage 5 did not finish its setup"):
+            probe_degradation.run(timeout=60)
+        assert "window" not in log.read_text()
+        return
+    results = probe_degradation.run(timeout=60)
+    lines = log.read_text().split()
+    events = list(zip(lines[::2], map(int, lines[1::2])))
+    assert sorted(s for what, s in events[:12] if what == "ready") == stages
+    assert [s for what, s in events[12:]] == stages and all(w == "window" for w, _ in events[12:])
+    assert [results[s]["eager_us"] for s in stages] == stages and "sync" in results
+    assert common.launches["copy_q"] == 150 * len(stages)
 
 
 def test_output_nests_compare_bit_for_bit():
