@@ -10,27 +10,30 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the builds of the twenty-six kernels from the checkout's sources, in
+2. the builds of the thirty kernels from the checkout's sources, in
    parallel nvcc processes, their bodies rendered in a pool of processes,
    each nvcc started as its body lands (``build.build_batch``): first the
    wrapped env step (K3), the unwrapped env step (K2), the physics-only
    step (K1) and the fused unroll (K4) as team kernels (32 envs per
    block, each env's program split across the block's warps,
    ``kernels/team.py``; team K4 also splits its MLP) and as one-thread
-   kernels (one env per thread, the A/B baseline), and the
-   bodies of run12's env (``dev/run_configs/run12_2b_cse.json``: history
-   4, the privileged rows, the gait clock): team K3, K3, team K2 (history
-   4 only), team K4 and K4; then, in the background
-   (``build.start_batch``, compilers and render processes at niceness 19)
-   while phases 3-13 use the card, the eight bodies of run9's heightfield
+   kernels (one env per thread, the A/B baseline); then, in the
+   background (``build.start_batch``, compilers and render processes at
+   niceness 19) while the phases use the card, one batch after another,
+   each awaited before the first phase that needs it: the bodies of
+   run12's env (``dev/run_configs/run12_2b_cse.json``: history 4, the
+   privileged rows, the gait clock): team K3, K3, team K2 (history 4
+   only), team K4 and K4 (phase 13); the eight bodies of run9's heightfield
    terrain (``dev/run_configs/run9_500m_hfield.json``: the hfield-sphere
    pairs, the grid a table the bodies read): team K1, K2, K3, K4 and their
-   one-thread kernels (``[hfield]``), the five bodies of run8's obstacle
-   terrain (``dev/run_configs/run8_500m_obstacles.json``: 20 boxes, the
-   sphere-box pairs as loops over a table of the boxes): team K3, K3, team
-   K2, team K1 and team K4 (``[boxes]``; the one-thread K1[boxes] and
-   K4[boxes] are built with g++ by the CPU tests only), and the probes' 30
-   libraries (phase 16), awaited before phase 14. Each build prints its
+   one-thread kernels (``[hfield]``), and the five bodies of run8's
+   obstacle terrain (``dev/run_configs/run8_500m_obstacles.json``: 20
+   boxes, the sphere-box pairs as loops over a table of the boxes): team
+   K3, K3, team K2, team K1 and team K4 (``[boxes]``; the one-thread
+   K1[boxes] and K4[boxes] are built with g++ by the CPU tests only)
+   (phase 14); the capsule model's team K3, K2, K1 and K4 (``[capsule]``;
+   its one-thread bodies are built with g++ by the CPU tests only) (phase
+   16); the probes' 30 libraries (phase 17). Each build prints its
    generated lines, nvcc seconds and ptxas summary (the team kernels with
    their warps, barriers, shared memory, global scratch and heaviest
    stream). The host-bound numbers of phases 3-13 (the plain versions'
@@ -50,13 +53,13 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    version timed on its check's run at 4096 envs (each plain version below
    is timed once, on the run its check compares with);
 4. K4 against its plain version: from the K3 check's 4096 DR'd states,
-   T=4 steps through ``fused_unroll.unroll`` (team K4),
+   T=2 steps (``T_PLAIN``) through ``fused_unroll.unroll`` (team K4),
    ``fused_unroll.unroll_one_thread`` (the one-thread K4) and
    ``fused_unroll.unroll_rows``, every step's outputs and the final carry
    held env by env (and counted bit for bit), the two kernels bit for bit
    with each other; the same with the gait clock on at 128 envs; both
-   timed per T=4 unroll on the check's inputs (where the plain version was
-   timed: the kernels line) and per T=20 unroll at 4096 envs, in turns
+   timed per T=4 unroll (the kernels line's unit) and per T=20 unroll at
+   4096 envs from the check's states, in turns
    (one-thread, team, team, one-thread), the A/B printed;
 5. K1 against its plain version on the same 4096 DR'd states (feet on the
    floor) under the policy's motor targets: ``soa.step_batched`` (team K1)
@@ -117,20 +120,21 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``export_and_replay`` for what fails the run);
 11. the physics-only lane: the same ``ppo.train`` with
    ``PUPPAX_SOA_ENV=off`` (the fast lane off, training and evaluation
-   through the standard lane's env layer around K1): 2120 K1 launches, 0
-   K2, K3 and K4, the same checks;
+   through the standard lane's env layer around K1) and 1 evaluation
+   (after the training): 1120 K1 launches, 0 K2, K3 and K4, the same
+   checks;
 12. the fused-unroll lane: the same ``ppo.train`` with
-   ``PUPPAX_FUSED_UNROLL=on``: the lane line reads ``fused-unroll=ON``, 6
-   team K4 launches (3 training steps x 2 unrolls), 0 K3, 2000 K2, 0 K1,
-   0 one-thread K4, the same checks;
+   ``PUPPAX_FUSED_UNROLL=on`` and 1 evaluation: the lane line reads
+   ``fused-unroll=ON``, 6 team K4 launches (3 training steps x 2
+   unrolls), 0 K3, 1000 K2, 0 K1, 0 one-thread K4, the same checks;
 13. run12: its team K3 and one-thread K3 against the plain version at
    4096 and 128 DR'd envs after a few steps (every third env at the
    episode limit, so the privileged rows restore from the ``first``
-   block), its team K4 and one-thread K4 over T=4 steps at 4096 envs, each
+   block), its team K4 and one-thread K4 over T=2 steps at 4096 envs, each
    team kernel bit for bit with its one-thread kernel, its team K2 at
    history 4 against the plain version at 128 envs, and their times in
-   turns (K4 per T=4 unroll on the check's inputs, where the plain version
-   was timed, and per T=20 unroll); then ``python -m puppax_torch.scripts.train --config
+   turns (K4 per T=4 and per T=20 unroll);
+   then ``python -m puppax_torch.scripts.train --config
    dev/run_configs/run12_2b_cse.json`` (4096 envs, the privileged critic,
    ``value_precision`` "high", the cosine lr, the linear entropy schedule)
    for 3 training steps and 2 evaluations on the K3 lane, and 3 training
@@ -143,7 +147,7 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    tables after ``RUN9_WARM_STEPS`` kernel steps, every eighth moved past
    the grid's edge; the envs with an active hfield-sphere contact on a
    nonzero, sloped cell counted (at least ``MIN_HFIELD_ENVS``); team K1,
-   team K3 and team K4 (T=4) at 4096 envs and team K2 at 128 against their
+   team K3 and team K4 (T=2) at 4096 envs and team K2 at 128 against their
    one-thread kernels and their plain versions, bit for bit (0 envs
    outside, max abs err 0.0), and timed in turns; then ``python -m
    puppax_torch.scripts.train --config dev/run_configs/run9_500m_hfield.json``
@@ -161,22 +165,39 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    policy's motor targets at 4096 envs against ``physics_step_rows`` and at
    128 against that run's first 128 envs (each env's rows are its own),
    the envs with an active sphere-box row in its caches counted; team
-   K4[boxes] over T=2 steps at 4096 envs against ``unroll_rows`` (the
-   carry's ping-pong and the box scratch's reuse across steps), at most
+   K4[boxes] over ``RUN8_K4_PLAIN_T`` = 1 step at 4096 envs against
+   ``unroll_rows`` (the box scratch's reuse across steps is held by the
+   CPU tests' g++ builds), at most
    ``MAX_DIFFERING_ENVS`` envs outside tolerance each; team K1[boxes]
    timed at 4096 and 128 envs and team K4[boxes] per T=4 unroll; then
    ``python -m puppax_torch.scripts.train --config
    dev/run_configs/run8_500m_obstacles.json`` for 3 training steps on each
-   lane: the default (K3) lane with 1 evaluation, and with 2 the
-   physics-only lane
-   (``PUPPAX_SOA_ENV=off``: 2120 team K1[boxes] launches) and the
-   fused-unroll lane (``PUPPAX_FUSED_UNROLL=on``: 6 team K4[boxes] and 2000
+   lane with 1 evaluation: the default (K3) lane, the physics-only lane
+   (``PUPPAX_SOA_ENV=off``: 1120 team K1[boxes] launches) and the
+   fused-unroll lane (``PUPPAX_FUSED_UNROLL=on``: 6 team K4[boxes] and 1000
    team K2[boxes]), each run's launches counted by body (a launch through
    another body fails the run), its ``training/sps``, phase times and
    evaluation seconds;
-16. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
-   4096 DR'd states: their 30 libraries, built in the background batch
-   started after phase 2 (K1's
+16. the capsule-legged Pupper (the bundled model's foot spheres as
+   capsules, ``bench.py``'s ``capsule`` variant, written to a temporary
+   file from ``model/assets.py``'s tree and read through ``env.path`` and
+   its committed tables): 4096 DR'd envs after ``CAPSULE_WARM_STEPS``
+   kernel steps; team K3[capsule] at 4096 envs, team K2[capsule] at 128,
+   team K1[capsule] at 4096 and 128 and team K4[capsule] over T=4 steps at
+   4096 against their plain versions (at most ``MAX_DIFFERING_ENVS`` envs
+   outside tolerance; K2 none); the envs with an active plane-capsule,
+   sphere-capsule and capsule-capsule row in team K1's caches counted (the
+   run fails on no active plane-capsule row); team K1[capsule] against the
+   torch ``pipeline_step`` under phase 6's rule (the envs outside the MJX
+   caps counted at every substep: the pipeline runs one substep at a
+   time); each body timed; then ``python -m
+   puppax_torch.scripts.train --set env.path=<file>`` (the default
+   TrainConfig) for 3 training steps and 1 evaluation on each lane, its
+   launches counted by body (team K3[capsule] + K2[capsule]; 1120 team
+   K1[capsule]; 6 team K4[capsule] + 1000 K2[capsule]);
+17. the kernel-time probes (``puppax_torch/probes``) on the K1 check's
+   4096 DR'd states: their 30 libraries, built in the last background
+   batch (K1's
    program cut after each phase, with the sink row that keeps the cut pass
    live, and whole, in two designs: team K1's, split across 4 warps in
    ``csrc/probe_physics_team.cuh``, and one thread per env in
@@ -235,7 +256,7 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    plain version (bit for bit; the ``--fmad=true`` builds as above), and
    every probe kernel must have launched in
    this phase;
-17. a JSON line of the kernels (launches in their training run or probe
+18. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
    team K3, team K2, team K1 and team K4 beside the one-thread K3, K2, K1
    and K4, whose launches on the main path are 0; run12's bodies as
@@ -248,10 +269,13 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    ``physics_step_team[run8]``, launched in its physics-only run, and
    ``fused_unroll_team[run8]``, launched in its fused-unroll run (these
    two with ptxas's registers and spills, the shared and scratch bytes,
-   the barriers and the nvcc seconds); each K4 entry's
-   ``unroll_T`` the steps of the unroll its times and bound are per) and,
-   last,
-   the device JSON line.
+   the barriers and the nvcc seconds); the capsule model's four team bodies
+   as ``wrapped_step_team[capsule]``, ``env_step_team[capsule]``,
+   ``physics_step_team[capsule]`` and ``fused_unroll_team[capsule]``, each
+   launched in its lane's CLI run, with the same build numbers; each K4
+   entry's ``unroll_T`` the steps of the unroll its times and bound are
+   per, ``plain_unroll_T`` those of its plain version's time), the first
+   batch's seconds beside the total and, last, the device JSON line.
 
 Each phase prints its wall seconds. Any failed check raises, so the script
 exits non-zero; it also exits non-zero, printing no result, when no CUDA
@@ -278,7 +302,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 T_UNROLL = 20
 N_UNROLLS = 3
 WARM_STEPS = 5  # kernel steps from reset before each kernel/plain check
-T_CHECK = 4  # steps of the K4-vs-plain check
+T_CHECK = 4  # steps of the unroll every K4 entry's time and bound are per
+T_PLAIN = 2  # steps of the K4-vs-plain checks (the plain version's cost is per step)
 MAX_DIFFERING_ENVS = 4  # of 4096 (K3, K1, K4)
 # the line-search trips of the converged emission that explains K1 vs the
 # torch pipeline (the kernel's own are soa.LS_EXPAND_ITERS / LS_ILLINOIS_ITERS)
@@ -297,6 +322,8 @@ MIN_HFIELD_ENVS = 1000  # of 4096 with an active contact on a nonzero, sloped ce
 RUN8_CONFIG = os.path.join("dev", "run_configs", "run8_500m_obstacles.json")
 RUN8_WARM_STEPS = 5  # kernel steps from reset before its checks
 MIN_BOX_ENVS = 64  # of 4096 with an active sphere-box row
+CAPSULE_WARM_STEPS = 5  # kernel steps from reset before the capsule model's checks
+RUN8_K4_PLAIN_T = 1  # steps of team K4[boxes]'s check (its plain version: ~20 s a step)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -305,6 +332,30 @@ PEAK_BYTES_PER_S = 3.35e12
 def fail(msg: str):
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def capsule_xml_file() -> str:
+    """The capsule-legged Pupper's MJCF written to a temporary file: the
+    bundled model (``puppax_torch/model/assets.py``) with its 4 foot spheres
+    as capsules of radius 0.015 and half-length 0.02 (``bench.py``'s
+    ``capsule`` variant). The port reads its committed tables through
+    ``env.path``, keyed by this content."""
+    import xml.etree.ElementTree as ET
+
+    from puppax_torch.model import assets
+
+    tree = assets.pupper_xml_tree()
+    feet = [geom for geom in tree.getroot().iter("geom")
+            if geom.get("type") == "sphere" and geom.get("size") == "0.01995"]
+    if len(feet) != 4:
+        raise AssertionError(f"{len(feet)} foot spheres in the bundled model, expected 4")
+    for geom in feet:
+        geom.set("type", "capsule")
+        geom.set("size", "0.015 0.02")
+    path = os.path.join(tempfile.mkdtemp(prefix="puppax_torch_capsule_"), "pupper_capsule.xml")
+    with open(path, "w") as f:
+        f.write(ET.tostring(tree.getroot(), encoding="unicode"))
+    return path
 
 
 def place_over_boxes(s, model_t, q, envs, g, rounds: int = 64):
@@ -848,6 +899,22 @@ def main():
         "team K1[boxes]": build.record_name(build.PHYSICS_STEP_TEAM, bx),
         "team K4[boxes]": build.record_name(build.FUSED_UNROLL_TEAM, bx),
     }
+    # the capsule-legged Pupper (the bundled model's foot spheres as
+    # capsules, bench.py's capsule variant) from a file, through env.path
+    # and its committed tables, with the default DR
+    caps_path = capsule_xml_file()
+    env_c = PupperV3Env.from_config(replace(env_cfg, path=caps_path), device=device)
+    wrapped_c = wrap_for_training(env_c, L, randomization_fn=randomization_fn, generator=g,
+                                  num_envs=B)
+    lane_c = FastLane(wrapped_c)
+    sc, esc = env_c._s, env_c._es
+    cv = build.model_variant(sc)
+    recc = {  # the capsule model's team bodies' build records
+        "K3": build.record_name(build.WRAPPED_STEP_TEAM, cv),
+        "K2": build.record_name(build.ENV_STEP_TEAM, cv),
+        "K1": build.record_name(build.PHYSICS_STEP_TEAM, cv),
+        "K4": build.record_name(build.FUSED_UNROLL_TEAM, cv),
+    }
     s1 = env_po._cv_step.s  # K1's static digest (the physics-only env's step)
     print(f"config: envs {B}, substeps {n_sub}, episode {L}, unroll {T_UNROLL}, "
           f"obs {env.observation_size}, policy {tc.policy_hidden_layer_sizes}, "
@@ -876,11 +943,9 @@ def main():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print("  ptxas:" + line.split(":", 1)[-1].rstrip())
 
-    # ---- build the default's and run12's thirteen kernels: their bodies
-    # rendered in a pool of processes, one nvcc process per kernel as its
-    # body lands (run9's and run8's thirteen build behind the checks) ----
-    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4, and run12's "
-               "team K3 + K3 + team K2 + team K4 + K4"):
+    # ---- build the default's eight kernels: their bodies rendered in a
+    # pool of processes, one nvcc process per kernel as its body lands ----
+    with Phase("build team K3 + team K2 + team K1 + team K4 + K3 + K2 + K1 + K4"):
         batch = [(build.wrapped_step_team_library, (s, es, n_sub, L)),
                  (build.env_step_team_library, (s, es, n_sub)),
                  (build.physics_step_team_library, (s1, n_sub)),
@@ -888,25 +953,26 @@ def main():
                  (build.wrapped_step_library, (s, es, n_sub, L)),
                  (build.env_step_library, (s, es, n_sub)),
                  (build.physics_step_library, (s1, n_sub)),
-                 (build.fused_unroll_library, (s, es, n_sub, L)),
-                 (build.wrapped_step_team_library, (s12, es12, n_sub, L)),
-                 (build.wrapped_step_library, (s12, es12, n_sub, L)),
-                 (build.env_step_team_library, (s12, es12, n_sub)),
-                 (build.fused_unroll_team_library, (s12, es12, n_sub, L)),
-                 (build.fused_unroll_library, (s12, es12, n_sub, L))]
+                 (build.fused_unroll_library, (s, es, n_sub, L))]
+        t_batch = time.perf_counter()
         build.build_batch(*batch)
+        first_batch_s = time.perf_counter() - t_batch
         print(f"{len(batch)} bodies rendered in a pool of {min(len(batch), os.cpu_count())} "
               f"processes, each nvcc started as its body landed", flush=True)
         for kname, label in (("wrapped_step_team", "team K3"), ("env_step_team", "team K2"),
                              ("physics_step_team", "team K1"), ("fused_unroll_team", "team K4"),
                              ("wrapped_step", "K3"), ("env_step", "K2"), ("physics_step", "K1"),
-                             ("fused_unroll", "K4"), *((v, k) for k, v in rec12.items())):
+                             ("fused_unroll", "K4")):
             print_build(kname, label)
 
-    # ---- run9's and run8's thirteen kernels and the probes' 30 libraries,
-    # built behind the default's and run12's phases below (their host-bound
-    # times run beside the builds): render processes and compilers niced,
-    # so those phases keep their CPU; awaited before run9's phases ----
+    # ---- the other kernels, built in the background behind the phases
+    # below (their host-bound times run beside the builds), render
+    # processes and compilers niced so those phases keep their CPU; one
+    # batch after another, each awaited before the first phase that needs
+    # it: run12's five bodies (run12's phases), run9's and run8's thirteen
+    # (run9's; a batch lasts at least its slowest nvcc, ~200 s for a box
+    # body, so the two terrains share one), the capsule model's four (its
+    # phases), the probes' 30 libraries (the probes) ----
     from puppax_torch.probes import probe_degradation, probe_fma_fusion, probe_launch_overhead
     from puppax_torch.probes import profile_boundary, profile_kernel_phases, profile_layout
     from puppax_torch.probes import profile_overhead, profile_scan
@@ -915,7 +981,13 @@ def main():
 
     copy_names = ("copy_q", "copy_min", "copy_full", "copy_full_one_block")
     build.nice = 19
-    background = build.start_batch(
+    background12 = build.start_batch(
+        (build.wrapped_step_team_library, (s12, es12, n_sub, L)),
+        (build.wrapped_step_library, (s12, es12, n_sub, L)),
+        (build.env_step_team_library, (s12, es12, n_sub)),
+        (build.fused_unroll_team_library, (s12, es12, n_sub, L)),
+        (build.fused_unroll_library, (s12, es12, n_sub, L)))
+    background98 = build.start_batch(
         (build.physics_step_team_library, (s9, n_sub)),
         (build.physics_step_library, (s9, n_sub)),
         (build.env_step_team_library, (s9, es9, n_sub)),
@@ -929,6 +1001,14 @@ def main():
         (build.env_step_team_library, (s8, es8, n_sub)),
         (build.physics_step_team_library, (s8, n_sub)),
         (build.fused_unroll_team_library, (s8, es8, n_sub, L)),
+        after=background12)
+    background_c = build.start_batch(
+        (build.wrapped_step_team_library, (sc, esc, n_sub, L)),
+        (build.env_step_team_library, (sc, esc, n_sub)),
+        (build.physics_step_team_library, (sc, n_sub)),
+        (build.fused_unroll_team_library, (sc, esc, n_sub, L)),
+        after=background98)
+    background_probes = build.start_batch(
         *[(build.probe_physics_library, (s1, n_sub, cut)) for cut in soa.PHASES],
         *[(build.probe_physics_team_library, (s1, n_sub, cut)) for cut in soa.PHASES],
         (build.probe_physics_library, (s1, n_sub, None, True)),
@@ -938,9 +1018,10 @@ def main():
         (build.add_one_library, ()), (build.add_one_pdl_library, ()),
         (build.probe_copy_library, ()), (soa_probe.library, ()),
         (soa_probe.library, (soa_probe.ROUNDS, True)), (build.probe_spd_library, ()),
-        (build.probe_spd_warp_library, ()), (profile_overhead.fk_team_library, (s1, n_sub)))
-    print("run9's and run8's 13 bodies and the 30 probe libraries started in the background "
-          "(niceness 19)", flush=True)
+        (build.probe_spd_warp_library, ()), (profile_overhead.fk_team_library, (s1, n_sub)),
+        after=background_c)
+    print("in the background (niceness 19), one batch after another: run12's 5 bodies, "
+          "run9's and run8's 13, the capsule model's 4, the probes' 30 libraries", flush=True)
 
     # ---- team K3 and the one-thread K3 against plain at 4096, 128 and 130 envs ----
     def k3_check(name, s_, es_, blocks_, limit, warm=WARM_STEPS, times=None, wider=None):
@@ -1085,9 +1166,9 @@ def main():
         return err, one_err, plain_ms, want
 
     with Phase("K4 vs plain"):
-        k4_in = k4_blocks(lane, carry, B, T_CHECK)
+        k4_check_in = k4_blocks(lane, carry, B, T_PLAIN)
         k4_err, k4_one_err, k4_plain_ms, want = k4_check(
-            f"at {B} envs x T={T_CHECK} from the K3 check's states", s, es, layers, k4_in,
+            f"at {B} envs x T={T_PLAIN} from the K3 check's states", s, es, layers, k4_check_in,
             MAX_DIFFERING_ENVS)
         done_steps = int((want[9][:, aux_rows["done"][0]] > 0.5).sum())
         print(f"  ({done_steps} env-steps ending an episode)", flush=True)
@@ -1100,7 +1181,7 @@ def main():
         gait_wrapped = wrap_for_training(env_gait, L)
         gstate = gait_wrapped.reset(EVAL_ENVS, g)
         gsteps = torch.zeros(EVAL_ENVS, device=device)
-        gsteps[::3] = L - T_CHECK
+        gsteps[::3] = L - T_PLAIN
         gstate = gstate.replace(info=dict(
             gstate.info, steps=gsteps, gait_phase=torch.linspace(0.5, 6.27, EVAL_ENVS,
                                                                  device=device)))
@@ -1110,9 +1191,9 @@ def main():
             tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
         )
         gait_layers = fused_unroll.fold_normalizer(None, gait_nets.policy_network)
-        g_in = k4_blocks(gait_lane, gait_lane.carry_from_state(gstate), EVAL_ENVS, T_CHECK)
+        g_in = k4_blocks(gait_lane, gait_lane.carry_from_state(gstate), EVAL_ENVS, T_PLAIN)
         k4_gait_err, k4_one_gait_err, _, want = k4_check(
-            f"with the gait clock at {EVAL_ENVS} envs x T={T_CHECK}", env_gait._s, env_gait._es,
+            f"with the gait clock at {EVAL_ENVS} envs x T={T_PLAIN}", env_gait._s, env_gait._es,
             gait_layers, g_in, 0)
         restarts = int((want[4] == 0).sum())
         print(f"  ({restarts} clocks restarted)", flush=True)
@@ -1120,9 +1201,9 @@ def main():
             raise AssertionError("no clock restarted: the done restore went unchecked")
         k4_err, k4_one_err = max(k4_err, k4_gait_err), max(k4_one_err, k4_one_gait_err)
 
-        # both K4s per T=4 unroll on the check's inputs (where the plain
-        # version was timed: the kernels line) and per T=20 unroll at 4096
-        # envs, in turns
+        # both K4s per T=4 unroll (the kernels line's unit) and per T=20
+        # unroll at 4096 envs from the check's states, in turns
+        k4_in = k4_blocks(lane, carry, B, T_CHECK)
         k4_in_long = k4_blocks(lane, carry, B, T_UNROLL)
 
         def k4_unroll(ins):
@@ -1139,7 +1220,8 @@ def main():
         k4_long_ms = [cuda_ms(k4_unroll(k4_in_long), 3), cuda_ms(k4_unroll(k4_in_long), 3)]
         k4_long_one_ms.append(cuda_ms(k4_one_unroll(k4_in_long), 3))
         for T, team_ms, one_ms, plain in ((T_CHECK, k4_ms, k4_one_ms,
-                                           f"; plain {k4_plain_ms:.1f} ms"),
+                                           f"; plain {k4_plain_ms:.1f} ms per T={T_PLAIN} "
+                                           f"unroll"),
                                           (T_UNROLL, k4_long_ms, k4_long_one_ms, "")):
             print(f"team K4 per T={T} unroll at {B} envs: {statistics.median(team_ms):.4f} ms "
                   f"(runs {team_ms}), {statistics.median(team_ms) / T:.4f} ms per step; "
@@ -1431,9 +1513,10 @@ def main():
     n_train = math.ceil(TRAIN_TIMESTEPS / steps_per_train)
     unroll_steps = n_train * (tc.batch_size * tc.num_minibatches // B) * tc.unroll_length
 
-    def train_and_check(environment, label, want, lane_line):
+    def train_and_check(environment, label, want, lane_line, n_evals=2):
         """One ppo.train run at the default configuration (3 training steps,
-        2 evaluations); its kernel launches (team K3, K2, K1 and K4) against
+        ``n_evals`` evaluations: 2, before and after the training, or 1,
+        after it); its kernel launches (team K3, K2, K1 and K4) against
         ``want`` and the one-thread K3's, K2's, K1's and K4's against none, its
         lane line against ``lane_line``, and the checks of the run. Returns
         the launches, the one-thread kernels' launches and the trained
@@ -1466,7 +1549,7 @@ def main():
                 num_updates_per_batch=tc.num_updates_per_batch,
                 reward_scaling=tc.reward_scaling, clipping_epsilon=tc.clipping_epsilon,
                 gae_lambda=tc.gae_lambda, normalize_observations=tc.normalize_observations,
-                seed=args.seed, num_evals=2, network_factory=network_factory,
+                seed=args.seed, num_evals=n_evals, network_factory=network_factory,
                 randomization_fn=randomization_fn,
                 progress_fn=lambda step, m: progress.append((step, dict(m))),
                 device=device, checkpoint_dir=ckpt_dir,
@@ -1509,7 +1592,7 @@ def main():
         if len(losses) != 4 or not all(math.isfinite(v) for v in losses.values()):
             raise AssertionError(f"loss metrics {losses}")
         evals = [(step, mm) for step, mm in progress if "eval/episode_reward" in mm]
-        if [step for step, _ in evals] != [0, TRAIN_TIMESTEPS]:
+        if [step for step, _ in evals] != [0, TRAIN_TIMESTEPS][2 - n_evals:]:
             raise AssertionError(f"evaluations at {[step for step, _ in evals]}")
         for _, mm in evals:
             bad = [k for k, v in mm.items() if k.startswith("eval/") and not math.isfinite(v)]
@@ -1552,27 +1635,35 @@ def main():
             export_and_replay(label, norm_, nets_, export_obs, env_gait if gait else env,
                               env_cfg, tc, device, gait)
 
-    # ---- the physics-only lane: ppo.train under PUPPAX_SOA_ENV=off ----
+    # ---- the physics-only lane: ppo.train under PUPPAX_SOA_ENV=off, one
+    # evaluation (after the training) ----
     with Phase("ppo.train, physics-only lane"):
         os.environ["PUPPAX_SOA_ENV"] = "off"
         try:
             (_, _, k1_launches, _), (_, _, k1_one_launches, _), _ = train_and_check(
-                env_po, "ppo.train physics-only", (0, 0, unroll_steps + evals, 0),
-                "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)")
+                env_po, "ppo.train physics-only", (0, 0, unroll_steps + evals // 2, 0),
+                "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)", n_evals=1)
         finally:
             del os.environ["PUPPAX_SOA_ENV"]
 
-    # ---- the fused-unroll lane: ppo.train under PUPPAX_FUSED_UNROLL=on ----
+    # ---- the fused-unroll lane: ppo.train under PUPPAX_FUSED_UNROLL=on, one
+    # evaluation ----
     with Phase("ppo.train, fused-unroll lane"):
         os.environ["PUPPAX_FUSED_UNROLL"] = "on"
         try:
             (_, _, _, k4_launches), (_, _, _, k4_one_launches), _ = train_and_check(
-                env, "ppo.train fused-unroll", (0, evals, 0, unroll_steps // tc.unroll_length),
-                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)")
+                env, "ppo.train fused-unroll",
+                (0, evals // 2, 0, unroll_steps // tc.unroll_length),
+                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)", n_evals=1)
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
 
     # ---- run12: its bodies against their plain versions at full width ----
+    with Phase("the background builds' end: run12's bodies"):
+        libs = background12.result()
+        print(f"{len(libs)} libraries built behind the default's phases", flush=True)
+        for kname, label in ((v, k) for k, v in rec12.items()):
+            print_build(kname, label)
     with Phase("run12 kernels vs plain"):
         nets12 = networks.make_ppo_networks(
             env12.observation_size, env12.action_size, tc12.policy_hidden_layer_sizes,
@@ -1599,21 +1690,21 @@ def main():
             k3_12_err, k3_12_one_err = max(k3_12_err, err), max(k3_12_one_err, one_err)
         k3_12_plain_ms = plain12[0]
 
-        # K4 at run12's env: T=4 steps from the same states, every third env
+        # K4 at run12's env: T=2 steps from the same states, every third env
         # reaching the episode limit at the second step
         layers12 = fused_unroll.fold_normalizer(None, nets12.policy_network)
         k4_carry12 = dict(carry12, wrap=carry12["wrap"].clone())
         k4_carry12["wrap"][0, ::3] = L - 2
-        k4_in12 = k4_blocks(lane12, k4_carry12, B, T_CHECK)
+        k4_check12 = k4_blocks(lane12, k4_carry12, B, T_PLAIN)
         k4_12_err, k4_12_one_err, k4_12_plain_ms, want = k4_check(
-            f"[run12] at {B} envs x T={T_CHECK}", s12, es12, layers12, k4_in12,
+            f"[run12] at {B} envs x T={T_PLAIN}", s12, es12, layers12, k4_check12,
             MAX_DIFFERING_ENVS)
         aux12 = soa_env.aux_row_map(es12)
         done = want[9][:, aux12["done"][0]] > 0.5
         r0, n = aux12["privileged"]
-        first = k4_in12[5][s12.nq + s12.nv + es12.hist :]
+        first = k4_check12[5][s12.nq + s12.nv + es12.hist :]
         restored = all(torch.equal(want[9][t][r0 : r0 + n][:, done[t]], first[:, done[t]])
-                       for t in range(T_CHECK))
+                       for t in range(T_PLAIN))
         print(f"  ({int(done.sum())} env-steps ending an episode, their privileged rows "
               f"restored: {restored})", flush=True)
         if not restored or int(done.sum()) == 0:
@@ -1652,6 +1743,7 @@ def main():
         def k3_12_one():
             soa_env.wrapped_step_one_thread(s12, es12, n_sub, L, *blocks12)
 
+        k4_in12 = k4_blocks(lane12, k4_carry12, B, T_CHECK)
         k4_in12_long = k4_blocks(lane12, carry12, B, T_UNROLL)
 
         def k4_12(ins):
@@ -1664,8 +1756,8 @@ def main():
         k3_12_one_ms = [cuda_ms(k3_12_one, 20)]
         k3_12_ms = [cuda_ms(k3_12, 20), cuda_ms(k3_12, 20)]
         k3_12_one_ms.append(cuda_ms(k3_12_one, 20))
-        # K4 on the T=4 check's inputs, where its plain version was timed
-        # (the kernels line), and per T=20 unroll beside the default K4's
+        # K4 per T=4 unroll (the kernels line's unit) and per T=20 unroll
+        # beside the default K4's
         k4_12_one_ms = [cuda_ms(k4_12_one(k4_in12), 5)]
         k4_12_ms = [cuda_ms(k4_12(k4_in12), 5), cuda_ms(k4_12(k4_in12), 5)]
         k4_12_one_ms.append(cuda_ms(k4_12_one(k4_in12), 5))
@@ -1679,7 +1771,8 @@ def main():
               f"{k3_12_one_ms}); A/B {statistics.median(k3_12_one_ms) / statistics.median(k3_12_ms):.3f}x; "
               f"plain {k3_12_plain_ms:.1f} ms", flush=True)
         for T, team_ms, one_ms, plain in (
-                (T_CHECK, k4_12_ms, k4_12_one_ms, f"; plain {k4_12_plain_ms:.1f} ms"),
+                (T_CHECK, k4_12_ms, k4_12_one_ms,
+                 f"; plain {k4_12_plain_ms:.1f} ms per T={T_PLAIN} unroll"),
                 (T_UNROLL, k4_12_long_ms, k4_12_long_one_ms, "")):
             print(f"team K4[run12] per T={T} unroll at {B} envs: "
                   f"{statistics.median(team_ms):.4f} ms (runs {team_ms}), "
@@ -1698,9 +1791,10 @@ def main():
     team_libs = ("wrapped_step_team_library", "env_step_team_library",
                  "physics_step_team_library", "fused_unroll_team_library")
 
-    def cli_run(label, config, want, lane_line, run12=True, evals=2):
-        """``python -m puppax_torch.scripts.train --config <config>`` for 3
-        training steps and ``evals`` evaluations (2: before and after the
+    def cli_run(label, config, want, lane_line, run12=True, evals=2, extra=None):
+        """``python -m puppax_torch.scripts.train --config <config>`` (no
+        ``--config`` for None: the defaults), with the ``extra`` overrides,
+        for 3 training steps and ``evals`` evaluations (2: before and after the
         training, 1: after it) on the card; its launches against
         ``want`` (team K3, K2, K1, K4; the one-thread kernels none), each
         counted by the body it went through (the model's variant), its lane
@@ -1740,7 +1834,9 @@ def main():
                 "train.metrics_jsonl": os.path.join(tmp, "metrics.jsonl")}
         if run12:
             over["train.curriculum_steps"] = TRAIN_TIMESTEPS
-        argv = ["--config", os.path.join(HERE, config), "--device", str(device)]
+        over.update(extra or {})
+        argv = ([] if config is None else ["--config", os.path.join(HERE, config)]) + [
+            "--device", str(device)]
         for k, v in over.items():
             argv += ["--set", f"{k}={json.dumps(v)}"]
         soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
@@ -1835,9 +1931,8 @@ def main():
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
 
-    with Phase("the background builds' end: run9's and run8's bodies, the probes"):
-        libs = background.result()
-        build.nice = 0
+    with Phase("the background builds' end: run9's and run8's bodies"):
+        libs = background98.result()
         print(f"{len(libs)} libraries built behind the default's and run12's phases",
               flush=True)
         for kname, label in (*((v, k) for k, v in rec9.items()),
@@ -1935,9 +2030,10 @@ def main():
             raise AssertionError("K3[hfield] is not bit for bit with its plain version")
 
         # team K4 over T=4 steps from the same states
-        k4_in9 = k4_blocks(lane9, carry9, B, T_CHECK)
-        err, one_err, k4_9_plain_ms, _ = k4_check(f"[hfield] at {B} envs x T={T_CHECK}", s9,
-                                                  es9, layers9, k4_in9, 0)
+        err, one_err, k4_9_plain_ms, _ = k4_check(
+            f"[hfield] at {B} envs x T={T_PLAIN}", s9, es9, layers9,
+            k4_blocks(lane9, carry9, B, T_PLAIN), 0)
+        k4_in9 = k4_blocks(lane9, carry9, B, T_CHECK)  # the timed unroll
         res9["K4"] = dict(err=err, one_err=one_err, plain_ms=k4_9_plain_ms)
         if (err, one_err) != (0.0, 0.0):
             raise AssertionError("K4[hfield] is not bit for bit with its plain version")
@@ -2077,11 +2173,11 @@ def main():
         if n_box_k1 < MIN_BOX_ENVS:
             raise AssertionError(f"{n_box_k1} envs have an active sphere-box row in K1's "
                                  f"caches (at least {MIN_BOX_ENVS})")
-        # team K4[boxes] (the fused lane's) over T=2 steps from the same
-        # states: the carry's ping-pong and the box scratch's reuse across
-        # steps; its plain version takes ~20 s a step
+        # team K4[boxes] (the fused lane's) over T=1 step from the same
+        # states: its plain version takes ~20 s a step (the box scratch's
+        # reuse across steps is held by the CPU tests' g++ builds at T=2)
         layers8 = fused_unroll.fold_normalizer(None, nets8.policy_network)
-        k4_in8 = k4_blocks(lane8, carry8, B, 2)
+        k4_in8 = k4_blocks(lane8, carry8, B, RUN8_K4_PLAIN_T)
         got = fused_unroll.unroll(s8, es8, n_sub, L, activation, layers8, *k4_in8)
         torch.cuda.synchronize()
         want, k4_8_plain_ms = timed_once(lambda: fused_unroll.unroll_rows(
@@ -2090,10 +2186,10 @@ def main():
         _, bits = probes.compare_exact([x_.reshape(-1, B) for x_ in got if x_ is not None],
                                        [x_.reshape(-1, B) for x_ in want if x_ is not None])
         res8["K4"] = dict(err=err, plain_ms=k4_8_plain_ms)
-        print(f"team K4[boxes] vs plain at {B} envs x T=2: max abs err per block "
-              + json.dumps(per_block) + f", {len(differing)} envs outside tolerance, {bits} not "
-              f"bit for bit; the plain version {k4_8_plain_ms:.1f} ms for the 2 steps",
-              flush=True)
+        print(f"team K4[boxes] vs plain at {B} envs x T={RUN8_K4_PLAIN_T}: max abs err per "
+              f"block " + json.dumps(per_block) + f", {len(differing)} envs outside tolerance, "
+              f"{bits} not bit for bit; the plain version {k4_8_plain_ms:.1f} ms for the "
+              f"{RUN8_K4_PLAIN_T} step(s)", flush=True)
         for b_, what in differing:
             print(f"  env {b_} differs: {what}")
         if len(differing) > MAX_DIFFERING_ENVS:
@@ -2126,7 +2222,8 @@ def main():
               f"{EVAL_ENVS} envs {statistics.median(res8['K1']['ms_small']):.4f} ms (runs "
               f"{res8['K1']['ms_small']}); team K4[boxes] per T={T_CHECK} unroll at {B} envs: "
               f"{statistics.median(res8['K4']['ms']):.4f} ms (runs {res8['K4']['ms']}), plain "
-              f"{res8['K4']['plain_ms']:.1f} ms per T=2 unroll ({smi})", flush=True)
+              f"{res8['K4']['plain_ms']:.1f} ms per T={RUN8_K4_PLAIN_T} unroll ({smi})",
+              flush=True)
 
     # ---- run8 through the training CLI on the default (K3) lane ----
     with Phase("run8 training, K3 lane"):
@@ -2146,8 +2243,8 @@ def main():
         os.environ["PUPPAX_SOA_ENV"] = "off"  # read when the CLI builds the env
         try:
             (_, _, k1_8_launches, _), by_body = cli_run(
-                "run8 physics-only lane", RUN8_CONFIG, (0, 0, unroll12 + evals12, 0),
-                "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)", run12=False)
+                "run8 physics-only lane", RUN8_CONFIG, (0, 0, unroll12 + evals12 // 2, 0),
+                "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)", run12=False, evals=1)
         finally:
             del os.environ["PUPPAX_SOA_ENV"]
         if by_body != {("physics_step_team_library", "boxes"): k1_8_launches}:
@@ -2158,8 +2255,8 @@ def main():
         try:
             (_, k2_8f_launches, _, k4_8_launches), by_body = cli_run(
                 "run8 fused-unroll lane", RUN8_CONFIG,
-                (0, evals12, 0, unroll12 // tc8.unroll_length),
-                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)", run12=False)
+                (0, evals12 // 2, 0, unroll12 // tc8.unroll_length),
+                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)", run12=False, evals=1)
         finally:
             del os.environ["PUPPAX_FUSED_UNROLL"]
         if by_body != {("fused_unroll_team_library", "boxes"): k4_8_launches,
@@ -2167,8 +2264,227 @@ def main():
             raise AssertionError(f"run8's fused-unroll launches did not all go through team "
                                  f"K4[boxes] and team K2[boxes]: {by_body}")
 
+    # ---- the capsule-legged Pupper (env.path): its team bodies against plain ----
+    with Phase("the background builds' end: the capsule model's bodies"):
+        libs = background_c.result()
+        print(f"{len(libs)} libraries built behind run9's and run8's phases", flush=True)
+        for kname, label in ((v, f"team {k}[capsule]") for k, v in recc.items()):
+            print_build(kname, label)
+    with Phase("capsule kernels vs plain"):
+        nets_c = networks.make_ppo_networks(
+            env_c.observation_size, env_c.action_size, tc.policy_hidden_layer_sizes,
+            tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g)
+        state_c = wrapped_c.reset(B, generator=g)
+        state_c, _ = lane_c.unroll(state_c, (None, nets_c.policy_network), generator=g,
+                                   T=CAPSULE_WARM_STEPS)
+        carry_c = lane_c.carry_from_state(state_c)
+        noise_c, _ = lane_c.draw_noise_block(g, B, 1)
+        eps_c = torch.randn((env_c.action_size, B), generator=g, device=device)
+        r0, n = esc.env_rows["obs_history"]
+        with torch.no_grad():
+            act_c, _, _ = lane_c.policy_rows(None, nets_c.policy_network)(
+                carry_c["env"][r0 : r0 + n], eps_c)
+        blocks_c = [carry_c["q"], carry_c["v"], act_c, carry_c["env"], noise_c[0].contiguous(),
+                    carry_c["dr"], carry_c["first"], carry_c["wrap"]]
+        res_c = {}
+
+        def held(k, n_envs, got_, want_, compare, limit, *args):
+            """A team body against its plain version (``compare``), at most
+            ``limit`` envs outside tolerance; records the largest error."""
+            per_block, differing, err = compare(*args, got_, want_)
+            _, bits = probes.compare_exact(
+                [x_.reshape(-1, n_envs) for x_ in got_ if x_ is not None],
+                [x_.reshape(-1, n_envs) for x_ in want_ if x_ is not None])
+            res_c.setdefault(k, {"err": 0.0})
+            res_c[k]["err"] = max(res_c[k]["err"], err)
+            print(f"team {k}[capsule] vs plain at {n_envs} envs: max abs err per block "
+                  + json.dumps(per_block) + f", {len(differing)} envs outside tolerance, "
+                  f"{bits} not bit for bit", flush=True)
+            for b_, what in differing:
+                print(f"  env {b_} differs: {what}")
+            if len(differing) > limit:
+                raise AssertionError(f"{len(differing)} of {n_envs} envs differ (team "
+                                     f"{k}[capsule], limit {limit})")
+
+        # team K3 at 4096 envs
+        got = soa_env.wrapped_step(sc, esc, n_sub, L, *blocks_c)
+        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: soa_env.wrapped_step_rows(sc, esc, n_sub, L,
+                                                                      *blocks_c))
+        held("K3", B, got, want, compare_outputs, MAX_DIFFERING_ENVS, sc, esc,
+             soa_env.aux_row_map(esc))
+        res_c["K3"]["plain_ms"] = plain_ms
+        # team K2 at the evaluator's 128 envs (the same states' first 128)
+        k2_blocks_c = [x_[:, :EVAL_ENVS].contiguous() for x_ in blocks_c[:6]]
+        got = soa_env.env_step(sc, esc, n_sub, *k2_blocks_c)
+        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: soa_env.env_step_rows(sc, esc, n_sub,
+                                                                  *k2_blocks_c))
+        held("K2", EVAL_ENVS, got, want, compare_env_outputs, 0, sc, esc)
+        res_c["K2"]["plain_ms"] = plain_ms
+        # team K1 (the physics-only lane's) under the policy's motor targets
+        # at 4096 envs, and at 128 against that run's first 128 envs
+        ctrl_c = esc.action_scale * act_c + env_c._dev["default_pose"][:, None]
+        ctrl_c = torch.minimum(torch.maximum(ctrl_c, env_c._dev["lowers"][:, None]),
+                               env_c._dev["uppers"][:, None]).contiguous()
+        k1_blocks_c = [carry_c["q"], carry_c["v"], ctrl_c, carry_c["dr"]]
+        k1_small_c = [x_[:, :EVAL_ENVS].contiguous() for x_ in k1_blocks_c]
+        got_k1c = soa.step_batched(sc, *k1_blocks_c, n_sub)
+        got_small = soa.step_batched(sc, *k1_small_c, n_sub)
+        torch.cuda.synchronize()
+        want_k1c, plain_ms = timed_once(lambda: soa.physics_step_rows(sc, n_sub, *k1_blocks_c))
+        held("K1", B, got_k1c, want_k1c, compare_physics_outputs, MAX_DIFFERING_ENVS, sc)
+        held("K1", EVAL_ENVS, got_small, [w_[:, :EVAL_ENVS] for w_ in want_k1c],
+             compare_physics_outputs, MAX_DIFFERING_ENVS, sc)
+        res_c["K1"]["plain_ms"] = plain_ms
+        # the envs with an active row of each kind in team K1's caches
+        d0, npair_c = sc.cache_rows["con_dist"]
+        kinds_c = [p.kind for p in sc.pairs]
+        pen_c = got_k1c[2][d0 : d0 + npair_c] < 0
+        active_c = {k: pen_c[[i for i, kk in enumerate(kinds_c) if kk == k]]
+                    for k in ("ps", "ss", "pc", "sc", "cc")}
+        print(f"capsule model at {B} DR'd envs after {CAPSULE_WARM_STEPS} kernel steps, team "
+              f"K1's caches: envs with an active row of each kind " + json.dumps(
+                  {k: int(a.any(0).sum()) for k, a in active_c.items()}) + ", rows " + json.dumps(
+                  {k: int(a.sum()) for k, a in active_c.items()}), flush=True)
+        if int(active_c["pc"].any(0).sum()) == 0:
+            raise AssertionError("no env has an active plane-capsule row: the capsule feet "
+                                 "went unchecked")
+        # team K4 over T=4 steps from the same states
+        layers_c = fused_unroll.fold_normalizer(None, nets_c.policy_network)
+        k4_in_c = k4_blocks(lane_c, carry_c, B, T_CHECK)
+        got = fused_unroll.unroll(sc, esc, n_sub, L, activation, layers_c, *k4_in_c)
+        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: fused_unroll.unroll_rows(
+            sc, esc, n_sub, L, activation, layers_c, *k4_in_c))
+        held("K4", B, got, want, compare_unroll, MAX_DIFFERING_ENVS, sc, esc,
+             soa_env.aux_row_map(esc))
+        res_c["K4"].update(plain_ms=plain_ms, plain_unroll_T=T_CHECK)
+
+        # team K1[capsule] against the torch pipeline (the MJX caps: a
+        # standing robot has 8 plane-capsule rows against max_geom_pairs 4,
+        # so the envs outside the caps part by design; phase 6's rule). The
+        # pipeline runs one substep at a time, so an env counts as outside
+        # the caps when any substep's forward pass (or the kernel's last)
+        # has more penetrating rows than they keep
+        kinds_t = torch.tensor([("ps", "ss", "pc", "sc", "cc").index(k) for k in kinds_c],
+                               device=device)
+        m_c = env_c.model
+
+        def beyond_caps(pen):
+            per_kind = torch.stack([pen[:, kinds_t == k].sum(1) for k in range(5)], 1)
+            return (per_kind.amax(1) > m_c.max_geom_pairs) | (
+                per_kind.sum(1) > m_c.max_contact_points)
+
+        ps_c = pipeline._zeros_state(wrapped_c.model, carry_c["q"].t(), carry_c["v"].t())
+        outside = beyond_caps(pen_c.t())
+        for _ in range(n_sub):
+            ps_c = pipeline.pipeline_step(wrapped_c.model, ps_c, ctrl_c.t(), 1)
+            outside |= beyond_caps(ps_c.contact_dist < 0)
+        ref_c = state_blocks(sc, ps_c)
+        torch.cuda.synchronize()
+        tols_c = physics_tols(sc, ref_c)
+        _, differing, pipe_err = _differing(("q", "v"), got_k1c[:2], ref_c[:2], tols_c)
+        n_out = int(outside.sum())
+        n_out_diff = n_outside_differing(differing, outside)
+        in_cap = [b_ for b_, _ in differing if not bool(outside[b_])]
+        explained = []
+        if in_cap:  # do they agree once the emission's line search converges?
+            idx = torch.tensor(in_cap, device=device)
+            trips = (soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS)
+            soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS = CONVERGED_LS_TRIPS
+            try:
+                conv = soa.physics_step_rows(sc, n_sub, *[x_[:, idx].contiguous()
+                                                          for x_ in k1_blocks_c])
+            finally:
+                soa.LS_EXPAND_ITERS, soa.LS_ILLINOIS_ITERS = trips
+            _, still, _ = _differing(("q", "v"), conv[:2], [x_[:, idx] for x_ in ref_c[:2]],
+                                     {k: t[:, idx] for k, t in tols_c.items()})
+            still_envs = {in_cap[i] for i, _ in still}
+            explained = [b_ for b_ in in_cap if b_ not in still_envs]
+        unexplained = len(differing) - n_out_diff - len(explained)
+        print(f"team K1[capsule] vs torch pipeline_step at {B} envs: {len(differing)} envs "
+              f"outside qpos 5e-5 / scaled qvel 5e-4 (max abs err {pipe_err!r}); of them "
+              f"{n_out_diff} outside the MJX caps, {len(explained)} in the caps that agree "
+              f"once the line search runs {CONVERGED_LS_TRIPS} trips, {unexplained} else; "
+              f"{n_out} envs outside the caps in all", flush=True)
+        for b_, what in differing[:8]:
+            print(f"  env {b_} differs (outside the caps: {bool(outside[b_])}, line search: "
+                  f"{b_ in explained}): {what}")
+        if unexplained > n_out:
+            raise AssertionError(f"{unexplained} envs differ from the torch pipeline beyond "
+                                 f"the caps and the line search (limit {n_out})")
+
+        # the times (each plain version's from its check)
+        res_c["K3"]["ms"] = [cuda_ms(lambda: soa_env.wrapped_step(sc, esc, n_sub, L,
+                                                                  *blocks_c), 20)
+                             for _ in range(2)]
+        res_c["K2"]["ms"] = [cuda_ms(lambda: soa_env.env_step(sc, esc, n_sub, *k2_blocks_c),
+                                     20) for _ in range(2)]
+        res_c["K1"]["ms"] = [cuda_ms(lambda: soa.step_batched(sc, *k1_blocks_c, n_sub), 20)
+                             for _ in range(2)]
+        res_c["K1"]["ms_small"] = [cuda_ms(lambda: soa.step_batched(sc, *k1_small_c, n_sub),
+                                           20) for _ in range(2)]
+        res_c["K4"]["ms"] = [cuda_ms(lambda: fused_unroll.unroll(sc, esc, n_sub, L, activation,
+                                                                 layers_c, *k4_in_c), 5)
+                             for _ in range(2)]
+        for k, what in (("K3", f"step at {B} envs"), ("K2", f"step at {EVAL_ENVS} envs"),
+                        ("K1", f"step at {B} envs"), ("K4", f"per T={T_CHECK} unroll at {B} "
+                                                            f"envs")):
+            print(f"team {k}[capsule] {what}: {statistics.median(res_c[k]['ms']):.4f} ms (runs "
+                  f"{res_c[k]['ms']}); plain {res_c[k]['plain_ms']:.1f} ms ({smi})", flush=True)
+        print(f"team K1[capsule] step at {EVAL_ENVS} envs: "
+              f"{statistics.median(res_c['K1']['ms_small']):.4f} ms (runs "
+              f"{res_c['K1']['ms_small']})", flush=True)
+
+    # ---- the capsule model through the training CLI (--set env.path=...) on
+    # all three lanes: the default TrainConfig, 3 training steps, 1 evaluation ----
+    steps_c = tc.batch_size * tc.unroll_length * tc.num_minibatches
+    if math.ceil(TRAIN_TIMESTEPS / steps_c) != n_train12:
+        raise AssertionError("the default config's training steps differ from run12's")
+    caps_over = {"env.path": caps_path}
+    with Phase("capsule training, K3 lane"):
+        (k3_c_launches, k2_c_launches, _, _), by_body = cli_run(
+            "capsule K3 lane", None, (unroll_steps, evals // 2, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", run12=False, evals=1,
+            extra=caps_over)
+        if by_body != {("wrapped_step_team_library", cv): k3_c_launches,
+                       ("env_step_team_library", cv): k2_c_launches}:
+            raise AssertionError(f"the capsule model's launches did not all go through team "
+                                 f"K3[capsule] and team K2[capsule]: {by_body}")
+    with Phase("capsule training, physics-only lane"):
+        os.environ["PUPPAX_SOA_ENV"] = "off"  # read when the CLI builds the env
+        try:
+            (_, _, k1_c_launches, _), by_body = cli_run(
+                "capsule physics-only lane", None, (0, 0, unroll_steps + evals // 2, 0),
+                "rollout fast lane: OFF (PUPPAX_SOA_ENV=off; devices=1)", run12=False, evals=1,
+                extra=caps_over)
+        finally:
+            del os.environ["PUPPAX_SOA_ENV"]
+        if by_body != {("physics_step_team_library", cv): k1_c_launches}:
+            raise AssertionError(f"the capsule model's physics-only launches did not all go "
+                                 f"through team K1[capsule]: {by_body}")
+    with Phase("capsule training, fused-unroll lane"):
+        os.environ["PUPPAX_FUSED_UNROLL"] = "on"
+        try:
+            (_, k2_cf_launches, _, k4_c_launches), by_body = cli_run(
+                "capsule fused-unroll lane", None,
+                (0, evals // 2, 0, unroll_steps // tc.unroll_length),
+                "rollout fast lane: ON (ok; devices=1, fused-unroll=ON)", run12=False, evals=1,
+                extra=caps_over)
+        finally:
+            del os.environ["PUPPAX_FUSED_UNROLL"]
+        if by_body != {("fused_unroll_team_library", cv): k4_c_launches,
+                       ("env_step_team_library", cv): k2_cf_launches}:
+            raise AssertionError(f"the capsule model's fused-unroll launches did not all go "
+                                 f"through team K4[capsule] and team K2[capsule]: {by_body}")
+
     # ---- the kernel-time probes, on the K1 check's 4096 DR'd states ----
     with Phase("probes: build records"):
+        libs = background_probes.result()
+        build.nice = 0
+        print(f"{len(libs)} probe libraries built behind run8's and the capsule model's "
+              f"phases", flush=True)
         fmad_flags = build.probe_flags(True)
         probe_records = {
             **{probes.k1_probe_name(cut): build.record_name(build.PROBE_PHYSICS, cut or "full")
@@ -2508,7 +2824,51 @@ def main():
         if k == "K1":
             entry["ms_128"] = statistics.median(r["ms_small"])
         else:
-            entry["plain_unroll_T"] = 2
+            entry["plain_unroll_T"] = RUN8_K4_PLAIN_T
+        kernels.append(entry)
+
+    # the capsule model's four team bodies, each launched in its lane's CLI
+    # run (team K2's in the K3 lane's evaluation); K2 at 128 envs, K4 per
+    # T=4 unroll (its plain version timed on that T=4 check)
+    inc, outc = soa_env.block_rows(sc, esc)
+    dims_c = [env_c.observation_size] + [w.shape[0] for w, _ in layers_c]
+    carry_c_rows = sc.nq + sc.nv + esc.nenv_rows + 2
+
+    def ops_c(k):
+        return build.last_build[recc[k]]["ops_per_env"]
+
+    bounds_c = {
+        "K3": bound_ms(ops_c("K3"), sum(inc), sum(outc), B),
+        "K2": bound_ms(ops_c("K2"), *(sum(r) for r in soa_env.env_block_rows(sc, esc)),
+                       EVAL_ENVS),
+        "K1": bound_ms(ops_c("K1"), *(sum(r) for r in soa.physics_block_rows(sc)), B),
+        "K4": bound_ms(
+            T_CHECK * (ops_c("K4") + fused_unroll.policy_op_count(dims_c, activation,
+                                                                  env_c.action_size, False)),
+            carry_c_rows + inc[6] + inc[5] + T_CHECK * (inc[4] + inc[2])
+            + sum(w.numel() + b.numel() for w, b in layers_c) / B,
+            carry_c_rows + T_CHECK * (esc.hist + 2 * env_c.action_size + 1 + outc[4]), B),
+    }
+    for k, source, replaces, n, run in (
+            ("K3", "wrapped_step_team", "puppax/env/soa_env.py:877", k3_c_launches,
+             "capsule training, K3 lane"),
+            ("K2", "env_step_team", "puppax/env/soa_env.py:533", k2_c_launches,
+             "capsule training, K3 lane"),
+            ("K1", "physics_step_team", "puppax/physics/soa.py:2028", k1_c_launches,
+             "capsule training, physics-only lane"),
+            ("K4", "fused_unroll_team", "puppax/env/fused_unroll.py:152", k4_c_launches,
+             "capsule training, fused-unroll lane")):
+        r = res_c[k]
+        entry = {
+            "name": f"{source}[capsule]", "route": "cuda",
+            "source": f"puppax_torch/csrc/{source}.cuh", "replaces": replaces, "launches": n,
+            "launches_in": run, "max_abs_err": r["err"], "ms": statistics.median(r["ms"]),
+            "plain_ms": r["plain_ms"], "bound_ms": bounds_c[k][0], "bound_by": bounds_c[k][1],
+            "library_ms": None, **build_numbers(recc[k])}
+        if k == "K1":
+            entry["ms_128"] = statistics.median(r["ms_small"])
+        if k == "K4":
+            entry["plain_unroll_T"] = T_CHECK
         kernels.append(entry)
 
     def probe_entry(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
@@ -2640,13 +3000,17 @@ def main():
           f"K3 {bounds8['K3'][0]:.6f} ms ({bounds8['K3'][1]}), team K2 {bounds8['K2'][0]:.6f} ms "
           f"at {EVAL_ENVS} envs ({bounds8['K2'][1]}), team K1 {bounds8['K1'][0]:.6f} ms "
           f"({bounds8['K1'][1]}), team K4 {bounds8['K4'][0]:.6f} ms per unroll "
-          f"({bounds8['K4'][1]}); total wall "
+          f"({bounds8['K4'][1]}); capsule: team K3 {bounds_c['K3'][0]:.6f} ms, team K2 "
+          f"{bounds_c['K2'][0]:.6f} ms at {EVAL_ENVS} envs, team K1 {bounds_c['K1'][0]:.6f} ms, "
+          f"team K4 {bounds_c['K4'][0]:.6f} ms per unroll", flush=True)
+    print(f"first batch {first_batch_s:.1f} s ({len(batch)} bodies); total wall "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    # K4's times and bound are per unroll of T_CHECK steps (the check's
-    # inputs, where the plain version was timed), in every K4 entry
+    # K4's times and bound are per unroll of T_CHECK steps in every K4
+    # entry, its plain version's per unroll of the check's plain_unroll_T
     for k in kernels:
         if k["source"].startswith("puppax_torch/csrc/fused_unroll"):
             k["unroll_T"] = T_CHECK
+            k.setdefault("plain_unroll_T", T_PLAIN)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

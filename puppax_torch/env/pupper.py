@@ -54,8 +54,6 @@ from puppax_torch.model.mjcf import config_tables_path, load_model
 from puppax_torch.ops import math
 from puppax_torch.physics import pipeline, soa
 
-_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
-
 
 # the step's draws the disturbance curriculum scales (pupper.py:692-700)
 DISTURBANCE_KEYS = ("kick", "ang_vel_noise", "gravity_noise", "motor_ang_noise",
@@ -140,10 +138,10 @@ class PupperV3Env:
         device=None,
         tables: Optional[str] = None,
     ):
-        if path is not None:
-            raise NotImplementedError(
-                f"only the bundled model is carried across ({_ROADMAP_TERRAIN}: another MJCF)"
-            )
+        if path is not None and tables is None:
+            # another MJCF, as it is: its committed tables (config_tables_path
+            # raises, naming the writer, where they are missing)
+            tables = config_tables_path(EnvConfig(path=path))
         if default_pose is None:
             default_pose = np.array(
                 [0.26, 0.0, -0.52, -0.26, 0.0, 0.52, 0.26, 0.0, -0.52, -0.26, 0.0, 0.52]
@@ -173,7 +171,8 @@ class PupperV3Env:
         )
 
         # the model's committed tables: the bundled flat model's by default,
-        # a terrain's from from_config (mjcf.config_tables_path)
+        # another MJCF's (path) or a terrain's from from_config
+        # (mjcf.config_tables_path)
         compiled = load_model() if tables is None else load_model(tables)
         model = compiled.robot.tree_replace({"opt.timestep": physics_timestep})
         # actuator override: PD with kp/kd
@@ -266,10 +265,10 @@ class PupperV3Env:
 
     @classmethod
     def from_config(cls, cfg: EnvConfig, reward_config: Dict = None, device=None):
-        """The env of an ``EnvConfig``: the flat model, or its terrain
-        (obstacles, a heightfield, or both) from the committed tables
-        (``mjcf.config_tables_path``, which raises for a terrain without
-        them and for another MJCF)."""
+        """The env of an ``EnvConfig``: the flat model, or its MJCF
+        (``env.path``) and its terrain (obstacles, a heightfield, or both)
+        from the committed tables (``mjcf.config_tables_path``, which raises
+        for a model without them)."""
         tables = config_tables_path(cfg)
         kw = {
             k: getattr(cfg, k)

@@ -310,11 +310,13 @@ def _statics_digest(s, es) -> str:
 def model_variant(s) -> str:
     """The model's part of a build's record name: ``boxes`` for a model
     with sphere-box pairs (obstacle terrain), ``hfield`` for one with
-    hfield-sphere pairs (heightfield terrain), both for both, none for the
-    flat model (so a terrain's body builds beside the flat one and never
-    overwrites its record)."""
+    hfield-sphere pairs (heightfield terrain), ``capsule`` for one with
+    capsule pairs (a capsule-legged MJCF), each that applies, none for the
+    flat model (so another model's body builds beside the flat one and
+    never overwrites its record)."""
     kinds = {p.kind for p in s.pairs}
-    return _variant("boxes" if "bs" in kinds else "", "hfield" if "hs" in kinds else "")
+    return _variant("boxes" if "bs" in kinds else "", "hfield" if "hs" in kinds else "",
+                    "capsule" if kinds & {"pc", "sc", "cc"} else "")
 
 
 def env_variant(es, privileged: bool = True) -> str:
@@ -688,18 +690,26 @@ def build_batch(*calls: Tuple[Callable, tuple], keys: Optional[list] = None) -> 
         return [b.result() for b in builds]
 
 
-def start_batch(*calls: Tuple[Callable, tuple]) -> Future:
+def start_batch(*calls: Tuple[Callable, tuple], after: Optional[Future] = None) -> Future:
     """``build_batch`` of the calls in a background thread, so the caller
     goes on (with the card) while they render and compile; the returned
-    future's result is the libraries. The calls' keys are taken here, in
-    the caller's thread: a key lookup sets ``_INSTEAD``, which a library
-    call of the caller's must not meet. The caller looks up none of these
-    libraries before the future is done. With ``nice`` above 0 the render
-    processes and compilers run at that niceness, so a caller measuring on
-    the card keeps its CPU."""
+    future's result is the libraries. With ``after`` (another batch's
+    future) the builds start once that batch is done, so the two do not
+    share the host's CPUs. The calls' keys are taken here, in the caller's
+    thread: a key lookup sets ``_INSTEAD``, which a library call of the
+    caller's must not meet. The caller looks up none of these libraries
+    before the future is done. With ``nice`` above 0 the render processes
+    and compilers run at that niceness, so a caller measuring on the card
+    keeps its CPU."""
     keys = [_instead("key", call) for call in calls]
+
+    def run():
+        if after is not None:
+            after.result()
+        return build_batch(*calls, keys=keys)
+
     pool = ThreadPoolExecutor(max_workers=1)
-    future = pool.submit(build_batch, *calls, keys=keys)
+    future = pool.submit(run)
     pool.shutdown(wait=False)
     return future
 

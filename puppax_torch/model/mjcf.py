@@ -4,8 +4,9 @@ Counterpart of ``puppax/model/mjcf.py``. There the MuJoCo C compiler runs
 host-side and its tables become a flax pytree. Here the same tables are
 read from JSON written once on a host with ``mujoco`` (``tables.py``):
 ``pupper_v3_tables.json`` for the bundled flat model, and one committed
-file per terrain (``config_tables_path``), so loading a model needs
-neither mujoco nor jax, and the card's host never compiles one.
+file per terrain and per other MJCF (``env.path``; ``config_tables_path``),
+so loading a model needs neither mujoco nor jax, and the card's host never
+compiles one.
 
 ``RobotModel`` is a frozen dataclass: static topology as hashable tuples,
 numeric parameters as float32 numpy arrays. Domain randomization swaps six
@@ -33,7 +34,6 @@ JNT_FREE = 0
 JNT_HINGE = 3
 
 TABLES_PATH = os.path.join(os.path.dirname(__file__), "pupper_v3_tables.json")
-_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
 
 # the six leaves domain randomization batches over the env axis
 DR_LEAVES = (
@@ -226,24 +226,44 @@ def _tuple(x):
 
 def tables_path(cfg) -> str:
     """Where an ``EnvConfig``'s model's tables live: the bundled flat
-    model's, or its terrain's beside this module, whether or not the file
-    exists (the writer's target). A terrain's file is named by 12 hex
-    digits of sha256 over the config's fields of each terrain it holds:
+    model's, or those of its MJCF and terrain beside this module, whether or
+    not the file exists (the writer's target). The file is named by 12 hex
+    digits of sha256 over each part the model is made of: another MJCF's
+    content (``env.path``, ``mjcf_<digest>``, ``mjcf_digest``), then
     ``n_obstacles`` and the ``obstacle*`` fields (``boxes_<digest>``), then
     the ``heightfield*`` fields (``hfield_<digest>``), as in
-    ``pupper_v3_boxes_<digest>_tables.json``. Another MJCF raises, naming
-    its slice."""
-    if cfg.path is not None:
-        raise NotImplementedError(
-            f"only the bundled model is carried across ({_ROADMAP_TERRAIN}: another MJCF)")
+    ``pupper_v3_boxes_<digest>_tables.json`` (the bundled model) or
+    ``mjcf_<digest>_tables.json`` (another MJCF)."""
     parts = []
+    if cfg.path is not None:
+        parts.append(f"mjcf_{mjcf_digest(cfg.path)}")
     if cfg.n_obstacles:
         parts.append(f"boxes_{_digest(_obstacle_fields(cfg))}")
     if cfg.heightfield:
         parts.append(f"hfield_{_digest(_heightfield_fields(cfg))}")
     if not parts:
         return TABLES_PATH
-    return os.path.join(os.path.dirname(__file__), f"pupper_v3_{'_'.join(parts)}_tables.json")
+    prefix = "" if cfg.path is not None else "pupper_v3_"
+    return os.path.join(os.path.dirname(__file__), f"{prefix}{'_'.join(parts)}_tables.json")
+
+
+def mjcf_digest(path: str) -> str:
+    """12 hex digits of sha256 over an MJCF file's canonical form (C14N 2.0
+    with the text between elements stripped): the same model written twice,
+    under any name and in any directory, keys the same tables. An MJCF that
+    reads other files (``<include>``, a ``file=`` attribute: meshes,
+    heightfields, textures) raises, since the digest would not see them."""
+    import xml.etree.ElementTree as ET
+
+    with open(path) as f:
+        text = f.read()
+    for el in ET.fromstring(text).iter():
+        if el.tag == "include" or "file" in el.attrib:
+            raise NotImplementedError(
+                f"{path}: an MJCF that reads other files (<{el.tag}> with file=) is not "
+                "carried across: its tables are keyed by the MJCF's own content only")
+    canon = ET.canonicalize(xml_data=text, strip_text=True)
+    return hashlib.sha256(canon.encode()).hexdigest()[:12]
 
 
 def _digest(fields: dict) -> str:
@@ -268,20 +288,26 @@ def _terrain_fields(cfg) -> dict:
 
 def config_tables_path(cfg) -> str:
     """The committed tables of an ``EnvConfig``'s model (``tables_path``).
-    Raises for a terrain without committed tables, naming the command that
-    writes them where mujoco lives; never falls back to the flat model."""
+    Raises for a terrain or an MJCF without committed tables, naming the
+    command that writes them where mujoco lives; never falls back to the
+    flat model."""
     path = tables_path(cfg)
     if not os.path.exists(path):
+        terrain = _terrain_fields(cfg)
+        what = {**({"path": cfg.path} if cfg.path is not None else {}), **terrain}
+        cmd = "python -m puppax_torch.model.tables" + (" --config <config.json>" if terrain
+                                                       else "")
+        if cfg.path is not None:
+            cmd += f" --set env.path={cfg.path}"
         raise FileNotFoundError(
-            f"no committed tables for the terrain {_terrain_fields(cfg)} ({path}): "
-            f"write them where mujoco is installed with `python -m puppax_torch.model.tables "
-            f"--config <config.json> [--set env.KEY=VALUE ...]` and commit the file")
+            f"no committed tables for the model {what} ({path}): write them where mujoco "
+            f"is installed with `{cmd} [--set env.KEY=VALUE ...]` and commit the file")
     return path
 
 
 def load_model(path: str = TABLES_PATH) -> CompiledModel:
     """Read a model's tables: the bundled flat Pupper v3 model's by
-    default, or a terrain's (``config_tables_path``)."""
+    default, or a terrain's or another MJCF's (``config_tables_path``)."""
     with open(path) as f:
         data = json.load(f)
     robot = data["robot"]

@@ -7,12 +7,15 @@ caps, the heightfield's grid) and writes the JSON beside ``mjcf.py``:
 
     python -m puppax_torch.model.tables --write      # pupper_v3_tables.json
     python -m puppax_torch.model.tables --config cfg.json [--set env.KEY=VALUE ...]
+    python -m puppax_torch.model.tables --set env.path=robot.xml
 
-``--config`` applies the config's terrain surgery to the bundled model as
-``scripts/train.py`` does (the boxes of ``obstacles.add_boxes_to_model``,
-then ``terrain.add_heightfield_to_model``), compiles the XML string and
-writes ``mjcf.tables_path(cfg.env)``, the file the port's env reads for
-that config on a host without mujoco.
+``--config`` / ``--set`` apply the config's terrain surgery to its model
+(the bundled one, or ``env.path``'s) as ``scripts/train.py`` does (the
+boxes of ``obstacles.add_boxes_to_model``, then
+``terrain.add_heightfield_to_model``); an ``env.path`` without a terrain
+is compiled as it is, as ``puppax/model/mjcf.py::load_model`` compiles it.
+The writer writes ``mjcf.tables_path(cfg.env)``, the file the port's env
+reads for that config on a host without mujoco.
 """
 
 from __future__ import annotations
@@ -27,22 +30,20 @@ import numpy as np
 from puppax_torch.model import assets
 from puppax_torch.model.mjcf import (
     GEOM_BOX, GEOM_CAPSULE, GEOM_HFIELD, GEOM_PLANE, GEOM_SPHERE, JNT_FREE, JNT_HINGE,
-    LEAF_FIELDS, MJ_FIELDS, TABLES_PATH, tables_path,
+    LEAF_FIELDS, MJ_FIELDS, TABLES_PATH, mjcf_digest, tables_path,
 )
-
-_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
 
 
 def _collision_pairs(m):
     """Candidate pairs with MuJoCo's filter, in ``mjcf._collision_pairs``'s
-    order and with its raises. The plane-sphere, sphere-sphere, sphere-box
+    order and with its raises: plane-sphere, sphere-sphere, sphere-box
     (sphere first, box second; the boxes are world geoms, so the pairs come
-    box by box) and hfield-sphere kinds are ported; the capsule kinds raise,
-    naming their slice."""
+    box by box), hfield-sphere, plane-capsule, sphere-capsule and
+    capsule-capsule, each pair with the geom of the lower type first."""
     kinds = {(GEOM_PLANE, GEOM_SPHERE): "ps", (GEOM_SPHERE, GEOM_SPHERE): "ss",
-             (GEOM_SPHERE, GEOM_BOX): "bs", (GEOM_HFIELD, GEOM_SPHERE): "hs"}
-    later = {(GEOM_PLANE, GEOM_CAPSULE): "plane-capsule", (GEOM_SPHERE, GEOM_CAPSULE):
-             "sphere-capsule", (GEOM_CAPSULE, GEOM_CAPSULE): "capsule-capsule"}
+             (GEOM_SPHERE, GEOM_BOX): "bs", (GEOM_HFIELD, GEOM_SPHERE): "hs",
+             (GEOM_PLANE, GEOM_CAPSULE): "pc", (GEOM_SPHERE, GEOM_CAPSULE): "sc",
+             (GEOM_CAPSULE, GEOM_CAPSULE): "cc"}
     supported = {GEOM_PLANE, GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX, GEOM_HFIELD}
     out = {k: [] for k in kinds.values()}
     for g1, g2 in itertools.combinations(range(m.ngeom), 2):
@@ -66,9 +67,6 @@ def _collision_pairs(m):
         kind = kinds.get((ta, tb))
         if kind is not None:
             out[kind].append([ga, gb])
-        elif (ta, tb) in later:
-            raise NotImplementedError(
-                f"{later[ta, tb]} pairs are not ported yet ({_ROADMAP_TERRAIN}: capsules)")
         elif ta == GEOM_PLANE and tb == GEOM_BOX:
             raise NotImplementedError("plane-box collisions unsupported")
         elif GEOM_HFIELD in (ta, tb):
@@ -125,8 +123,8 @@ def tables_from_mjmodel(m) -> dict:
         "pairs_plane_sphere": pairs["ps"],
         "pairs_sphere_sphere": pairs["ss"],
         "pairs_sphere_box": pairs["bs"], "pairs_hfield_sphere": pairs["hs"],
-        "pairs_plane_capsule": [], "pairs_sphere_capsule": [],
-        "pairs_capsule_capsule": [],
+        "pairs_plane_capsule": pairs["pc"], "pairs_sphere_capsule": pairs["sc"],
+        "pairs_capsule_capsule": pairs["cc"],
         "hfield_nrow": int(m.hfield_nrow[0]) if hf else 0,
         "hfield_ncol": int(m.hfield_ncol[0]) if hf else 0,
         "max_contact_points": _custom_numeric(m, "max_contact_points", 8),
@@ -176,13 +174,19 @@ def write_tables(out_path: str = TABLES_PATH) -> str:
 
 
 def config_xml(env_cfg) -> str:
-    """The XML string of an ``EnvConfig``'s model: the bundled model with
-    the config's boxes, then its heightfield, added as ``scripts/train.py``
-    adds them (so the geom ids are the JAX package's)."""
+    """The XML string of an ``EnvConfig``'s model: its MJCF (the bundled
+    model, or ``env_cfg.path``) with the config's boxes, then its
+    heightfield, added as ``scripts/train.py`` adds them (so the geom ids
+    are the JAX package's); another MJCF without a terrain as its file
+    holds it."""
     from puppax_torch.model import obstacles, terrain
 
-    tables_path(env_cfg)  # raises for another MJCF
-    tree = assets.pupper_xml_tree()
+    if env_cfg.path is not None:
+        mjcf_digest(env_cfg.path)  # raises for an MJCF that reads other files
+        if not (env_cfg.n_obstacles or env_cfg.heightfield):
+            with open(env_cfg.path) as f:
+                return f.read()
+    tree = assets.pupper_xml_tree() if env_cfg.path is None else ET.parse(env_cfg.path)
     if env_cfg.n_obstacles:
         tree = obstacles.add_boxes_to_model(
             tree, n_boxes=env_cfg.n_obstacles, x_range=env_cfg.obstacle_x_range,
@@ -198,12 +202,14 @@ def config_xml(env_cfg) -> str:
 
 
 def write_config_tables(env_cfg, out_path: str = None) -> str:
-    """Compile an ``EnvConfig``'s terrain model and write its tables to
-    ``out_path`` (default: ``mjcf.tables_path(env_cfg)``)."""
+    """Compile an ``EnvConfig``'s model (another MJCF, a terrain, or both)
+    and write its tables to ``out_path`` (default:
+    ``mjcf.tables_path(env_cfg)``)."""
     import mujoco
 
-    if not (env_cfg.n_obstacles or env_cfg.heightfield):
-        raise ValueError("the config has no terrain: the flat model's tables are --write's")
+    if env_cfg.path is None and not (env_cfg.n_obstacles or env_cfg.heightfield):
+        raise ValueError("the config has no terrain and no env.path: the flat model's "
+                         "tables are --write's")
     out_path = out_path or tables_path(env_cfg)
     return _write(mujoco.MjModel.from_xml_string(config_xml(env_cfg)), out_path)
 
@@ -215,7 +221,8 @@ def main(argv=None):
     ap.add_argument("--config", default=None,
                     help="an experiment config JSON: write its terrain's tables")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                    help="dotted-path override of the config, e.g. env.obstacle_seed=3")
+                    help="dotted-path override of the config, e.g. env.obstacle_seed=3 "
+                         "or env.path=robot.xml")
     args = ap.parse_args(argv)
     if args.config is None and not args.set:
         if not args.write:

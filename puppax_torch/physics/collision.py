@@ -1,8 +1,9 @@
 """Analytic narrowphase with the MJX contact caps.
 
-Counterpart of ``puppax/physics/collision.py`` for the four pair kinds
-the port's tables carry: plane-sphere, sphere-sphere, sphere-box
-(obstacle terrain) and hfield-sphere (heightfield terrain). Every
+Counterpart of ``puppax/physics/collision.py`` for its seven pair kinds:
+plane-sphere, sphere-sphere, sphere-box (obstacle terrain), hfield-sphere
+(heightfield terrain), plane-capsule (two contacts a pair, one per capsule
+end), sphere-capsule and capsule-capsule (capsule-legged models). Every
 candidate pair is evaluated each step with fixed shapes. ``collide``
 applies the MJX caps the solver sees (``max_geom_pairs`` per pair kind, then
 ``max_contact_points`` overall, each a top-k by penetration depth);
@@ -26,7 +27,6 @@ import torch
 from puppax_torch.model.mjcf import RobotModel
 from puppax_torch.physics.smooth import Kinematics, leaf
 
-_ROADMAP_TERRAIN = "ROADMAP queue 1, terrain"
 _PAD_DIST = 1e10
 
 
@@ -175,6 +175,89 @@ def _hfield_sphere(m: RobotModel, kin: Kinematics, g1, g2):
     return dist, pos, _make_frames(n)
 
 
+def _capsule_ends(m: RobotModel, kin: Kinematics, g):
+    """The end centers and the radius of the capsules ``g`` (static ids):
+    the center -/+ the local z axis times the half-length."""
+    center = kin.geom_xpos[:, g]
+    axis = kin.geom_xmat[:, g, :, 2]
+    size = leaf(m, "geom_size", kin.xpos)
+    r, half = size[..., g, 0], size[..., g, 1]
+    return center - axis * half[..., None], center + axis * half[..., None], r
+
+
+def _plane_capsule(m: RobotModel, kin: Kinematics, g1, g2):
+    """Batched plane(g1)-capsule(g2): one plane-sphere contact per capsule
+    end, the rows interleaved [pair0_end0, pair0_end1, pair1_end0, ...].
+    The first tangent is the capsule axis projected onto the plane
+    (mjc_PlaneCapsule), or mju_makeFrame's below a norm of 1e-8 (a capsule
+    normal to the plane); both are computed and one is selected."""
+    n = kin.geom_xmat[:, g1, :, 2]
+    plane_pos = kin.geom_xpos[:, g1]
+    axis = kin.geom_xmat[:, g2, :, 2]
+    e0, e1, r = _capsule_ends(m, kin, g2)
+    ends = torch.stack([e0, e1], dim=2)  # (B, k, 2, 3)
+    dist = torch.sum(n[..., None, :] * (ends - plane_pos[..., None, :]), -1) - r[..., None]
+    pos = ends - n[..., None, :] * (r[..., None] + 0.5 * dist)[..., None]
+    B, k = dist.shape[:2]
+    proj = axis - n * torch.sum(n * axis, -1, keepdim=True)
+    pnorm = torch.linalg.vector_norm(proj, dim=-1, keepdim=True)
+    fallback = _make_frames(n)
+    t1 = torch.where(pnorm > 1e-8, proj / torch.clamp_min(pnorm, 1e-12), fallback[..., 1, :])
+    t2 = torch.linalg.cross(n, t1)
+    frames = torch.stack([n, t1, t2], dim=-2)
+    return (dist.reshape(B, 2 * k), pos.reshape(B, 2 * k, 3),
+            torch.repeat_interleave(frames, 2, dim=1))
+
+
+def _sphere_capsule(m: RobotModel, kin: Kinematics, g1, g2):
+    """Batched sphere(g1)-capsule(g2): the sphere against the nearest point
+    of the capsule's axis segment (mjc_SphereCapsule)."""
+    c1 = kin.geom_xpos[:, g1]
+    size = leaf(m, "geom_size", kin.xpos)
+    r1 = size[..., g1, 0]
+    center = kin.geom_xpos[:, g2]
+    axis = kin.geom_xmat[:, g2, :, 2]
+    r2, half = size[..., g2, 0], size[..., g2, 1]
+    t = torch.minimum(torch.maximum(torch.sum((c1 - center) * axis, -1), -half), half)
+    nearest = center + axis * t[..., None]
+    delta = nearest - c1
+    length = torch.linalg.vector_norm(delta, dim=-1)
+    n = delta / torch.clamp_min(length, 1e-12)[..., None]
+    dist = length - (r1 + r2)
+    pos = c1 + n * (r1 + 0.5 * dist)[..., None]
+    return dist, pos, _make_frames(n)
+
+
+def _capsule_capsule(m: RobotModel, kin: Kinematics, g1, g2):
+    """Batched capsule-capsule: the closest points of the two axis segments
+    (Ericson 5.1.9, clamped; s recomputed where t was clamped), then the
+    sphere-sphere contact of those points (mjc_CapsuleCapsule)."""
+    a0, a1, r1 = _capsule_ends(m, kin, g1)
+    b0, b1, r2 = _capsule_ends(m, kin, g2)
+    d1, d2, r_ = a1 - a0, b1 - b0, a0 - b0
+    a = torch.sum(d1 * d1, -1)
+    e = torch.sum(d2 * d2, -1)
+    f = torch.sum(d2 * r_, -1)
+    c = torch.sum(d1 * r_, -1)
+    b = torch.sum(d1 * d2, -1)
+    denom = a * e - b * b
+    s = torch.where(denom > 1e-12,
+                    torch.clamp((b * f - c * e) / torch.clamp_min(denom, 1e-12), 0.0, 1.0),
+                    torch.zeros_like(denom))
+    t = (b * s + f) / torch.clamp_min(e, 1e-12)
+    t_cl = torch.clamp(t, 0.0, 1.0)
+    s = torch.where(t != t_cl,
+                    torch.clamp((b * t_cl - c) / torch.clamp_min(a, 1e-12), 0.0, 1.0), s)
+    p1 = a0 + d1 * s[..., None]
+    p2 = b0 + d2 * t_cl[..., None]
+    delta = p2 - p1
+    length = torch.linalg.vector_norm(delta, dim=-1)
+    n = delta / torch.clamp_min(length, 1e-12)[..., None]
+    dist = length - (r1 + r2)
+    pos = p1 + n * (r1 + 0.5 * dist)[..., None]
+    return dist, pos, _make_frames(n)
+
+
 def _top_k_select(items, k: int):
     """Keep the k most-penetrating rows per env (ascending dist, first
     index on ties, as lax.top_k(-dist) orders them): k sequential argmins,
@@ -197,29 +280,25 @@ def _top_k_select(items, k: int):
     return tuple(out)
 
 
-def _check_kinds(m: RobotModel):
-    for name in ("pairs_plane_capsule", "pairs_sphere_capsule", "pairs_capsule_capsule"):
-        if getattr(m, name):
-            raise NotImplementedError(f"{name}: capsule pairs are not ported yet "
-                                      f"({_ROADMAP_TERRAIN}: capsules)")
-
-
 def _pair_groups(m: RobotModel, kin: Kinematics):
     """Evaluate every candidate pair; yields one contact tuple per kind, in
-    the JAX package's kind order (plane-sphere, sphere-sphere, sphere-box,
-    hfield-sphere; the capsule kinds raise in ``_check_kinds``)."""
-    _check_kinds(m)
+    the JAX package's kind order. A plane-capsule pair yields two rows, its
+    ids repeated."""
     B = kin.xpos.shape[0]
     dev = kin.xpos.device
-    for pairs, fn in ((m.pairs_plane_sphere, _plane_sphere),
-                      (m.pairs_sphere_sphere, _sphere_sphere),
-                      (m.pairs_sphere_box, _sphere_box),
-                      (m.pairs_hfield_sphere, _hfield_sphere)):
+    for pairs, fn, rows in ((m.pairs_plane_sphere, _plane_sphere, 1),
+                            (m.pairs_sphere_sphere, _sphere_sphere, 1),
+                            (m.pairs_sphere_box, _sphere_box, 1),
+                            (m.pairs_hfield_sphere, _hfield_sphere, 1),
+                            (m.pairs_plane_capsule, _plane_capsule, 2),
+                            (m.pairs_sphere_capsule, _sphere_capsule, 1),
+                            (m.pairs_capsule_capsule, _capsule_capsule, 1)):
         if not pairs:
             continue
         g1 = np.asarray([p[0] for p in pairs], np.int64)
         g2 = np.asarray([p[1] for p in pairs], np.int64)
         dist, pos, frame = fn(m, kin, g1, g2)
+        g1, g2 = np.repeat(g1, rows), np.repeat(g2, rows)
         fri, sref, simp, iw, b1, b2 = _combine(m, g1, g2, kin.xpos)
 
         def ids(x):

@@ -185,7 +185,9 @@ def _zeros_state(m: RobotModel, qpos: torch.Tensor, qvel: torch.Tensor) -> Physi
     """A PhysicsState carrying qpos and qvel (all ``pipeline_step`` reads)."""
     B = qpos.shape[0]
     z = qpos.new_zeros
-    npair = len(m.pairs_plane_sphere) + len(m.pairs_sphere_sphere) + len(m.pairs_hfield_sphere)
+    npair = (len(m.pairs_plane_sphere) + len(m.pairs_sphere_sphere) + len(m.pairs_sphere_box)
+             + len(m.pairs_hfield_sphere) + 2 * len(m.pairs_plane_capsule)
+             + len(m.pairs_sphere_capsule) + len(m.pairs_capsule_capsule))
     return PhysicsState(
         qpos=qpos, qvel=qvel, qacc=z((B, m.nv)), x_pos=z((B, m.nbody - 1, 3)),
         x_rot=z((B, m.nbody - 1, 4)), xd_vel=z((B, m.nbody - 1, 3)),

@@ -40,8 +40,11 @@ order; the table's exact 0 and 1 entries, which JAX folds away, give the
 same values up to the sign of a zero. Every kernel built from this
 emission takes a box model: K1, K2, K3 and K4, one-thread and team (the
 team bodies keep the arrays in a global scratch, ``kernels/team.py``), so
-such a model trains on every lane. Capsule pairs wait for the terrain item
-of the ROADMAP's queue 1.
+such a model trains on every lane. The capsule kinds (plane-capsule, two
+pairs a pair, one per capsule end; sphere-capsule; capsule-capsule) are
+straight-line code pair by pair, as the JAX emission emits them
+(``_emit_plane_capsule``, ``_emit_sphere_capsule``,
+``_emit_capsule_capsule``).
 """
 
 from __future__ import annotations
@@ -497,7 +500,9 @@ def array_rows(arr, ref):
 
 
 class _Pair(NamedTuple):
-    # 'ps' (plane-sphere), 'ss' (sphere-sphere), 'bs' (sphere-box) or 'hs' (hfield-sphere)
+    # 'ps' (plane-sphere), 'ss' (sphere-sphere), 'bs' (sphere-box), 'hs'
+    # (hfield-sphere), 'pc' (plane-capsule, one pair per capsule end), 'sc'
+    # (sphere-capsule) or 'cc' (capsule-capsule)
     kind: str
     sphere_geom: int
     sphere_body: int
@@ -526,6 +531,14 @@ class _Pair(NamedTuple):
     hf_pos: tuple = (0.0, 0.0, 0.0)
     hf_size: tuple = (0.0, 0.0, 0.0)
     hf_grid: tuple = ()
+    # pc, sc, cc: the geom2-side capsule's half-length and local quaternion;
+    # pc: its end (0 at -axis, 1 at +axis); cc: the geom1-side capsule's
+    # (its center and radius in sphere_off1 / radius1)
+    cap_half: float = 0.0
+    cap_quat: tuple = (1.0, 0.0, 0.0, 0.0)
+    cap_end: int = 0
+    cap_half1: float = 0.0
+    cap_quat1: tuple = (1.0, 0.0, 0.0, 0.0)
 
 
 class _Boxes(NamedTuple):
@@ -551,11 +564,11 @@ def _box_major(pairs) -> bool:
 
 
 def soa_supported(m: RobotModel) -> bool:
-    """True when the model is in the emitter's supported class: the flat
-    model, with world-static boxes paired box by box with the same spheres,
-    and a world-static heightfield of 2 x 2 to ``MAX_HFIELD_CELLS`` cells,
-    or without either."""
-    if m.pairs_plane_capsule or m.pairs_sphere_capsule or m.pairs_capsule_capsule:
+    """True when the model is in the emitter's supported class: one
+    kinematic tree on one free joint, world-static planes (capsule pairs'
+    too), world-static boxes paired box by box with the same spheres, and a
+    world-static heightfield of 2 x 2 to ``MAX_HFIELD_CELLS`` cells."""
+    if any(m.geom_bodyid[g1] != 0 for g1, _ in m.pairs_plane_capsule):
         return False
     if m.pairs_sphere_box:
         if any(m.geom_bodyid[g2] != 0 for _, g2 in m.pairs_sphere_box):
@@ -631,10 +644,10 @@ class _Static:
     def __init__(self, m: RobotModel, mj: MjTables = None):
         if not soa_supported(m):
             raise NotImplementedError(
-                "model outside the emitter's class (capsule pairs wait for the terrain "
-                "item of ROADMAP queue 1, capsules; boxes must be world-static and paired "
-                "box by box with the same spheres; a heightfield must be world-static, "
-                f"2 x 2 to {MAX_HFIELD_CELLS} cells)"
+                "model outside the emitter's class (one kinematic tree on one free joint, "
+                "one solver iteration; planes must be world-static; boxes must be "
+                "world-static and paired box by box with the same spheres; a heightfield "
+                f"must be world-static, 2 x 2 to {MAX_HFIELD_CELLS} cells)"
             )
         self.nq, self.nv, self.nu = m.nq, m.nv, m.nu
         self.nbody, self.njnt, self.nsite = m.nbody, m.njnt, m.nsite
@@ -838,6 +851,72 @@ class _Static:
                     hf_grid=hf_grid,
                 )
             )
+        # plane-capsule: two pairs per pair, one per capsule end, in
+        # collision's interleaved order [pair0_end0, pair0_end1, pair1_end0, ...]
+        for g1, g2 in m.pairs_plane_capsule:
+            R = _quat_mat_np(geom_quat[g1])
+            n = R[:, 2]
+            e = np.array([0.0, 1.0, 0.0]) if abs(n[1]) < 0.5 else np.array([0.0, 0.0, 1.0])
+            t2 = np.cross(n, e)
+            t2 = t2 / max(np.linalg.norm(t2), 1e-12)
+            t1 = np.cross(t2, n)
+            cb = m.geom_bodyid[g2]
+            for end in (0, 1):
+                self.pairs.append(
+                    _Pair(
+                        kind="pc",
+                        sphere_geom=g2,
+                        sphere_body=cb,
+                        radius=float(geom_size[g2][0]),
+                        sphere_off=tuple(geom_pos[g2]),
+                        plane_point=tuple(geom_pos[g1]),
+                        plane_n=tuple(n),
+                        frame_t1=tuple(t1),  # the tangent where the capsule is normal to the plane
+                        frame_t2=tuple(t2),
+                        solref=tuple(0.5 * (geom_solref[g1] + geom_solref[g2])),
+                        solimp=tuple(0.5 * (geom_solimp[g1] + geom_solimp[g2])),
+                        invweight=float(body_iw[m.geom_bodyid[g1]] + body_iw[cb]),
+                        geom1=int(g1),
+                        geom2=int(g2),
+                        body1=int(m.geom_bodyid[g1]),
+                        body2=int(cb),
+                        cap_half=float(geom_size[g2][1]),
+                        cap_quat=tuple(float(c) for c in geom_quat[g2]),
+                        cap_end=end,
+                    )
+                )
+        # sphere-capsule (the sphere is geom1) and capsule-capsule (the
+        # geom1 capsule's center and radius in sphere_off1 / radius1)
+        for kind, pairs in (("sc", m.pairs_sphere_capsule), ("cc", m.pairs_capsule_capsule)):
+            for g1, g2 in pairs:
+                b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
+                self.pairs.append(
+                    _Pair(
+                        kind=kind,
+                        sphere_geom=g2,
+                        sphere_body=b2,
+                        radius=float(geom_size[g2][0]),
+                        sphere_off=tuple(geom_pos[g2]),
+                        plane_point=(0.0, 0.0, 0.0),
+                        plane_n=(0.0, 0.0, 1.0),
+                        frame_t1=(0.0, 1.0, 0.0),
+                        frame_t2=(-1.0, 0.0, 0.0),
+                        solref=tuple(0.5 * (geom_solref[g1] + geom_solref[g2])),
+                        solimp=tuple(0.5 * (geom_solimp[g1] + geom_solimp[g2])),
+                        invweight=float(body_iw[b1] + body_iw[b2]),
+                        geom1=int(g1),
+                        geom2=int(g2),
+                        body1=int(b1),
+                        body2=int(b2),
+                        radius1=float(geom_size[g1][0]),
+                        sphere_off1=tuple(geom_pos[g1]),
+                        cap_half=float(geom_size[g2][1]),
+                        cap_quat=tuple(float(c) for c in geom_quat[g2]),
+                        cap_half1=float(geom_size[g1][1]) if kind == "cc" else 0.0,
+                        cap_quat1=(tuple(float(c) for c in geom_quat[g1]) if kind == "cc"
+                                   else (1.0, 0.0, 0.0, 0.0)),
+                    )
+                )
         self.npair = len(self.pairs)
 
         # Newton-Hessian sparsity: the tree ancestor pattern, a clique over
@@ -1304,6 +1383,21 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
             n, cpos, dist, t1, t2 = _emit_hfield_sphere(pr, center)
             # the normal points from the heightfield to the sphere: J = +jac
             dof_coeff = {d: 1.0 for d in s.chains[b]}
+        elif pr.kind == "pc":
+            n, cpos, dist, t1, t2 = _emit_plane_capsule(pr, center, xquat[b])
+            # the normal points from the plane to the capsule: J = +jac
+            dof_coeff = {d: 1.0 for d in s.chains[b]}
+        elif pr.kind in ("sc", "cc"):
+            b1 = pr.body1
+            c1 = vadd3(xpos[b1], qrot([float(x) for x in pr.sphere_off1], xquat[b1]))
+            if pr.kind == "sc":
+                n, cpos, dist, t1, t2 = _emit_sphere_capsule(pr, c1, center, xquat[b])
+            else:
+                n, cpos, dist, t1, t2 = _emit_capsule_capsule(pr, c1, xquat[b1], center,
+                                                              xquat[b])
+            # the normal points from geom1 (the sphere, or capsule 1) to
+            # the geom2 capsule: J = J2 - J1
+            dof_coeff = _relative_dofs(s, b, b1)
         else:  # sphere-sphere (collision._sphere_sphere semantics)
             b1 = pr.body1
             off1 = [float(x) for x in pr.sphere_off1]
@@ -1314,20 +1408,9 @@ def _emit_forward(s: _Static, q, v, ctrl, dr, phase_limit: Optional[str] = None,
             n = [materialize(delta[i], length) * inv_len for i in range(3)]
             dist = sub(length, pr.radius1 + pr.radius)
             cpos = vadd3(c1, vscale3(n, add(pr.radius1, mul(0.5, dist))))
-            # dynamic contact frame (mju_makeFrame, as collision._make_frames)
-            use_y = abs_(n[1]) < 0.5
-            ax = [0.0, where(use_y, 1.0, 0.0), where(use_y, 0.0, 1.0)]
-            t2 = vcross3(n, ax)
-            t2n = maximum(sqrt(materialize(vdot3(t2, t2), length)), 1e-12)
-            t2 = [materialize(t2[i], length) / t2n for i in range(3)]
-            t1 = vcross3(t2, n)
+            t1, t2 = _dynamic_frame(n, length)
             # J = J2 - J1: shared (base) dofs cancel exactly (same offset)
-            dof_coeff = {}
-            for d in s.chains[b]:
-                dof_coeff[d] = dof_coeff.get(d, 0.0) + 1.0
-            for d in s.chains[b1]:
-                dof_coeff[d] = dof_coeff.get(d, 0.0) - 1.0
-            dof_coeff = {d: c for d, c in dof_coeff.items() if c != 0.0}
+            dof_coeff = _relative_dofs(s, b, b1)
         con_dist.append(dist)
         con_pos.append(cpos)
         rows_con.extend(_pair_rows(s, pr, dr["pair_mu"][pi], n, t1, t2, cpos, dist, dof_coeff,
@@ -1449,13 +1532,114 @@ def _emit_hfield_sphere(pr: _Pair, center):
     safe = where(outside, 0.0, dist)
     cpos = [materialize(sub(center[i], mul(n[i], pr.radius + 0.5 * safe)), ref0)
             for i in range(3)]
-    # dynamic contact frame (mju_makeFrame, as collision._make_frames)
+    t1, t2 = _dynamic_frame(n, ref0)
+    return n, cpos, dist, t1, t2
+
+
+def _dynamic_frame(n, ref):
+    """The tangents (t1, t2) of the contact frame of a unit normal ``n``
+    (mju_makeFrame, as collision._make_frames): helper axis y where |n_y| <
+    0.5, else z; t2 = normalize(n x e); t1 = t2 x n."""
     use_y = abs_(n[1]) < 0.5
     ax = [0.0, where(use_y, 1.0, 0.0), where(use_y, 0.0, 1.0)]
     t2 = vcross3(n, ax)
-    t2n = maximum(sqrt(materialize(vdot3(t2, t2), ref0)), 1e-12)
-    t2 = [materialize(t2[i], ref0) / t2n for i in range(3)]
-    t1 = vcross3(t2, n)
+    t2n = maximum(sqrt(materialize(vdot3(t2, t2), ref)), 1e-12)
+    t2 = [materialize(t2[i], ref) / t2n for i in range(3)]
+    return vcross3(t2, n), t2
+
+
+def _relative_dofs(s: _Static, b2: int, b1: int) -> Dict[int, float]:
+    """The signed dof coefficients of J = J2 - J1 for a contact between
+    bodies b1 and b2: the dofs of both chains, the shared ones cancelled."""
+    coeff = {}
+    for d in s.chains[b2]:
+        coeff[d] = coeff.get(d, 0.0) + 1.0
+    for d in s.chains[b1]:
+        coeff[d] = coeff.get(d, 0.0) - 1.0
+    return {d: c for d, c in coeff.items() if c != 0.0}
+
+
+def _capsule_axis(xquat_b, cap_quat: tuple):
+    """The world z axis of a capsule on a body of rotation ``xquat_b``."""
+    return qrot([0.0, 0.0, 1.0], qmul(xquat_b, [float(x) for x in cap_quat]))
+
+
+def _emit_plane_capsule(pr: _Pair, center, xquat_b):
+    """The plane-capsule contact of one capsule end (collision._plane_capsule,
+    as puppax/physics/soa.py emits it): the end's plane-sphere contact; the
+    first tangent the capsule axis projected onto the plane, or the constant
+    mju_makeFrame tangent where that projection's norm is at most 1e-8 (both
+    computed, one selected). Returns (n, cpos, dist, t1, t2)."""
+    ref0 = materialize(center[0], center[0])
+    axis = _capsule_axis(xquat_b, pr.cap_quat)
+    sgn = -1.0 if pr.cap_end == 0 else 1.0
+    end = vadd3(center, vscale3(axis, mul(sgn, pr.cap_half)))
+    n = [float(x) for x in pr.plane_n]
+    pp = [float(x) for x in pr.plane_point]
+    dist = sub(vdot3(n, vsub3(end, pp)), pr.radius)
+    cpos = vsub3(end, vscale3(n, add(pr.radius, mul(0.5, dist))))
+    na = vdot3(n, axis)
+    proj = [materialize(sub(axis[i], mul(n[i], na)), ref0) for i in range(3)]
+    pn = sqrt(materialize(vdot3(proj, proj), ref0))
+    use_proj = pn > 1e-8
+    inv_pn = 1.0 / maximum(pn, 1e-12)
+    t1 = [where(use_proj, proj[i] * inv_pn, float(pr.frame_t1[i])) for i in range(3)]
+    return n, cpos, dist, t1, vcross3(n, t1)
+
+
+def _emit_sphere_capsule(pr: _Pair, c1, center, xquat_b):
+    """The sphere-capsule contact of one pair (collision._sphere_capsule):
+    the sphere at ``c1`` against the nearest point of the capsule's axis
+    segment. Returns (n, cpos, dist, t1, t2)."""
+    ref0 = materialize(center[0], center[0])
+    axis = _capsule_axis(xquat_b, pr.cap_quat)
+    tpar = clip(materialize(vdot3(vsub3(c1, center), axis), ref0), -pr.cap_half, pr.cap_half)
+    nearest = vadd3(center, vscale3(axis, tpar))
+    return _virtual_spheres(pr, c1, nearest, ref0)
+
+
+def _emit_capsule_capsule(pr: _Pair, c1, xquat_b1, center, xquat_b):
+    """The capsule-capsule contact of one pair (collision._capsule_capsule):
+    the closest points of the two axis segments (Ericson 5.1.9, clamped; s
+    recomputed where t was clamped, the ``!=`` of the reference), then their
+    sphere-sphere contact. Returns (n, cpos, dist, t1, t2)."""
+    ref0 = materialize(center[0], center[0])
+    axis1 = _capsule_axis(xquat_b1, pr.cap_quat1)
+    axis2 = _capsule_axis(xquat_b, pr.cap_quat)
+    a0 = vsub3(c1, vscale3(axis1, pr.cap_half1))
+    a1e = vadd3(c1, vscale3(axis1, pr.cap_half1))
+    b0 = vsub3(center, vscale3(axis2, pr.cap_half))
+    b1e = vadd3(center, vscale3(axis2, pr.cap_half))
+    d1v = vsub3(a1e, a0)
+    d2v = vsub3(b1e, b0)
+    r_ = vsub3(a0, b0)
+    a_ = materialize(vdot3(d1v, d1v), ref0)
+    e_ = materialize(vdot3(d2v, d2v), ref0)
+    f_ = materialize(vdot3(d2v, r_), ref0)
+    c_ = materialize(vdot3(d1v, r_), ref0)
+    bb = materialize(vdot3(d1v, d2v), ref0)
+    denom = a_ * e_ - bb * bb
+    sseg = where(denom > 1e-12, clip((bb * f_ - c_ * e_) / maximum(denom, 1e-12), 0.0, 1.0),
+                 0.0)
+    tseg = (bb * sseg + f_) / maximum(e_, 1e-12)
+    t_cl = clip(tseg, 0.0, 1.0)
+    sseg = where(tseg != t_cl, clip((bb * t_cl - c_) / maximum(a_, 1e-12), 0.0, 1.0), sseg)
+    p1 = vadd3(a0, vscale3(d1v, sseg))
+    p2 = vadd3(b0, vscale3(d2v, t_cl))
+    return _virtual_spheres(pr, p1, p2, ref0)
+
+
+def _virtual_spheres(pr: _Pair, p1, p2, ref0):
+    """The sphere-sphere contact of spheres of radii ``pr.radius1`` at ``p1``
+    and ``pr.radius`` at ``p2`` (the capsule kinds' last step), with the
+    dynamic frame. Returns (n, cpos, dist, t1, t2)."""
+    delta = vsub3(p2, p1)
+    length = sqrt(materialize(vdot3(delta, delta), ref0))
+    inv_len = 1.0 / maximum(length, 1e-12)
+    n = [materialize(delta[i], ref0) * inv_len for i in range(3)]
+    dist = sub(length, pr.radius1 + pr.radius)
+    cpos = vadd3(p1, vscale3(n, add(pr.radius1, mul(0.5, dist))))
+    t1, t2 = _dynamic_frame(n, ref0)
     return n, cpos, dist, t1, t2
 
 

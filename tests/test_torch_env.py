@@ -164,12 +164,13 @@ def test_observation_size_and_config():
     {"privileged_obs": True}, {"disturbance_curriculum": True}, {"path": "other.xml"},
 ])
 def test_unported_options_raise(option):
-    """Another MJCF still raises (ROADMAP queue 1, terrain); the privileged
-    obs and the disturbance curriculum, ported since, build an env that
-    publishes them at reset (their parity: ``test_torch_privileged.py``,
-    ``test_torch_extras.py``)."""
+    """Another MJCF, ported since, builds from its committed tables
+    (``test_torch_capsule.py``), and a file that is not there raises; the
+    privileged obs and the disturbance curriculum, ported since, build an
+    env that publishes them at reset (their parity:
+    ``test_torch_privileged.py``, ``test_torch_extras.py``)."""
     if "path" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(FileNotFoundError, match="other.xml"):
             PupperV3Env(device="cpu", **option)
         return
     env = PupperV3Env(device="cpu", **option)

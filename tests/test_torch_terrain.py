@@ -6,8 +6,9 @@ the JAX package's XML string for the same arguments; the tables writer
 (``dev/run_configs/run9_500m_hfield.json``) into the pair lists and the
 grid ``puppax.model.mjcf.load_model`` gives, and the committed tables are
 what the writer writes; ``mjcf.config_tables_path`` finds them, and raises
-for a terrain without them and for another MJCF; the writer raises for the
-capsule pairs, still to port; the env of run9's config resets and steps.
+for a terrain or another MJCF without them, naming the writer; the writer
+files the capsule pairs and raises for the pair kinds the JAX package
+refuses; the env of run9's config resets and steps.
 """
 
 import dataclasses
@@ -119,7 +120,7 @@ def test_config_write_equals_committed(tmp_path):
         assert flat.read_bytes() == f.read()
 
 
-def test_config_tables_path_raises_without_tables():
+def test_config_tables_path_raises_without_tables(tmp_path):
     cfg = _run9().env
     assert mjcf.config_tables_path(exp.EnvConfig()) == mjcf.TABLES_PATH
     assert "f9d29eacc821" in mjcf.config_tables_path(cfg)
@@ -129,24 +130,39 @@ def test_config_tables_path_raises_without_tables():
         mjcf.config_tables_path(other)
     with pytest.raises(FileNotFoundError, match="python -m puppax_torch.model.tables --config"):
         mjcf.config_tables_path(exp.EnvConfig(n_obstacles=3))  # boxes without committed tables
-    with pytest.raises(NotImplementedError, match="another MJCF"):
-        mjcf.config_tables_path(exp.EnvConfig(path="robot.xml"))
-    with pytest.raises(NotImplementedError, match="another MJCF"):
-        PupperV3Env(path="robot.xml", device="cpu")
+    # another MJCF without committed tables (the bundled model with a heavier
+    # torso), alone and under a terrain: the writer's command is named
+    tree = jassets.pupper_xml_tree()
+    tree.getroot().find(".//body/inertial").set("mass", "1.5")
+    robot = tmp_path / "robot.xml"
+    robot.write_text(_xml(tree))
+    writer = "python -m puppax_torch.model.tables --set env.path="
+    with pytest.raises(FileNotFoundError, match=writer):
+        mjcf.config_tables_path(exp.EnvConfig(path=str(robot)))
+    with pytest.raises(FileNotFoundError, match=writer):
+        PupperV3Env(path=str(robot), device="cpu")
+    with pytest.raises(FileNotFoundError, match="--config <config.json> --set env.path="):
+        mjcf.config_tables_path(dataclasses.replace(cfg, path=str(robot)))
 
 
 def test_writer_raises_for_unported_pairs():
-    """The writer refuses a model with capsule pairs (the feet as capsules,
-    ``bench.py``'s variant), naming their slice; boxes are ported since
-    (``test_torch_obstacles.py``)."""
+    """The writer files a model with capsule pairs (the feet as capsules,
+    ``bench.py``'s variant: ``test_torch_capsule.py``) and boxes
+    (``test_torch_obstacles.py``), and refuses what the JAX package refuses:
+    a geom type outside its pair kinds (a cylinder foot)."""
     tree = jassets.pupper_xml_tree()
     for geom in tree.getroot().iter("geom"):
         if geom.get("type") == "sphere" and geom.get("size") == "0.01995":
             geom.set("type", "capsule")
             geom.set("size", "0.015 0.02")
-    m = mujoco.MjModel.from_xml_string(_xml(tree))
-    with pytest.raises(NotImplementedError, match="capsule pairs are not ported yet"):
-        tables.tables_from_mjmodel(m)
+    robot = tables.tables_from_mjmodel(mujoco.MjModel.from_xml_string(_xml(tree)))["robot"]
+    assert [len(robot[f"pairs_{k}"]) for k in ("plane_capsule", "sphere_capsule",
+                                                "capsule_capsule")] == [4, 12, 6]
+    for geom in tree.getroot().iter("geom"):
+        if geom.get("type") == "capsule":
+            geom.set("type", "cylinder")
+    with pytest.raises(NotImplementedError, match="unsupported"):
+        tables.tables_from_mjmodel(mujoco.MjModel.from_xml_string(_xml(tree)))
     boxes = jobstacles.add_boxes_to_model(jassets.pupper_xml_tree(), 2, (-1, 1), (-1, 1), seed=0)
     assert len(tables.tables_from_mjmodel(mujoco.MjModel.from_xml_string(
         _xml(boxes)))["robot"]["pairs_sphere_box"]) == 16
