@@ -10,6 +10,17 @@ batch 256 x 32 minibatches, 4 updates per batch, policy MLP 4 x 128 and
 value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
 
 1. the card's ``nvidia-smi`` name and power limit, torch and CUDA versions;
+   then jax's threefry, which every draw of the port launches on the card
+   (``puppax_torch/random.py``: the resets, DR, the networks' init, the
+   unrolls, SGD and the evaluations draw from jax keys): its kernel
+   (``csrc/threefry.cuh``) built first, since the set-up's DR draws
+   through it, and held bit for bit against its plain version (run on the
+   card) on 2^22 random (key, counter) pairs in the pair, bits and uniform
+   modes, the normal within 4 ulp, against jax's values for known keys
+   and pairs, and through ``split``, ``uniform``, ``bernoulli``,
+   ``choice_p`` and ``permutation`` against the same calls on CPU tensors;
+   the emitter's ``powf`` (a solimp power other than 2) against torch's
+   CUDA ``pow``; one 4096 x 12 uniform draw timed from a CUDA graph;
 2. the builds of the thirty kernels from the checkout's sources, in
    parallel nvcc processes, their bodies rendered in a pool of processes,
    each nvcc started as its body lands (``build.build_batch``): first the
@@ -90,14 +101,16 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    exact;
 8. the rollout lane: ``FastLane.unroll`` with T=20, three times after one
    warm-up, timed with CUDA events, with team K3's launches over those
-   unrolls (no one-thread K3); then the same with
-   ``PUPPAX_FUSED_UNROLL=on`` (one team K4 launch per unroll, no K3 and no
-   one-thread K4), and the A/B of the two;
+   unrolls (no one-thread K3), and the unroll's draws alone
+   (``draw_noise_block`` + ``draw_eps``) and their share of it; then the
+   same with ``PUPPAX_FUSED_UNROLL=on`` (one team K4 launch per unroll, no
+   K3 and no one-thread K4), and the A/B of the two;
 9. the main path: ``ppo.train`` at the default configuration but for
    491,520 env steps (3 training steps) and 2 evaluations, with its
    checkpoint in a temporary directory; the launches of the kernels are
    counted over exactly this call (120 K3, 2000 K2, 0 K1, 0 K4, all the
-   team kernels; the one-thread kernels launch 0 times), and the
+   team kernels; the one-thread kernels launch 0 times; threefry at least
+   once: every draw of the run), and the
    run is checked (env steps, the normalizer's count, finite losses,
    changed parameters, plausible eval metrics, the checkpoint against the
    final state);
@@ -329,9 +342,146 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
+# jax.random's values (jax 0.9.0, threefry2x32, partitionable) for a few
+# seeds: split(key, 3), fold_in(key, 17), bits(key, (4,)) and the bits of
+# uniform(key, (3,), minval=0.6, maxval=1.4), as uint32
+THREEFRY_KNOWN = {
+    0: ([[1797259609, 2579123966], [928981903, 3453687069], [4146024105, 2718843009]],
+        [2763999920, 494843597], [4070199207, 4202968722, 1427181096, 2012915765],
+        [1068357458, 1068564911, 1063102271]),
+    42: ([[1832780943, 270669613], [64467757, 2916123636], [2465931498, 255383827]],
+         [2702347784, 925058353], [2098992034, 2919706841, 2646866425, 2409546199],
+         [1065201678, 1066559814, 1066133501]),
+    2**31 - 1: ([[3894554595, 3657610310], [2391852627, 3342111533], [1746298583, 1015193934]],
+                [2145647974, 720118821], [840997797, 1235506558, 1419036569, 1650994062],
+                [1061270447, 1062503287, 1063076818]),
+}
+# threefry_2x32's known answers (key, counter) -> (y0, y1), from jax 0.9.0
+THREEFRY_PAIRS = (((0, 0, 0, 0), (0x6B200159, 0x99BA4EFE)),
+                  ((0xFFFFFFFF,) * 4, (0x1CB996FC, 0xBB002BE7)),
+                  ((0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0)))
+THREEFRY_ROWS, THREEFRY_COUNTERS = 4096, 1024  # 2^22 pairs held against the plain hash
+THREEFRY_TIMED = (4096, 12)  # the timed draw: 12 uniforms for each of 4096 envs
+
+
 def fail(msg: str):
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def threefry_checks(device, g) -> dict:
+    """The threefry kernel (``csrc/threefry.cuh``) on the card: every mode
+    bit for bit with the plain ``threefry_rows`` (run on the card) on 2^22
+    random (key, counter) pairs, the normal within 4 ulp; jax's own values
+    for known keys and pairs; ``split``, ``uniform``, ``bernoulli``,
+    ``choice_p`` and ``permutation`` through the kernel bit for bit with
+    their plain versions (the same calls on CPU tensors); the emitter's
+    ``powf`` against torch's CUDA ``pow``. Times one 4096 x 12 uniform draw
+    from a CUDA graph, its plain version eagerly. Raises on any
+    difference; returns the numbers of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from puppax_torch import random as prandom
+    from puppax_torch.kernels import build
+    from puppax_torch.probes import common as probes
+
+    R, n = THREEFRY_ROWS, THREEFRY_COUNTERS
+    keys = torch.randint(-2**31, 2**31, (R, 2), generator=g, device=device, dtype=torch.int64)
+    keys = keys.to(torch.int32)
+    offset = int(torch.randint(0, 2**31, (1,), generator=g, device=device))
+    lo = torch.rand(n, generator=g, device=device) * -3
+    hi = torch.rand(n, generator=g, device=device) * 3
+    worst_ulp, max_err = 0, 0.0
+    for mode, name in ((prandom.PAIRS, "pairs"), (prandom.BITS, "bits"),
+                       (prandom.UNIFORM, "uniform"), (prandom.NORMAL, "normal")):
+        bounds = (lo, hi) if mode == prandom.UNIFORM else (None, None)
+        got = prandom.threefry(keys, n, mode, offset, *bounds)
+        want = prandom.threefry_rows(keys, n, mode, offset, *bounds)
+        gap = (got.view(torch.int32).to(torch.int64) - want.view(torch.int32).to(torch.int64)).abs()
+        differ = int((gap > 0).sum())
+        if got.dtype.is_floating_point:
+            max_err = max(max_err, float((got - want).abs().max()))
+        elif differ:
+            max_err = math.inf
+        print(f"threefry {name} vs plain on {R} x {n} pairs (offset {offset}): {differ} of "
+              f"{gap.numel()} words differ, largest gap {int(gap.max())}", flush=True)
+        if mode == prandom.NORMAL:
+            worst_ulp = int(gap.max())
+            if worst_ulp > 4:
+                raise AssertionError(f"threefry normal: {worst_ulp} ulp from the plain version")
+        elif differ:
+            raise AssertionError(f"threefry {name}: the kernel differs from the plain version")
+    # jax's values
+    for seed, (split3, fold17, bits4, unif) in THREEFRY_KNOWN.items():
+        k = prandom.key(seed, device)
+        got = [prandom.split(k, 3), prandom.fold_in(k, 17), prandom.random_bits(k, (4,)),
+               prandom.uniform(k, (3,), 0.6, 1.4).view(torch.int32)]
+        for x, want, what in zip(got, (split3, fold17, bits4, unif),
+                                 ("split", "fold_in", "bits", "uniform")):
+            if not np.array_equal(x.cpu().numpy().view(np.uint32), np.array(want, np.uint32)):
+                raise AssertionError(f"threefry {what} of PRNGKey({seed}) is not jax's")
+    for (k0, k1, x0, x1), want in THREEFRY_PAIRS:
+        y = prandom.threefry2x32(*(torch.tensor(v, dtype=torch.int64, device=device)
+                                   for v in (k0, k1, x0, x1)))
+        if (int(y[0]), int(y[1])) != want:
+            raise AssertionError(f"threefry2x32 of {(k0, k1, x0, x1)} is not jax's")
+    print(f"threefry: jax's values for {len(THREEFRY_KNOWN)} keys (split, fold_in, bits, "
+          f"uniform) and {len(THREEFRY_PAIRS)} known pairs: equal", flush=True)
+    # the draws through the kernel against the same calls on the CPU
+    draw_keys = prandom.split(prandom.key(7, device), 4096)
+    cpu_keys = draw_keys.cpu()
+    p = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+    draws = (("split", lambda k: prandom.split(k, 6)),
+             ("uniform", lambda k: prandom.uniform(k, (12,), -1.0, 1.0)),
+             ("uniform, per-element bounds", lambda k: prandom.uniform(
+                 k, (3,), (-0.03, -0.01, -0.02), (0.03, 0.01, 0.02))),
+             ("bernoulli", lambda k: prandom.bernoulli(k, 0.02, (1,))),
+             ("choice", lambda k: prandom.choice_p(k, p)),
+             ("permutation", lambda k: prandom.permutation(k[0], 8192)))
+    for name, fn in draws:
+        got, want = fn(draw_keys).cpu(), fn(cpu_keys)
+        if got.dtype.is_floating_point:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"threefry {name}: the card's draw differs from the plain one")
+    print(f"threefry draws through the kernel vs their plain versions (bit for bit): "
+          f"{', '.join(name for name, _ in draws)}", flush=True)
+    # the emitter's powf (a solimp power other than 2) against torch's CUDA pow
+    x = torch.rand(4096, generator=g, device=device)
+    y = torch.full_like(x, 2.5)
+    y[1::2] = 3.0
+    out = torch.empty_like(x)
+    lib = build.threefry_library()
+    build.launch_into("pow_check", lib.pow_check_launch, [x, y, out], x.numel())
+    pow_differ = int((out.view(torch.int32) != torch.pow(x, y).view(torch.int32)).sum())
+    print(f"powf (the emitter's text) vs torch.pow on the card at 4096 values, exponents 2.5 "
+          f"and 3: {'bit for bit' if pow_differ == 0 else f'{pow_differ} values differ'}",
+          flush=True)
+    # the timed draw: 12 uniforms per env, from a CUDA graph
+    B_, n_ = THREEFRY_TIMED
+    tkeys = draw_keys[:B_].contiguous()
+    tlo = torch.full((n_,), -1.0, device=device)
+    thi = torch.full((n_,), 1.0, device=device)
+    prandom.threefry(tkeys, n_, prandom.UNIFORM, 0, tlo, thi)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(probes.ITERS):
+            prandom.threefry(tkeys, n_, prandom.UNIFORM, 0, tlo, thi)
+    ms = probes.best_ms(graph.replay) / probes.ITERS
+    plain_ms = statistics.median(
+        cuda_ms(lambda: prandom.threefry_rows(tkeys, n_, prandom.UNIFORM, 0, tlo, thi), 5)
+        for _ in range(3))
+    in_bytes = tkeys.numel() * 4 + (tlo.numel() + thi.numel()) * 4
+    out_bytes = B_ * n_ * 4
+    bound = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    pair_bound = 24 * B_ * n_ / PEAK_BYTES_PER_S * 1e3
+    print(f"threefry uniform {B_} x {n_}: {ms * 1e3:.3f} us per launch from a CUDA graph "
+          f"({probes.ITERS} launches per replay); plain version {plain_ms:.3f} ms eager; bound "
+          f"{bound * 1e3:.4f} us ({in_bytes + out_bytes} bytes over 3.35 TB/s); at 24 bytes per "
+          f"pair {pair_bound * 1e3:.4f} us", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, worst_normal_ulp=worst_ulp,
+                pow_differ=pow_differ, max_abs_err=max_err)
 
 
 def capsule_xml_file() -> str:
@@ -796,6 +946,7 @@ def main():
         fail(f"no puppax_torch package beside {__file__}: run it from a checkout")
     sys.path.insert(0, HERE)
 
+    from puppax_torch import random as prandom
     from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
     from puppax_torch.env import fused_unroll, soa_env
     from puppax_torch.env.domain_randomization import domain_randomize
@@ -820,7 +971,30 @@ def main():
     # ---- the default training configuration, on the card ----
     env_cfg, dr_cfg, tc = EnvConfig(), DomainRandomizationConfig(), TrainConfig()
     B = tc.num_envs
+    # ---- jax's threefry: the kernel every draw of the port goes through
+    # (the DR and the resets below draw through it), then its checks ----
+    with Phase("build threefry"):
+        build.threefry_library()
+        tf_build = build.last_build["threefry"]
+        print(f"build: threefry, nvcc {tf_build['compile_seconds']:.1f} s, cached "
+              f"{tf_build['cached']}", flush=True)
+        for line in open(os.path.join(tf_build["dir"], "build.log")).read().splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                print("  ptxas:" + line.split(":", 1)[-1].rstrip())
+    # random inputs of the checks from a generator; the port's own draws
+    # (resets, DR, networks, unrolls) from jax keys split off one chain
     g = torch.Generator(device=device).manual_seed(args.seed)
+    with Phase("threefry vs plain"):
+        tf = threefry_checks(device, g)
+    key_chain = [prandom.key(args.seed, device)]
+
+    def next_key():
+        key_chain[0], k = prandom.split(key_chain[0]).unbind(0)
+        return k
+
+    def env_keys(n):
+        return prandom.split(next_key(), n)
+
     env = PupperV3Env.from_config(env_cfg, device=device)
     os.environ["PUPPAX_SOA_ENV"] = "off"  # read at construction: the physics-only lane
     try:
@@ -829,14 +1003,14 @@ def main():
         del os.environ["PUPPAX_SOA_ENV"]
     ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
 
-    def randomization_fn(m, gen, n):
-        return domain_randomize(m, gen, n, **ranges)
+    def randomization_fn(m, keys):
+        return domain_randomize(m, keys, **ranges)
 
     wrapped = wrap_for_training(env, tc.episode_length, randomization_fn=randomization_fn,
-                                generator=g, num_envs=B)
+                                randomization_keys=env_keys(B))
     nets = networks.make_ppo_networks(
         env.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
-        tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
+        tc.value_hidden_layer_sizes, tc.activation, device=device, key=next_key(),
     )
     normalizer = running_statistics.init_state(env.observation_size, device=device)
     params = (normalizer, nets.policy_network)
@@ -847,8 +1021,8 @@ def main():
     with open(os.path.join(HERE, RUN12_CONFIG)) as f:
         cfg12 = experiment.from_dict(json.load(f))
     env12 = PupperV3Env.from_config(cfg12.env, device=device)
-    wrapped12 = wrap_for_training(env12, L, randomization_fn=randomization_fn, generator=g,
-                                  num_envs=B)
+    wrapped12 = wrap_for_training(env12, L, randomization_fn=randomization_fn,
+                                randomization_keys=env_keys(B))
     lane12 = FastLane(wrapped12)
     s12, es12, tc12 = env12._s, env12._es, cfg12.train
     if cfg12.train.episode_length != L or cfg12.env.environment_timestep != env_cfg.environment_timestep:
@@ -864,8 +1038,8 @@ def main():
     with open(os.path.join(HERE, RUN9_CONFIG)) as f:
         cfg9 = experiment.from_dict(json.load(f))
     env9 = PupperV3Env.from_config(cfg9.env, device=device)
-    wrapped9 = wrap_for_training(env9, L, randomization_fn=randomization_fn, generator=g,
-                                 num_envs=B)
+    wrapped9 = wrap_for_training(env9, L, randomization_fn=randomization_fn,
+                                randomization_keys=env_keys(B))
     lane9 = FastLane(wrapped9)
     s9, es9, tc9 = env9._s, env9._es, cfg9.train
     if tc9.episode_length != L or cfg9.env.environment_timestep != env_cfg.environment_timestep:
@@ -885,8 +1059,8 @@ def main():
     with open(os.path.join(HERE, RUN8_CONFIG)) as f:
         cfg8 = experiment.from_dict(json.load(f))
     env8 = PupperV3Env.from_config(cfg8.env, device=device)
-    wrapped8 = wrap_for_training(env8, L, randomization_fn=randomization_fn, generator=g,
-                                 num_envs=B)
+    wrapped8 = wrap_for_training(env8, L, randomization_fn=randomization_fn,
+                                randomization_keys=env_keys(B))
     lane8 = FastLane(wrapped8)
     s8, es8, tc8 = env8._s, env8._es, cfg8.train
     if tc8.episode_length != L or cfg8.env.environment_timestep != env_cfg.environment_timestep:
@@ -904,8 +1078,8 @@ def main():
     # and its committed tables, with the default DR
     caps_path = capsule_xml_file()
     env_c = PupperV3Env.from_config(replace(env_cfg, path=caps_path), device=device)
-    wrapped_c = wrap_for_training(env_c, L, randomization_fn=randomization_fn, generator=g,
-                                  num_envs=B)
+    wrapped_c = wrap_for_training(env_c, L, randomization_fn=randomization_fn,
+                                randomization_keys=env_keys(B))
     lane_c = FastLane(wrapped_c)
     sc, esc = env_c._s, env_c._es
     cv = build.model_variant(sc)
@@ -1086,11 +1260,11 @@ def main():
         return err, one_err
 
     with Phase("K3 vs plain"):
-        state = wrapped.reset(B, generator=g)
-        state, _ = lane.unroll(state, params, generator=g, T=WARM_STEPS)
+        state = wrapped.reset(env_keys(B))
+        state, _ = lane.unroll(state, params, next_key(), WARM_STEPS)
         carry = lane.carry_from_state(state)
         export_obs = state.obs[:EXPORT_OBS].clone()  # raw observations for the export phase
-        noise, _ = lane.draw_noise_block(g, B, 1)
+        _, noise, _ = lane.draw_noise_block(env_keys(B), 1)
         eps = torch.randn((env.action_size, B), generator=g, device=device)
         r0, n = es.env_rows["obs_history"]
         with torch.no_grad():
@@ -1125,7 +1299,7 @@ def main():
     layers = fused_unroll.fold_normalizer(normalizer, nets.policy_network)
 
     def k4_blocks(lane_, carry_, n_envs, T):
-        noise_, _ = lane_.draw_noise_block(g, n_envs, T)
+        _, noise_, _ = lane_.draw_noise_block(env_keys(n_envs), T)
         eps_ = torch.randn((T, env.action_size, n_envs), generator=g, device=device)
         return [carry_["q"], carry_["v"], carry_["env"], carry_["wrap"], carry_.get("phase"),
                 carry_["first"], carry_["dr"], noise_, eps_]
@@ -1179,7 +1353,7 @@ def main():
         env_gait = PupperV3Env.from_config(replace(env_cfg, gait_phase_observation=True),
                                            device=device)
         gait_wrapped = wrap_for_training(env_gait, L)
-        gstate = gait_wrapped.reset(EVAL_ENVS, g)
+        gstate = gait_wrapped.reset(env_keys(EVAL_ENVS))
         gsteps = torch.zeros(EVAL_ENVS, device=device)
         gsteps[::3] = L - T_PLAIN
         gstate = gstate.replace(info=dict(
@@ -1188,7 +1362,7 @@ def main():
         gait_lane = FastLane(gait_wrapped)
         gait_nets = networks.make_ppo_networks(
             env_gait.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
-            tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
+            tc.value_hidden_layer_sizes, tc.activation, device=device, key=next_key(),
         )
         gait_layers = fused_unroll.fold_normalizer(None, gait_nets.policy_network)
         g_in = k4_blocks(gait_lane, gait_lane.carry_from_state(gstate), EVAL_ENVS, T_PLAIN)
@@ -1358,14 +1532,14 @@ def main():
     # ---- K2 against plain at the evaluator's 128 envs ----
     with Phase("K2 vs plain"):
         eval_wrapped = wrap_for_training(env, L)  # the nominal model, no DR
-        estate = eval_wrapped.reset(EVAL_ENVS, g, caches=True)
+        estate = eval_wrapped.reset(env_keys(EVAL_ENVS), caches=True)
         for _ in range(WARM_STEPS):
             estate = eval_wrapped.step(
                 estate, torch.rand((EVAL_ENVS, env.action_size), generator=g,
-                                   device=device) * 2 - 1, g)
+                                   device=device) * 2 - 1)
         in_contact = int(estate.info["last_contact"].any(1).sum())
         act = torch.rand((EVAL_ENVS, env.action_size), generator=g, device=device) * 2 - 1
-        k2_noise = env.draw_step_noise(g, EVAL_ENVS)
+        k2_noise = env.draw_step_noise(env_keys(EVAL_ENVS))
         k2_blocks = [soa_env.rows_block([estate.qpos]), soa_env.rows_block([estate.qvel]),
                      soa_env.rows_block([act]), soa_env.env_block(es, estate.info, estate.obs),
                      soa_env.noise_block(es, k2_noise), eval_wrapped.dr_rows(EVAL_ENVS)]
@@ -1447,8 +1621,8 @@ def main():
         checks the transitions; returns (median ms, (team K3 launches,
         one-thread K3 launches, team K4 launches, one-thread K4 launches))
         of the timed unrolls."""
-        state = wrapped.reset(B, generator=g)
-        state, _ = lane.unroll(state, params, generator=g, T=T_UNROLL)  # warm-up
+        state = wrapped.reset(env_keys(B))
+        state, _ = lane.unroll(state, params, next_key(), T_UNROLL)  # warm-up
         torch.cuda.synchronize()
         soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
         fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
@@ -1457,7 +1631,7 @@ def main():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            state, data = lane.unroll(state, params, generator=g, T=T_UNROLL)
+            state, data = lane.unroll(state, params, next_key(), T_UNROLL)
             end.record()
             torch.cuda.synchronize()
             unroll_ms.append(start.elapsed_time(end))
@@ -1467,6 +1641,12 @@ def main():
         med = statistics.median(unroll_ms)
         print(f"{label}: unroll T={T_UNROLL} x {B} envs: median {med:.3f} ms (runs {unroll_ms}), "
               f"{B * T_UNROLL / (med / 1000.0):.0f} env-steps/s", flush=True)
+        key_d = next_key()
+        draw_ms = [cuda_ms(lambda: (lane.draw_noise_block(state.info["rng"], T_UNROLL),
+                                    lane.draw_eps(key_d, B, T_UNROLL)), 1) for _ in range(3)]
+        print(f"{label}: the unroll's draws alone (draw_noise_block + draw_eps, T={T_UNROLL}, "
+              f"threefry): median {statistics.median(draw_ms):.3f} ms (runs {draw_ms}), "
+              f"{statistics.median(draw_ms) / med:.3f} of the unroll", flush=True)
         print(f"{label}: team K3 launches {launches[0]}, one-thread K3 launches {launches[1]}, "
               f"team K4 launches {launches[2]}, one-thread K4 launches {launches[3]} in the "
               f"{N_UNROLLS} unrolls", flush=True)
@@ -1523,11 +1703,11 @@ def main():
         ``(normalizer, PPONetworkParams)``."""
         initial = {}
 
-        def network_factory(obs_size, action_size, device=None, generator=None):
+        def network_factory(obs_size, action_size, device=None, key=None):
             n = networks.make_ppo_networks(
                 obs_size, action_size, tc.policy_hidden_layer_sizes,
                 tc.value_hidden_layer_sizes, tc.activation, device=device,
-                generator=generator, value_precision=tc.value_precision)
+                key=key, value_precision=tc.value_precision)
             initial["policy"] = copy.deepcopy(n.policy_network.state_dict())
             initial["value"] = copy.deepcopy(n.value_network.state_dict())
             return n
@@ -1538,6 +1718,7 @@ def main():
         soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
         soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
         fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
+        prandom.threefry.launches = 0
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             _, (norm_out, params_out), _ = ppo.train(
@@ -1569,6 +1750,12 @@ def main():
               f"K2, K1 and K4 launches {one_thread} (expected (0, 0, 0, 0))", flush=True)
         if launches != want or one_thread != (0, 0, 0, 0):
             raise AssertionError("the training run did not launch the kernels as expected")
+        threefry_launches[label] = prandom.threefry.launches
+        print(f"{label}: threefry launches {prandom.threefry.launches} (every draw of the "
+              f"resets, the DR, the networks' init, the unrolls, the SGD and the evaluations)",
+              flush=True)
+        if prandom.threefry.launches == 0:
+            raise AssertionError("the training run drew nothing through the threefry kernel")
         tree = checkpoint.restore_checkpoint(os.path.join(ckpt_dir, "state"), map_location=device)
         if tree["env_steps"] != TRAIN_TIMESTEPS or float(norm_out.count) != TRAIN_TIMESTEPS:
             raise AssertionError(f"env steps {tree['env_steps']}, normalizer count "
@@ -1611,6 +1798,7 @@ def main():
         return launches, one_thread, (norm_out, params_out)
 
     evals = 2 * tc.episode_length
+    threefry_launches = {}
     with Phase("ppo.train"):
         launches, one_thread, trained = train_and_check(
             env, "ppo.train", (unroll_steps, evals, 0, 0),
@@ -1667,13 +1855,13 @@ def main():
     with Phase("run12 kernels vs plain"):
         nets12 = networks.make_ppo_networks(
             env12.observation_size, env12.action_size, tc12.policy_hidden_layer_sizes,
-            tc12.value_hidden_layer_sizes, tc12.activation, device=device, generator=g,
+            tc12.value_hidden_layer_sizes, tc12.activation, device=device, key=next_key(),
             value_precision=tc12.value_precision, privileged_size=env12.privileged_obs_size)
         params12 = (None, nets12.policy_network)
-        state12 = wrapped12.reset(B, generator=g)
-        state12, _ = lane12.unroll(state12, params12, generator=g, T=WARM_STEPS)
+        state12 = wrapped12.reset(env_keys(B))
+        state12, _ = lane12.unroll(state12, params12, next_key(), WARM_STEPS)
         carry12 = lane12.carry_from_state(state12)
-        noise12, _ = lane12.draw_noise_block(g, B, 1)
+        _, noise12, _ = lane12.draw_noise_block(env_keys(B), 1)
         eps12 = torch.randn((env12.action_size, B), generator=g, device=device)
         with torch.no_grad():
             act12, _, _ = lane12.policy_rows(None, nets12.policy_network)(
@@ -1712,16 +1900,16 @@ def main():
 
         # team K2 at history 4, the evaluator's shape: 128 nominal envs
         eval12 = wrap_for_training(env12, L)
-        estate12 = eval12.reset(EVAL_ENVS, g, caches=True)
+        estate12 = eval12.reset(env_keys(EVAL_ENVS), caches=True)
         for _ in range(WARM_STEPS):
             estate12 = eval12.step(
                 estate12, torch.rand((EVAL_ENVS, env12.action_size), generator=g,
-                                     device=device) * 2 - 1, g)
+                                     device=device) * 2 - 1)
         k2_blocks12 = [soa_env.rows_block([estate12.qpos]), soa_env.rows_block([estate12.qvel]),
                        soa_env.rows_block([torch.rand((EVAL_ENVS, env12.action_size), generator=g,
                                                       device=device) * 2 - 1]),
                        soa_env.env_block(es12, estate12.info, estate12.obs),
-                       soa_env.noise_block(es12, env12.draw_step_noise(g, EVAL_ENVS)),
+                       soa_env.noise_block(es12, env12.draw_step_noise(env_keys(EVAL_ENVS))),
                        eval12.dr_rows(EVAL_ENVS)]
         got = soa_env.env_step(s12, es12, n_sub, *k2_blocks12)
         torch.cuda.synchronize()
@@ -1943,11 +2131,11 @@ def main():
     with Phase("run9 kernels vs plain"):
         nets9 = networks.make_ppo_networks(
             env9.observation_size, env9.action_size, tc9.policy_hidden_layer_sizes,
-            tc9.value_hidden_layer_sizes, tc9.activation, device=device, generator=g)
+            tc9.value_hidden_layer_sizes, tc9.activation, device=device, key=next_key())
         layers9 = fused_unroll.fold_normalizer(None, nets9.policy_network)
-        state9 = wrapped9.reset(B, generator=g)
-        state9, _ = lane9.unroll(state9, (None, nets9.policy_network), generator=g,
-                                 T=RUN9_WARM_STEPS)
+        state9 = wrapped9.reset(env_keys(B))
+        state9, _ = lane9.unroll(state9, (None, nets9.policy_network), next_key(),
+                                 RUN9_WARM_STEPS)
         carry9 = lane9.carry_from_state(state9)
         hs = [i for i, p in enumerate(s9.pairs) if p.kind == "hs"]
         rx, ry = s9.pairs[hs[0]].hf_size[:2]
@@ -1957,7 +2145,7 @@ def main():
         edge = rx + 0.1 + 0.4 * torch.rand(B, generator=g, device=device)
         q9[0] = torch.where(off, torch.where(q9[0] < 0, -edge, edge), q9[0])
         carry9 = dict(carry9, q=q9)
-        noise9, _ = lane9.draw_noise_block(g, B, 1)
+        _, noise9, _ = lane9.draw_noise_block(env_keys(B), 1)
         eps9 = torch.randn((env9.action_size, B), generator=g, device=device)
         r0, n = es9.env_rows["obs_history"]
         with torch.no_grad():
@@ -2079,10 +2267,10 @@ def main():
     with Phase("run8 kernels vs plain"):
         nets8 = networks.make_ppo_networks(
             env8.observation_size, env8.action_size, tc8.policy_hidden_layer_sizes,
-            tc8.value_hidden_layer_sizes, tc8.activation, device=device, generator=g)
-        state8 = wrapped8.reset(B, generator=g)
-        state8, _ = lane8.unroll(state8, (None, nets8.policy_network), generator=g,
-                                 T=RUN8_WARM_STEPS)
+            tc8.value_hidden_layer_sizes, tc8.activation, device=device, key=next_key())
+        state8 = wrapped8.reset(env_keys(B))
+        state8, _ = lane8.unroll(state8, (None, nets8.policy_network), next_key(),
+                                 RUN8_WARM_STEPS)
         carry8 = lane8.carry_from_state(state8)
         # the resets spread over 4 x 4 m and the boxes over 10 x 10 m: every
         # second env's base is moved onto a box, where that puts a sphere in it
@@ -2092,7 +2280,7 @@ def main():
         q8, placed8 = place_over_boxes(s8, model8, carry8["q"],
                                        torch.arange(B, device=device) % 2 == 0, g)
         carry8 = dict(carry8, q=q8)
-        noise8, _ = lane8.draw_noise_block(g, B, 1)
+        _, noise8, _ = lane8.draw_noise_block(env_keys(B), 1)
         eps8 = torch.randn((env8.action_size, B), generator=g, device=device)
         r0, n = es8.env_rows["obs_history"]
         with torch.no_grad():
@@ -2273,12 +2461,12 @@ def main():
     with Phase("capsule kernels vs plain"):
         nets_c = networks.make_ppo_networks(
             env_c.observation_size, env_c.action_size, tc.policy_hidden_layer_sizes,
-            tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g)
-        state_c = wrapped_c.reset(B, generator=g)
-        state_c, _ = lane_c.unroll(state_c, (None, nets_c.policy_network), generator=g,
-                                   T=CAPSULE_WARM_STEPS)
+            tc.value_hidden_layer_sizes, tc.activation, device=device, key=next_key())
+        state_c = wrapped_c.reset(env_keys(B))
+        state_c, _ = lane_c.unroll(state_c, (None, nets_c.policy_network), next_key(),
+                                   CAPSULE_WARM_STEPS)
         carry_c = lane_c.carry_from_state(state_c)
-        noise_c, _ = lane_c.draw_noise_block(g, B, 1)
+        _, noise_c, _ = lane_c.draw_noise_block(env_keys(B), 1)
         eps_c = torch.randn((env_c.action_size, B), generator=g, device=device)
         r0, n = esc.env_rows["obs_history"]
         with torch.no_grad():
@@ -2538,9 +2726,9 @@ def main():
                       f"{err!r}, {differing} envs differ (the one-thread copy: 0 too)",
                       flush=True)
         copies = profile_overhead.run(s1, n_sub, k1_blocks, fk_check_envs=(EVAL_ENVS,))
-        scan_state = wrapped.reset(B, generator=g)
+        scan_state = wrapped.reset(env_keys(B))
         scan = profile_scan.run(k1_blocks[0], (lane, scan_state, params,
-                                               *profile_scan.lane_draws(lane, g, B)))
+                                               *profile_scan.lane_draws(lane, scan_state, next_key())))
         profile_boundary.run(env_po, k1_blocks)
         probe_degradation.run()
         # probe group C on their own inputs (the TPU probes' recipes), at 4096 and 128 envs
@@ -2589,6 +2777,20 @@ def main():
     k4_out_rows = carry_rows + T_CHECK * (es.hist + 2 * env.action_size + 1 + out_rows[4])
     k4_bound, k4_by = bound_ms(k4_ops, k4_in_rows, k4_out_rows, B)
     kernels = [{
+        # jax's threefry: every draw of the port, on the card; it replaces no
+        # pallas_call (jax.random lowers to XLA's own threefry)
+        "name": "threefry",
+        "route": "cuda",
+        "source": "puppax_torch/csrc/threefry.cuh",
+        "replaces": "none: jax/_src/prng.py:1092 threefry_2x32 (XLA, no pallas_call)",
+        "launches": threefry_launches["ppo.train"],
+        "max_abs_err": tf["max_abs_err"],
+        "ms": tf["ms"],
+        "plain_ms": tf["plain_ms"],
+        "bound_ms": tf["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
         # K3, K2 and K1 as the team kernels (the main path) and as the
         # one-thread kernels (their A/B baseline, launched 0 times on the main
         # path); max_abs_err is the largest of the widths held against plain

@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from puppax_torch import random
 from puppax_torch.physics.pipeline import PhysicsState, physics_state_from_caches
 
 __all__ = ["PhysicsState", "State", "physics_state_from_caches", "state_from_jax"]
@@ -52,8 +53,8 @@ def _to_torch(x, device):
     return torch.tensor(a, device=device)
 
 
-# info fields the fast lane and the wrappers read (the JAX rng keys are
-# not carried: the port draws from a torch.Generator)
+# info fields the fast lane and the wrappers read (besides "rng", the
+# envs' jax keys)
 _INFO_KEYS = (
     "last_act", "action_buffer", "imu_buffer", "last_vel", "command",
     "last_contact", "feet_air_time", "rewards", "kick", "step",
@@ -81,6 +82,8 @@ def state_from_jax(state_numpy, device=None) -> State:
     ps = state_numpy.pipeline_state
     info = {k: _to_torch(state_numpy.info[k], device)
             for k in _INFO_KEYS if k in state_numpy.info}
+    if "rng" in state_numpy.info:
+        info["rng"] = random.from_key_data(state_numpy.info["rng"], device or "cpu")
     if "first_pipeline_state" in state_numpy.info:
         info["first_pipeline_state"] = _physics_from_jax(
             state_numpy.info["first_pipeline_state"], device

@@ -2,10 +2,12 @@
 
 Counterpart of ``puppax/env/pupper.py``: the constructor surface, the
 observation layout, ``reset``, the per-step noise draws and ``step``.
-Every random draw comes from an explicit ``torch.Generator`` and is split
-from the deterministic math (``draw_reset`` / ``reset_from_draws``,
-``draw_step_noise`` / ``step_from_draws``), so tests can feed the same
-numbers to this env and to the JAX one.
+Every random draw comes from the envs' jax keys (``puppax_torch.random``,
+``(B, 2)``, one per env, carried in ``info["rng"]``) in the JAX env's split
+and draw order, so a reset or step from the same keys makes the same
+draws. The draws stay apart from the deterministic math (``draw_reset`` /
+``reset_from_draws``, ``draw_step_noise`` / ``step_from_draws``), so tests
+can also feed given numbers to this env and to the JAX one.
 
 ``step`` is the standard lane, in one of two forms chosen at construction
 from ``PUPPAX_SOA_ENV``, as the JAX env chooses its fused core:
@@ -46,7 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from puppax_torch import utils
+from puppax_torch import random, utils
 from puppax_torch.configs.experiment import EnvConfig, StartPositionConfig
 from puppax_torch.env import domain_randomization, rewards, soa_env
 from puppax_torch.env.base import PhysicsState, State, physics_state_from_caches
@@ -257,6 +259,7 @@ class PupperV3Env:
             ("uppers", self.uppers), ("desired_abduction", self._desired_abduction_angles),
             ("up", [0.0, 0.0, 1.0]), ("down", [0.0, 0.0, -1.0]),
             ("identity_quat", [1.0, 0.0, 0.0, 0.0]),
+            ("desired_z", self._desired_world_z_in_body_frame),
         )}
         self._dev["upper_leg_geoms"] = self._geom_ids(self._upper_leg_geom_ids)
         self._dev["torso_geoms"] = self._geom_ids(self._torso_geom_ids)
@@ -318,69 +321,86 @@ class PupperV3Env:
         return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
 
     # ---- random draws -----------------------------------------------------
-    def _uniform(self, g, shape, lo, hi) -> torch.Tensor:
-        u = torch.rand(shape, generator=g, device=self.device, dtype=torch.float32)
-        return lo + u * (hi - lo)
-
-    def sample_command(self, g: torch.Generator, B: int) -> torch.Tensor:
+    # Each draw takes (B, 2) per-env keys and makes the JAX env's draws for
+    # every env in its split and draw order, as jax.vmap over the keys would
+    # (``pupper.py:333-367, 382-386, 440-498``).
+    def sample_command(self, keys: torch.Tensor) -> torch.Tensor:
         """(B, 3) commands (vx, vy, wz); with probability
         zero_command_probability a near-zero command instead."""
-        vx = self._uniform(g, (B,), *self._linear_velocity_x_range)
-        vy = self._uniform(g, (B,), *self._linear_velocity_y_range)
-        wz = self._uniform(g, (B,), *self._angular_velocity_range)
-        new_cmd = torch.stack([vx, vy, wz], -1)
-        zero_p = self._uniform(g, (B, 1), 0.0, 1.0)
+        k = random.split(keys, 6)
+        vx = random.uniform(k[:, 1], (1,), *self._linear_velocity_x_range)
+        vy = random.uniform(k[:, 2], (1,), *self._linear_velocity_y_range)
+        wz = random.uniform(k[:, 3], (1,), *self._angular_velocity_range)
+        new_cmd = torch.cat([vx, vy, wz], -1)
+        zero_p = random.uniform(k[:, 4], (1,))
         t = self._stand_still_command_threshold
-        near_zero = self._uniform(g, (B, 3), -t, t)
-        return torch.where(zero_p < self._zero_command_probability, near_zero, new_cmd)
+        near_zero = random.uniform(k[:, 5], (3,), -t, t)
+        return torch.where(zero_p < float(np.float32(self._zero_command_probability)),
+                           near_zero, new_cmd)
 
-    def sample_body_orientation(self, g: torch.Generator, B: int) -> torch.Tensor:
+    def sample_body_orientation(self, keys: torch.Tensor) -> torch.Tensor:
         """(B, 3) desired world-z rotated by random pitch/roll (degrees)."""
-        pitch = self._uniform(g, (B,), -1.0, 1.0) * self._maximum_pitch_command
-        roll = self._uniform(g, (B,), -1.0, 1.0) * self._maximum_roll_command
+        k = random.split(keys, 3)
+        pitch = random.uniform(k[:, 1], (1,), -1.0, 1.0)[:, 0] * self._maximum_pitch_command
+        roll = random.uniform(k[:, 2], (1,), -1.0, 1.0)[:, 0] * self._maximum_roll_command
         euler = torch.stack([roll, pitch, torch.zeros_like(roll)], -1)
-        return math.rotate(self._t(self._desired_world_z_in_body_frame),
+        return math.rotate(self._dev["desired_z"],
                            math.euler_to_quat(euler))
 
-    def _draw_obs_noise(self, g: torch.Generator, B: int) -> Dict[str, torch.Tensor]:
+    def _draw_obs_noise(self, keys: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The observation's draws (``pupper.py:464-482``); "rng" is the
+        carried key."""
+        k = random.split(keys, 6)
+
+        def pm1(i, n, scale):
+            return random.uniform(k[:, i], (n,), -1.0, 1.0) * scale
+
         return {
-            "ang_vel_noise": self._uniform(g, (B, 3), -1.0, 1.0) * self._angular_velocity_noise,
-            "gravity_noise": self._uniform(g, (B, 3), -1.0, 1.0) * self._gravity_noise,
-            "motor_ang_noise": self._uniform(g, (B, 12), -1.0, 1.0) * self._motor_angle_noise,
-            "last_action_noise": self._uniform(g, (B, 12), -1.0, 1.0) * self._last_action_noise,
-            "imu_lat": utils.latency_onehot(g, self._t(self._imu_latency_distribution), B),
+            "rng": k[:, 0],
+            "ang_vel_noise": pm1(1, 3, self._angular_velocity_noise),
+            "gravity_noise": pm1(2, 3, self._gravity_noise),
+            "motor_ang_noise": pm1(3, 12, self._motor_angle_noise),
+            "last_action_noise": pm1(4, 12, self._last_action_noise),
+            "imu_lat": utils.latency_onehot(k[:, 5], self._imu_latency_distribution),
         }
 
-    def draw_step_noise(self, g: torch.Generator, B: int) -> Dict[str, torch.Tensor]:
-        """Every random draw one env step makes, as (B, n) rows
-        (``_draw_step_noise``, batched, from a generator)."""
-        kick = self._uniform(g, (B, 2), -1.0, 1.0) * self._kick_vel
-        kick = kick * (self._uniform(g, (B, 1), 0.0, 1.0) < self._kick_probability)
+    def draw_step_noise(self, keys: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Every random draw one env step makes from the envs' ``(B, 2)``
+        keys, as (B, n) rows, and "rng", the keys carried to the next step
+        (``_draw_step_noise``; the resample command and orientation share
+        one key, as there)."""
+        k = random.split(keys, 5)
+        kick = random.uniform(k[:, 2], (2,), -1.0, 1.0) * self._kick_vel
+        kick = kick * random.bernoulli(k[:, 3], self._kick_probability, (1,))
         noise = {
             "kick": kick,
-            "act_lat": utils.latency_onehot(g, self._t(self._latency_distribution), B),
+            "act_lat": utils.latency_onehot(k[:, 4], self._latency_distribution),
         }
-        noise.update(self._draw_obs_noise(g, B))
-        noise["resample_cmd"] = self.sample_command(g, B)
-        noise["resample_ori"] = self.sample_body_orientation(g, B)
+        noise.update(self._draw_obs_noise(k[:, 0]))
+        noise["resample_cmd"] = self.sample_command(k[:, 1])
+        noise["resample_ori"] = self.sample_body_orientation(k[:, 1])
         return noise
 
-    def draw_reset(self, g: torch.Generator, B: int) -> Dict[str, torch.Tensor]:
-        """Every random draw ``reset`` makes: start qpos, command, desired
-        orientation and the reset observation's noise."""
+    def draw_reset(self, keys: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Every random draw ``reset`` makes from the envs' ``(B, 2)`` keys:
+        start qpos, command, desired orientation, the reset observation's
+        noise and "rng", the keys the state carries (``pupper.py:382-386``)."""
+        keys = keys.to(self.device)
+        k = random.split(keys, 4)
         draws = {
             "qpos": domain_randomization.randomize_qpos(
-                self._init_q, self._start_position_config, g, B
+                self._init_q, self._start_position_config, k[:, 3]
             ),
-            "command": self.sample_command(g, B),
-            "desired_z": self.sample_body_orientation(g, B),
+            "command": self.sample_command(k[:, 1]),
+            "desired_z": self.sample_body_orientation(k[:, 2]),
         }
-        draws.update(self._draw_obs_noise(g, B))
+        draws.update(self._draw_obs_noise(k[:, 0]))
         return draws
 
     # ---- reset ----------------------------------------------------------------
-    def reset(self, g: torch.Generator, B: int) -> State:
-        return self.reset_from_draws(self.draw_reset(g, B))
+    def reset(self, keys: torch.Tensor) -> State:
+        """Reset one env per key of ``keys`` ``(B, 2)``."""
+        return self.reset_from_draws(self.draw_reset(keys))
 
     def reset_from_draws(self, draws: Dict[str, torch.Tensor], model=None) -> State:
         """The deterministic reset core (``pupper.py:382-438``) on given
@@ -410,6 +430,8 @@ class PupperV3Env:
             "step": torch.zeros(B, dtype=torch.int32, device=self.device),
             "desired_world_z_in_body_frame": draws["desired_z"].to(self.device, torch.float32),
         }
+        if "rng" in draws:
+            info["rng"] = draws["rng"].to(self.device)
         if self._privileged_obs:
             # at rest: no velocity, no contact, no air time, no kick
             info["privileged_obs"] = self._privileged_observation(
@@ -443,10 +465,11 @@ class PupperV3Env:
         return pipeline.pipeline_init(self.model if model is None else model, qpos, qvel)
 
     # ---- step -----------------------------------------------------------------
-    def step(self, state: State, action: torch.Tensor, generator: torch.Generator,
+    def step(self, state: State, action: torch.Tensor,
              dr_rows: Optional[torch.Tensor] = None, model=None) -> State:
-        """One env step of every env, its draws taken from ``generator``."""
-        noise = self.draw_step_noise(generator, state.qpos.shape[0])
+        """One env step of every env, its draws made from ``info["rng"]``,
+        which carries on to the next step."""
+        noise = self.draw_step_noise(state.info["rng"])
         return self.step_from_draws(state, action, noise, dr_rows, model)
 
     def step_from_draws(self, state: State, action: torch.Tensor,
@@ -486,6 +509,8 @@ class PupperV3Env:
             pipeline_state, env_out = self._step_core(m, state.qpos, state.qvel, action,
                                                       env_in, noise, dr_rows)
         info["kick"] = noise["kick"]
+        if "rng" in noise:
+            info["rng"] = noise["rng"]
         info["last_act"] = action
         info["last_vel"] = pipeline_state.qvel[:, 6:]
         for name in ("action_buffer", "imu_buffer", "feet_air_time", "last_contact",

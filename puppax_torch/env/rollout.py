@@ -18,11 +18,12 @@ parameter rows). The lane runs one of two ways:
   with the observation normalizer folded into the policy's first layer.
 
 Both share ``_assemble_unroll``. Every random number is drawn before the
-loop from one ``torch.Generator`` (``draw_noise_block`` and the sampling
-eps), so ``unroll_from_draws`` can be fed the JAX package's draws in the
-parity tests. The disturbance curriculum's difficulty scales those draws
-where they enter the lane (``unroll_from_draws``), as the JAX env scales
-its own. Where the env publishes privileged obs, the kernels emit them as
+loop, as the JAX lane draws it: the env noise on the envs' key chains
+(``draw_noise_block``) and the sampling eps from the unroll's key
+(``draw_eps``), so ``unroll`` from the same keys is seed for seed the JAX
+lane's, and ``unroll_from_draws`` can be fed given draws. The disturbance
+curriculum's difficulty scales those draws where they enter the lane
+(``unroll_from_draws``), as the JAX env scales its own. Where the env publishes privileged obs, the kernels emit them as
 aux rows, restored on done from the ``first`` block, and the transitions
 carry them in ``extras`` as ``acting.actor_step`` records them.
 
@@ -42,6 +43,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from puppax_torch import random
 from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.env.base import State
 from puppax_torch.env.pupper import DISTURBANCE_KEYS
@@ -182,15 +184,29 @@ class FastLane:
         )
 
     # ---- pre-drawn randomness -------------------------------------------------
-    def draw_noise_block(self, generator: torch.Generator, B: int, T: int):
-        """Every env-noise row for T steps: ``(T, nnoise, B)`` and the last
-        step's kick ``(B, 2)``."""
+    def draw_noise_block(self, keys: torch.Tensor, T: int):
+        """Every env-noise row for T steps on the envs' key chains
+        (``puppax/env/rollout.py:366-404``: T ``draw_step_noise`` calls in
+        turn, batched over the envs' ``(B, 2)`` keys). Returns the keys
+        after T steps, the ``(T, nnoise, B)`` block and the last step's kick
+        ``(B, 2)``."""
         block, kick = [], None
         for _ in range(T):
-            noise = self.env.draw_step_noise(generator, B)
+            noise = self.env.draw_step_noise(keys)
+            keys = noise["rng"]
             block.append(soa_env.noise_block(self.es, noise))
             kick = noise["kick"]
-        return torch.stack(block), kick
+        return keys, torch.stack(block), kick
+
+    def draw_eps(self, key: torch.Tensor, B: int, T: int) -> torch.Tensor:
+        """The policy's sampling eps ``(T, B, act)`` from one ``(2,)`` key:
+        per step ``cur, nxt = split(key)`` and ``normal(cur, (B, act))``
+        (``puppax/env/rollout.py:496-503``), the T normals in one draw."""
+        used = []
+        for _ in range(T):
+            cur, key = random.split(key).unbind(0)
+            used.append(cur)
+        return random.normal(torch.stack(used), (B, self.env.action_size))
 
     # ---- the policy in feature-major layout ---------------------------------------
     def policy_rows(self, normalizer, policy):
@@ -227,14 +243,17 @@ class FastLane:
         in the JAX package (``rollout.py:459-475``)."""
         return os.environ.get("PUPPAX_FUSED_UNROLL", "off") in ("on", "force", "auto_on") and T >= 1
 
-    def unroll(self, state: State, policy_params: Tuple, generator: torch.Generator, T: int):
+    def unroll(self, state: State, policy_params: Tuple, key: torch.Tensor, T: int):
         """T policy steps from ``state``; returns (final State, Transition
-        stack). ``policy_params`` is (normalizer state, policy ``MLP``)."""
+        stack). ``policy_params`` is (normalizer state, policy ``MLP``);
+        ``key`` ``(2,)`` draws the sampling eps, and the env noise comes
+        from the state's per-env keys ``info["rng"]``, which the final state
+        carries on."""
         B = state.qpos.shape[0]
-        eps = torch.randn((T, B, self.env.action_size), generator=generator,
-                          device=self.device, dtype=torch.float32)
-        noise, last_kick = self.draw_noise_block(generator, B, T)
-        return self.unroll_from_draws(state, policy_params, noise, eps, last_kick)
+        eps = self.draw_eps(key, B, T)
+        keys, noise, last_kick = self.draw_noise_block(state.info["rng"], T)
+        final, data = self.unroll_from_draws(state, policy_params, noise, eps, last_kick)
+        return final.replace(info={**final.info, "rng": keys}), data
 
     @torch.no_grad()
     def unroll_from_draws(self, state: State, policy_params: Tuple, noise: torch.Tensor,

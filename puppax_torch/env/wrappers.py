@@ -67,12 +67,14 @@ class TrainingEnv:
             self._dr_rows[B] = rows
         return self._dr_rows[B]
 
-    def reset(self, num_envs: int, generator: torch.Generator, caches: bool = False) -> State:
-        if self.num_envs is not None and num_envs != self.num_envs:
+    def reset(self, keys: torch.Tensor, caches: bool = False) -> State:
+        """Reset one env per key of ``keys`` ``(B, 2)`` (the JAX stack's
+        ``reset(jax.random.split(key, B))``)."""
+        if self.num_envs is not None and keys.shape[0] != self.num_envs:
             raise ValueError(
-                f"the DR model is batched for {self.num_envs} envs, not {num_envs}"
+                f"the DR model is batched for {self.num_envs} envs, not {keys.shape[0]}"
             )
-        return self.reset_from_draws(self.env.draw_reset(generator, num_envs), caches)
+        return self.reset_from_draws(self.env.draw_reset(keys), caches)
 
     def reset_from_draws(self, draws, caches: bool = False) -> State:
         """Reset on given draws; ``caches=True`` adds the reset-time
@@ -94,11 +96,13 @@ class TrainingEnv:
             info["first_pipeline_state"] = pipeline_state
         return state.replace(info=info, pipeline_state=pipeline_state)
 
-    def step(self, state: State, action: torch.Tensor, generator: torch.Generator) -> State:
-        """One wrapped step of every env (``action_repeat`` env steps), its
-        draws taken from ``generator``."""
-        B = state.qpos.shape[0]
-        noise = [self.env.draw_step_noise(generator, B) for _ in range(self.action_repeat)]
+    def step(self, state: State, action: torch.Tensor) -> State:
+        """One wrapped step of every env (``action_repeat`` env steps), each
+        env step's draws made from ``info["rng"]`` in turn."""
+        keys, noise = state.info["rng"], []
+        for _ in range(self.action_repeat):
+            noise.append(self.env.draw_step_noise(keys))
+            keys = noise[-1]["rng"]
         return self.step_from_draws(state, action, noise[0] if len(noise) == 1 else noise)
 
     def step_from_draws(self, state: State, action: torch.Tensor,
@@ -151,16 +155,16 @@ def wrap_for_training(
     episode_length: int = 1000,
     action_repeat: int = 1,
     randomization_fn: Optional[Callable] = None,
-    generator: Optional[torch.Generator] = None,
-    num_envs: Optional[int] = None,
+    randomization_keys: Optional[torch.Tensor] = None,
 ) -> TrainingEnv:
-    """Episode + (DR-)batch + AutoReset. ``randomization_fn(model,
-    generator, num_envs) -> model`` batches the DR leaves over
-    ``num_envs`` envs with draws from ``generator``."""
+    """Episode + (DR-)batch + AutoReset. ``randomization_fn(model, keys)
+    -> model`` batches the DR leaves over the envs, one per key of
+    ``randomization_keys`` ``(B, 2)`` (``puppax/env/wrappers.py:172-186``)."""
     model = env.model
+    num_envs = None
     if randomization_fn is not None:
-        if generator is None or num_envs is None:
-            raise ValueError("domain randomization needs a generator and num_envs")
-        model = randomization_fn(model, generator, num_envs)
-    return TrainingEnv(env, episode_length, model,
-                       num_envs if randomization_fn is not None else None, action_repeat)
+        if randomization_keys is None:
+            raise ValueError("domain randomization needs its per-env keys")
+        model = randomization_fn(model, randomization_keys)
+        num_envs = int(randomization_keys.shape[0])
+    return TrainingEnv(env, episode_length, model, num_envs, action_repeat)

@@ -112,6 +112,11 @@ TEAM_WARPS = {"wrapped_step_team": 6, "env_step_team": 6, "physics_step_team": 4
 # team K4's MLP outputs per thread at once (K4_R; chosen on the card from the
 # sweep of probes/profile_team.py --kernel K4; PERF.md)
 K4_MLP_ROWS = 16
+# jax's threefry2x32 and the draws from it (puppax_torch/random.py; no
+# generated body): keys, lo, hi, out; B = the keys; ints n, offset, mode and
+# the keys' row stride
+THREEFRY = Kernel("threefry", CSRC / "threefry.cuh", 4, "threefry_launch", "threefry_host",
+                  n_ints=4)
 # the probes' shells: K1's body in two layouts (4 in + 3 out + the sink row;
 # ints threads, layout and the row counts nq, nv, nu, ndr, ncache); the multiply-add
 # chain (a, b, out; B = threads per block; ints K, mode, blocks); x + 1
@@ -562,6 +567,18 @@ def fma_chain_ilp_library(fmad: bool) -> ctypes.CDLL:
     if _INSTEAD is None and lib.fma_chain_ilp_grid.argtypes is None:  # a library, bound once
         for fn in (lib.fma_chain_occupancy, lib.fma_chain_ilp_grid):
             fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return lib
+
+
+def threefry_library() -> ctypes.CDLL:
+    """The threefry kernel (``csrc/threefry.cuh``'s ``threefry_launch``),
+    which ``random.threefry`` launches for every draw on the card; the
+    entry ``pow_check_launch`` (x, y, out, n, stream: ``powf`` elementwise,
+    the emitter's text for a solimp power) is bound beside it."""
+    lib = _device_library(THREEFRY, None, None, (), lambda: "")
+    if _INSTEAD is None and lib.pow_check_launch.argtypes is None:  # a library, bound once
+        lib.pow_check_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        lib.pow_check_launch.restype = ctypes.c_int
     return lib
 
 

@@ -349,6 +349,10 @@ class CProgram:
     def unary(self, name: str, x):
         return self.emit("f", _UNARY[name], self.arg(x))
 
+    def pow_const(self, x, p: float):
+        """``powf(x, p)`` for a constant exponent (``soa.pow_const``)."""
+        return self.emit("f", "powf({}, " + float_literal(p) + ")", self.arg(x))
+
     def grid_at(self, grid, iv, iu, dv: int, du: int) -> CVal:
         """A read of the constant grid at row ``iv + dv``, column ``iu +
         du`` (``soa.grid_at``): ``hfield_at`` of the preamble, one value
@@ -696,7 +700,8 @@ def physics_step_body(s, n_substeps: int, phase_limit=None, sink: bool = False) 
 
 _LOOP = re.compile(r"for \(int \w+ = 0; \w+ < (\d+); \+\+\w+\) \{$")
 _OPS = re.compile(
-    r"(?<![eE])[-+*/](?![=+])|[<>]=?|[!=]=|\b(?:sqrtf|expf|sinf|cosf|fabsf|floorf|pmax|pmin|psign)\("
+    r"(?<![eE])[-+*/](?![=+])|[<>]=?|[!=]="
+    r"|\b(?:sqrtf|expf|sinf|cosf|powf|fabsf|floorf|pmax|pmin|psign)\("
 )
 # a declaration (value, carry, accumulator or stacked array), an assignment
 # of a carry or accumulator, a store into an output block

@@ -85,13 +85,13 @@ SUM_UNROLL = 35
 CAP = 48
 CROSS = 1.0
 
-_SLOW = re.compile(r"\b(?:sinf|cosf|expf)\(")
+_SLOW = re.compile(r"\b(?:sinf|cosf|expf|powf)\(")
 _MID = re.compile(r"\bsqrtf\(|/")
 
 
 def weight(expr: str) -> int:
     """Balancing weight of one expression: its float operations, with a
-    division or square root as 8 and sin, cos or exp as 20 (their
+    division or square root as 8 and sin, cos, exp or pow as 20 (their
     correctly rounded sequences); a plain copy weighs 0."""
     ops = cgen.expr_ops(expr)
     if ops == 0:

@@ -396,6 +396,17 @@ def div_const(x, c: float):
     return x / c
 
 
+def pow_const(x, p: float):
+    """``jnp.power(x, p)`` for a value x and a constant exponent p: the math
+    library's pow of two floats in both back-ends (torch ``pow`` of two
+    tensors, whose scalar form would turn some exponents into products; C
+    ``powf``)."""
+    bk = _peer(x)
+    if bk is None:
+        return torch.pow(x, torch.full_like(x, float(p)))
+    return bk.pow_const(x, float(p))
+
+
 def full_like(ref, value: float):
     bk = _peer(ref)
     return torch.full_like(ref, float(value)) if bk is None else bk.const(value)
@@ -546,12 +557,29 @@ class _Boxes(NamedTuple):
     ``first + n * len(spheres) - 1`` of ``_Static.pairs``, box by box, each
     box's pairs one per sphere in the order of ``spheres`` (box 0's pairs),
     and per box its table row: the rotation's rows (9), position (3) and
-    half-sizes (3)."""
+    half-sizes (3), then, when the boxes' pairs differ in their contact
+    parameters (``params``), each sphere's ``N_CONTACT_CONSTANTS`` constants
+    of its pair with the box (``_contact_constants``)."""
 
     first: int
     n: int
     spheres: tuple
     table: tuple
+    params: bool = False
+
+
+# a pair's contact constants, in a box table's per-sphere columns: the
+# stiffness and damping (_kb), the friction rows' R factor, and the
+# impedance's (_impedance_constants)
+N_CONTACT_CONSTANTS = 9
+BOX_POSE_COLUMNS = 15
+
+
+def _contact_constants(pr: "_Pair", impratio: float) -> tuple:
+    """The constants ``_pair_rows`` folds into a pair's rows, as Python
+    floats in the order of ``N_CONTACT_CONSTANTS``."""
+    return (*_kb(pr.solref, pr.solimp), pr.invweight * 2.0 / impratio,
+            *_impedance_constants(pr.solimp))
 
 
 def _box_major(pairs) -> bool:
@@ -611,28 +639,39 @@ def _quat_mat_np(q):
     )
 
 
-def _boxes(pairs: List[_Pair]) -> Optional[_Boxes]:
+def _boxes(pairs: List[_Pair], impratio: float) -> Optional[_Boxes]:
     """The sphere-box pairs of ``pairs`` as one loop over the boxes, or None
-    without any. Every box's pair with a given sphere must carry the same
-    constants (the spheres' and the boxes' contact parameters alike), as
-    ``obstacles.py``'s boxes do; the boxes' own poses and sizes go into the
-    table."""
+    without any. Every box's pair with a given sphere names the same sphere
+    and bodies; the boxes' own poses and sizes go into the table. Where the
+    boxes' pairs carry the same contact parameters, as ``obstacles.py``'s
+    boxes do, the loop folds them in as constants; where they differ
+    (solref, solimp or invweight; not solimp's power), each box's row also
+    holds its pairs' ``_contact_constants``, read in the loop as the pose
+    is."""
     idx = [i for i, p in enumerate(pairs) if p.kind == "bs"]
     if not idx:
         return None
     bs = [pairs[i] for i in idx]
     nsph = sum(1 for p in bs if p.geom2 == bs[0].geom2)
     spheres = tuple(bs[:nsph])
-    same = ("sphere_geom", "sphere_body", "radius", "sphere_off", "solref", "solimp",
-            "invweight", "body1", "body2")
+    same = ("sphere_geom", "sphere_body", "radius", "sphere_off", "body1", "body2")
     for i, p in enumerate(bs):
         if any(getattr(p, f) != getattr(spheres[i % nsph], f) for f in same):
             raise NotImplementedError(
-                "boxes whose pairs differ in their contact parameters (solref, solimp or "
-                "the box's body) are outside the emitter's box loop")
-    table = tuple(tuple(c for row in p.box_R for c in row) + tuple(p.box_pos) + tuple(p.box_half)
-                  for p in bs[::nsph])
-    return _Boxes(first=idx[0], n=len(bs) // nsph, spheres=spheres, table=table)
+                "boxes whose pairs differ in their sphere or bodies are outside the "
+                "emitter's box loop")
+    params = any(getattr(p, f) != getattr(spheres[i % nsph], f)
+                 for i, p in enumerate(bs) for f in ("solref", "solimp", "invweight"))
+    if params and any(float(p.solimp[4]) != float(spheres[i % nsph].solimp[4])
+                      for i, p in enumerate(bs)):
+        raise NotImplementedError("boxes whose pairs differ in solimp's power are outside "
+                                  "the emitter's box loop")
+    table = tuple(
+        tuple(c for row in p.box_R for c in row) + tuple(p.box_pos) + tuple(p.box_half)
+        + (tuple(c for q in bs[b * nsph:(b + 1) * nsph] for c in _contact_constants(q, impratio))
+           if params else ())
+        for b, p in enumerate(bs[::nsph]))
+    return _Boxes(first=idx[0], n=len(bs) // nsph, spheres=spheres, table=table, params=params)
 
 
 class _Static:
@@ -812,7 +851,7 @@ class _Static:
                     box_half=tuple(float(c) for c in geom_size[g2]),
                 )
             )
-        self.boxes = _boxes(self.pairs)
+        self.boxes = _boxes(self.pairs, self.impratio)
         # hfield-sphere (a world-static heightfield), after the sphere-box
         # kind in collision's order; the float64 grid when MJ tables are given
         if m.pairs_hfield_sphere:
@@ -987,16 +1026,33 @@ def _impedance(solimp: tuple, pos):
         b = 1.0 / max(1.0 - mid, _MINVAL) ** (power - 1.0)
         y = a * x**power if x < mid else 1.0 - b * (1.0 - x) ** power
         return min(max(dmin + y * (dmax - dmin), 1e-4), 0.9999)
-    x = clip(div_const(abs_(pos), max(width, _MINVAL)), 0.0, 1.0)
-    a = 1.0 / max(mid, _MINVAL) ** (power - 1.0)
-    b = 1.0 / max(1.0 - mid, _MINVAL) ** (power - 1.0)
-    if power != 2.0:
-        raise NotImplementedError("solimp power != 2 is not ported")
-    y_lo = a * x * x
-    one_minus = 1.0 - x
-    y_hi = 1.0 - b * one_minus * one_minus
+    return _impedance_of(_impedance_constants(solimp), power, pos)
+
+
+def _impedance_constants(solimp: tuple) -> tuple:
+    """(dmin, dmax - dmin, width, mid, a, b): the constants the impedance
+    of a value folds in, as Python floats."""
+    dmin, dmax, width, mid, power = (float(x) for x in solimp)
+    return (dmin, dmax - dmin, max(width, _MINVAL), mid,
+            1.0 / max(mid, _MINVAL) ** (power - 1.0),
+            1.0 / max(1.0 - mid, _MINVAL) ** (power - 1.0))
+
+
+def _impedance_of(c, power: float, pos):
+    """The impedance at a value ``pos`` from its constants ``c``
+    (``_impedance_constants``' order): Python floats folded in, or values
+    a box table holds, in the same operations and order."""
+    dmin, ddiff, width, mid, a, b = c
+    x = clip(div_const(abs_(pos), width) if _c(width) else abs_(pos) / width, 0.0, 1.0)
+    if power == 2.0:
+        y_lo = a * x * x
+        one_minus = 1.0 - x
+        y_hi = 1.0 - b * one_minus * one_minus
+    else:
+        y_lo = a * pow_const(x, power)
+        y_hi = 1.0 - b * pow_const(1.0 - x, power)
     y = where(x < mid, y_lo, y_hi)
-    return clip(dmin + y * (dmax - dmin), 1e-4, 0.9999)
+    return clip(dmin + y * ddiff, 1e-4, 0.9999)
 
 
 def _kb(solref: tuple, solimp: tuple) -> Tuple[float, float]:
@@ -1644,10 +1700,12 @@ def _virtual_spheres(pr: _Pair, p1, p2, ref0):
 
 
 def _pair_rows(s: _Static, pr: _Pair, mu, n, t1, t2, cpos, dist, dof_coeff, com_root, cdof,
-               v) -> List["_Row"]:
+               v, consts=None) -> List["_Row"]:
     """The four pyramidal friction-cone rows of one contact (facets t1+,
     t1-, t2+, t2-): J over the dofs of ``dof_coeff`` (each dof's signed
-    coefficient), aref, R and D with the pair's friction ``mu``."""
+    coefficient), aref, R and D with the pair's friction ``mu``; the pair's
+    contact constants folded in from ``pr``, or read from ``consts`` (values,
+    ``_contact_constants``' order) where a box loop's boxes differ."""
     offc = vsub3(cpos, com_root)
     jn, jt1, jt2 = {}, {}, {}
     dofs = sorted(dof_coeff)
@@ -1661,10 +1719,15 @@ def _pair_rows(s: _Static, pr: _Pair, mu, n, t1, t2, cpos, dist, dof_coeff, com_
     jt1_v = functools.reduce(add, [mul(jt1[d], v[d]) for d in dofs])
     jt2_v = functools.reduce(add, [mul(jt2[d], v[d]) for d in dofs])
 
-    imp = _impedance(pr.solimp, dist)
-    K, Bc = _kb(pr.solref, pr.solimp)
+    if consts is None:
+        imp = _impedance(pr.solimp, dist)
+        K, Bc = _kb(pr.solref, pr.solimp)
+        r_t0 = pr.invweight * 2.0 / s.impratio
+    else:
+        imp = _impedance_of(consts[3:], float(pr.solimp[4]), dist)
+        K, Bc, r_t0 = consts[:3]
     mu2 = mul(mu, mu)
-    r_t = mul(mul(pr.invweight * 2.0 / s.impratio, mu2), add(1.0, mu2))
+    r_t = mul(mul(r_t0, mu2), add(1.0, mu2))
     base_R = maximum((1.0 - imp) / maximum(imp, _MINVAL), _MINVAL)
     pen_active = dist < 0
     # facet order [t1+, t1-, t2+, t2-]; the -facet reuses mu*jt (IEEE:
@@ -1794,16 +1857,19 @@ class _BoxRows:
 
         def body(k, carry):
             g = dict(zip(gdofs, carry))
-            tab = [table_at(bx.table, k, c, ref) for c in range(15)]
+            tab = [table_at(bx.table, k, c, ref) for c in range(BOX_POSE_COLUMNS)]
             R, bp, half = [tab[0:3], tab[3:6], tab[6:9]], tab[9:12], tab[12:15]
             for j, sp in enumerate(bx.spheres):
                 chain = self.chains[j]
                 n, cpos, dist, t1, t2 = _emit_sphere_box(sp, self.centers[j], R, bp, half)
                 mu = row_at(self.mu, k, nsph, bx.first + j, bx.n)
+                c0 = BOX_POSE_COLUMNS + N_CONTACT_CONSTANTS * j
+                consts = ([table_at(bx.table, k, c, ref)
+                           for c in range(c0, c0 + N_CONTACT_CONSTANTS)] if bx.params else None)
                 # J = frame (jac(box) - jac(sphere)) = -jac(sphere): the
                 # sphere is geom1, the opposite of the plane-sphere pair
                 rows = _pair_rows(s, sp, mu, n, t1, t2, cpos, dist, {d: -1.0 for d in chain},
-                                  self.com_root, self.cdof, self.v)
+                                  self.com_root, self.cdof, self.v, consts)
                 array_store(self.dist, dist, j, k, nsph)
                 for c in range(3):
                     array_store(self.pos, cpos[c], 3 * j + c, k, 3 * nsph)

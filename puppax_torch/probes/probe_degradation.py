@@ -44,6 +44,7 @@ from typing import Dict, Sequence
 
 import torch
 
+from puppax_torch import random
 from puppax_torch.kernels import build
 from puppax_torch.probes import common
 
@@ -85,11 +86,13 @@ def setup(stage: int, device):
         return
     env = PupperV3Env.from_config(EnvConfig(), device=device)
     s = soa._Static(env.model, mjcf.load_model().mj) if stage >= 4 else None
-    g = torch.Generator(device=device).manual_seed(0)
+    def keys(n):
+        return random.split(random.key(0, device), n)
+
     if stage == 5:
         soa.dr_inputs(env.model, s, ENVS, device=device)
     elif stage == 6:
-        wrap_for_training(env, episode_length=1000).reset(RESET_ENVS, g)
+        wrap_for_training(env, episode_length=1000).reset(keys(RESET_ENVS))
     elif stage == 7:
         # the port keeps the model's leaves on the host: the leaf goes to the
         # card first, then comes back
@@ -97,7 +100,7 @@ def setup(stage: int, device):
     elif stage == 8:
         wrap_for_training(env, episode_length=1000)
     elif stage in (9, 10, 11):
-        env.reset(g, 1 if stage == 11 else RESET_ENVS)
+        env.reset(keys(1 if stage == 11 else RESET_ENVS))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
 

@@ -52,6 +52,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from puppax_torch import random
 from puppax_torch.kernels import build
 from puppax_torch.probes import common, profile_kernel_phases
 from puppax_torch.probes.common import BLOCK_MAJOR, ROW_MAJOR, from_block_major, to_block_major
@@ -246,11 +247,12 @@ def team_blocks(device, envs: Sequence[int] = TEAM_ENVS):
 
     env = PupperV3Env.from_config(EnvConfig(), device=device)
     s, es = env._s, env._es
-    g = torch.Generator(device=device).manual_seed(0)
+    key = random.key(0, device)
     out = {"K1": {}, "K2": {}}
     for B in envs:
         out["K1"][B] = common.nominal_blocks(s, env.model, B, device)
-        state = env.reset(g, B)
+        key, key_reset = random.split(key).unbind(0)
+        state = env.reset(random.split(key_reset, B))
         zeros = torch.zeros((es.nnoise_rows, B), dtype=torch.float32, device=device)
         out["K2"][B] = [soa_env.rows_block([state.qpos]), soa_env.rows_block([state.qvel]),
                         torch.zeros((s.nu, B), dtype=torch.float32, device=device),

@@ -108,12 +108,12 @@ def unroll_ab(lane, state, params, noise, eps, last_kick,
                 leaves=len(dict(leaves(captured))))
 
 
-def lane_draws(lane, generator: torch.Generator, B: int, T: int = T_UNROLL):
-    """One unroll's draws, made as ``FastLane.unroll`` makes them: (noise,
-    eps, last_kick)."""
-    eps = torch.randn((T, B, lane.env.action_size), generator=generator, device=lane.device,
-                      dtype=torch.float32)
-    noise, last_kick = lane.draw_noise_block(generator, B, T)
+def lane_draws(lane, state, key: torch.Tensor, T: int = T_UNROLL):
+    """One unroll's draws, made as ``FastLane.unroll`` makes them from the
+    state's per-env keys and the unroll's ``key``: (noise, eps,
+    last_kick)."""
+    eps = lane.draw_eps(key, state.qpos.shape[0], T)
+    _, noise, last_kick = lane.draw_noise_block(state.info["rng"], T)
     return noise, eps, last_kick
 
 
@@ -170,6 +170,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     common.require_cuda("profile_scan")
+    from puppax_torch import random
     from puppax_torch.configs import EnvConfig, TrainConfig
     from puppax_torch.env.pupper import PupperV3Env
     from puppax_torch.env.rollout import FastLane
@@ -184,16 +185,16 @@ def main(argv=None):
         env._s, env._es, env._n_substeps, tc.episode_length))
     common.print_builds([build.record_name(build.PROBE_COPY),
                          build.record_name(build.WRAPPED_STEP_TEAM)])
-    g = torch.Generator(device=device).manual_seed(args.seed)
+    key_net, key_env, key_run = random.split(random.key(args.seed, device), 3).unbind(0)
     wrapped = wrap_for_training(env, tc.episode_length)  # the nominal model
     lane = FastLane(wrapped)
     policy = networks.make_ppo_networks(
         env.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
-        tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g).policy_network
+        tc.value_hidden_layer_sizes, tc.activation, device=device, key=key_net).policy_network
     params = (running_statistics.init_state(env.observation_size, device=device), policy)
-    state = wrapped.reset(args.envs, g)
+    state = wrapped.reset(random.split(key_env, args.envs))
     q = common.nominal_blocks(env._s, env.model, args.envs, device)[0]
-    run(q, (lane, state, params, *lane_draws(lane, g, args.envs)))
+    run(q, (lane, state, params, *lane_draws(lane, state, key_run)))
     print(smi, flush=True)
 
 

@@ -70,6 +70,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from puppax_torch import random
 from puppax_torch.kernels import build, cgen, team
 from puppax_torch.physics import soa
 from puppax_torch.probes import common, profile_layout
@@ -196,7 +197,8 @@ def run(s, es, n_substeps: int, kernel: str, blocks: Dict[int, list],
 def k3_inputs(device, B: int = 4096, seed: int = 0):
     """(env, episode length, the 8 input blocks of one wrapped step) of the
     default training configuration: a DR'd reset of ``B`` envs, the
-    reset's first noise draw, random actions in [-1, 1] (from ``seed``)."""
+    reset's first noise draw (keys from ``seed``), random actions in [-1, 1]
+    (a generator seeded with ``seed``)."""
     from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
     from puppax_torch.env.domain_randomization import domain_randomize
     from puppax_torch.env.pupper import PupperV3Env
@@ -205,15 +207,17 @@ def k3_inputs(device, B: int = 4096, seed: int = 0):
 
     tc, dr_cfg = TrainConfig(), DomainRandomizationConfig()
     g = torch.Generator(device=device).manual_seed(seed)
+    key_dr, key_env = random.split(random.key(seed, device)).unbind(0)
     env = PupperV3Env.from_config(EnvConfig(), device=device)
     ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
     wrapped = wrap_for_training(
         env, tc.episode_length,
-        randomization_fn=lambda m, gen, n: domain_randomize(m, gen, n, **ranges),
-        generator=g, num_envs=B)
+        randomization_fn=lambda m, keys: domain_randomize(m, keys, **ranges),
+        randomization_keys=random.split(key_dr, B))
     lane = FastLane(wrapped)
-    carry = lane.carry_from_state(wrapped.reset(B, generator=g))
-    noise, _ = lane.draw_noise_block(g, B, 1)
+    state = wrapped.reset(random.split(key_env, B))
+    carry = lane.carry_from_state(state)
+    _, noise, _ = lane.draw_noise_block(state.info["rng"], 1)
     act = torch.rand((env.action_size, B), generator=g, device=device) * 2 - 1
     return env, tc.episode_length, [carry["q"], carry["v"], act, carry["env"],
                                     noise[0].contiguous(), carry["dr"], carry["first"],
@@ -239,15 +243,16 @@ def k4_inputs(device, B: int = 4096, T: int = 20, seed: int = 0):
     from puppax_torch.train import networks, running_statistics
 
     env, tc = PupperV3Env.from_config(EnvConfig(), device=device), TrainConfig()
-    g = torch.Generator(device=device).manual_seed(seed)
+    key_env, key_eps, key_net = random.split(random.key(seed, device), 3).unbind(0)
     wrapped = wrap_for_training(env, tc.episode_length)  # the nominal model
     lane = FastLane(wrapped)
-    carry = lane.carry_from_state(wrapped.reset(B, g))
-    noise, _ = lane.draw_noise_block(g, B, T)
-    eps = torch.randn((T, env.action_size, B), generator=g, device=device)
+    state = wrapped.reset(random.split(key_env, B))
+    carry = lane.carry_from_state(state)
+    _, noise, _ = lane.draw_noise_block(state.info["rng"], T)
+    eps = lane.draw_eps(key_eps, B, T).transpose(1, 2).contiguous()
     policy = networks.make_ppo_networks(
         env.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
-        tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g).policy_network
+        tc.value_hidden_layer_sizes, tc.activation, device=device, key=key_net).policy_network
     layers = fused_unroll.fold_normalizer(
         running_statistics.init_state(env.observation_size, device=device), policy)
     blocks = [carry[k] for k in ("q", "v", "env", "wrap")] + [

@@ -8,11 +8,14 @@ prints, for the K3 lane or, with ``--fused``, the fused-unroll lane
 (``PUPPAX_FUSED_UNROLL=on``):
 
 - each phase of the unroll timed alone, with CUDA events and on the host
-  clock: ``draw_noise_block`` (T steps of env noise), ``carry_from_state``
+  clock: ``draw_noise_block`` (T steps of env noise on the envs' threefry
+  key chains), ``draw_eps`` (the T steps' sampling eps), ``carry_from_state``
   and, for the K3 lane, one ``policy_rows`` apply and one team K3
   ``wrapped_step`` launch; for the fused lane, ``fold_normalizer``, one K4
   ``fused_unroll.unroll`` launch (all T steps) and ``_assemble_unroll``;
-- the whole unroll, unprofiled, timed with CUDA events (median of 3);
+- the whole unroll, unprofiled, timed with CUDA events (median of 3), and
+  the draws' share of it (``draw_noise_block`` + ``draw_eps`` over the
+  unroll, both on CUDA events);
 - one unroll under ``torch.profiler``: its CUDA-event window, the device's
   busy time in that window (the union of every device activity interval of
   the trace) and the idle share ``1 - busy / window``, plus the
@@ -85,6 +88,7 @@ def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from puppax_torch import random
     from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
     from puppax_torch.env import fused_unroll, soa_env
     from puppax_torch.env.domain_randomization import domain_randomize
@@ -100,28 +104,29 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     tc, dr_cfg = TrainConfig(), DomainRandomizationConfig()
     B, T, L = tc.num_envs, tc.unroll_length, tc.episode_length
-    g = torch.Generator(device=device).manual_seed(args.seed)
+    key_dr, key_net, key_env, key_run = random.split(random.key(args.seed, device), 4).unbind(0)
     env = PupperV3Env.from_config(EnvConfig(), device=device)
     ranges = {k: v for k, v in vars(dr_cfg).items() if k != "enabled"}
     wrapped = wrap_for_training(
-        env, L, randomization_fn=lambda m, gen, n: domain_randomize(m, gen, n, **ranges),
-        generator=g, num_envs=B,
+        env, L, randomization_fn=lambda m, keys: domain_randomize(m, keys, **ranges),
+        randomization_keys=random.split(key_dr, B),
     )
     nets = networks.make_ppo_networks(
         env.observation_size, env.action_size, tc.policy_hidden_layer_sizes,
-        tc.value_hidden_layer_sizes, tc.activation, device=device, generator=g,
+        tc.value_hidden_layer_sizes, tc.activation, device=device, key=key_net,
     )
     normalizer = running_statistics.init_state(env.observation_size, device=device)
     params = (normalizer, nets.policy_network)
     lane = FastLane(wrapped)
-    state = wrapped.reset(B, generator=g)
-    for _ in range(2):  # build the kernel, reach a state with contacts
-        state, _ = lane.unroll(state, params, generator=g, T=T)
+    state = wrapped.reset(random.split(key_env, B))
+    for key in random.split(key_run, 2):  # build the kernels, reach a state with contacts
+        state, _ = lane.unroll(state, params, key, T)
     torch.cuda.synchronize()
 
     carry = lane.carry_from_state(state)
-    noise, _ = lane.draw_noise_block(g, B, T)
-    eps = torch.randn((env.action_size, B), generator=g, device=device)
+    keys = state.info["rng"]
+    _, noise, _ = lane.draw_noise_block(keys, T)
+    eps = lane.draw_eps(key_run, B, 1)[0].t().contiguous()
     apply = lane.policy_rows(normalizer, nets.policy_network)
     r0, n = lane.es.env_rows["obs_history"]
     obs = carry["env"][r0 : r0 + n]
@@ -134,14 +139,20 @@ def main(argv=None):
         print(f"{name}: {_event_ms(fn, reps):.3f} ms CUDA events, "
               f"{_host_ms(fn, reps):.3f} ms host clock", flush=True)
 
-    phase(f"draw_noise_block T={T}", lambda: lane.draw_noise_block(g, B, T), 5)
+    draws_ms = 0.0
+    for name, fn in ((f"draw_noise_block T={T}", lambda: lane.draw_noise_block(keys, T)),
+                     (f"draw_eps T={T}", lambda: lane.draw_eps(key_run, B, T))):
+        ms = _event_ms(fn, 5)
+        draws_ms += ms
+        print(f"{name}: {ms:.3f} ms CUDA events, {_host_ms(fn, 5):.3f} ms host clock",
+              flush=True)
     phase("carry_from_state", lambda: lane.carry_from_state(state), 5)
     if args.fused:
         policy = nets.policy_network
         fold = lambda: fused_unroll.fold_normalizer(normalizer, policy)  # noqa: E731
         k4_in = [carry[k] for k in ("q", "v", "env", "wrap")] + [
             None, carry["first"], carry["dr"], noise,
-            torch.randn((T, env.action_size, B), generator=g, device=device)]
+            lane.draw_eps(key_run, B, T).transpose(1, 2).contiguous()]
 
         def k4():
             return fused_unroll.unroll(lane.s, lane.es, lane.n_substeps, L, policy.activation_name,
@@ -159,11 +170,14 @@ def main(argv=None):
             phase("policy_rows", lambda: apply(obs, eps), 20)
         phase("wrapped_step (team K3)", lambda: soa_env.wrapped_step(
             lane.s, lane.es, lane.n_substeps, L, *blocks), 20)
-    unroll = [_event_ms(lambda: lane.unroll(state, params, generator=g, T=T), 1)
+    unroll = [_event_ms(lambda: lane.unroll(state, params, key_run, T), 1)
               for _ in range(3)]
+    median = statistics.median(unroll)
     print(f"{'fused-unroll (K4)' if args.fused else 'K3'} lane:")
-    print(f"unroll T={T} x {B} envs, unprofiled: median {statistics.median(unroll):.3f} ms "
+    print(f"unroll T={T} x {B} envs, unprofiled: median {median:.3f} ms "
           f"CUDA events (runs {unroll})", flush=True)
+    print(f"draws (draw_noise_block + draw_eps): {draws_ms:.3f} ms, "
+          f"{draws_ms / median:.3f} of the unroll", flush=True)
 
     for _ in ("warm-up", "measured"):
         torch.cuda.synchronize()
@@ -171,7 +185,7 @@ def main(argv=None):
         end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start.record()
-            lane.unroll(state, params, generator=g, T=T)
+            lane.unroll(state, params, key_run, T)
             end.record()
             torch.cuda.synchronize()
     window = start.elapsed_time(end)

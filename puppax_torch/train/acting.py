@@ -8,7 +8,10 @@ evaluator and, when the fast lane is off, training: its transitions stack
 as ``FastLane.unroll``'s do (time-major, ``log_prob`` (T, B) and
 ``raw_action`` (T, B, act) in ``policy_extras``). ``Evaluator`` runs full eval episodes and aggregates
 the ``eval/episode_*`` metrics with the JAX package's episode masking and
-metric names. Every draw comes from an explicit ``torch.Generator``.
+metric names. Every draw comes from jax keys (``puppax_torch.random``) on
+the JAX package's key chains: per step ``current, next = split(key)``, the
+policy sampling from ``current`` and the env drawing from its per-env keys
+``info["rng"]``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from puppax_torch import random
 from puppax_torch.env.base import State
 
 
@@ -35,14 +39,16 @@ class Transition:
     extras: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
-def actor_step(env, env_state: State, policy: Callable, generator: torch.Generator,
+def actor_step(env, env_state: State, policy: Callable, key: torch.Tensor,
                collect_metrics: bool = False) -> Tuple[State, Transition]:
     """One policy step on a wrapped env; ``collect_metrics`` also records
     the env's per-step metrics (the evaluator's use). Where the env
     publishes privileged obs, ``extras`` holds the pre-step
-    ``privileged_obs`` and the post-step ``next_privileged_obs``."""
-    actions, policy_extras = policy(env_state.obs, generator)
-    next_state = env.step(env_state, actions, generator)
+    ``privileged_obs`` and the post-step ``next_privileged_obs``. The
+    policy samples from ``key`` ``(2,)``; the env draws from
+    ``info["rng"]``."""
+    actions, policy_extras = policy(env_state.obs, key)
+    next_state = env.step(env_state, actions)
     extras = {}
     if "privileged_obs" in env_state.info:
         extras = {"privileged_obs": env_state.info["privileged_obs"],
@@ -66,14 +72,16 @@ def _stack(ts):
     return torch.stack(ts)
 
 
-def generate_unroll(env, env_state: State, policy: Callable, generator: torch.Generator,
+def generate_unroll(env, env_state: State, policy: Callable, key: torch.Tensor,
                     unroll_length: int, collect_metrics: bool = False
                     ) -> Tuple[State, Transition]:
-    """``unroll_length`` actor steps; returns (final state, transitions
+    """``unroll_length`` actor steps on the key chain of
+    ``puppax/train/acting.py:84-91``; returns (final state, transitions
     stacked on a leading time axis)."""
     steps = []
     for _ in range(unroll_length):
-        env_state, transition = actor_step(env, env_state, policy, generator,
+        current, key = random.split(key).unbind(0)
+        env_state, transition = actor_step(env, env_state, policy, current,
                                            collect_metrics=collect_metrics)
         steps.append(transition)
     fields = {f: _stack([getattr(t, f) for t in steps])
@@ -110,24 +118,33 @@ class Evaluator:
     """Runs full eval episodes on a wrapped eval env (reset with its
     physics caches, stepped through K2) and aggregates episode metrics. It
     runs on its env's device (``cuda:0`` unless the env was built for
-    another); one generator feeds the resets, the actions and the env
-    noise, in that order."""
+    another). Each evaluation splits its key from the evaluator's chain,
+    then the reset keys and the unroll's key from it
+    (``puppax/train/acting.py:120-124, 164``)."""
 
     def __init__(self, eval_env, eval_policy_factory: Callable, num_eval_envs: int,
-                 episode_length: int, action_repeat: int, generator: torch.Generator):
+                 episode_length: int, action_repeat: int, key: torch.Tensor):
         self._env = eval_env
         self._policy_factory = eval_policy_factory
         self._num_eval_envs = int(num_eval_envs)
         self._episode_steps = episode_length // action_repeat
-        self._generator = generator
+        self._key = key
         self._eval_walltime = 0.0
+
+    def next_keys(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Advance the chain: (the reset keys ``(num_eval_envs, 2)``, the
+        unroll's key ``(2,)``) of the next evaluation."""
+        self._key, eval_key = random.split(self._key).unbind(0)
+        key_reset, key_unroll = random.split(eval_key).unbind(0)
+        return random.split(key_reset, self._num_eval_envs), key_unroll
 
     @torch.no_grad()
     def run_evaluation(self, policy_params) -> Dict[str, float]:
         t = time.perf_counter()
-        state = self._env.reset(self._num_eval_envs, self._generator, caches=True)
+        reset_keys, key_unroll = self.next_keys()
+        state = self._env.reset(reset_keys, caches=True)
         policy = self._policy_factory(policy_params)
-        final_state, data = generate_unroll(self._env, state, policy, self._generator,
+        final_state, data = generate_unroll(self._env, state, policy, key_unroll,
                                             self._episode_steps, collect_metrics=True)
         metrics = {k: float(v) for k, v in episode_metrics(data, final_state).items()}
         epoch_time = time.perf_counter() - t

@@ -13,6 +13,11 @@ arrays, in the port's layout: the top-level script
 and calls it, so this package never imports orbax or JAX. A JAX train
 state (optax's Adam state) is not carried across. ``download_checkpoint``
 (W&B) belongs to ROADMAP queue 1's tools item.
+
+No key is saved: the JAX package's train state (``puppax/train/ppo.py``'s
+``TrainingState``: optimizer state, params, normalizers, env steps)
+carries none, and a resumed run, there as here, starts its key tree anew
+from the seed (``ppo.init_keys``) and resets its envs.
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Counterpart of ``puppax/train/distribution.py``: the policy head emits
 ``2 * action_size`` logits = (loc, scale_param); scale is
 ``softplus(scale_param) + min_std``, actions are ``tanh`` of a Gaussian
-sample, and ``log_prob`` corrects for the squash. Every normal draw comes
-from an explicit ``torch.Generator``, or is given as ``eps``.
+sample, and ``log_prob`` corrects for the squash. Every normal draw is
+``jax.random.normal(key, loc.shape)`` from a jax key
+(``puppax_torch.random``; ``puppax/train/distribution.py:37,70``), or is
+given as ``eps``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from puppax_torch import random
 
 _MIN_STD = 0.001
 _LOG2 = 0.6931471805599453
@@ -31,18 +35,19 @@ class NormalTanhDistribution:
         return loc, F.softplus(scale) + self._min_std
 
     @staticmethod
-    def _normal(loc: torch.Tensor, generator=None, eps=None) -> torch.Tensor:
+    def _normal(loc: torch.Tensor, key=None, eps=None) -> torch.Tensor:
         """Standard normal draws shaped like ``loc``: ``eps`` when given (the
-        parity tests inject the JAX package's), else from ``generator``."""
+        parity tests inject the JAX package's), else from the ``(2,)``
+        ``key``."""
         if eps is not None:
             return eps.to(loc.dtype)
-        return torch.randn(loc.shape, generator=generator, device=loc.device, dtype=loc.dtype)
+        return random.normal(key.to(loc.device), tuple(loc.shape)).to(loc.dtype)
 
-    def sample_no_postprocessing(self, logits: torch.Tensor, generator=None,
+    def sample_no_postprocessing(self, logits: torch.Tensor, key=None,
                                  eps=None) -> torch.Tensor:
         """Pre-tanh sample (what rollouts store for exact log_prob replay)."""
         loc, scale = self.loc_scale(logits)
-        return loc + scale * self._normal(loc, generator, eps)
+        return loc + scale * self._normal(loc, key, eps)
 
     def postprocess(self, pre_tanh: torch.Tensor) -> torch.Tensor:
         return torch.tanh(pre_tanh)
@@ -51,11 +56,11 @@ class NormalTanhDistribution:
         loc, _ = self.loc_scale(logits)
         return torch.tanh(loc)
 
-    def entropy(self, logits: torch.Tensor, generator=None, eps=None) -> torch.Tensor:
+    def entropy(self, logits: torch.Tensor, key=None, eps=None) -> torch.Tensor:
         """Single-sample entropy estimate of the squashed distribution."""
         loc, scale = self.loc_scale(logits)
         normal_entropy = 0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(scale)
-        pre_tanh = loc + scale * self._normal(loc, generator, eps)
+        pre_tanh = loc + scale * self._normal(loc, key, eps)
         return torch.sum(normal_entropy + self.forward_log_det_jacobian(pre_tanh), dim=-1)
 
     @staticmethod

@@ -5,8 +5,13 @@ package's layer naming (``hidden_0``, ``hidden_1``, ...), so a policy's
 parameters map one to one onto the flax tree ``{"params": {"hidden_i":
 {"kernel", "bias"}}}`` that checkpoints and the export ABI use; flax's
 kernel is ``(in, out)`` and ``nn.Linear``'s weight ``(out, in)``
-(``params_from_jax`` transposes). Initialization is flax's: LeCun-uniform
-kernels and zero biases, drawn from an explicit generator.
+(``params_from_jax`` transposes). Initialization is flax's in kind:
+LeCun-uniform kernels (``jax.nn.initializers.lecun_uniform``:
+``uniform(key, (in, out), -1, 1) * sqrt(3 / in)``) and zero biases, drawn
+from a jax key (``puppax_torch.random``), one split per layer. flax's own
+key path (each module's key folded from its hashed name) is not
+reproduced, so a seed gives other initial weights than the JAX package's;
+the parity tests carry weights across.
 
 Precision: the policy's products run in full float32 (the JAX package pins
 it to ``Precision.HIGHEST``; the fast lane, the export replay and the
@@ -29,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from puppax_torch import utils
+from puppax_torch import random, utils
 from puppax_torch.train import running_statistics
 from puppax_torch.train.distribution import NormalTanhDistribution
 
@@ -75,7 +80,7 @@ class MLP(nn.Module):
         layer_sizes: Sequence[int],
         activation: str = "elu",
         device=None,
-        generator: torch.Generator = None,
+        key: torch.Tensor = None,
         precision: str = "highest",
     ):
         super().__init__()
@@ -86,13 +91,15 @@ class MLP(nn.Module):
         self.activation_name = activation
         self.activation: Callable = utils.activation_fn_map(activation)
         self.precision = precision
+        key = random.key(0, device) if key is None else key.to(device)
+        keys = random.split(key, len(self.layer_sizes))
         fan_in = in_size
         for i, size in enumerate(self.layer_sizes):
             layer = nn.Linear(fan_in, size, device=device)
             with torch.no_grad():
-                # flax lecun_uniform: U(-sqrt(3 / fan_in), +sqrt(3 / fan_in))
-                bound = math.sqrt(3.0 / fan_in)
-                layer.weight.uniform_(-bound, bound, generator=generator)
+                # lecun_uniform: U(-1, 1) * sqrt(3 / fan_in), a flax (in, out) kernel
+                kernel = random.uniform(keys[i], (fan_in, size), -1.0, 1.0)
+                layer.weight.copy_((kernel * np.float32(math.sqrt(3.0 / fan_in))).t())
                 layer.bias.zero_()
             self.add_module(f"hidden_{i}", layer)
             fan_in = size
@@ -151,40 +158,43 @@ def make_ppo_networks(
     value_hidden_layer_sizes: Sequence[int] = (256, 256, 256, 256, 256),
     activation: str = "elu",
     device=None,
-    generator: torch.Generator = None,
+    key: torch.Tensor = None,
     value_precision: str = "highest",
     privileged_size: int = 0,
 ) -> PPONetworks:
     """Build the policy (obs -> 2 * action logits) and value (obs -> 1),
-    the policy's weights drawn from ``generator`` first. ``privileged_size``
+    their weights drawn from the two halves of ``split(key)``
+    (``puppax/train/ppo.py:591``; ``key`` defaults to ``PRNGKey(0)``). ``privileged_size``
     widens the value network's input alone to ``observation_size +
     privileged_size`` (the privileged critic); the policy and the export
     ABI stay as they are."""
     device = utils.resolve_device(device)
     dist = NormalTanhDistribution(event_size=action_size)
+    key = random.key(0, device) if key is None else key.to(device)
+    key_policy, key_value = random.split(key).unbind(0)
     policy = MLP(observation_size, tuple(policy_hidden_layer_sizes) + (dist.param_size,),
-                 activation, device=device, generator=generator)
+                 activation, device=device, key=key_policy)
     value = MLP(observation_size + int(privileged_size), tuple(value_hidden_layer_sizes) + (1,),
-                activation, device=device, generator=generator, precision=value_precision)
+                activation, device=device, key=key_value, precision=value_precision)
     return PPONetworks(policy_network=policy, value_network=value, action_distribution=dist)
 
 
 def make_inference_fn(networks: PPONetworks):
     """``make_policy((normalizer, policy MLP), deterministic=False)`` ->
-    ``policy(obs, generator=None, eps=None) -> (action, extras)``: the
-    tanh of the mode, or a NormalTanh sample from ``generator`` (or the
+    ``policy(obs, key=None, eps=None) -> (action, extras)``: the tanh of
+    the mode, or a NormalTanh sample from the ``(2,)`` ``key`` (or the
     given normal draws ``eps``) with its log_prob and pre-tanh action."""
     dist = networks.action_distribution
 
     def make_policy(params, deterministic: bool = False):
         normalizer, policy_net = params
 
-        def policy(obs: torch.Tensor, generator: Optional[torch.Generator] = None,
+        def policy(obs: torch.Tensor, key: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None):
             logits = policy_net(_normalized(normalizer, obs))
             if deterministic:
                 return dist.mode(logits), {}
-            pre_tanh = dist.sample_no_postprocessing(logits, generator, eps)
+            pre_tanh = dist.sample_no_postprocessing(logits, key, eps)
             return dist.postprocess(pre_tanh), {
                 "log_prob": dist.log_prob(logits, pre_tanh),
                 "raw_action": pre_tanh,

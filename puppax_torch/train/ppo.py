@@ -17,10 +17,12 @@ checkpoints. What differs:
   ``PUPPAX_SOA_ENV=off`` the physics-only lane on the physics-step kernel
   K1); the ``[puppax.ppo] rollout fast lane`` line says which and why. The
   evaluator steps the standard lane.
-* Randomness: one ``torch.Generator`` per stream of ``STREAMS``, seeded
-  with ``numpy.random.SeedSequence([seed, i]).generate_state(1, uint64)``
-  for the stream's index i (``make_generators``). Seed-for-seed parity with
-  JAX waits for the threefry port (ROADMAP queue 1).
+* Randomness: the JAX learner's key tree on jax's threefry
+  (``puppax_torch.random``): ``init_keys`` (``ppo.py:204-211, 621``), one
+  split per epoch, ``training_step_keys`` (``:504``), ``unroll_keys``
+  (``:480``) and ``sgd_update_keys`` (``:391, 411-414``), so every key and
+  draw is the JAX run's for the same seed. The networks' initial weights
+  are not (``networks.MLP``: flax's per-module key path is not ported).
 * The env-step count is a Python int: the JAX package's ``StepCount`` keeps
   two int32 limbs only because JAX runs without x64.
 * ``Adam`` reproduces ``optax.chain(clip_by_global_norm, adam)``: the lr
@@ -49,7 +51,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from puppax_torch import utils
+from puppax_torch import random, utils
 from puppax_torch.env import rollout, wrappers
 from puppax_torch.train import acting, checkpoint, running_statistics
 from puppax_torch.train import networks as ppo_networks
@@ -58,16 +60,50 @@ from puppax_torch.train.acting import Transition
 # the base of the JAX package's two-limb env-step count (ppo.py StepCount)
 _STEP_BASE = 2**30
 
-STREAMS = ("network", "dr", "reset", "rollout", "sgd", "eval")
 
-
-def make_generators(seed: int, device) -> Dict[str, torch.Generator]:
-    """One generator per random stream of ``STREAMS``, on ``device``."""
-    out = {}
-    for i, name in enumerate(STREAMS):
-        s = int(np.random.SeedSequence([int(seed), i]).generate_state(1, np.uint64)[0])
-        out[name] = torch.Generator(device=device).manual_seed(s)
+def init_keys(seed: int, num_envs: int, randomize: bool, device) -> Dict[str, torch.Tensor]:
+    """The start of the key tree (``puppax/train/ppo.py:204-211, 621``):
+    ``key`` (the epochs' chain), ``network``, ``eval``, ``env`` (the
+    ``(num_envs, 2)`` reset keys) and, with DR, ``dr`` (its ``(num_envs,
+    2)`` keys)."""
+    key, network_key, env_key, eval_key = random.split(random.key(seed, device), 4).unbind(0)
+    out = {"network": network_key, "eval": eval_key}
+    if randomize:
+        key, key_dr = random.split(key).unbind(0)
+        out["dr"] = random.split(key_dr, num_envs)
+    out["key"] = key
+    out["env"] = random.split(env_key, num_envs)
     return out
+
+
+def training_step_keys(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(the next step's key, the SGD's key, the rollout's key) of one
+    training step (``ppo.py:504``)."""
+    key, key_sgd, key_unroll = random.split(key, 3).unbind(0)
+    return key, key_sgd, key_unroll
+
+
+def unroll_keys(key: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """The keys of a training step's ``n`` unrolls (``ppo.py:480``: per
+    unroll ``k, k_unroll = split(k)``)."""
+    out = []
+    for _ in range(n):
+        key, k_unroll = random.split(key).unbind(0)
+        out.append(k_unroll)
+    return out
+
+
+def sgd_update_keys(key: torch.Tensor, num_minibatches: int, total_batch: int):
+    """One pass of SGD over the batch (``ppo.py:391, 411-414``): returns
+    (the next pass's key, the permutation of the ``total_batch`` rows, the
+    minibatches' loss keys)."""
+    key, key_perm, key_grad = random.split(key, 3).unbind(0)
+    perm = random.permutation(key_perm, total_batch)
+    loss_keys = []
+    for _ in range(num_minibatches):
+        key_grad, key_loss = random.split(key_grad).unbind(0)
+        loss_keys.append(key_loss)
+    return key, perm, loss_keys
 
 
 def compute_gae(truncation, termination, rewards, values, bootstrap_value,
@@ -404,9 +440,9 @@ def train(
 
     ``environment`` is a ``PupperV3Env`` on ``device`` (default ``cuda:0``;
     without a card the caller must pass ``"cpu"``), ``randomization_fn(model,
-    generator, num_envs) -> model`` batches the DR leaves, and
-    ``network_factory(obs_size, action_size, device=, generator=)`` builds
-    the networks. ``checkpoint_dir`` saves the full train state at every
+    keys) -> model`` batches the DR leaves over the envs' ``(num_envs, 2)``
+    keys, and ``network_factory(obs_size, action_size, device=, key=)``
+    builds the networks. ``checkpoint_dir`` saves the full train state at every
     eval epoch under ``<checkpoint_dir>/state/<env_steps>/``; ``resume``
     restarts from the latest one (the envs are reset anew)."""
     if devices is not None and len(devices) > 1:
@@ -433,10 +469,10 @@ def train(
                          f"is not a multiple of num_envs = {num_envs}")
     num_unrolls_per_env = (batch_size * num_minibatches) // num_envs
 
-    gens = make_generators(seed, device)
+    keys = init_keys(seed, num_envs, randomization_fn is not None, device)
     env = wrappers.wrap_for_training(
         environment, episode_length=episode_length, action_repeat=action_repeat,
-        randomization_fn=randomization_fn, generator=gens["dr"], num_envs=num_envs,
+        randomization_fn=randomization_fn, randomization_keys=keys.get("dr"),
     )
     lane_ok, lane_reason = rollout.support_reason(env)
     lane = rollout.FastLane(env) if lane_ok else None
@@ -446,7 +482,7 @@ def train(
     obs_size, action_size = environment.observation_size, environment.action_size
 
     priv_size = environment.privileged_obs_size if privileged_critic else 0
-    networks = network_factory(obs_size, action_size, device=device, generator=gens["network"],
+    networks = network_factory(obs_size, action_size, device=device, key=keys["network"],
                                **({"privileged_size": priv_size} if privileged_critic else {}))
     make_policy = ppo_networks.make_inference_fn(networks)
     params = list(networks.policy_network.parameters()) + list(networks.value_network.parameters())
@@ -464,7 +500,7 @@ def train(
             ts.load_state_dict(checkpoint.restore_checkpoint(state_dir, step, device))
 
     # the standard lane restores the reset-time pipeline state on done
-    env_state = env.reset(num_envs, gens["reset"], caches=lane is None)
+    env_state = env.reset(keys["env"], caches=lane is None)
     if curriculum_steps > 0 and "difficulty" not in env_state.info:
         raise ValueError("curriculum_steps > 0 requires an environment with "
                          "disturbance_curriculum=True (info['difficulty'] missing)")
@@ -476,21 +512,22 @@ def train(
     evaluator = acting.Evaluator(
         eval_wrapped, lambda p: make_policy(p, deterministic=deterministic_eval),
         num_eval_envs=num_eval_envs, episode_length=episode_length,
-        action_repeat=action_repeat, generator=gens["eval"],
+        action_repeat=action_repeat, key=keys["eval"],
     )
 
     def policy_params():
         return (ts.normalizer_params if normalize_observations else None,
                 networks.policy_network)
 
-    def sgd_step(data: Transition, ec_now: float, sums: Dict[str, torch.Tensor]):
+    def sgd_step(data: Transition, ec_now: float, sums: Dict[str, torch.Tensor], key):
         norm = ts.normalizer_params if normalize_observations else None
         critic_norm = ts.critic_normalizer_params if normalize_observations else None
-        perm = torch.randperm(batch_size * num_minibatches, generator=gens["sgd"],
-                              device=device)
-        for mb in minibatches(data, perm, num_minibatches, lazy_shuffle):
-            eps = torch.randn(mb.observation.shape[:2] + (action_size,),
-                              generator=gens["sgd"], device=device)
+        key, perm, loss_keys = sgd_update_keys(key, num_minibatches,
+                                               batch_size * num_minibatches)
+        for mb, key_loss in zip(minibatches(data, perm, num_minibatches, lazy_shuffle),
+                                loss_keys):
+            # the entropy's draw, jax.random.normal(key_loss, loc.shape)
+            eps = random.normal(key_loss, mb.observation.shape[:2] + (action_size,))
             loss, metrics = compute_ppo_loss(
                 networks, norm, mb, eps, ec_now, discounting=discounting,
                 gae_lambda=gae_lambda, clipping_epsilon=clipping_epsilon,
@@ -500,11 +537,13 @@ def train(
             optimizer.step(torch.autograd.grad(loss, params))
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
+        return key
 
     timer = _PhaseTimer(device)
 
-    def training_step(env_state, sums):
+    def training_step(env_state, sums, key):
         marks = timer.new_step()
+        key, key_sgd, key_unroll = training_step_keys(key)
         if curriculum_steps > 0:
             # the disturbance curriculum ramps with the env steps, set before
             # each training step's rollout
@@ -512,15 +551,13 @@ def train(
             env_state = env_state.replace(info=dict(
                 env_state.info, difficulty=torch.full_like(env_state.info["difficulty"], d)))
         data = []
-        for _ in range(num_unrolls_per_env):
+        for k_unroll in unroll_keys(key_unroll, num_unrolls_per_env):
             if lane is not None:
-                env_state, d = lane.unroll(env_state, policy_params(), gens["rollout"],
-                                           unroll_length)
+                env_state, d = lane.unroll(env_state, policy_params(), k_unroll, unroll_length)
             else:
                 with torch.no_grad():
                     env_state, d = acting.generate_unroll(
-                        env, env_state, make_policy(policy_params()), gens["rollout"],
-                        unroll_length)
+                        env, env_state, make_policy(policy_params()), k_unroll, unroll_length)
             data.append(d)
         timer.mark(marks)
         data = _cat_unrolls(data)
@@ -537,11 +574,12 @@ def train(
         else:
             ec_now = entropy_cost
         for _ in range(num_updates_per_batch):
-            sgd_step(data, ec_now, sums)
+            key_sgd = sgd_step(data, ec_now, sums, key_sgd)
         timer.mark(marks)
         ts.env_steps += env_step_per_training_step
-        return env_state
+        return env_state, key
 
+    key = keys["key"]
     all_metrics: Dict[str, float] = {}
     if num_evals > 1:
         all_metrics = evaluator.run_evaluation(policy_params())
@@ -550,10 +588,11 @@ def train(
     for i in range(num_evals_after_init):
         if ts.env_steps >= num_timesteps:
             break  # resumed past the target
+        key, step_key = random.split(key).unbind(0)  # ppo.py:747
         t = time.perf_counter()
         sums: Dict[str, torch.Tensor] = {}
         for _ in range(num_training_steps_per_epoch):
-            env_state = training_step(env_state, sums)
+            env_state, step_key = training_step(env_state, sums, step_key)
         n = num_training_steps_per_epoch * num_updates_per_batch * num_minibatches
         train_metrics = {k: float(v) / n for k, v in sums.items()}  # synchronizes
         epoch_time = time.perf_counter() - t

@@ -2,8 +2,8 @@
 device.
 
 Counterpart of ``puppax/utils.py:40-85``, batched over a leading env axis.
-The lag column is drawn as ``jax.random.choice(p=...)`` draws its index —
-an inverse CDF on one uniform — but from a ``torch.Generator``.
+The lag column is the index ``jax.random.choice(p=...)`` draws from the
+same key (``random.choice_p``: an inverse CDF on one uniform).
 """
 
 from __future__ import annotations
@@ -13,23 +13,21 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from puppax_torch import random
+
 
 def circular_buffer_push_front(buffer: torch.Tensor, new_value: torch.Tensor) -> torch.Tensor:
     """Shift (..., dim, depth) one column right; write new_value at [..., 0]."""
     return torch.cat([new_value[..., None], buffer[..., :-1]], dim=-1)
 
 
-def latency_onehot(
-    generator: torch.Generator, distribution: torch.Tensor, batch: int
-) -> torch.Tensor:
-    """(batch, depth) one-hot lag columns: the index ``choice`` would pick,
-    cdf = cumsum(p), index = searchsorted(cdf, cdf[-1] * (1 - u))."""
-    cdf = torch.cumsum(distribution, 0)
-    u = torch.rand(batch, generator=generator, device=distribution.device,
-                   dtype=distribution.dtype)
-    ind = torch.searchsorted(cdf, cdf[-1] * (1.0 - u))
-    depth = distribution.shape[0]
-    return F.one_hot(ind.clamp_max(depth - 1), depth).to(distribution.dtype)
+def latency_onehot(keys: torch.Tensor, distribution) -> torch.Tensor:
+    """(B, depth) one-hot lag columns, one per key of ``keys`` ``(B, 2)``:
+    the index ``jax.random.choice(key, depth, p=distribution)`` draws
+    (``puppax/utils.py:48-54``)."""
+    depth = len(distribution)
+    ind = random.choice_p(keys, distribution)
+    return F.one_hot(ind.clamp_max(depth - 1), depth).to(torch.float32)
 
 
 def apply_lagged_value(

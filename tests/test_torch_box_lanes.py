@@ -126,13 +126,13 @@ def test_physics_only_step_matches_k2(boxes, monkeypatch):
     state, action and draws: obs and reward 2e-4, done exact, the contact
     report's box rows among the caches."""
     _, _, po, k2 = boxes
-    g = torch.Generator().manual_seed(4)
-    state = po.reset_from_draws(po.draw_reset(g, NB))
+    keys = H.env_keys(NB, seed=4)
+    state = po.reset_from_draws(po.draw_reset(keys))
     rng = np.random.RandomState(1)
     qpos = H.place_over_boxes(po.model, state.qpos.numpy(), rng, range(0, NB, 2))
     state = state.replace(qpos=torch.from_numpy(qpos))
     action = torch.from_numpy(rng.uniform(-1, 1, (NB, 12)).astype(np.float32))
-    noise = po.draw_step_noise(g, NB)
+    noise = po.draw_step_noise(state.info["rng"])
     want = k2.step_from_draws(state, action, noise)
     monkeypatch.setattr(soa_env, "env_step", lambda *a: pytest.fail("K2 lane taken"))
     monkeypatch.setattr(pipeline, "pipeline_step", lambda *a: pytest.fail("pipeline_step"))
@@ -185,8 +185,8 @@ def fused_lanes(boxes):
 
     leaves = H.dr_leaves(jwrapped.env._model)
     twrapped = wrap_for_training(env, H.EPISODE_LENGTH,
-                                 randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-                                 generator=torch.Generator().manual_seed(0), num_envs=B)
+                                 randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+                                 randomization_keys=H.env_keys(B))
     tlane = FastLane(twrapped)
     draws = (torch.from_numpy(np.array(noise)),
              torch.from_numpy(fused_tests._eps_from_key(key, T, B)),
@@ -342,9 +342,8 @@ def test_ppo_train_on_the_box_lanes(boxes, tmp_path, capsys, monkeypatch, lane):
         line = "ON (ok; devices=1, fused-unroll=ON)"
     env = PupperV3Env(device="cpu", tables=path, **H.env_kwargs(1))
 
-    def factory(obs, act, device=None, generator=None):
-        return tnets.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
-                                       generator=generator)
+    def factory(obs, act, device=None, key=None):
+        return tnets.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device, key=key)
 
     _, (norm, _), metrics = ppo.train(
         env, num_timesteps=8, episode_length=8, num_envs=4, num_eval_envs=2, unroll_length=2,

@@ -37,6 +37,7 @@ import torch_port_helpers as H
 from puppax.configs import get_config
 from puppax.env import PupperV3Env as JaxEnv
 from puppax.env import soa_env as jax_soa_env
+from puppax_torch import random
 from puppax_torch.configs import experiment as exp
 from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.env.pupper import PupperV3Env
@@ -230,7 +231,6 @@ def test_box_lanes_build_and_step_run8(monkeypatch):
     from puppax_torch.train import networks
 
     cfg = replace(_run8(), environment_timestep=H.PHYSICS_DT)
-    g = torch.Generator().manual_seed(0)
     monkeypatch.setenv("PUPPAX_SOA_ENV", "off")
     po = PupperV3Env.from_config(cfg, device="cpu")
     monkeypatch.delenv("PUPPAX_SOA_ENV")
@@ -239,9 +239,9 @@ def test_box_lanes_build_and_step_run8(monkeypatch):
     monkeypatch.setattr(pipeline, "pipeline_step", lambda *a: pytest.fail("pipeline_step"))
     monkeypatch.setattr(soa_env, "env_step", lambda *a: pytest.fail("K2 lane taken"))
     wrapped = wrap_for_training(po, H.EPISODE_LENGTH)
-    state = wrapped.reset(2, g, caches=True)
+    state = wrapped.reset(H.env_keys(2), caches=True)
     before = soa.step_batched.launches
-    state = wrapped.step(state, torch.zeros(2, po.action_size), g)
+    state = wrapped.step(state, torch.zeros(2, po.action_size))
     assert soa.step_batched.launches == before  # the plain version on the CPU
     assert torch.isfinite(state.obs).all() and state.pipeline_state.contact_dist.shape == (2, 192)
 
@@ -254,8 +254,9 @@ def test_box_lanes_build_and_step_run8(monkeypatch):
     monkeypatch.setattr(soa_env, "wrapped_step", lambda *a: pytest.fail("K3 lane taken"))
     wrapped = wrap_for_training(env, H.EPISODE_LENGTH)
     policy = networks.make_ppo_networks(env.observation_size, env.action_size, (32, 32),
-                                        (32, 32), device="cpu", generator=g).policy_network
-    final, data = FastLane(wrapped).unroll(wrapped.reset(2, g), (None, policy), g, 1)
+                                        (32, 32), device="cpu").policy_network
+    final, data = FastLane(wrapped).unroll(wrapped.reset(H.env_keys(2)), (None, policy),
+                                           random.key(1), 1)
     assert calls == [2] and torch.isfinite(final.obs).all() and data.reward.shape == (1, 2)
 
 

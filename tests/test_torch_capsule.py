@@ -229,8 +229,8 @@ def wrapped_pair(caps):
         pipeline_state=jstate.pipeline_state.replace(qpos=jnp.asarray(qpos)))
     leaves = H.dr_leaves(jwrapped.env._model)
     twrapped = wrap_for_training(tenv, H.EPISODE_LENGTH,
-                                 randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-                                 generator=torch.Generator().manual_seed(0), num_envs=H.B)
+                                 randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+                                 randomization_keys=H.env_keys(H.B))
     return jenv, jwrapped, jstate, twrapped, jreset
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import torch_port_helpers as H
+from puppax_torch import random
 from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.kernels import build
 from puppax_torch.physics import soa
@@ -135,9 +136,8 @@ def test_short_training_launches_both_kernels(env, tmp_path):
     one-thread kernels."""
     from puppax_torch.train import networks, ppo
 
-    def factory(obs, act, device=None, generator=None):
-        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
-                                          generator=generator)
+    def factory(obs, act, device=None, key=None):
+        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device, key=key)
 
     soa_env.wrapped_step.launches = soa_env.env_step.launches = 0
     soa_env.wrapped_step_one_thread.launches = soa_env.env_step_one_thread.launches = 0
@@ -192,9 +192,8 @@ def test_physics_only_training_launches_k1(tmp_path, monkeypatch):
     monkeypatch.setenv("PUPPAX_SOA_ENV", "off")
     env = H.torch_env(n_substeps=5, device="cuda")
 
-    def factory(obs, act, device=None, generator=None):
-        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
-                                          generator=generator)
+    def factory(obs, act, device=None, key=None):
+        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device, key=key)
 
     soa_env.wrapped_step.launches = soa_env.env_step.launches = soa.step_batched.launches = 0
     soa.step_batched_one_thread.launches = 0
@@ -455,7 +454,8 @@ def test_export_on_the_card(tmp_path):
         env = PupperV3Env.from_config(dc_replace(EnvConfig(), gait_phase_observation=gait),
                                       device="cuda")
         nets = networks.make_ppo_networks(env.observation_size, env.action_size, (128,) * 4,
-                                          (32,), "elu", device="cuda", generator=g)
+                                          (32,), "elu", device="cuda",
+                                          key=random.key(int(gait), "cuda"))
         obs = torch.randn((64, env.observation_size), generator=g, device="cuda") * 2.0 + 0.3
         norm = running_statistics.update(running_statistics.init_state(env.observation_size,
                                                                        device="cuda"), obs)
@@ -502,9 +502,8 @@ def test_short_training_on_the_fused_lane(env, tmp_path, monkeypatch):
 
     monkeypatch.setenv("PUPPAX_FUSED_UNROLL", "on")
 
-    def factory(obs, act, device=None, generator=None):
-        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
-                                          generator=generator)
+    def factory(obs, act, device=None, key=None):
+        return networks.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device, key=key)
 
     soa_env.wrapped_step.launches = soa_env.env_step.launches = fused_unroll.unroll.launches = 0
     _, (norm, _), metrics = ppo.train(
@@ -593,14 +592,14 @@ def test_graphed_k3_unroll_equals_eager(env):
     from puppax_torch.probes import profile_scan
     from puppax_torch.train import networks, running_statistics
 
-    g = torch.Generator(device="cuda").manual_seed(3)
+    key_net, key_env, key = random.split(random.key(3, "cuda"), 3).unbind(0)
     wrapped = wrap_for_training(env, 1000)
     lane = FastLane(wrapped)
     policy = networks.make_ppo_networks(env.observation_size, env.action_size, (32, 32),
-                                        (32, 32), device="cuda", generator=g).policy_network
+                                        (32, 32), device="cuda", key=key_net).policy_network
     params = (running_statistics.init_state(env.observation_size, device="cuda"), policy)
-    state = wrapped.reset(256, g)
-    ab = profile_scan.unroll_ab(lane, state, params, *profile_scan.lane_draws(lane, g, 256),
+    state = wrapped.reset(random.split(key_env, 256))
+    ab = profile_scan.unroll_ab(lane, state, params, *profile_scan.lane_draws(lane, state, key),
                                 runs=1)
     assert ab["differing"] == [] and ab["T"] == 20 and ab["graph_ms"] > 0
 
@@ -944,6 +943,124 @@ def test_run9_team_k4_bit_for_bit(run9):
     for i, (g, w) in enumerate(zip(got, want)):
         assert (g is None and w is None) or torch.equal(g, w), \
             f"team K4[hfield] vs plain: output {i} differs"
+
+
+# ---- jax's threefry: the kernel every draw of the port goes through ----
+
+
+def test_threefry_kernel_matches_plain(env):
+    """``random.threefry`` on the card (``csrc/threefry.cuh``) against its
+    plain version on the same card tensors: pairs, bits and uniforms bit for
+    bit, normals within 4 ulp; the draws bit for bit with the same calls on
+    CPU tensors; each launch counted."""
+    from puppax_torch import random
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    keys = torch.randint(-2**31, 2**31, (300, 2), generator=g, device="cuda").to(torch.int32)
+    lo = torch.rand(77, generator=g, device="cuda") - 1.0
+    hi = lo + 2.0
+    before = random.threefry.launches
+    for mode in (random.PAIRS, random.BITS, random.UNIFORM, random.NORMAL):
+        bounds = (lo, hi) if mode == random.UNIFORM else (None, None)
+        got = random.threefry(keys, 77, mode, 5, *bounds).view(torch.int32).to(torch.int64)
+        want = random.threefry_rows(keys, 77, mode, 5, *bounds).view(torch.int32).to(torch.int64)
+        assert int((got - want).abs().max()) <= (4 if mode == random.NORMAL else 0), mode
+    assert random.threefry.launches == before + 4
+    k = random.split(random.key(3, "cuda"), 512)
+    for fn in (lambda x: random.split(x, 5), lambda x: random.uniform(x, (12,), -1.0, 1.0),
+               lambda x: random.bernoulli(x, 0.02, (1,)),
+               lambda x: random.choice_p(x, np.array([0.2, 0.8], np.float32)),
+               lambda x: random.permutation(x[0], 8192)):
+        got, want = fn(k).cpu(), fn(k.cpu())
+        if got.dtype.is_floating_point:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want)
+
+
+# ---- the capsule-legged Pupper: the capsule pairs, through env.path ----
+
+
+@pytest.fixture(scope="module")
+def capsule(tmp_path_factory):
+    """The capsule-legged Pupper (the bundled model's 4 foot spheres as
+    capsules of radius 0.015 and half-length 0.02, ``bench.py``'s variant)
+    from a file through ``env.path`` and its committed tables, on the card
+    at 5 substeps; team K1, K2, K3 and K4 (episode 4) ``[capsule]`` built
+    in one parallel batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the GPU host with "
+                    "`python -m pytest tests/test_torch_cuda.py --noconftest -m cuda`")
+    import xml.etree.ElementTree as ET
+
+    from puppax_torch.env.pupper import PupperV3Env
+    from puppax_torch.model import assets
+
+    tree = assets.pupper_xml_tree()
+    feet = [g for g in tree.getroot().iter("geom")
+            if g.get("type") == "sphere" and g.get("size") == "0.01995"]
+    assert len(feet) == 4
+    for geom in feet:
+        geom.set("type", "capsule")
+        geom.set("size", "0.015 0.02")
+    path = tmp_path_factory.mktemp("capsule") / "pupper_capsule.xml"
+    path.write_text(ET.tostring(tree.getroot(), encoding="unicode"))
+    env = PupperV3Env(path=str(path), device="cuda", **H.env_kwargs(5))
+    s, es = env._s, env._es
+    assert build.model_variant(s) == "capsule"
+    build.build_in_parallel(lambda: build.physics_step_team_library(s, 5),
+                            lambda: build.env_step_team_library(s, es, 5),
+                            lambda: build.wrapped_step_team_library(s, es, 5, 1000),
+                            lambda: build.fused_unroll_team_library(s, es, 5, 4))
+    return env
+
+
+def _stand(env, blocks):
+    """Every other base lowered onto its capsule feet (the plane-capsule rows
+    active), the rest as drawn."""
+    blocks[0][2, ::2] = 0.12
+    return blocks
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_capsule_team_kernels_bit_for_bit(capsule, kernel):
+    """Team K1, K2 and K3 ``[capsule]`` on a ragged batch of states, half
+    of them standing on the capsule feet: bit for bit with their plain
+    versions (``test_run9_team_kernels_bit_for_bit``'s form)."""
+    env, B = capsule, 300
+    s, es = env._s, env._es
+    dr = soa.dr_rows_block(s, soa.dr_inputs(env.model, s, B)).numpy()
+    rng = np.random.RandomState(20)
+    if kernel == "K1":
+        blocks = _stand(env, [b.cuda() for b in H.to_torch(
+            H.physics_step_blocks(env.model, dr, rng, n=B))])
+        got, want = soa.step_batched(s, *blocks, 5), soa.physics_step_rows(s, 5, *blocks)
+    elif kernel == "K2":
+        blocks = _stand(env, [b.cuda() for b in H.to_torch(
+            H.env_step_blocks(s, es, env.model, dr, rng, n=B))])
+        got, want = soa_env.env_step(s, es, 5, *blocks), soa_env.env_step_rows(s, es, 5, *blocks)
+    else:
+        blocks = _stand(env, [b.cuda() for b in H.to_torch(H.wrapped_step_blocks(
+            s, es, env.model, dr, rng, n=B, episode_length=1000))])
+        got = soa_env.wrapped_step(s, es, 5, 1000, *blocks)
+        want = soa_env.wrapped_step_rows(s, es, 5, 1000, *blocks)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"team {kernel}[capsule] vs plain: output {i} differs"
+
+
+def test_capsule_team_k4_bit_for_bit(capsule):
+    """Team K4 ``[capsule]`` over 3 steps (episodes of 4) from a reset of
+    130 envs: bit for bit with ``unroll_rows``
+    (``test_run9_team_k4_bit_for_bit``'s form)."""
+    env, B, T = capsule, 130, 3
+    s, es = env._s, env._es
+    layers, blocks = H.fused_unroll_inputs(env, B, T, "elu", 4)
+    got = fused_unroll.unroll(s, es, 5, 4, "elu", layers, *blocks)
+    want = fused_unroll.unroll_rows(s, es, 5, 4, "elu", layers, *blocks)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None and w is None) or torch.equal(g, w), \
+            f"team K4[capsule] vs plain: output {i} differs"
 
 
 # ---- run8's obstacle terrain: the sphere-box pairs as loops over the boxes ----

@@ -1,8 +1,8 @@
 """The port's env reset and random draws against puppax.
 
-``puppax``'s reset draws from per-env threefry keys; the port draws from a
-``torch.Generator``, so seed-for-seed equality is not the contract. The
-reset CORE is: the test replays ``puppax``'s key splits
+``puppax``'s reset draws from per-env threefry keys, and so does the
+port's (``puppax_torch.random``); ``tests/test_torch_random.py`` holds the
+two seed for seed. Here the reset CORE: the test replays ``puppax``'s key splits
 (``pupper.py:384-393,848-875``, ``domain_randomization.py:189-210``) to
 recover the values its ``wrapped.reset`` drew, hands them to the port's
 ``reset_from_draws`` and compares every field the fast lane reads. The
@@ -61,8 +61,8 @@ def resets():
     leaves = H.dr_leaves(jwrapped.env._model)
     twrapped = wrap_for_training(
         H.torch_env(), H.EPISODE_LENGTH,
-        randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-        generator=torch.Generator().manual_seed(0), num_envs=H.B,
+        randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+        randomization_keys=H.env_keys(H.B),
     )
     draws = {k: torch.from_numpy(v) for k, v in _jax_reset_draws(jenv, rngs).items()}
     return jstate, twrapped.reset_from_draws(draws)
@@ -93,8 +93,7 @@ def test_reset_matches_jax(resets):
 def test_reset_draws_shapes_and_ranges():
     env = PupperV3Env(device="cpu")
     n = 256
-    g = torch.Generator().manual_seed(1)
-    d = env.draw_reset(g, n)
+    d = env.draw_reset(H.env_keys(n, seed=1))
     c = env._start_position_config
     q = d["qpos"]
     assert q.shape == (n, 19) and q.dtype == torch.float32
@@ -112,8 +111,8 @@ def test_reset_draws_shapes_and_ranges():
 def test_step_noise_shapes_and_ranges():
     env = PupperV3Env(maximum_pitch_command=10.0, device="cpu")
     n = 512
-    d = env.draw_step_noise(torch.Generator().manual_seed(2), n)
-    assert set(d) == set(env._CORE_NOISE_KEYS)
+    d = env.draw_step_noise(H.env_keys(n, seed=2))
+    assert set(d) == set(env._CORE_NOISE_KEYS) | {"rng"} and d["rng"].shape == (n, 2)
     assert d["kick"].shape == (n, 2) and d["kick"].abs().max() <= 0.2
     assert 0 < (d["kick"] != 0).any(1).float().mean() < 0.1  # kick_probability 0.02
     for name, depth in (("act_lat", 2), ("imu_lat", 2)):
@@ -130,7 +129,7 @@ def test_domain_randomize_contract():
     env = PupperV3Env(device="cpu")
     n = 64
     cfg = DomainRandomizationConfig()
-    m = domain_randomize(env.model, torch.Generator().manual_seed(3), n,
+    m = domain_randomize(env.model, H.env_keys(n, seed=3),
                          **{k: v for k, v in vars(cfg).items() if k != "enabled"})
     fr = m.geom_friction
     assert fr.shape == (n,) + env.model.geom_friction.shape
@@ -174,7 +173,7 @@ def test_unported_options_raise(option):
             PupperV3Env(device="cpu", **option)
         return
     env = PupperV3Env(device="cpu", **option)
-    info = env.reset(torch.Generator().manual_seed(0), 4).info
+    info = env.reset(H.env_keys(4)).info
     if "privileged_obs" in option:
         assert env.privileged_obs_size == 34 and info["privileged_obs"].shape == (4, 34)
         assert "difficulty" not in info

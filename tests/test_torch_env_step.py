@@ -28,6 +28,7 @@ import torch
 import torch_port_helpers as H
 from puppax.env import domain_randomization as jdr
 from puppax.env import wrappers as jwrappers
+from puppax_torch import random
 from puppax_torch.env import soa_env
 from puppax_torch.env.base import physics_state_from_caches, state_from_jax
 from puppax_torch.env.rollout import FastLane
@@ -153,8 +154,8 @@ def wrapped_pair():
     )
     leaves = H.dr_leaves(jwrapped.env._model)
     twrapped = wrap_for_training(
-        H.torch_env(), L, randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-        generator=torch.Generator().manual_seed(0), num_envs=H.B,
+        H.torch_env(), L, randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+        randomization_keys=H.env_keys(H.B),
     )
     return jenv, jwrapped, jstate, twrapped
 
@@ -210,21 +211,21 @@ def test_standard_lane_matches_fast_lane(wrapped_pair):
     run the same emitted arithmetic on the CPU; the tolerance 1e-5 covers
     the two emissions' different CSE scopes."""
     *_, twrapped = wrapped_pair
-    g = torch.Generator().manual_seed(21)
+    key_env, key_net, key_eps = random.split(random.key(21), 3).unbind(0)
     env = twrapped.env
-    state = twrapped.reset(H.B, g, caches=True)
+    state = twrapped.reset(random.split(key_env, H.B), caches=True)
     steps = torch.zeros(H.B)
     steps[2:4] = L - 1
     done = torch.zeros(H.B)
     done[1] = 1.0
     state = state.replace(done=done, info=dict(state.info, steps=steps))
     nets = tnets.make_ppo_networks(env.observation_size, env.action_size, (32, 32), (32, 32),
-                                   device="cpu", generator=g)
+                                   device="cpu", key=key_net)
     norm = tstats.init_state(env.observation_size, device="cpu")
     lane = FastLane(twrapped)
     T = 2
-    noise, last_kick = lane.draw_noise_block(g, H.B, T)
-    eps = torch.randn((T, H.B, env.action_size), generator=g)
+    _, noise, last_kick = lane.draw_noise_block(state.info["rng"], T)
+    eps = lane.draw_eps(key_eps, H.B, T)
     fstate, fdata = lane.unroll_from_draws(state, (norm, nets.policy_network), noise, eps,
                                            last_kick)
     sstate = state

@@ -40,6 +40,7 @@ from puppax.export import convert_params as j_convert
 from puppax.export import fold_in_normalization as j_fold
 from puppax.export.native import NativePolicy as JNativePolicy
 from puppax.train.running_statistics import RunningStatisticsState as JNorm
+from puppax_torch import random
 from puppax_torch.export import apply_exported_policy, convert_params, fold_in_normalization
 from puppax_torch.export import native
 from puppax_torch.scripts import export_policy as cli
@@ -121,7 +122,7 @@ def test_torch_initialised_policy_json_equals_jax(activation):
     """A policy the port initialised (its weights (out, in)) carried into a
     flax tree: the same JSON from both packages."""
     nets = networks.make_ppo_networks(OBS, ACT, (32, 16), (32,), activation, device="cpu",
-                                      generator=torch.Generator().manual_seed(3))
+                                      key=random.key(3))
     _, mean, std = _weights(2)
     norm = running_statistics.from_jax(mean, std)
     want = json.dumps(j_convert(_jax_params(_flax_from_torch(nets.policy_network), mean, std),
@@ -281,7 +282,7 @@ def _save(ckpt, step, seed, obs=OBS, train_state=False):
     """A port checkpoint as the training CLI writes it (the params tree, or
     a train-state tree around it); returns its (normalizer, policy)."""
     nets = networks.make_ppo_networks(obs, ACT, (32, 16), (32,), "elu", device="cpu",
-                                      generator=torch.Generator().manual_seed(seed))
+                                      key=random.key(seed))
     _, mean, std = _weights(seed, obs)
     norm = running_statistics.from_jax(mean, std, count=10.0)
     tree = ppo.params_state_dict((norm, nets.params))

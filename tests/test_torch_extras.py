@@ -104,8 +104,8 @@ def test_curriculum_difficulty_bit_for_bit_with_jax(curriculum_steps):
 def _blocks_and_state(env, B, seed):
     g = torch.Generator().manual_seed(seed)
     wrapped = wrap_for_training(env, 1000)
-    state = wrapped.reset(B, g, caches=True)
-    noise = env.draw_step_noise(g, B)
+    state = wrapped.reset(H.env_keys(B, seed=seed), caches=True)
+    noise = env.draw_step_noise(state.info["rng"])
     noise["kick"] = torch.rand((B, 2), generator=g) - 0.5  # every env kicked
     act = torch.rand((B, 12), generator=g) * 2 - 1
     return wrapped, state, noise, act
@@ -256,8 +256,8 @@ def test_action_repeat_matches_jax_episode_wrapper():
     start = _np(jstate)
     leaves = H.dr_leaves(jwrapped.env._model)
     twrapped = wrap_for_training(PupperV3Env(device="cpu", **kw), L, action_repeat=2,
-                                 randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-                                 generator=torch.Generator().manual_seed(0), num_envs=B)
+                                 randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+                                 randomization_keys=H.env_keys(B))
     assert rollout.support_reason(twrapped) == (False, "action_repeat=2 (kernel fuses 1)")
     from puppax.env import rollout as jrollout
 
@@ -281,8 +281,8 @@ def test_action_repeat_matches_jax_episode_wrapper():
     np.testing.assert_array_equal(state.info["truncation"].numpy(), j.info["truncation"])
     assert (j.info["truncation"][2:4] == 1).all() and (j.info["steps"][4:] == 2).all()
     # the reward is the two env steps' sum
-    one = wrap_for_training(twrapped.env, L, randomization_fn=lambda m, g, n: m.with_leaves(
-        **leaves), generator=torch.Generator(), num_envs=B)
+    one = wrap_for_training(twrapped.env, L, randomization_fn=lambda m, keys: m.with_leaves(
+        **leaves), randomization_keys=H.env_keys(B))
     s1 = one.step_from_draws(state_from_jax(start), torch.from_numpy(act), noises[0])
     s2 = twrapped.env.step_from_draws(s1, torch.from_numpy(act), noises[1],
                                       twrapped.dr_rows(B), twrapped.model)

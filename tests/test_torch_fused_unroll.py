@@ -258,8 +258,8 @@ def lanes():
     leaves = H.dr_leaves(jwrapped.env._model)
     twrapped = wrap_for_training(
         H.torch_env(), H.EPISODE_LENGTH,
-        randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-        generator=torch.Generator().manual_seed(0), num_envs=H.B,
+        randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+        randomization_keys=H.env_keys(H.B),
     )
     tnorm = tstats.from_jax(np.asarray(norm.mean), np.asarray(norm.std))
     tlane = FastLane(twrapped)
@@ -353,10 +353,11 @@ def test_unroll_wrapper_on_cpu_runs_plain_and_checks():
     wrapped = wrap_for_training(env, H.EPISODE_LENGTH)
     g = torch.Generator().manual_seed(2)
     lane = FastLane(wrapped)
-    carry = lane.carry_from_state(wrapped.reset(H.B, g))
+    state = wrapped.reset(H.env_keys(H.B, seed=2))
+    carry = lane.carry_from_state(state)
     _, policy = _policy("tanh")
     layers = fused_unroll.fold_normalizer(None, policy)
-    noise, _ = lane.draw_noise_block(g, H.B, 1)
+    _, noise, _ = lane.draw_noise_block(state.info["rng"], 1)
     eps = torch.randn((1, ACT, H.B), generator=g)
     args = [carry[k] for k in ("q", "v", "env", "wrap")] + [None, carry["first"], carry["dr"],
                                                              noise, eps]
@@ -401,9 +402,8 @@ def test_ppo_train_on_the_fused_lane(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(soa_env, "wrapped_step", lambda *a: pytest.fail("K3 lane taken"))
     env = PupperV3Env(device="cpu", **H.env_kwargs(1))
 
-    def factory(obs, act, device=None, generator=None):
-        return tnets.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device,
-                                       generator=generator)
+    def factory(obs, act, device=None, key=None):
+        return tnets.make_ppo_networks(obs, act, (32, 32), (32, 32), device=device, key=key)
 
     _, (norm, params), metrics = ppo.train(
         env, num_timesteps=8, episode_length=8, num_envs=4, num_eval_envs=2, unroll_length=2,

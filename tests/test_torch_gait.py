@@ -60,8 +60,8 @@ def _torch_wrapped(jwrapped, episode_length):
     leaves = H.dr_leaves(jwrapped.env._model)
     return wrap_for_training(
         PupperV3Env(device="cpu", gait_phase_observation=True, **H.env_kwargs(1)),
-        episode_length, randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-        generator=torch.Generator().manual_seed(0), num_envs=H.B,
+        episode_length, randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+        randomization_keys=H.env_keys(H.B),
     )
 
 
@@ -92,7 +92,7 @@ def _check_clock(got_phase, got_obs, want_phase, want_obs, what):
 def test_reset_and_sizes():
     env = PupperV3Env(device="cpu", gait_phase_observation=True, **H.env_kwargs(1))
     assert env.observation_size == OBS
-    state = wrap_for_training(env, 5).reset(H.B, torch.Generator().manual_seed(0))
+    state = wrap_for_training(env, 5).reset(H.env_keys(H.B))
     assert state.obs.shape == (H.B, OBS)
     assert torch.equal(state.info["gait_phase"], torch.zeros(H.B))
     assert torch.equal(state.obs[:, 72:], torch.tensor([[1.0, 0.0]]).expand(H.B, 2))

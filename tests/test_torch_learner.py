@@ -20,6 +20,7 @@ from puppax.configs import experiment as jexp
 from puppax.train import networks as jnets
 from puppax.train import ppo as jppo
 from puppax.train import running_statistics as jstats
+from puppax_torch import random
 from puppax_torch.configs import experiment as texp
 from puppax_torch.train import acting, checkpoint, ppo
 from puppax_torch.train import networks as tnets
@@ -233,8 +234,9 @@ def test_distribution_matches_jax(nets):
     _close(td.mode(tl).numpy(), jd.mode(jnp.asarray(logits)), rtol=0, what="mode")
     _close(td.entropy(tl, eps=torch.from_numpy(eps)).numpy(),
            jd.entropy(jnp.asarray(logits), key), rtol=0, atol=1e-5, what="entropy")
-    g = torch.Generator().manual_seed(0)
-    assert td.entropy(tl, generator=g).shape == (MB,)
+    # the port's own draw from the same key: normal within a few ulp of jax's
+    _close(td.entropy(tl, key=random.from_key_data(np.asarray(jax.random.key_data(key)))).numpy(),
+           jd.entropy(jnp.asarray(logits), key), rtol=0, atol=1e-5, what="entropy from the key")
 
 
 @pytest.mark.parametrize("deterministic", [False, True])
@@ -258,9 +260,8 @@ def test_value_precision_products_and_gradients(precision):
     """The TF32 value net computes what the float32 one does on the CPU
     (the flag acts only on the card), gradients included, and the policy
     keeps full float32."""
-    g1, g2 = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
-    hi = tnets.make_ppo_networks(OBS, ACT, (16,), (16, 16), device="cpu", generator=g1)
-    lo = tnets.make_ppo_networks(OBS, ACT, (16,), (16, 16), device="cpu", generator=g2,
+    hi = tnets.make_ppo_networks(OBS, ACT, (16,), (16, 16), device="cpu", key=random.key(3))
+    lo = tnets.make_ppo_networks(OBS, ACT, (16,), (16, 16), device="cpu", key=random.key(3),
                                  value_precision=precision)
     assert lo.value_network.precision == precision
     assert lo.policy_network.precision == "highest"
@@ -343,13 +344,18 @@ def test_checkpoint_round_trip(tmp_path, nets):
 
 
 def test_generators_per_stream():
-    a, b = ppo.make_generators(0, "cpu"), ppo.make_generators(0, "cpu")
-    c = ppo.make_generators(1, "cpu")
-    assert set(a) == set(ppo.STREAMS)
-    draws = {k: torch.rand(4, generator=g) for k, g in a.items()}
-    assert all(torch.equal(draws[k], torch.rand(4, generator=b[k])) for k in a)
-    assert not torch.equal(draws["sgd"], torch.rand(4, generator=c["sgd"]))
-    assert not torch.equal(draws["sgd"], draws["eval"])
+    """The key tree's streams (``ppo.init_keys``, which replaced one
+    generator per stream): the same seed gives the same keys, another seed
+    others, and no two streams share a key."""
+    a, b = ppo.init_keys(0, 4, True, "cpu"), ppo.init_keys(0, 4, True, "cpu")
+    c = ppo.init_keys(1, 4, True, "cpu")
+    assert set(a) == {"key", "network", "env", "eval", "dr"}
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["key"], c["key"])
+    assert a["env"].shape == a["dr"].shape == (4, 2)
+    flat = torch.cat([a[k].reshape(-1, 2) for k in a])
+    assert len({tuple(r) for r in flat.tolist()}) == len(flat)
+    assert "dr" not in ppo.init_keys(0, 4, False, "cpu")
 
 
 @pytest.mark.parametrize("option", [

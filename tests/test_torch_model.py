@@ -159,6 +159,7 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "import sys\n"
         "import puppax_torch\n"
         "from puppax_torch.model import load_model\n"
+        "from puppax_torch import random, utils\n"
         "from puppax_torch.env import fused_unroll, pupper, rewards, rollout, wrappers\n"
         "from puppax_torch.kernels import build, cgen, team\n"
         "from puppax_torch.ops import linalg\n"

@@ -103,10 +103,11 @@ def test_activation_map_matches_jax(name):
 
 
 def test_latency_onehot_picks_by_inverse_cdf():
-    """One-hot rows; the first column is chosen with its probability."""
+    """One-hot rows, one per key; the first column is chosen with its
+    probability."""
+    from puppax_torch import random
     from puppax_torch import utils as tu
 
-    g = torch.Generator().manual_seed(0)
-    oh = tu.latency_onehot(g, torch.tensor([0.2, 0.8]), 20000)
+    oh = tu.latency_onehot(random.split(random.key(0), 20000), np.array([0.2, 0.8], np.float32))
     assert oh.shape == (20000, 2) and (oh.sum(1) == 1).all()
     assert abs(float(oh[:, 0].mean()) - 0.2) < 0.02

@@ -85,8 +85,8 @@ def _torch_wrapped(jwrapped):
     leaves = H.dr_leaves(jwrapped.env._model)
     return wrap_for_training(
         PupperV3Env(device="cpu", **KW), L,
-        randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-        generator=torch.Generator().manual_seed(0), num_envs=H.B,
+        randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+        randomization_keys=H.env_keys(H.B),
     )
 
 

@@ -23,6 +23,7 @@ from puppax.env import rollout as jrollout
 from puppax.env import wrappers as jwrappers
 from puppax.train import networks as jnets
 from puppax.train import running_statistics as jstats
+from puppax_torch import random
 from puppax_torch.env import soa_env
 from puppax_torch.env.base import state_from_jax
 from puppax_torch.env.rollout import FastLane
@@ -75,8 +76,8 @@ def lanes():
     leaves = H.dr_leaves(jwrapped.env._model)
     twrapped = wrap_for_training(
         H.torch_env(), H.EPISODE_LENGTH,
-        randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-        generator=torch.Generator().manual_seed(0), num_envs=H.B,
+        randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+        randomization_keys=H.env_keys(H.B),
     )
     tstate = state_from_jax(jax.tree_util.tree_map(np.asarray, jstate))
     tn = tnets.make_ppo_networks(jenv.observation_size, jenv.action_size, (32, 32),
@@ -91,7 +92,16 @@ def lanes():
         torch.from_numpy(np.array(eps)), torch.from_numpy(np.array(last_kick)),
     )
     jnp_tree = lambda x: jax.tree_util.tree_map(np.asarray, x)  # noqa: E731
-    return jnp_tree(jfinal), jnp_tree(jdata), tfinal, tdata, tlane, twrapped, tn, tnorm
+    # the same unroll from the keys: the state's per-env keys and the
+    # unroll's key, the port drawing for itself
+    seeded = tlane.unroll(tstate, (tnorm, tn.policy_network),
+                          random.from_key_data(np.asarray(key)), T)
+    # T = 3 steps of the per-env chains (rollout.py:366-404)
+    jkeys3, tiles3, kick3 = jlane.draw_noise_block(jstate.info["rng"], 3)
+    chains = (np.asarray(jkeys3), np.asarray(tiles3).reshape(3, tiles3.shape[1], -1)[:, :, : H.B],
+              np.asarray(kick3), tlane.draw_noise_block(tstate.info["rng"], 3))
+    return (jnp_tree(jfinal), jnp_tree(jdata), tfinal, tdata, seeded, chains, tlane, twrapped,
+            tn, tnorm)
 
 
 def test_transitions_match(lanes):
@@ -129,16 +139,58 @@ def test_final_state_matches(lanes):
                                jfinal.metrics["total_dist"], atol=1e-4)
 
 
+def test_noise_chains_seed_for_seed(lanes):
+    """``draw_noise_block`` at B = 8, T = 3 on the envs' keys: the keys after
+    T steps, the last kick and every noise row bit for bit with the JAX
+    lane's (no row is a normal draw), but the resampled orientation, a
+    rotation of two draws (``ops/math.py``, whose multiply-adds XLA
+    contracts), within 2e-7."""
+    *_, chains, tlane, _, _, _ = lanes
+    jkeys, jnoise, jkick, (tkeys, tnoise, tkick) = chains
+    np.testing.assert_array_equal(tkeys.numpy().view(np.uint32), jkeys)
+    np.testing.assert_array_equal(tkick.numpy().view(np.uint32), jkick.view(np.uint32))
+    r0, n = tlane.es.noise_rows["resample_ori"]
+    draws = np.r_[0:r0, r0 + n : tnoise.shape[1]]
+    np.testing.assert_array_equal(tnoise.numpy()[:, draws].view(np.uint32),
+                                  jnoise[:, draws].view(np.uint32))
+    np.testing.assert_allclose(tnoise.numpy()[:, r0 : r0 + n], jnoise[:, r0 : r0 + n],
+                               atol=2e-7, rtol=0)
+
+
+def test_unroll_from_keys_matches_jax(lanes):
+    """``FastLane.unroll`` from the same keys as the JAX lane (the state's
+    ``info["rng"]`` and the unroll's key): its transitions at
+    ``test_transitions_match``'s tolerances, its final keys bit for bit."""
+    jfinal, jdata, _, _, (sfinal, sdata), *_ = lanes
+    close = np.testing.assert_allclose
+    for name in ("observation", "next_observation", "action"):
+        close(getattr(sdata, name).numpy(), getattr(jdata, name), atol=2e-4, err_msg=name)
+    close(sdata.policy_extras["raw_action"].numpy(), jdata.policy_extras["raw_action"],
+          atol=2e-4, err_msg="raw_action")
+    close(sdata.policy_extras["log_prob"].numpy(), jdata.policy_extras["log_prob"], atol=1e-2)
+    close(sdata.reward.numpy(), jdata.reward, atol=1e-3, err_msg="reward")
+    np.testing.assert_array_equal(sdata.discount.numpy(), jdata.discount)
+    np.testing.assert_array_equal(sdata.truncation.numpy(), jdata.truncation)
+    np.testing.assert_array_equal(sfinal.info["rng"].numpy().view(np.uint32),
+                                  jfinal.info["rng"])
+    np.testing.assert_array_equal(sfinal.info["kick"].numpy(), jfinal.info["kick"])
+
+
 def test_unroll_draws_from_generator(lanes):
-    """``unroll`` draws its noise and eps from the generator: shapes,
-    finite values, determinism per seed, and no kernel launch on CPU."""
+    """``unroll`` draws its noise from the state's per-env keys and its eps
+    from the unroll's key (the threefry keys that replaced the generator):
+    shapes, finite values, determinism per seed, the keys carried on, and
+    no kernel launch on CPU."""
     *_, tlane, twrapped, tn, tnorm = lanes
     launches = soa_env.wrapped_step.launches
 
     def run(seed):
-        g = torch.Generator().manual_seed(seed)
-        state = twrapped.reset(H.B, generator=g)
-        return tlane.unroll(state, (tnorm, tn.policy_network), generator=g, T=T)
+        key_env, key = random.split(random.key(seed)).unbind(0)
+        state = twrapped.reset(random.split(key_env, H.B))
+        final, data = tlane.unroll(state, (tnorm, tn.policy_network), key, T)
+        keys, _, _ = tlane.draw_noise_block(state.info["rng"], T)
+        assert torch.equal(final.info["rng"], keys)
+        return final, data
 
     final, data = run(1)
     obs = tlane.env.observation_size
@@ -158,4 +210,4 @@ def test_unroll_draws_from_generator(lanes):
 def test_reset_refuses_another_batch(lanes):
     *_, twrapped, _, _ = lanes
     with pytest.raises(ValueError):
-        twrapped.reset(H.B + 1, generator=torch.Generator())
+        twrapped.reset(H.env_keys(H.B + 1))

@@ -42,8 +42,8 @@ T = 2
 
 def _wrapped_torch(leaves):
     return wrap_for_training(
-        H.torch_env(), L, randomization_fn=lambda m, g, n: m.with_leaves(**leaves),
-        generator=torch.Generator().manual_seed(0), num_envs=H.B,
+        H.torch_env(), L, randomization_fn=lambda m, keys: m.with_leaves(**leaves),
+        randomization_keys=H.env_keys(H.B),
     )
 
 

@@ -26,6 +26,7 @@ from puppax.model import obstacles as jobstacles
 from puppax.model import surgery as jsurgery
 from puppax.model import terrain as jterrain
 from puppax.model.mjcf import load_model as jax_load_model
+from puppax_torch import random
 from puppax_torch.configs import experiment as exp
 from puppax_torch.env.domain_randomization import domain_randomize
 from puppax_torch.env.pupper import PupperV3Env
@@ -175,7 +176,7 @@ def test_dr_friction_covers_the_hfield_pairs():
     cfg = dataclasses.replace(_run9().env, privileged_obs=True)
     env = PupperV3Env.from_config(cfg, device="cpu")
     assert env._es.priv
-    m = domain_randomize(env.model, torch.Generator().manual_seed(1), 6)
+    m = domain_randomize(env.model, random.split(random.key(1), 6))
     mu = soa.dr_inputs(m, env._s, 6)["pair_mu"]
     assert [p.kind for p in env._s.pairs].count("hs") == 8
     assert torch.equal(mu, m.geom_friction[:, :1, 0].expand(-1, env._s.npair))
@@ -189,9 +190,8 @@ def test_env_from_run9_config_steps():
     env = PupperV3Env.from_config(cfg, device="cpu")
     assert [p.kind for p in env._s.pairs].count("hs") == 8
     assert env.model.hfield_data.shape == (32, 32)
-    g = torch.Generator().manual_seed(0)
-    state = env.reset(g, 4)
+    state = env.reset(random.split(random.key(0), 4))
     for _ in range(25):
-        state = env.step(state, torch.zeros((4, env.action_size)), g)
+        state = env.step(state, torch.zeros((4, env.action_size)))
     assert torch.isfinite(state.obs).all() and torch.isfinite(state.reward).all()
     assert torch.isfinite(state.pipeline_state.qpos).all()

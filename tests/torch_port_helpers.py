@@ -14,9 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from puppax_torch import random
+
 B = 8
 EPISODE_LENGTH = 50
 PHYSICS_DT = 0.004
+
+
+def env_keys(n: int = B, seed: int = 0, device="cpu") -> torch.Tensor:
+    """``n`` per-env keys, ``jax.random.split(PRNGKey(seed), n)``, as the
+    port's ``(n, 2)`` int32 keys."""
+    return random.split(random.key(seed, device), n)
 
 
 def env_kwargs(n_substeps: int = 1) -> dict:
@@ -344,18 +352,19 @@ def fused_unroll_inputs(env, n: int, T: int, activation: str, episode_length: in
     dev = env.device
     wrapped = wrap_for_training(env, episode_length)
     g = torch.Generator(device=dev).manual_seed(seed)
-    state = wrapped.reset(n, g)
+    key_env, key_net = random.split(random.key(seed, dev)).unbind(0)
+    state = wrapped.reset(random.split(key_env, n))
     info = dict(state.info, steps=torch.arange(n, dtype=torch.float32, device=dev)
                 % episode_length)
     if env._gait_phase_obs:
         info["gait_phase"] = torch.linspace(0.5, 6.27, n, device=dev)
     lane = FastLane(wrapped)
     carry = lane.carry_from_state(state.replace(info=info))
-    noise, _ = lane.draw_noise_block(g, n, T)
+    _, noise, _ = lane.draw_noise_block(state.info["rng"], T)
     eps = torch.randn((T, env.action_size, n), generator=g, device=dev)
     policy = networks.make_ppo_networks(env.observation_size, env.action_size, (32, 32),
                                         (32, 32), activation=activation, device=dev,
-                                        generator=g).policy_network
+                                        key=key_net).policy_network
     obs = env.observation_size
     norm = running_statistics.from_jax(np.linspace(-0.1, 0.1, obs), np.linspace(0.9, 1.1, obs),
                                        device=dev)
