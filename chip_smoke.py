@@ -113,7 +113,14 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    once: every draw of the run), and the
    run is checked (env steps, the normalizer's count, finite losses,
    changed parameters, plausible eval metrics, the checkpoint against the
-   final state);
+   final state); then the learner's rank path in this process: under a
+   one-rank NCCL process group (``parallel.maybe_initialize_distributed``
+   on a free localhost port), one minibatch update of a T=20 K3-lane
+   unroll's first 256 envs (the normalizer's reduced update, the batch's
+   all-gather, the advantages' and the gradients' all-reduces,
+   ``ppo.sgd_pass``) held bit for bit against the single-process update
+   on the same data and keys, its collectives counted and the group's
+   set-up timed (``one_rank_update_check``);
 10. the export of that run's policy: its parameters saved as the training
    CLI saves them, exported through ``python -m
    puppax_torch.scripts.export_policy`` (the file equal, as a string, to
@@ -150,12 +157,25 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    then ``python -m puppax_torch.scripts.train --config
    dev/run_configs/run12_2b_cse.json`` (4096 envs, the privileged critic,
    ``value_precision`` "high", the cosine lr, the linear entropy schedule)
-   for 3 training steps and 2 evaluations on the K3 lane, and 3 training
-   steps and 1 evaluation on the physics-only and fused lanes, the
-   curriculum over those steps: each run's lane line, its
+   for 3 training steps and 1 evaluation (after the training) on each
+   lane, the curriculum over those steps: each run's lane line, its
    launches, the difficulty before each training step (at least three
    values), the critic normalizer's count, finite losses and evaluations,
-   its ``training/sps``, phase times and evaluation seconds;
+   its ``training/sps``, phase times and evaluation seconds; the K3-lane
+   run again as one rank on this card under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1`` (this
+   script's ``--launched-cli`` child around the CLI's ``main``, which
+   loads the libraries this process built for run12 under their keys;
+   the process group NCCL's), with every check of the in-process run, its
+   launches by body and curriculum, and these besides: its
+   lane line names rank 0 of 1 and the NCCL backend, the JSONL's records
+   and the train states are the in-process run's kind for kind (one
+   writer), and the learner's collectives are the run's (384 gradient
+   all-reduces, one batch all-gather per training step, the two
+   normalizers' moments, the advantages', the metrics', the
+   evaluation's); its ``training/sps`` beside the in-process run's, the
+   launcher's wall split into its parts, and the final weights of the two
+   runs compared;
 14. run9, the heightfield terrain: 4096 DR'd envs from run9's committed
    tables after ``RUN9_WARM_STEPS`` kernel steps, every eighth moved past
    the grid's edge; the envs with an active hfield-sphere contact on a
@@ -916,6 +936,210 @@ def export_and_replay(label, norm, nets, raw_obs, env, env_cfg, tc, device, gait
         raise AssertionError(f"export of {label}: the native actions leave [-1, 1]")
 
 
+def one_rank_update_check(lane, wrapped, policy_params, reset_keys, key_net, key_sgd, tc,
+                          device) -> dict:
+    """One minibatch update through the learner's rank path under a
+    one-rank NCCL process group against the single-process update, on the
+    same data and keys: a T=20 unroll of the K3 lane from ``reset_keys``
+    (its key split off ``key_net``), its first ``tc.batch_size`` envs the
+    minibatch; the normalizer's update
+    (``running_statistics.update(mesh=)``), the batch's gather
+    (``ppo.gather_batch``) and one SGD pass of one minibatch
+    (``ppo.sgd_pass``: the advantages' reductions, the gradients'
+    all-reduce, ``Adam.step``), from networks made from ``key_net`` and the
+    SGD's key ``key_sgd``. A world of one sums one term, so the normalizer,
+    the weights and Adam's state must agree bit for bit; the group's
+    collectives are counted. The group is NCCL's on the card (gloo where
+    ``device`` is the CPU: the CPU tests run this check). Returns the
+    group's set-up seconds and the counts."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from puppax_torch import random as prandom
+    from puppax_torch.parallel import mesh as mesh_lib
+    from puppax_torch.train import networks, ppo, running_statistics
+
+    state = wrapped.reset(reset_keys)
+    key_unroll, key_net = prandom.split(key_net).unbind(0)
+    _, data = lane.unroll(state, policy_params, key_unroll, T_UNROLL)
+    cols = tc.batch_size
+    data = ppo._map_data(lambda x: x[:, :cols].contiguous(), data)
+    obs_size, act = data.observation.shape[-1], data.action.shape[-1]
+
+    def update(mesh):
+        nets = networks.make_ppo_networks(
+            obs_size, act, tc.policy_hidden_layer_sizes, tc.value_hidden_layer_sizes,
+            tc.activation, device=device, key=key_net, value_precision=tc.value_precision)
+        opt = ppo.Adam(list(nets.policy_network.parameters())
+                       + list(nets.value_network.parameters()),
+                       ppo.lr_schedule_fn(tc.learning_rate, "constant", 0.0, 1))
+        norm = running_statistics.update(running_statistics.init_state(obs_size, device),
+                                         data.observation, mesh=mesh)
+        sums = {}
+        ppo.sgd_pass(nets, opt, (norm, None), ppo.gather_batch(data, mesh, 1), key_sgd,
+                     tc.entropy_cost, mesh=mesh, batch_size=cols, num_minibatches=1, sums=sums,
+                     discounting=tc.discounting, gae_lambda=tc.gae_lambda,
+                     clipping_epsilon=tc.clipping_epsilon, reward_scaling=tc.reward_scaling)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return ([getattr(norm, f) for f in ("count", "mean", "summed_variance", "std")]
+                + [p.detach().clone() for p in opt.params] + opt.mu + opt.nu
+                + list(sums.values()), opt.count)
+
+    alone = update(mesh_lib.make_env_mesh([device]))
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    mesh_lib.maybe_initialize_distributed(device=device, coordinator_address=f"localhost:{port}",
+                                          num_processes=1, process_id=0)
+    init_s = time.perf_counter() - t0
+    try:
+        mesh = mesh_lib.make_env_mesh([device])
+        before = dict(mesh_lib.calls)
+        ranked = update(mesh)
+        calls = {k: v - before.get(k, 0) for k, v in mesh_lib.calls.items()
+                 if v != before.get(k, 0)}
+    finally:
+        dist.destroy_process_group()
+    differ = sum(int(not torch.equal(a, b)) for a, b in zip(alone[0], ranked[0]))
+    worst = max(float((a.double() - b.double()).abs().max()) for a, b in zip(alone[0], ranked[0]))
+    want_calls = {"normalizer": 2, "batch": 1, "advantages": 2, "grads": 1}
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    print(f"one-rank {backend} group (world {mesh.world}, backend {mesh.backend}) joined in "
+          f"{init_s:.3f} s; one minibatch update ({T_UNROLL} x {cols} transitions) through the "
+          f"rank path against the single process: {differ} of {len(alone[0])} tensors differ "
+          f"(normalizer, weights, Adam's moments, loss parts), max abs err {worst}, Adam count "
+          f"{ranked[1]} / {alone[1]}; collectives {json.dumps(calls)} (expected "
+          f"{json.dumps(want_calls)})", flush=True)
+    if differ or (ranked[1], alone[1]) != (1, 1) or calls != want_calls or mesh.backend != backend:
+        raise AssertionError(f"the one-rank {backend} update is not the single-process update "
+                             f"bit for bit")
+    return {"init_seconds": init_s, "calls": calls}
+
+
+TEAM_LIBS = ("wrapped_step_team_library", "env_step_team_library",
+             "physics_step_team_library", "fused_unroll_team_library")
+
+
+@contextlib.contextmanager
+def cli_spies(B: int, run12: bool):
+    """The counts of a training CLI run, over exactly the ``with`` block:
+    the team kernels' launches (K3, K2, K1, K4) and the one-thread
+    kernels', each team launch by the body it went through (``(library,
+    model variant)``), and for run12 (the curriculum) the difficulty before
+    each training step's unrolls (the fast lane's, or the standard lane's
+    on the ``B`` training envs). Yields the record it fills."""
+    from puppax_torch.env import fused_unroll, soa_env
+    from puppax_torch.env.rollout import FastLane
+    from puppax_torch.kernels import build
+    from puppax_torch.physics import soa
+    from puppax_torch.train import acting
+
+    rec = {"seen": [], "by_body": {}}
+    real = {"lane": FastLane.unroll, "standard": acting.generate_unroll}
+
+    def lib_spy(name):
+        lib = real[name] = getattr(build, name)
+
+        def spy(s_, *a, **kw):  # each launch looks its library up
+            key = (name, build.model_variant(s_))
+            rec["by_body"][key] = rec["by_body"].get(key, 0) + 1
+            return lib(s_, *a, **kw)
+
+        return spy
+
+    def lane_spy(self, state, *a, **kw):
+        rec.setdefault("first_unroll", time.time())
+        if run12:
+            rec["seen"].append(float(state.info["difficulty"][0]))
+        return real["lane"](self, state, *a, **kw)
+
+    def standard_spy(env_, state, *a, **kw):
+        if state.qpos.shape[0] == B:
+            rec.setdefault("first_unroll", time.time())
+        if run12 and state.qpos.shape[0] == B:  # the training env's unrolls
+            rec["seen"].append(float(state.info["difficulty"][0]))
+        return real["standard"](env_, state, *a, **kw)
+
+    soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
+    soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
+    soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
+    fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
+    FastLane.unroll, acting.generate_unroll = lane_spy, standard_spy
+    spies = {name: lib_spy(name) for name in TEAM_LIBS}
+    for name, spy in spies.items():
+        setattr(build, name, spy)
+    try:
+        yield rec
+    finally:
+        FastLane.unroll, acting.generate_unroll = real["lane"], real["standard"]
+        for name in TEAM_LIBS:
+            setattr(build, name, real[name])
+        rec["launches"] = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
+                           soa.step_batched.launches, fused_unroll.unroll.launches)
+        rec["one_thread"] = (soa_env.wrapped_step_one_thread.launches,
+                             soa_env.env_step_one_thread.launches,
+                             soa.step_batched_one_thread.launches,
+                             fused_unroll.unroll_one_thread.launches)
+
+
+def launched_cli(spec_path: str) -> None:
+    """One rank of a training CLI run under ``torch.distributed.run``: the
+    child ``cli_run(..., launcher=True)`` starts. It loads the libraries
+    the parent built for the run's model (the spec's ``preload``: each
+    key and ``.so`` under ``build/``) as the parent's in-process runs find
+    them, then calls ``puppax_torch.scripts.train.main`` (what ``-m
+    puppax_torch.scripts.train`` runs) on the spec's arguments inside
+    ``cli_spies``, the process group joined by the CLI itself from the
+    launcher's variables (its seconds timed), and writes the counts, the
+    metrics, the collectives the learner issued (``parallel.mesh.calls``)
+    and the group's backend, rank and world to the spec's ``out`` file."""
+    t_child = time.time()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import torch
+    import torch.distributed as dist
+
+    from puppax_torch.parallel import mesh as mesh_lib
+    from puppax_torch.scripts import train as train_cli
+
+    group = {}
+    real_init = mesh_lib.maybe_initialize_distributed
+
+    def timed_init(*a, **kw):
+        t0 = time.perf_counter()
+        started = real_init(*a, **kw)
+        group.update(init_seconds=time.perf_counter() - t0, backend=str(dist.get_backend()),
+                     rank=dist.get_rank(), world=dist.get_world_size())
+        return started
+
+    mesh_lib.maybe_initialize_distributed = timed_init
+    import ctypes
+
+    from puppax_torch.kernels import build
+
+    kernels = {k.name: k for k in vars(build).values() if isinstance(k, build.Kernel)}
+    for name, digest, config, path in spec.get("preload", []):
+        lib = ctypes.CDLL(path)
+        build._bind(lib, kernels[os.path.basename(path)[3:-3]], with_stream=True)
+        build._LOADED[(name, digest, tuple(config))] = lib
+    t_cli = time.time()
+    with cli_spies(spec["B"], spec["run12"]) as rec:
+        metrics = train_cli.main(spec["argv"])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    rec["times"] = {"child": t_child, "cli": t_cli, "first_unroll": rec.pop("first_unroll", None),
+                    "end": time.time()}
+    rec["by_body"] = [[name, variant, n] for (name, variant), n in rec["by_body"].items()]
+    rec.update(metrics=metrics, calls=dict(mesh_lib.calls), group=group)
+    with open(spec["out"], "w") as f:
+        json.dump(rec, f)
+
+
 class Phase:
     """Prints a phase's wall time when it ends."""
 
@@ -934,6 +1158,8 @@ class Phase:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of a training CLI run under torch.distributed.run (cli_run)
+    ap.add_argument("--launched-cli", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -945,6 +1171,8 @@ def main():
     if not os.path.isfile(os.path.join(HERE, "puppax_torch", "__init__.py")):
         fail(f"no puppax_torch package beside {__file__}: run it from a checkout")
     sys.path.insert(0, HERE)
+    if args.launched_cli:
+        return launched_cli(args.launched_cli)
 
     from puppax_torch import random as prandom
     from puppax_torch.configs import DomainRandomizationConfig, EnvConfig, TrainConfig
@@ -1806,6 +2034,13 @@ def main():
         k3_launches, k2_launches = launches[:2]
         k3_one_launches, k2_one_launches = one_thread[:2]
 
+    # ---- the rank path in one process: one minibatch update (with the
+    # normalizer's update and the batch's gather) under a one-rank NCCL
+    # group, bit for bit the single-process update on the same data and keys ----
+    with Phase("one-rank NCCL update vs the single process"):
+        one_rank_update_check(lane, wrapped, params, env_keys(B), next_key(), next_key(), tc,
+                              device)
+
     # ---- the export: the trained policy (and the gait-clock policy) to the
     # robot's JSON through the CLI, replayed by the native runtime ----
     with Phase("export"):
@@ -1976,10 +2211,10 @@ def main():
     n_train12 = math.ceil(TRAIN_TIMESTEPS / tc12_steps)
     unroll12 = n_train12 * (tc12.batch_size * tc12.num_minibatches // B) * tc12.unroll_length
     evals12 = 2 * tc12.episode_length
-    team_libs = ("wrapped_step_team_library", "env_step_team_library",
-                 "physics_step_team_library", "fused_unroll_team_library")
+    cli_runs = {}
 
-    def cli_run(label, config, want, lane_line, run12=True, evals=2, extra=None):
+    def cli_run(label, config, want, lane_line, run12=True, evals=2, extra=None,
+                launcher=False):
         """``python -m puppax_torch.scripts.train --config <config>`` (no
         ``--config`` for None: the defaults), with the ``extra`` overrides,
         for 3 training steps and ``evals`` evaluations (2: before and after the
@@ -1989,33 +2224,18 @@ def main():
         line, the env steps, finite losses and eval metrics; for run12 (the
         curriculum over those steps) the difficulty before each training
         step's rollout on any lane (at least three values) and the critic
-        normalizer's count. Returns the launches and the launches by
-        (library, variant)."""
+        normalizer's count. With ``launcher``, the CLI runs as one rank on
+        one card under ``python -m torch.distributed.run --standalone
+        --nproc_per_node 1`` (this script's ``launched_cli`` child around the
+        CLI's ``main``), the process group over NCCL: its lane line must
+        name rank 0 of 1 and the NCCL backend, the metrics JSONL and the
+        train state must be written once, and the learner's collectives
+        must be the run's (a gradient all-reduce per minibatch update, a
+        batch all-gather per training step, the normalizers' moments, the
+        advantages' mean and spread per update, the metrics per epoch, an
+        all-gather per evaluation). Returns the launches and the launches
+        by (library, variant)."""
         tmp = tempfile.mkdtemp(prefix="puppax_torch_cli_")
-        seen = []
-        real = {"lane": FastLane.unroll, "standard": acting.generate_unroll}
-        by_body = {}
-
-        def lib_spy(name):
-            lib = real[name] = getattr(build, name)
-
-            def spy(s_, *a, **kw):  # each launch looks its library up
-                key = (name, build.model_variant(s_))
-                by_body[key] = by_body.get(key, 0) + 1
-                return lib(s_, *a, **kw)
-
-            return spy
-
-        def lane_spy(self, state, *a, **kw):
-            if run12:
-                seen.append(float(state.info["difficulty"][0]))
-            return real["lane"](self, state, *a, **kw)
-
-        def standard_spy(env_, state, *a, **kw):
-            if run12 and state.qpos.shape[0] == B:  # the training env's unrolls
-                seen.append(float(state.info["difficulty"][0]))
-            return real["standard"](env_, state, *a, **kw)
-
         over = {"train.num_timesteps": TRAIN_TIMESTEPS, "train.num_evals": evals,
                 "train.num_eval_envs": EVAL_ENVS, "train.seed": args.seed,
                 "train.checkpoint_path": os.path.join(tmp, "ckpt"),
@@ -2027,32 +2247,44 @@ def main():
             "--device", str(device)]
         for k, v in over.items():
             argv += ["--set", f"{k}={json.dumps(v)}"]
-        soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
-        soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
-        soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
-        fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
-        out = io.StringIO()
-        FastLane.unroll, acting.generate_unroll = lane_spy, standard_spy
-        spies = {name: lib_spy(name) for name in team_libs}
-        for name, spy in spies.items():
-            setattr(build, name, spy)
-        try:
-            with contextlib.redirect_stdout(out):
+        if launcher:
+            spec, result = os.path.join(tmp, "spec.json"), os.path.join(tmp, "rank0.json")
+            # the libraries this process built for run12's model (the one
+            # launched run's), loaded by the child under their keys instead
+            # of rendering the bodies again (a minute each beside the
+            # background builds)
+            digest = build._statics_digest(s12, es12)
+            preload = [[key[0], key[1], list(key[2]), lib._name]
+                       for key, lib in build._LOADED.items() if key[1] == digest]
+            with open(spec, "w") as f:
+                json.dump({"argv": argv, "B": B, "run12": run12, "out": result,
+                           "preload": preload}, f)
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "1", os.path.join(HERE, "chip_smoke.py"),
+                   "--launched-cli", spec]
+            t0, t_launch = time.perf_counter(), time.time()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{label}: the launcher exited {proc.returncode}:\n"
+                                     + (proc.stdout + proc.stderr)[-6000:])
+            text = proc.stdout
+            with open(result) as f:
+                rec = json.load(f)
+            rec["by_body"] = {(name, v): n for name, v, n in rec["by_body"]}
+            m = rec["metrics"]
+        else:
+            out = io.StringIO()
+            with cli_spies(B, run12) as rec, contextlib.redirect_stdout(out):
                 m = train_cli.main(argv)
-        finally:
-            FastLane.unroll, acting.generate_unroll = real["lane"], real["standard"]
-            for name in team_libs:
-                setattr(build, name, real[name])
-        torch.cuda.synchronize()
-        lines = [x for x in out.getvalue().splitlines() if x.startswith(("config hash", "[puppax"))]
+            torch.cuda.synchronize()
+            text = out.getvalue()
+        launches, one_thread = tuple(rec["launches"]), tuple(rec["one_thread"])
+        by_body, seen = rec["by_body"], rec["seen"]
+        lines = [x for x in text.splitlines() if x.startswith(("config hash", "[puppax"))]
         print("\n".join(lines), flush=True)
-        if lane_line not in out.getvalue():
+        if lane_line not in text:
             raise AssertionError(f"{label}: the lane line is not {lane_line!r}")
-        launches = (soa_env.wrapped_step.launches, soa_env.env_step.launches,
-                    soa.step_batched.launches, fused_unroll.unroll.launches)
-        one_thread = (soa_env.wrapped_step_one_thread.launches,
-                      soa_env.env_step_one_thread.launches, soa.step_batched_one_thread.launches,
-                      fused_unroll.unroll_one_thread.launches)
         print(f"{label}: team K3 launches {launches[0]} (expected {want[0]}), team K2 launches "
               f"{launches[1]} (expected {want[1]}), team K1 launches {launches[2]} (expected "
               f"{want[2]}), team K4 launches {launches[3]} (expected {want[3]}); one-thread "
@@ -2080,8 +2312,8 @@ def main():
         losses = {k: v for k, v in m.items() if k.endswith("_loss")}
         if len(losses) != 4 or not all(math.isfinite(v) for v in losses.values()):
             raise AssertionError(f"{label}: loss metrics {losses}")
-        eval_records = [r for r in map(json.loads, open(os.path.join(tmp, "metrics.jsonl")))
-                        if "eval/episode_reward" in r]
+        records = [json.loads(x) for x in open(os.path.join(tmp, "metrics.jsonl"))]
+        eval_records = [r for r in records if "eval/episode_reward" in r]
         if ([r["step"] for r in eval_records] != [0, TRAIN_TIMESTEPS][2 - evals:]
                 or not all(math.isfinite(v) for r in eval_records for k, v in r.items()
                            if k.startswith("eval/"))):
@@ -2093,12 +2325,74 @@ def main():
               f"events); one evaluation " + ", ".join(
                   f"at step {r['step']}: {r['eval/epoch_eval_time']:.3f} s wall" for r in eval_records)
               + f"; losses " + json.dumps(losses), flush=True)
+        if launcher:
+            group, calls = rec["group"], rec["calls"]
+            updates = n_train12 * tc12.num_updates_per_batch * tc12.num_minibatches
+            norms = 2 * (2 if tc12.privileged_critic else 1)
+            want_calls = {"grads": updates, "batch": n_train12, "normalizer": norms * n_train12,
+                          "advantages": 2 * updates, "metrics": 1, "eval": evals}
+            print(f"{label}: under the launcher, rank {group.get('rank')} of "
+                  f"{group.get('world')}, backend {group.get('backend')}, the process group "
+                  f"joined in {group.get('init_seconds', float('nan')):.3f} s; the run's "
+                  f"collectives {json.dumps(calls)} (expected {json.dumps(want_calls)}); "
+                  f"{len(records)} JSONL records; the launcher's wall {wall:.1f} s", flush=True)
+            tt = rec["times"]
+            print(f"{label}: the launcher's wall split: launcher to the child's start "
+                  f"{tt['child'] - t_launch:.1f} s, the child's imports and library loads "
+                  f"{tt['cli'] - tt['child']:.1f} s, the CLI's set-up to the first unroll "
+                  f"{tt['first_unroll'] - tt['cli']:.1f} s (the group's {group['init_seconds']:.1f} "
+                  f"s among them), the first unroll to the CLI's end "
+                  f"{tt['end'] - tt['first_unroll']:.1f} s, the child's end to the "
+                  f"launcher's {t_launch + wall - tt['end']:.1f} s", flush=True)
+            if (group.get("backend"), group.get("rank"), group.get("world")) != ("nccl", 0, 1):
+                raise AssertionError(f"{label}: the process group {group}")
+            if text.count("rollout fast lane") != 1:
+                raise AssertionError(f"{label}: the lane line is printed "
+                                     f"{text.count('rollout fast lane')} times")
+            if calls != want_calls:
+                raise AssertionError(f"{label}: the learner's collectives {calls}, expected "
+                                     f"{want_calls}")
+        cli_runs[label] = {"tmp": tmp, "metrics": m, "launches": launches, "by_body": by_body,
+                           "seen": seen, "records": records,
+                           "states": sorted(os.listdir(os.path.join(tmp, "ckpt", "state")))}
         return launches, by_body
 
+    # one evaluation (after the training): the default's run evaluates
+    # before the training too
     with Phase("run12 training, K3 lane"):
         (k3_12_launches, k2_12_launches, _, _), _ = cli_run(
-            "run12 K3 lane", RUN12_CONFIG, (unroll12, evals12, 0, 0),
-            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)")
+            "run12 K3 lane", RUN12_CONFIG, (unroll12, evals12 // 2, 0, 0),
+            "rollout fast lane: ON (ok; devices=1, fused-unroll=OFF)", evals=1)
+    # the same run as one rank of a one-card NCCL group under the launcher
+    with Phase("run12 training, K3 lane, under torch.distributed.run"):
+        cli_run("run12 K3 lane, launched", RUN12_CONFIG, (unroll12, evals12 // 2, 0, 0),
+                "rollout fast lane: ON (ok; devices=1, rank 0 of 1, backend nccl, "
+                "fused-unroll=OFF)", evals=1, launcher=True)
+        alone, ranked = cli_runs["run12 K3 lane"], cli_runs["run12 K3 lane, launched"]
+        if (ranked["launches"], ranked["by_body"], ranked["seen"]) != (
+                alone["launches"], alone["by_body"], alone["seen"]):
+            raise AssertionError("the launched run12 run differs from the in-process one in "
+                                 "its launches, their bodies or its curriculum")
+        # one writer: the JSONL's records and the train states are the
+        # in-process run's, kind for kind
+        if ([sorted(r) for r in ranked["records"]] != [sorted(r) for r in alone["records"]]
+                or ranked["states"] != alone["states"] or alone["states"] != [str(TRAIN_TIMESTEPS)]):
+            raise AssertionError(f"the launched run's JSONL or train states are not the "
+                                 f"in-process run's: {ranked['records']}, {ranked['states']}")
+        print(f"run12 K3 lane, launched: {len(ranked['records'])} JSONL records and train "
+              f"states {ranked['states']}, kind for kind the in-process run's", flush=True)
+        t_alone, t_ranked = (checkpoint.restore_checkpoint(os.path.join(r["tmp"], "ckpt", "state"))
+                             for r in (alone, ranked))
+        diffs = [float((a - b).abs().max()) for net in ("policy", "value")
+                 for a, b in zip(t_alone["params"][net].values(),
+                                 t_ranked["params"][net].values())]
+        print(f"run12 K3 lane: training/sps in process {alone['metrics']['training/sps']:.1f}, "
+              f"under the launcher {ranked['metrics']['training/sps']:.1f} (launched / in "
+              f"process {ranked['metrics']['training/sps'] / alone['metrics']['training/sps']:.3f}); "
+              f"SGD {alone['metrics']['training/sgd_ms']:.3f} / "
+              f"{ranked['metrics']['training/sgd_ms']:.3f} ms per training step; the final "
+              f"weights' largest difference {max(diffs):.3g} (bit for bit: "
+              f"{max(diffs) == 0.0})", flush=True)
     # the physics-only and fused lanes with one evaluation (after the
     # training): the K3 lane's run evaluates twice, as the default's
     with Phase("run12 training, physics-only lane"):

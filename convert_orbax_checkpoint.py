@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Convert a JAX package's orbax params checkpoint into the port's layout.
+"""Convert a JAX package's orbax checkpoint into the port's layout.
 
     python convert_orbax_checkpoint.py --checkpoint ckpts/run12 --out ckpts/run12_torch [--step N]
+    python convert_orbax_checkpoint.py --checkpoint ckpts/run12/state --out ckpts/run12_torch [--step N]
 
 Run it where JAX and orbax live (the PyTorch port imports neither). It reads
-``<checkpoint>/<step>/`` (default: the latest step), the params tree
-``(normalizer, PPONetworkParams)`` that ``scripts/train.py`` saves at every
-evaluation and at the end, with ``puppax.train.checkpoint.restore_checkpoint``
-on the CPU, turns its leaves into numpy arrays and writes
-``<out>/<step>/checkpoint.pt`` through
-``puppax_torch.train.checkpoint.save_jax_params``. The result goes through
-the port's export CLI (``python -m puppax_torch.scripts.export_policy
---checkpoint <out> ...``) and its native replay. A privileged critic's
-wider value net converts the same way.
+``<checkpoint>/<step>/`` (default: the latest step) with
+``puppax.train.checkpoint.restore_checkpoint`` on the CPU and turns its
+leaves into numpy arrays. Two kinds convert:
 
-A JAX train-state checkpoint (``<checkpoint>/state/<step>/``: optax's Adam
-state, the normalizers and the env-step count) is refused: the port does
-not resume from one.
+* the params tree ``(normalizer, PPONetworkParams)`` that
+  ``scripts/train.py`` saves at every evaluation and at the end, written to
+  ``<out>/<step>/checkpoint.pt`` through
+  ``puppax_torch.train.checkpoint.save_jax_params``. The result goes
+  through the port's export CLI (``python -m
+  puppax_torch.scripts.export_policy --checkpoint <out> ...``) and its
+  native replay;
+* a train state (``<ckpt>/state/<step>/``, ``puppax/train/ppo.py``'s
+  ``TrainingState``: optax's adam state, alone or after
+  ``clip_by_global_norm``, the params, the normalizers and the two-limb
+  env-step count), written to ``<out>/state/<step>/checkpoint.pt``
+  through ``save_jax_train_state``; ``ppo.train(checkpoint_dir=<out>,
+  resume=True)`` (the CLI's ``--resume`` with ``train.checkpoint_path=<out>``)
+  resumes from it. Another optimizer's state is refused.
+
+A privileged critic's wider value net and its normalizer convert the same
+way.
 """
 
 from __future__ import annotations
@@ -53,11 +62,14 @@ def main(argv=None):
     tree = jax.tree_util.tree_map(np.asarray,
                                   jax_checkpoint.restore_checkpoint(args.checkpoint, step=step))
     if isinstance(tree, dict) and "optimizer_state" in tree:
-        raise SystemExit(
-            f"{args.checkpoint}/{step} is a JAX train state (optax's Adam state, the "
-            f"normalizers, the env-step count), not a params tree: the port does not resume "
-            f"from a JAX train state. Convert the params checkpoint beside it "
-            f"(<checkpoint_path>/<step>/) instead.")
+        try:
+            path = checkpoint.save_jax_train_state(step, tree, os.path.join(args.out, "state"))
+        except ValueError as e:
+            raise SystemExit(f"{args.checkpoint}/{step}: {e}")
+        print(f"wrote {path}: the train state at step {step} (env steps "
+              f"{checkpoint.restore_checkpoint(os.path.join(args.out, 'state'), step)['env_steps']}"
+              f"); resume it with ppo.train(checkpoint_dir={args.out!r}, resume=True)")
+        return path
     if not (isinstance(tree, (list, tuple)) and len(tree) == 2):
         raise SystemExit(f"{args.checkpoint}/{step}: expected the params tree "
                          f"(normalizer, PPONetworkParams), got {type(tree).__name__}")

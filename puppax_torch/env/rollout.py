@@ -28,8 +28,10 @@ aux rows, restored on done from the ``first`` block, and the transitions
 carry them in ``extras`` as ``acting.actor_step`` records them.
 
 The JAX lane's TPU devices (the ``(rows, B/128, 128)`` tiles, padding B
-to 1024, ``shard_map``) have no counterpart here; the JAX ``scan`` is a
-Python loop around K3, or the loop inside K4.
+to 1024) have no counterpart here; the JAX ``scan`` is a Python loop
+around K3, or the loop inside K4. Its ``shard_map`` over the env axis is
+a rank's lane (``FastLane(wrapped, mesh=)``, one process per GPU): the
+rank steps its own envs and draws the eps for the world's.
 
 ``support_reason`` says whether ``ppo.train`` takes this lane or unrolls
 the standard lane (``acting.generate_unroll``), and why.
@@ -48,6 +50,7 @@ from puppax_torch.env import fused_unroll, soa_env
 from puppax_torch.env.base import State
 from puppax_torch.env.pupper import DISTURBANCE_KEYS
 from puppax_torch.env.wrappers import TrainingEnv
+from puppax_torch.parallel import mesh as mesh_lib
 from puppax_torch.physics import soa
 from puppax_torch.train.acting import Transition
 from puppax_torch.train.distribution import NormalTanhDistribution
@@ -87,8 +90,11 @@ def scale_noise_block(es: soa_env._EnvStatic, noise: torch.Tensor,
 class FastLane:
     """The fast-lane unroll for one wrapped training env."""
 
-    def __init__(self, wrapped: TrainingEnv):
+    def __init__(self, wrapped: TrainingEnv, mesh=None):
         env = wrapped.env
+        # a rank's lane (``parallel.EnvMesh``): its envs are its share of
+        # the world's, and the sampling eps are drawn for all of them
+        self.mesh = mesh
         self.env = env
         self.wrapped = wrapped
         self.device = env.device
@@ -201,12 +207,18 @@ class FastLane:
     def draw_eps(self, key: torch.Tensor, B: int, T: int) -> torch.Tensor:
         """The policy's sampling eps ``(T, B, act)`` from one ``(2,)`` key:
         per step ``cur, nxt = split(key)`` and ``normal(cur, (B, act))``
-        (``puppax/env/rollout.py:496-503``), the T normals in one draw."""
+        (``puppax/env/rollout.py:496-503``), the T normals in one draw. A
+        rank's lane draws them for the world's ``B * world`` envs and keeps
+        its rows ("drawn OUTSIDE the sharded body", ``rollout.py:489-505``)."""
         used = []
         for _ in range(T):
             cur, key = random.split(key).unbind(0)
             used.append(cur)
-        return random.normal(torch.stack(used), (B, self.env.action_size))
+        world = 1 if self.mesh is None else self.mesh.world
+        eps = random.normal(torch.stack(used), (B * world, self.env.action_size))
+        if world == 1:
+            return eps
+        return eps[:, mesh_lib.env_sharding(self.mesh, B * world)]
 
     # ---- the policy in feature-major layout ---------------------------------------
     def policy_rows(self, normalizer, policy):

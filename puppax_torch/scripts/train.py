@@ -1,12 +1,21 @@
 """Train a Pupper v3 joystick policy with the port from an ExperimentConfig.
 
-Counterpart of ``scripts/train.py`` for the flat model: builds the env, the
-DR fn, the JSONL metrics sink and checkpointing from one config and runs
-``puppax_torch.train.ppo.train`` on one device.
+Counterpart of ``scripts/train.py``: builds the env, the DR fn, the JSONL
+metrics sink and checkpointing from one config and runs
+``puppax_torch.train.ppo.train`` on one device, or as one rank of a
+multi-GPU run.
 
 Usage:
   python -m puppax_torch.scripts.train [--config cfg.json]
       [--set train.num_envs=8192 ...] [--resume] [--device cuda|cpu]
+  python -m torch.distributed.run --nproc_per_node N -m puppax_torch.scripts.train ...
+
+Under the launcher (one process per GPU: ``torch.distributed.run`` sets
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the group's address) each
+process joins the process group before it touches its device
+(``parallel.maybe_initialize_distributed``: NCCL on the card, gloo with
+``--device cpu``), trains on ``cuda:LOCAL_RANK`` with its share of the
+envs, and only rank 0 writes the metrics JSONL and the checkpoints.
 
 It prints ``config hash: ...``, then the final metrics as JSON. With
 ``train.checkpoint_path`` set it saves the policy parameters at every eval
@@ -33,7 +42,8 @@ def main(argv=None):
         "--resume", action="store_true",
         help="resume from the latest train-state checkpoint in train.checkpoint_path",
     )
-    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda, cuda:LOCAL_RANK under the launcher)")
     args = parser.parse_args(argv)
 
     from puppax_torch.configs import experiment as exp
@@ -44,9 +54,24 @@ def main(argv=None):
             cfg = exp.from_dict(json.load(f))
     if args.set:
         cfg = exp.apply_overrides(cfg, dict(exp.parse_override(s) for s in args.set))
-    print(f"config hash: {exp.config_hash(cfg)}", flush=True)
 
-    from puppax_torch import utils
+    import torch.distributed as dist
+
+    from puppax_torch.parallel import mesh as mesh_lib
+
+    # join the process group (a launcher's rank) before touching the device
+    device = mesh_lib.rank_device() if args.device == "cuda" else args.device
+    started = not dist.is_initialized() and mesh_lib.maybe_initialize_distributed(device=device)
+    try:
+        return _train(args, cfg, mesh_lib.make_env_mesh([device]))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, mesh):
+    """The run on this process's device (``mesh``: a rank's, or one process's)."""
+    from puppax_torch.configs import experiment as exp
     from puppax_torch.configs import get_config
     from puppax_torch.env.domain_randomization import domain_randomize
     from puppax_torch.env.pupper import PupperV3Env
@@ -54,7 +79,10 @@ def main(argv=None):
     from puppax_torch.train import checkpoint, ppo
     from puppax_torch.train.networks import make_ppo_networks
 
-    device = utils.resolve_device(args.device)
+    # multi-GPU: only rank 0 writes metrics and checkpoints (shared storage)
+    is_lead = mesh.is_lead
+    print(f"config hash: {exp.config_hash(cfg)}", flush=True)
+    device = mesh.device
     env = PupperV3Env.from_config(cfg.env, reward_config=get_config(), device=device)
 
     dr = cfg.domain_randomization
@@ -64,12 +92,12 @@ def main(argv=None):
         randomization_fn = functools.partial(domain_randomize, **ranges)
 
     t = cfg.train
-    logger = MetricsLogger(jsonl_path=t.metrics_jsonl)
+    logger = MetricsLogger(jsonl_path=t.metrics_jsonl if is_lead else None)
     logger.log({"config_hash": exp.config_hash(cfg)}, step=0)
     progress = make_progress_fn(logger, plot_path=t.progress_plot)
 
     def policy_params_fn(step, make_policy, params):
-        if t.checkpoint_path:
+        if t.checkpoint_path and is_lead:
             path = checkpoint.save_checkpoint(step, ppo.params_state_dict(params),
                                               t.checkpoint_path)
             logger.log_artifact(path, name=f"checkpoint_{step}")
@@ -118,7 +146,7 @@ def main(argv=None):
         metrics_logger=logger,
     )
     print(json.dumps(metrics, default=float, indent=2))
-    if t.checkpoint_path:
+    if t.checkpoint_path and is_lead:
         path = checkpoint.save_checkpoint(t.num_timesteps, ppo.params_state_dict(params),
                                           t.checkpoint_path)
         logger.log_artifact(path, name=f"checkpoint_{t.num_timesteps}")

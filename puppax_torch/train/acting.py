@@ -24,6 +24,7 @@ import torch
 
 from puppax_torch import random
 from puppax_torch.env.base import State
+from puppax_torch.parallel import mesh as mesh_lib
 
 
 @dataclass(frozen=True)
@@ -90,28 +91,53 @@ def generate_unroll(env, env_state: State, policy: Callable, key: torch.Tensor,
     return env_state, Transition(**fields)
 
 
-def episode_metrics(data: Transition, final_state: State) -> Dict[str, torch.Tensor]:
+def episode_metrics(data: Transition, final_state: State, mesh=None) -> Dict[str, torch.Tensor]:
     """The evaluator's aggregation of a (T, B) eval unroll: per-episode sums
     over the steps up to and including each env's first done, averaged over
     the envs (``puppax/train/acting.py:134-159``). ``total_dist`` is a gauge,
-    read at the end of the episode."""
+    read at the end of the episode. With a ``parallel.EnvMesh`` over a
+    process group, the unroll is the rank's share: every rank's per-env
+    sums are gathered, and each metric is over the world's envs."""
     done_mask = torch.cumsum((data.discount < 0.5).to(torch.int32), dim=0)
     active = torch.cat(
         [torch.ones_like(done_mask[:1]), (done_mask < 1)[:-1].to(done_mask.dtype)], dim=0
     ).to(data.reward.dtype)
-    episode_reward = torch.sum(data.reward * active, dim=0)
-    metrics = {
-        "eval/episode_reward": torch.mean(episode_reward),
-        # jnp.std: the population standard deviation
-        "eval/episode_reward_std": torch.std(episode_reward, correction=0),
-        "eval/avg_episode_length": torch.mean(torch.sum(active, dim=0)),
-    }
+    per_env = {" reward": torch.sum(data.reward * active, dim=0),
+               " length": torch.sum(active, dim=0)}
     for name, series in data.metrics.items():
-        if name == "total_dist":
-            metrics["eval/episode_total_dist"] = torch.mean(final_state.metrics[name])
-            continue
-        metrics[f"eval/episode_{name}"] = torch.mean(torch.sum(series * active, dim=0))
+        per_env[name] = (final_state.metrics[name] if name == "total_dist"
+                         else torch.sum(series * active, dim=0))
+    if mesh is not None and mesh.backend is not None:
+        names = list(per_env)
+        got = mesh_lib.all_gather(torch.stack([per_env[k] for k in names]), mesh, "eval")
+        got = got.transpose(0, 1).reshape(len(names), -1)  # (metric, world's envs)
+        per_env = {k: got[i].contiguous() for i, k in enumerate(names)}
+    metrics = {
+        "eval/episode_reward": torch.mean(per_env[" reward"]),
+        # jnp.std: the population standard deviation
+        "eval/episode_reward_std": torch.std(per_env[" reward"], correction=0),
+        "eval/avg_episode_length": torch.mean(per_env[" length"]),
+    }
+    for name in data.metrics:
+        key = "eval/episode_total_dist" if name == "total_dist" else f"eval/episode_{name}"
+        metrics[key] = torch.mean(per_env[name])
     return metrics
+
+
+def shard_policy(policy: Callable, mesh, num_envs: int, action_size: int) -> Callable:
+    """A rank's sampling policy over its share of ``num_envs`` envs: the
+    ``(num_envs, act)`` normal draw from the step's key is the world's, and
+    the rank samples from its rows (as the JAX package's one draw over the
+    sharded batch). A world of one returns ``policy``."""
+    if mesh is None or mesh.world == 1:
+        return policy
+    rows = mesh_lib.env_sharding(mesh, num_envs)
+
+    def sharded(obs: torch.Tensor, key: torch.Tensor):
+        eps = random.normal(key.to(obs.device), (num_envs, action_size))[rows]
+        return policy(obs, eps=eps)
+
+    return sharded
 
 
 class Evaluator:
@@ -120,23 +146,31 @@ class Evaluator:
     runs on its env's device (``cuda:0`` unless the env was built for
     another). Each evaluation splits its key from the evaluator's chain,
     then the reset keys and the unroll's key from it
-    (``puppax/train/acting.py:120-124, 164``)."""
+    (``puppax/train/acting.py:120-124, 164``). A rank's evaluator
+    (``mesh=``, a ``parallel.EnvMesh``) runs its share of the
+    ``num_eval_envs`` envs (its policy samples as ``shard_policy`` does)
+    and reduces the metrics over the world's."""
 
     def __init__(self, eval_env, eval_policy_factory: Callable, num_eval_envs: int,
-                 episode_length: int, action_repeat: int, key: torch.Tensor):
+                 episode_length: int, action_repeat: int, key: torch.Tensor, mesh=None):
         self._env = eval_env
         self._policy_factory = eval_policy_factory
         self._num_eval_envs = int(num_eval_envs)
+        self._mesh = mesh
         self._episode_steps = episode_length // action_repeat
         self._key = key
         self._eval_walltime = 0.0
 
     def next_keys(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Advance the chain: (the reset keys ``(num_eval_envs, 2)``, the
-        unroll's key ``(2,)``) of the next evaluation."""
+        unroll's key ``(2,)``) of the next evaluation; a rank's evaluator
+        (``mesh=``) keeps its share of the reset keys."""
         self._key, eval_key = random.split(self._key).unbind(0)
         key_reset, key_unroll = random.split(eval_key).unbind(0)
-        return random.split(key_reset, self._num_eval_envs), key_unroll
+        keys = random.split(key_reset, self._num_eval_envs)
+        if self._mesh is not None:
+            keys = keys[mesh_lib.env_sharding(self._mesh, self._num_eval_envs)]
+        return keys, key_unroll
 
     @torch.no_grad()
     def run_evaluation(self, policy_params) -> Dict[str, float]:
@@ -146,7 +180,8 @@ class Evaluator:
         policy = self._policy_factory(policy_params)
         final_state, data = generate_unroll(self._env, state, policy, key_unroll,
                                             self._episode_steps, collect_metrics=True)
-        metrics = {k: float(v) for k, v in episode_metrics(data, final_state).items()}
+        metrics = {k: float(v)
+                   for k, v in episode_metrics(data, final_state, self._mesh).items()}
         epoch_time = time.perf_counter() - t
         self._eval_walltime += epoch_time
         metrics["eval/walltime"] = self._eval_walltime

@@ -5,13 +5,14 @@ package's layer naming (``hidden_0``, ``hidden_1``, ...), so a policy's
 parameters map one to one onto the flax tree ``{"params": {"hidden_i":
 {"kernel", "bias"}}}`` that checkpoints and the export ABI use; flax's
 kernel is ``(in, out)`` and ``nn.Linear``'s weight ``(out, in)``
-(``params_from_jax`` transposes). Initialization is flax's in kind:
+(``params_from_jax`` transposes). Initialization is flax's, bit for bit:
 LeCun-uniform kernels (``jax.nn.initializers.lecun_uniform``:
-``uniform(key, (in, out), -1, 1) * sqrt(3 / in)``) and zero biases, drawn
-from a jax key (``puppax_torch.random``), one split per layer. flax's own
-key path (each module's key folded from its hashed name) is not
-reproduced, so a seed gives other initial weights than the JAX package's;
-the parity tests carry weights across.
+``uniform(key, (in, out), -1, 1) * sqrt(3 * float32(1 / in))`` in
+float32) and zero biases, each kernel drawn from the key flax's
+``module.init(key, ...)`` gives it (``flax_param_key``: the module path
+and the ``make_rng`` count folded into the key by the first 4 bytes of
+their sha1, ``flax/core/scope.py``'s ``_fold_in_static``), so a seed gives
+the JAX package's initial weights.
 
 Precision: the policy's products run in full float32 (the JAX package pins
 it to ``Precision.HIGHEST``; the fast lane, the export replay and the
@@ -25,7 +26,7 @@ reaches the policy.
 from __future__ import annotations
 
 import contextlib
-import math
+import hashlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
@@ -71,6 +72,32 @@ class _TF32Linear(torch.autograd.Function):
         return gx, gw, g2.sum(0)
 
 
+def flax_param_key(key: torch.Tensor, path: Sequence[str], count: int) -> torch.Tensor:
+    """The key of the ``count``-th ``make_rng("params")`` call in the flax
+    module at ``path`` (names below the root) under ``module.init(key,
+    ...)``: the path's names and the count (big-endian bytes) hashed by
+    sha1, its first 4 bytes big-endian folded into ``key``
+    (``flax/core/scope.py``: ``LazyRng`` gathers the suffix, ``push`` adds
+    each name, ``make_rng`` the count; ``_fold_in_static`` without the
+    ``flax_fix_rng_separator`` bytes, off by default)."""
+    m = hashlib.sha1()
+    for part in tuple(path) + (int(count),):
+        if isinstance(part, str):
+            m.update(part.encode("utf-8"))
+        else:
+            m.update(part.to_bytes((part.bit_length() + 7) // 8, byteorder="big"))
+    return random.fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
+
+
+def lecun_uniform(key: torch.Tensor, fan_in: int, fan_out: int) -> torch.Tensor:
+    """``jax.nn.initializers.lecun_uniform()(key, (fan_in, fan_out))``: a
+    flax ``(in, out)`` kernel, ``uniform(-1, 1)`` times ``sqrt(3 *
+    variance)`` with ``variance = float32(1 / fan_in)``, all in float32
+    (``variance_scaling(1, "fan_in", "uniform")``)."""
+    scale = np.sqrt(np.float32(3.0) * np.float32(1.0 / fan_in), dtype=np.float32)
+    return random.uniform(key, (fan_in, fan_out), -1.0, 1.0) * float(scale)
+
+
 class MLP(nn.Module):
     """Plain MLP with ``hidden_i`` layers; no activation after the last."""
 
@@ -92,14 +119,13 @@ class MLP(nn.Module):
         self.activation: Callable = utils.activation_fn_map(activation)
         self.precision = precision
         key = random.key(0, device) if key is None else key.to(device)
-        keys = random.split(key, len(self.layer_sizes))
         fan_in = in_size
         for i, size in enumerate(self.layer_sizes):
             layer = nn.Linear(fan_in, size, device=device)
             with torch.no_grad():
-                # lecun_uniform: U(-1, 1) * sqrt(3 / fan_in), a flax (in, out) kernel
-                kernel = random.uniform(keys[i], (fan_in, size), -1.0, 1.0)
-                layer.weight.copy_((kernel * np.float32(math.sqrt(3.0 / fan_in))).t())
+                # the Dense's kernel is its scope's first make_rng("params")
+                layer.weight.copy_(lecun_uniform(flax_param_key(key, (f"hidden_{i}",), 1),
+                                                 fan_in, size).t())
                 layer.bias.zero_()
             self.add_module(f"hidden_{i}", layer)
             fan_in = size

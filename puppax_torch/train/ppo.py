@@ -1,4 +1,5 @@
-"""The PPO learner on one device.
+"""The PPO learner: one process per device, a rank of a process group
+across several.
 
 Counterpart of ``puppax/train/ppo.py``: the same algorithm (clipped
 surrogate, truncation-aware GAE, running observation normalization,
@@ -7,7 +8,7 @@ callbacks (``progress_fn(step, metrics)``, ``policy_params_fn(step,
 make_policy, params)``) and ``<checkpoint_dir>/state/<step>/`` train-state
 checkpoints. What differs:
 
-* One device and eager PyTorch: each training step is a Python loop of
+* Eager PyTorch: each training step is a Python loop of
   ``num_unrolls_per_env`` unrolls, the time-major reorder, the normalizer
   update and ``num_updates_per_batch`` x ``num_minibatches`` SGD steps.
   The unrolls take the rollout fast lane (``FastLane.unroll``: the
@@ -17,17 +18,32 @@ checkpoints. What differs:
   ``PUPPAX_SOA_ENV=off`` the physics-only lane on the physics-step kernel
   K1); the ``[puppax.ppo] rollout fast lane`` line says which and why. The
   evaluator steps the standard lane.
+* Several devices: one process per GPU under ``torch.distributed.run``
+  (``puppax_torch/parallel/mesh.py``), not one process over a mesh. Each
+  rank steps its share of the envs and of the evaluation's; every rank
+  draws the whole key tree and keeps its rows, the sampling eps of the
+  world's envs included; the normalizer reduces its batch moments across
+  the ranks (``running_statistics.update(mesh=)``); the ranks all-gather
+  the training batch (``gather_batch``), each computes its part of every
+  minibatch's loss over its share of the minibatch's rows, and the
+  gradients are all-reduced before ``Adam.step`` (``all_reduce_grads``),
+  so the clip sees the global norm and a sharded run computes what one
+  process computes. Only rank 0 prints the lane line and writes.
 * Randomness: the JAX learner's key tree on jax's threefry
   (``puppax_torch.random``): ``init_keys`` (``ppo.py:204-211, 621``), one
   split per epoch, ``training_step_keys`` (``:504``), ``unroll_keys``
-  (``:480``) and ``sgd_update_keys`` (``:391, 411-414``), so every key and
-  draw is the JAX run's for the same seed. The networks' initial weights
-  are not (``networks.MLP``: flax's per-module key path is not ported).
+  (``:480``) and ``sgd_update_keys`` (``:391, 411-414``), and the
+  networks' initial weights through flax's key path
+  (``networks.flax_param_key``, ``:591-594``), so every key, draw and
+  initial weight is the JAX run's for the same seed.
 * The env-step count is a Python int: the JAX package's ``StepCount`` keeps
-  two int32 limbs only because JAX runs without x64.
+  two int32 limbs only because JAX runs without x64. A JAX train state
+  converts (``convert_orbax_checkpoint.py``) and resumes.
 * ``Adam`` reproduces ``optax.chain(clip_by_global_norm, adam)``: the lr
   schedule is read at the update count before the increment, and the clip
   has no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6).
+* The loss's means are sums over the minibatch's entry count (a rank's
+  share of them sums to its part).
 * Each training step records its rollout, reorder + normalizer and SGD
   phases (CUDA events on the card, the host clock on the CPU); their means
   per epoch join the metrics as ``training/{rollout,prepare,sgd}_ms``.
@@ -36,8 +52,7 @@ The privileged critic (``privileged_critic``: the value net also sees the
 env's ``privileged_obs``, through a normalizer of its own over both), the
 disturbance curriculum (``curriculum_steps``: the env's difficulty set to
 ``curriculum_difficulty`` before each training step's rollout) and
-``action_repeat`` are the JAX package's. A multi-device mesh raises
-``NotImplementedError``.
+``action_repeat`` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,8 +66,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from puppax_torch import random, utils
+from puppax_torch import random
 from puppax_torch.env import rollout, wrappers
+from puppax_torch.parallel import mesh as mesh_lib
 from puppax_torch.train import acting, checkpoint, running_statistics
 from puppax_torch.train import networks as ppo_networks
 from puppax_torch.train.acting import Transition
@@ -149,12 +165,21 @@ def compute_ppo_loss(networks, normalizer, data: Transition, entropy_eps: torch.
                      gae_lambda: float = 0.95, clipping_epsilon: float = 0.3,
                      reward_scaling: float = 1.0, normalize_advantage: bool = True,
                      privileged_critic: bool = False, critic_normalizer=None,
+                     total: Optional[int] = None, mesh=None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The PPO loss of a time-major (T, mb) minibatch (``ppo.py:306-384``);
     ``entropy_eps`` are the normal draws of the entropy estimate and
     ``normalizer`` is None when observations are not normalized. The
     privileged critic's value net reads ``critic_inputs`` through
-    ``critic_normalizer`` (None when observations are not normalized)."""
+    ``critic_normalizer`` (None when observations are not normalized).
+
+    ``data`` may be a rank's share of a minibatch of ``total`` (t, row)
+    entries (default: ``data``'s own): each mean is then the share's sum
+    over ``total``, the rank's part of the loss, and the advantages'
+    mean and standard deviation are reduced over ``mesh``'s ranks
+    (``parallel.EnvMesh``), so the ranks' parts sum to the minibatch's
+    loss. One process computes the same sums over its whole minibatch."""
+    n = float(data.reward.numel() if total is None else total)
     dist = networks.action_distribution
     policy_logits = networks.policy_apply(normalizer, data.observation)
     if privileged_critic:
@@ -175,18 +200,21 @@ def compute_ppo_loss(networks, normalizer, data: Transition, entropy_eps: torch.
     vs, advantages = compute_gae(truncation, termination, rewards, baseline, bootstrap_value,
                                  gae_lambda, discounting)
     if normalize_advantage:
-        # jnp.std is the population standard deviation
-        advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        # jnp.std: the population standard deviation, two passes
+        mean = mesh_lib.all_reduce_(torch.sum(advantages), mesh, "advantages") / n
+        dev = advantages - mean
+        var = mesh_lib.all_reduce_(torch.sum(dev * dev), mesh, "advantages") / n
+        advantages = dev / (torch.sqrt(var) + 1e-8)
 
     rho = torch.exp(target_lp - behaviour_lp)
     surrogate = rho * advantages
     clipped = torch.clamp(rho, 1.0 - clipping_epsilon, 1.0 + clipping_epsilon) * advantages
-    policy_loss = -torch.mean(torch.minimum(surrogate, clipped))
+    policy_loss = -torch.sum(torch.minimum(surrogate, clipped)) / n
 
     v_error = vs - baseline
-    value_loss = 0.25 * torch.mean(v_error * v_error)
+    value_loss = 0.25 * (torch.sum(v_error * v_error) / n)
 
-    entropy = torch.mean(dist.entropy(policy_logits, eps=entropy_eps))
+    entropy = torch.sum(dist.entropy(policy_logits, eps=entropy_eps)) / n
     entropy_loss = -entropy_cost * entropy
 
     total = policy_loss + value_loss + entropy_loss
@@ -331,12 +359,16 @@ def params_state_dict(params) -> Dict:
     }
 
 
+# the transition fields the learner reads, besides policy_extras and extras
+_LEARNER_FIELDS = ("observation", "action", "reward", "discount", "next_observation",
+                   "truncation")
+
+
 def _map_data(fn, data: Transition) -> Transition:
     """``fn`` on every tensor of the transition fields the learner reads."""
     return replace(
         data,
-        **{f: fn(getattr(data, f)) for f in ("observation", "action", "reward", "discount",
-                                              "next_observation", "truncation")},
+        **{f: fn(getattr(data, f)) for f in _LEARNER_FIELDS},
         policy_extras={k: fn(v) for k, v in data.policy_extras.items()},
         extras={k: fn(v) for k, v in data.extras.items()},
     )
@@ -435,8 +467,8 @@ def train(
     resume: bool = False,
     metrics_logger=None,
 ):
-    """Train a PPO policy on one device; returns (make_policy, params,
-    metrics) with ``params = (normalizer_state, PPONetworkParams)``.
+    """Train a PPO policy; returns (make_policy, params, metrics) with
+    ``params = (normalizer_state, PPONetworkParams)``.
 
     ``environment`` is a ``PupperV3Env`` on ``device`` (default ``cuda:0``;
     without a card the caller must pass ``"cpu"``), ``randomization_fn(model,
@@ -444,13 +476,19 @@ def train(
     keys, and ``network_factory(obs_size, action_size, device=, key=)``
     builds the networks. ``checkpoint_dir`` saves the full train state at every
     eval epoch under ``<checkpoint_dir>/state/<env_steps>/``; ``resume``
-    restarts from the latest one (the envs are reset anew)."""
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "a multi-device mesh is not ported yet (ROADMAP queue 1, multi-GPU)")
-    if devices is not None:
-        device = devices[0]
-    device = utils.resolve_device(device)
+    restarts from the latest one (the envs are reset anew).
+
+    In a process group (``parallel.maybe_initialize_distributed``: one
+    process per GPU under ``torch.distributed.run``) each call is one rank
+    of the run: it steps its share of the ``num_envs`` (and
+    ``num_eval_envs``) envs, every rank draws the whole key tree, the
+    normalizer's moments, the minibatches' advantages, the gradients and
+    the metrics are reduced over the ranks, and only rank 0 prints the
+    lane line and writes the checkpoints; the result is the
+    single-process run's. ``devices`` names this process's one device: a
+    list of several raises (``parallel.make_env_mesh``)."""
+    mesh = mesh_lib.make_env_mesh([device] if devices is None else devices)
+    device = mesh.device
     if privileged_critic and not getattr(environment, "_privileged_obs", False):
         raise ValueError("privileged_critic=True requires the env to publish "
                          "info['privileged_obs'] (PupperV3Env(privileged_obs=True))")
@@ -468,17 +506,27 @@ def train(
         raise ValueError(f"batch_size * num_minibatches = {batch_size * num_minibatches} "
                          f"is not a multiple of num_envs = {num_envs}")
     num_unrolls_per_env = (batch_size * num_minibatches) // num_envs
+    for name, n in (("num_envs", num_envs), ("num_eval_envs", num_eval_envs),
+                    ("batch_size", batch_size)):
+        if n % mesh.world:
+            raise ValueError(f"{name} = {n} does not split over {mesh.world} ranks")
+    rows = mesh_lib.env_sharding(mesh, num_envs)  # this rank's envs
 
+    # the whole key tree on every rank; each rank keeps its envs' keys
     keys = init_keys(seed, num_envs, randomization_fn is not None, device)
     env = wrappers.wrap_for_training(
         environment, episode_length=episode_length, action_repeat=action_repeat,
-        randomization_fn=randomization_fn, randomization_keys=keys.get("dr"),
+        randomization_fn=randomization_fn,
+        randomization_keys=keys["dr"][rows] if "dr" in keys else None,
     )
     lane_ok, lane_reason = rollout.support_reason(env)
-    lane = rollout.FastLane(env) if lane_ok else None
-    fused = f", fused-unroll={'ON' if lane.use_fused(unroll_length) else 'OFF'}" if lane else ""
-    print(f"[puppax.ppo] rollout fast lane: {'ON' if lane_ok else 'OFF'} ({lane_reason}; "
-          f"devices=1{fused})", flush=True)
+    lane = rollout.FastLane(env, mesh=mesh) if lane_ok else None
+    if mesh.is_lead:
+        ranks = (f", rank {mesh.rank} of {mesh.world}, backend {mesh.backend}"
+                 if mesh.backend else "")
+        fused = f", fused-unroll={'ON' if lane.use_fused(unroll_length) else 'OFF'}" if lane else ""
+        print(f"[puppax.ppo] rollout fast lane: {'ON' if lane_ok else 'OFF'} ({lane_reason}; "
+              f"devices={mesh.world}{ranks}{fused})", flush=True)
     obs_size, action_size = environment.observation_size, environment.action_size
 
     priv_size = environment.privileged_obs_size if privileged_critic else 0
@@ -500,7 +548,7 @@ def train(
             ts.load_state_dict(checkpoint.restore_checkpoint(state_dir, step, device))
 
     # the standard lane restores the reset-time pipeline state on done
-    env_state = env.reset(keys["env"], caches=lane is None)
+    env_state = env.reset(keys["env"][rows], caches=lane is None)
     if curriculum_steps > 0 and "difficulty" not in env_state.info:
         raise ValueError("curriculum_steps > 0 requires an environment with "
                          "disturbance_curriculum=True (info['difficulty'] missing)")
@@ -510,9 +558,11 @@ def train(
         action_repeat=action_repeat,
     )
     evaluator = acting.Evaluator(
-        eval_wrapped, lambda p: make_policy(p, deterministic=deterministic_eval),
+        eval_wrapped,
+        lambda p: (make_policy(p, deterministic=True) if deterministic_eval else
+                   acting.shard_policy(make_policy(p), mesh, num_eval_envs, action_size)),
         num_eval_envs=num_eval_envs, episode_length=episode_length,
-        action_repeat=action_repeat, key=keys["eval"],
+        action_repeat=action_repeat, key=keys["eval"], mesh=mesh,
     )
 
     def policy_params():
@@ -520,24 +570,14 @@ def train(
                 networks.policy_network)
 
     def sgd_step(data: Transition, ec_now: float, sums: Dict[str, torch.Tensor], key):
-        norm = ts.normalizer_params if normalize_observations else None
-        critic_norm = ts.critic_normalizer_params if normalize_observations else None
-        key, perm, loss_keys = sgd_update_keys(key, num_minibatches,
-                                               batch_size * num_minibatches)
-        for mb, key_loss in zip(minibatches(data, perm, num_minibatches, lazy_shuffle),
-                                loss_keys):
-            # the entropy's draw, jax.random.normal(key_loss, loc.shape)
-            eps = random.normal(key_loss, mb.observation.shape[:2] + (action_size,))
-            loss, metrics = compute_ppo_loss(
-                networks, norm, mb, eps, ec_now, discounting=discounting,
-                gae_lambda=gae_lambda, clipping_epsilon=clipping_epsilon,
-                reward_scaling=reward_scaling, normalize_advantage=normalize_advantage,
-                privileged_critic=privileged_critic, critic_normalizer=critic_norm,
-            )
-            optimizer.step(torch.autograd.grad(loss, params))
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + v.detach()
-        return key
+        norms = ((ts.normalizer_params, ts.critic_normalizer_params) if normalize_observations
+                 else (None, None))
+        return sgd_pass(networks, optimizer, norms, data, key, ec_now, mesh=mesh,
+                        batch_size=batch_size, num_minibatches=num_minibatches,
+                        lazy_shuffle=lazy_shuffle, sums=sums, discounting=discounting,
+                        gae_lambda=gae_lambda, clipping_epsilon=clipping_epsilon,
+                        reward_scaling=reward_scaling, normalize_advantage=normalize_advantage,
+                        privileged_critic=privileged_critic)
 
     timer = _PhaseTimer(device)
 
@@ -556,17 +596,20 @@ def train(
                 env_state, d = lane.unroll(env_state, policy_params(), k_unroll, unroll_length)
             else:
                 with torch.no_grad():
-                    env_state, d = acting.generate_unroll(
-                        env, env_state, make_policy(policy_params()), k_unroll, unroll_length)
+                    policy = acting.shard_policy(make_policy(policy_params()), mesh, num_envs,
+                                                 action_size)
+                    env_state, d = acting.generate_unroll(env, env_state, policy, k_unroll,
+                                                          unroll_length)
             data.append(d)
         timer.mark(marks)
         data = _cat_unrolls(data)
         if normalize_observations:
             ts.normalizer_params = running_statistics.update(ts.normalizer_params,
-                                                             data.observation)
+                                                             data.observation, mesh=mesh)
             if privileged_critic:
                 ts.critic_normalizer_params = running_statistics.update(
-                    ts.critic_normalizer_params, critic_inputs(data)[0])
+                    ts.critic_normalizer_params, critic_inputs(data)[0], mesh=mesh)
+        data = gather_batch(data, mesh, num_unrolls_per_env)
         timer.mark(marks)
         if entropy_schedule == "linear":
             progress = min(max(ts.env_steps / float(num_timesteps), 0.0), 1.0)
@@ -594,6 +637,9 @@ def train(
         for _ in range(num_training_steps_per_epoch):
             env_state, step_key = training_step(env_state, sums, step_key)
         n = num_training_steps_per_epoch * num_updates_per_batch * num_minibatches
+        if mesh.backend is not None:  # the ranks' parts of each loss
+            summed = mesh_lib.all_reduce_(torch.stack(list(sums.values())), mesh, "metrics")
+            sums = dict(zip(sums, summed))
         train_metrics = {k: float(v) / n for k, v in sums.items()}  # synchronizes
         epoch_time = time.perf_counter() - t
         phases = timer.mean_ms(("rollout_ms", "prepare_ms", "sgd_ms"))
@@ -608,12 +654,87 @@ def train(
         all_metrics = metrics
         progress_fn(ts.env_steps, metrics)
         policy_params_fn(ts.env_steps, make_policy, (ts.normalizer_params, networks.params))
-        if state_dir is not None:
+        if state_dir is not None and mesh.is_lead:  # one writer
             path = checkpoint.save_checkpoint(ts.env_steps, ts.state_dict(), state_dir)
             if metrics_logger is not None:
                 metrics_logger.log_artifact(path, name=f"checkpoint_state_{ts.env_steps}")
 
     return make_policy, (ts.normalizer_params, networks.params), all_metrics
+
+
+def sgd_pass(networks, optimizer: Adam, normalizers, data: Transition, key: torch.Tensor,
+             entropy_cost: float, *, mesh, batch_size: int, num_minibatches: int,
+             lazy_shuffle: bool = False, sums: Optional[Dict[str, torch.Tensor]] = None,
+             **loss_kw) -> torch.Tensor:
+    """One pass of SGD over the world's time-major ``(T, num_minibatches *
+    batch_size)`` batch (``ppo.py:409-458``); returns the next pass's key.
+    ``normalizers`` is (the observation normalizer, the critic's), None
+    each where observations are not normalized. Each minibatch is the same
+    global rows on every rank; a rank (``mesh``) computes its part of the
+    loss over its share of them (``mesh_lib.env_sharding(mesh,
+    batch_size)``), the gradients are all-reduced before ``optimizer.step``,
+    and the parts of each loss add into ``sums``."""
+    norm, critic_norm = normalizers
+    T = data.reward.shape[0]
+    action_size = networks.action_distribution.event_size
+    share = mesh_lib.env_sharding(mesh, batch_size)
+    key, perm, loss_keys = sgd_update_keys(key, num_minibatches, batch_size * num_minibatches)
+    perm = perm.reshape(num_minibatches, batch_size)[:, share].reshape(-1)
+    for mb, key_loss in zip(minibatches(data, perm, num_minibatches, lazy_shuffle), loss_keys):
+        # the entropy's draw, jax.random.normal(key_loss, loc.shape), of the
+        # whole minibatch; the share's columns
+        eps = random.normal(key_loss, (T, batch_size, action_size))
+        loss, metrics = compute_ppo_loss(networks, norm, mb, eps[:, share], entropy_cost,
+                                         critic_normalizer=critic_norm, total=T * batch_size,
+                                         mesh=mesh, **loss_kw)
+        optimizer.step(all_reduce_grads(torch.autograd.grad(loss, optimizer.params), mesh))
+        if sums is not None:
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v.detach()
+    return key
+
+
+def all_reduce_grads(grads, mesh) -> List[torch.Tensor]:
+    """The ranks' gradients summed (each rank's is its part of the
+    minibatch's mean), as one flat all-reduce; one process's as they are."""
+    grads = list(grads)
+    if mesh.backend is None:
+        return grads
+    flat = mesh_lib.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh, "grads")
+    return [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def gather_batch(data: Transition, mesh, num_unrolls: int) -> Transition:
+    """The world's ``(T, U * B)`` batch from every rank's ``(T, U * B_rank)``
+    one, its columns in the single process's order (unroll, then rank,
+    then env: the rank's envs are its slice of the world's): every field
+    the learner reads packed into one float32 tensor for one all-gather.
+    One process's batch as it is."""
+    if mesh.backend is None:
+        return data
+    leaves = ([(f, getattr(data, f)) for f in _LEARNER_FIELDS]
+              + [(("policy_extras", k), v) for k, v in data.policy_extras.items()]
+              + [(("extras", k), v) for k, v in data.extras.items()])
+    T, n = data.reward.shape[:2]
+    widths = [int(np.prod(x.shape[2:], dtype=np.int64)) for _, x in leaves]
+    for name, x in leaves:
+        if x.dtype != torch.float32:
+            raise TypeError(f"the transition's {name} is {x.dtype}, not float32")
+    packed = torch.cat([x.reshape(T, n, w) for (_, x), w in zip(leaves, widths)], -1)
+    got = mesh_lib.all_gather(packed, mesh, "batch")  # (world, T, U * B_rank, F)
+    per = n // num_unrolls
+    got = got.reshape(mesh.world, T, num_unrolls, per, -1).permute(1, 2, 0, 3, 4)
+    got = got.reshape(T, num_unrolls * mesh.world * per, -1)
+    out, c = {}, 0
+    for (name, x), w in zip(leaves, widths):
+        out[name] = got[..., c:c + w].reshape((T, got.shape[1]) + x.shape[2:])
+        c += w
+    return replace(
+        data, **{f: out[f] for f in _LEARNER_FIELDS},
+        policy_extras={k: out[("policy_extras", k)] for k in data.policy_extras},
+        extras={k: out[("extras", k)] for k in data.extras},
+        metrics={},
+    )
 
 
 def _cat_unrolls(data: List[Transition]) -> Transition:
@@ -622,9 +743,7 @@ def _cat_unrolls(data: List[Transition]) -> Transition:
     first = data[0]
     return replace(
         first,
-        **{f: torch.cat([getattr(d, f) for d in data], dim=1)
-           for f in ("observation", "action", "reward", "discount", "next_observation",
-                     "truncation")},
+        **{f: torch.cat([getattr(d, f) for d in data], dim=1) for f in _LEARNER_FIELDS},
         policy_extras={k: torch.cat([d.policy_extras[k] for d in data], dim=1)
                        for k in first.policy_extras},
         extras={k: torch.cat([d.extras[k] for d in data], dim=1) for k in first.extras},

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from puppax_torch import utils
+from puppax_torch.parallel import mesh as mesh_lib
 
 
 @dataclass(frozen=True)
@@ -55,15 +56,21 @@ def from_jax(mean, std, count=0.0, summed_variance=None, device=None) -> Running
 
 
 def update(state: RunningStatisticsState, batch: torch.Tensor,
-           std_min_value: float = 1e-6) -> RunningStatisticsState:
+           std_min_value: float = 1e-6, mesh=None) -> RunningStatisticsState:
     """Fold a batch ``(..., obs_dim)`` into the running statistics (Chan's
-    parallel Welford update, ``puppax/train/running_statistics.py:41-81``
-    without its cross-device ``axis_name`` reduction)."""
+    parallel Welford update, ``puppax/train/running_statistics.py:41-81``).
+    With a ``parallel.EnvMesh`` over a process group, ``batch`` is the
+    rank's share and the batch moments are reduced across the ranks as
+    ``axis_name`` does there: the mean by ``pmean``, ``m2`` by ``psum``,
+    the count times the world's size, so every rank holds the global
+    statistics."""
+    world = 1 if mesh is None else mesh.world
     obs_dim = state.mean.shape[-1]
     flat = batch.reshape(-1, obs_dim)
-    batch_count = float(flat.shape[0])
-    batch_mean = torch.mean(flat, dim=0)
-    batch_m2 = torch.sum(torch.square(flat - batch_mean), dim=0)
+    batch_count = float(flat.shape[0]) * world
+    batch_mean = mesh_lib.all_reduce_(torch.mean(flat, dim=0), mesh, "normalizer") / world
+    batch_m2 = mesh_lib.all_reduce_(torch.sum(torch.square(flat - batch_mean), dim=0), mesh,
+                                    "normalizer")
     new_count = state.count + batch_count
     delta = batch_mean - state.mean
     new_mean = state.mean + delta * (batch_count / new_count)

@@ -12,8 +12,10 @@ puppax_torch.scripts.export_policy --observation-history 4
 plain critic and with a privileged critic (the value net 34 inputs wider,
 which the export never reads). The converted tree is the one
 ``ppo.params_state_dict`` writes, every leaf equal to the orbax leaf
-(kernels transposed). A JAX train-state checkpoint (optax's Adam state)
-is refused with a message.
+(kernels transposed). A JAX train state whose optimizer is not optax's
+adam (here SGD with momentum) is refused with a message and writes
+nothing; an adam train state converts and resumes
+(``test_torch_resume_jax.py``).
 """
 
 import importlib.util
@@ -126,14 +128,17 @@ def test_convert_then_export_equals_jax(tmp_path, capsys, priv):
 
 
 def test_train_state_checkpoint_is_refused(tmp_path):
+    """A train state of another optimizer than optax's adam is refused: the
+    port's ``ppo.Adam`` cannot take its state."""
     norm, nets = _jax_params(5, False)
-    state = jppo.TrainingState(optimizer_state=optax.adam(1e-3).init(nets), params=nets,
-                               normalizer_params=norm, env_steps=jppo.StepCount.zero())
+    state = jppo.TrainingState(optimizer_state=optax.sgd(1e-3, momentum=0.9).init(nets),
+                               params=nets, normalizer_params=norm,
+                               env_steps=jppo.StepCount.zero())
     jcheckpoint.save_checkpoint(8, state, tmp_path / "ckpt" / "state")
-    with pytest.raises(SystemExit, match="the port does not resume from a JAX train state"):
+    with pytest.raises(SystemExit, match="not optax's adam .* the port's Adam cannot take it"):
         _converter().main(["--checkpoint", str(tmp_path / "ckpt" / "state"), "--out",
                            str(tmp_path / "port")])
-    assert not (tmp_path / "port").exists()
+    assert checkpoint.latest_checkpoint_step(tmp_path / "port" / "state") is None
     with pytest.raises(SystemExit, match="no checkpoints"):
         _converter().main(["--checkpoint", str(tmp_path / "none"), "--out",
                            str(tmp_path / "port")])

@@ -362,13 +362,14 @@ def test_generators_per_stream():
     {"privileged_critic": True}, {"curriculum_steps": 10}, {"devices": ["cpu", "cpu"]},
 ])
 def test_unported_train_options_raise(option):
-    """A multi-device mesh still raises (ROADMAP queue 1, multi-GPU); the
-    privileged critic and the curriculum, ported since, raise JAX's
-    ``ValueError`` on an env that publishes no privileged obs or no
-    difficulty (their runs: ``test_torch_extras.py``)."""
+    """One process given several devices raises a ``ValueError`` that
+    names the launcher (one process per GPU; the runs across ranks:
+    ``test_torch_parallel.py``); the privileged critic and the curriculum
+    raise JAX's ``ValueError`` on an env that publishes no privileged obs
+    or no difficulty (their runs: ``test_torch_extras.py``)."""
     if "devices" in option:
         env = type("E", (), {"device": torch.device("cpu")})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node"):
             ppo.train(env, 8, 8, device="cpu", **option)
         return
     from puppax_torch.env.pupper import PupperV3Env
