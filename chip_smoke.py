@@ -113,14 +113,16 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    once: every draw of the run), and the
    run is checked (env steps, the normalizer's count, finite losses,
    changed parameters, plausible eval metrics, the checkpoint against the
-   final state); then the learner's rank path in this process: under a
-   one-rank NCCL process group (``parallel.maybe_initialize_distributed``
-   on a free localhost port), one minibatch update of a T=20 K3-lane
-   unroll's first 256 envs (the normalizer's reduced update, the batch's
-   all-gather, the advantages' and the gradients' all-reduces,
-   ``ppo.sgd_pass``) held bit for bit against the single-process update
-   on the same data and keys, its collectives counted and the group's
-   set-up timed (``one_rank_update_check``);
+   final state); then ``tools/eval.py::visualize_policy`` on the trained
+   policy (one env of the default env on the card, 560 steps of the
+   7-command script, render_every 2): team K2 and the one-thread K2 first
+   held bit for bit against ``env_step_rows`` at B = 1 (a ragged block of
+   one env), then the rollout's launches (exactly 560 team K2, none of
+   the one-thread K2, K1, K3 or K4, threefry at least once), its env
+   steps/s (``profiling.Timer`` fenced on the last qpos) and its trajectory
+   file (561 finite qpos rows, the last the last step's, the commands 80
+   steps each, fps 25, the MJCF ``config_xml`` of the config; without
+   mujoco, as on the card's host, no video and None returned);
 10. the export of that run's policy: its parameters saved as the training
    CLI saves them, exported through ``python -m
    puppax_torch.scripts.export_policy`` (the file equal, as a string, to
@@ -289,10 +291,30 @@ value MLP 5 x 256 elu, 128 eval envs; random weights made from ``--seed``):
    plain version (bit for bit; the ``--fmad=true`` builds as above), and
    every probe kernel must have launched in
    this phase;
-18. a JSON line of the kernels (launches in their training run or probe
+18. the traces, last, since a ``torch.profiler`` session leaves the host
+   slower at every later launch (CUPTI stays subscribed) and would
+   stretch each host-bound phase after it: one T=20 K3-lane unroll under
+   ``tools/profiling.trace`` (the trace written to
+   ``build/traces/``): exactly 20 team K3 launches in the trace, its
+   threefry launches, device activities, the 10 kernels of the most
+   device time, busy and window ms and idle share (``tools/
+   profile_unroll.py``'s definition: the union of the device intervals
+   over the CUDA-event window); then the learner's rank path in this
+   process: under a one-rank NCCL process group
+   (``parallel.maybe_initialize_distributed`` on a free localhost port),
+   one minibatch update of a T=20 K3-lane unroll's first 256 envs (the
+   normalizer's reduced update, the batch's all-gather, the advantages'
+   and the gradients' all-reduces, ``ppo.sgd_pass``) held bit for bit
+   against the single-process update on the same data and keys, its
+   collectives counted and the group's set-up timed, the single-process
+   update traced the same way (no device event fails the run)
+   (``one_rank_update_check``);
+19. a JSON line of the kernels (launches in their training run or probe
    phase, error against the plain version, times, the bound of the card;
    team K3, team K2, team K1 and team K4 beside the one-thread K3, K2, K1
-   and K4, whose launches on the main path are 0; run12's bodies as
+   and K4, whose launches on the main path are 0; team K2's entry also
+   holds ``visualize_launches``, its launches in ``visualize_policy``'s
+   rollout; run12's bodies as
    ``wrapped_step_team[run12]``, ``env_step_team[hist4]``,
    ``fused_unroll_team[run12]`` and their one-thread kernels, each with
    the run12 CLI run its launches come from as ``launches_in``; run9's
@@ -343,6 +365,9 @@ MAX_DIFFERING_ENVS = 4  # of 4096 (K3, K1, K4)
 CONVERGED_LS_TRIPS = (40, 200)
 EVAL_ENVS = 128
 EXPORT_OBS = 256  # raw observations the exported policy is replayed on
+VIS_STEPS = 560  # visualize_policy's rollout: 7 commands x 80 steps, one env
+# the traces of profiling.trace (the T=20 unroll, the minibatch update)
+TRACE_DIR = os.path.join(HERE, "build", "traces")
 GAIT_TICKS = 8  # ticks of the native runtime's gait clock
 TRAIN_TIMESTEPS = 491_520  # 3 training steps of 256 x 20 x 32 env steps
 # the JAX package's best run, driven at full width through the training CLI
@@ -594,6 +619,29 @@ def timed_once(fn):
     out = []
     ms = cuda_ms(lambda: out.append(fn()), 1)
     return out[0], ms
+
+
+def trace_launches(summary: dict, kernel: str) -> int:
+    """Launches of a kernel (its function's name) in a ``profiling.trace``
+    summary; the trace names a kernel by its demangled signature."""
+    return sum(n for name, n in summary["launches"].items() if kernel in name)
+
+
+def print_trace(label: str, tr) -> dict:
+    """A ``profiling.trace``'s numbers: device activities in all, the 10
+    kernels of the most device time, busy and window ms, the idle share and
+    the trace file's bytes."""
+    s = tr.summary
+    top = sorted(s["device_us"].items(), key=lambda kv: -kv[1])[:10]
+    clock = "CUDA events" if tr.on_card else "host clock"
+    print(f"{label} trace: {sum(s['launches'].values())} device activities (kernels, copies, "
+          f"sets), device busy {s['busy_ms']:.3f} ms in a window of {s['window_ms']:.3f} ms "
+          f"({clock}), idle share {s['idle']:.4f}; trace file {os.path.getsize(tr.path)} "
+          f"bytes ({os.path.relpath(tr.path, HERE)})", flush=True)
+    print(f"{label} trace, top 10 by device time: " + json.dumps(
+        [{"name": name[:90], "launches": s["launches"][name], "device_ms": us / 1000.0}
+         for name, us in top]), flush=True)
+    return s
 
 
 def bound_ms(ops_per_env: int, in_rows: int, out_rows: int, B: int):
@@ -937,7 +985,7 @@ def export_and_replay(label, norm, nets, raw_obs, env, env_cfg, tc, device, gait
 
 
 def one_rank_update_check(lane, wrapped, policy_params, reset_keys, key_net, key_sgd, tc,
-                          device) -> dict:
+                          device, trace_dir=None) -> dict:
     """One minibatch update through the learner's rank path under a
     one-rank NCCL process group against the single-process update, on the
     same data and keys: a T=20 unroll of the K3 lane from ``reset_keys``
@@ -950,8 +998,12 @@ def one_rank_update_check(lane, wrapped, policy_params, reset_keys, key_net, key
     SGD's key ``key_sgd``. A world of one sums one term, so the normalizer,
     the weights and Adam's state must agree bit for bit; the group's
     collectives are counted. The group is NCCL's on the card (gloo where
-    ``device`` is the CPU: the CPU tests run this check). Returns the
-    group's set-up seconds and the counts."""
+    ``device`` is the CPU: the CPU tests run this check). The
+    single-process update runs under ``profiling.trace`` (into
+    ``trace_dir``, default a temporary directory), which fails on the card
+    if the trace holds no device event: its launches, device busy time and
+    idle share are printed. Returns the group's set-up seconds, the counts
+    and the trace's summary."""
     import socket
 
     import torch
@@ -959,6 +1011,7 @@ def one_rank_update_check(lane, wrapped, policy_params, reset_keys, key_net, key
 
     from puppax_torch import random as prandom
     from puppax_torch.parallel import mesh as mesh_lib
+    from puppax_torch.tools import profiling
     from puppax_torch.train import networks, ppo, running_statistics
 
     state = wrapped.reset(reset_keys)
@@ -988,7 +1041,11 @@ def one_rank_update_check(lane, wrapped, policy_params, reset_keys, key_net, key
                 + [p.detach().clone() for p in opt.params] + opt.mu + opt.nu
                 + list(sums.values()), opt.count)
 
-    alone = update(mesh_lib.make_env_mesh([device]))
+    trace_dir = trace_dir or tempfile.mkdtemp(prefix="puppax_torch_trace_")
+    with profiling.trace(trace_dir, "minibatch_update", device=device) as tr:
+        alone = update(mesh_lib.make_env_mesh([device]))
+    update_trace = print_trace(f"one minibatch update ({T_UNROLL} x {cols} transitions, "
+                               f"single process)", tr)
     sock = socket.socket()
     sock.bind(("localhost", 0))
     port = sock.getsockname()[1]
@@ -1018,7 +1075,7 @@ def one_rank_update_check(lane, wrapped, policy_params, reset_keys, key_net, key
     if differ or (ranked[1], alone[1]) != (1, 1) or calls != want_calls or mesh.backend != backend:
         raise AssertionError(f"the one-rank {backend} update is not the single-process update "
                              f"bit for bit")
-    return {"init_seconds": init_s, "calls": calls}
+    return {"init_seconds": init_s, "calls": calls, "trace": update_trace}
 
 
 TEAM_LIBS = ("wrapped_step_team_library", "env_step_team_library",
@@ -1163,6 +1220,7 @@ def main():
     args = ap.parse_args()
     t_start = time.perf_counter()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1185,7 +1243,10 @@ def main():
     from puppax_torch.physics import pipeline, soa
     from puppax_torch.configs import experiment
     from puppax_torch.probes import common as probes
+    from puppax_torch.model.tables import config_xml
     from puppax_torch.scripts import train as train_cli
+    from puppax_torch.tools import eval as tools_eval
+    from puppax_torch.tools import profiling
     from puppax_torch.train import acting, checkpoint, networks, ppo, running_statistics
 
     smi = nvidia_smi_line()
@@ -1921,6 +1982,15 @@ def main():
     n_train = math.ceil(TRAIN_TIMESTEPS / steps_per_train)
     unroll_steps = n_train * (tc.batch_size * tc.num_minibatches // B) * tc.unroll_length
 
+    def zero_launch_counts():
+        """Every production kernel wrapper's launch count (K1-K4, team and
+        one-thread, and threefry) set to 0."""
+        for wrapper in (soa_env.wrapped_step, soa_env.wrapped_step_one_thread,
+                        soa_env.env_step, soa_env.env_step_one_thread, soa.step_batched,
+                        soa.step_batched_one_thread, fused_unroll.unroll,
+                        fused_unroll.unroll_one_thread, prandom.threefry):
+            wrapper.launches = 0
+
     def train_and_check(environment, label, want, lane_line, n_evals=2):
         """One ppo.train run at the default configuration (3 training steps,
         ``n_evals`` evaluations: 2, before and after the training, or 1,
@@ -1942,11 +2012,7 @@ def main():
 
         progress = []
         ckpt_dir = tempfile.mkdtemp(prefix="puppax_torch_smoke_")
-        soa_env.wrapped_step.launches = soa_env.wrapped_step_one_thread.launches = 0
-        soa_env.env_step.launches = soa_env.env_step_one_thread.launches = 0
-        soa.step_batched.launches = soa.step_batched_one_thread.launches = 0
-        fused_unroll.unroll.launches = fused_unroll.unroll_one_thread.launches = 0
-        prandom.threefry.launches = 0
+        zero_launch_counts()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             _, (norm_out, params_out), _ = ppo.train(
@@ -2034,12 +2100,88 @@ def main():
         k3_launches, k2_launches = launches[:2]
         k3_one_launches, k2_one_launches = one_thread[:2]
 
-    # ---- the rank path in one process: one minibatch update (with the
-    # normalizer's update and the batch's gather) under a one-rank NCCL
-    # group, bit for bit the single-process update on the same data and keys ----
-    with Phase("one-rank NCCL update vs the single process"):
-        one_rank_update_check(lane, wrapped, params, env_keys(B), next_key(), next_key(), tc,
-                              device)
+    # the keys of the rank check at the end (its reset, networks and SGD),
+    # split off the chain where the check ran before it was traced
+    rank_keys = (env_keys(B), next_key(), next_key())
+
+    # ---- visualize_policy on the trained policy: one env on the card, 560
+    # steps of the 7-command script, each one team K2 launch ----
+    with Phase("visualize_policy"):
+        # team K2 and the one-thread K2 at B = 1 (a ragged 32-env block of one
+        # env) bit for bit with the plain version on the card
+        one_env = [x[:, :1].contiguous() for x in k2_blocks]
+        want1 = soa_env.env_step_rows(s, es, n_sub, *one_env)
+        for label, step_fn in (("team K2", soa_env.env_step),
+                               ("one-thread K2", soa_env.env_step_one_thread)):
+            got1 = step_fn(s, es, n_sub, *one_env)
+            torch.cuda.synchronize()
+            err1 = max(float((a - b).abs().max()) for a, b in zip(got1, want1))
+            print(f"{label} vs plain at B = 1: max abs err {err1!r}", flush=True)
+            if not all(torch.equal(a, b) for a, b in zip(got1, want1)):
+                raise AssertionError(f"{label} at B = 1 is not the plain version bit for bit")
+        vis_dir = tempfile.mkdtemp(prefix="puppax_torch_visualize_")
+        last = []
+
+        def vis_step(state, action):
+            state = env.step(state, action)
+            last[:] = [state.qpos]
+            return state
+
+        zero_launch_counts()
+        timer = profiling.Timer()
+        with timer.phase("visualize", fence=last):
+            vis_ret = tools_eval.visualize_policy(
+                TRAIN_TIMESTEPS, networks.make_inference_fn(nets), trained, env, vis_step,
+                env.reset, vis_dir, n_steps=VIS_STEPS, render_every=2)
+        vis_launches = {
+            "team K2": soa_env.env_step.launches,
+            "one-thread K2": soa_env.env_step_one_thread.launches,
+            "team K1": soa.step_batched.launches,
+            "one-thread K1": soa.step_batched_one_thread.launches,
+            "team K3": soa_env.wrapped_step.launches,
+            "one-thread K3": soa_env.wrapped_step_one_thread.launches,
+            "team K4": fused_unroll.unroll.launches,
+            "one-thread K4": fused_unroll.unroll_one_thread.launches,
+            "threefry": prandom.threefry.launches}
+        print(f"visualize_policy: {VIS_STEPS} steps of one env in "
+              f"{timer.durations['visualize'][0]:.3f} s (host clock, fenced on the last qpos): "
+              f"{timer.steps_per_sec('visualize', VIS_STEPS):.1f} env steps/s; launches "
+              + json.dumps(vis_launches), flush=True)
+        want_vis = {k: 0 for k in vis_launches if k != "threefry"}
+        want_vis["team K2"] = VIS_STEPS
+        if ({k: v for k, v in vis_launches.items() if k != "threefry"} != want_vis
+                or vis_launches["threefry"] == 0):
+            raise AssertionError(f"visualize_policy's launches {vis_launches}, expected "
+                                 f"{want_vis} and threefry at least once")
+        traj_path = os.path.join(vis_dir, f"step_{TRAIN_TIMESTEPS}_policy_trajectory.npz")
+        with np.load(traj_path) as f:
+            traj = {k: f[k] for k in f.files}
+        script = np.repeat(tools_eval.command_script(0.5, 0.4, 1.5), VIS_STEPS // 7, axis=0)
+        checks = {
+            "qpos rows": traj["qpos"].shape == (VIS_STEPS + 1, s.nq),
+            "finite": bool(np.isfinite(traj["qpos"]).all()),
+            "the last row is the last step's": bool(np.array_equal(
+                traj["qpos"][-1], last[0][0].cpu().numpy())),
+            "commands": bool(np.array_equal(traj["commands"], script)),
+            "fps 25": int(traj["fps"]) == 25,
+            "mjcf": str(traj["mjcf"]) == config_xml(env_cfg),
+        }
+        try:
+            import mujoco  # noqa: F401
+            rendered = True
+        except ImportError:  # the card's host: record only
+            rendered = False
+            checks["no video without mujoco"] = (vis_ret is None
+                                                 and sorted(os.listdir(vis_dir))
+                                                 == [os.path.basename(traj_path)])
+        print(f"visualize_policy: trajectory file {os.path.getsize(traj_path)} bytes, qpos "
+              f"{traj['qpos'].shape}, fps {int(traj['fps'])}, render_every "
+              f"{int(traj['render_every'])}, returned {vis_ret!r} (mujoco "
+              f"{'imports' if rendered else 'absent'}); checks " + json.dumps(checks),
+              flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"the trajectory file fails {checks}")
+
 
     # ---- the export: the trained policy (and the gait-clock policy) to the
     # robot's JSON through the CLI, replayed by the native runtime ----
@@ -3046,6 +3188,31 @@ def main():
         if missing:
             raise AssertionError(f"probe kernels never launched in the probe phase: {missing}")
 
+    # ---- the traces, after every timed phase: a torch.profiler session
+    # leaves the host slower at each later launch (its CUPTI subscription),
+    # which would stretch every host-bound phase after it ----
+    with Phase("traces: a K3-lane unroll; the rank check's minibatch update"):
+        # one T=20 unroll under profiling.trace, with tools/profile_unroll.py's
+        # busy time and idle share (the union of the device intervals over
+        # the CUDA-event window)
+        state, key_t = wrapped.reset(env_keys(B)), next_key()
+        with profiling.trace(TRACE_DIR, "k3_lane_unroll", device=device) as tr:
+            lane.unroll(state, params, key_t, T_UNROLL)
+        unroll_trace = print_trace(f"K3 lane unroll T={T_UNROLL} x {B} envs", tr)
+        traced_k3 = trace_launches(unroll_trace, "wrapped_step_team_kernel")
+        print(f"K3 lane unroll trace: team K3 launches {traced_k3} (expected {T_UNROLL}), "
+              f"threefry launches {trace_launches(unroll_trace, 'threefry_kernel')}, idle share "
+              f"{unroll_trace['idle']:.4f} (1 - busy / window, profile_unroll's)", flush=True)
+        if traced_k3 != T_UNROLL:
+            raise AssertionError(f"the unroll's trace holds {traced_k3} team K3 launches, "
+                                 f"expected {T_UNROLL}")
+        # the rank path in one process: one minibatch update (with the
+        # normalizer's update and the batch's gather) under a one-rank NCCL
+        # group, bit for bit the single-process update on the same data and
+        # keys; the single-process update traced
+        one_rank_update_check(lane, wrapped, params, *rank_keys, tc, device,
+                              trace_dir=TRACE_DIR)
+
     # team K3's record counts the one-thread program's operations: the same work
     k3_ops = build.last_build["wrapped_step_team"]["ops_per_env"]
     if k3_ops != build.last_build["wrapped_step"]["ops_per_env"]:
@@ -3117,6 +3284,7 @@ def main():
         "source": "puppax_torch/csrc/env_step_team.cuh",
         "replaces": "puppax/env/soa_env.py:533",
         "launches": k2_launches,
+        "visualize_launches": vis_launches["team K2"],
         "max_abs_err": max(k2_err, k2_err_4096),
         "ms": statistics.median(k2_ms),
         "plain_ms": k2_plain_ms,

@@ -7,7 +7,7 @@ multi-GPU run.
 
 Usage:
   python -m puppax_torch.scripts.train [--config cfg.json]
-      [--set train.num_envs=8192 ...] [--resume] [--device cuda|cpu]
+      [--set train.num_envs=8192 ...] [--resume] [--wandb] [--device cuda|cpu]
   python -m torch.distributed.run --nproc_per_node N -m puppax_torch.scripts.train ...
 
 Under the launcher (one process per GPU: ``torch.distributed.run`` sets
@@ -15,13 +15,16 @@ Under the launcher (one process per GPU: ``torch.distributed.run`` sets
 process joins the process group before it touches its device
 (``parallel.maybe_initialize_distributed``: NCCL on the card, gloo with
 ``--device cpu``), trains on ``cuda:LOCAL_RANK`` with its share of the
-envs, and only rank 0 writes the metrics JSONL and the checkpoints.
+envs, and only rank 0 writes the metrics JSONL and the checkpoints (and,
+with ``--wandb`` and a live ``wandb`` run, logs to W&B and uploads each
+checkpoint directory as a model artifact).
 
 It prints ``config hash: ...``, then the final metrics as JSON. With
 ``train.checkpoint_path`` set it saves the policy parameters at every eval
 epoch under ``<checkpoint_path>/<step>/`` and the full train state under
 ``<checkpoint_path>/state/<step>/``; ``--resume`` restarts from the latest
-train state.
+train state. With ``train.progress_plot`` set, the eval-reward curve is
+rendered again to that PNG at every eval epoch.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ def main(argv=None):
         "--resume", action="store_true",
         help="resume from the latest train-state checkpoint in train.checkpoint_path",
     )
+    parser.add_argument("--wandb", action="store_true",
+                        help="log to W&B too (rank 0, where a wandb run is live)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda, cuda:LOCAL_RANK under the launcher)")
     args = parser.parse_args(argv)
@@ -92,7 +97,8 @@ def _train(args, cfg, mesh):
         randomization_fn = functools.partial(domain_randomize, **ranges)
 
     t = cfg.train
-    logger = MetricsLogger(jsonl_path=t.metrics_jsonl if is_lead else None)
+    logger = MetricsLogger(jsonl_path=t.metrics_jsonl if is_lead else None,
+                           use_wandb=args.wandb and is_lead)
     logger.log({"config_hash": exp.config_hash(cfg)}, step=0)
     progress = make_progress_fn(logger, plot_path=t.progress_plot)
 

@@ -1,10 +1,13 @@
-"""Metrics logging: the JSONL sink and the training progress fn.
+"""Metrics logging: pluggable host-side sinks and the training progress fn.
 
 Counterpart of ``puppax/tools/metrics.py:19-132``: ``MetricsLogger.log``
-appends one JSON record per call, ``log_artifact`` a pointer line per
-checkpoint, and ``make_progress_fn`` builds the ``progress_fn(step,
-metrics)`` callback ``ppo.train`` calls, keeping the eval-reward curve.
-The W&B sink and the progress plot are not ported (ROADMAP queue 1, tools).
+appends one JSON record per call to the JSONL sink and forwards the
+metrics to W&B when a run is live; ``log_artifact`` writes a pointer line
+per checkpoint and uploads the directory with ``wandb.log_model``.
+``make_progress_fn`` builds the ``progress_fn(step, metrics)`` callback
+``ppo.train`` calls, keeping the eval-reward curve and, with
+``plot_path``, re-rendering its errorbar PNG (``plot_progress_curve``)
+each eval epoch. ``wandb`` and ``matplotlib`` are imported when used.
 """
 
 from __future__ import annotations
@@ -14,18 +17,26 @@ import os
 import time
 from typing import Dict, List, Optional
 
-_ROADMAP_TOOLS = "ROADMAP queue 1, tools"
-
 
 class MetricsLogger:
-    """Metrics sink. ``log(metrics, step)`` mirrors ``wandb.log``."""
+    """Fan-out metrics sink. ``log(metrics, step)`` mirrors ``wandb.log``.
+
+    With ``use_wandb`` the W&B sink attaches when ``wandb`` imports and a
+    run is live (``wandb.run`` is not None); otherwise only the JSONL sink
+    logs."""
 
     def __init__(self, jsonl_path: Optional[str] = None, use_wandb: bool = False):
-        if use_wandb:
-            raise NotImplementedError(f"the W&B sink is not ported yet ({_ROADMAP_TOOLS})")
         self._jsonl_path = jsonl_path
+        self._wandb = None
         if jsonl_path:
             os.makedirs(os.path.dirname(jsonl_path) or ".", exist_ok=True)
+        if use_wandb:
+            try:
+                import wandb
+            except ImportError:
+                wandb = None
+            if wandb is not None and wandb.run is not None:
+                self._wandb = wandb
 
     def _append(self, record: Dict) -> None:
         if self._jsonl_path:
@@ -36,10 +47,15 @@ class MetricsLogger:
         record = {"step": step, "ts": time.time()}
         record.update({k: float(v) for k, v in metrics.items() if _is_scalar(v)})
         self._append(record)
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
 
     def log_artifact(self, path: str, name: str) -> None:
-        """Record a checkpoint directory: a pointer line in the JSONL file."""
+        """Record a checkpoint directory: a pointer line in the JSONL file,
+        and an upload of the directory as a W&B model artifact."""
         self._append({"artifact": name, "path": str(path), "ts": time.time()})
+        if self._wandb is not None:
+            self._wandb.log_model(path=str(path), name=name)
 
 
 def _is_scalar(v) -> bool:
@@ -50,13 +66,34 @@ def _is_scalar(v) -> bool:
         return False
 
 
+def plot_progress_curve(x_data: List, y_data: List, ydataerr: List, path: str,
+                        max_y: float = 40.0) -> None:
+    """Render the eval-reward errorbar curve to ``path`` (PNG, the Agg
+    backend): x the env steps, y the reward per episode, the last reward
+    in the title."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots()
+    ax.set_xlabel("# environment steps")
+    ax.set_ylabel("reward per episode")
+    if x_data:
+        ax.set_title(f"y={y_data[-1]:.3f}")
+        ax.set_ylim([min(0.0, min(y_data)), max(max_y, max(y_data) * 1.25)])
+    ax.errorbar(x_data, y_data, yerr=ydataerr)
+    fig.savefig(path)
+    plt.close(fig)
+
+
 def make_progress_fn(logger: MetricsLogger, times: Optional[List] = None,
                      x_data: Optional[List] = None, y_data: Optional[List] = None,
                      ydataerr: Optional[List] = None, plot_path: Optional[str] = None):
     """A ``progress_fn(step, metrics)`` that logs the metrics and appends
-    the eval-reward curve (steps, reward, reward std)."""
-    if plot_path is not None:
-        raise NotImplementedError(f"the progress plot is not ported yet ({_ROADMAP_TOOLS})")
+    the eval-reward curve (steps, reward, reward std); with ``plot_path``
+    the curve is re-rendered there each eval epoch (skipped where
+    matplotlib is missing)."""
     times = times if times is not None else []
     x_data = x_data if x_data is not None else []
     y_data = y_data if y_data is not None else []
@@ -68,6 +105,11 @@ def make_progress_fn(logger: MetricsLogger, times: Optional[List] = None,
             x_data.append(num_steps)
             y_data.append(float(metrics["eval/episode_reward"]))
             ydataerr.append(float(metrics.get("eval/episode_reward_std", 0.0)))
+            if plot_path is not None:
+                try:
+                    plot_progress_curve(x_data, y_data, ydataerr, plot_path)
+                except ImportError:
+                    pass  # matplotlib is an optional host-side extra
         logger.log(metrics, step=num_steps)
 
     progress.times = times

@@ -18,8 +18,9 @@ prints, for the K3 lane or, with ``--fused``, the fused-unroll lane
   unroll, both on CUDA events);
 - one unroll under ``torch.profiler``: its CUDA-event window, the device's
   busy time in that window (the union of every device activity interval of
-  the trace) and the idle share ``1 - busy / window``, plus the
-  profiler's table of device time by kernel (also written to ``--table``).
+  the trace) and the idle share ``1 - busy / window``
+  (``profiling.summarize``), plus the profiler's table of device time by
+  kernel (also written to ``--table``).
 
 The profiler's host overhead stretches the profiled window, so its idle
 share is an upper bound on the unprofiled unroll's.
@@ -56,27 +57,6 @@ def _host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1000.0 / reps
 
 
-def device_busy_us(events) -> float:
-    """Length of the union of the device activity intervals of a trace."""
-    from torch.autograd import DeviceType
-
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in events if e.device_type == DeviceType.CUDA
-    )
-    busy, cur_start, cur_end = 0.0, None, None
-    for s, e in spans:
-        if cur_end is None or s > cur_end:
-            if cur_end is not None:
-                busy += cur_end - cur_start
-            cur_start, cur_end = s, e
-        else:
-            cur_end = max(cur_end, e)
-    if cur_end is not None:
-        busy += cur_end - cur_start
-    return busy
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -95,6 +75,7 @@ def main(argv=None):
     from puppax_torch.env.pupper import PupperV3Env
     from puppax_torch.env.rollout import FastLane
     from puppax_torch.env.wrappers import wrap_for_training
+    from puppax_torch.tools import profiling
     from puppax_torch.train import networks, running_statistics
 
     if not torch.cuda.is_available():
@@ -188,17 +169,16 @@ def main(argv=None):
             lane.unroll(state, params, key_run, T)
             end.record()
             torch.cuda.synchronize()
-    window = start.elapsed_time(end)
-    busy = device_busy_us(prof.events()) / 1000.0
-    if busy == 0.0:
+    summary = profiling.summarize(prof.events(), start.elapsed_time(end))
+    if summary["busy_ms"] == 0.0:
         raise SystemExit("profile_unroll: the trace holds no device activity")
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
     if args.table:
         with open(args.table, "w") as f:
             f.write(table)
     print(table)
-    print(f"profiled unroll: window {window:.3f} ms CUDA events, device busy {busy:.3f} ms, "
-          f"idle share {1.0 - busy / window:.3f}", flush=True)
+    print(f"profiled unroll: window {summary['window_ms']:.3f} ms CUDA events, device busy "
+          f"{summary['busy_ms']:.3f} ms, idle share {summary['idle']:.3f}", flush=True)
 
 
 if __name__ == "__main__":

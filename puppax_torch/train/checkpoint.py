@@ -14,8 +14,9 @@ optax's state, the params, the normalizers, the two-limb env-step count)
 as the tree ``ppo.TrainingState.load_state_dict`` resumes from: the
 top-level script ``convert_orbax_checkpoint.py`` reads the orbax
 directory where JAX lives and calls them, so this package never imports
-orbax or JAX. ``download_checkpoint`` (W&B) belongs to ROADMAP queue 1's
-tools item.
+orbax or JAX. ``download_checkpoint`` fetches the latest checkpoint
+artifact of a W&B run: the directories the training CLI uploads through
+``MetricsLogger.log_artifact``, which ``restore_checkpoint`` reads.
 
 No key is saved: the JAX package's train state (``puppax/train/ppo.py``'s
 ``TrainingState``: optimizer state, params, normalizers, env steps)
@@ -66,6 +67,34 @@ def latest_checkpoint_step(checkpoint_path) -> Optional[int]:
     steps = [int(d.name) for d in p.iterdir()
              if d.is_dir() and d.name.isdigit() and (d / FILE).exists()]
     return max(steps) if steps else None
+
+
+def download_checkpoint(project_name: str, entity_name: str, run_number: int,
+                        save_path="checkpoint") -> str:
+    """Fetch the highest-step checkpoint artifact of a W&B run: the run
+    whose name ends in ``-<run_number>``, then its ``checkpoint_*_<step>``
+    artifact of the largest step. Raises ``LookupError`` for no such run or
+    no checkpoint artifact, and ``ImportError`` without ``wandb``. The
+    artifact is a directory the training CLI saved (``save_checkpoint``);
+    it lands in ``save_path/<step>/``, so ``restore_checkpoint(save_path)``
+    reads it. Returns ``save_path``."""
+    import wandb
+
+    api = wandb.Api()
+    runs = [r for r in api.runs(f"{entity_name}/{project_name}")
+            if r.name.endswith(f"-{run_number}")]
+    if not runs:
+        raise LookupError(f"no run ending in -{run_number}")
+    artifacts = [a for a in runs[0].logged_artifacts() if "checkpoint" in a.name]
+    if not artifacts:
+        raise LookupError("run has no checkpoint artifacts")
+
+    def step(a):
+        return int(a.name.split("_")[-1].split(":")[0])
+
+    latest = max(artifacts, key=step)
+    latest.download(str(Path(save_path) / str(step(latest))))
+    return str(save_path)
 
 
 def restore_checkpoint(checkpoint_path, step: Optional[int] = None, map_location=None):

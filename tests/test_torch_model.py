@@ -172,6 +172,7 @@ def test_import_needs_no_jax_flax_or_mujoco():
         "from puppax_torch.probes import profile_overhead, profile_scan\n"
         "from puppax_torch.probes import pallas_soa_probe, pallas_spd_poc, profile_team\n"
         "from puppax_torch.tools import metrics, profile_unroll, rank_scaling\n"
+        "from puppax_torch.tools import eval as _eval, plotting, profiling, video\n"
         "from puppax_torch.parallel import mesh\n"
         "from puppax_torch.train import acting, checkpoint, networks, ppo\n"
         "from puppax_torch.scripts import export_policy, train\n"

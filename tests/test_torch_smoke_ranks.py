@@ -4,7 +4,8 @@
   rank path (the normalizer's reduced update, the batch's all-gather, the
   advantages' reductions, the gradients' all-reduce) under a one-rank
   process group must equal the single-process update bit for bit on the
-  same data and keys; the group's collectives are counted.
+  same data and keys; the group's collectives are counted; the
+  single-process update runs under ``profiling.trace`` (host only here).
 * ``launched_cli``: the child the smoke starts under ``python -m
   torch.distributed.run --standalone --nproc_per_node 1``, run12's
   configuration through the training CLI at a tiny size with ``--device
@@ -41,7 +42,7 @@ def _smoke_module():
     return mod
 
 
-def test_one_rank_update_check_on_the_cpu(monkeypatch, capsys):
+def test_one_rank_update_check_on_the_cpu(monkeypatch, capsys, tmp_path):
     for name in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "COORDINATOR_ADDRESS"):
         monkeypatch.delenv(name, raising=False)
     mod = _smoke_module()
@@ -58,8 +59,13 @@ def test_one_rank_update_check_on_the_cpu(monkeypatch, capsys):
                                      state.obs)
     got = mod.one_rank_update_check(lane, wrapped, (norm, nets.policy_network),
                                     random.split(random.key(2), 8), random.key(3),
-                                    random.key(4), tc, torch.device("cpu"))
+                                    random.key(4), tc, torch.device("cpu"),
+                                    trace_dir=str(tmp_path))
     out = capsys.readouterr().out
+    assert "one minibatch update (2 x 4 transitions, single process) trace: 0 device " in out
+    assert got["trace"]["launches"] == {} and got["trace"]["idle"] == 1.0
+    (trace_file,) = os.listdir(tmp_path)
+    assert trace_file.startswith("minibatch_update.") and trace_file.endswith(".pt.trace.json")
     assert "one-rank gloo group (world 1, backend gloo)" in out
     assert "0 of " in out and "max abs err 0.0" in out
     assert got["calls"] == {"normalizer": 2, "batch": 1, "advantages": 2, "grads": 1}

@@ -9,11 +9,15 @@ saved train state. With ``PUPPAX_SOA_ENV=off`` the same run trains through
 the physics-only lane: the standard lane's unrolls (``generate_unroll``
 around ``PupperV3Env._step_core`` and K1's plain version), said by the
 lane line. Without ``--device cpu`` and without a card, the CLI refuses to
-start.
+start. The first run also logs through ``--wandb`` to a stub ``wandb``
+module (a live run: its ``log`` and ``log_model`` calls recorded) and
+renders ``train.progress_plot``.
 """
 
 import json
 import math
+import sys
+import types
 
 import pytest
 import torch
@@ -42,9 +46,20 @@ def _argv(tmp_path, **extra):
     return argv, over
 
 
-def test_train_then_resume(tmp_path, capsys):
-    argv, over = _argv(tmp_path)
-    metrics = cli.main(argv)
+def _stub_wandb():
+    mod = types.ModuleType("wandb")
+    mod.run, mod.calls = object(), []
+    mod.log = lambda metrics, step=None: mod.calls.append(("log", step, dict(metrics)))
+    mod.log_model = lambda path, name: mod.calls.append(("log_model", path, name))
+    return mod
+
+
+def test_train_then_resume(tmp_path, capsys, monkeypatch):
+    wandb = _stub_wandb()
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
+    plot = tmp_path / "progress.png"
+    argv, over = _argv(tmp_path, **{"train.progress_plot": str(plot)})
+    metrics = cli.main(argv + ["--wandb"])
     out = capsys.readouterr().out
     want_hash = jexp.config_hash(jexp.apply_overrides(jexp.ExperimentConfig(), over))
     assert f"config hash: {want_hash}" in out
@@ -61,6 +76,15 @@ def test_train_then_resume(tmp_path, capsys):
     assert records[0]["step"] == 0
     assert [r["step"] for r in records if "eval/episode_reward" in r] == [0, 8]
     assert any(r.get("artifact") == "checkpoint_state_8" for r in records)
+    # W&B: a log call per JSONL record at its step, an upload per artifact line
+    logs = [(step, m) for kind, step, m in wandb.calls if kind == "log"]
+    assert [step for step, _ in logs] == [r["step"] for r in records if "step" in r]
+    assert [m.get("eval/episode_reward") for _, m in logs] == [
+        r.get("eval/episode_reward") for r in records if "step" in r]
+    uploads = [(path, name) for kind, path, name in wandb.calls if kind == "log_model"]
+    assert uploads == [(r["path"], r["artifact"]) for r in records if "artifact" in r]
+    assert ("checkpoint_8" in {name for _, name in uploads}
+            and plot.exists() and plot.stat().st_size > 0)
 
     # resume: one more epoch of ceil(16 / 8) = 2 training steps from step 8
     argv, _ = _argv(tmp_path, **{"train.num_timesteps": 16})
